@@ -1,9 +1,13 @@
-"""Carry parameters over from the JAX package's Llama to the port.
+"""Carry parameters and optimizer state over from the JAX package to the
+port.
 
 `params_from_jax` takes the JAX parameter tree after
 ``jax.tree_util.tree_map(np.asarray, params)``: nested dicts of numpy
 arrays, so this module needs no JAX. The layout is the same on both sides
-(see `models.llama`), so the carry-over is a per-leaf copy.
+(see `models.llama`; a tree with tied embeddings simply has no
+``lm_head``), so the carry-over is a per-leaf copy. `opt_state_from_jax`
+does the same for the state of `mxnet_tpu.parallel.train_step`'s
+optimizers, so that a test can start both trainers from one state.
 """
 from __future__ import annotations
 
@@ -12,7 +16,7 @@ import torch
 
 from ..base import resolve_device
 
-__all__ = ["params_from_jax"]
+__all__ = ["params_from_jax", "opt_state_from_jax"]
 
 
 def _leaf(name, a, dtype, device):
@@ -40,3 +44,21 @@ def params_from_jax(tree, dtype=None, device=None):
         return _leaf(name, node, dtype, device)
 
     return walk(tree, "")
+
+
+def opt_state_from_jax(tree, dtype=None, device=None):
+    """A JAX optimizer state (numpy leaves) -> the port's: ``{"m", "v",
+    "t"}`` (adam, adamw) with the step counter ``t`` as a Python int,
+    ``{"mom"}`` (sgd with momentum) or ``{}`` (plain sgd). The per-parameter
+    slots are carried over as `params_from_jax` carries parameters, `dtype`
+    included."""
+    out = {}
+    for key, val in tree.items():
+        if key == "t":
+            out[key] = int(np.asarray(val))
+        elif key in ("m", "v", "mom"):
+            out[key] = params_from_jax(val, dtype=dtype, device=device)
+        else:
+            raise ValueError("opt_state_from_jax: unknown state slot %r"
+                             % key)
+    return out

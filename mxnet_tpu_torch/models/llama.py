@@ -1,14 +1,16 @@
-"""Llama-family decoder (RMSNorm + RoPE + GQA + SwiGLU) for inference on
-the CUDA card.
+"""Llama-family decoder (RMSNorm + RoPE + GQA + SwiGLU) for training and
+inference on the CUDA card.
 
 The port of `mxnet_tpu.models.llama`: the same configurations, the same
 parameter tree (``layers/<i>/attn/wq`` ..., projections ``(in, out)`` so the
 product is ``x @ W``, embeddings ``(vocab, dim)``) and the same functions,
 on plain tensors. The compute dtype is the config's (bf16 by default) with
 fp32 RMSNorm accumulation; prompt attention (`llama_forward`,
-`llama_prefill_paged`) goes through the flash-attention kernel, and the
+`llama_prefill_paged`) goes through the flash-attention kernels, and the
 paged decode and chunk paths through plain paged attention, as in the JAX
-package.
+package. `llama_forward` and `llama_loss` run under the caller's grad mode,
+so a trainer differentiates them (the attention backward is the flash
+backward kernels); the decoding functions never track gradients.
 
 The paged functions write the new KV rows into the pools IN PLACE and
 return the same pools dict (JAX returns new arrays and donates the old
@@ -20,17 +22,19 @@ the JAX scatter.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..base import resolve_device
 from ..parallel.flash_attention import (flash_attention, paged_attention,
                                         paged_attention_chunk)
 
 __all__ = ["LlamaConfig", "CONFIGS", "llama_init", "rms_norm", "rope_freqs",
-           "apply_rope", "llama_forward", "init_kv_cache",
+           "apply_rope", "llama_forward", "llama_loss", "init_kv_cache",
            "llama_decode_step", "init_kv_pools", "llama_prefill_paged",
            "llama_decode_paged", "llama_chunk_paged"]
 
@@ -47,6 +51,15 @@ class LlamaConfig:
     rope_theta: float = 500000.0
     max_seq_len: int = 8192
     dtype: torch.dtype = torch.bfloat16
+    # recompute each layer in the backward instead of keeping its
+    # activations (torch.utils.checkpoint; jax.checkpoint in the JAX package)
+    remat: bool = False
+    # tok_embeddings doubles as the output head; no lm_head leaf
+    tie_embeddings: bool = False
+    # embed as one_hot(tokens) @ tok_embeddings instead of a gather: the JAX
+    # package uses it where the vocab dimension is sharded (the gather's
+    # scatter-add backward does not partition); kept for parity
+    embed_onehot: bool = False
 
     @property
     def head_dim(self):
@@ -56,10 +69,12 @@ class LlamaConfig:
 CONFIGS = {
     "llama3_8b": LlamaConfig(vocab_size=128256, dim=4096, n_layers=32,
                              n_heads=32, n_kv_heads=8, hidden_dim=14336,
-                             rope_theta=500000.0, max_seq_len=8192),
+                             rope_theta=500000.0, max_seq_len=8192,
+                             embed_onehot=True),
     "llama3_8b_dry": LlamaConfig(vocab_size=8192, dim=4096, n_layers=2,
                                  n_heads=32, n_kv_heads=8, hidden_dim=14336,
-                                 rope_theta=500000.0, max_seq_len=512),
+                                 rope_theta=500000.0, max_seq_len=512,
+                                 remat=True, embed_onehot=True),
     "llama_110m": LlamaConfig(vocab_size=32000, dim=768, n_layers=12,
                               n_heads=12, n_kv_heads=12, hidden_dim=2048,
                               rope_theta=10000.0, max_seq_len=2048),
@@ -74,7 +89,8 @@ def llama_init(generator, cfg: LlamaConfig, device=None):
     """Random parameters from `generator` (a `torch.Generator`; values are
     drawn on its device, then moved to `device`, which defaults to cuda).
     Layout as in the JAX package: projections (in_features, out_features),
-    embeddings (vocab, dim), norm scales fp32 ones."""
+    embeddings (vocab, dim), norm scales fp32 ones; no lm_head when the
+    config ties the embeddings."""
     device = resolve_device(device)
     d, hd = cfg.dim, cfg.head_dim
     qd, kvd = cfg.n_heads * hd, cfg.n_kv_heads * hd
@@ -89,8 +105,9 @@ def llama_init(generator, cfg: LlamaConfig, device=None):
         return torch.ones(d, dtype=torch.float32, device=device)
 
     params = {"tok_embeddings": dense((cfg.vocab_size, d), 0.02),
-              "norm": ones(), "layers": {},
-              "lm_head": dense((cfg.vocab_size, d), 0.02)}
+              "norm": ones(), "layers": {}}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense((cfg.vocab_size, d), 0.02)
     for i in range(cfg.n_layers):
         params["layers"][str(i)] = {
             "attn_norm": ones(),
@@ -154,30 +171,61 @@ def _mlp(lp, x, cfg):
     return x + (gate * (h @ lp["mlp"]["w3"])) @ lp["mlp"]["w2"]
 
 
+def _head(params, cfg):
+    return params["tok_embeddings"] if cfg.tie_embeddings \
+        else params["lm_head"]
+
+
 def _logits(params, x, cfg):
     x = rms_norm(x, params["norm"], cfg.norm_eps)
-    return (x @ params["lm_head"].T.to(x.dtype)).float()
+    return (x @ _head(params, cfg).T.to(x.dtype)).float()
 
 
 def _index(a, device):
     return torch.as_tensor(a, dtype=torch.long, device=device)
 
 
-@torch.no_grad()
-def llama_forward(params, tokens, cfg: LlamaConfig):
+def _layer(lp, x, cos, sin, cfg):
+    q, k, v = _qkv(lp, x, cos, sin, cfg)
+    x = _attn_out(lp, x, flash_attention(q, k, v, causal=True))
+    return _mlp(lp, x, cfg)
+
+
+def llama_forward(params, tokens, cfg: LlamaConfig, positions=None):
     """tokens (B, S) int -> logits (B, S, vocab) fp32. Attention is the
-    causal flash-attention kernel."""
+    causal flash attention; `positions` ((S,) or (B, S) int) overrides the
+    RoPE positions 0..S-1. Runs under the caller's grad mode; with
+    `cfg.remat` each layer is recomputed in the backward."""
     emb = params["tok_embeddings"]
     tokens = _index(tokens, emb.device)
-    x = emb[tokens]
-    positions = torch.arange(tokens.shape[1], device=emb.device)
-    cos, sin = rope_freqs(positions, cfg.head_dim, cfg.rope_theta)
+    if cfg.embed_onehot:
+        x = F.one_hot(tokens, cfg.vocab_size).to(emb.dtype) @ emb
+    else:
+        x = emb[tokens]
+    if positions is None:
+        positions = torch.arange(tokens.shape[1], device=emb.device)
+    cos, sin = rope_freqs(_index(positions, emb.device), cfg.head_dim,
+                          cfg.rope_theta)
+    layer = functools.partial(_layer, cfg=cfg)
     for i in range(cfg.n_layers):
         lp = params["layers"][str(i)]
-        q, k, v = _qkv(lp, x, cos, sin, cfg)
-        x = _attn_out(lp, x, flash_attention(q, k, v, causal=True))
-        x = _mlp(lp, x, cfg)
+        if cfg.remat and torch.is_grad_enabled():
+            x = checkpoint(layer, lp, x, cos, sin, use_reentrant=False)
+        else:
+            x = layer(lp, x, cos, sin)
     return _logits(params, x, cfg)
+
+
+def llama_loss(params, batch, cfg: LlamaConfig):
+    """Next-token cross entropy: batch = {"tokens": (B, S+1) int} or the
+    (B, S+1) array itself; inputs are tokens[:, :-1], targets tokens[:, 1:],
+    the mean NLL from an fp32 log-softmax."""
+    tokens = batch["tokens"] if isinstance(batch, dict) else batch
+    tokens = _index(tokens, params["tok_embeddings"].device)
+    logits = llama_forward(params, tokens[:, :-1], cfg)
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -logp.gather(-1, tokens[:, 1:, None])[..., 0]
+    return nll.mean()
 
 
 # ------------------------------------------------------ unpaged decoding

@@ -11,10 +11,14 @@ __all__ = ["KERNELS", "count_launch", "launch_counts",
            "reset_launch_counts"]
 
 # kernel name -> (source in the package, file:line of the TPU kernel it
-# replaces: flash_attention.py::_fwd_kernel)
+# replaces). Several kernels may share one source, which is built once.
 KERNELS = {
     "flash_fwd": ("csrc/flash_fwd.cu",
                   "mxnet_tpu/parallel/flash_attention.py:98"),
+    "flash_bwd_dq": ("csrc/flash_bwd.cu",
+                     "mxnet_tpu/parallel/flash_attention.py:200"),
+    "flash_bwd_dkv": ("csrc/flash_bwd.cu",
+                      "mxnet_tpu/parallel/flash_attention.py:245"),
 }
 
 _launches = dict.fromkeys(KERNELS, 0)

@@ -1,13 +1,16 @@
-"""Flash attention forward on the CUDA card, and the paged attention of
-serving.
+"""Flash attention on the CUDA card (forward and backward), and the paged
+attention of serving.
 
 `flash_attention` is the port of `mxnet_tpu.parallel.flash_attention`'s
-forward: on a CUDA tensor it launches the hand-written kernel in
-``csrc/flash_fwd.cu`` (online softmax over K/V tiles, fp32 accumulation,
-GQA, causal with the (Sk - Sq) diagonal offset, any sequence length); on a
-CPU tensor it runs `_ref_attention`, the kernel's plain PyTorch version.
-There is no other route: a CUDA tensor the kernel does not take raises.
-The backward kernels come with training, in a later slice.
+`flash_attention`: a `torch.autograd.Function` whose forward launches the
+hand-written kernel in ``csrc/flash_fwd.cu`` (online softmax over K/V
+tiles, fp32 accumulation, GQA, causal with the (Sk - Sq) diagonal offset,
+any sequence length) and saves (q, k, v, o, lse); its backward computes
+delta = rowsum(dO * O) in PyTorch, as the JAX package leaves it to XLA, and
+launches the two kernels of ``csrc/flash_bwd.cu``: dq, and dk/dv with the
+GQA group-sum folded in. On CPU tensors each kernel's plain PyTorch version
+runs instead (`_ref_forward`, `_ref_backward_inner`). There is no other
+route: a CUDA tensor a kernel does not take raises.
 
 `paged_attention` and `paged_attention_chunk` stay plain PyTorch (a gather
 plus two batched products), as the JAX package leaves them to XLA.
@@ -56,6 +59,51 @@ def _ref_attention(q, k, v, causal, sm_scale):
     return _ref_forward(q, k, v, causal, sm_scale)[0]
 
 
+def _visible(Sq, Sk, causal, device):
+    """(Sq, Sk) bool: which keys each query row sees."""
+    if not causal:
+        return torch.ones((Sq, Sk), dtype=torch.bool, device=device)
+    qi = torch.arange(Sq, device=device)[:, None] + (Sk - Sq)
+    return torch.arange(Sk, device=device)[None, :] <= qi
+
+
+def _ref_backward_inner(q, k, v, lse, delta, do, causal, sm_scale):
+    """The backward kernels' plain version, on dense fp32 tensors:
+    P = exp(S * scale - lse) on visible entries and exactly 0 elsewhere,
+    dS = P * (dO V^T - delta) * scale, dq = dS K, dk = dS^T Q and
+    dv = P^T dO summed over each kv head's query group. Returns (dq, dk, dv)
+    in q's, k's and v's dtypes. A query row with no visible key (causal
+    with Sq > Sk) gets no gradient, as in the kernels."""
+    B, H, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    g = H // Hkv
+    qg = q.reshape(B, Hkv, g, Sq, D).float()
+    dog = do.reshape(B, Hkv, g, Sq, D).float()
+    kf, vf = k.float()[:, :, None], v.float()[:, :, None]
+    s = torch.matmul(qg, kf.transpose(-1, -2)) * sm_scale
+    lse_g = lse.reshape(B, Hkv, g, Sq, 1)
+    p = torch.where(_visible(Sq, Sk, causal, q.device), torch.exp(s - lse_g),
+                    torch.zeros_like(s))
+    dp = torch.matmul(dog, vf.transpose(-1, -2))
+    ds = p * (dp - delta.reshape(B, Hkv, g, Sq, 1)) * sm_scale
+    dq = torch.matmul(ds, kf).reshape(B, H, Sq, D)
+    dk = torch.matmul(ds.transpose(-1, -2), qg).sum(dim=2)
+    dv = torch.matmul(p.transpose(-1, -2), dog).sum(dim=2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _delta(o, do):
+    """delta = rowsum(dO * O) in fp32, (B, H, Sq)."""
+    return (do.float() * o.float()).sum(dim=-1)
+
+
+def _ref_backward(q, k, v, o, lse, do, causal, sm_scale):
+    """The plain version of the whole backward: delta, then
+    `_ref_backward_inner`."""
+    return _ref_backward_inner(q, k, v, lse, _delta(o, do), do, causal,
+                               sm_scale)
+
+
 def _check(q, k, v):
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention: q, k, v must be 4-D "
@@ -86,65 +134,153 @@ def _check(q, k, v):
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention: the kernel reads 16-byte "
                          "aligned q, k, v")
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        raise NotImplementedError("flash_attention: the CUDA port has the "
-                                  "forward kernel only; no gradient yet")
 
 
-def _kernel():
-    lib = library("flash_fwd")
-    fn = lib.mx_flash_fwd
+_SIGNATURES = {
+    # C function -> number of pointer arguments before the int arguments
+    "mx_flash_fwd": 5,
+    "mx_flash_bwd_dq": 7,
+    "mx_flash_bwd_dkv": 8,
+}
+
+
+def _kernel(name, fn_name):
+    """The C entry point `fn_name` of kernel `name`'s library, typed."""
+    lib = library(name)
+    fn = getattr(lib, fn_name)
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float,
-                       i, p]
+        # pointers, B, H, Hkv, Sq, Sk, D, causal, scale, dtype, stream
+        fn.argtypes = [p] * _SIGNATURES[fn_name] + [i] * 7 \
+            + [ctypes.c_float, i, p]
         fn.restype = i
         lib.mx_cuda_error_string.argtypes = [i]
         lib.mx_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+    return lib, fn
+
+
+def _launch(name, fn_name, tensors, q, k, causal, sm_scale):
+    """Launch one kernel on q's device and current stream; count it."""
+    lib, fn = _kernel(name, fn_name)
+    B, H, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(*(t.data_ptr() for t in tensors), B, H, Hkv, Sq, Sk, D,
+                 int(bool(causal)), float(sm_scale), _DTYPES[q.dtype],
+                 stream)
+    if err:
+        raise RuntimeError("flash_attention: %s launch failed: %s"
+                           % (name, lib.mx_cuda_error_string(err).decode()))
+    count_launch(name)
+
+
+def _on_cuda(q):
+    """True for a CUDA tensor, False for a CPU one; raises for any other
+    device (no kernel, and no plain version meant for it)."""
+    if q.device.type == "cpu":
+        return False
+    if q.device.type != "cuda":
+        raise ValueError("flash_attention: no kernel for device %s"
+                         % q.device)
+    return True
 
 
 def _flash_forward(q, k, v, causal, sm_scale):
     """(o, lse): o (B, H, Sq, D) in q's dtype, lse (B, H, Sq) fp32 — the
-    pair the backward kernels will consume."""
-    if q.device.type == "cpu":
+    pair the backward kernels consume."""
+    if not _on_cuda(q):
         return _ref_forward(q, k, v, causal, sm_scale)
-    if q.device.type != "cuda":
-        raise ValueError("flash_attention: no kernel for device %s"
-                         % q.device)
     _check(q, k, v)
-    B, H, Sq, D = q.shape
-    Hkv, Sk = k.shape[1], k.shape[2]
+    B, H, Sq, _ = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     if o.numel() == 0:
         return o, lse.fill_(_NEG_INF)
-    if Sk == 0:
+    if k.shape[2] == 0:
         raise ValueError("flash_attention: empty key sequence")
-    lib = _kernel()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.mx_flash_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), B, H, Hkv, Sq, Sk, D, int(bool(causal)),
-            float(sm_scale), _DTYPES[q.dtype], stream)
-    if err:
-        raise RuntimeError("flash_attention: kernel launch failed: %s"
-                           % lib.mx_cuda_error_string(err).decode())
-    count_launch("flash_fwd")
+    _launch("flash_fwd", "mx_flash_fwd", (q, k, v, o, lse), q, k, causal,
+            sm_scale)
     return o, lse
 
 
+def _check_backward(q, k, v, lse, delta, do):
+    _check(q, k, v)
+    if do.shape != q.shape or do.dtype != q.dtype \
+            or do.device != q.device:
+        raise ValueError("flash_attention: dO %s %s must match q %s %s"
+                         % (tuple(do.shape), do.dtype, tuple(q.shape),
+                            q.dtype))
+    rows = q.shape[:3]
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.shape != rows or t.dtype != torch.float32 \
+                or t.device != q.device:
+            raise ValueError("flash_attention: %s must be float32 %s on "
+                             "%s, got %s %s" % (name, tuple(rows), q.device,
+                                                t.dtype, tuple(t.shape)))
+    if not all(t.is_contiguous() for t in (do, lse, delta)):
+        raise ValueError("flash_attention: the backward kernels take "
+                         "contiguous dO, lse, delta")
+    if any(t.data_ptr() % 16 for t in (do, lse, delta)):
+        raise ValueError("flash_attention: the backward kernels read "
+                         "16-byte aligned dO, lse, delta")
+
+
+def _backward_inner(q, k, v, lse, delta, do, causal, sm_scale):
+    """(dq, dk, dv) from a given (lse, delta) — the split of the JAX
+    package's `_pallas_backward_inner`, kept so that ring attention can run
+    per-block backwards against the global lse. On CUDA tensors: the dq
+    kernel, then the dk/dv kernel (GQA group-sum inside it)."""
+    if not _on_cuda(q):
+        return _ref_backward_inner(q, k, v, lse, delta, do, causal, sm_scale)
+    _check_backward(q, k, v, lse, delta, do)
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    if dq.numel() == 0 or dk.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    _launch("flash_bwd_dq", "mx_flash_bwd_dq",
+            (q, k, v, do, lse, delta, dq), q, k, causal, sm_scale)
+    _launch("flash_bwd_dkv", "mx_flash_bwd_dkv",
+            (q, k, v, do, lse, delta, dk, dv), q, k, causal, sm_scale)
+    return dq, dk, dv
+
+
+def _flash_backward(q, k, v, o, lse, do, causal, sm_scale):
+    """(dq, dk, dv): delta = rowsum(dO * O) in fp32 (a plain reduction, as
+    the JAX package leaves it to XLA), then `_backward_inner`."""
+    return _backward_inner(q, k, v, lse, _delta(o, do), do, causal,
+                           sm_scale)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Differentiable flash attention: the forward kernel saves (q, k, v, o,
+    lse); the backward recomputes P from lse in the backward kernels."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, sm_scale):
+        o, lse = _flash_forward(q, k, v, causal, sm_scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_backward(q, k, v, o, lse, do.contiguous(),
+                                     ctx.causal, ctx.sm_scale)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q, k, v, causal=False, sm_scale=None):
-    """Fused scaled-dot-product attention (forward).
+    """Fused scaled-dot-product attention, differentiable in q, k, v.
 
     q: (B, H, Sq, D); k, v: (B, Hkv, Sk, D), H divisible by Hkv.
     Returns (B, H, Sq, D) in q's dtype.
     """
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
-    return _flash_forward(q, k, v, bool(causal), float(sm_scale))[0]
+    return _FlashAttention.apply(q, k, v, bool(causal), float(sm_scale))
 
 
 def _gather_pages(pool, block_tables):

@@ -1,4 +1,4 @@
 """Resilience plane of the port (errors only, so far)."""
-from .errors import ResilienceError
+from .errors import CheckpointCorruptError, FatalTrainingError, ResilienceError
 
-__all__ = ["ResilienceError"]
+__all__ = ["CheckpointCorruptError", "FatalTrainingError", "ResilienceError"]

@@ -15,6 +15,7 @@ import mxnet_tpu_torch
 from mxnet_tpu_torch.base import MXNetError, resolve_device
 from mxnet_tpu_torch.models.llama import (CONFIGS, init_kv_cache,
                                           init_kv_pools, llama_init)
+from mxnet_tpu_torch.parallel import restore_train_state
 from mxnet_tpu_torch.serve import InferenceServer, KVBlockPool
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -42,6 +43,9 @@ def test_scan_covers_the_port():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     assert "mxnet_tpu_torch/parallel/flash_attention.py" in names
     assert "mxnet_tpu_torch/serve/scheduler.py" in names
+    assert "mxnet_tpu_torch/parallel/train_step.py" in names
+    assert "mxnet_tpu_torch/parallel/checkpoint.py" in names
+    assert "mxnet_tpu_torch/util.py" in names
     assert "chip_smoke.py" in names
 
 
@@ -58,6 +62,13 @@ def test_import_roots_detects_forbidden_imports(tmp_path):
                    "    import jax.numpy as jnp\n"
                    "    importlib.import_module('jaxlib')\n")
     assert set(_imported_roots(src)) >= {"mxnet_tpu", "jax", "jaxlib"}
+
+
+def test_every_kernel_has_a_launch_count_and_a_distinct_tpu_kernel():
+    from mxnet_tpu_torch.ops import KERNELS, launch_counts
+    assert set(launch_counts()) == set(KERNELS)
+    replaces = [r for _, r in KERNELS.values()]
+    assert len(set(replaces)) == len(replaces)
 
 
 def test_kernel_sources_ship_with_the_package():
@@ -78,8 +89,9 @@ def _no_cuda(monkeypatch):
     lambda cfg: init_kv_cache(cfg, 1, 8),
     lambda cfg: KVBlockPool(cfg, num_blocks=4, block_size=4),
     lambda cfg: InferenceServer({}, cfg, kv_blocks=4, block_size=4),
+    lambda cfg: restore_train_state("no-such-checkpoint"),
 ], ids=["llama_init", "init_kv_pools", "init_kv_cache", "KVBlockPool",
-        "InferenceServer"])
+        "InferenceServer", "restore_train_state"])
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
                                                             make):
     _no_cuda(monkeypatch)

@@ -1,12 +1,14 @@
-"""The port's Llama inference functions against the JAX package's.
+"""The port's Llama functions against the JAX package's.
 
 A tiny fp32 config (the one tests/test_serve.py uses); the JAX weights are
 carried over with `params_from_jax`, inputs come from numpy with a seed,
-and the JAX flash attention runs its Pallas kernel through the
-interpreter. Logits agree to 1e-4 (fp32, summation order only); pool
-contents to 1e-5.
+and the JAX flash attention runs its Pallas kernels (forward and backward)
+through the interpreter. Logits agree to 1e-4 (fp32, summation order
+only); pool contents to 1e-5; `llama_loss` to 1e-5 and its gradients to
+1e-4 per leaf.
 """
 import copy
+import dataclasses
 
 import numpy as np
 import pytest
@@ -197,3 +199,114 @@ def test_paged_chunked_equals_monolithic_forward():
     full = T.llama_forward(TPARAMS, prompt, TCFG)[0, -1]
     np.testing.assert_allclose(logits[0].numpy(), full.numpy(), atol=ATOL,
                                rtol=0)
+
+
+def _jax_tree(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def _assert_tree_close(tp, jtree, atol):
+    flat = jax.tree_util.tree_leaves_with_path(_jax_tree(jtree))
+    for path, a in flat:
+        node = tp
+        for key in path:
+            node = node[key.key]
+        np.testing.assert_allclose(node.detach().numpy(), a, atol=atol,
+                                   rtol=0, err_msg=jax.tree_util.keystr(path))
+    return len(flat)
+
+
+@pytest.mark.parametrize("name", sorted(T.CONFIGS))
+def test_configs_copy_the_jax_values(name):
+    want = {f.name: getattr(J.CONFIGS[name], f.name)
+            for f in dataclasses.fields(J.CONFIGS[name]) if f.name != "dtype"}
+    got = {f.name: getattr(T.CONFIGS[name], f.name)
+           for f in dataclasses.fields(T.CONFIGS[name]) if f.name != "dtype"}
+    assert got == want
+
+
+def test_tied_embeddings_tree_from_jax_gives_the_jax_logits():
+    jcfg = dataclasses.replace(JCFG, tie_embeddings=True)
+    tcfg = dataclasses.replace(TCFG, tie_embeddings=True)
+    jp = J.llama_init(jax.random.PRNGKey(3), jcfg)
+    assert "lm_head" not in jp
+    tp = params_from_jax(_jax_tree(jp), device="cpu")
+    tok = _tokens((2, 9), 10)
+    ref = np.asarray(J.llama_forward(jp, jnp.asarray(tok), jcfg))
+    np.testing.assert_allclose(T.llama_forward(tp, tok, tcfg).numpy(), ref,
+                               atol=ATOL, rtol=0)
+    own = T.llama_init(torch.Generator().manual_seed(0), tcfg, device="cpu")
+    assert "lm_head" not in own and set(own) == set(jp)
+
+
+def test_embed_onehot_equals_the_gather_and_jax():
+    tok = _tokens((2, 7), 11)
+    tcfg = dataclasses.replace(TCFG, embed_onehot=True)
+    out = T.llama_forward(TPARAMS, tok, tcfg)
+    np.testing.assert_allclose(out.numpy(),
+                               T.llama_forward(TPARAMS, tok, TCFG).numpy(),
+                               atol=1e-6, rtol=0)
+    ref = J.llama_forward(JPARAMS, jnp.asarray(tok),
+                          dataclasses.replace(JCFG, embed_onehot=True))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL,
+                               rtol=0)
+
+
+def test_positions_match_jax():
+    tok = _tokens((2, 6), 12)
+    pos = np.array([3, 4, 5, 9, 10, 11], np.int32)
+    ref = J.llama_forward(JPARAMS, jnp.asarray(tok), JCFG,
+                          positions=jnp.asarray(pos))
+    out = T.llama_forward(TPARAMS, tok, TCFG, positions=pos)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL,
+                               rtol=0)
+    # the default is 0..S-1
+    np.testing.assert_allclose(
+        T.llama_forward(TPARAMS, tok, TCFG, positions=np.arange(6)).numpy(),
+        T.llama_forward(TPARAMS, tok, TCFG).numpy(), atol=0, rtol=0)
+
+
+def _torch_value_and_grad(params, batch, cfg):
+    tp = copy.deepcopy(params)
+    leaves = [t for t in jax.tree_util.tree_leaves(tp)]
+    for t in leaves:
+        t.requires_grad_(True)
+    loss = T.llama_loss(tp, batch, cfg)
+    loss.backward()
+    return loss.detach(), jax.tree_util.tree_map(lambda t: t.grad, tp)
+
+
+@pytest.mark.parametrize("as_dict", [True, False], ids=["dict", "array"])
+def test_llama_loss_and_grads_match_jax(as_dict):
+    tok = _tokens((2, 13), 13)
+    jb = {"tokens": jnp.asarray(tok)} if as_dict else jnp.asarray(tok)
+    tb = {"tokens": tok} if as_dict else tok
+    jl, jg = jax.value_and_grad(J.llama_loss)(JPARAMS, jb, JCFG)
+    tl, tg = _torch_value_and_grad(TPARAMS, tb, TCFG)
+    assert tl.dtype == torch.float32 and tl.dim() == 0
+    np.testing.assert_allclose(tl.item(), float(jl), atol=1e-5, rtol=0)
+    assert _assert_tree_close(tg, jg, atol=1e-4) == 3 + 9 * JCFG.n_layers
+
+
+def test_remat_gives_the_same_loss_and_grads():
+    tok = _tokens((2, 10), 14)
+    l0, g0 = _torch_value_and_grad(TPARAMS, tok, TCFG)
+    l1, g1 = _torch_value_and_grad(TPARAMS, tok,
+                                   dataclasses.replace(TCFG, remat=True))
+    assert l1.item() == pytest.approx(l0.item(), abs=1e-6)
+    for a, b in zip(jax.tree_util.tree_leaves(g0),
+                    jax.tree_util.tree_leaves(g1)):
+        np.testing.assert_allclose(b.numpy(), a.numpy(), atol=1e-6, rtol=0)
+
+
+def test_llama_forward_follows_the_callers_grad_mode():
+    tp = copy.deepcopy(TPARAMS)
+    tp["norm"].requires_grad_(True)
+    tok = _tokens((1, 5), 15)
+    assert T.llama_forward(tp, tok, TCFG).requires_grad
+    with torch.no_grad():
+        assert not T.llama_forward(tp, tok, TCFG).requires_grad
+    pools = T.init_kv_pools(TCFG, NBLK, BS, device="cpu")
+    logits, _ = T.llama_prefill_paged(tp, pools, tok[0], 5,
+                                      np.arange(2), TCFG, BS)
+    assert not logits.requires_grad
