@@ -36,10 +36,24 @@ Phases (one JSON line each; any failure exits non-zero):
 9. checkpoint  — the train phase's state saved after steps 5 and 6,
                  restored bit-equal, one more step from each copy equal; a
                  corrupted step 6 falls back to step 5.
+10. kernel_cbr — the fused conv3x3 + folded-BN + ReLU kernel against its
+                 plain version at ResNet-50's four bottleneck 3x3 shapes
+                 (batch 64; bf16 and fp32, with and without a residual) and
+                 at edge shapes, with timings beside its bound and the
+                 cuDNN conv alone.
+11. resnet_infer — resnet50_v1(layout="NHWC") with MXNET_TPU_FUSED_CONVBN=1
+                 at full width and depth, seeded random weights and running
+                 statistics, bf16: one predict-mode forward of 64 images at
+                 224x224, checked against the same net on the CPU (fp32 and
+                 bf16, 4 images); the composed net (gate off) as a second
+                 route; a .params round trip on the card.
+12. resnet_throughput — images/s at batch 64 and 256, batch-1 latency
+                 p50/p99, peak memory, and torch.profiler over 2 forwards.
 
-Two main paths, each with its own expected kernels, counts set to 0 just
-before and read just after: serving (phases 3-5: flash_fwd) and training
-(phase 7's 6 steps: flash_fwd, flash_bwd_dq, flash_bwd_dkv). Then the
+Three main paths, each with its own expected kernels, counts set to 0 just
+before and read just after: serving (phases 3-5: flash_fwd), training
+(phase 7's 6 steps: flash_fwd, flash_bwd_dq, flash_bwd_dkv) and ResNet-50
+inference (phase 11's forward: conv_bn_relu, 16 launches). Then the
 card's name and power limit, the `kernels` line, and as the last line
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA card.
 """
@@ -78,6 +92,32 @@ GRAD_REL = 2e-2                 # per-leaf ||a - b|| / ||b|| of model
                                 # fp32 with all kernels vs plain attention
 SERVE_KERNELS = ("flash_fwd",)
 TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+RESNET_KERNELS = ("conv_bn_relu",)
+
+CBR_FP32_REL = 1e-4             # fp32 conv_bn_relu: max abs error over the
+                                # output's max abs (summation order only)
+CBR_BF16_ATOL = CBR_BF16_RTOL = 2e-2    # bf16 conv_bn_relu: both round the
+                                # same fp32 value once; order differs
+CBR_STAGES = [
+    # name, N, H, W, Cin, Cout, launches per resnet50_v1 forward: the
+    # bottleneck 3x3 convs of the four stages at batch 64
+    ("stage1_56x56x64", 64, 56, 56, 64, 64, 3),
+    ("stage2_28x28x128", 64, 28, 28, 128, 128, 4),
+    ("stage3_14x14x256", 64, 14, 14, 256, 256, 6),
+    ("stage4_7x7x512", 64, 7, 7, 512, 512, 3),
+]
+CBR_EDGES = [
+    ("cin3_cout12", 2, 5, 5, 3, 12),
+    ("image_1x1", 4, 1, 1, 64, 64),
+    ("batch1_7x7", 1, 7, 7, 64, 64),
+    ("cin20_cout36", 3, 9, 11, 20, 36),
+]
+RESNET_BATCH, RESNET_IMAGE = 64, 224
+RESNET_BF16_REL = 2e-2          # bf16 logits vs the same net on the CPU:
+                                # every layer rounds to bf16 on both sides
+RESNET_FP32_REL = 1e-5          # fp32 logits vs the CPU: both paths fp32
+                                # (TF32 off), so only the summation order
+                                # differs; measured 2.9e-7 on an H100
 
 
 def emit(obj):
@@ -610,7 +650,7 @@ def phase_train(gen, ckpt_dir):
            "launches": launches, "max_memory_allocated_bytes": peak}
     check(all(np.isfinite(losses)) and losses[-1] < losses[0], "train",
           "losses not finite or not decreasing: %s" % losses)
-    check(launches == {k: 6 * v for k, v in expect.items()}, "train",
+    check(launches == {k: 6 * expect.get(k, 0) for k in launches}, "train",
           "launches on the training path %s" % launches)
     check((tree_dtypes(params), tree_dtypes(state)) == dtypes, "train",
           "a leaf changed dtype")
@@ -781,6 +821,331 @@ def phase_checkpoint(step, batch, params, state, ckpt_dir):
           "corrupted step 6 did not fall back to step 5")
 
 
+def cbr_work(N, H, W, C, Cout, residual, dtype):
+    """conv_bn_relu's (flops, bytes): 2*N*H*W*9*C*Cout flops; x, w, out
+    (and the residual) in the working dtype plus scale and shift in fp32,
+    each moved once."""
+    size = torch.tensor([], dtype=dtype).element_size()
+    pix = N * H * W
+    nbytes = size * (pix * C + 9 * C * Cout
+                     + pix * Cout * (2 if residual else 1)) + 8 * Cout
+    return 2.0 * pix * 9 * C * Cout, nbytes
+
+
+def phase_kernel_cbr(gen):
+    """conv_bn_relu vs _ref_conv_bn_relu on the card at ResNet-50's four
+    bottleneck 3x3 shapes (batch 64; bf16 and fp32, with and without a
+    residual) and at edge shapes. Returns the kernels-line entry: the
+    bf16, residual-free stage shapes weighted by their launches in one
+    resnet50_v1 forward (3, 4, 6, 3 of 16)."""
+    import torch.nn.functional as F
+
+    from mxnet_tpu_torch.ops.fused_conv import (_ref_conv_bn_relu,
+                                                conv_bn_relu, fold_bn_params)
+    weighted = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "flops": 0.0,
+                "bytes": 0.0, "max_abs_err": 0.0}
+    shapes = [(name, N, H, W, C, Co, n, True) for name, N, H, W, C, Co, n
+              in CBR_STAGES] + [(name, N, H, W, C, Co, 0, False)
+                                for name, N, H, W, C, Co in CBR_EDGES]
+    for name, N, H, W, C, Co, per_forward, timed in shapes:
+        for dtype in (torch.bfloat16, torch.float32):
+            def rnd(*shape, scale=1.0):
+                return torch.randn(shape, generator=gen, device="cuda") \
+                    * scale
+            x = rnd(N, H, W, C).to(dtype)
+            w = rnd(3, 3, C, Co, scale=(9 * C) ** -0.5).to(dtype)
+            scale, shift = fold_bn_params(
+                torch.rand(Co, generator=gen, device="cuda") + 0.5,
+                rnd(Co, scale=0.1), rnd(Co, scale=0.1),
+                torch.rand(Co, generator=gen, device="cuda") + 0.5)
+            lib_ms = None
+            if timed:
+                # yardstick only: the conv alone through cuDNN (no single
+                # PyTorch call adds the BN affine and ReLU); the port never
+                # calls it
+                xl = x.permute(0, 3, 1, 2)
+                wl = w.permute(3, 2, 0, 1).contiguous(
+                    memory_format=torch.channels_last)
+                lib_ms = time_ms(lambda: F.conv2d(xl, wl, padding=1))
+            for res in (None, rnd(N, H, W, Co).to(dtype)):
+                out = conv_bn_relu(x, w, scale, shift, res)
+                ref = _ref_conv_bn_relu(x, w, scale, shift, res)
+                torch.cuda.synchronize()
+                err = (out.float() - ref.float()).abs()
+                out_scale = ref.float().abs().max().item()
+                if dtype == torch.bfloat16:
+                    ok = bool((err <= CBR_BF16_ATOL + CBR_BF16_RTOL
+                               * ref.float().abs()).all())
+                else:
+                    ok = err.max().item() <= CBR_FP32_REL * max(out_scale,
+                                                                1.0)
+                rec = {"phase": "kernel_cbr", "kernel": "conv_bn_relu",
+                       "shape": name, "NHWC": [N, H, W, C], "Cout": Co,
+                       "dtype": str(dtype).split(".")[-1],
+                       "residual": res is not None,
+                       "max_abs_err": err.max().item(),
+                       "out_max_abs": out_scale,
+                       "finite": bool(torch.isfinite(out).all())}
+                if timed:
+                    rec["ms"] = time_ms(lambda: conv_bn_relu(x, w, scale,
+                                                             shift, res))
+                    rec["plain_ms"] = time_ms(lambda: _ref_conv_bn_relu(
+                        x, w, scale, shift, res), iters=5)
+                    rec["library_ms"] = lib_ms
+                    rec["library"] = "conv only (cuDNN)"
+                    work = cbr_work(N, H, W, C, Co, res is not None, dtype)
+                    rec["bound_ms"], rec["bound_by"] = bound(*work, dtype)
+                    if dtype == torch.bfloat16 and res is None:
+                        for key in ("ms", "plain_ms", "library_ms"):
+                            weighted[key] += per_forward * rec[key] / 16
+                        weighted["flops"] += per_forward * work[0]
+                        weighted["bytes"] += per_forward * work[1]
+                        weighted["max_abs_err"] = max(
+                            weighted["max_abs_err"], rec["max_abs_err"])
+                emit(rec)
+                check(rec["finite"] and ok, "kernel_cbr",
+                      "conv_bn_relu disagrees with _ref_conv_bn_relu at %s "
+                      "%s residual=%s" % (name, dtype, res is not None))
+    bms, by = bound(weighted["flops"] / 16, weighted["bytes"] / 16,
+                    torch.bfloat16)
+    return {"max_abs_err": weighted["max_abs_err"], "ms": weighted["ms"],
+            "plain_ms": weighted["plain_ms"],
+            "library_ms": weighted["library_ms"], "bound_ms": bms,
+            "bound_by": by}
+
+
+def resnet50(fused):
+    """resnet50_v1(classes=1000, layout="NHWC") with the fused gate on or
+    off, named as in a fresh process."""
+    import mxnet_tpu_torch as mx
+    os.environ["MXNET_TPU_FUSED_CONVBN"] = "1" if fused else "0"
+    with mx.name.NameManager():
+        return mx.gluon.model_zoo.vision.resnet50_v1(classes=1000,
+                                                     layout="NHWC")
+
+
+def randomize(net, seed, ctx, image=RESNET_IMAGE):
+    """Seeded weights (Xavier, gaussian, fan-in, magnitude 2) and seeded
+    BN parameters and running statistics: gamma and running_var in
+    [0.5, 1.5), beta and running_mean N(0, 0.1^2), so the fold is not the
+    identity."""
+    import mxnet_tpu_torch as mx
+    mx.random.seed(seed)
+    net.initialize(mx.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                  magnitude=2), ctx=ctx)
+    with mx.autograd.predict_mode():      # resolve the deferred shapes
+        net(mx.nd.zeros((1, image, image, 3), ctx=ctx))
+    g = torch.Generator(device=ctx.torch_device).manual_seed(seed)
+    for name, p in net.collect_params().items():
+        shape = p.shape
+        if name.endswith(("gamma", "running_var")):
+            p.set_data(mx.nd.array(torch.rand(shape, generator=g,
+                                              device=ctx.torch_device)
+                                   + 0.5, ctx=ctx))
+        elif name.endswith(("beta", "running_mean")):
+            p.set_data(mx.nd.array(torch.randn(shape, generator=g,
+                                               device=ctx.torch_device)
+                                   * 0.1, ctx=ctx))
+
+
+def logits_of(net, x, ctx):
+    import mxnet_tpu_torch as mx
+    with mx.autograd.predict_mode():
+        return net(mx.nd.array(x, ctx=ctx)).data_torch.float().cpu()
+
+
+def host_copy(fused, path, dtype):
+    """The same net, with the same weights, on the CPU (plain paths)."""
+    import mxnet_tpu_torch as mx
+    cpu_net = resnet50(fused)
+    cpu_net.load_parameters(path, ctx=mx.cpu())
+    cpu_net.cast(dtype)
+    return cpu_net
+
+
+def compare_logits(got, want, limit, phase, what):
+    rel = rel_err(got, want)
+    top1 = bool((got.argmax(1) == want.argmax(1)).all())
+    check(bool(torch.isfinite(got).all()) and rel <= limit and top1, phase,
+          "%s: logits rel. error %.3g (limit %g), top-1 equal %s"
+          % (what, rel, limit, top1))
+    return rel
+
+
+def phase_resnet_infer(gen, tmp, batch=RESNET_BATCH, image=RESNET_IMAGE):
+    """Main path 3: resnet50_v1 NHWC with the fused gate, bf16, one
+    predict-mode forward of `batch` images through the Gluon entry points,
+    counts reset just before and read just after. Checked against the same
+    net on the CPU (fp32 and bf16, first 4 images), the composed net (gate
+    off) as a second route, and a .params round trip on the card. Returns
+    (net, launches on the path)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import launch_counts, reset_launch_counts
+    gpu = mx.gpu(0)
+    net = resnet50(True)
+    randomize(net, 0, gpu, image)
+    path = os.path.join(tmp, "resnet50_fused.params")
+    net.save_parameters(path)
+    x = torch.randn((batch, image, image, 3), generator=gen, device="cuda")
+    x4 = x[:4].cpu()
+    rel32 = compare_logits(logits_of(net, x[:4], gpu),
+                           logits_of(host_copy(True, path, "float32"),
+                                     x4, mx.cpu()),
+                           RESNET_FP32_REL, "resnet_infer", "fp32 vs CPU")
+    net.cast("bfloat16")
+    xb = mx.nd.array(x.to(torch.bfloat16), ctx=gpu)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with mx.autograd.predict_mode():
+        out = net(xb)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = launch_counts()
+    check_path(launches, RESNET_KERNELS, "main_path_resnet")
+    check(launches["conv_bn_relu"] == 16, "resnet_infer",
+          "expected 16 conv_bn_relu launches, saw %s" % launches)
+    logits = out.data_torch.float()
+    check(tuple(logits.shape) == (batch, 1000)
+          and bool(torch.isfinite(logits).all()), "resnet_infer",
+          "non-finite or misshapen logits")
+    rel16 = compare_logits(
+        logits[:4].cpu(), logits_of(host_copy(True, path, "bfloat16"),
+                                    x4.to(torch.bfloat16), mx.cpu()),
+        RESNET_BF16_REL, "resnet_infer", "bf16 vs CPU")
+
+    # the composed route: gate off, cuDNN convs, no kernel
+    cnet = resnet50(False)
+    randomize(cnet, 0, gpu, image)
+    cpath = os.path.join(tmp, "resnet50_composed.params")
+    cnet.save_parameters(cpath)
+    cnet.cast("bfloat16")
+    reset_launch_counts()
+    with mx.autograd.predict_mode():
+        cout = cnet(xb).data_torch.float()
+    torch.cuda.synchronize()
+    composed_launches = launch_counts()
+    check(not any(composed_launches.values()), "resnet_infer",
+          "the composed net launched %s" % composed_launches)
+    rel_c = compare_logits(
+        cout[:4].cpu(), logits_of(host_copy(False, cpath, "bfloat16"),
+                                  x4.to(torch.bfloat16), mx.cpu()),
+        RESNET_BF16_REL, "resnet_infer", "composed bf16 vs CPU")
+    del cnet
+
+    # .params round trip on the card, bit-equal
+    rt = os.path.join(tmp, "resnet50_bf16.params")
+    net.save_parameters(rt)
+    back = resnet50(True)
+    back.cast("bfloat16")
+    back.load_parameters(rt, ctx=gpu)
+    mine = net._collect_params_with_prefix()
+    theirs = back._collect_params_with_prefix()
+    same = sorted(mine) == sorted(theirs) and all(
+        mine[k].data().data_torch.dtype == theirs[k].data().data_torch.dtype
+        and torch.equal(mine[k].data().data_torch,
+                        theirs[k].data().data_torch) for k in mine)
+    check(same, "resnet_infer", ".params round trip is not bit-equal")
+    del back
+    emit({"phase": "resnet_infer", "config": "resnet50_v1 NHWC fused",
+          "batch": batch, "image": image, "dtype": "bfloat16",
+          "first_forward_ms": ms, "launches": launches,
+          "logits_shape": list(logits.shape),
+          "rel_err_fp32_vs_cpu": rel32, "rel_err_bf16_vs_cpu": rel16,
+          "composed_launches": composed_launches,
+          "rel_err_composed_bf16_vs_cpu": rel_c,
+          "params_round_trip_bit_equal": same})
+    return net, launches
+
+
+def infer_kernel_group(name):
+    n = name.lower()
+    if "cbr_" in n:
+        return "conv_bn_relu"
+    if any(t in n for t in ("fprop", "conv", "cudnn", "dgrad", "xmma")):
+        return "cudnn_conv"
+    if any(t in n for t in ("gemm", "cutlass", "nvjet", "cublas")):
+        return "gemm"
+    if "pool" in n:
+        return "pooling"
+    return "bn_and_elementwise"
+
+
+def phase_resnet_throughput(net, gen, batches=(64, 256), image=RESNET_IMAGE):
+    """Images/s (median of 10 forwards after 3 warm-ups, CUDA events) at
+    each batch; batch-1 latency p50/p99 over 20 forwards; peak memory; and
+    torch.profiler over 2 forwards at the first batch: device time by
+    kernel group and the idle share of the window."""
+    import mxnet_tpu_torch as mx
+    from torch.profiler import ProfilerActivity, profile
+
+    def run(x):
+        with mx.autograd.predict_mode():
+            return net(x)
+
+    def forward_ms(x, n, warmup):
+        for _ in range(warmup):
+            run(x)
+        out = []
+        for _ in range(n):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            run(x)
+            end.record()
+            torch.cuda.synchronize()
+            out.append(start.elapsed_time(end))
+        return out
+
+    def images(b):
+        return mx.nd.array(torch.randn((b, image, image, 3), generator=gen,
+                                       device="cuda").to(torch.bfloat16),
+                           ctx=mx.gpu(0))
+
+    rec = {"phase": "resnet_throughput", "dtype": "bfloat16",
+           "image": image}
+    torch.cuda.reset_peak_memory_stats()
+    for b in batches:
+        med = statistics.median(forward_ms(images(b), 10, 3))
+        rec["batch%d_ms" % b] = med
+        rec["batch%d_images_per_s" % b] = b / med * 1e3
+    rec["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    lat = forward_ms(images(1), 20, 3)
+    rec["batch1_ms_p50"] = float(np.percentile(lat, 50))
+    rec["batch1_ms_p99"] = float(np.percentile(lat, 99))
+
+    x = images(batches[0])
+    run(x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            run(x)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    groups, top = {}, {}
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = ev.self_cuda_time_total
+        g = infer_kernel_group(ev.key)
+        groups[g] = groups.get(g, 0.0) + us / 1e3
+        top[ev.key[:120]] = top.get(ev.key[:120], 0.0) + us / 1e3
+    device_ms = sum(groups.values())
+    rec.update({"profile_forwards": 2, "profile_batch": batches[0],
+                "profile_wall_ms": wall_ms, "profile_device_ms": device_ms,
+                "idle_share": 1.0 - device_ms / wall_ms,
+                "device_ms_by_group": groups,
+                "top_kernels_ms": dict(sorted(top.items(),
+                                              key=lambda kv: -kv[1])[:10])})
+    emit(rec)
+    check(device_ms > 0, "resnet_throughput",
+          "the profiler saw no device time")
+
+
 def check_path(launches, expected, phase):
     """Every kernel of the path launched, and no other."""
     check(all((launches[k] > 0) == (k in expected) for k in launches),
@@ -825,6 +1190,15 @@ def main():
     del tparams, tstate, step
     torch.cuda.empty_cache()
     phase_train_gqa(gen)
+    torch.cuda.empty_cache()
+
+    # main path 3: ResNet-50 Gluon inference (counts reset inside, read
+    # right after the one forward)
+    entries["conv_bn_relu"] = phase_kernel_cbr(gen)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_resnet_") as tmp:
+        net, resnet_launches = phase_resnet_infer(gen, tmp)
+    phase_resnet_throughput(net, gen)
+    del net
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -835,7 +1209,8 @@ def main():
     for name, (source, replaces) in KERNELS.items():
         rec = entries[name]
         # launches on the main paths that run the kernel
-        launches = serve_launches[name] + train_launches[name]
+        launches = serve_launches[name] + train_launches[name] \
+            + resnet_launches[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": "mxnet_tpu_torch/" + source, "replaces": replaces,

@@ -1,0 +1,324 @@
+"""Gluon Block / HybridBlock (the port of `mxnet_tpu.gluon.block`).
+
+Kept from the reference: child registration by attribute, prefix scoping
+(so parameter names match the reference's), parameter collection, both
+`.params` file forms of `save_parameters`/`load_parameters`, `cast`,
+`initialize`, and the `hybrid_forward(F, x, *args, **params)` calling
+convention with deferred parameter shapes resolved from the first input.
+
+Deviation: `hybridize` records its flags and the forward stays eager. The
+reference traces the block into one compiled program (its CachedOp); the
+port's counterpart, graph capture, comes with `FusedTrainStep` in the
+training slice.
+"""
+from __future__ import annotations
+
+import re
+import threading
+import warnings
+from collections import OrderedDict
+
+from .. import ndarray as nd
+from .parameter import DeferredInitializationError, Parameter, ParameterDict
+
+__all__ = ["Block", "HybridBlock"]
+
+
+class _BlockScope:
+    """Name scoping for Blocks."""
+
+    _current = threading.local()
+
+    def __init__(self, block):
+        self._block = block
+        self._counter = {}
+        self._old_scope = None
+        self._name_scope = None
+
+    @staticmethod
+    def create(prefix, params, hint):
+        """Create prefix and params for a new Block."""
+        current = getattr(_BlockScope._current, "value", None)
+        if current is None:
+            if prefix is None:
+                from ..name import NameManager
+                prefix = NameManager.current.get(None, hint) + "_"
+            if params is None:
+                params = ParameterDict(prefix)
+            else:
+                params = ParameterDict(params.prefix, params)
+            return prefix, params
+        if prefix is None:
+            count = current._counter.get(hint, 0)
+            prefix = "%s%d_" % (hint, count)
+            current._counter[hint] = count + 1
+        if params is None:
+            parent = current._block.params
+            params = ParameterDict(parent.prefix + prefix, parent._shared)
+        else:
+            params = ParameterDict(params.prefix, params)
+        return current._block.prefix + prefix, params
+
+    def __enter__(self):
+        if self._block._empty_prefix:
+            return self
+        self._old_scope = getattr(_BlockScope._current, "value", None)
+        _BlockScope._current.value = self
+        from ..name import Prefix
+        self._name_scope = Prefix(self._block.prefix)
+        self._name_scope.__enter__()
+        return self
+
+    def __exit__(self, ptype, value, trace):
+        if self._block._empty_prefix:
+            return
+        self._name_scope.__exit__(ptype, value, trace)
+        self._name_scope = None
+        _BlockScope._current.value = self._old_scope
+
+
+def _indent(s, num_spaces):
+    lines = s.split("\n")
+    return "\n".join([lines[0]] + [num_spaces * " " + ln
+                                   for ln in lines[1:]])
+
+
+class Block:
+    """Base building block."""
+
+    def __init__(self, prefix=None, params=None):
+        self._empty_prefix = prefix == ""
+        self._prefix, self._params = _BlockScope.create(
+            prefix, params, self._alias())
+        self._name = self._prefix[:-1] if self._prefix.endswith("_") \
+            else self._prefix
+        self._scope = _BlockScope(self)
+        self._children = OrderedDict()
+        self._reg_params = {}
+
+    def __repr__(self):
+        modstr = "\n".join("  ({key}): {block}".format(
+            key=key, block=_indent(repr(block), 2))
+            for key, block in self.__dict__.items()
+            if isinstance(block, Block))
+        return "{name}(\n{modstr}\n)".format(name=self.__class__.__name__,
+                                             modstr=modstr)
+
+    def __setattr__(self, name, value):
+        """Registers parameters and children by assignment."""
+        if hasattr(self, name):
+            existing = getattr(self, name)
+            if isinstance(existing, (Parameter, Block)) and \
+                    not isinstance(value, type(existing)):
+                raise TypeError(
+                    "Changing attribute type for {name} from {type1} to "
+                    "{type2} is not allowed.".format(
+                        name=name, type1=type(existing), type2=type(value)))
+        if isinstance(value, Block):
+            self.register_child(value, name)
+        elif isinstance(value, Parameter):
+            if name in self._reg_params:
+                raise AssertionError(
+                    "Overriding Parameter attribute %s is not allowed. To "
+                    "share parameters between blocks, pass them through "
+                    "`params` at Block construction." % name)
+            self._reg_params[name] = value
+        super().__setattr__(name, value)
+
+    def _alias(self):
+        return self.__class__.__name__.lower()
+
+    @property
+    def prefix(self):
+        return self._prefix
+
+    @property
+    def name(self):
+        return self._name
+
+    def name_scope(self):
+        """`with self.name_scope():` prefixes the children made inside."""
+        return self._scope
+
+    @property
+    def params(self):
+        """Direct parameters only (no children)."""
+        return self._params
+
+    def collect_params(self, select=None):
+        """All parameters of self and its descendants, optionally filtered
+        by a regular expression."""
+        self._check_container_with_block()
+        ret = ParameterDict(self._params.prefix)
+        if not select:
+            ret.update(self.params)
+        else:
+            pattern = re.compile(select)
+            ret.update({name: value for name, value in self.params.items()
+                        if pattern.match(name)})
+        for cld in self._children.values():
+            ret.update(cld.collect_params(select=select))
+        return ret
+
+    def _check_container_with_block(self):
+        children = set(self._children.values())
+        for k, v in self.__dict__.items():
+            if isinstance(v, (list, tuple, dict)) and k != "_children":
+                it = v.values() if isinstance(v, dict) else v
+                for item in it:
+                    if isinstance(item, Block) and item not in children:
+                        warnings.warn(
+                            "'%s' is an unregistered container with Blocks. "
+                            "Blocks inside a list, tuple or dict are not "
+                            "registered automatically; use register_child() "
+                            "or nn.Sequential/nn.HybridSequential." % k,
+                            stacklevel=3)
+
+    def register_child(self, block, name=None):
+        if name is None:
+            name = str(len(self._children))
+        self._children[name] = block
+
+    def apply(self, fn):
+        """Apply fn recursively to the children, then self."""
+        for cld in self._children.values():
+            cld.apply(fn)
+        fn(self)
+        return self
+
+    def initialize(self, init=None, ctx=None, verbose=False,
+                   force_reinit=False):
+        from .. import initializer as _init
+        if init is None:
+            init = _init.Uniform()
+        self.collect_params().initialize(init, ctx, verbose, force_reinit)
+
+    def save_parameters(self, filename, deduplicate=False):
+        """Save parameters under their structural names (``features.0.
+        weight``), loadable by any instance of the same architecture."""
+        params = self._collect_params_with_prefix()
+        if deduplicate:
+            reverse = {}
+            for k, v in params.items():
+                reverse.setdefault(id(v), []).append(k)
+            params = {ks[0]: params[ks[0]] for ks in reverse.values()}
+        nd.save(filename, {k: v._reduce() for k, v in params.items()})
+
+    def _collect_params_with_prefix(self, prefix=""):
+        if prefix:
+            prefix += "."
+        ret = {prefix + key: val for key, val in self._reg_params.items()}
+        for name, child in self._children.items():
+            ret.update(child._collect_params_with_prefix(prefix + name))
+        return ret
+
+    def load_parameters(self, filename, ctx=None, allow_missing=False,
+                        ignore_extra=False, cast_dtype=False,
+                        dtype_source="current"):
+        """Load a `.params` file in either form: structural names from
+        `save_parameters`, or full prefixed names from
+        `ParameterDict.save`. Without `ctx`, uninitialized parameters go to
+        the current context."""
+        loaded = nd.load(filename)
+        params = self._collect_params_with_prefix()
+        if not loaded and not params:
+            return
+        if not any("." in i for i in loaded.keys()):
+            # ParameterDict.save format with full prefixes
+            del loaded
+            self.collect_params().load(
+                filename, ctx, allow_missing, ignore_extra, self.prefix,
+                cast_dtype=cast_dtype, dtype_source=dtype_source)
+            return
+        if not allow_missing:
+            for name in params.keys():
+                if name not in loaded:
+                    raise AssertionError(
+                        "Parameter '%s' is missing in file '%s', which "
+                        "contains parameters: %s. Set allow_missing=True to "
+                        "ignore missing parameters."
+                        % (name, filename, ", ".join(sorted(loaded.keys()))))
+        for name in loaded:
+            if not ignore_extra and name not in params:
+                raise ValueError(
+                    "Parameter '%s' loaded from file '%s' is not present in "
+                    "this block, which contains parameters %s. Set "
+                    "ignore_extra=True to ignore." %
+                    (name, filename, ", ".join(sorted(params.keys()))))
+            if name in params:
+                params[name]._load_init(loaded[name], ctx,
+                                        cast_dtype=cast_dtype,
+                                        dtype_source=dtype_source)
+
+    def cast(self, dtype):
+        """Cast every parameter (layers may keep some in fp32)."""
+        for child in self._children.values():
+            child.cast(dtype)
+        for _, param in self.params.items():
+            param.cast(dtype)
+
+    def hybridize(self, active=True, **kwargs):
+        for cld in self._children.values():
+            cld.hybridize(active, **kwargs)
+
+    def __call__(self, *args):
+        return self.forward(*args)
+
+    def forward(self, *args):
+        """Override to define computation."""
+        raise NotImplementedError
+
+
+class HybridBlock(Block):
+    """Block whose computation is `hybrid_forward(F, x, *args, **params)`,
+    with F the `nd` namespace and this block's parameters passed as
+    keyword NDArrays on the input's context."""
+
+    def __init__(self, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._active = False
+        self._flags = {}
+
+    def register_child(self, block, name=None):
+        if not isinstance(block, HybridBlock):
+            raise ValueError(
+                "Children of HybridBlock must also be HybridBlock, but %s "
+                "has type %s. If you are using Sequential, please try "
+                "HybridSequential instead." % (str(block), str(type(block))))
+        super().register_child(block, name)
+
+    def hybridize(self, active=True, static_alloc=False, static_shape=False,
+                  **kwargs):
+        """Record the flags, here and in the children. The forward stays
+        eager in the port (graph capture comes with `FusedTrainStep`)."""
+        self._active = active
+        self._flags = dict(static_alloc=static_alloc,
+                           static_shape=static_shape, **kwargs)
+        for cld in self._children.values():
+            cld.hybridize(active, static_alloc=static_alloc,
+                          static_shape=static_shape, **kwargs)
+
+    def _infer_param_shapes(self, *args):
+        """Resolve deferred shapes from the input (the layer's
+        `_shape_from_input`), then finish their initialization."""
+        hook = getattr(self, "_shape_from_input", None)
+        if hook is not None:
+            hook(*args)
+        for p in self._reg_params.values():
+            p._finish_deferred_init()
+
+    def forward(self, x, *args):
+        if not isinstance(x, nd.NDArray):
+            raise ValueError("HybridBlock input must be an NDArray, got %s"
+                             % type(x))
+        ctx = x.context
+        try:
+            params = {k: v.data(ctx) for k, v in self._reg_params.items()}
+        except DeferredInitializationError:
+            self._infer_param_shapes(x, *args)
+            params = {k: v.data(ctx) for k, v in self._reg_params.items()}
+        return self.hybrid_forward(nd, x, *args, **params)
+
+    def hybrid_forward(self, F, x, *args, **kwargs):
+        """Override to define computation."""
+        raise NotImplementedError

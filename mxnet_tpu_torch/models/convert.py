@@ -8,6 +8,8 @@ arrays, so this module needs no JAX. The layout is the same on both sides
 ``lm_head``), so the carry-over is a per-leaf copy. `opt_state_from_jax`
 does the same for the state of `mxnet_tpu.parallel.train_step`'s
 optimizers, so that a test can start both trainers from one state.
+`gluon_params_from_jax` sets a Gluon block's parameters from the
+reference block's, by structural name.
 """
 from __future__ import annotations
 
@@ -16,7 +18,8 @@ import torch
 
 from ..base import resolve_device
 
-__all__ = ["params_from_jax", "opt_state_from_jax"]
+__all__ = ["params_from_jax", "opt_state_from_jax",
+           "gluon_params_from_jax"]
 
 
 def _leaf(name, a, dtype, device):
@@ -62,3 +65,29 @@ def opt_state_from_jax(tree, dtype=None, device=None):
             raise ValueError("opt_state_from_jax: unknown state slot %r"
                              % key)
     return out
+
+
+def gluon_params_from_jax(arrays, net, ctx=None):
+    """Set `net`'s parameters from `arrays`: {structural name: numpy
+    array}, as the reference block's ``_collect_params_with_prefix()``
+    gives them after ``.asnumpy()`` (``features.0.weight``, ...). Each
+    parameter keeps its own dtype and goes to `ctx` (default: where it
+    already is, else the current context). Raises ValueError on a missing
+    or extra name or a shape mismatch. Returns `net`."""
+    from ..context import cpu
+    from ..ndarray import array
+    params = net._collect_params_with_prefix()
+    missing = sorted(set(params) - set(arrays))
+    extra = sorted(set(arrays) - set(params))
+    if missing or extra:
+        raise ValueError("gluon_params_from_jax: missing %s, extra %s"
+                         % (missing, extra))
+    for name, a in arrays.items():
+        a = np.asarray(a)
+        shape = params[name].shape
+        if shape is not None and (len(shape) != a.ndim or any(
+                s not in (0, d) for s, d in zip(shape, a.shape))):
+            raise ValueError("gluon_params_from_jax: %s has shape %s, the "
+                             "block's parameter %s" % (name, a.shape, shape))
+        params[name]._load_init(array(a, ctx=cpu()), ctx, cast_dtype=True)
+    return net

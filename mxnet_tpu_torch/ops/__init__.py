@@ -19,6 +19,8 @@ KERNELS = {
                      "mxnet_tpu/parallel/flash_attention.py:200"),
     "flash_bwd_dkv": ("csrc/flash_bwd.cu",
                       "mxnet_tpu/parallel/flash_attention.py:245"),
+    "conv_bn_relu": ("csrc/conv_bn_relu.cu",
+                     "mxnet_tpu/ops/fused_conv.py:75"),
 }
 
 _launches = dict.fromkeys(KERNELS, 0)

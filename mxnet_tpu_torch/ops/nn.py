@@ -1,0 +1,170 @@
+"""Neural-net ops of the ResNet path (the port of the part of
+`mxnet_tpu.ops.nn` that Gluon's ResNet layers call): FullyConnected,
+Convolution, Pooling, BatchNorm, Activation.
+
+They are XLA ops in the reference, outside any Pallas kernel, so they stay
+`torch.nn.functional` calls here. A float32 convolution on the card runs
+with ``torch.backends.cudnn.allow_tf32 = False`` (set by `Convolution`):
+cuDNN would otherwise round fp32 operands to TF32, about three decimal
+digits, where the reference keeps fp32.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from .registry import alias, register
+
+
+def _pair(v, n):
+    if v is None:
+        return (0,) * n
+    if isinstance(v, int):
+        return (v,) * n
+    v = tuple(v)
+    return v if len(v) == n else v * n
+
+
+def layout_info(layout, nd, op="Convolution"):
+    """Validate an MXNet layout string for nd spatial dims. Returns
+    (layout, channels_last)."""
+    spatial = "DHW"[3 - nd:]
+    if layout is None:
+        layout = "NC" + spatial
+    if layout == "NC" + spatial:
+        return layout, False
+    if layout == "N" + spatial + "C":
+        return layout, True
+    raise ValueError("%s: unsupported layout %r for %dD (expected %r or %r)"
+                     % (op, layout, nd, "NC" + spatial,
+                        "N" + spatial + "C"))
+
+
+def _to_nchw(x, last):
+    return x.permute(0, 3, 1, 2) if last else x
+
+
+def _from_nchw(x, last):
+    return x.permute(0, 2, 3, 1).contiguous() if last else x
+
+
+@register("FullyConnected")
+def _fully_connected(data, weight, bias=None, num_hidden=None, no_bias=False,
+                     flatten=True):
+    """y = x W^T + b; weight is (num_hidden, in_units) like the
+    reference."""
+    x = data
+    if flatten and x.dim() > 2:
+        x = x.reshape(x.shape[0], -1)
+    return F.linear(x, weight, None if no_bias else bias)
+
+
+@register("Convolution")
+def _convolution(data, weight, bias=None, kernel=None, stride=None,
+                 dilate=None, pad=None, num_filter=None, num_group=1,
+                 no_bias=False, layout=None, cudnn_tune=None, cudnn_off=None,
+                 workspace=None):
+    """2-D convolution in NCHW (weight OIHW) or NHWC (weight OHWI, the
+    reference's channels-last weight layout)."""
+    nd = data.dim() - 2
+    if nd != 2:
+        raise NotImplementedError("Convolution: only 2-D convolutions are "
+                                  "ported so far, got %d-D" % nd)
+    _, last = layout_info(layout, nd)
+    torch.backends.cudnn.allow_tf32 = False
+    w = weight.permute(0, 3, 1, 2) if last else weight
+    out = F.conv2d(_to_nchw(data, last), w,
+                   None if no_bias else bias,
+                   stride=_pair(stride if stride else 1, nd),
+                   padding=_pair(pad if pad else 0, nd),
+                   dilation=_pair(dilate if dilate else 1, nd),
+                   groups=num_group)
+    return _from_nchw(out, last)
+
+
+@register("Pooling")
+def _pooling(data, kernel=None, pool_type="max", global_pool=False,
+             stride=None, pad=None, pooling_convention="valid",
+             count_include_pad=True, cudnn_off=None, layout=None):
+    """max / avg pooling, global or windowed ("valid" or "full" output
+    size), in NCHW or NHWC."""
+    nd = data.dim() - 2
+    _, last = layout_info(layout, nd, "Pooling")
+    axes = tuple(range(1, 1 + nd)) if last else tuple(range(2, data.dim()))
+    if global_pool:
+        if pool_type == "max":
+            return data.amax(dim=axes, keepdim=True)
+        if pool_type == "avg":
+            return data.mean(dim=axes, keepdim=True)
+        raise ValueError("unknown pool_type " + pool_type)
+    if nd != 2:
+        raise NotImplementedError("Pooling: only 2-D windows are ported so "
+                                  "far, got %d-D" % nd)
+    kernel = _pair(kernel, nd)
+    stride = _pair(stride if stride else 1, nd)
+    pad = _pair(pad if pad else 0, nd)
+    x = _to_nchw(data, last)
+    # explicit (low, high) padding per spatial dim; "full" (ceil mode) pads
+    # the high side far enough to cover the last window, as the reference
+    spans = []
+    for i in range(nd):
+        size = x.shape[2 + i]
+        hi = pad[i]
+        if pooling_convention == "full":
+            out = -(-(size + 2 * pad[i] - kernel[i]) // stride[i]) + 1
+            hi = max(pad[i], (out - 1) * stride[i] + kernel[i] - size
+                     - pad[i])
+        spans.append((pad[i], hi))
+    flat = [p for lo_hi in reversed(spans) for p in lo_hi]
+    if pool_type == "max":
+        x = F.pad(x, flat, value=float("-inf"))
+        out = F.max_pool2d(x, kernel, stride)
+    elif pool_type == "avg":
+        out = F.avg_pool2d(F.pad(x, flat), kernel, stride)
+        if not count_include_pad:
+            ones = F.pad(torch.ones_like(x[:1, :1]), flat)
+            out = out / F.avg_pool2d(ones, kernel, stride)
+    else:
+        raise ValueError("unknown pool_type " + pool_type)
+    return _from_nchw(out, last)
+
+
+alias("Pooling", "pooling")
+
+
+@register("BatchNorm")
+def _batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
+                momentum=0.9, fix_gamma=True, use_global_stats=False,
+                output_mean_var=False, axis=1, cudnn_off=None):
+    """Normalization math in fp32, output in the input dtype; with
+    `use_global_stats` the moving statistics, else the batch's (the
+    moving-average update is the caller's)."""
+    ax = axis % data.dim()
+    red = tuple(i for i in range(data.dim()) if i != ax)
+    shape = [1] * data.dim()
+    shape[ax] = data.shape[ax]
+    x32 = data.float()
+    if use_global_stats:
+        mean, var = moving_mean, moving_var
+    else:
+        mean = x32.mean(dim=red)
+        var = x32.var(dim=red, unbiased=False)
+    g = torch.ones_like(gamma) if fix_gamma else gamma
+    inv = torch.rsqrt(var.float() + eps)
+    out = ((x32 - mean.reshape(shape).float()) * inv.reshape(shape)
+           * g.reshape(shape).float()
+           + beta.reshape(shape).float()).to(data.dtype)
+    if output_mean_var:
+        return out, mean, var
+    return out
+
+
+_ACTIVATIONS = {"relu": torch.relu, "sigmoid": torch.sigmoid,
+                "tanh": torch.tanh, "softrelu": F.softplus}
+
+
+@register("Activation")
+def _activation(data, act_type="relu"):
+    if act_type not in _ACTIVATIONS:
+        raise ValueError("unknown act_type " + act_type)
+    return _ACTIVATIONS[act_type](data)

@@ -46,6 +46,12 @@ def test_scan_covers_the_port():
     assert "mxnet_tpu_torch/parallel/train_step.py" in names
     assert "mxnet_tpu_torch/parallel/checkpoint.py" in names
     assert "mxnet_tpu_torch/util.py" in names
+    assert "mxnet_tpu_torch/ops/fused_conv.py" in names
+    assert "mxnet_tpu_torch/ndarray/ndarray.py" in names
+    assert "mxnet_tpu_torch/io/params_serde.py" in names
+    assert "mxnet_tpu_torch/gluon/block.py" in names
+    assert "mxnet_tpu_torch/gluon/contrib/cnn/conv_layers.py" in names
+    assert "mxnet_tpu_torch/gluon/model_zoo/vision/resnet.py" in names
     assert "chip_smoke.py" in names
 
 
@@ -67,6 +73,8 @@ def test_import_roots_detects_forbidden_imports(tmp_path):
 def test_every_kernel_has_a_launch_count_and_a_distinct_tpu_kernel():
     from mxnet_tpu_torch.ops import KERNELS, launch_counts
     assert set(launch_counts()) == set(KERNELS)
+    assert KERNELS["conv_bn_relu"] == ("csrc/conv_bn_relu.cu",
+                                       "mxnet_tpu/ops/fused_conv.py:75")
     replaces = [r for _, r in KERNELS.values()]
     assert len(set(replaces)) == len(replaces)
 
@@ -90,8 +98,10 @@ def _no_cuda(monkeypatch):
     lambda cfg: KVBlockPool(cfg, num_blocks=4, block_size=4),
     lambda cfg: InferenceServer({}, cfg, kv_blocks=4, block_size=4),
     lambda cfg: restore_train_state("no-such-checkpoint"),
+    lambda cfg: mxnet_tpu_torch.nd.array([1.0, 2.0]),
+    lambda cfg: mxnet_tpu_torch.nd.zeros((2, 3)),
 ], ids=["llama_init", "init_kv_pools", "init_kv_cache", "KVBlockPool",
-        "InferenceServer", "restore_train_state"])
+        "InferenceServer", "restore_train_state", "nd.array", "nd.zeros"])
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
                                                             make):
     _no_cuda(monkeypatch)
