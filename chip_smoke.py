@@ -49,13 +49,33 @@ Phases (one JSON line each; any failure exits non-zero):
                  route; a .params round trip on the card.
 12. resnet_throughput — images/s at batch 64 and 256, batch-1 latency
                  p50/p99, peak memory, and torch.profiler over 2 forwards.
+13. kernel_cbr_train — the training conv + batch statistics kernel
+                 (conv_bn_stats) and the BN + ReLU backward kernel
+                 (cbr_train_bwd) against their plain versions at ResNet-50's
+                 four bottleneck 3x3 shapes (batch 256) and edge shapes, bf16
+                 and fp32, with and without a residual, with timings.
+14. kernel_opt — the flat SGD and Adam kernels against their plain versions
+                 over every flag combination (bit for bit), timed at 25.6M
+                 elements and over one ResNet-50 step's parameters.
+15. resnet_train — resnet50_v1 NHWC fused, bf16 with fp32 BatchNorm,
+                 224x224: FusedTrainStep + Trainer("sgd", lr 0.1, momentum
+                 0.9) + SoftmaxCrossEntropyLoss, 8 steps at batch 256; the
+                 imperative loop (record, backward, trainer.step) with
+                 "adam", 3 steps at batch 64; both routes from one state;
+                 one step's gradients against the CPU (fp32 and bf16).
+16. resnet_train_throughput — images/s of FusedTrainStep at batch 256, the
+                 imperative step's time, peak memory, and torch.profiler
+                 over one step.
 
-Three main paths, each with its own expected kernels, counts set to 0 just
+Four main paths, each with its own expected kernels, counts set to 0 just
 before and read just after: serving (phases 3-5: flash_fwd), training
-(phase 7's 6 steps: flash_fwd, flash_bwd_dq, flash_bwd_dkv) and ResNet-50
-inference (phase 11's forward: conv_bn_relu, 16 launches). Then the
-card's name and power limit, the `kernels` line, and as the last line
-{"ok": true, "device": {...}}. Exits non-zero without a CUDA card.
+(phase 7's 6 steps: flash_fwd, flash_bwd_dq, flash_bwd_dkv), ResNet-50
+inference (phase 11's forward: conv_bn_relu, 16 launches) and ResNet-50
+training (phase 15: 16 conv_bn_stats, 16 cbr_train_bwd and one flat_sgd
+per trainable parameter in each FusedTrainStep step; one flat_adam per
+trainable parameter in each Adam step). Then the card's name and power
+limit, the `kernels` line, and as the last line {"ok": true, "device":
+{...}}. Exits non-zero without a CUDA card.
 """
 from __future__ import annotations
 
@@ -1146,11 +1166,770 @@ def phase_resnet_throughput(net, gen, batches=(64, 256), image=RESNET_IMAGE):
           "the profiler saw no device time")
 
 
+# --------------------------------------------------------------------------
+# ResNet-50 training: kernels #5-#8 and main path 4
+# --------------------------------------------------------------------------
+CBR_TRAIN_STAGES = [
+    # name, N, H, W, Cin, Cout, launches per training step: the bottleneck
+    # 3x3 convs of the four stages at batch 256
+    ("stage1_56x56x64", 256, 56, 56, 64, 64, 3),
+    ("stage2_28x28x128", 256, 28, 28, 128, 128, 4),
+    ("stage3_14x14x256", 256, 14, 14, 256, 256, 6),
+    ("stage4_7x7x512", 256, 7, 7, 512, 512, 3),
+]
+CBR_TRAIN_EDGES = [
+    ("cin3_cout12", 2, 5, 5, 3, 12),
+    ("image_1x1", 4, 1, 1, 64, 64),
+    ("batch1_7x7", 1, 7, 7, 64, 64),
+    ("cin20_cout36", 3, 9, 11, 20, 36),
+]
+TRAIN_FP32_REL = 1e-5           # fp32 kernel outputs (#5, #6): max abs error
+                                # over the output's max abs; summation order
+                                # only
+RESNET_TRAIN_KERNELS = ("conv_bn_stats", "cbr_train_bwd", "flat_sgd")
+RESNET_ADAM_KERNELS = ("conv_bn_stats", "cbr_train_bwd", "flat_adam")
+TRAIN_BATCH, TRAIN_STEPS = 256, 8
+ADAM_BATCH, ADAM_STEPS = 64, 3
+CPU_BATCH = 8
+GRAD_FP32_REL = 1e-3            # per-leaf ||a - b|| / ||b|| of one step's
+                                # gradients, card vs CPU, fp32: the
+                                # summation order differs (TF32 off); the
+                                # limit, or twice the card's own spread
+                                # under a one-ulp input change where that
+                                # is larger (phase_resnet_train)
+GRAD_BF16_REL = 5e-2            # bf16, against the fp32 step: every layer
+                                # rounds its output to bf16; the limit, or
+                                # what the CPU's plain bf16 path shows
+
+
+def bf16_ulp(t):
+    """One bf16 ulp at each value of t (fp32 tensor of bf16 values)."""
+    a = t.abs().clamp_min(torch.finfo(torch.float32).tiny)
+    return torch.exp2(torch.floor(torch.log2(a)) - 7)
+
+
+def ulps_apart(a, b):
+    """Elementwise distance in units in the last place of a and b (same
+    float dtype, finite): the difference of their ordered integer
+    images."""
+    ib = {torch.float32: torch.int32, torch.bfloat16: torch.int16}[a.dtype]
+    x, y = a.contiguous().view(ib).long(), b.contiguous().view(ib).long()
+    top = {torch.int32: 0x7FFFFFFF, torch.int16: 0x7FFF}[ib]
+    x = torch.where(x < 0, -(x & top), x)
+    y = torch.where(y < 0, -(y & top), y)
+    return (x - y).abs()
+
+
+def close_rel(a, b, rel):
+    """max |a - b| <= rel * max |b| (fp32 compare)."""
+    a, b = a.float(), b.float()
+    err = (a - b).abs().max().item() if a.numel() else 0.0
+    scale = b.abs().max().item() if b.numel() else 0.0
+    return err, err <= rel * max(scale, 1e-30)
+
+
+def cbr_train_works(N, H, W, C, Cout, residual, dtype):
+    """{kernel: (flops, bytes)} of one training block: conv_bn_stats reads
+    x and w and writes the conv output and the (2, Cout) sums;
+    cbr_train_bwd reads conv_out and dy (and the residual) and six
+    (Cout,) fp32 vectors and writes the fp32 dconv (and dres) and the sums
+    (about 20 operations an element, far under the bytes)."""
+    size = torch.tensor([], dtype=dtype).element_size()
+    pix = N * H * W
+    stats = (2.0 * pix * 9 * C * Cout,
+             size * (pix * C + 9 * C * Cout + pix * Cout) + 8 * Cout)
+    res = pix * Cout * size if residual else 0
+    bwd = (20.0 * pix * Cout,
+           size * 2 * pix * Cout + 2 * res + 4 * pix * Cout + 32 * Cout)
+    return {"conv_bn_stats": stats, "cbr_train_bwd": bwd}
+
+
+def phase_kernel_cbr_train(gen):
+    """conv_bn_stats (#5) and cbr_train_bwd (#6) against their plain
+    versions on the card at ResNet-50's four bottleneck 3x3 shapes (batch
+    256) and edge shapes, bf16 and fp32, with and without a residual.
+    Compared: the op's out, mean and var, and dconv, dgamma, dbeta, dres.
+    Returns {kernel: kernels-line entry}: the bf16, residual-free stage
+    shapes, weighted by their launches in one resnet50_v1 step (3, 4, 6, 3
+    of 16)."""
+    import torch.nn.functional as F
+
+    from mxnet_tpu_torch.ops.fused_conv import (_conv3x3_backward,
+                                                _normalize_relu,
+                                                _ref_cbr_train_bwd,
+                                                _ref_conv_bn_stats,
+                                                cbr_train_bwd, conv_bn_stats)
+    names = ("conv_bn_stats", "cbr_train_bwd")
+    # the fused blocks' dx/dw: PyTorch's conv backward in full fp32 from
+    # the fp32 dconv (the reference's numerics), per training step
+    dxdw = {"ms": 0.0, "flops": 0.0}
+    weighted = {k: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                    "flops": 0.0, "bytes": 0.0, "max_abs_err": 0.0}
+                for k in names}
+    weighted["cbr_train_bwd"]["library_ms"] = None
+    shapes = [(n, N, H, W, C, Co, k, True) for n, N, H, W, C, Co, k
+              in CBR_TRAIN_STAGES] + [(n, N, H, W, C, Co, 0, False)
+                                      for n, N, H, W, C, Co
+                                      in CBR_TRAIN_EDGES]
+    eps = 1e-3
+    for name, N, H, W, C, Co, per_step, timed in shapes:
+        for dtype in (torch.bfloat16, torch.float32):
+            def rnd(*shape, scale=1.0):
+                return torch.randn(shape, generator=gen, device="cuda") \
+                    * scale
+            x = rnd(N, H, W, C).to(dtype)
+            w = rnd(3, 3, C, Co, scale=(9 * C) ** -0.5).to(dtype)
+            gamma = torch.rand(Co, generator=gen, device="cuda") + 0.5
+            beta = rnd(Co, scale=0.1)
+            dy = rnd(N, H, W, Co).to(dtype)
+            M = N * H * W
+
+            def stats(conv_fn):
+                conv, s, sq = conv_fn(x, w)
+                mean = s / M
+                var = torch.clamp_min(sq / M - mean * mean, 0.0)
+                return conv, mean, var, torch.rsqrt(var + eps)
+
+            got, want = stats(conv_bn_stats), stats(_ref_conv_bn_stats)
+            lib_ms = None
+            if timed:
+                # yardstick only: the conv alone through cuDNN on
+                # channels-last tensors; the port never calls it
+                xl = x.permute(0, 3, 1, 2)
+                wl = w.permute(3, 2, 0, 1).contiguous(
+                    memory_format=torch.channels_last)
+                lib_ms = time_ms(lambda: F.conv2d(xl, wl, padding=1))
+            for res in (None, rnd(N, H, W, Co).to(dtype)):
+                rec = {"phase": "kernel_cbr_train", "shape": name,
+                       "NHWC": [N, H, W, C], "Cout": Co,
+                       "dtype": str(dtype).split(".")[-1],
+                       "residual": res is not None}
+                outs = []
+                for conv, mean, _, invstd in (got, want):
+                    _, y = _normalize_relu(conv, mean, invstd, gamma, beta,
+                                           res)
+                    outs.append(torch.relu(y).to(dtype))
+                torch.cuda.synchronize()
+                bad = []           # the outputs out of their bound
+                if not bool(torch.isfinite(got[0].float()).all()):
+                    bad.append("conv_out finite")
+                # #5: the conv output, and the op's out, mean and var
+                if dtype == torch.bfloat16:
+                    # bf16: one ulp of the larger of the two values (each
+                    # side rounds its fp32 value once), plus the fp32
+                    # summation order's share, which decides the rounding
+                    # of values near zero; for out also what the conv
+                    # output's difference moves it by (|gamma * invstd *
+                    # dconv|)
+                    moved = (gamma * want[3]).abs() * (
+                        got[0].float() - want[0].float()).abs()
+                    for key, a, b, extra in (
+                            ("conv_out", got[0], want[0], 0.0),
+                            ("out", outs[0], outs[1], moved)):
+                        a, b = a.float(), b.float()
+                        err = (a - b).abs()
+                        rec[key + "_max_abs_err"] = err.max().item()
+                        lim = bf16_ulp(torch.maximum(a.abs(), b.abs())) \
+                            + extra + TRAIN_FP32_REL * b.abs().max()
+                        if not bool((err <= lim).all()):
+                            bad.append(key)
+                else:
+                    for key, a, b in (("conv_out", got[0], want[0]),
+                                      ("out", outs[0], outs[1])):
+                        rec[key + "_max_abs_err"], good = close_rel(
+                            a, b, TRAIN_FP32_REL)
+                        if not good:
+                            bad.append(key)
+                for key, i in (("mean", 1), ("var", 2)):
+                    rec[key + "_max_abs_err"], good = close_rel(
+                        got[i], want[i], TRAIN_FP32_REL)
+                    if not good:
+                        bad.append(key)
+                # #6 on the same (plain) saved tensors
+                conv, mean, _, invstd = want
+                kb = cbr_train_bwd(conv, dy, mean, invstd, gamma, beta, res)
+                pb = _ref_cbr_train_bwd(conv, dy, mean, invstd, gamma, beta,
+                                        res)
+                torch.cuda.synchronize()
+                for key, a, b in zip(("dconv", "dgamma", "dbeta"), kb, pb):
+                    rec[key + "_max_abs_err"], good = close_rel(
+                        a, b, TRAIN_FP32_REL)
+                    rec[key + "_max_abs"] = b.abs().max().item()
+                    if not (good and bool(torch.isfinite(a).all())):
+                        bad.append(key)
+                if res is not None:
+                    rec["dres_equal"] = bool(torch.equal(kb[3], pb[3]))
+                    if not rec["dres_equal"]:
+                        bad.append("dres")
+                rec["out_of_bound"] = bad
+                if timed:
+                    works = cbr_train_works(N, H, W, C, Co, res is not None,
+                                            dtype)
+                    rec["ms"] = {
+                        "conv_bn_stats": time_ms(
+                            lambda: conv_bn_stats(x, w)),
+                        "cbr_train_bwd": time_ms(lambda: cbr_train_bwd(
+                            conv, dy, mean, invstd, gamma, beta, res))}
+                    rec["plain_ms"] = {
+                        "conv_bn_stats": time_ms(
+                            lambda: _ref_conv_bn_stats(x, w), iters=5),
+                        "cbr_train_bwd": time_ms(
+                            lambda: _ref_cbr_train_bwd(
+                                conv, dy, mean, invstd, gamma, beta, res),
+                            iters=5)}
+                    rec["library_ms"] = {"conv_bn_stats": lib_ms,
+                                         "cbr_train_bwd": None}
+                    rec["bound"] = {k: bound(*works[k], dtype)
+                                    for k in names}
+                    if dtype == torch.bfloat16 and res is None:
+                        errs = {"conv_bn_stats": max(
+                            rec["mean_max_abs_err"], rec["var_max_abs_err"],
+                            rec["out_max_abs_err"]),
+                            "cbr_train_bwd": max(
+                                rec["dconv_max_abs_err"],
+                                rec["dgamma_max_abs_err"],
+                                rec["dbeta_max_abs_err"])}
+                        for k in names:
+                            acc = weighted[k]
+                            acc["ms"] += per_step * rec["ms"][k] / 16
+                            acc["plain_ms"] += \
+                                per_step * rec["plain_ms"][k] / 16
+                            if rec["library_ms"][k] is not None:
+                                acc["library_ms"] += \
+                                    per_step * rec["library_ms"][k] / 16
+                            acc["flops"] += per_step * works[k][0] / 16
+                            acc["bytes"] += per_step * works[k][1] / 16
+                            acc["max_abs_err"] = max(acc["max_abs_err"],
+                                                     errs[k])
+                        rec["dxdw_fp32_ms"] = time_ms(
+                            lambda: _conv3x3_backward(x, w, pb[0]), iters=5)
+                        dxdw["ms"] += per_step * rec["dxdw_fp32_ms"]
+                        dxdw["flops"] += per_step * 2 * 2.0 * N * H * W \
+                            * 9 * C * Co
+                emit(rec)
+                check(not bad, "kernel_cbr_train",
+                      "conv_bn_stats/cbr_train_bwd disagree with their plain "
+                      "versions at %s %s residual=%s: %s"
+                      % (name, dtype, res is not None, bad))
+    emit({"phase": "kernel_cbr_train", "dxdw_fp32_ms_per_step": dxdw["ms"],
+          "dxdw_flops_per_step": dxdw["flops"],
+          "dxdw_bound_ms_per_step": dxdw["flops"] / PEAK_FLOPS[
+              torch.float32] * 1e3})
+    out = {}
+    for k in names:
+        acc = weighted[k]
+        bms, by = bound(acc["flops"], acc["bytes"], torch.bfloat16)
+        out[k] = {"max_abs_err": acc["max_abs_err"], "ms": acc["ms"],
+                  "plain_ms": acc["plain_ms"],
+                  "library_ms": acc["library_ms"], "bound_ms": bms,
+                  "bound_by": by}
+    return out
+
+
+def opt_inputs(kind, n, wdt, gdt, sdt, mp, vec, gen):
+    """Seeded inputs of one flat update: weights N(0, 1), gradients N(0,
+    1), momentum and Adam's mean N(0, 0.1^2), Adam's var made from squared
+    gradients (as training makes it), lr/wd per element when `vec`."""
+    def rnd(scale=1.0):
+        return torch.randn(n, generator=gen, device="cuda") * scale
+    w = rnd().to(wdt)
+    t = {"w": w, "g": rnd().to(gdt),
+         "master": w.float().clone() if mp else None}
+    if kind == "sgd":
+        t["mom"] = rnd(0.1).to(sdt)
+    else:
+        t["mean"] = rnd(0.1).to(sdt)
+        t["var"] = (0.1 * rnd() ** 2 + 0.9 * rnd() ** 2).to(sdt)
+    if vec:
+        t["lr"] = torch.rand(n, generator=gen, device="cuda") * 0.1
+        t["wd"] = torch.rand(n, generator=gen, device="cuda") * 1e-3
+    else:
+        t["lr"], t["wd"] = 0.05, 1e-4
+    return t
+
+
+def run_flat(kind, fn, t, mom_on, clip_on, mp):
+    """One update by `fn` (the kernel wrapper or the plain version):
+    returns the outputs (weight, states, master)."""
+    if kind == "sgd":
+        out = fn(t["w"], t["g"], t["mom"], t["master"], t["lr"], t["wd"],
+                 0.9, 1.0 / 256, 0.5, mom_on, clip_on, mp)
+        return [out[0]] + ([out[1]] if mom_on else []) + \
+            ([out[2]] if mp else [])
+    out = fn(t["w"], t["g"], t["mean"], t["var"], t["master"], t["lr"],
+             t["wd"], 0.9, 1.0 - 0.9, 0.999, 1.0 - 0.999, 1e-8, 1.0 / 256,
+             0.5, clip_on, mp)
+    return list(out[:3]) + ([out[3]] if mp else [])
+
+
+def clone_inputs(t):
+    return {k: (v.clone() if torch.is_tensor(v) else v) for k, v in t.items()}
+
+
+def opt_bytes(t, kind, mom_on, mp):
+    """Bytes one update must move: w, g (and state, master) read, w (and
+    state, master) written, lr/wd vectors read."""
+    def nb(x):
+        return x.numel() * x.element_size() if torch.is_tensor(x) else 0
+    states = ([t["mom"]] if mom_on else []) if kind == "sgd" \
+        else [t["mean"], t["var"]]
+    rw = [t["w"]] + states + ([t["master"]] if mp else [])
+    return 2 * sum(nb(x) for x in rw) + nb(t["g"]) + nb(t["lr"]) \
+        + nb(t["wd"])
+
+
+def resnet50_param_shapes():
+    """(shape, dtype) of every trainable parameter of resnet50_v1 NHWC
+    with the fused gate, cast to bf16 (BN parameters stay fp32)."""
+    import mxnet_tpu_torch as mx
+    net = resnet50(True)
+    net.initialize(mx.init.Xavier(), ctx=mx.cpu())
+    with mx.autograd.predict_mode():
+        net(mx.nd.zeros((1, 32, 32, 3), ctx=mx.cpu()))
+    net.cast("bfloat16")
+    return [(p.shape, p.data().data_torch.dtype)
+            for p in net.collect_params().values() if p.grad_req != "null"]
+
+
+def phase_kernel_opt(gen):
+    """flat_sgd (#7) and flat_adam (#8) against their plain versions on
+    the card: momentum on/off, clip on/off, mp on/off, scalar and
+    per-element lr/wd, fp32 and bf16 weights (and a bf16 gradient with an
+    fp32 weight), n = 1, 7, 4097. fp32 and bf16 outputs must be bit-equal
+    to the plain version's; a difference of 1 ulp is allowed and printed
+    with its count. Then times at n = 25.6M (ResNet-50's parameter count,
+    one launch) and over one ResNet-50 step's parameters (one launch per
+    parameter, as the main path runs them): the kernels-line entries."""
+    from mxnet_tpu_torch.ops.fused_optimizer import (_ref_flat_adam,
+                                                     _ref_flat_sgd, flat_adam,
+                                                     flat_sgd)
+    fns = {"sgd": (flat_sgd, _ref_flat_sgd),
+           "adam": (flat_adam, _ref_flat_adam)}
+    f32, b16 = torch.float32, torch.bfloat16
+    worst = {"flat_sgd": 0, "flat_adam": 0}
+    ulp_cases = []
+    n_cases = 0
+    for kind in ("sgd", "adam"):
+        kernel, plain = fns[kind]
+        for mom_on in ((True, False) if kind == "sgd" else (True,)):
+            for clip_on in (True, False):
+                for mp in (False, True):
+                    for vec in (False, True):
+                        for wdt, gdt in ((f32, f32), (b16, b16), (f32, b16)):
+                            for n in (1, 7, 4097):
+                                t = opt_inputs(kind, n, wdt, gdt, wdt, mp,
+                                               vec, gen)
+                                k = run_flat(kind, kernel, clone_inputs(t),
+                                             mom_on, clip_on, mp)
+                                p = run_flat(kind, plain, t, mom_on,
+                                             clip_on, mp)
+                                torch.cuda.synchronize()
+                                n_cases += 1
+                                for i, (a, b) in enumerate(zip(k, p)):
+                                    d = ulps_apart(a, b)
+                                    m = d.max().item()
+                                    worst["flat_" + kind] = max(
+                                        worst["flat_" + kind], m)
+                                    if m:
+                                        ulp_cases.append(
+                                            [kind, mom_on, clip_on, mp, vec,
+                                             str(wdt)[6:], str(gdt)[6:], n,
+                                             i, m, int((d > 0).sum())])
+    emit({"phase": "kernel_opt", "cases": n_cases,
+          "max_ulps": worst, "cases_with_ulp_differences": ulp_cases})
+    check(max(worst.values()) <= 1, "kernel_opt",
+          "flat kernels differ from their plain versions by more than 1 ulp: "
+          "%s" % ulp_cases)
+
+    entries = {}
+    shapes = resnet50_param_shapes()
+    for kind, name in (("sgd", "flat_sgd"), ("adam", "flat_adam")):
+        kernel, plain = fns[kind]
+        for wdt in (b16, f32):
+            n = 25_600_000
+            t = opt_inputs(kind, n, wdt, wdt, wdt, False, False, gen)
+            kt = clone_inputs(t)
+            nbytes = opt_bytes(t, kind, True, False)
+            rec = {"phase": "kernel_opt", "kernel": name, "n": n,
+                   "dtype": str(wdt)[6:],
+                   "ms": time_ms(lambda: run_flat(kind, kernel, kt, True,
+                                                  False, False)),
+                   "plain_ms": time_ms(lambda: run_flat(
+                       kind, plain, t, True, False, False), iters=10),
+                   "library_ms": None}
+            rec["bound_ms"], rec["bound_by"] = bound(0.0, nbytes, f32)
+            emit(rec)
+        # one ResNet-50 step: one launch per trainable parameter, bf16
+        # conv/dense weights and fp32 BN parameters, states in the
+        # weight's dtype
+        params = [opt_inputs(kind, int(np.prod(shape)), dt, dt, dt, False,
+                             False, gen) for shape, dt in shapes]
+        kparams = [clone_inputs(t) for t in params]
+        nbytes = sum(opt_bytes(t, kind, True, False) for t in params)
+        err = 0
+        for kt, t in zip(kparams, params):
+            for a, b in zip(run_flat(kind, kernel, clone_inputs(kt), True,
+                                     False, False),
+                            run_flat(kind, plain, clone_inputs(t), True,
+                                     False, False)):
+                err = max(err, (a.float() - b.float()).abs().max().item())
+        rec = {"phase": "kernel_opt", "kernel": name,
+               "resnet50_step_params": len(shapes),
+               "elements": sum(int(np.prod(s)) for s, _ in shapes),
+               "max_abs_err": err,
+               "ms": time_ms(lambda: [run_flat(kind, kernel, kt, True,
+                                               False, False)
+                                      for kt in kparams], iters=10),
+               "plain_ms": time_ms(lambda: [run_flat(kind, plain, t, True,
+                                                     False, False)
+                                            for t in params], iters=3),
+               "library_ms": None}
+        rec["bound_ms"], rec["bound_by"] = bound(0.0, nbytes, f32)
+        emit(rec)
+        entries[name] = {k: rec[k] for k in ("max_abs_err", "ms",
+                                             "plain_ms", "library_ms",
+                                             "bound_ms", "bound_by")}
+    return entries
+
+
 def check_path(launches, expected, phase):
     """Every kernel of the path launched, and no other."""
     check(all((launches[k] > 0) == (k in expected) for k in launches),
           phase, "kernels of the path %s, launched: %s"
           % (list(expected), launches))
+
+
+def train_net(seed, ctx, image=RESNET_IMAGE, dtype="bfloat16"):
+    """resnet50_v1 NHWC with the fused gate: Xavier (gaussian) weights from
+    mx.random.seed(seed), shapes resolved by one predict-mode pass, cast
+    to `dtype` (BatchNorm stays fp32) and hybridized."""
+    import mxnet_tpu_torch as mx
+    net = resnet50(True)
+    mx.random.seed(seed)
+    net.initialize(mx.init.Xavier(rnd_type="gaussian"), ctx=ctx)
+    with mx.autograd.predict_mode():
+        net(mx.nd.zeros((1, image, image, 3), ctx=ctx))
+    net.cast(dtype)
+    net.hybridize(static_alloc=True)
+    return net
+
+
+def train_batch(batch, image, ctx, dtype="bfloat16", seed=0):
+    """One fixed batch from numpy with a seed: N(0, 1) images, uniform
+    labels over the 1000 classes."""
+    import mxnet_tpu_torch as mx
+    rng = np.random.RandomState(seed)
+    x = rng.standard_normal((batch, image, image, 3)).astype(np.float32)
+    y = rng.randint(0, 1000, batch).astype(np.float32)
+    return mx.nd.array(x, ctx=ctx, dtype=dtype), mx.nd.array(y, ctx=ctx)
+
+
+def snapshot(net):
+    """{structural name: a copy of the parameter's tensor}."""
+    return {k: p.data().data_torch.detach().clone()
+            for k, p in net._collect_params_with_prefix().items()}
+
+
+def n_trainable(net):
+    return sum(p.grad_req != "null" for p in net.collect_params().values())
+
+
+def imperative_step(mx, net, loss_fn, trainer, x, y):
+    with mx.autograd.record():
+        loss = loss_fn(net(x), y)
+    loss.backward()
+    trainer.step(x.shape[0])
+    return loss
+
+
+def phase_resnet_train(gen, tmp, batch=TRAIN_BATCH, image=RESNET_IMAGE,
+                       steps=TRAIN_STEPS, adam_batch=ADAM_BATCH,
+                       cpu_batch=CPU_BATCH):
+    """Main path 4: bench.py's headline training configuration. resnet50_v1
+    NHWC, fused gate, bf16 with fp32 BatchNorm, 224x224:
+    FusedTrainStep(net, SoftmaxCrossEntropyLoss, Trainer("sgd", lr 0.1,
+    momentum 0.9)) for `steps` steps on one seeded batch, counts reset just
+    before and read just after; then the imperative loop (record ->
+    backward -> trainer.step) with "adam" at lr 1e-3, 3 steps at
+    `adam_batch`, counted likewise. Checks the launches per step, a finite
+    and falling loss, the dtypes, moved running statistics, the two routes
+    agreeing from one state, and one step against the same step on the
+    CPU. Returns (net, loss_fn, {kernel: launches on the path})."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import launch_counts, reset_launch_counts
+    gpu = mx.gpu(0)
+    net = train_net(0, gpu, image)
+    n_train = n_trainable(net)
+    dtypes = {k: t.dtype for k, t in snapshot(net).items()}
+    stats0 = {k: t for k, t in snapshot(net).items() if "running" in k}
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                               {"learning_rate": 0.1, "momentum": 0.9})
+    step = mx.gluon.FusedTrainStep(net, loss_fn, trainer)
+    x, y = train_batch(batch, image, gpu)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = [step(x, y).asnumpy().item() for _ in range(steps)]
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    sgd_launches = launch_counts()
+    check_path(sgd_launches, RESNET_TRAIN_KERNELS, "main_path_resnet_train")
+    want = {"conv_bn_stats": 16 * steps, "cbr_train_bwd": 16 * steps,
+            "flat_sgd": n_train * steps, "conv_bn_relu": 0, "flat_adam": 0}
+    check(all(sgd_launches[k] == v for k, v in want.items()),
+          "resnet_train", "FusedTrainStep launches %s, expected %s"
+          % (sgd_launches, want))
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          "resnet_train", "loss not finite or not falling: %s" % losses)
+    after = snapshot(net)
+    check(all(after[k].dtype == dt for k, dt in dtypes.items()),
+          "resnet_train", "a parameter changed its dtype")
+    moved = sum(not torch.equal(after[k], v) for k, v in stats0.items())
+    check(moved == len(stats0), "resnet_train",
+          "%d of %d running statistics moved" % (moved, len(stats0)))
+
+    # the two routes from one state, 2 SGD steps each (cuDNN deterministic
+    # for the comparison, so that only the route differs)
+    path = os.path.join(tmp, "resnet50_train.params")
+    net.save_parameters(path)
+    xs, ys = train_batch(adam_batch, image, gpu, seed=1)
+    torch.backends.cudnn.deterministic = True
+    routes = []
+    for fused in (True, False):
+        rnet = resnet50(True)
+        rnet.cast("bfloat16")
+        rnet.load_parameters(path, ctx=gpu)
+        rtr = mx.gluon.Trainer(rnet.collect_params(), "sgd",
+                               {"learning_rate": 0.1, "momentum": 0.9})
+        rstep = mx.gluon.FusedTrainStep(rnet, loss_fn, rtr)
+        for _ in range(2):
+            if fused:
+                rstep(xs, ys)
+            else:
+                imperative_step(mx, rnet, loss_fn, rtr, xs, ys)
+        routes.append(snapshot(rnet))
+        del rnet, rtr, rstep
+    torch.backends.cudnn.deterministic = False
+    route_diff = max((a.float() - routes[1][k].float()).abs().max().item()
+                     for k, a in routes[0].items())
+    route_equal = all(torch.equal(a, routes[1][k])
+                      for k, a in routes[0].items())
+    check(route_equal, "resnet_train",
+          "FusedTrainStep and the imperative loop differ by %g" % route_diff)
+
+    # the imperative loop with Adam, counted
+    atrainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                                {"learning_rate": 1e-3})
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    adam_losses = [imperative_step(mx, net, loss_fn, atrainer, xs, ys)
+                   .asnumpy().mean().item() for _ in range(ADAM_STEPS)]
+    torch.cuda.synchronize()
+    adam_launches = launch_counts()
+    check_path(adam_launches, RESNET_ADAM_KERNELS, "main_path_resnet_adam")
+    want = {"conv_bn_stats": 16 * ADAM_STEPS,
+            "cbr_train_bwd": 16 * ADAM_STEPS,
+            "flat_adam": n_train * ADAM_STEPS, "flat_sgd": 0,
+            "conv_bn_relu": 0}
+    check(all(adam_launches[k] == v for k, v in want.items()),
+          "resnet_train", "Adam loop launches %s, expected %s"
+          % (adam_launches, want))
+    check(all(np.isfinite(adam_losses)), "resnet_train",
+          "Adam loss not finite: %s" % adam_losses)
+    del atrainer
+
+    # one step on the card against the same step on the CPU (plain
+    # paths): the gradients of every leaf, fp32 and bf16
+    net.save_parameters(path)
+    xc, yc = train_batch(cpu_batch, image, mx.cpu(), "float32", seed=2)
+
+    def grads_of(ctx, dtype, x=xc):
+        cnet = resnet50(True)
+        cnet.load_parameters(path, ctx=ctx, cast_dtype=True)
+        cnet.cast(dtype)
+        with mx.autograd.record():
+            loss = loss_fn(cnet(x.astype(dtype).as_in_context(ctx)),
+                           yc.as_in_context(ctx))
+        loss.backward()
+        return {k: p.grad().data_torch.float().cpu()
+                for k, p in cnet._collect_params_with_prefix().items()
+                if p.grad_req != "null"}
+
+    card = {dt: grads_of(gpu, dt) for dt in ("float32", "bfloat16")}
+    host = {dt: grads_of(mx.cpu(), dt) for dt in ("float32", "bfloat16")}
+    # the card at fp32 with every input moved by one ulp: how far rounding
+    # alone moves a leaf. A ReLU or max-pool input within rounding of its
+    # threshold flips, and in a channel of M = N*H*W pixels one flipped term
+    # moves a BatchNorm beta or gamma gradient by about 1/sqrt(M) of itself
+    nudged = grads_of(gpu, "float32", mx.nd.array(torch.nextafter(
+        xc.data_torch, torch.tensor(float("inf"))), ctx=mx.cpu()))
+    # every conv bias of ResNetV1 feeds a batch-statistics BatchNorm, so
+    # its gradient is zero in exact arithmetic (the batch mean takes the
+    # bias out) and the computed one is rounding noise on both sides: those
+    # leaves are held apart, to be small against the median leaf
+    null = {k for k in host["float32"] if k.endswith(".bias")
+            and not k.startswith("output.")}
+    med_norm = statistics.median(g.norm().item()
+                                 for g in host["float32"].values())
+
+    def leaf_stats(a, b):
+        errs = {k: rel_err(g, b[k]) for k, g in a.items() if k not in null}
+        return {"median": statistics.median(errs.values()),
+                "max": max(errs.values()),
+                "worst_leaves": dict(sorted(errs.items(),
+                                            key=lambda kv: -kv[1])[:5])}
+
+    vs_cpu, failures = {}, []
+    for dtype, limit in (("float32", GRAD_FP32_REL),
+                         ("bfloat16", GRAD_BF16_REL)):
+        noise = max(max(card[dtype][k].norm().item(),
+                        host[dtype][k].norm().item())
+                    for k in null) / med_norm if null else 0.0
+        rec = {"card_vs_cpu": leaf_stats(card[dtype], host[dtype]),
+               "limit": limit, "zero_gradient_leaves": len(null),
+               "their_max_norm_over_median": noise}
+        if dtype == "float32":
+            # the CPU differs from the card by rounding only: held to the
+            # limit, or to twice the card's own one-ulp spread where that
+            # is larger (median and worst leaf alike)
+            rec["one_ulp_input"] = leaf_stats(card[dtype], nudged)
+            held, yard = rec["card_vs_cpu"], rec["one_ulp_input"]
+        else:
+            # bf16 against the fp32 step on the CPU (the reference here):
+            # the card's bf16 path must be no further from it than the
+            # CPU's plain bf16 path is, within 1.5x (median) and 2x (worst
+            # leaf), or within the limit
+            rec["card_vs_cpu_fp32"] = leaf_stats(card[dtype], host["float32"])
+            rec["cpu_vs_cpu_fp32"] = leaf_stats(host[dtype], host["float32"])
+            held, yard = rec["card_vs_cpu_fp32"], rec["cpu_vs_cpu_fp32"]
+        factor = {"float32": (2.0, 2.0), "bfloat16": (1.5, 2.0)}[dtype]
+        rec["median_limit"] = max(limit, factor[0] * yard["median"])
+        rec["max_limit"] = max(limit, factor[1] * yard["max"])
+        vs_cpu[dtype] = rec
+        if noise > limit:
+            failures.append("%s: conv biases before BatchNorm have gradients "
+                            "of %.3g of the median leaf's (limit %g)"
+                            % (dtype, noise, limit))
+        if held["median"] > rec["median_limit"] \
+                or held["max"] > rec["max_limit"]:
+            failures.append("%s gradients: median %g (limit %g), worst %s "
+                            "(limit %g)" % (dtype, held["median"],
+                                            rec["median_limit"],
+                                            held["worst_leaves"],
+                                            rec["max_limit"]))
+    emit({"phase": "resnet_train_vs_cpu", "batch": cpu_batch,
+          "card_vs_cpu": vs_cpu})
+
+    emit({"phase": "resnet_train", "config": "resnet50_v1 NHWC fused, bf16 "
+          "(BatchNorm fp32), FusedTrainStep + sgd(lr 0.1, momentum 0.9)",
+          "batch": batch, "image": image, "steps": steps,
+          "trainable_params": n_train, "losses": losses,
+          "steps_wall_s": wall_s, "launches": sgd_launches,
+          "running_stats_moved": moved,
+          "routes_bit_equal": route_equal, "routes_max_abs_diff": route_diff,
+          "adam": {"batch": adam_batch, "steps": ADAM_STEPS,
+                   "losses": adam_losses, "launches": adam_launches},
+          "card_vs_cpu_batch": cpu_batch,
+          "card_vs_cpu_max_leaf_rel_err": {
+              k: v["card_vs_cpu"]["max"] for k, v in vs_cpu.items()}})
+    check(not failures, "resnet_train", "; ".join(failures))
+    paths = {k: sgd_launches[k] + adam_launches[k] for k in sgd_launches}
+    return net, loss_fn, paths
+
+
+def train_kernel_group(name):
+    n = name.lower()
+    if "cbr_mma_kernel<true" in n or "cbr_fma_kernel<true" in n \
+            or "stats_col_sum" in n:
+        return "conv_bn_stats"
+    if "cbr_bwd" in n or "bwd_col_sum" in n:
+        return "cbr_train_bwd"
+    if "flat_sgd" in n:
+        return "flat_sgd"
+    if "flat_adam" in n:
+        return "flat_adam"
+    if any(t in n for t in ("dgrad", "wgrad", "bprop", "backward_data",
+                            "backward_filter")):
+        return "cudnn_conv_backward"
+    if any(t in n for t in ("fprop", "conv", "cudnn", "xmma", "implicit")):
+        return "cudnn_conv_forward"
+    if any(t in n for t in ("gemm", "cutlass", "nvjet", "cublas")):
+        return "gemm"
+    if "pool" in n:
+        return "pooling"
+    return "bn_and_elementwise"
+
+
+def phase_resnet_train_throughput(net, loss_fn, batch=TRAIN_BATCH,
+                                  image=RESNET_IMAGE):
+    """Images/s of FusedTrainStep at `batch` (median step of steps 3-10 by
+    CUDA events), the imperative loop's step time, peak device memory, and
+    torch.profiler over one step: device time by kernel group and the
+    device's idle share of the step."""
+    import mxnet_tpu_torch as mx
+    from torch.profiler import ProfilerActivity, profile
+    gpu = mx.gpu(0)
+    x, y = train_batch(batch, image, gpu, seed=3)
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                               {"learning_rate": 0.1, "momentum": 0.9})
+    step = mx.gluon.FusedTrainStep(net, loss_fn, trainer)
+
+    def step_ms(fn, n):
+        out = []
+        for _ in range(n):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            out.append(start.elapsed_time(end))
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fused = step_ms(lambda: step(x, y), 10)
+    peak = torch.cuda.max_memory_allocated()
+    med = statistics.median(fused[2:])
+    imp = step_ms(lambda: imperative_step(mx, net, loss_fn, trainer, x, y),
+                  4)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(x, y)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    groups, top, by_op = {}, {}, {}
+    for ev in prof.key_averages():
+        if ev.key in ("aten::convolution", "aten::convolution_backward"):
+            # the device time of every kernel under the op, whatever the
+            # kernels are named (fp32 dx/dw of the fused blocks included)
+            us = getattr(ev, "device_time_total", None)
+            by_op[ev.key] = (ev.cuda_time_total if us is None else us) / 1e3
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = ev.self_cuda_time_total
+        g = train_kernel_group(ev.key)
+        groups[g] = groups.get(g, 0.0) + us / 1e3
+        top[ev.key[:120]] = top.get(ev.key[:120], 0.0) + us / 1e3
+    device_ms = sum(groups.values())
+    emit({"phase": "resnet_train_throughput", "dtype": "bfloat16",
+          "batch": batch, "image": image,
+          "fused_step_ms_median_3_10": med, "fused_step_ms": fused,
+          "images_per_s": batch / med * 1e3,
+          "imperative_step_ms_median": statistics.median(imp[1:]),
+          "max_memory_allocated_bytes": peak,
+          "profile_wall_ms": wall_ms, "profile_device_ms": device_ms,
+          "idle_share": 1.0 - device_ms / wall_ms,
+          "device_ms_by_group": groups, "conv_device_ms_by_op": by_op,
+          "top_kernels_ms": dict(sorted(top.items(),
+                                        key=lambda kv: -kv[1])[:12])})
+    check(device_ms > 0, "resnet_train_throughput",
+          "the profiler saw no device time")
 
 
 def main():
@@ -1199,6 +1978,17 @@ def main():
         net, resnet_launches = phase_resnet_infer(gen, tmp)
     phase_resnet_throughput(net, gen)
     del net
+    torch.cuda.empty_cache()
+
+    # main path 4: ResNet-50 Gluon training (counts reset inside, read
+    # right after the FusedTrainStep steps and after the Adam loop)
+    entries.update(phase_kernel_cbr_train(gen))
+    entries.update(phase_kernel_opt(gen))
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        net, loss_fn, train4_launches = phase_resnet_train(gen, tmp)
+    phase_resnet_train_throughput(net, loss_fn)
+    del net
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1210,7 +2000,7 @@ def main():
         rec = entries[name]
         # launches on the main paths that run the kernel
         launches = serve_launches[name] + train_launches[name] \
-            + resnet_launches[name]
+            + resnet_launches[name] + train4_launches[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": "mxnet_tpu_torch/" + source, "replaces": replaces,

@@ -10,28 +10,39 @@ So far: Llama inference (`models.llama`) and the serving engine
 (`serve`); Llama training (`models.llama.llama_loss`,
 `parallel.ShardedTrainStep`, `parallel.checkpoint`); the flash-attention
 forward and backward kernels (`parallel.flash_attention`); the Gluon core
-for inference (`nd`, `gluon`, `init`, `random`, `autograd` mode state,
-`cpu`/`gpu` contexts) with the vision model zoo's ResNets and the fused
-conv3x3 + BN + ReLU kernel (`ops.fused_conv`):
+(`nd`, `gluon`, `init`, `random`, `autograd`, `cpu`/`gpu` contexts) with
+the vision model zoo's ResNets and the fused conv3x3 + BN + ReLU kernels
+(`ops.fused_conv`, inference and training); and Gluon training: the
+autograd tape, losses, `optimizer` (SGD, Adam, with the flat update
+kernels of `ops.fused_optimizer`), `lr_scheduler`, `gluon.Trainer` and
+`gluon.FusedTrainStep`:
 
     import mxnet_tpu_torch as mx
     net = mx.gluon.model_zoo.vision.resnet50_v1(layout="NHWC")
     net.load_parameters("resnet50.params")
     net.cast("bfloat16")
     logits = net(x)           # x: an NDArray on gpu(0), the default
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                               {"learning_rate": 0.1, "momentum": 0.9})
+    step = mx.gluon.FusedTrainStep(
+        net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), trainer)
+    loss = step(x, y)         # one training step
 """
 from __future__ import annotations
 
-from . import (autograd, base, context, gluon, initializer, io, models,
-               name, ndarray, ops, parallel, random, serve, telemetry, util)
+from . import (autograd, base, context, gluon, initializer, io,
+               lr_scheduler, models, name, ndarray, ops, optimizer,
+               parallel, random, serve, telemetry, util)
 from . import initializer as init
 from . import ndarray as nd
+from . import optimizer as opt
 from .base import MXNetError, resolve_device
 from .context import Context, cpu, current_context, gpu
 
 __version__ = "0.1.0"
 
 __all__ = ["autograd", "base", "context", "gluon", "init", "initializer",
-           "io", "models", "name", "nd", "ndarray", "ops", "parallel",
-           "random", "serve", "telemetry", "util", "Context", "cpu", "gpu",
-           "current_context", "MXNetError", "resolve_device"]
+           "io", "lr_scheduler", "models", "name", "nd", "ndarray", "ops",
+           "opt", "optimizer", "parallel", "random", "serve", "telemetry",
+           "util", "Context", "cpu", "gpu", "current_context", "MXNetError",
+           "resolve_device"]

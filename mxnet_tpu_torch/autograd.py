@@ -1,17 +1,30 @@
-"""Autograd mode state (the port of the part of `mxnet_tpu.autograd` that
-inference reads): `is_training`, `is_recording`, and the `record`,
-`pause`, `train_mode` and `predict_mode` scopes, per thread.
+"""Autograd (the port of `mxnet_tpu.autograd`): the mode state
+(`is_training`, `is_recording`, and the `record`, `pause`, `train_mode` and
+`predict_mode` scopes, per thread) and the tape, which is torch.autograd.
 
-Gradients come with the Gluon training slice: until then `backward` and
-`mark_variable` raise NotImplementedError.
+Recording means that torch records: `ndarray.invoke` runs an op with
+torch's grad mode on exactly when `is_recording()` and the op is
+`differentiable`, and `mark_variable` makes an array's tensor a leaf that
+requires grad. `backward` asks torch for the gradients of the heads with
+respect to every live marked array and writes them into the arrays'
+`.grad` buffers by `grad_req` ("write" overwrites, "add" accumulates);
+`grad` returns them without touching the buffers. An array that took no
+part in the graph keeps its buffer as it was, as in the reference.
+
+Not ported yet: `Function` (custom ops with a hand-written backward) and
+the reference's grad-ready hooks (they feed the readiness-ordered
+kvstore, which comes with the communication slice).
 """
 from __future__ import annotations
 
 import threading
+import weakref
+
+import torch
 
 __all__ = ["is_recording", "is_training", "set_recording", "set_training",
            "record", "pause", "train_mode", "predict_mode", "backward",
-           "mark_variable"]
+           "grad", "mark_variable"]
 
 _state = threading.local()
 
@@ -82,15 +95,109 @@ def predict_mode():
     return _RecordingStateScope(None, False)
 
 
-def _not_yet(name):
-    raise NotImplementedError(
-        "autograd.%s: gradients come with the port's Gluon training slice"
-        % name)
-
-
-def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
-    _not_yet("backward")
+# arrays marked by `mark_variable` (attach_grad, Parameter gradients) that
+# are still alive: the leaves `backward` differentiates with respect to
+_marked = weakref.WeakSet()
 
 
 def mark_variable(nd, grad_req="write"):
-    _not_yet("mark_variable")
+    """Make `nd` a variable of the tape with `grad_req` (reference:
+    Imperative::MarkVariables): its tensor becomes a leaf that requires
+    grad (the same storage), or stops requiring it for "null"."""
+    if grad_req not in ("write", "add", "null"):
+        raise ValueError("grad_req must be write/add/null, got %s" % grad_req)
+    nd._grad_req = grad_req
+    t = nd._data.detach()
+    if grad_req == "null":
+        _marked.discard(nd)
+    else:
+        if not t.is_floating_point():
+            raise ValueError("mark_variable: only floating arrays take "
+                             "gradients, got %s" % t.dtype)
+        t.requires_grad_(True)
+        _marked.add(nd)
+    nd._data = t
+
+
+def _heads_and_cots(heads, head_grads):
+    heads = heads if isinstance(heads, (list, tuple)) else [heads]
+    if head_grads is None:
+        head_grads = [None] * len(heads)
+    elif not isinstance(head_grads, (list, tuple)):
+        head_grads = [head_grads]
+    outs, cots = [], []
+    for h, hg in zip(heads, head_grads):
+        t = h._data
+        if not t.requires_grad:
+            continue      # not recorded: contributes nothing
+        if hg is None:
+            cot = torch.ones_like(t)
+        else:
+            cot = hg._data if hasattr(hg, "_data") else torch.as_tensor(hg)
+            cot = cot.to(t.device, t.dtype)
+        outs.append(t)
+        cots.append(cot)
+    return outs, cots
+
+
+def _write_leaf_grad(nd, cot):
+    """Write one leaf's gradient into its `.grad` buffer: "write"
+    overwrites, "add" accumulates."""
+    from .ndarray.ndarray import zeros
+    if nd._grad is None:
+        nd._grad = zeros(nd.shape, ctx=nd._ctx, dtype=nd.dtype)
+    buf = nd._grad._data
+    with torch.no_grad():
+        if nd._grad_req == "add":
+            buf.add_(cot.to(buf.dtype))
+        else:
+            buf.copy_(cot)
+
+
+def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
+    """Gradients of `heads` (cotangents `head_grads`, default ones) into the
+    `.grad` buffers of the marked arrays the heads depend on (reference:
+    autograd.backward)."""
+    outs, cots = _heads_and_cots(heads, head_grads)
+    if not outs:
+        return
+    leaves = [nd for nd in list(_marked)
+              if nd._grad_req != "null" and nd._data.requires_grad]
+    if not leaves:
+        return
+    grads = torch.autograd.grad(outs, [nd._data for nd in leaves], cots,
+                                retain_graph=retain_graph, allow_unused=True)
+    for nd, g in zip(leaves, grads):
+        if g is not None:
+            _write_leaf_grad(nd, g)
+
+
+def grad(heads, variables, head_grads=None, retain_graph=None,
+         create_graph=False, train_mode=True):
+    """Gradients of `heads` with respect to `variables` (reference:
+    autograd.grad); the variables' `.grad` buffers are not touched. With
+    `create_graph` the gradients are recorded themselves. A variable the
+    heads do not depend on gets zeros."""
+    from .ndarray.ndarray import NDArray
+    single = not isinstance(variables, (list, tuple))
+    variables = [variables] if single else list(variables)
+    if retain_graph is None:
+        retain_graph = create_graph
+    outs, cots = _heads_and_cots(heads, head_grads)
+    live = [v for v in variables if v._data.requires_grad]
+    got = {}
+    if outs and live:
+        grads = torch.autograd.grad(outs, [v._data for v in live], cots,
+                                    retain_graph=retain_graph,
+                                    create_graph=create_graph,
+                                    allow_unused=True)
+        got = {id(v): g for v, g in zip(live, grads) if g is not None}
+    res = []
+    for v in variables:
+        g = got.get(id(v))
+        if g is None:
+            g = torch.zeros_like(v._data, requires_grad=False)
+        elif not create_graph:
+            g = g.detach()
+        res.append(NDArray(g.to(v._data.dtype), ctx=v._ctx))
+    return res[0] if single else res

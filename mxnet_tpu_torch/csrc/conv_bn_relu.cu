@@ -34,6 +34,21 @@
 // stages are operations bound. This version stages each tile with all threads
 // and then computes (no cp.async/TMA pipeline, no wgmma), so it runs at the
 // mma.sync issue rate with load latency exposed; those are later steps.
+//
+// Training variant (mx_conv_bn_stats). Replaces the TPU kernel
+// mxnet_tpu/ops/fused_conv.py::_kernel_train (launched by _pallas_conv_stats):
+// the same implicit GEMM (the kernels below are templated on STATS), whose
+// epilogue writes the conv output rounded once to x's type, with no
+// scale/shift/ReLU, and, from the fp32 accumulator (not the rounded output),
+// each block's per-channel partial sum and sum of squares over its 64 rows
+// into an fp32 scratch (n_mtiles, 2, Cout). Rows past M are masked. The TPU
+// kernel carried one image per grid step and summed the partials on the host
+// side of the call; here a second small launch (stats_col_sum_kernel) sums the
+// partials over the tiles in a fixed order, so the statistics are the same on
+// every run (no atomics). It adds one fp32 write and read of (n_mtiles, 2,
+// Cout), 1/32 of the conv output's bytes in bf16 at Cout = 64; the GEMM
+// still bounds it. The batch mean/variance and the normalize + ReLU pass are
+// plain PyTorch in the wrapper, as they were plain XLA on the TPU.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -85,15 +100,21 @@ __device__ __forceinline__ void decode_rows(int* sN, int* sH, int* sW, int m0,
   }
 }
 
+// STATS = false: the inference epilogue (scale, shift, residual, ReLU).
+// STATS = true: the training epilogue (the conv output as is, and the
+// block's per-channel partial sums into partial[blockIdx.x][2][Cout]).
+template <bool STATS>
 __global__ void __launch_bounds__(MMA_THREADS)
     cbr_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
                    const float* __restrict__ scale,
                    const float* __restrict__ shift,
-                   const bf16* __restrict__ res, bf16* __restrict__ out, int M,
-                   int H, int W, int C, int Cout) {
+                   const bf16* __restrict__ res, bf16* __restrict__ out,
+                   float* __restrict__ partial, int M, int H, int W, int C,
+                   int Cout) {
   __shared__ __align__(16) bf16 sA[BM * LDS];   // [pixel][k]
   __shared__ __align__(16) bf16 sB[BN * LDS];   // [cout][k]
   __shared__ int sN[BM], sH[BM], sW[BM];
+  __shared__ float sStat[2][2][BN];             // [warp row][sum, sumsq][col]
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -181,8 +202,71 @@ __global__ void __launch_bounds__(MMA_THREADS)
     }
   }
 
-  // epilogue on the fp32 accumulator: scale, shift, residual, ReLU, round
   const bool pairs = (Cout % 2) == 0;
+  if (STATS) {
+    // training epilogue: the conv output rounded once, and per-channel
+    // partial sums of the fp32 accumulator over this block's valid rows
+    float ps[4][2], pq[4][2];
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) ps[nt][j] = pq[nt][j] = 0.f;
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int co = n0 + wn + nt * 8 + 2 * gc;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int row = m0 + wm + mt * 16 + gr + 8 * half;
+          if (row >= M) continue;
+          const size_t o = (size_t)row * Cout + co;
+          const float v0 = acc[mt][nt][2 * half];
+          const float v1 = acc[mt][nt][2 * half + 1];
+          ps[nt][0] += v0;
+          pq[nt][0] += v0 * v0;
+          ps[nt][1] += v1;
+          pq[nt][1] += v1 * v1;
+          if (pairs && co + 1 < Cout) {
+            *reinterpret_cast<__nv_bfloat162*>(out + o) =
+                __floats2bfloat162_rn(v0, v1);
+          } else {
+            if (co < Cout) out[o] = __float2bfloat16(v0);
+            if (co + 1 < Cout) out[o + 1] = __float2bfloat16(v1);
+          }
+        }
+      }
+    // sum over the 8 fragment rows of the warp (lanes gr*4 + gc)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1) {
+          ps[nt][j] += __shfl_xor_sync(0xffffffffu, ps[nt][j], off);
+          pq[nt][j] += __shfl_xor_sync(0xffffffffu, pq[nt][j], off);
+        }
+    if (gr == 0) {
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          sStat[warp >> 1][0][wn + nt * 8 + 2 * gc + j] = ps[nt][j];
+          sStat[warp >> 1][1][wn + nt * 8 + 2 * gc + j] = pq[nt][j];
+        }
+    }
+    __syncthreads();
+    for (int c = tid; c < BN; c += MMA_THREADS) {
+      if (n0 + c >= Cout) continue;
+      float* p = partial + (size_t)blockIdx.x * 2 * Cout + n0 + c;
+      p[0] = sStat[0][0][c] + sStat[1][0][c];
+      p[Cout] = sStat[0][1][c] + sStat[1][1][c];
+    }
+    return;
+  }
+
+  // inference epilogue on the fp32 accumulator: scale, shift, residual,
+  // ReLU, round
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
@@ -227,15 +311,18 @@ constexpr int FK = 16;            // input channels per staged chunk
 constexpr int FMA_THREADS = 256;  // 16 x 16 threads, 4 x 4 outputs each
 constexpr int LDF = BM + 4;       // k-major rows, float4-aligned
 
+template <bool STATS>
 __global__ void __launch_bounds__(FMA_THREADS)
     cbr_fma_kernel(const float* __restrict__ x, const float* __restrict__ w,
                    const float* __restrict__ scale,
                    const float* __restrict__ shift,
                    const float* __restrict__ res, float* __restrict__ out,
-                   int M, int H, int W, int C, int Cout) {
+                   float* __restrict__ partial, int M, int H, int W, int C,
+                   int Cout) {
   __shared__ __align__(16) float sA[FK * LDF];   // [k][pixel]
   __shared__ __align__(16) float sB[FK * LDF];   // [k][cout]
   __shared__ int sN[BM], sH[BM], sW[BM];
+  __shared__ float sStat[16][2][BN];             // [thread row][sum, sq][col]
 
   const int tid = threadIdx.x;
   const int ty = tid >> 4, tx = tid & 15;
@@ -285,6 +372,40 @@ __global__ void __launch_bounds__(FMA_THREADS)
     }
   }
 
+  if (STATS) {
+    float ps[4] = {0.f, 0.f, 0.f, 0.f}, pq[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = m0 + ty * 4 + i;
+      if (row >= M) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int co = n0 + tx * 4 + j;
+        ps[j] += acc[i][j];
+        pq[j] += acc[i][j] * acc[i][j];
+        if (co < Cout) out[(size_t)row * Cout + co] = acc[i][j];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      sStat[ty][0][tx * 4 + j] = ps[j];
+      sStat[ty][1][tx * 4 + j] = pq[j];
+    }
+    __syncthreads();
+    for (int c = tid; c < BN; c += FMA_THREADS) {
+      if (n0 + c >= Cout) continue;
+      float s = 0.f, q = 0.f;
+      for (int r = 0; r < 16; ++r) {
+        s += sStat[r][0][c];
+        q += sStat[r][1][c];
+      }
+      float* p = partial + (size_t)blockIdx.x * 2 * Cout + n0 + c;
+      p[0] = s;
+      p[Cout] = q;
+    }
+    return;
+  }
+
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = m0 + ty * 4 + i;
@@ -298,6 +419,27 @@ __global__ void __launch_bounds__(FMA_THREADS)
       if (res != nullptr) v += res[o];
       out[o] = fmaxf(v, 0.f);
     }
+  }
+}
+
+// sums[c] = sum over t of partial[t][c], c < cols, t in order: 32 columns
+// x 32 tile lanes per block, each lane striding over the tiles, then the 32
+// lane sums added in a fixed order
+__global__ void __launch_bounds__(1024)
+    stats_col_sum_kernel(const float* __restrict__ partial, float* __restrict__ sums,
+                   int tiles, int cols) {
+  __shared__ float sPart[32][33];
+  const int c = blockIdx.x * 32 + threadIdx.x;
+  float acc = 0.f;
+  if (c < cols)
+    for (int t = threadIdx.y; t < tiles; t += 32)
+      acc += partial[(size_t)t * cols + c];
+  sPart[threadIdx.y][threadIdx.x] = acc;
+  __syncthreads();
+  if (threadIdx.y == 0 && c < cols) {
+    float s = 0.f;
+    for (int r = 0; r < 32; ++r) s += sPart[r][threadIdx.x];
+    sums[c] = s;
   }
 }
 
@@ -318,18 +460,50 @@ int mx_conv_bn_relu(const void* x, const void* w, const void* scale,
   const float* sc = static_cast<const float*>(scale);
   const float* sh = static_cast<const float*>(shift);
   if (dtype == 1) {
-    cbr_mma_kernel<<<grid, MMA_THREADS, 0, s>>>(
+    cbr_mma_kernel<false><<<grid, MMA_THREADS, 0, s>>>(
         static_cast<const bf16*>(x), static_cast<const bf16*>(w), sc, sh,
-        static_cast<const bf16*>(residual), static_cast<bf16*>(out), M, H, W,
-        C, Cout);
+        static_cast<const bf16*>(residual), static_cast<bf16*>(out), nullptr,
+        M, H, W, C, Cout);
   } else if (dtype == 0) {
-    cbr_fma_kernel<<<grid, FMA_THREADS, 0, s>>>(
+    cbr_fma_kernel<false><<<grid, FMA_THREADS, 0, s>>>(
         static_cast<const float*>(x), static_cast<const float*>(w), sc, sh,
-        static_cast<const float*>(residual), static_cast<float*>(out), M, H,
-        W, C, Cout);
+        static_cast<const float*>(residual), static_cast<float*>(out),
+        nullptr, M, H, W, C, Cout);
   } else {
     return (int)cudaErrorInvalidValue;
   }
+  return (int)cudaGetLastError();
+}
+
+// Training forward: out = conv3x3_same(x, w) rounded once to x's dtype, and
+// sums (2, Cout) fp32 = per-channel sum and sum of squares of the fp32
+// accumulator over the N*H*W rows. partial is fp32 scratch of
+// ceil(N*H*W / 64) * 2 * Cout elements. Two launches on `stream`; returns
+// the first launch error (0 on success).
+int mx_conv_bn_stats(const void* x, const void* w, void* out, void* partial,
+                     void* sums, int N, int H, int W, int C, int Cout,
+                     int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int M = N * H * W;
+  const int tiles = (M + BM - 1) / BM;
+  const dim3 grid(tiles, (Cout + BN - 1) / BN);
+  float* part = static_cast<float*>(partial);
+  if (dtype == 1) {
+    cbr_mma_kernel<true><<<grid, MMA_THREADS, 0, s>>>(
+        static_cast<const bf16*>(x), static_cast<const bf16*>(w), nullptr,
+        nullptr, nullptr, static_cast<bf16*>(out), part, M, H, W, C, Cout);
+  } else if (dtype == 0) {
+    cbr_fma_kernel<true><<<grid, FMA_THREADS, 0, s>>>(
+        static_cast<const float*>(x), static_cast<const float*>(w), nullptr,
+        nullptr, nullptr, static_cast<float*>(out), part, M, H, W, C, Cout);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int cols = 2 * Cout;
+  stats_col_sum_kernel<<<(cols + 31) / 32, dim3(32, 32), 0, s>>>(
+      part, static_cast<float*>(sums), tiles, cols);
   return (int)cudaGetLastError();
 }
 

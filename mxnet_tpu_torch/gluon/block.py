@@ -6,10 +6,14 @@ Kept from the reference: child registration by attribute, prefix scoping
 `initialize`, and the `hybrid_forward(F, x, *args, **params)` calling
 convention with deferred parameter shapes resolved from the first input.
 
+Auxiliary states (BatchNorm's running statistics) change through
+`record_aux_update`: written at once outside the graph, or collected while
+a `FusedTrainStep` runs and written after its update.
+
 Deviation: `hybridize` records its flags and the forward stays eager. The
 reference traces the block into one compiled program (its CachedOp); the
-port's counterpart, graph capture, comes with `FusedTrainStep` in the
-training slice.
+port's counterpart, capturing the training step as one CUDA graph, is
+later work.
 """
 from __future__ import annotations
 
@@ -18,10 +22,31 @@ import threading
 import warnings
 from collections import OrderedDict
 
+import torch
+
 from .. import ndarray as nd
 from .parameter import DeferredInitializationError, Parameter, ParameterDict
 
-__all__ = ["Block", "HybridBlock"]
+__all__ = ["Block", "HybridBlock", "record_aux_update"]
+
+# per thread: a stack of lists that collect (aux array, new value) pairs
+# while a FusedTrainStep runs its forward
+_AUX_COLLECTOR = threading.local()
+
+
+def record_aux_update(aux_nd, new_value):
+    """Set an auxiliary state (e.g. BatchNorm's running mean) to
+    `new_value`, a tensor computed from detached statistics. Outside a
+    `FusedTrainStep` it is written at once, under ``torch.no_grad()``, so
+    the running statistics never enter the graph; inside one the update is
+    collected and written after the step (reference:
+    `gluon.block.record_aux_update`)."""
+    stack = getattr(_AUX_COLLECTOR, "stack", None)
+    if stack:
+        stack[-1].append((aux_nd, new_value))
+        return
+    with torch.no_grad():
+        aux_nd._data.copy_(new_value)
 
 
 class _BlockScope:
@@ -290,7 +315,7 @@ class HybridBlock(Block):
     def hybridize(self, active=True, static_alloc=False, static_shape=False,
                   **kwargs):
         """Record the flags, here and in the children. The forward stays
-        eager in the port (graph capture comes with `FusedTrainStep`)."""
+        eager in the port."""
         self._active = active
         self._flags = dict(static_alloc=static_alloc,
                            static_shape=static_shape, **kwargs)

@@ -3,10 +3,15 @@
 
 Both run `_contrib_conv_bn_relu` in inference: on a GPU context the
 hand-written kernel of ``csrc/conv_bn_relu.cu`` (conv, folded BN, ReLU and
-residual in one pass), on a CPU context its plain version. Layout NHWC,
-stride 1, SAME padding: every interior ResNet bottleneck conv.
+residual in one pass), on a CPU context its plain version. In training,
+FusedConvBNReLUTrain runs `_contrib_conv_bn_relu_train` (the batch
+statistics kernel forward, the BN + ReLU backward kernel) and moves its
+running statistics. Layout NHWC, stride 1, SAME padding: every interior
+ResNet bottleneck conv.
 """
 from __future__ import annotations
+
+import torch
 
 from ....base import dtype_name
 from ...block import HybridBlock
@@ -86,9 +91,9 @@ class FusedConvBNReLUTrain(HybridBlock):
     weight (3,3,Cin,Cout) HWIO, gamma, beta, running_mean, running_var.
 
     Inference folds the running statistics and runs `_contrib_conv_bn_relu`
-    (the kernel on a card). Training (the batch-statistics and backward
-    kernels) comes with the port's Gluon training slice and raises
-    NotImplementedError until then. Call as `block(x)` or
+    (the kernel on a card). Training runs `_contrib_conv_bn_relu_train`
+    with the batch's statistics and moves the running statistics to ``m *
+    old + (1 - m) * batch`` (`record_aux_update`). Call as `block(x)` or
     `block(x, residual)`.
     """
 
@@ -125,16 +130,23 @@ class FusedConvBNReLUTrain(HybridBlock):
         from .... import autograd
         from ....ndarray import NDArray
         from ....ops.fused_conv import fold_bn_params
-        if autograd.is_training():
-            raise NotImplementedError(
-                "FusedConvBNReLUTrain in training mode (kernels #5/#6 of "
-                "mxnet_tpu/ops/fused_conv.py) comes with the port's Gluon "
-                "training slice")
-        scale, shift = fold_bn_params(
-            gamma.data_torch, beta.data_torch, running_mean.data_torch,
-            running_var.data_torch, eps=self._epsilon)
-        args = [x, weight, NDArray(scale, x.context),
-                NDArray(shift, x.context)]
+        from ...nn.basic_layers import update_running_stats
+        args = [x, weight]
+        if not autograd.is_training():
+            with torch.no_grad():
+                scale, shift = fold_bn_params(
+                    gamma.data_torch, beta.data_torch,
+                    running_mean.data_torch, running_var.data_torch,
+                    eps=self._epsilon)
+            args += [NDArray(scale, x.context), NDArray(shift, x.context)]
+            if residual is not None:
+                args.append(residual)
+            return F.contrib.conv_bn_relu(*args)
+        args += [gamma, beta]
         if residual is not None:
             args.append(residual)
-        return F.contrib.conv_bn_relu(*args)
+        out, mean, var = F.contrib.conv_bn_relu_train(*args,
+                                                      eps=self._epsilon)
+        update_running_stats(running_mean, running_var, mean, var,
+                             self._momentum)
+        return out

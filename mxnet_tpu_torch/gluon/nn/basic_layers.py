@@ -3,12 +3,26 @@ that the ResNets use): Sequential, HybridSequential, Dense, BatchNorm,
 Flatten. Same parameter names and deferred shapes as the reference."""
 from __future__ import annotations
 
+import torch
+
 from ...base import dtype_name
-from ..block import Block, HybridBlock, _indent
+from ..block import Block, HybridBlock, _indent, record_aux_update
 from .activations import Activation
 
 __all__ = ["Sequential", "HybridSequential", "Dense", "BatchNorm",
            "Flatten"]
+
+
+def update_running_stats(running_mean, running_var, mean, var, momentum):
+    """running <- running * m + batch * (1 - m), from the batch statistics
+    cut from the graph, in the running statistics' dtype (reference:
+    BatchNorm.hybrid_forward)."""
+    m = momentum
+    with torch.no_grad():
+        for run, batch in ((running_mean, mean), (running_var, var)):
+            cur = run.data_torch
+            record_aux_update(run, cur * m + batch.data_torch.detach().to(
+                cur.dtype) * (1 - m))
 
 
 class _SequentialMixin:
@@ -107,7 +121,8 @@ class Dense(HybridBlock):
 class BatchNorm(HybridBlock):
     """Batch normalization with moving statistics. Inference (and
     `use_global_stats`) normalizes with the moving statistics; training
-    comes with the port's Gluon training slice."""
+    with the batch's, and moves the running statistics to ``m * old +
+    (1 - m) * batch`` through `record_aux_update`."""
 
     def __init__(self, axis=1, momentum=0.9, epsilon=1e-5, center=True,
                  scale=True, use_global_stats=False, beta_initializer="zeros",
@@ -118,6 +133,7 @@ class BatchNorm(HybridBlock):
         self._kwargs = {"axis": axis, "eps": epsilon, "momentum": momentum,
                         "fix_gamma": not scale}
         self._axis = axis
+        self._momentum = momentum
         self._use_global_stats = use_global_stats
         with self.name_scope():
             self.gamma = self.params.get(
@@ -151,13 +167,15 @@ class BatchNorm(HybridBlock):
 
     def hybrid_forward(self, F, x, gamma, beta, running_mean, running_var):
         from ... import autograd
-        if autograd.is_training() and not self._use_global_stats:
-            raise NotImplementedError(
-                "BatchNorm in training mode (batch statistics and the "
-                "running-stat update) comes with the port's Gluon training "
-                "slice")
-        return F.BatchNorm(x, gamma, beta, running_mean, running_var,
-                           use_global_stats=True, **self._kwargs)
+        if self._use_global_stats or not autograd.is_training():
+            return F.BatchNorm(x, gamma, beta, running_mean, running_var,
+                               use_global_stats=True, **self._kwargs)
+        out, mean, var = F.BatchNorm(x, gamma, beta, running_mean,
+                                     running_var, output_mean_var=True,
+                                     **self._kwargs)
+        update_running_stats(running_mean, running_var, mean, var,
+                             self._momentum)
+        return out
 
 
 class Flatten(HybridBlock):

@@ -4,8 +4,10 @@
 Kept from the reference: deferred shape initialization (0-dims resolved on
 the first forward), per-context copies, shared parameters through
 ParameterDict prefixes, the `.params` load rules (shape and dtype checks,
-`cast_dtype`). Gradient buffers come with the training slice: `grad_req`
-is validated and kept, but no gradient is allocated yet.
+`cast_dtype`), gradient buffers by `grad_req` ("write" overwrites, "add"
+accumulates, "null" has none): each context's data array is marked as a
+variable of the tape (`autograd.mark_variable`) with a zero buffer of its
+shape and dtype beside it, which `autograd.backward` fills.
 
 Deviation: a parameter that is loaded or initialized without a context
 goes to the current context (`gpu(0)` by default), not to `cpu(0)`; see
@@ -17,7 +19,9 @@ from collections import OrderedDict
 
 import numpy as np
 
-from .. import initializer
+import torch
+
+from .. import autograd, initializer
 from .. import ndarray as nd
 from ..base import MXNetError, dtype_name
 from ..context import Context, cpu, current_context
@@ -37,6 +41,7 @@ class Parameter:
                  lr_mult=1.0, wd_mult=1.0, init=None,
                  allow_deferred_init=False, differentiable=True):
         self._data = None          # OrderedDict[Context, NDArray]
+        self._grad = None          # OrderedDict[Context, NDArray] or None
         self._deferred_init = ()
         self.name = name
         self._differentiable = differentiable
@@ -63,7 +68,13 @@ class Parameter:
     def grad_req(self, req):
         if req not in ("write", "add", "null"):
             raise ValueError("grad_req must be write/add/null, got %s" % req)
-        self._grad_req = req if self._differentiable else "null"
+        if not self._differentiable:
+            req = "null"
+        if self._grad_req == req:
+            return
+        self._grad_req = req
+        if self._data is not None:
+            self._init_grad()
 
     @property
     def shape(self):
@@ -175,6 +186,23 @@ class Parameter:
             data = nd.array(np.asarray(data), dtype=self.dtype, ctx=cpu())
         self._data = OrderedDict(
             (ctx, data.copyto(ctx)) for ctx in ctx_list)
+        self._init_grad()
+
+    def _init_grad(self):
+        """A zero gradient buffer beside each context's data, and the data
+        marked as a variable of the tape (or unmarked for "null")."""
+        if self.grad_req == "null":
+            self._grad = None
+            for d in self._data.values():
+                d._grad = None
+                autograd.mark_variable(d, "null")
+            return
+        self._grad = OrderedDict()
+        for ctx, d in self._data.items():
+            g = nd.zeros(d.shape, dtype=dtype_name(d._data.dtype), ctx=ctx)
+            self._grad[ctx] = g
+            d._grad = g
+            autograd.mark_variable(d, self.grad_req)
 
     def _reduce(self):
         """The data on the host (used by save); the mean over contexts
@@ -231,6 +259,30 @@ class Parameter:
     def data(self, ctx=None):
         return self._check_and_get(self._data, ctx)
 
+    def list_data(self):
+        return self._check_and_get(self._data, list)
+
+    def grad(self, ctx=None):
+        if self._data is not None and self._grad is None:
+            raise RuntimeError(
+                "Cannot get gradient array for Parameter '%s' because "
+                "grad_req='null'" % self.name)
+        return self._check_and_get(self._grad, ctx)
+
+    def list_grad(self):
+        if self._data is not None and self._grad is None:
+            raise RuntimeError(
+                "Cannot get gradient array for Parameter '%s' because "
+                "grad_req='null'" % self.name)
+        return self._check_and_get(self._grad, list)
+
+    def zero_grad(self):
+        if self._grad is None:
+            return
+        with torch.no_grad():
+            for g in self._grad.values():
+                g._data.zero_()
+
     def list_ctx(self):
         if self._data is None:
             if self._deferred_init:
@@ -246,6 +298,7 @@ class Parameter:
             return
         self._data = OrderedDict(
             (c, d.astype(self.dtype)) for c, d in self._data.items())
+        self._init_grad()
 
 
 class Constant(Parameter):
@@ -354,6 +407,10 @@ class ParameterDict:
             init = initializer.Uniform()
         for v in self.values():
             v.initialize(None, ctx, init, force_reinit=force_reinit)
+
+    def zero_grad(self):
+        for v in self.values():
+            v.zero_grad()
 
     def load(self, filename, ctx=None, allow_missing=False,
              ignore_extra=False, restore_prefix="", cast_dtype=False,

@@ -7,6 +7,7 @@ import types as _types
 
 from ..ops import fused_conv as _fused_conv  # noqa: F401 (registers ops)
 from ..ops import nn as _nn  # noqa: F401
+from ..ops import optimizer_ops as _optimizer_ops  # noqa: F401
 from ..ops import registry as _reg
 from ..ops import tensor as _tensor  # noqa: F401
 from . import register as _register

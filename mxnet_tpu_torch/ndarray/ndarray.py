@@ -3,8 +3,12 @@
 An `NDArray` holds a tensor and the `Context` it lives on. Ops run eagerly
 through `invoke`, which unwraps the arrays, picks the op's implementation
 for the context (`Operator.best_fn`: the hand-written kernel on a GPU) and
-wraps the result. There is no async engine, no poisoned outputs and no
-autograd tape yet (the tape comes with the Gluon training slice).
+wraps the result. There is no async engine and no poisoned outputs. The
+autograd tape is torch.autograd (`mxnet_tpu_torch.autograd`): `invoke`
+runs an op with torch's grad mode on only under `autograd.record()` and
+only for ops the registry marks `differentiable`, so arrays used outside a
+recording build no graph; `attach_grad`, `.grad`, `.backward()` and
+`detach()` are the reference's.
 
 Deviation from the reference: numpy has no bfloat16 without ml_dtypes, so
 `asnumpy()` of a bfloat16 array returns float32 (exact: every bfloat16 is a
@@ -16,6 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import autograd as _autograd
 from ..base import dtype_name, torch_dtype
 from ..context import Context, context_of, current_context
 from ..ops import registry as _reg
@@ -26,16 +31,19 @@ __all__ = ["NDArray", "invoke", "array", "zeros", "ones", "save", "load"]
 class NDArray:
     """A tensor and its context."""
 
-    __slots__ = ("_data", "_ctx")
+    __slots__ = ("_data", "_ctx", "_grad", "_grad_req", "__weakref__")
 
     def __init__(self, data, ctx=None):
         self._data = data
         self._ctx = ctx or context_of(data.device)
+        self._grad = None
+        self._grad_req = "null"
 
     @property
     def data_torch(self):
-        """The underlying torch.Tensor."""
-        return self._data
+        """The underlying torch.Tensor, cut from the tape (the same
+        storage: in-place writes reach the array)."""
+        return self._data.detach()
 
     @property
     def shape(self):
@@ -72,16 +80,17 @@ class NDArray:
         return t.cpu().numpy()
 
     def copy(self):
-        return NDArray(self._data.clone(), ctx=self._ctx)
+        return NDArray(self._data.detach().clone(), ctx=self._ctx)
 
     def copyto(self, other):
         """Copy into another array (cast to its dtype) or onto a Context."""
         if isinstance(other, NDArray):
-            other._data.copy_(self._data)
+            with torch.no_grad():
+                other._data.copy_(self._data)
             return other
         if isinstance(other, Context):
-            return NDArray(self._data.to(other.torch_device, copy=True),
-                           ctx=other)
+            return NDArray(self._data.detach().to(other.torch_device,
+                                                  copy=True), ctx=other)
         raise TypeError("copyto does not support type " + str(type(other)))
 
     def as_in_context(self, context):
@@ -92,10 +101,50 @@ class NDArray:
     as_in_ctx = as_in_context
 
     def astype(self, dtype, copy=True):
+        """A cast copy; recorded under `autograd.record()`."""
         dt = torch_dtype(dtype)
         if not copy and dt == self._data.dtype:
             return self
-        return NDArray(self._data.to(dt, copy=True), ctx=self._ctx)
+        return invoke("cast", self, dtype=dtype)
+
+    def reshape(self, *shape):
+        if len(shape) == 1 and isinstance(shape[0], (tuple, list)):
+            shape = tuple(shape[0])
+        return invoke("reshape", self, shape=shape)
+
+    def sum(self, axis=None, keepdims=False):
+        return invoke("sum", self, axis=axis, keepdims=keepdims)
+
+    def mean(self, axis=None, keepdims=False):
+        return invoke("mean", self, axis=axis, keepdims=keepdims)
+
+    # -- autograd (reference: NDArray.attach_grad / grad / backward) -------
+    def attach_grad(self, grad_req="write", stype=None):
+        """Give this array a zero gradient buffer and mark it as a variable
+        of the tape."""
+        if stype not in (None, "default"):
+            raise NotImplementedError("attach_grad: sparse gradient buffers "
+                                      "come with the port's sparse slice")
+        self._grad = zeros(self.shape, ctx=self._ctx, dtype=self.dtype)
+        _autograd.mark_variable(self, grad_req)
+
+    @property
+    def grad(self):
+        return self._grad
+
+    def zero_grad(self):
+        if self._grad is not None:
+            with torch.no_grad():
+                self._grad._data.zero_()
+
+    def backward(self, out_grad=None, retain_graph=False, train_mode=True):
+        _autograd.backward([self], [out_grad] if out_grad is not None
+                           else None, retain_graph=retain_graph,
+                           train_mode=train_mode)
+
+    def detach(self):
+        """The same values, cut from the tape."""
+        return NDArray(self._data.detach(), ctx=self._ctx)
 
     def __setitem__(self, key, value):
         """Write in place: a scalar, a numpy array, a tensor or an NDArray,
@@ -106,7 +155,8 @@ class NDArray:
             value = _tensor_from_numpy(value)
         if torch.is_tensor(value):
             value = value.to(self._data.device, self._data.dtype)
-        self._data[key] = value
+        with torch.no_grad():
+            self._data[key] = value
 
     def __add__(self, other):
         return invoke("broadcast_add", self, other)
@@ -127,6 +177,9 @@ class NDArray:
     def __truediv__(self, other):
         return invoke("broadcast_div", self, other)
 
+    def __neg__(self):
+        return invoke("negative", self)
+
 
 def _unwrap(a):
     return a._data if isinstance(a, NDArray) else a
@@ -135,7 +188,8 @@ def _unwrap(a):
 def invoke(op_name, *args, out=None, **kwargs):
     """Run registered op `op_name` on `args` (NDArrays, scalars) in the
     context of the first NDArray argument (else ``ctx=`` or the current
-    context); the GPU context takes the op's CUDA implementation."""
+    context); the GPU context takes the op's CUDA implementation. Torch
+    records the op only under `autograd.record()`."""
     op = _reg.get(op_name)
     ctx = next((a._ctx for a in args if isinstance(a, NDArray)), None)
     if ctx is None:
@@ -143,13 +197,20 @@ def invoke(op_name, *args, out=None, **kwargs):
     else:
         kwargs.pop("ctx", None)
     fn = op.best_fn(ctx.device_type == "gpu")
-    raw = fn(*(_unwrap(a) for a in args), **kwargs)
+    rec = op.differentiable and _autograd.is_recording()
+    if rec == torch.is_grad_enabled():
+        raw = fn(*(_unwrap(a) for a in args), **kwargs)
+    else:
+        with torch.set_grad_enabled(rec):
+            raw = fn(*(_unwrap(a) for a in args), **kwargs)
     outs = [NDArray(r, ctx=ctx) for r in raw] \
         if isinstance(raw, (tuple, list)) else NDArray(raw, ctx=ctx)
     if out is not None:
-        for s, d in zip(outs if isinstance(outs, list) else [outs],
-                        out if isinstance(out, (tuple, list)) else [out]):
-            d._data.copy_(s._data)
+        with torch.no_grad():
+            for s, d in zip(outs if isinstance(outs, list) else [outs],
+                            out if isinstance(out, (tuple, list))
+                            else [out]):
+                d._data.copy_(s._data)
         return out
     return outs
 

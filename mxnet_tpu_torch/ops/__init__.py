@@ -21,6 +21,14 @@ KERNELS = {
                       "mxnet_tpu/parallel/flash_attention.py:245"),
     "conv_bn_relu": ("csrc/conv_bn_relu.cu",
                      "mxnet_tpu/ops/fused_conv.py:75"),
+    "conv_bn_stats": ("csrc/conv_bn_relu.cu",
+                      "mxnet_tpu/ops/fused_conv.py:195"),
+    "cbr_train_bwd": ("csrc/cbr_train_bwd.cu",
+                      "mxnet_tpu/ops/fused_conv.py:341"),
+    "flat_sgd": ("csrc/fused_optimizer.cu",
+                 "mxnet_tpu/ops/fused_optimizer.py:118"),
+    "flat_adam": ("csrc/fused_optimizer.cu",
+                  "mxnet_tpu/ops/fused_optimizer.py:149"),
 }
 
 _launches = dict.fromkeys(KERNELS, 0)

@@ -21,7 +21,7 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "build", "library", "build_log"]
+__all__ = ["BUILD_DIR", "build", "library", "bind", "build_log"]
 
 _PKG = Path(__file__).resolve().parent.parent
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
@@ -100,6 +100,20 @@ def library(name):
         build([name])
         lib = _libs[source]
     return lib
+
+
+def bind(name, symbol, argtypes):
+    """(library, C entry `symbol` of kernel `name`'s library), with the
+    entry typed by `argtypes` and returning an int error code, and the
+    library's ``mx_cuda_error_string`` typed."""
+    lib = library(name)
+    fn = getattr(lib, symbol)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        lib.mx_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.mx_cuda_error_string.restype = ctypes.c_char_p
+    return lib, fn
 
 
 def build_log(source):

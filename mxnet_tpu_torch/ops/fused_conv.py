@@ -1,5 +1,6 @@
-"""Fused conv3x3 + folded-BN + ReLU (+ residual): the inference half of
-`mxnet_tpu.ops.fused_conv`.
+"""Fused conv3x3 + BatchNorm + ReLU (+ residual) (the port of
+`mxnet_tpu.ops.fused_conv`): the inference op with folded BN, and the
+training op with batch statistics and its backward.
 
 Layout NHWC (x), HWIO (w), stride 1, SAME padding: the shape of every
 interior ResNet bottleneck conv. BN is the folded (inference) form,
@@ -10,9 +11,19 @@ version (`_ref_conv_bn_relu`) on a CPU context; on a GPU context its
 (`conv_bn_relu`), which takes every shape, so no shape falls back to the
 composite. A CUDA tensor that the kernel cannot take raises.
 
-The training form (`_contrib_conv_bn_relu_train`, with the batch-statistics
-and backward kernels) comes with the Gluon training slice; it is not
-registered here.
+The training op `_contrib_conv_bn_relu_train(x, w, gamma, beta,
+*residual, eps)` returns (out, batch mean, batch var) through a
+`torch.autograd.Function`. Its forward is `conv_bn_stats` (the kernel of
+``csrc/conv_bn_relu.cu``'s training variant: the conv output and its
+per-channel sum and sum of squares from the fp32 accumulator), then the
+reference's one-pass statistics (``mean = s/M``, ``var = max(sq/M -
+mean^2, 0)``) and the normalize + ReLU pass in plain PyTorch, as they were
+plain XLA in the reference. Its backward is `cbr_train_bwd` (the kernel of
+``csrc/cbr_train_bwd.cu``: dgamma, dbeta, the fp32 dconv and dres), then dx
+and dw from dconv through PyTorch's convolution backward in full fp32 (the
+reference leaves them to XLA's transposed convs, outside any Pallas
+kernel). The mean and var outputs carry no gradient (stop-grad, as the
+reference's running-statistics semantics).
 """
 from __future__ import annotations
 
@@ -22,10 +33,11 @@ import torch
 import torch.nn.functional as F
 
 from . import count_launch
-from ._build import library
+from ._build import bind
 from .registry import get, register
 
-__all__ = ["fold_bn_params", "conv_bn_relu"]
+__all__ = ["fold_bn_params", "conv_bn_relu", "conv_bn_stats",
+           "cbr_train_bwd"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -93,17 +105,19 @@ def _check(x, w, scale, shift, residual):
                          "%d" % (65535 * 64))
 
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
 def _kernel_fn():
-    lib = library("conv_bn_relu")
-    fn = lib.mx_conv_bn_relu
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        # x, w, scale, shift, residual, out, N, H, W, C, Cout, dtype, stream
-        fn.argtypes = [p] * 6 + [i] * 6 + [p]
-        fn.restype = i
-        lib.mx_cuda_error_string.argtypes = [i]
-        lib.mx_cuda_error_string.restype = ctypes.c_char_p
-    return lib, fn
+    # x, w, scale, shift, residual, out, N, H, W, C, Cout, dtype, stream
+    return bind("conv_bn_relu", "mx_conv_bn_relu", [_P] * 6 + [_I] * 6
+                 + [_P])
+
+
+def _raise_on(err, lib, name):
+    if err:
+        raise RuntimeError("%s: launch failed: %s"
+                           % (name, lib.mx_cuda_error_string(err).decode()))
 
 
 def conv_bn_relu(x, w, scale, shift, residual=None):
@@ -131,9 +145,7 @@ def conv_bn_relu(x, w, scale, shift, residual=None):
                  shift.data_ptr(),
                  residual.data_ptr() if residual is not None else None,
                  out.data_ptr(), N, H, W, C, Cout, _DTYPES[x.dtype], stream)
-    if err:
-        raise RuntimeError("conv_bn_relu: launch failed: %s"
-                           % lib.mx_cuda_error_string(err).decode())
+    _raise_on(err, lib, "conv_bn_relu")
     count_launch("conv_bn_relu")
     return out
 
@@ -152,3 +164,224 @@ def _conv_bn_relu_cuda(x, w, scale, shift, *residual):
     return conv_bn_relu(x, w, scale.float().contiguous(),
                         shift.float().contiguous(),
                         residual[0] if residual else None)
+
+
+# ---------------------------------------------------------------------------
+# training form: conv + batch statistics (kernel #5), BN + ReLU backward
+# (kernel #6), and the op's autograd Function
+# ---------------------------------------------------------------------------
+def _ref_conv_bn_stats(x, w):
+    """The plain version of `conv_bn_stats`: the fp32 conv, rounded once to
+    x's dtype, and the per-channel sum and sum of squares of the fp32
+    conv."""
+    acc = _conv3x3_same(x, w)
+    return (acc.to(x.dtype).contiguous(), acc.sum(dim=(0, 1, 2)),
+            (acc * acc).sum(dim=(0, 1, 2)))
+
+
+def _check_common(name, tensors):
+    if any(t.device != tensors[0].device for t in tensors):
+        raise ValueError("%s: inputs on different devices" % name)
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("%s: the kernel takes contiguous inputs" % name)
+
+
+def conv_bn_stats(x, w):
+    """(conv3x3_same(x, w) in x's dtype, per-channel sum, per-channel sum
+    of squares), the sums fp32 and taken from the fp32 accumulator over
+    the N*H*W rows. x (N,H,W,C) NHWC, w (3,3,C,Cout) HWIO, one dtype
+    (float32 or bfloat16). CUDA tensors go through the hand-written kernel,
+    CPU tensors through its plain version; any other device raises."""
+    if x.device.type == "cpu":
+        return _ref_conv_bn_stats(x, w)
+    if x.device.type != "cuda":
+        raise ValueError("conv_bn_stats: no kernel for device %s" % x.device)
+    if x.dim() != 4 or w.dim() != 4 or tuple(w.shape[:2]) != (3, 3) \
+            or w.shape[2] != x.shape[3]:
+        raise ValueError("conv_bn_stats: x must be (N,H,W,C) and w (3,3,C,"
+                         "Cout), got %s %s" % (tuple(x.shape),
+                                               tuple(w.shape)))
+    if x.dtype not in _DTYPES or w.dtype != x.dtype:
+        raise ValueError("conv_bn_stats: the kernel takes float32 or "
+                         "bfloat16 x and w of one dtype, got %s %s"
+                         % (x.dtype, w.dtype))
+    _check_common("conv_bn_stats", [x, w])
+    if any(t.data_ptr() % 16 for t in (x, w)):
+        raise ValueError("conv_bn_stats: the kernel reads 16-byte aligned "
+                         "inputs")
+    N, H, W, C = x.shape
+    Cout = w.shape[3]
+    M = N * H * W
+    if M >= 2 ** 31 or Cout >= 65535 * 64:
+        raise ValueError("conv_bn_stats: N*H*W must be < 2**31 and Cout < "
+                         "%d" % (65535 * 64))
+    out = torch.empty((N, H, W, Cout), dtype=x.dtype, device=x.device)
+    sums = torch.zeros((2, Cout), dtype=torch.float32, device=x.device)
+    if M == 0 or Cout == 0:
+        return out, sums[0], sums[1]
+    partial = torch.empty((-(-M // 64), 2, Cout), dtype=torch.float32,
+                          device=x.device)
+    # x, w, out, partial, sums, N, H, W, C, Cout, dtype, stream
+    lib, fn = bind("conv_bn_stats", "mx_conv_bn_stats",
+                    [_P] * 5 + [_I] * 6 + [_P])
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                 partial.data_ptr(), sums.data_ptr(), N, H, W, C, Cout,
+                 _DTYPES[x.dtype], stream)
+    _raise_on(err, lib, "conv_bn_stats")
+    count_launch("conv_bn_stats")
+    return out, sums[0], sums[1]
+
+
+def _normalize_relu(conv_out, mean, invstd, gamma, beta, residual):
+    """xhat and the pre-ReLU value y in fp32, op by op as the reference's
+    `_normalize_relu`."""
+    xhat = (conv_out.float() - mean) * invstd
+    y = xhat * gamma.float() + beta.float()
+    if residual is not None:
+        y = y + residual.float()
+    return xhat, y
+
+
+def _ref_cbr_train_bwd(conv_out, dy, mean, invstd, gamma, beta,
+                       residual=None):
+    """The plain version of `cbr_train_bwd`: the arithmetic of the
+    reference's `_xla_cbr_bwd`."""
+    g_out = dy.float()
+    xhat, y = _normalize_relu(conv_out, mean, invstd, gamma, beta, residual)
+    g = torch.where(y > 0, g_out, torch.zeros_like(g_out))
+    axes = (0, 1, 2)
+    dbeta = g.sum(dim=axes)
+    dgamma = (g * xhat).sum(dim=axes)
+    dxhat = g * gamma.float()
+    mean_dxhat = dxhat.mean(dim=axes)
+    mean_dxhat_xhat = (dxhat * xhat).mean(dim=axes)
+    dconv = invstd * (dxhat - mean_dxhat - xhat * mean_dxhat_xhat)
+    dres = g.to(residual.dtype) if residual is not None else None
+    return dconv, dgamma, dbeta, dres
+
+
+def cbr_train_bwd(conv_out, dy, mean, invstd, gamma, beta, residual=None):
+    """BatchNorm + ReLU (+ residual) backward: (dconv fp32, dgamma fp32,
+    dbeta fp32, dres in the residual's dtype or None) from the saved conv
+    output, the output's gradient dy (both (N,H,W,Cout), one dtype, float32
+    or bfloat16), mean, invstd, gamma and beta (Cout,) fp32 and the
+    residual. CUDA tensors go through the hand-written kernel (three
+    launches, one count), CPU tensors through its plain version; any other
+    device raises."""
+    if conv_out.device.type == "cpu":
+        return _ref_cbr_train_bwd(conv_out, dy, mean, invstd, gamma, beta,
+                                  residual)
+    if conv_out.device.type != "cuda":
+        raise ValueError("cbr_train_bwd: no kernel for device %s"
+                         % conv_out.device)
+    if conv_out.dim() != 4 or dy.shape != conv_out.shape:
+        raise ValueError("cbr_train_bwd: conv_out and dy must be (N,H,W,"
+                         "Cout) alike, got %s %s" % (tuple(conv_out.shape),
+                                                     tuple(dy.shape)))
+    if conv_out.dtype not in _DTYPES or dy.dtype != conv_out.dtype:
+        raise ValueError("cbr_train_bwd: the kernel takes float32 or "
+                         "bfloat16 conv_out and dy of one dtype, got %s %s"
+                         % (conv_out.dtype, dy.dtype))
+    Cout = conv_out.shape[3]
+    for name, t in (("mean", mean), ("invstd", invstd), ("gamma", gamma),
+                    ("beta", beta)):
+        if tuple(t.shape) != (Cout,) or t.dtype != torch.float32:
+            raise ValueError("cbr_train_bwd: %s must be float32 (%d,), got "
+                             "%s %s" % (name, Cout, t.dtype, tuple(t.shape)))
+    tensors = [conv_out, dy, mean, invstd, gamma, beta]
+    if residual is not None:
+        if residual.shape != conv_out.shape or residual.dtype not in _DTYPES:
+            raise ValueError("cbr_train_bwd: residual must be float32 or "
+                             "bfloat16 of shape %s, got %s %s"
+                             % (tuple(conv_out.shape), residual.dtype,
+                                tuple(residual.shape)))
+        tensors.append(residual)
+    _check_common("cbr_train_bwd", tensors)
+    M = conv_out.numel() // max(Cout, 1)
+    if M >= 2 ** 31:
+        raise ValueError("cbr_train_bwd: N*H*W must be < 2**31")
+    dev = conv_out.device
+    dconv = torch.empty(conv_out.shape, dtype=torch.float32, device=dev)
+    sums = torch.zeros((2, Cout), dtype=torch.float32, device=dev)
+    dres = None if residual is None else torch.empty_like(residual)
+    if M == 0 or Cout == 0:
+        return dconv, sums[1], sums[0], dres
+    partial = torch.empty((-(-M // 256), 2, Cout), dtype=torch.float32,
+                          device=dev)
+    # conv, dy, mean, invstd, gamma, beta, residual, partial, sums, dconv,
+    # dres, M, Cout, dtype, res_dtype, stream
+    lib, fn = bind("cbr_train_bwd", "mx_cbr_train_bwd",
+                    [_P] * 11 + [_I] * 4 + [_P])
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(conv_out.data_ptr(), dy.data_ptr(), mean.data_ptr(),
+                 invstd.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+                 None if residual is None else residual.data_ptr(),
+                 partial.data_ptr(), sums.data_ptr(), dconv.data_ptr(),
+                 None if dres is None else dres.data_ptr(), M, Cout,
+                 _DTYPES[conv_out.dtype],
+                 _DTYPES[residual.dtype] if residual is not None else 0,
+                 stream)
+    _raise_on(err, lib, "cbr_train_bwd")
+    count_launch("cbr_train_bwd")
+    return dconv, sums[1], sums[0], dres
+
+
+def _conv3x3_backward(x, w, dconv):
+    """dx, dw of the fp32 conv3x3 (SAME) from the fp32 dconv (N,H,W,Cout),
+    in full fp32: TF32 stays off for these convs too."""
+    torch.backends.cudnn.allow_tf32 = False
+    x32 = x.permute(0, 3, 1, 2).float()
+    w32 = w.permute(3, 2, 0, 1).float()
+    g = dconv.permute(0, 3, 1, 2)
+    dx = torch.nn.grad.conv2d_input(x32.shape, w32, g, padding=1)
+    dw = torch.nn.grad.conv2d_weight(x32, w32.shape, g, padding=1)
+    return (dx.permute(0, 2, 3, 1).to(x.dtype).contiguous(),
+            dw.permute(2, 3, 1, 0).to(w.dtype).contiguous())
+
+
+class _ConvBNReLUTrain(torch.autograd.Function):
+    """(out, batch mean, batch var) of relu(BN_batch(conv3x3(x, w)) (+
+    residual)); gradients for x, w, gamma, beta and the residual."""
+
+    @staticmethod
+    def forward(ctx, eps, x, w, gamma, beta, residual):
+        x, w = x.contiguous(), w.contiguous()
+        conv_out, s, sq = conv_bn_stats(x, w)
+        M = x.shape[0] * x.shape[1] * x.shape[2]
+        mean = s / M
+        var = torch.clamp_min(sq / M - mean * mean, 0.0)
+        invstd = torch.rsqrt(var + eps)
+        _, y = _normalize_relu(conv_out, mean, invstd, gamma, beta, residual)
+        out = torch.relu(y).to(x.dtype)
+        ctx.save_for_backward(x, w, conv_out, mean, invstd, gamma, beta,
+                              residual)
+        ctx.mark_non_differentiable(mean, var)
+        return out, mean, var
+
+    @staticmethod
+    def backward(ctx, dout, dmean, dvar):
+        # the mean/var cotangents are dropped: running-stat updates are
+        # stop-grad (reference BatchNorm semantics)
+        x, w, conv_out, mean, invstd, gamma, beta, residual = \
+            ctx.saved_tensors
+        res = residual.contiguous() if residual is not None else None
+        dconv, dgamma, dbeta, dres = cbr_train_bwd(
+            conv_out, dout.to(conv_out.dtype).contiguous(), mean, invstd,
+            gamma.float().contiguous(), beta.float().contiguous(), res)
+        dx, dw = _conv3x3_backward(x, w, dconv)
+        return (None, dx, dw, dgamma.to(gamma.dtype), dbeta.to(beta.dtype),
+                dres)
+
+
+@register("_contrib_conv_bn_relu_train", arity=None, num_outputs=3)
+def _conv_bn_relu_train(x, w, gamma, beta, *residual, eps=1e-3):
+    """Training-form fused conv3x3 + BatchNorm + ReLU (+ residual): x
+    (N,H,W,C) NHWC, w (3,3,Cin,Cout) HWIO, gamma/beta (Cout,), optional
+    residual (N,H,W,Cout). Returns (out, batch_mean, batch_var); the caller
+    updates the running statistics from mean/var as BatchNorm does. The
+    kernels run for CUDA tensors (their wrappers pick by device)."""
+    return _ConvBNReLUTrain.apply(eps, x, w, gamma, beta,
+                                  residual[0] if residual else None)

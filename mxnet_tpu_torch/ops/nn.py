@@ -1,6 +1,7 @@
 """Neural-net ops of the ResNet path (the port of the part of
-`mxnet_tpu.ops.nn` that Gluon's ResNet layers call): FullyConnected,
-Convolution, Pooling, BatchNorm, Activation.
+`mxnet_tpu.ops.nn` that Gluon's ResNet layers and losses call):
+FullyConnected, Convolution, Pooling, BatchNorm (inference and training),
+Activation and log_softmax.
 
 They are XLA ops in the reference, outside any Pallas kernel, so they stay
 `torch.nn.functional` calls here. A float32 convolution on the card runs
@@ -13,6 +14,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..base import torch_dtype
 from .registry import alias, register
 
 
@@ -137,8 +139,10 @@ def _batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
                 momentum=0.9, fix_gamma=True, use_global_stats=False,
                 output_mean_var=False, axis=1, cudnn_off=None):
     """Normalization math in fp32, output in the input dtype; with
-    `use_global_stats` the moving statistics, else the batch's (the
-    moving-average update is the caller's)."""
+    `use_global_stats` the moving statistics, else the batch's, with the
+    reference's two-pass variance ``mean((x - mean)^2)`` (the moving-average
+    update is the caller's). `output_mean_var` also returns the statistics
+    used."""
     ax = axis % data.dim()
     red = tuple(i for i in range(data.dim()) if i != ax)
     shape = [1] * data.dim()
@@ -148,7 +152,8 @@ def _batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
         mean, var = moving_mean, moving_var
     else:
         mean = x32.mean(dim=red)
-        var = x32.var(dim=red, unbiased=False)
+        centered = x32 - mean.reshape(shape)
+        var = (centered * centered).mean(dim=red)
     g = torch.ones_like(gamma) if fix_gamma else gamma
     inv = torch.rsqrt(var.float() + eps)
     out = ((x32 - mean.reshape(shape).float()) * inv.reshape(shape)
@@ -168,3 +173,11 @@ def _activation(data, act_type="relu"):
     if act_type not in _ACTIVATIONS:
         raise ValueError("unknown act_type " + act_type)
     return _ACTIVATIONS[act_type](data)
+
+
+@register("log_softmax")
+def _log_softmax(data, axis=-1, temperature=None, dtype=None):
+    """log_softmax in fp32, returned in `dtype` (default the input's)."""
+    x = data if not temperature or temperature == 1.0 else data / temperature
+    out = torch.log_softmax(x.float(), dim=axis)
+    return out.to(torch_dtype(dtype) if dtype else data.dtype)

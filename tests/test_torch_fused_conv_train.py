@@ -1,0 +1,239 @@
+"""The port's training form of the fused conv3x3 + BN + ReLU against the
+JAX package's.
+
+On the CPU the port runs the kernels' plain versions: `_ref_conv_bn_stats`
+(kernel #5: the conv output and its per-channel sum and sum of squares)
+and `_ref_cbr_train_bwd` (kernel #6: dconv, dgamma, dbeta, dres), inside
+the op's autograd Function. The JAX side runs its Pallas kernels
+(`_pallas_conv_stats`, `_pallas_cbr_bwd`) through the interpreter
+(MXNET_FLASH_INTERPRET=1), as tests/test_fused_conv.py does, and its XLA
+paths (`_xla_conv_stats`, `_xla_cbr_bwd`), which also take channel counts
+that are not multiples of 8. Inputs come from numpy with a seed and go to
+both sides. Tolerances, as max |a - b| over max |b|: fp32 1e-5 (the
+summation order only), bf16 2e-2 (both sides round the conv output and
+the gradients to bf16, on either side of a rounding boundary). The CUDA
+kernels run only on a card (`cuda` marker).
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+import mxnet_tpu as jmx
+from mxnet_tpu.ops import fused_conv as jfc
+import mxnet_tpu_torch as mx
+from mxnet_tpu_torch.ops import fused_conv as tfc
+from mxnet_tpu_torch.ops import launch_counts, registry
+
+FP32_REL = 1e-5
+BF16_REL = 2e-2
+EPS = 1e-3
+
+CASES = [
+    # N, H, W, C, Cout
+    (2, 6, 6, 8, 16),
+    (2, 5, 7, 16, 8),
+]
+ODD_CASES = [(2, 5, 5, 3, 12), (2, 7, 6, 20, 36)]
+
+
+@pytest.fixture(autouse=True)
+def _interpret(monkeypatch):
+    monkeypatch.setenv("MXNET_FLASH_INTERPRET", "1")
+
+
+def _inputs(N, H, W, C, Cout, seed=0):
+    rng = np.random.RandomState(seed)
+    x = rng.randn(N, H, W, C).astype(np.float32)
+    w = (rng.randn(3, 3, C, Cout) / np.sqrt(9 * C)).astype(np.float32)
+    gamma = (rng.rand(Cout) + 0.5).astype(np.float32)
+    beta = (rng.randn(Cout) * 0.1).astype(np.float32)
+    res = rng.randn(N, H, W, Cout).astype(np.float32)
+    dy = rng.randn(N, H, W, Cout).astype(np.float32)
+    return x, w, gamma, beta, res, dy
+
+
+def _t(a, dtype):
+    return torch.from_numpy(np.asarray(a, np.float32)).to(
+        getattr(torch, dtype))
+
+
+def _j(a, dtype):
+    return jnp.asarray(np.asarray(a, np.float32)).astype(getattr(jnp, dtype))
+
+
+def _np(a):
+    if torch.is_tensor(a):
+        return a.detach().float().numpy()
+    return np.array(jnp.asarray(a).astype(jnp.float32))
+
+
+def _close(got, want, dtype):
+    got, want = _np(got), _np(want)
+    assert got.shape == want.shape
+    tol = FP32_REL if dtype == "float32" else BF16_REL
+    err = np.abs(got - want).max() if got.size else 0.0
+    assert err <= tol * max(np.abs(want).max(), 1e-30), (err, tol)
+
+
+@pytest.mark.parametrize("route", ["pallas", "xla"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", CASES)
+def test_conv_stats_matches_reference(case, dtype, route):
+    x, w, *_ = _inputs(*case)
+    ref = getattr(jfc, "_%s_conv_stats" % route)(_j(x, dtype), _j(w, dtype))
+    got = tfc._ref_conv_bn_stats(_t(x, dtype), _t(w, dtype))
+    assert got[0].dtype == getattr(torch, dtype)
+    for a, b in zip(got, ref):
+        _close(a, b, dtype)
+
+
+@pytest.mark.parametrize("case", ODD_CASES)
+def test_conv_stats_odd_channels_match_xla(case):
+    x, w, *_ = _inputs(*case)
+    ref = jfc._xla_conv_stats(_j(x, "float32"), _j(w, "float32"))
+    got = tfc._ref_conv_bn_stats(_t(x, "float32"), _t(w, "float32"))
+    for a, b in zip(got, ref):
+        _close(a, b, "float32")
+
+
+def _ref_forward(x, w, gamma, beta, res, dtype):
+    args = [_j(x, dtype), _j(w, dtype), _j(gamma, "float32"),
+            _j(beta, "float32")]
+    if res is not None:
+        args.append(_j(res, dtype))
+    return jfc._conv_bn_relu_train(*args, eps=EPS)
+
+
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", CASES + ODD_CASES)
+def test_train_op_forward_matches_reference(case, dtype, residual):
+    """(out, batch mean, batch var) of the op through mx.nd, against the
+    reference op (its Pallas kernel where the shape takes it, else XLA)."""
+    x, w, gamma, beta, res, _ = _inputs(*case)
+    res = res if residual else None
+    want = _ref_forward(x, w, gamma, beta, res, dtype)
+    ctx = mx.cpu()
+    args = [mx.nd.array(_t(x, dtype), ctx=ctx),
+            mx.nd.array(_t(w, dtype), ctx=ctx), mx.nd.array(gamma, ctx=ctx),
+            mx.nd.array(beta, ctx=ctx)]
+    if res is not None:
+        args.append(mx.nd.array(_t(res, dtype), ctx=ctx))
+    got = mx.nd.contrib.conv_bn_relu_train(*args, eps=EPS)
+    assert got[0].dtype == (dtype if dtype == "bfloat16" else np.float32)
+    for a, b in zip(got, want):
+        _close(a.data_torch, b, dtype)
+
+
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", CASES + ODD_CASES[:1])
+def test_train_op_gradients_match_jax_vjp(case, dtype, residual):
+    """dx, dw, dgamma, dbeta (and dres) through torch.autograd against
+    jax.vjp of the reference op, for the cotangent dy on out (the mean/var
+    outputs carry no gradient on either side)."""
+    x, w, gamma, beta, res, dy = _inputs(*case)
+    has_res = residual
+    jargs = [_j(x, dtype), _j(w, dtype), _j(gamma, "float32"),
+             _j(beta, "float32")] + ([_j(res, dtype)] if has_res else [])
+
+    def f(*a):
+        return jfc._cbr_train(EPS, has_res, *a[:4],
+                              a[4] if has_res else None)[0]
+
+    _, vjp = jax.vjp(f, *jargs)
+    want = vjp(_j(dy, dtype))
+    targs = [_t(x, dtype), _t(w, dtype), _t(gamma, "float32"),
+             _t(beta, "float32")] + ([_t(res, dtype)] if has_res else [])
+    for t in targs:
+        t.requires_grad_(True)
+    out, mean, var = tfc._conv_bn_relu_train(*targs, eps=EPS)
+    assert not mean.requires_grad and not var.requires_grad
+    got = torch.autograd.grad(out, targs, _t(dy, dtype))
+    for a, b, t in zip(got, want, targs):
+        assert a.dtype == t.dtype
+        _close(a, b, dtype)
+
+
+@pytest.mark.parametrize("route", ["pallas", "xla"])
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", CASES)
+def test_plain_backward_matches_reference(case, dtype, residual, route):
+    """The plain cbr_train_bwd against the reference's Pallas kernel
+    (interpreted) and its XLA epilogue, from the same saved tensors."""
+    x, w, gamma, beta, res, dy = _inputs(*case)
+    conv, s, sq = jfc._xla_conv_stats(_j(x, dtype), _j(w, dtype))
+    M = case[0] * case[1] * case[2]
+    mean = s / M
+    var = jnp.maximum(sq / M - mean * mean, 0.0)
+    invstd = jax.lax.rsqrt(var + EPS)
+    jres = _j(res, dtype) if residual else None
+    want = getattr(jfc, "_%s_cbr_bwd" % route)(
+        conv, _j(dy, dtype), mean, invstd, _j(gamma, "float32"),
+        _j(beta, "float32"), jres)
+    got = tfc._ref_cbr_train_bwd(
+        torch.from_numpy(_np(conv)).to(getattr(torch, dtype)),
+        _t(dy, dtype), torch.from_numpy(_np(mean)),
+        torch.from_numpy(_np(invstd)), _t(gamma, "float32"),
+        _t(beta, "float32"), _t(res, dtype) if residual else None)
+    assert got[0].dtype == torch.float32
+    for a, b in zip(got[:3], want[:3]):
+        # dconv, dgamma, dbeta are fp32 on both sides, from the same inputs
+        _close(a, b, "float32")
+    if residual:
+        assert got[3].dtype == getattr(torch, dtype)
+        np.testing.assert_array_equal(_np(got[3]), _np(want[3]))
+    else:
+        assert got[3] is None and want[3] is None
+
+
+def test_train_op_is_registered_differentiable():
+    op = registry.get("_contrib_conv_bn_relu_train")
+    assert op.differentiable and op.num_outputs == 3
+    assert hasattr(mx.nd.contrib, "conv_bn_relu_train")
+
+
+def test_wrappers_refuse_a_device_without_a_kernel():
+    x = torch.zeros(1, 3, 3, 8, device="meta")
+    w = torch.zeros(3, 3, 8, 8, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        tfc.conv_bn_stats(x, w)
+    with pytest.raises(ValueError, match="no kernel"):
+        tfc.cbr_train_bwd(x, x, *(torch.zeros(8, device="meta"),) * 4)
+
+
+def test_cpu_tensors_launch_nothing():
+    x, w, gamma, beta, res, dy = _inputs(*CASES[0])
+    before = launch_counts()
+    tfc.conv_bn_stats(_t(x, "float32"), _t(w, "float32"))
+    assert launch_counts() == before
+
+
+@pytest.mark.cuda
+def test_kernels_match_plain_versions_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    for case in CASES + ODD_CASES:
+        x, w, gamma, beta, res, dy = _inputs(*case)
+        for dtype in ("float32", "bfloat16"):
+            xt, wt = _t(x, dtype).cuda(), _t(w, dtype).cuda()
+            got = tfc.conv_bn_stats(xt, wt)
+            want = tfc._ref_conv_bn_stats(xt, wt)
+            for a, b in zip(got[1:], want[1:]):
+                _close(a.cpu(), b.cpu(), "float32")
+            M = case[0] * case[1] * case[2]
+            mean = want[1] / M
+            invstd = torch.rsqrt(torch.clamp_min(
+                want[2] / M - mean * mean, 0.0) + EPS)
+            args = (want[0], _t(dy, dtype).cuda(), mean, invstd,
+                    _t(gamma, "float32").cuda(), _t(beta, "float32").cuda(),
+                    _t(res, dtype).cuda())
+            kb, pb = tfc.cbr_train_bwd(*args), tfc._ref_cbr_train_bwd(*args)
+            for a, b in zip(kb[:3], pb[:3]):
+                _close(a.cpu(), b.cpu(), "float32")
+            assert torch.equal(kb[3], pb[3])
+

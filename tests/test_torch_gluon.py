@@ -255,14 +255,31 @@ def test_deferred_init_resolves_from_first_input():
 
 
 def test_fused_block_training_mode_raises():
-    blk = mx.gluon.contrib.cnn.FusedConvBNReLUTrain(8, in_channels=8)
-    blk.initialize(ctx=mx.cpu())
-    x = mx.nd.ones((1, 4, 4, 8), ctx=mx.cpu())
-    with mx.autograd.train_mode():
-        with pytest.raises(NotImplementedError, match="training slice"):
-            blk(x)
-    with mx.autograd.predict_mode():
-        assert blk(x).shape == (1, 4, 4, 8)
+    """Training mode no longer raises: the fused block's training output
+    (batch statistics) and its running-statistics update match the
+    reference's; predict mode still folds the running statistics."""
+    rng = np.random.RandomState(8)
+    x = rng.randn(2, 4, 4, 8).astype(np.float32)
+    res = rng.randn(2, 4, 4, 8).astype(np.float32)
+    w = (rng.randn(3, 3, 8, 8) / np.sqrt(72)).astype(np.float32)
+    gamma = rng.uniform(0.5, 1.5, 8).astype(np.float32)
+    outs = []
+    for pkg in (jmx, mx):
+        ctx = pkg.cpu()
+        blk = pkg.gluon.contrib.cnn.FusedConvBNReLUTrain(8, in_channels=8)
+        blk.initialize(ctx=ctx)
+        blk.weight.set_data(pkg.nd.array(w, ctx=ctx))
+        blk.gamma.set_data(pkg.nd.array(gamma, ctx=ctx))
+        with pkg.autograd.train_mode():
+            y = blk(pkg.nd.array(x, ctx=ctx), pkg.nd.array(res, ctx=ctx))
+        with pkg.autograd.predict_mode():
+            z = blk(pkg.nd.array(x, ctx=ctx))
+        outs.append([y.asnumpy(), blk.running_mean.data().asnumpy(),
+                     blk.running_var.data().asnumpy(), z.asnumpy()])
+    assert outs[1][0].shape == (2, 4, 4, 8)
+    assert np.abs(outs[1][1]).max() > 0.0        # the statistics moved
+    for got, want in zip(outs[1], outs[0]):
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
 
 def test_fused_convbnrelu_from_layers_matches_reference():

@@ -55,6 +55,54 @@ def test_scan_covers_the_port():
     assert "chip_smoke.py" in names
 
 
+def test_scan_covers_the_training_slice():
+    names = {p.relative_to(ROOT).as_posix() for p in FILES}
+    for module in ("autograd.py", "lr_scheduler.py", "gluon/loss.py",
+                   "gluon/trainer.py", "gluon/fused_step.py",
+                   "optimizer/optimizer.py", "ops/optimizer_ops.py",
+                   "ops/fused_optimizer.py"):
+        assert "mxnet_tpu_torch/" + module in names
+
+
+def test_training_kernels_replace_distinct_tpu_kernels():
+    from mxnet_tpu_torch.ops import KERNELS
+    assert KERNELS["conv_bn_stats"] == ("csrc/conv_bn_relu.cu",
+                                        "mxnet_tpu/ops/fused_conv.py:195")
+    assert KERNELS["cbr_train_bwd"] == ("csrc/cbr_train_bwd.cu",
+                                        "mxnet_tpu/ops/fused_conv.py:341")
+    assert KERNELS["flat_sgd"] == ("csrc/fused_optimizer.cu",
+                                   "mxnet_tpu/ops/fused_optimizer.py:118")
+    assert KERNELS["flat_adam"] == ("csrc/fused_optimizer.cu",
+                                    "mxnet_tpu/ops/fused_optimizer.py:149")
+    for name in ("conv_bn_stats", "cbr_train_bwd", "flat_sgd", "flat_adam"):
+        path, line = KERNELS[name][1].split(":")
+        text = (ROOT / path).read_text().splitlines()[int(line) - 1]
+        assert text.startswith("def _kernel"), (name, text)
+
+
+def test_importing_the_port_builds_and_loads_nothing():
+    """Importing every module of the port starts no process (nvcc) and
+    loads no shared library: kernels are built at first use."""
+    import subprocess
+    import sys
+    code = (
+        "import ctypes, pkgutil, importlib, subprocess\n"
+        "import numpy, torch\n"
+        "def refuse(*a, **k):\n"
+        "    raise AssertionError('called at import: %r' % (a[:1],))\n"
+        "subprocess.Popen = refuse\n"
+        "ctypes.CDLL = refuse\n"
+        "import mxnet_tpu_torch as m\n"
+        "for info in pkgutil.walk_packages(m.__path__, m.__name__ + '.'):\n"
+        "    importlib.import_module(info.name)\n"
+        "from mxnet_tpu_torch.ops import _build\n"
+        "assert not _build._libs\n"
+        "assert not torch.cuda.is_initialized()\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+
+
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(
     ROOT).as_posix())
 def test_no_jax_or_mxnet_tpu_imports(path):
