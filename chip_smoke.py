@@ -62,25 +62,50 @@ Phases (one JSON line each; any failure exits non-zero):
                  0.9) + SoftmaxCrossEntropyLoss, 8 steps at batch 256; the
                  imperative loop (record, backward, trainer.step) with
                  "adam", 3 steps at batch 64; both routes from one state;
-                 one step's gradients against the CPU (fp32 and bf16).
+                 one step's gradients against the CPU (fp32 and bf16);
+                 all with cuDNN's deterministic algorithms, so that every
+                 run checks the same numbers.
 16. resnet_train_throughput — images/s of FusedTrainStep at batch 256, the
                  imperative step's time, peak memory, and torch.profiler
                  over one step.
 
-Four main paths, each with its own expected kernels, counts set to 0 just
+17. kernel_lamb — LAMB's two kernels (flat_lamb1: moments, direction and
+                 per-key squared norms; flat_lamb2: the trust-ratio apply)
+                 against their plain versions over clip, bias correction,
+                 mp, scalar/vector wd and scale, with and without norms,
+                 fp32/bf16/fp16 and sizes 1, 7, 4097, twelve 768-element
+                 keys and the 23.4M-element word embedding: elementwise
+                 outputs at 0 ulps, norms within 1e-5; timed over one bf16
+                 BERT-base step's buckets and one 133.5M-element vector.
+18. bert_train — bert_12_768_12 (bf16, dropout 0, batch 128 x seq 128):
+                 record -> SoftmaxCrossEntropyLoss on the MLM logits ->
+                 backward -> Trainer("lamb", lr 1e-3, wd 0.01,
+                 kvstore="device", zero=True).step, 6 steps; the ZeRO and
+                 per-parameter LAMB routes at fp32 (batch 8); one fp32
+                 batch-8 step's gradients against the CPU; a .params round
+                 trip; the functional bert_mlm_loss at bert_base (bf16,
+                 128 x 128) through the flash kernels, non-causal, against
+                 plain attention.
+19. bert_train_throughput — step time (median of steps 2-6), tokens/s,
+                 peak memory, and torch.profiler over one step.
+
+Five main paths, each with its own expected kernels, counts set to 0 just
 before and read just after: serving (phases 3-5: flash_fwd), training
 (phase 7's 6 steps: flash_fwd, flash_bwd_dq, flash_bwd_dkv), ResNet-50
-inference (phase 11's forward: conv_bn_relu, 16 launches) and ResNet-50
+inference (phase 11's forward: conv_bn_relu, 16 launches), ResNet-50
 training (phase 15: 16 conv_bn_stats, 16 cbr_train_bwd and one flat_sgd
 per trainable parameter in each FusedTrainStep step; one flat_adam per
-trainable parameter in each Adam step). Then the card's name and power
-limit, the `kernels` line, and as the last line {"ok": true, "device":
-{...}}. Exits non-zero without a CUDA card.
+trainable parameter in each Adam step) and BERT-base pretraining (phase
+18's 6 steps: one flat_lamb1 and one flat_lamb2 per ZeRO bucket a step;
+its functional step: 12 launches of each flash kernel). Then the card's
+name and power limit, the `kernels` line, and as the last line {"ok":
+true, "device": {...}}. Exits non-zero without a CUDA card.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import json
 import os
 import statistics
@@ -228,6 +253,8 @@ def phase_kernel(gen):
         ("prefill_path", 1, 12, 12, 304, 304, 64, True, torch.bfloat16,
          False),
         ("fp32_77x301", 2, 4, 2, 77, 301, 64, False, torch.float32, False),
+        ("bert_base_path", 128, 12, 12, 128, 128, 64, False, torch.bfloat16,
+         False),
         ("fp32_77x301_causal", 2, 4, 2, 77, 301, 128, True, torch.float32,
          False),
     ]
@@ -297,6 +324,8 @@ def phase_kernel_bwd(gen):
         ("bf16_130x70_causal", 1, 2, 2, 130, 70, 64, True, torch.bfloat16,
          False),
         ("fp32_77x301", 2, 4, 2, 77, 301, 64, False, torch.float32, False),
+        ("bert_base_path", 128, 12, 12, 128, 128, 64, False, torch.bfloat16,
+         False),
         ("fp32_77x301_causal", 2, 4, 2, 77, 301, 64, True, torch.float32,
          False),
         ("fp32_77x301_d128", 2, 4, 2, 77, 301, 128, False, torch.float32,
@@ -392,19 +421,20 @@ class _PlainBackward(torch.autograd.Function):
 
 @contextlib.contextmanager
 def _attention_as(fwd):
-    from mxnet_tpu_torch.models import llama
+    from mxnet_tpu_torch.models import bert, llama
     saved = llama.flash_attention
-    llama.flash_attention = lambda q, k, v, causal=False: \
-        _PlainBackward.apply(q, k, v, causal, fwd)
+    llama.flash_attention = bert.flash_attention = \
+        lambda q, k, v, causal=False: _PlainBackward.apply(q, k, v, causal,
+                                                           fwd)
     try:
         yield
     finally:
-        llama.flash_attention = saved
+        llama.flash_attention = bert.flash_attention = saved
 
 
 def plain_attention():
-    """llama_forward, and its gradient, with the flash kernels' plain
-    versions in their place."""
+    """llama_forward and bert_forward, and their gradients, with the flash
+    kernels' plain versions in their place."""
     from mxnet_tpu_torch.parallel.flash_attention import _ref_forward
     return _attention_as(_ref_forward)
 
@@ -1212,7 +1242,8 @@ def ulps_apart(a, b):
     """Elementwise distance in units in the last place of a and b (same
     float dtype, finite): the difference of their ordered integer
     images."""
-    ib = {torch.float32: torch.int32, torch.bfloat16: torch.int16}[a.dtype]
+    ib = {torch.float32: torch.int32, torch.bfloat16: torch.int16,
+          torch.float16: torch.int16}[a.dtype]
     x, y = a.contiguous().view(ib).long(), b.contiguous().view(ib).long()
     top = {torch.int32: 0x7FFFFFFF, torch.int16: 0x7FFF}[ib]
     x = torch.where(x < 0, -(x & top), x)
@@ -1645,6 +1676,18 @@ def imperative_step(mx, net, loss_fn, trainer, x, y):
 def phase_resnet_train(gen, tmp, batch=TRAIN_BATCH, image=RESNET_IMAGE,
                        steps=TRAIN_STEPS, adam_batch=ADAM_BATCH,
                        cpu_batch=CPU_BATCH):
+    """Main path 4 with cuDNN held to its deterministic algorithms (see
+    resnet_train_checks); resnet_train_throughput times the default ones."""
+    torch.backends.cudnn.deterministic = True
+    try:
+        return resnet_train_checks(gen, tmp, batch, image, steps,
+                                   adam_batch, cpu_batch)
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
+def resnet_train_checks(gen, tmp, batch, image, steps, adam_batch,
+                        cpu_batch):
     """Main path 4: bench.py's headline training configuration. resnet50_v1
     NHWC, fused gate, bf16 with fp32 BatchNorm, 224x224:
     FusedTrainStep(net, SoftmaxCrossEntropyLoss, Trainer("sgd", lr 0.1,
@@ -1654,7 +1697,10 @@ def phase_resnet_train(gen, tmp, batch=TRAIN_BATCH, image=RESNET_IMAGE,
     `adam_batch`, counted likewise. Checks the launches per step, a finite
     and falling loss, the dtypes, moved running statistics, the two routes
     agreeing from one state, and one step against the same step on the
-    CPU. Returns (net, loss_fn, {kernel: launches on the path})."""
+    CPU. cuDNN's default weight-gradient algorithms add in a varying order,
+    so without the deterministic ones every weight after step 1, and with it
+    the card-vs-CPU comparison's sample of rounding, changes from run to
+    run. Returns (net, loss_fn, {kernel: launches on the path})."""
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch.ops import launch_counts, reset_launch_counts
     gpu = mx.gpu(0)
@@ -1689,12 +1735,11 @@ def phase_resnet_train(gen, tmp, batch=TRAIN_BATCH, image=RESNET_IMAGE,
     check(moved == len(stats0), "resnet_train",
           "%d of %d running statistics moved" % (moved, len(stats0)))
 
-    # the two routes from one state, 2 SGD steps each (cuDNN deterministic
-    # for the comparison, so that only the route differs)
+    # the two routes from one state, 2 SGD steps each (cuDNN deterministic,
+    # so that only the route differs)
     path = os.path.join(tmp, "resnet50_train.params")
     net.save_parameters(path)
     xs, ys = train_batch(adam_batch, image, gpu, seed=1)
-    torch.backends.cudnn.deterministic = True
     routes = []
     for fused in (True, False):
         rnet = resnet50(True)
@@ -1710,7 +1755,6 @@ def phase_resnet_train(gen, tmp, batch=TRAIN_BATCH, image=RESNET_IMAGE,
                 imperative_step(mx, rnet, loss_fn, rtr, xs, ys)
         routes.append(snapshot(rnet))
         del rnet, rtr, rstep
-    torch.backends.cudnn.deterministic = False
     route_diff = max((a.float() - routes[1][k].float()).abs().max().item()
                      for k, a in routes[0].items())
     route_equal = all(torch.equal(a, routes[1][k])
@@ -1932,6 +1976,624 @@ def phase_resnet_train_throughput(net, loss_fn, batch=TRAIN_BATCH,
           "the profiler saw no device time")
 
 
+LAMB_KERNELS = ("flat_lamb1", "flat_lamb2")
+LAMB_NORM_REL = 1e-5            # per-key squared norms, kernel vs plain:
+                                # fp32 sums in another order
+ZERO_RTOL, ZERO_ATOL = 5e-5, 5e-6   # ZeRO vs per-parameter LAMB at fp32:
+                                # the norms are summed in another order
+                                # (the reference's bound, test_zero.py)
+BERT_BATCH, BERT_SEQ, BERT_STEPS = 128, 128, 6
+BERT_VOCAB, BERT_FN_CONFIG = 30522, "bert_base"
+BERT_ROUTE_BATCH = BERT_CPU_BATCH = 8
+EMBED_ROWS = 30522 * 768        # BERT-base's word embedding, one key
+LAMB_ARGS = (0.9, 0.1, 0.999, 1.0 - 0.999, 1.0 - 0.9 ** 3, 1.0 - 0.999 ** 3,
+             1e-6, 1.0 / 256, 0.5)   # beta1, omb1, beta2, omb2, d1, d2,
+                                     # eps, rescale, clip
+
+
+def lamb_inputs(n, wdt, mp, vec, gen):
+    """Seeded inputs of one LAMB update: weights and gradients N(0, 1),
+    mean N(0, 0.1^2), var from squared gradients (as training makes it),
+    the moments fp32 under mp (the ZeRO state rule), wd and scale per
+    element when `vec`."""
+    def rnd(scale=1.0):
+        return torch.randn(n, generator=gen, device="cuda") * scale
+    sdt = torch.float32 if mp else wdt
+    w = rnd().to(wdt)
+    g = rnd()
+    return {"w": w, "g": g.to(wdt), "mean": rnd(0.1).to(sdt),
+            "var": (0.1 * g * g + 0.9 * rnd() ** 2).to(sdt),
+            "master": w.float() if mp else None,
+            "wd": torch.rand(n, generator=gen, device="cuda") * 1e-2
+            if vec else 0.01,
+            "scale": torch.rand(n, generator=gen, device="cuda") * 1e-3
+            if vec else 1e-3}
+
+
+def lamb_segments(n):
+    """Key segments covering most of n elements, the rest padding."""
+    if n < 8:
+        return ((0, 0, n),) if n < 4 else ((0, 0, 3), (1, 3, n - 4))
+    a = min(768, n // 3)
+    return ((0, 0, a), (1, a, n - a - 300), (2, n - 300, 298))
+
+
+def lamb_pass1(fn, t, clip, bias, mp, segs):
+    """Pass 1 by `fn` (kernel or plain) on copies of the moments:
+    (direction, mean, var, norms)."""
+    return fn(t["w"], t["g"], t["mean"].clone(), t["var"].clone(),
+              t["master"], t["wd"], *LAMB_ARGS, clip, mp, bias, segs,
+              0 if segs is None else max(k for k, _, _ in segs) + 1)
+
+
+def lamb_pass2(fn, t, gdir, mp):
+    w = t["w"].clone()
+    master = t["master"].clone() if mp else None
+    return fn(w, master, gdir, t["scale"], mp)
+
+
+def lamb_bytes(t, mp, norms, n_chunks=0, n_keys=0):
+    """Bytes each pass must move: #9 reads w (or the master), g, mean,
+    var, wd and writes the direction, mean and var (and the partials and
+    norms); #10 reads w (or the master), the direction and the scale and
+    writes w (and the master)."""
+    def nb(x):
+        return x.numel() * x.element_size() if torch.is_tensor(x) else 0
+    w = t["master"] if mp else t["w"]
+    b1 = nb(w) + nb(t["g"]) + 2 * nb(t["mean"]) + 2 * nb(t["var"]) \
+        + nb(t["wd"]) + 4 * t["w"].numel()
+    if norms:
+        b1 += 12 * n_chunks + 8 * n_keys
+    b2 = nb(w) + 4 * t["w"].numel() + nb(t["scale"]) + nb(t["w"]) \
+        + (nb(t["master"]) if mp else 0)
+    return b1, b2
+
+
+def bert_param_shapes():
+    """[(key, shape)] of bert_12_768_12's parameters in the order the
+    Trainer pushes them: reverse registration order, registration being
+    the sorted parameter names."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo import bert
+    net = bert.bert_12_768_12(dropout=0.0)
+    net.initialize(mx.init.Normal(0.02), ctx=mx.cpu())
+    with mx.autograd.predict_mode():
+        net(mx.nd.zeros((1, 8), ctx=mx.cpu()))
+    params = net.collect_params()
+    names = sorted(params.keys())
+    return [(str(i), params[names[i]].shape)
+            for i in reversed(range(len(names)))]
+
+
+def phase_kernel_lamb(gen):
+    """flat_lamb1 (#9) and flat_lamb2 (#10) against their plain versions on
+    the card, then their times over one bf16 BERT-base step's ZeRO buckets
+    and over one 133.5M-element vector: the kernels-line entries."""
+    from mxnet_tpu_torch import engine
+    from mxnet_tpu_torch.ops.fused_optimizer import (_ref_flat_lamb1,
+                                                     _ref_flat_lamb2,
+                                                     flat_lamb1, flat_lamb2,
+                                                     lamb_chunk_table)
+    f32, b16, f16 = torch.float32, torch.bfloat16, torch.float16
+    worst = {"flat_lamb1": 0, "flat_lamb2": 0}
+    norm_err, bad, n_cases = 0.0, [], 0
+    sizes = [(n, False) for n in (1, 7, 4097)] + [(12 * 768 + 3, True),
+                                                  (EMBED_ROWS, True)]
+    for wdt in (f32, b16, f16):
+        for n, large in sizes:
+            flag_sets = [(False, True, False, True, True)] if large else \
+                list(itertools.product((False, True), repeat=5))
+            for clip, bias, mp, vec, with_norms in flag_sets:
+                t = lamb_inputs(n, wdt, mp, vec, gen)
+                if not vec and with_norms:
+                    # one fp32 value on the card (the per-parameter path's
+                    # lr x trust ratio); else a host scalar or per element
+                    t["scale"] = torch.tensor(1e-3, device="cuda")
+                segs = None
+                if with_norms:
+                    segs = tuple((k, 768 * k, 768) for k in range(12)) \
+                        if n == 12 * 768 + 3 else ((0, 0, n),) \
+                        if n == EMBED_ROWS else lamb_segments(n)
+                k1 = lamb_pass1(flat_lamb1, t, clip, bias, mp, segs)
+                p1 = lamb_pass1(_ref_flat_lamb1, t, clip, bias, mp, segs)
+                k2 = lamb_pass2(flat_lamb2, t, p1[0], mp)
+                p2 = lamb_pass2(_ref_flat_lamb2, t, p1[0], mp)
+                torch.cuda.synchronize()
+                n_cases += 1
+                case = [str(wdt)[6:], n, clip, bias, mp, vec, with_norms]
+                for name, pairs in (("flat_lamb1", zip(k1[:3], p1[:3])),
+                                    ("flat_lamb2", zip(k2, p2))):
+                    for a, b in pairs:
+                        if a is None:
+                            continue
+                        m = ulps_apart(a, b).max().item()
+                        worst[name] = max(worst[name], m)
+                        if m:
+                            bad.append(case + [name, m])
+                if with_norms:
+                    rel = ((k1[3] - p1[3]).abs()
+                           / p1[3].abs().clamp_min(1e-30)).max().item()
+                    norm_err = max(norm_err, rel)
+                del t, k1, p1, k2, p2
+    emit({"phase": "kernel_lamb", "cases": n_cases, "max_ulps": worst,
+          "norms_max_rel_err": norm_err, "cases_with_ulp_differences":
+          bad[:20]})
+    check(max(worst.values()) == 0 and norm_err <= LAMB_NORM_REL,
+          "kernel_lamb", "LAMB kernels differ from their plain versions: "
+          "%s ulps, norms %g (limit %g): %s" % (worst, norm_err,
+                                                LAMB_NORM_REL, bad[:20]))
+
+    # one bf16 BERT-base step: the ZeRO buckets the Trainer freezes
+    shapes = bert_param_shapes()
+    layout = engine.BucketLayout.from_entries(
+        ((k, torch.empty(s, dtype=b16, device="meta")) for k, s in shapes),
+        1, engine.bucket_bytes())
+    buckets = []
+    for spec in layout:
+        by_key = {k: i for i, k in enumerate(spec.keys)}
+        segs = tuple((by_key[k], s, ln) for k, s, ln, _
+                     in spec.shard_segments(0))
+        t = lamb_inputs(spec.shard, b16, False, True, gen)
+        # the chunk table is built once per bucket, as ZeroUpdater does
+        t["table"] = lamb_chunk_table(segs, len(segs), spec.shard, "cuda")
+        buckets.append((t, segs, {"mean": t["mean"].clone(),
+                                  "var": t["var"].clone()}))
+    gdirs = [lamb_pass1(_ref_flat_lamb1, t, False, True, False, segs)[0]
+             for t, segs, _ in buckets]
+
+    def run1(fn):
+        # in place on one set of moments per bucket: the real traffic
+        return [fn(t["w"], t["g"], st["mean"], st["var"], None, t["wd"],
+                   *LAMB_ARGS, False, False, True, segs, len(segs),
+                   *([t["table"]] if fn is flat_lamb1 else []))
+                for t, segs, st in buckets]
+
+    def run2(fn):
+        return [fn(t["w"], None, gd, t["scale"], False)
+                for (t, _, _), gd in zip(buckets, gdirs)]
+
+    b1 = b2 = 0
+    for t, segs, _ in buckets:
+        x1, x2 = lamb_bytes(t, False, True, t["table"][0].numel(), len(segs))
+        b1, b2 = b1 + x1, b2 + x2
+    elements = sum(t["w"].numel() for t, _, _ in buckets)
+    step = {"buckets": len(layout), "keys": len(shapes),
+            "elements": elements,
+            "flat_lamb1_ms": time_ms(lambda: run1(flat_lamb1), iters=10),
+            "flat_lamb1_plain_ms": time_ms(lambda: run1(_ref_flat_lamb1),
+                                           iters=3),
+            "flat_lamb2_ms": time_ms(lambda: run2(flat_lamb2), iters=10),
+            "flat_lamb2_plain_ms": time_ms(lambda: run2(_ref_flat_lamb2),
+                                           iters=3),
+            "flat_lamb2_addcmul_ms": time_ms(lambda: [
+                torch.addcmul(t["w"], t["scale"], gd, value=-1.0)
+                for (t, _, _), gd in zip(buckets, gdirs)], iters=10)}
+    step["flat_lamb1_bound_ms"], step["flat_lamb1_bound_by"] = \
+        bound(0.0, b1, f32)
+    step["flat_lamb2_bound_ms"], step["flat_lamb2_bound_by"] = \
+        bound(0.0, b2, f32)
+    emit(dict({"phase": "kernel_lamb", "what": "one bf16 BERT-base step's "
+               "ZeRO buckets"}, **step))
+    del buckets, gdirs
+
+    # one 133.5M-element vector holding every key (one bucket, no cap)
+    n = sum(int(np.prod(s)) for _, s in shapes)
+    segs, off = [], 0
+    for i, (_, s) in enumerate(shapes):
+        segs.append((i, off, int(np.prod(s))))
+        off += int(np.prod(s))
+    segs = tuple(segs)
+    t = lamb_inputs(n, b16, False, True, gen)
+    table = lamb_chunk_table(segs, len(segs), n, "cuda")
+    gd = lamb_pass1(_ref_flat_lamb1, t, False, True, False, segs)[0]
+    x1, x2 = lamb_bytes(t, False, True, table[0].numel(), len(segs))
+    whole = {"elements": n, "keys": len(segs),
+             "flat_lamb1_ms": time_ms(lambda: flat_lamb1(
+                 t["w"], t["g"], t["mean"], t["var"], None, t["wd"],
+                 *LAMB_ARGS, False, False, True, segs, len(segs), table),
+                 iters=10),
+             "flat_lamb2_ms": time_ms(lambda: flat_lamb2(
+                 t["w"], None, gd, t["scale"], False), iters=10),
+             "flat_lamb2_addcmul_ms": time_ms(lambda: torch.addcmul(
+                 t["w"], t["scale"], gd, value=-1.0), iters=10)}
+    whole["flat_lamb1_bound_ms"], _ = bound(0.0, x1, f32)
+    whole["flat_lamb2_bound_ms"], _ = bound(0.0, x2, f32)
+    emit(dict({"phase": "kernel_lamb", "what": "one 133.5M-element vector"},
+              **whole))
+    del t, gd
+    torch.cuda.empty_cache()
+    return {"flat_lamb1": {"max_abs_err": float(worst["flat_lamb1"]),
+                           "ms": step["flat_lamb1_ms"],
+                           "plain_ms": step["flat_lamb1_plain_ms"],
+                           "bound_ms": step["flat_lamb1_bound_ms"],
+                           "bound_by": step["flat_lamb1_bound_by"],
+                           "library_ms": None},
+            "flat_lamb2": {"max_abs_err": float(worst["flat_lamb2"]),
+                           "ms": step["flat_lamb2_ms"],
+                           "plain_ms": step["flat_lamb2_plain_ms"],
+                           "bound_ms": step["flat_lamb2_bound_ms"],
+                           "bound_by": step["flat_lamb2_bound_by"],
+                           "library_ms": step["flat_lamb2_addcmul_ms"]}}
+
+
+def bert_net(ctx, dtype="bfloat16", path=None, seed=0):
+    """bert_12_768_12 (dropout 0) on `ctx`: Normal(0.02) weights from
+    mx.random.seed(seed) with the shapes resolved by one predict-mode pass,
+    or the weights of `path`; cast to `dtype`."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo import bert
+    net = bert.bert_12_768_12(dropout=0.0)
+    if path is None:
+        mx.random.seed(seed)
+        net.initialize(mx.init.Normal(0.02), ctx=ctx)
+        with mx.autograd.predict_mode():
+            net(mx.nd.zeros((1, 8), ctx=ctx))
+        net.cast(dtype)
+    else:
+        net.cast(dtype)
+        net.load_parameters(path, ctx=ctx, cast_dtype=True)
+    net.hybridize(static_alloc=True)
+    return net
+
+
+def bert_batch(batch, ctx, seed=0):
+    """BERT_SEQ token ids and MLM labels a row, uniform over the
+    vocabulary, from numpy with a seed, as float32 arrays (bench.py's
+    bench_bert_gluon)."""
+    import mxnet_tpu_torch as mx
+    rng = np.random.RandomState(seed)
+    x = rng.randint(0, BERT_VOCAB, (batch, BERT_SEQ)).astype(np.float32)
+    y = rng.randint(0, BERT_VOCAB, (batch, BERT_SEQ)).astype(np.float32)
+    return mx.nd.array(x, ctx=ctx), mx.nd.array(y, ctx=ctx)
+
+
+def bert_step(mx, net, sce, trainer, x, y):
+    with mx.autograd.record():
+        loss = sce(net(x)[3], y)
+    loss.backward()
+    trainer.step(x.shape[0])
+    return loss
+
+
+def bert_eval_loss(mx, net, sce, x, y):
+    """The mean MLM loss in predict mode, its log-softmax on fp32 logits:
+    a bf16 loss (ulp 0.0625 near ln(30522)) cannot show a few steps'
+    progress."""
+    with mx.autograd.predict_mode():
+        out = net(x)[3].astype("float32")
+        return sce(out, y).asnumpy().astype(np.float64).mean().item()
+
+
+def lamb_trainer(mx, net, zero):
+    return mx.gluon.Trainer(net.collect_params(), "lamb",
+                            {"learning_rate": 1e-3, "wd": 0.01},
+                            kvstore="device" if zero else None, zero=zero)
+
+
+def bert_grads(mx, net, sce, x, y):
+    with mx.autograd.record():
+        loss = sce(net(x)[3], y)
+    loss.backward()
+    return {k: p.grad().data_torch.float().cpu()
+            for k, p in net._collect_params_with_prefix().items()
+            if p.grad_req != "null"}
+
+
+def functional_bert_step(gen):
+    """bert_mlm_loss at bert_base, bf16, batch x seq = 128 x 128, 15% of the
+    positions predicted: forward, loss and backward through the flash
+    kernels (causal=False), counted, against the same step with plain
+    attention (bf16), and both against the plain step at fp32. Returns
+    (record, launches)."""
+    from mxnet_tpu_torch.models.bert import CONFIGS, bert_init, bert_mlm_loss
+    from mxnet_tpu_torch.ops import launch_counts, reset_launch_counts
+    cfg = CONFIGS[BERT_FN_CONFIG]
+    params = bert_init(gen, cfg, device=gen.device)
+    rng = np.random.RandomState(4)
+    batch = {"tokens": rng.randint(0, cfg.vocab_size, (BERT_BATCH,
+                                                       BERT_SEQ)),
+             "targets": rng.randint(0, cfg.vocab_size, (BERT_BATCH,
+                                                        BERT_SEQ)),
+             "mask": (rng.rand(BERT_BATCH, BERT_SEQ) < 0.15)
+             .astype(np.float32)}
+
+    def grads(tree, context):
+        names = [n for n, _ in leaves(tree)]
+        flat = [t for _, t in leaves(tree)]
+        for t in flat:
+            t.requires_grad_(True)
+        try:
+            with context():
+                loss = bert_mlm_loss(tree, batch, cfg)
+                got = torch.autograd.grad(loss, flat)
+        finally:
+            for t in flat:
+                t.requires_grad_(False)
+        return loss.item(), dict(zip(names, (g.float() for g in got)))
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    loss, kern = grads(params, contextlib.nullcontext)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    ploss, plain = grads(params, plain_attention)
+    _, exact = grads(to_fp32(params), plain_attention)
+    # the key bias adds q . bk to every score of a query row, which the
+    # softmax takes out: its gradient is zero in exact arithmetic and
+    # rounding noise on every path, so it is held apart (small against
+    # the median leaf)
+    null = [n for n in kern if n.endswith("bk")]
+    med_norm = statistics.median(g.norm().item() for g in exact.values())
+    noise = max(max(kern[n].norm().item(), plain[n].norm().item())
+                for n in null) / med_norm
+    for tree in (kern, plain, exact):
+        for n in null:
+            del tree[n]
+    whole = rel_err(torch.cat([g.flatten() for g in kern.values()]),
+                    torch.cat([plain[n].flatten() for n in kern]))
+
+    def stats(a):
+        errs = {n: rel_err(g, exact[n]) for n, g in a.items()}
+        return {"median": statistics.median(errs.values()),
+                "max": max(errs.values()),
+                "worst_leaves": dict(sorted(errs.items(),
+                                            key=lambda kv: -kv[1])[:4])}
+
+    vs_fp32 = {"kernels": stats(kern), "plain": stats(plain)}
+    rec = {"config": "%s bf16" % BERT_FN_CONFIG, "batch": BERT_BATCH,
+           "seq": BERT_SEQ, "loss": loss, "plain_loss": ploss,
+           "loss_rel_err": abs(loss - ploss) / abs(ploss),
+           "grads_rel_err_vs_plain": whole,
+           "grads_vs_fp32_step": vs_fp32,
+           "median_limit": max(GRAD_REL,
+                               1.5 * vs_fp32["plain"]["median"]),
+           "max_limit": max(GRAD_REL, 2.0 * vs_fp32["plain"]["max"]),
+           "key_bias_grad_norm_over_median": noise,
+           "launches": {k: v for k, v in launches.items() if v}}
+    return rec, launches
+
+
+def phase_bert_train(gen, tmp):
+    """Main path 5: BERT-base pretraining through Gluon with LAMB on the
+    ZeRO updater. bert_12_768_12 (bf16, dropout 0), SoftmaxCrossEntropyLoss
+    on the MLM logits (out[3]) over every position, Trainer("lamb", lr 1e-3,
+    wd 0.01, kvstore="device", zero=True), BERT_STEPS steps on one seeded
+    batch, counts reset just before and read just after; then the ZeRO and
+    per-parameter routes at fp32, one step's gradients against the CPU, a
+    .params round trip, and the functional bert_mlm_loss through the flash
+    kernels. Returns (net, trainer, batch, {kernel: launches on the
+    path})."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import launch_counts, reset_launch_counts
+    gpu = mx.gpu(0)
+    net = bert_net(gpu)
+    dtypes = {k: t.dtype for k, t in snapshot(net).items()}
+    sce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    trainer = lamb_trainer(mx, net, True)
+    x, y = bert_batch(BERT_BATCH, gpu)
+    before = snapshot(net)
+    eval_before = bert_eval_loss(mx, net, sce, x, y)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = [bert_step(mx, net, sce, trainer, x, y).asnumpy().mean().item()
+              for _ in range(BERT_STEPS)]
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = launch_counts()
+    eval_after = bert_eval_loss(mx, net, sce, x, y)
+    layout = trainer._kvstore._updater.layout
+    check_path(launches, LAMB_KERNELS, "main_path_bert_train")
+    want = {k: len(layout) * BERT_STEPS for k in LAMB_KERNELS}
+    check(all(launches[k] == v for k, v in want.items()), "bert_train",
+          "launches %s, expected %s a step for %d buckets"
+          % (launches, want, len(layout)))
+    check(all(np.isfinite(losses)) and eval_after < eval_before,
+          "bert_train", "loss not finite or not falling: steps %s, fp32 "
+          "loss before %r after %r" % (losses, eval_before, eval_after))
+    after = snapshot(net)
+    check(all(after[k].dtype == dt for k, dt in dtypes.items()),
+          "bert_train", "a parameter changed its dtype")
+    # a bf16 weight moves only where the step exceeds half its ulp
+    moved = sum(int((after[k] != v).sum()) for k, v in before.items()) \
+        / sum(v.numel() for v in before.values())
+    del before
+    path = os.path.join(tmp, "bert_base.params")
+    net.save_parameters(path)
+
+    # the .params round trip, bit for bit
+    back = snapshot(bert_net(gpu, path=path))
+    round_trip = sorted(back) == sorted(after) and all(
+        torch.equal(t, back[k]) for k, t in after.items())
+    del back
+    check(round_trip, "bert_train", ".params round trip not bit-equal")
+
+    # the ZeRO route against the per-parameter route (kvstore=None: #9 and
+    # #10 once per parameter), fp32, 2 steps from one state
+    xs, ys = bert_batch(BERT_ROUTE_BATCH, gpu, seed=1)
+    routes, route_launches = [], []
+    for zero in (True, None):
+        rnet = bert_net(gpu, "float32", path)
+        rtr = lamb_trainer(mx, rnet, zero)
+        reset_launch_counts()
+        for _ in range(2):
+            bert_step(mx, rnet, sce, rtr, xs, ys)
+        torch.cuda.synchronize()
+        route_launches.append({k: v for k, v in launch_counts().items()
+                               if v})
+        routes.append(snapshot(rnet))
+        del rnet, rtr
+    excess = max(((a - routes[1][k]).abs() - ZERO_ATOL
+                  - ZERO_RTOL * routes[1][k].abs()).max().item()
+                 for k, a in routes[0].items())
+    diff = max((a - routes[1][k]).abs().max().item()
+               for k, a in routes[0].items())
+    n_params = len(routes[0])
+    check(excess <= 0, "bert_train", "ZeRO and per-parameter LAMB differ "
+          "beyond rtol %g / atol %g (max abs %g)" % (ZERO_RTOL, ZERO_ATOL,
+                                                     diff))
+    check(route_launches[1].get("flat_lamb1") == 2 * n_params
+          and route_launches[1].get("flat_lamb2") == 2 * n_params,
+          "bert_train", "per-parameter route launches %s for %d parameters"
+          % (route_launches[1], n_params))
+    del routes
+    torch.cuda.empty_cache()
+
+    # one fp32 batch-8 step's gradients, card against CPU, held to the
+    # card's own spread when every weight moves by one ulp
+    xc, yc = bert_batch(BERT_CPU_BATCH, mx.cpu(), seed=2)
+    card = bert_grads(mx, bert_net(gpu, "float32", path), sce,
+                      xc.as_in_context(gpu), yc.as_in_context(gpu))
+    nudged_net = bert_net(gpu, "float32", path)
+    with torch.no_grad():
+        for p in nudged_net.collect_params().values():
+            d = p.data().data_torch
+            d.copy_(torch.nextafter(d, torch.tensor(float("inf"),
+                                                    device=d.device)))
+    nudged = bert_grads(mx, nudged_net, sce, xc.as_in_context(gpu),
+                        yc.as_in_context(gpu))
+    del nudged_net
+    host = bert_grads(mx, bert_net(mx.cpu(), "float32", path), sce, xc, yc)
+
+    def stats(a, b):
+        errs = {k: rel_err(g, b[k]) for k, g in a.items()
+                if b[k].norm() > 0}
+        return {"median": statistics.median(errs.values()),
+                "max": max(errs.values()),
+                "worst_leaves": dict(sorted(errs.items(),
+                                            key=lambda kv: -kv[1])[:5])}
+
+    vs_cpu, spread = stats(card, host), stats(card, nudged)
+    median_limit = max(GRAD_FP32_REL, 2.0 * spread["median"])
+    max_limit = max(GRAD_FP32_REL, 2.0 * spread["max"])
+    del card, nudged, host
+    torch.cuda.empty_cache()
+
+    fn_rec, fn_launches = functional_bert_step(gen)
+    emit({"phase": "bert_train", "config": "bert_12_768_12 bf16, dropout 0, "
+          "Trainer(lamb lr 1e-3 wd 0.01, kvstore=device, zero=True)",
+          "batch": BERT_BATCH, "seq": BERT_SEQ, "steps": BERT_STEPS,
+          "losses": losses, "fp32_eval_loss_before": eval_before,
+          "fp32_eval_loss_after": eval_after,
+          "share_of_weights_moved": moved,
+          "steps_wall_s": wall_s, "buckets": len(layout),
+          "bucket_elements": [s.size for s in layout],
+          "trainable_params": n_params, "launches": launches,
+          "params_round_trip_bit_equal": round_trip,
+          "zero_vs_per_parameter": {"batch": BERT_ROUTE_BATCH, "steps": 2,
+                                    "max_abs_diff": diff,
+                                    "max_excess_over_bound": excess,
+                                    "launches": route_launches},
+          "card_vs_cpu_fp32": {"batch": BERT_CPU_BATCH, "grads": vs_cpu,
+                               "one_ulp_weights": spread,
+                               "median_limit": median_limit,
+                               "max_limit": max_limit},
+          "functional_mlm_step": fn_rec})
+    check(vs_cpu["median"] <= median_limit and vs_cpu["max"] <= max_limit,
+          "bert_train", "fp32 gradients vs the CPU: median %g (limit %g), "
+          "worst %s (limit %g)" % (vs_cpu["median"], median_limit,
+                                   vs_cpu["worst_leaves"], max_limit))
+    check(all(fn_launches[k] == 12 for k in TRAIN_KERNELS)
+          and all(fn_launches[k] == 0 for k in fn_launches
+                  if k not in TRAIN_KERNELS), "bert_train",
+          "functional step launches %s, expected 12 of each flash kernel"
+          % fn_launches)
+    # bf16 query/key gradients of the deeper layers are rounding noise on
+    # both paths (their fp32 step differs by several times their norm):
+    # per leaf, the kernels may be no further from the fp32 step than the
+    # plain bf16 path is (x1.5 median, x2 worst leaf), as resnet_train holds
+    # bf16
+    fk = fn_rec["grads_vs_fp32_step"]["kernels"]
+    check(fn_rec["loss_rel_err"] <= GRAD_REL
+          and fn_rec["grads_rel_err_vs_plain"] <= GRAD_REL
+          and fk["median"] <= fn_rec["median_limit"]
+          and fk["max"] <= fn_rec["max_limit"]
+          and fn_rec["key_bias_grad_norm_over_median"] <= GRAD_REL,
+          "bert_train", "functional step vs plain attention: %s" % fn_rec)
+    paths = {k: launches[k] + fn_launches[k] for k in launches}
+    return net, trainer, (x, y), paths
+
+
+def bert_kernel_group(name):
+    n = name.lower()
+    if "lamb1" in n or "lamb_norms" in n:
+        return "flat_lamb1"
+    if "lamb2" in n:
+        return "flat_lamb2"
+    if any(t in n for t in ("gemm", "cutlass", "nvjet", "cublas", "xmma",
+                            "sm90")):
+        return "matmul"
+    return "elementwise_ln_softmax_embedding_loss_copies"
+
+
+def phase_bert_train_throughput(net, trainer, batch):
+    """Step time of the main path (median of steps 2-6, CUDA events),
+    tokens/s, peak memory, and torch.profiler over one step: device time by
+    kernel group, the ZeRO legs (pack; update: #9, #10 and the trust-ratio
+    scale, which is also timed alone; unpack) and the trainer's weight
+    write-back by profiler range, and the idle share."""
+    import mxnet_tpu_torch as mx
+    from torch.profiler import ProfilerActivity, profile
+    sce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    x, y = batch
+    times = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(BERT_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        bert_step(mx, net, sce, trainer, x, y)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    peak = torch.cuda.max_memory_allocated()
+    med = statistics.median(times[1:])
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bert_step(mx, net, sce, trainer, x, y)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    ranges = ("zero.pack", "zero.update", "zero.lamb_scale", "zero.unpack",
+              "trainer.writeback")
+    groups, top, legs = {}, {}, {}
+    for ev in prof.key_averages():
+        if ev.key in ranges:
+            # the host-side range: the device time of the kernels launched
+            # inside it, and its host time (the range also appears on the
+            # device timeline as an annotation, which is no kernel)
+            if ev.device_type == torch.autograd.DeviceType.CPU:
+                us = getattr(ev, "device_time_total", None)
+                legs[ev.key] = {
+                    "kernels_device_ms": (ev.cuda_time_total if us is None
+                                          else us) / 1e3,
+                    "host_ms": ev.cpu_time_total / 1e3, "calls": ev.count}
+            continue
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = ev.self_cuda_time_total
+        g = bert_kernel_group(ev.key)
+        groups[g] = groups.get(g, 0.0) + us / 1e3
+        top[ev.key[:120]] = top.get(ev.key[:120], 0.0) + us / 1e3
+    device_ms = sum(groups.values())
+    emit({"phase": "bert_train_throughput", "dtype": "bfloat16",
+          "batch": BERT_BATCH, "seq": BERT_SEQ,
+          "step_ms_median_2_6": med, "step_ms": times,
+          "tokens_per_s": BERT_BATCH * BERT_SEQ / med * 1e3,
+          "max_memory_allocated_bytes": peak,
+          "profile_wall_ms": wall_ms, "profile_device_ms": device_ms,
+          "idle_share": 1.0 - device_ms / wall_ms,
+          "device_ms_by_group": groups, "zero_and_writeback_legs": legs,
+          "top_kernels_ms": dict(sorted(top.items(),
+                                        key=lambda kv: -kv[1])[:12])})
+    check(device_ms > 0, "bert_train_throughput",
+          "the profiler saw no device time")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1989,6 +2651,17 @@ def main():
         net, loss_fn, train4_launches = phase_resnet_train(gen, tmp)
     phase_resnet_train_throughput(net, loss_fn)
     del net
+    torch.cuda.empty_cache()
+
+    # main path 5: BERT-base pretraining with LAMB on the ZeRO updater
+    # (counts reset inside, read right after the 6 steps and around the
+    # functional step)
+    entries.update(phase_kernel_lamb(gen))
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_bert_") as tmp:
+        net, trainer, batch, bert_launches = phase_bert_train(gen, tmp)
+    phase_bert_train_throughput(net, trainer, batch)
+    del net, trainer
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2000,7 +2673,8 @@ def main():
         rec = entries[name]
         # launches on the main paths that run the kernel
         launches = serve_launches[name] + train_launches[name] \
-            + resnet_launches[name] + train4_launches[name]
+            + resnet_launches[name] + train4_launches[name] \
+            + bert_launches[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": "mxnet_tpu_torch/" + source, "replaces": replaces,

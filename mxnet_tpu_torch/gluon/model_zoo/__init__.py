@@ -1,5 +1,5 @@
-"""Model zoo of the port (vision: the ResNets)."""
-from . import vision
+"""Model zoo of the port (vision: the ResNets; bert: GluonNLP's BERT)."""
+from . import bert, vision
 from .vision import get_model
 
-__all__ = ["vision", "get_model"]
+__all__ = ["bert", "vision", "get_model"]

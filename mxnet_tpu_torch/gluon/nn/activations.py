@@ -1,10 +1,10 @@
-"""Activation block (the port of `mxnet_tpu.gluon.nn.activations`'s
-Activation)."""
+"""Activation blocks (the port of `mxnet_tpu.gluon.nn.activations`'s
+Activation and GELU)."""
 from __future__ import annotations
 
 from ..block import HybridBlock
 
-__all__ = ["Activation"]
+__all__ = ["Activation", "GELU"]
 
 
 class Activation(HybridBlock):
@@ -21,3 +21,10 @@ class Activation(HybridBlock):
     def __repr__(self):
         return "{name}({act})".format(name=self.__class__.__name__,
                                       act=self._act_type)
+
+
+class GELU(HybridBlock):
+    """x * Phi(x) with the exact (erf) Gaussian CDF, as the reference's."""
+
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="gelu")

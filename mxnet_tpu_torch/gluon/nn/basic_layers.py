@@ -1,6 +1,7 @@
 """Basic layers (the port of the part of `mxnet_tpu.gluon.nn.basic_layers`
-that the ResNets use): Sequential, HybridSequential, Dense, BatchNorm,
-Flatten. Same parameter names and deferred shapes as the reference."""
+that the ResNets and BERT use): Sequential, HybridSequential, Dense,
+Dropout, BatchNorm, Embedding, LayerNorm, Flatten. Same parameter names
+and deferred shapes as the reference."""
 from __future__ import annotations
 
 import torch
@@ -9,8 +10,8 @@ from ...base import dtype_name
 from ..block import Block, HybridBlock, _indent, record_aux_update
 from .activations import Activation
 
-__all__ = ["Sequential", "HybridSequential", "Dense", "BatchNorm",
-           "Flatten"]
+__all__ = ["Sequential", "HybridSequential", "Dense", "Dropout",
+           "BatchNorm", "Embedding", "LayerNorm", "Flatten"]
 
 
 def update_running_stats(running_mean, running_var, mean, var, momentum):
@@ -118,6 +119,25 @@ class Dense(HybridBlock):
         return act
 
 
+class Dropout(HybridBlock):
+    """Dropout at `rate` while training (`autograd.record()` in train
+    mode); the identity in predict mode or at rate 0."""
+
+    def __init__(self, rate, axes=(), **kwargs):
+        super().__init__(**kwargs)
+        self._rate = rate
+        self._axes = axes
+
+    def hybrid_forward(self, F, x):
+        if self._rate > 0:
+            return F.Dropout(x, p=self._rate, axes=self._axes)
+        return F.identity(x)
+
+    def __repr__(self):
+        return "{name}(p = {_rate}, axes={_axes})".format(
+            name=self.__class__.__name__, **self.__dict__)
+
+
 class BatchNorm(HybridBlock):
     """Batch normalization with moving statistics. Inference (and
     `use_global_stats`) normalizes with the moving statistics; training
@@ -176,6 +196,68 @@ class BatchNorm(HybridBlock):
         update_running_stats(running_mean, running_var, mean, var,
                              self._momentum)
         return out
+
+
+class Embedding(HybridBlock):
+    """Index -> vector lookup in an (input_dim, output_dim) table."""
+
+    def __init__(self, input_dim, output_dim, dtype="float32",
+                 weight_initializer=None, sparse_grad=False, **kwargs):
+        super().__init__(**kwargs)
+        if sparse_grad:
+            raise NotImplementedError("Embedding(sparse_grad=True) comes "
+                                      "with the port's sparse slice")
+        self._input_dim = input_dim
+        self._output_dim = output_dim
+        self._kwargs = {"input_dim": input_dim, "output_dim": output_dim,
+                        "dtype": dtype, "sparse_grad": sparse_grad}
+        self.weight = self.params.get(
+            "weight", shape=(input_dim, output_dim),
+            init=weight_initializer, dtype=dtype, allow_deferred_init=True)
+
+    def hybrid_forward(self, F, x, weight):
+        return F.Embedding(x, weight, **self._kwargs)
+
+    def __repr__(self):
+        return "{block_name}({input_dim} -> {output_dim}, {dtype})".format(
+            block_name=self.__class__.__name__, **self._kwargs)
+
+
+class LayerNorm(HybridBlock):
+    """Layer normalization over `axis` (normalized in fp32, then gamma and
+    beta in the data's dtype, as the reference)."""
+
+    def __init__(self, axis=-1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._kwargs = {"eps": epsilon, "axis": axis, "center": center,
+                        "scale": scale}
+        self._axis = axis
+        self._epsilon = epsilon
+        self.gamma = self.params.get(
+            "gamma", grad_req="write" if scale else "null",
+            shape=(in_channels,), init=gamma_initializer,
+            allow_deferred_init=True)
+        self.beta = self.params.get(
+            "beta", grad_req="write" if center else "null",
+            shape=(in_channels,), init=beta_initializer,
+            allow_deferred_init=True)
+
+    def _shape_from_input(self, x, *args):
+        channels = x.shape[self._axis]
+        self.gamma.shape = (channels,)
+        self.beta.shape = (channels,)
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.LayerNorm(x, gamma, beta, axis=self._axis, eps=self._epsilon)
+
+    def __repr__(self):
+        return "{name}({content}, in_channels={in_channels})".format(
+            name=self.__class__.__name__,
+            content=", ".join("=".join([k, v.__repr__()])
+                              for k, v in self._kwargs.items()),
+            in_channels=self.gamma.shape[0])
 
 
 class Flatten(HybridBlock):

@@ -2,23 +2,35 @@
 
 `step(batch_size)` sets ``rescale_grad = scale / batch_size`` (the
 gradients are of the loss *sum* over the batch), reduces the gradients
-across contexts (nothing to do on one) and runs the optimizer: one update
-per trainable parameter, through the `Updater`, which on a card launches
-the flat SGD or Adam kernel once per parameter. A kvstore on one context
-resolves to none, as the reference's `_init_kvstore` does there; a
-distributed store, `update_on_kvstore=True`, several contexts, ZeRO,
+through the kvstore where there is one and runs the optimizer.
+
+Without a store (one context, dense parameters and no
+``update_on_kvstore=True``: the reference's single-device short cut) the
+optimizer runs one update per trainable parameter through the `Updater`,
+which on a card launches the flat kernel once per parameter. With a store
+and ``update_on_kvstore`` the optimizer runs on the store: the gradients
+go in one multi-key push in reverse registration order (about the order
+backward finishes them) and the updated weights are pulled back into the
+parameters. ``zero=True`` makes the store's updater the ZeRO-1
+`optimizer.zero.ZeroUpdater` (SGD, Adam, LAMB over gradient buckets; world
+1 on one process). Several contexts, distributed stores,
 readiness-ordered communication and gradient compression raise
-NotImplementedError: they come with the port's communication slice.
+NotImplementedError: they come with the port's multi-rank communication
+slice.
 """
 from __future__ import annotations
 
+from torch.profiler import record_function
+
+from .. import engine as _engine
+from .. import kvstore as kvs
 from .. import optimizer as opt
 from ..context import current_context
 from .parameter import Parameter, ParameterDict
 
 __all__ = ["Trainer"]
 
-_COMM = "the port's communication slice"
+_COMM = "the port's multi-rank communication slice"
 
 
 class Trainer:
@@ -42,11 +54,21 @@ class Trainer:
                     "got list of %s." % (type(param)))
             self._param2idx[param.name] = i
             self._params.append(param)
-        for name, value in (("zero", zero), ("comm_ready", comm_ready),
+        for name, value in (("comm_ready", comm_ready),
                             ("compression_params", compression_params)):
             if value:
                 raise NotImplementedError("Trainer(%s=...) comes with %s"
                                           % (name, _COMM))
+        self._zero = opt.zero_enabled(zero)
+        if self._zero:
+            if not kvstore:
+                raise ValueError(
+                    "zero=True needs a kvstore (the sharded update runs on "
+                    "the store); got kvstore=%r" % (kvstore,))
+            if update_on_kvstore is False:
+                raise ValueError(
+                    "zero=True updates ON the kvstore; "
+                    "update_on_kvstore=False contradicts it")
         optimizer_params = optimizer_params if optimizer_params else {}
         self._scale = float(optimizer_params.get("rescale_grad", 1.0))
         self._contexts = self._check_contexts()
@@ -60,6 +82,7 @@ class Trainer:
         self._kv_initialized = False
         self._kvstore = None
         self._update_on_kvstore = None
+        self._params_to_init = list(self._params)
 
     def _check_contexts(self):
         contexts = None
@@ -89,18 +112,50 @@ class Trainer:
                           for _ in self._contexts]
 
     def _init_kvstore(self):
-        """One context and dense parameters: no store (the reference's
-        single-device short cut). Anything that needs one raises."""
+        """Make the store and decide update_on_kvstore (reference:
+        `Trainer._init_kvstore`): one context without ZeRO or an explicit
+        update_on_kvstore=True needs no store."""
         name = self._kvstore_params["kvstore"]
-        if name and (not isinstance(name, str) or name.startswith("dist")):
-            raise NotImplementedError("kvstore %r comes with %s"
-                                      % (name, _COMM))
-        if self._kvstore_params["update_on_kvstore"]:
-            raise NotImplementedError("update_on_kvstore=True comes with %s"
-                                      % _COMM)
-        self._kvstore = None
-        self._update_on_kvstore = False
+        update_on_kvstore = self._kvstore_params["update_on_kvstore"]
+        if self._zero:
+            update_on_kvstore = True
+        kvstore = None
+        if name and (not isinstance(name, str) or update_on_kvstore is True
+                     or name.startswith("dist")):
+            kvstore = kvs.create(name) if isinstance(name, str) else name
+        if kvstore is not None:
+            if update_on_kvstore is None:
+                update_on_kvstore = False   # one process, dense parameters
+            if update_on_kvstore:
+                kvstore.set_optimizer(self._optimizer, zero=self._zero)
+            self._kvstore = kvstore
+            self._update_on_kvstore = bool(update_on_kvstore)
+        else:
+            self._kvstore = None
+            self._update_on_kvstore = False
         self._kv_initialized = True
+
+    def _init_params(self):
+        """Put each initialized parameter into the store (a deferred one
+        waits for its shape); when the store updates, the parameters take
+        the stored weights."""
+        waiting = []
+        for param in self._params_to_init:
+            if param._deferred_init:
+                waiting.append(param)
+                continue
+            idx = self._param2idx[param.name]
+            arrays = param.list_data()
+            self._kvstore.init(idx, arrays[0])
+            if self._update_on_kvstore:
+                self._kvstore.pull(idx, arrays, priority=-idx)
+        self._params_to_init = waiting
+
+    def _ensure_store(self):
+        if not self._kv_initialized:
+            self._init_kvstore()
+        if self._kvstore is not None and self._params_to_init:
+            self._init_params()
 
     @property
     def learning_rate(self):
@@ -115,21 +170,55 @@ class Trainer:
 
     def step(self, batch_size, ignore_stale_grad=False):
         """One update: gradients (of the loss sum) scaled by
-        ``scale / batch_size``, reduced across contexts, then the
-        optimizer."""
+        ``scale / batch_size``, reduced through the store, then the
+        optimizer (on the store when it updates)."""
         self._optimizer.rescale_grad = self._scale / batch_size
-        self.allreduce_grads()
+        self._ensure_store()
+        self._allreduce_grads()
         self._update(ignore_stale_grad)
 
     def allreduce_grads(self):
-        """Sum the gradients across contexts: nothing to do on one."""
-        if not self._kv_initialized:
-            self._init_kvstore()
+        """Reduce the gradients through the store without an update."""
+        self._ensure_store()
+        assert not (self._kvstore and self._update_on_kvstore), \
+            "allreduce_grads() when parameters are updated on kvstore is " \
+            "not supported. Try setting `update_on_kvstore` to False when " \
+            "creating trainer."
+        self._allreduce_grads()
+
+    def _allreduce_grads(self):
+        if not self._kvstore:
+            return
+        entries = [(i, p) for i, p in enumerate(self._params)
+                   if p.grad_req != "null"]
+        # ZeRO always takes the multi-key path: its updater needs every key
+        # of the step in one call
+        if entries and (_engine.bucket_bytes() or self._zero) \
+                and (len(entries) > 1 or self._zero):
+            keys, grads = [], []
+            for _, param in reversed(entries):
+                keys.append(self._param2idx[param.name])
+                grads.append(param.list_grad())
+            if self._update_on_kvstore:
+                self._kvstore.push(keys, grads, priority=0)
+            else:
+                self._kvstore.pushpull(keys, grads, out=grads, priority=0)
+            return
+        for i, param in entries:
+            idx = self._param2idx[param.name]
+            grad_list = param.list_grad()
+            self._kvstore.push(idx, grad_list, priority=-i)
+            if not self._update_on_kvstore:
+                self._kvstore.pull(idx, grad_list, priority=-i,
+                                   ignore_sparse=False)
 
     def update(self, batch_size, ignore_stale_grad=False):
         """The optimizer step alone (the gradients already reduced)."""
-        if not self._kv_initialized:
-            self._init_kvstore()
+        self._ensure_store()
+        assert not (self._kvstore and self._update_on_kvstore), \
+            "update() when parameters are updated on kvstore is not " \
+            "supported. Try setting `update_on_kvstore` to False when " \
+            "creating trainer."
         self._optimizer.rescale_grad = self._scale / batch_size
         self._update(ignore_stale_grad)
 
@@ -137,25 +226,37 @@ class Trainer:
         for i, param in enumerate(self._params):
             if param.grad_req == "null":
                 continue
+            if self._kvstore and self._update_on_kvstore:
+                # the store updated its weights: write them back
+                with record_function("trainer.writeback"):
+                    self._kvstore.pull(self._param2idx[param.name],
+                                       param.list_data(), priority=-i)
+                continue
             for upd, arr, grad in zip(self._updaters, param.list_data(),
                                       param.list_grad()):
                 upd(i, grad, arr)
 
     def save_states(self, fname):
-        """Write the optimizer and its states (pickled)."""
-        if not self._kv_initialized:
-            self._init_kvstore()
+        """Write the optimizer and its states (pickled): the store's when
+        it updates, else the Updater's."""
+        self._ensure_store()
+        if self._update_on_kvstore:
+            self._kvstore.save_optimizer_states(fname, dump_optimizer=True)
+            return
         with open(fname, "wb") as fout:
             fout.write(self._updaters[0].get_states(dump_optimizer=True))
 
     def load_states(self, fname):
-        if not self._kv_initialized:
-            self._init_kvstore()
-        with open(fname, "rb") as f:
-            states = f.read()
-        for updater in self._updaters:
-            updater.set_states(states)
-            updater.optimizer = self._updaters[0].optimizer
-        self._optimizer = self._updaters[0].optimizer
+        self._ensure_store()
+        if self._update_on_kvstore:
+            self._kvstore.load_optimizer_states(fname)
+            self._optimizer = self._kvstore._updater.optimizer
+        else:
+            with open(fname, "rb") as f:
+                states = f.read()
+            for updater in self._updaters:
+                updater.set_states(states)
+                updater.optimizer = self._updaters[0].optimizer
+            self._optimizer = self._updaters[0].optimizer
         self._optimizer.param_dict = {i: param for i, param
                                       in enumerate(self._params)}

@@ -22,31 +22,32 @@ __all__ = ["params_from_jax", "opt_state_from_jax",
            "gluon_params_from_jax"]
 
 
-def _leaf(name, a, dtype, device):
+def _leaf(norm, a, dtype, device):
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":          # ml_dtypes: no torch view
         t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
     else:
         t = torch.from_numpy(np.array(a))     # a writable copy
     # norm scales stay fp32, as the JAX package keeps them
-    if dtype is not None and t.is_floating_point() \
-            and not name.endswith("norm"):
+    if dtype is not None and t.is_floating_point() and not norm:
         t = t.to(dtype)
     return t.to(device)
 
 
 def params_from_jax(tree, dtype=None, device=None):
     """Nested dict of numpy arrays -> the same dict of tensors on `device`
-    (default cuda). `dtype`, when given, casts every floating weight except
-    the norm scales."""
+    (default cuda): a Llama tree (norm scales ``...norm``) or a BERT tree
+    (layernorms ``..._norm/{gamma, beta}``). `dtype`, when given, casts
+    every floating weight except the norm parameters."""
     device = resolve_device(device)
 
-    def walk(node, name):
+    def walk(node, name, norm):
+        norm = norm or name.endswith("norm")
         if isinstance(node, dict):
-            return {k: walk(v, k) for k, v in node.items()}
-        return _leaf(name, node, dtype, device)
+            return {k: walk(v, k, norm) for k, v in node.items()}
+        return _leaf(norm, node, dtype, device)
 
-    return walk(tree, "")
+    return walk(tree, "", False)
 
 
 def opt_state_from_jax(tree, dtype=None, device=None):

@@ -11,7 +11,8 @@ from ..ops import optimizer_ops as _optimizer_ops  # noqa: F401
 from ..ops import registry as _reg
 from ..ops import tensor as _tensor  # noqa: F401
 from . import register as _register
-from .ndarray import NDArray, array, invoke, load, ones, save, zeros
+from .ndarray import (NDArray, arange, array, invoke, load, ones, save,
+                      zeros)
 
 _register.populate(globals())
 

@@ -25,7 +25,8 @@ from ..base import dtype_name, torch_dtype
 from ..context import Context, context_of, current_context
 from ..ops import registry as _reg
 
-__all__ = ["NDArray", "invoke", "array", "zeros", "ones", "save", "load"]
+__all__ = ["NDArray", "invoke", "array", "zeros", "ones", "arange", "save",
+           "load"]
 
 
 class NDArray:
@@ -111,6 +112,9 @@ class NDArray:
         if len(shape) == 1 and isinstance(shape[0], (tuple, list)):
             shape = tuple(shape[0])
         return invoke("reshape", self, shape=shape)
+
+    def broadcast_to(self, shape):
+        return invoke("broadcast_to", self, shape=shape)
 
     def sum(self, axis=None, keepdims=False):
         return invoke("sum", self, axis=axis, keepdims=keepdims)
@@ -260,6 +264,19 @@ def ones(shape, ctx=None, dtype=None):
     ctx = ctx or current_context()
     return NDArray(torch.ones(shape, dtype=torch_dtype(dtype),
                               device=ctx.torch_device), ctx=ctx)
+
+
+def arange(start, stop=None, step=1.0, repeat=1, ctx=None, dtype=None):
+    """[start, stop) in steps of `step` (each value `repeat` times), float32
+    by default, on `ctx` (default the current context)."""
+    ctx = ctx or current_context()
+    if stop is None:
+        start, stop = 0, start
+    t = torch.arange(start, stop, step, dtype=torch_dtype(dtype),
+                     device=ctx.torch_device)
+    if repeat != 1:
+        t = t.repeat_interleave(repeat)
+    return NDArray(t, ctx=ctx)
 
 
 def _record(arr):

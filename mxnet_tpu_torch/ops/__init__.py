@@ -29,6 +29,8 @@ KERNELS = {
                  "mxnet_tpu/ops/fused_optimizer.py:118"),
     "flat_adam": ("csrc/fused_optimizer.cu",
                   "mxnet_tpu/ops/fused_optimizer.py:149"),
+    "flat_lamb1": ("csrc/lamb.cu", "mxnet_tpu/ops/fused_optimizer.py:177"),
+    "flat_lamb2": ("csrc/lamb.cu", "mxnet_tpu/ops/fused_optimizer.py:229"),
 }
 
 _launches = dict.fromkeys(KERNELS, 0)

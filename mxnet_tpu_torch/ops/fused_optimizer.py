@@ -1,5 +1,5 @@
-"""One-pass SGD(-momentum) and Adam updates (the port of the SGD/Adam half
-of `mxnet_tpu.ops.fused_optimizer`).
+"""One-pass SGD(-momentum) and Adam updates and LAMB's two passes (the
+port of `mxnet_tpu.ops.fused_optimizer`).
 
 `flat_sgd` and `flat_adam` wrap the hand-written kernels of
 ``csrc/fused_optimizer.cu``: one launch reads every element of the weight,
@@ -20,6 +20,16 @@ the per-parameter optimizer ops (`ops.optimizer_ops`) call the same
 wrappers with scalar lr/wd. Unlike the reference, no dtype gate sends a
 bf16 weight elsewhere: fp32 and bf16 weights, gradients and states all
 launch the kernel, and the arithmetic is fp32 with one rounding per output.
+
+LAMB (``csrc/lamb.cu``): `flat_lamb1` (kernel #9) updates the moments in
+place and returns the fp32 direction and, given the bucket's key segments,
+each key's squared norms of the weight and of the direction; `flat_lamb2`
+(kernel #10) applies ``w32 - scale * direction`` in place. Their plain
+versions are the reference's `_lamb1_xla_impl` and `_apply_xla_impl` as
+separate fp32 torch ops. `lamb_flat_phase1_fn` / `lamb_flat_apply_fn` keep
+the reference's call signatures for the ZeRO updater; the per-parameter
+ops `lamb_update_phase1/2` call the same wrappers with a scalar wd and
+scale. fp32, bf16 and fp16 tensors all launch the kernels.
 """
 from __future__ import annotations
 
@@ -30,9 +40,13 @@ import torch
 from . import count_launch
 from ._build import bind
 
-__all__ = ["flat_sgd", "flat_adam", "flat_update_fn"]
+__all__ = ["flat_sgd", "flat_adam", "flat_update_fn", "flat_lamb1",
+           "flat_lamb2", "lamb_chunk_table", "lamb_flat_phase1_fn",
+           "lamb_flat_apply_fn", "LAMB_CHUNK"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_LAMB_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_LAMB_CLIP, _LAMB_MP, _LAMB_BIAS, _LAMB_VEC = 1, 2, 4, 8
 _MOMENTUM, _CLIP, _MP, _VEC = 1, 2, 4, 8
 
 
@@ -85,12 +99,13 @@ def _scalar_or_vec(kernel, name, v, n, dev):
     return float(v), None
 
 
-def _check(name, w, g, states, master, mp_on):
+def _check(name, w, g, states, master, mp_on, dtypes=_DTYPES):
     n = w.numel()
     for label, t in [("weight", w), ("grad", g)] + states:
-        if t.dtype not in _DTYPES:
-            raise ValueError("%s: the kernel takes float32 or bfloat16 "
-                             "tensors, got %s %s" % (name, label, t.dtype))
+        if t.dtype not in dtypes:
+            raise ValueError("%s: the kernel takes %s tensors, got %s %s"
+                             % (name, "/".join(str(d)[6:] for d in dtypes),
+                                label, t.dtype))
         if t.numel() != n or t.device != w.device or not t.is_contiguous():
             raise ValueError("%s: %s must be a contiguous tensor of %d "
                              "elements on %s" % (name, label, n, w.device))
@@ -230,4 +245,231 @@ def flat_update_fn(kind, momentum_on, clip_on, mp_on):
                              mp_on)
     else:
         raise KeyError(kind)
+    return fn
+
+
+# ---------------------------------------------------------------------------
+# LAMB: pass 1 (moments + direction + per-key squared norms), the caller's
+# norm exchange and trust ratio, pass 2 (apply)
+# ---------------------------------------------------------------------------
+LAMB_CHUNK = 8192       # elements per block of kernel #9's norm pass
+
+
+def _ref_flat_lamb1(w, g, mean, var, master, wd, beta1, omb1, beta2, omb2, d1,
+                    d2, eps, rescale, clip, clip_on, mp_on, bias_corr,
+                    segments=None, n_keys=0):
+    """LAMB pass 1 as separate fp32 ops (the reference's `_lamb1_xla_impl`):
+    (direction fp32, new mean, new var, norms). norms is (2, n_keys) fp32,
+    each key's sum of w32^2 and direction^2 over its (key, start, length)
+    segments, or None without segments."""
+    w32 = master if mp_on else w.float()
+    g32 = g.float() * rescale
+    if clip_on:
+        g32 = torch.clamp(g32, -clip, clip)
+    m = beta1 * mean.float() + omb1 * g32
+    v = beta2 * var.float() + omb2 * g32 * g32
+    mh, vh = m, v
+    if bias_corr:
+        # divide by tensors on m's device: CUDA divides by a host scalar as
+        # a product with its reciprocal, which rounds differently from the
+        # division the reference (and the kernel) does
+        d = torch.tensor([d1, d2], dtype=torch.float32, device=m.device)
+        mh, vh = m / d[0], v / d[1]
+    gdir = mh / (torch.sqrt(vh) + eps) + wd * w32
+    norms = None
+    if segments is not None:
+        norms = torch.zeros(2, n_keys, dtype=torch.float32, device=w.device)
+        for k, s, ln in segments:
+            ws, gs = w32[s:s + ln], gdir[s:s + ln]
+            norms[0, k] += (ws * ws).sum()
+            norms[1, k] += (gs * gs).sum()
+    return gdir, m.to(mean.dtype), v.to(var.dtype), norms
+
+
+def _ref_flat_lamb2(w, master, gdir, scale, mp_on):
+    """LAMB pass 2 as fp32 ops (the reference's `_apply_xla_impl`): (new w,
+    new master)."""
+    w32 = master if mp_on else w.float()
+    w32n = w32 - scale * gdir
+    return w32n.to(w.dtype), (w32n if mp_on else master)
+
+
+def lamb_chunk_table(segments, n_keys, n, device):
+    """Kernel #9's chunk table for n elements with key segments (key,
+    start, length): chunk starts (int64) and lengths (int32, at most
+    LAMB_CHUNK) grouped by key, then chunks over the elements no segment
+    covers (the padding); and each key's first chunk (int32, n_keys + 1
+    entries). A caller that runs the same segments every step builds it
+    once (`ZeroUpdater` does, per bucket)."""
+    spans = sorted((s, s + ln) for _, s, ln in segments)
+    for (s0, e0), (s1, _) in zip(spans, spans[1:]):
+        if s1 < e0:
+            raise ValueError("flat_lamb1: overlapping segments at %d" % s1)
+    if spans and (spans[0][0] < 0 or spans[-1][1] > n):
+        raise ValueError("flat_lamb1: segments outside [0, %d)" % n)
+    starts, lens, first = [], [], []
+
+    def cut(s, e):
+        for a in range(s, e, LAMB_CHUNK):
+            starts.append(a)
+            lens.append(min(LAMB_CHUNK, e - a))
+
+    by_key = sorted(segments, key=lambda seg: (seg[0], seg[1]))
+    it = iter(by_key)
+    seg = next(it, None)
+    for k in range(n_keys):
+        first.append(len(starts))
+        while seg is not None and seg[0] == k:
+            cut(seg[1], seg[1] + seg[2])
+            seg = next(it, None)
+    if seg is not None:
+        raise ValueError("flat_lamb1: segment of key %d >= n_keys %d"
+                         % (seg[0], n_keys))
+    first.append(len(starts))
+    pos = 0
+    for s, e in spans + [(n, n)]:
+        cut(pos, s)
+        pos = max(pos, e)
+    return (torch.tensor(starts, dtype=torch.int64, device=device),
+            torch.tensor(lens, dtype=torch.int32, device=device),
+            torch.tensor(first, dtype=torch.int32, device=device))
+
+
+def flat_lamb1(w, g, mean, var, master, wd, beta1, omb1, beta2, omb2, d1, d2,
+               eps, rescale, clip, clip_on, mp_on, bias_corr, segments=None,
+               n_keys=0, table=None):
+    """LAMB pass 1 over every element of w (kernel #9): mean and var are
+    updated in place; returns (direction fp32, mean, var, norms). wd is a
+    float or an fp32 per-element tensor; omb = 1 - beta and d = 1 - beta^t
+    computed by the caller in double. With `segments` ((key, start,
+    length) in w, keys < n_keys) norms is (2, n_keys) fp32: each key's
+    ||w32||^2 and ||direction||^2; else None. `table` is the segments'
+    `lamb_chunk_table` on w's device, built here when not given."""
+    if w.device.type == "cpu":
+        gdir, m, v, norms = _ref_flat_lamb1(
+            w, g, mean, var, master, wd, beta1, omb1, beta2, omb2, d1, d2,
+            eps, rescale, clip, clip_on, mp_on, bias_corr, segments, n_keys)
+        with torch.no_grad():
+            mean.copy_(m)
+            var.copy_(v)
+        return gdir, mean, var, norms
+    if w.device.type != "cuda":
+        raise ValueError("flat_lamb1: no kernel for device %s" % w.device)
+    _check("flat_lamb1", w, g, [("mean", mean), ("var", var)], master, mp_on,
+           _LAMB_DTYPES)
+    if var.dtype != mean.dtype:
+        raise ValueError("flat_lamb1: mean and var must share one dtype, got "
+                         "%s %s" % (mean.dtype, var.dtype))
+    n = w.numel()
+    dev = w.device
+    gdir = torch.empty(n, dtype=torch.float32, device=dev)
+    norms = None if segments is None else torch.zeros(
+        2, n_keys, dtype=torch.float32, device=dev)
+    if n == 0:
+        return gdir, mean, var, norms
+    wd_s, wd_v = _scalar_or_vec("flat_lamb1", "wd", wd, n, dev)
+    starts = lens = first = partial = None
+    n_chunks = 0
+    if segments is not None:
+        starts, lens, first = table if table is not None else \
+            lamb_chunk_table(segments, n_keys, n, dev)
+        n_chunks = starts.numel()
+        partial = torch.empty(2, n_chunks, dtype=torch.float32, device=dev)
+    flags = (_LAMB_CLIP * bool(clip_on) | _LAMB_MP * bool(mp_on)
+             | _LAMB_BIAS * bool(bias_corr) | _LAMB_VEC * (wd_v is not None))
+    # w, g, mean, var, master, gdir, wd_vec, n, chunk_start, chunk_len,
+    # n_chunks, key_first, n_keys, partial, norms, beta1, omb1, beta2,
+    # omb2, d1, d2, eps, rescale, clip, wd, w_dtype, g_dtype, state_dtype,
+    # flags, stream
+    _launch("flat_lamb1", "mx_flat_lamb1",
+            [_P] * 7 + [ctypes.c_longlong, _P, _P, _I, _P, _I, _P, _P]
+            + [_F] * 10 + [_I] * 4 + [_P],
+            [w.data_ptr(), g.data_ptr(), mean.data_ptr(), var.data_ptr(),
+             _ptr(master) if mp_on else None, gdir.data_ptr(), _ptr(wd_v),
+             n, _ptr(starts), _ptr(lens), n_chunks, _ptr(first),
+             n_keys if segments is not None else 0, _ptr(partial),
+             _ptr(norms), float(beta1), float(omb1), float(beta2),
+             float(omb2), float(d1), float(d2), float(eps), float(rescale),
+             float(clip) if clip_on else 0.0, wd_s,
+             _LAMB_DTYPES[w.dtype], _LAMB_DTYPES[g.dtype],
+             _LAMB_DTYPES[mean.dtype], flags], dev)
+    return gdir, mean, var, norms
+
+
+def flat_lamb2(w, master, gdir, scale, mp_on):
+    """LAMB pass 2 over every element of w (kernel #10), in place: w (and
+    the fp32 master, mp_on) become w32 - scale * gdir; returns (w, master).
+    scale is a float, a 0-d fp32 tensor on w's device (read there, no host
+    round trip) or an fp32 per-element tensor."""
+    if w.device.type == "cpu":
+        new_w, new_master = _ref_flat_lamb2(w, master, gdir, scale, mp_on)
+        with torch.no_grad():
+            w.copy_(new_w)
+            if mp_on and master is not new_master:
+                master.copy_(new_master)
+        return w, master
+    if w.device.type != "cuda":
+        raise ValueError("flat_lamb2: no kernel for device %s" % w.device)
+    _check("flat_lamb2", w, gdir, [], master, mp_on, _LAMB_DTYPES)
+    if gdir.dtype != torch.float32:
+        raise ValueError("flat_lamb2: the direction must be float32, got %s"
+                         % gdir.dtype)
+    n = w.numel()
+    if n == 0:
+        return w, master
+    scale_p, stride, scale_s = None, 0, 0.0
+    if torch.is_tensor(scale):
+        if scale.dim() == 0:
+            if scale.dtype != torch.float32 or scale.device != w.device:
+                raise ValueError("flat_lamb2: a 0-d scale must be float32 "
+                                 "on %s" % w.device)
+            scale_p = scale
+        else:
+            _, scale_p = _scalar_or_vec("flat_lamb2", "scale", scale, n,
+                                        w.device)
+            stride = 1
+    else:
+        scale_s = float(scale)
+    # w, master, gdir, scale_ptr, scale_stride, n, scale, w_dtype, flags,
+    # stream
+    _launch("flat_lamb2", "mx_flat_lamb2",
+            [_P] * 4 + [ctypes.c_longlong] * 2 + [_F, _I, _I, _P],
+            [w.data_ptr(), _ptr(master) if mp_on else None, gdir.data_ptr(),
+             _ptr(scale_p), stride, n, scale_s, _LAMB_DTYPES[w.dtype],
+             _LAMB_MP * bool(mp_on)], w.device)
+    return w, master
+
+
+def lamb_flat_phase1_fn(clip_on, mp_on, bias_corr, segments, n_keys):
+    """LAMB pass 1 over a flat shard with the reference's call signature
+    (`mxnet_tpu.ops.fused_optimizer.lamb_flat_phase1_fn`):
+
+        fn(w, g, mean, var, master, wd_vec, seg_ids, beta1, omb1, beta2,
+           omb2, d1, d2, eps, rescale, clip) -> (gdir, mean, var, norms)
+
+    `segments` is the (key_index, start, length) tuple of the shard; the
+    kernel takes its chunk table from them, so seg_ids is not read."""
+    segments = tuple(tuple(s) for s in segments)
+    tables = {}     # (n, device) -> this function's chunk table
+
+    def fn(w, g, mean, var, master, wd_vec, seg_ids, beta1, omb1, beta2,
+           omb2, d1, d2, eps, rescale, clip):
+        table = None
+        if w.device.type == "cuda":
+            key = (w.numel(), w.device)
+            if key not in tables:
+                tables[key] = lamb_chunk_table(segments, n_keys, *key)
+            table = tables[key]
+        return flat_lamb1(w, g, mean, var, master, wd_vec, beta1, omb1,
+                          beta2, omb2, d1, d2, eps, rescale, clip, clip_on,
+                          mp_on, bias_corr, segments, n_keys, table)
+    return fn
+
+
+def lamb_flat_apply_fn(mp_on):
+    """LAMB pass 2 with the reference's call signature: fn(w, master, gdir,
+    scale) -> (w, master); `scale` carries lr x trust ratio (per element
+    on the flat path, a scalar on the per-parameter path)."""
+    def fn(w, master, gdir, scale):
+        return flat_lamb2(w, master, gdir, scale, mp_on)
     return fn

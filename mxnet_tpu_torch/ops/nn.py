@@ -1,7 +1,8 @@
-"""Neural-net ops of the ResNet path (the port of the part of
-`mxnet_tpu.ops.nn` that Gluon's ResNet layers and losses call):
-FullyConnected, Convolution, Pooling, BatchNorm (inference and training),
-Activation and log_softmax.
+"""Neural-net ops of the ResNet and BERT paths (the port of the part of
+`mxnet_tpu.ops.nn` that Gluon's ResNet and BERT layers and the losses
+call): FullyConnected, Convolution, Pooling, BatchNorm (inference and
+training), LayerNorm, Activation, LeakyReLU, softmax, log_softmax,
+Dropout and the interleaved self-attention products.
 
 They are XLA ops in the reference, outside any Pallas kernel, so they stay
 `torch.nn.functional` calls here. A float32 convolution on the card runs
@@ -10,6 +11,8 @@ cuDNN would otherwise round fp32 operands to TF32, about three decimal
 digits, where the reference keeps fp32.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -58,7 +61,12 @@ def _fully_connected(data, weight, bias=None, num_hidden=None, no_bias=False,
     x = data
     if flatten and x.dim() > 2:
         x = x.reshape(x.shape[0], -1)
-    return F.linear(x, weight, None if no_bias else bias)
+    b = None if no_bias else bias
+    # mixed dtypes promote as in the reference (bf16 x fp32 -> fp32)
+    dt = torch.promote_types(x.dtype, weight.dtype)
+    if b is not None:
+        dt = torch.promote_types(dt, b.dtype)
+    return F.linear(x.to(dt), weight.to(dt), None if b is None else b.to(dt))
 
 
 @register("Convolution")
@@ -164,8 +172,32 @@ def _batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
     return out
 
 
+@register("LayerNorm")
+def _layer_norm(data, gamma, beta, axis=-1, eps=1e-5, output_mean_var=False):
+    """Normalized in fp32 and cast to the input dtype, THEN scaled and
+    shifted in that dtype, as the reference does
+    (`torch.nn.functional.layer_norm` would apply gamma and beta before the
+    cast, which rounds bf16 differently)."""
+    x32 = data.float()
+    mean = x32.mean(dim=axis, keepdim=True)
+    centered = x32 - mean
+    var = (centered * centered).mean(dim=axis, keepdim=True)
+    out = (centered * torch.rsqrt(var + eps)).to(data.dtype)
+    shape = [1] * data.dim()
+    shape[axis] = data.shape[axis]
+    out = out * gamma.reshape(shape) + beta.reshape(shape)
+    if output_mean_var:
+        return out, mean.squeeze(axis), var.squeeze(axis)
+    return out
+
+
+def _gelu_erf(x):
+    return F.gelu(x, approximate="none")
+
+
 _ACTIVATIONS = {"relu": torch.relu, "sigmoid": torch.sigmoid,
-                "tanh": torch.tanh, "softrelu": F.softplus}
+                "tanh": torch.tanh, "softrelu": F.softplus,
+                "gelu": _gelu_erf}
 
 
 @register("Activation")
@@ -173,6 +205,88 @@ def _activation(data, act_type="relu"):
     if act_type not in _ACTIVATIONS:
         raise ValueError("unknown act_type " + act_type)
     return _ACTIVATIONS[act_type](data)
+
+
+@register("LeakyReLU")
+def _leaky_relu(data, gamma=None, act_type="leaky", slope=0.25,
+                lower_bound=0.125, upper_bound=0.334):
+    """leaky and gelu (exact, erf); the other act_types come with later
+    slices."""
+    if act_type == "leaky":
+        return torch.where(data >= 0, data, slope * data)
+    if act_type == "gelu":
+        return _gelu_erf(data)
+    raise NotImplementedError("LeakyReLU: act_type %r is not ported"
+                              % act_type)
+
+
+@register("softmax")
+def _softmax(data, axis=-1, temperature=None, length=None, use_length=False,
+             dtype=None):
+    """softmax computed in fp32, returned in `dtype` (default the
+    input's)."""
+    if use_length:
+        raise NotImplementedError("softmax(use_length=True) is not ported")
+    x = data
+    if temperature is not None and temperature != 1.0:
+        x = x / temperature
+    out = torch.softmax(x.float(), dim=axis)
+    return out.to(torch_dtype(dtype) if dtype else data.dtype)
+
+
+@register("Dropout")
+def _dropout(data, p=0.5, mode="training", axes=None, cudnn_off=None,
+             _training=None):
+    """Each element kept with probability 1 - p and scaled by 1 / (1 - p)
+    while training (or always, mode="always"); the identity otherwise.
+    `axes` share one draw along those axes. The draw comes from the
+    context's generator (`mx.random`), so it follows `mx.random.seed` but
+    not the reference's JAX stream."""
+    from .. import autograd
+    from ..context import context_of
+    from ..random import generator
+    training = _training if _training is not None else autograd.is_training()
+    if (not training and mode != "always") or p <= 0.0:
+        return data
+    shape = list(data.shape)
+    for ax in axes or ():
+        shape[ax] = 1
+    keep = 1.0 - p
+    u = torch.rand(shape, generator=generator(context_of(data.device)),
+                   device=data.device)
+    return data * (u < keep).to(data.dtype) / keep
+
+
+def _split_interleaved(qkv, heads, which):
+    """(seq, batch, heads*3*hd), interleaved per head -> (batch*heads, seq,
+    hd) of q (0), k (1) or v (2)."""
+    s, b, e = qkv.shape
+    hd = e // (heads * 3)
+    t = qkv.reshape(s, b, heads, 3, hd)[:, :, :, which, :]
+    return t.permute(1, 2, 0, 3).reshape(b * heads, s, hd)
+
+
+@register("_contrib_interleaved_matmul_selfatt_qk")
+def _interleaved_matmul_selfatt_qk(queries_keys_values, heads=None):
+    """scores[b*h, q, k] = (q / sqrt(hd)) . k, q scaled in its own dtype
+    before the product, as the reference does."""
+    q = _split_interleaved(queries_keys_values, heads, 0)
+    k = _split_interleaved(queries_keys_values, heads, 1)
+    scale = torch.tensor(1.0 / math.sqrt(q.shape[-1]), dtype=q.dtype)
+    return torch.bmm(q * scale.to(q.device), k.transpose(1, 2))
+
+
+@register("_contrib_interleaved_matmul_selfatt_valatt")
+def _interleaved_matmul_selfatt_valatt(queries_keys_values, attention,
+                                       heads=None):
+    """(attention @ v) regrouped to (seq, batch, heads*hd)."""
+    s, b, e = queries_keys_values.shape
+    hd = e // (heads * 3)
+    v = _split_interleaved(queries_keys_values, heads, 2)
+    dt = torch.promote_types(attention.dtype, v.dtype)
+    out = torch.bmm(attention.to(dt), v.to(dt))
+    return out.reshape(b, heads, s, hd).permute(2, 0, 1, 3).reshape(
+        s, b, heads * hd)
 
 
 @register("log_softmax")

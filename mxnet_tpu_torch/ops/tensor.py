@@ -1,7 +1,9 @@
 """Tensor ops of the Gluon path (the port of the part of
-`mxnet_tpu.ops.tensor` that Gluon's ResNet layers, the losses and NDArray
-arithmetic call): the binary broadcast ops, unary math, cast, reshape,
-Flatten, the reductions, pick and dot."""
+`mxnet_tpu.ops.tensor` that Gluon's ResNet and BERT layers, the losses and
+NDArray arithmetic call): the binary broadcast ops and comparisons, unary
+math, identity, zeros_like, cast, reshape (with the codes 0, -1, -3),
+Flatten, transpose, slice_axis, broadcast_to, the reductions, pick, dot
+and Embedding."""
 from __future__ import annotations
 
 import torch
@@ -29,6 +31,32 @@ alias("broadcast_sub", "elemwise_sub", "_minus", "_sub")
 alias("broadcast_mul", "elemwise_mul", "_mul")
 alias("broadcast_div", "elemwise_div", "_div")
 
+_CMP = {"broadcast_equal": torch.eq, "broadcast_not_equal": torch.ne,
+        "broadcast_greater": torch.gt, "broadcast_greater_equal": torch.ge,
+        "broadcast_lesser": torch.lt, "broadcast_lesser_equal": torch.le}
+
+
+def _compare(f):
+    def fn(a, b):
+        """1 where the comparison holds, else 0, in a's dtype when a is a
+        float tensor, else float32."""
+        if not torch.is_tensor(a):
+            a = torch.as_tensor(a, dtype=b.dtype, device=b.device)
+        if not torch.is_tensor(b):
+            b = torch.as_tensor(b, dtype=a.dtype, device=a.device)
+        dt = a.dtype if a.is_floating_point() else torch.float32
+        return f(a, b).to(dt)
+    return fn
+
+
+for _n, _f in _CMP.items():
+    register(_n, differentiable=False)(_compare(_f))
+
+alias("broadcast_equal", "_equal", "_equal_scalar")
+alias("broadcast_not_equal", "_not_equal")
+alias("broadcast_greater", "_greater", "_greater_scalar")
+alias("broadcast_lesser", "_lesser", "_lesser_scalar")
+
 
 _UNARY = {"negative": torch.neg, "square": torch.square, "abs": torch.abs,
           "exp": torch.exp, "relu": torch.relu, "sigmoid": torch.sigmoid,
@@ -36,6 +64,19 @@ _UNARY = {"negative": torch.neg, "square": torch.square, "abs": torch.abs,
 
 for _n, _f in _UNARY.items():
     register(_n, arity=1)(_f)
+
+
+@register("identity")
+def _identity(x):
+    return x
+
+
+alias("identity", "_copy")
+
+
+@register("zeros_like", differentiable=False)
+def _zeros_like(x):
+    return torch.zeros_like(x)
 
 
 @register("cast")
@@ -57,15 +98,25 @@ alias("flatten", "Flatten")
 
 @register("reshape")
 def _reshape(x, shape=None, reverse=False):
-    """Reshape; 0 copies the input's dim at that position, -1 is
-    inferred (the reference's codes -2..-4 are not ported)."""
+    """Reshape with the reference's codes: 0 copies the input's dim, -1 is
+    inferred, -3 merges the next two input dims into one (-2, -4 and
+    reverse=True are not ported)."""
     if reverse:
         raise NotImplementedError("reshape: reverse=True is not ported")
-    shape = tuple(x.shape[i] if d == 0 else d for i, d in enumerate(shape))
-    if any(d < -1 for d in shape):
-        raise NotImplementedError("reshape: special codes below -1 are not "
-                                  "ported, got %s" % (shape,))
-    return x.reshape(shape)
+    src, out, i = tuple(x.shape), [], 0
+    for d in shape:
+        if d == 0:
+            out.append(src[i])
+            i += 1
+        elif d == -3:
+            out.append(src[i] * src[i + 1])
+            i += 2
+        elif d >= -1:
+            out.append(d)
+            i += 1
+        else:
+            raise NotImplementedError("reshape: code %d is not ported" % d)
+    return x.reshape(tuple(out))
 
 
 alias("reshape", "Reshape")
@@ -106,6 +157,42 @@ def _pick(x, index, axis=-1, keepdims=False, mode="clip"):
     idx = index.long().clamp(0, x.shape[axis] - 1).unsqueeze(axis)
     out = torch.gather(x, axis, idx)
     return out if keepdims else out.squeeze(axis)
+
+
+@register("transpose")
+def _transpose(x, axes=None):
+    """Permute the axes (reversed without `axes`)."""
+    return x.permute(*axes) if axes else x.permute(
+        *reversed(range(x.dim())))
+
+
+@register("slice_axis")
+def _slice_axis(x, axis=0, begin=0, end=None):
+    idx = [slice(None)] * x.dim()
+    idx[axis] = slice(begin, end)
+    return x[tuple(idx)]
+
+
+@register("broadcast_to")
+def _broadcast_to(x, shape=None):
+    """Broadcast to `shape`; 0 keeps the input's dim."""
+    return x.expand(tuple(x.shape[i] if s == 0 else s
+                          for i, s in enumerate(shape)))
+
+
+@register("Embedding")
+def _embedding(data, weight, input_dim=None, output_dim=None, dtype=None,
+               sparse_grad=False):
+    """weight[data]: the rows of the (input_dim, output_dim) table at the
+    (float or integer) indices, a negative index counted from the end. The
+    gradient is dense (a scatter-add into the table); row-sparse gradients
+    come with the port's sparse slice."""
+    if sparse_grad:
+        raise NotImplementedError("Embedding(sparse_grad=True) comes with "
+                                  "the port's sparse slice")
+    idx = data.long()
+    idx = torch.where(idx < 0, idx + weight.shape[0], idx)
+    return torch.nn.functional.embedding(idx, weight)
 
 
 @register("dot")

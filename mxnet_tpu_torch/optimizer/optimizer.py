@@ -1,4 +1,4 @@
-"""Optimizers (the port of the SGD/Adam part of
+"""Optimizers (the port of the SGD/Adam/LAMB part of
 `mxnet_tpu.optimizer.optimizer`).
 
 Kept from the reference: the registry (`Optimizer.register`, `create`),
@@ -17,9 +17,16 @@ multi-parameter path (`fused_update`, `aggregate_num`) computes the same
 fp32-then-round numbers in one jitted call; the port runs it as one launch
 per parameter (a multi-tensor launch is later work), so `aggregate_num` is
 kept for the API only. The reference's flat-shard update
-(`_fused_flat_fn`) is `ops.fused_optimizer.flat_update_fn` here.
+(`_fused_flat_fn`) is `ops.fused_optimizer.flat_update_fn` here, and
+the ZeRO updater (`optimizer.zero`) runs it per bucket.
 
-Only SGD and Adam are ported; creating any other optimizer of the
+LAMB's two phases go through the registry too (`_op_fn`): on a GPU context
+phase 1 launches kernel #9 and phase 2 kernel #10 once per parameter. The
+reference's `LAMB.update` calls the ops' plain functions directly, so its
+imperative LAMB never reached its TPU kernels (ROADMAP Queue C); the
+formulas are the reference's.
+
+SGD, Adam and LAMB are ported; creating any other optimizer of the
 reference raises NotImplementedError naming the slice that brings it.
 """
 from __future__ import annotations
@@ -37,7 +44,7 @@ from ..ndarray import NDArray
 from ..ops import registry as _reg
 
 __all__ = ["Optimizer", "create", "register", "get_updater", "Updater",
-           "SGD", "Adam"]
+           "SGD", "Adam", "LAMB"]
 
 # the reference's other optimizers, and the slice of the port that brings
 # each
@@ -45,7 +52,12 @@ _LATER = dict.fromkeys(
     ("signum", "signsgd", "ftml", "lars", "dcasgd", "nag", "sgld", "adagrad",
      "adadelta", "adamax", "nadam", "rmsprop", "ftrl", "adamw", "lbsgd",
      "test"), "a later slice of the port")
-_LATER["lamb"] = "the port's communication/ZeRO slice (kernels #9/#10)"
+
+
+def _op_fn(name, weight):
+    """The implementation of optimizer op `name` for `weight`'s context:
+    the op's kernel on a GPU, its plain version on the CPU."""
+    return _reg.get(name).best_fn(weight.context.device_type == "gpu")
 
 
 def _run_op(name, *arrays, **kwargs):
@@ -54,8 +66,7 @@ def _run_op(name, *arrays, **kwargs):
     out=weight convention). A GPU context takes the op's kernel, which
     updates in place; the plain version's new tensors are copied in. Dense
     gradients only: row-sparse ones come with the sparse slice."""
-    op = _reg.get(name)
-    fn = op.best_fn(arrays[0].context.device_type == "gpu")
+    fn = _op_fn(name, arrays[0])
     with torch.no_grad():
         out = fn(*(a._data for a in arrays), **kwargs)
         if not isinstance(out, tuple):
@@ -333,6 +344,55 @@ class Adam(Optimizer):
                 epsilon=self.epsilon, rescale_grad=self.rescale_grad,
                 clip_gradient=_clip(self.clip_gradient),
                 lazy_update=self.lazy_update)
+
+
+@register
+class LAMB(Optimizer):
+    """Layer-wise adaptive large-batch optimizer: Adam's moments give a
+    direction (plus wd * w), scaled per parameter by the trust ratio
+    ||w|| / ||direction|| (||w|| clipped into [lower_bound, upper_bound]
+    where given). The bias correction divides the moments; it is not folded
+    into lr."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-6, lower_bound=None, upper_bound=None,
+                 bias_correction=True, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1 = beta1
+        self.beta2 = beta2
+        self.epsilon = epsilon
+        self.lower_bound = lower_bound
+        self.upper_bound = upper_bound
+        self.bias_correction = bias_correction
+
+    def create_state(self, index, weight):
+        return (nd.zeros(weight.shape, ctx=weight.context, dtype=weight.dtype),
+                nd.zeros(weight.shape, ctx=weight.context, dtype=weight.dtype))
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr = self._get_lr(index)
+        wd = self._get_wd(index)
+        t = self._index_update_count[index]
+        mean, var = state
+        with torch.no_grad():
+            gdir, new_mean, new_var = _op_fn("lamb_update_phase1", weight)(
+                weight._data, grad._data, mean._data, var._data,
+                beta1=self.beta1, beta2=self.beta2, epsilon=self.epsilon,
+                t=t, bias_correction=self.bias_correction, wd=wd,
+                rescale_grad=self.rescale_grad,
+                clip_gradient=_clip(self.clip_gradient))
+            for target, new in ((mean, new_mean), (var, new_var)):
+                if new.data_ptr() != target._data.data_ptr():
+                    target._data.copy_(new)
+            r1 = torch.linalg.vector_norm(weight._data.float())
+            r2 = torch.linalg.vector_norm(gdir)
+            new_w = _op_fn("lamb_update_phase2", weight)(
+                weight._data, gdir, r1, r2, lr=lr,
+                lower_bound=_clip(self.lower_bound),
+                upper_bound=_clip(self.upper_bound))
+            if new_w.data_ptr() != weight._data.data_ptr():
+                weight._data.copy_(new_w)
 
 
 class Updater:

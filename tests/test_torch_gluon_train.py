@@ -330,11 +330,12 @@ def test_trainer_and_step_refuse_what_comes_with_later_slices():
     net = mx.gluon.nn.Dense(3, in_units=4)
     net.initialize(ctx=mx.cpu())
     params = net.collect_params()
-    for kw in ({"zero": True}, {"comm_ready": True},
+    for kw in ({"comm_ready": True},
                {"compression_params": {"type": "2bit"}}):
         with pytest.raises(NotImplementedError, match="communication"):
             mx.gluon.Trainer(params, "sgd", **kw)
-    for kw in ({"kvstore": "dist_sync"}, {"update_on_kvstore": True}):
+    for kw in ({"kvstore": "dist_sync"}, {"kvstore": "dist_device_sync",
+                                          "zero": True}):
         tr = mx.gluon.Trainer(params, "sgd", **kw)
         with pytest.raises(NotImplementedError, match="communication"):
             tr.step(1)

@@ -80,6 +80,45 @@ def test_training_kernels_replace_distinct_tpu_kernels():
         assert text.startswith("def _kernel"), (name, text)
 
 
+def test_scan_covers_the_bert_zero_slice():
+    names = {p.relative_to(ROOT).as_posix() for p in FILES}
+    for module in ("engine/__init__.py", "optimizer/zero.py",
+                   "kvstore/kvstore.py", "gluon/model_zoo/bert.py",
+                   "models/bert.py", "ops/nn.py", "ops/tensor.py",
+                   "gluon/nn/basic_layers.py"):
+        assert "mxnet_tpu_torch/" + module in names
+
+
+def test_lamb_kernels_replace_distinct_tpu_kernels():
+    from mxnet_tpu_torch.ops import KERNELS
+    assert KERNELS["flat_lamb1"] == ("csrc/lamb.cu",
+                                     "mxnet_tpu/ops/fused_optimizer.py:177")
+    assert KERNELS["flat_lamb2"] == ("csrc/lamb.cu",
+                                     "mxnet_tpu/ops/fused_optimizer.py:229")
+    for name, want in (("flat_lamb1", "def _kernel_flat_lamb1"),
+                       ("flat_lamb2", "def _kernel_flat_apply")):
+        path, line = KERNELS[name][1].split(":")
+        text = (ROOT / path).read_text().splitlines()[int(line) - 1]
+        assert text.startswith(want), (name, text)
+
+
+KERNEL_MODULES = ["mxnet_tpu_torch/ops/fused_optimizer.py",
+                  "mxnet_tpu_torch/ops/fused_conv.py",
+                  "mxnet_tpu_torch/parallel/flash_attention.py",
+                  "mxnet_tpu_torch/ops/optimizer_ops.py",
+                  "mxnet_tpu_torch/ops/_build.py"]
+
+
+@pytest.mark.parametrize("module", KERNEL_MODULES)
+def test_kernel_wrappers_have_no_fallback(module):
+    """A wrapper launches its kernel on a CUDA tensor or raises: no `try`
+    anywhere in the modules that hold the wrappers and their loader, so no
+    failure can turn into a quiet run of the plain version."""
+    tree = ast.parse((ROOT / module).read_text())
+    tries = [n.lineno for n in ast.walk(tree) if isinstance(n, ast.Try)]
+    assert not tries, "%s: try at lines %s" % (module, tries)
+
+
 def test_importing_the_port_builds_and_loads_nothing():
     """Importing every module of the port starts no process (nvcc) and
     loads no shared library: kernels are built at first use."""
