@@ -88,8 +88,29 @@ Phases (one JSON line each; any failure exits non-zero):
                  plain attention.
 19. bert_train_throughput — step time (median of steps 2-6), tokens/s,
                  peak memory, and torch.profiler over one step.
+20. kernel_segment_sum — the segment-sum kernel against its plain version
+                 (on the CPU) bit for bit: fp32/bf16/fp16 values, int32/int64
+                 ids, widths 1, 3, 16, 64, 65, 129 and rank-3 rows, sorted
+                 and shuffled ids with many duplicates, negative ids, nnz 0;
+                 timed at the main paths' shapes (8192 x 64 into 1,000,001
+                 rows; 128 x 16 into 10,131,228) beside its bytes bound and
+                 torch's index_add_.
+21. sparse_embed — bench.py::bench_sparse's loop at its accelerator shape:
+                 kv.create("local"), ShardedEmbedding(1,000,000, 64, sgd,
+                 lr 0.1), init_embedding, 20 steps of a row-sparse push of
+                 the step's unique zipf ids and a row_sparse_pull of 256 of
+                 them; pushed rows/s, lookup p50/p99, retraces, peak memory,
+                 a profile of 2 steps; the table and the last pull against
+                 the same 20 steps on the CPU.
+22. dlrm_train — DLRM at the Criteo Kaggle widths (facebookresearch/dlrm
+                 bench/dlrm_s_criteo_kaggle.sh: 26 tables, 33,762,577 rows of
+                 16, bottom 13-512-256-64-16, top 367-512-256-1), each table a
+                 ShardedEmbedding (sgd, lr 0.1) through embed_fn, the towers
+                 by SGD: 10 steps at batch 128 (loss falling), the first 3
+                 against the CPU, a profile of 2 steps, and one forward at
+                 batch 16384.
 
-Five main paths, each with its own expected kernels, counts set to 0 just
+Six main paths, each with its own expected kernels, counts set to 0 just
 before and read just after: serving (phases 3-5: flash_fwd), training
 (phase 7's 6 steps: flash_fwd, flash_bwd_dq, flash_bwd_dkv), ResNet-50
 inference (phase 11's forward: conv_bn_relu, 16 launches), ResNet-50
@@ -97,7 +118,9 @@ training (phase 15: 16 conv_bn_stats, 16 cbr_train_bwd and one flat_sgd
 per trainable parameter in each FusedTrainStep step; one flat_adam per
 trainable parameter in each Adam step) and BERT-base pretraining (phase
 18's 6 steps: one flat_lamb1 and one flat_lamb2 per ZeRO bucket a step;
-its functional step: 12 launches of each flash kernel). Then the card's
+its functional step: 12 launches of each flash kernel) and sparse
+embeddings (phase 21's 20 pushes: 2 segment_sum a push; phase 22's 10
+steps: 2 segment_sum per table a step). Then the card's
 name and power limit, the `kernels` line, and as the last line {"ok":
 true, "device": {...}}. Exits non-zero without a CUDA card.
 """
@@ -736,8 +759,10 @@ def phase_train_split(cfg, step, batch, params, state):
     # kernels vs the same forward with the plain backward. fp32 (params
     # cast): the whole kernel path vs plain attention. Both paths at bf16
     # are also held against the fp32 plain gradient: two bf16 runs of the
-    # model differ by about as much as either differs from fp32, so that
-    # comparison is reported beside its fp32 reference, not checked.
+    # model differ by about as much as either differs from fp32, so the
+    # kernel path may be no further from the fp32 gradient than the plain
+    # bf16 path is (x1.5 at the median leaf, x2 at the worst), as
+    # bert_train holds its functional step
     g_k = model_grads(params, batch, cfg)
     finite = all(bool(torch.isfinite(g).all()) for g in g_k.values())
     bwd = leaf_errs(g_k, model_grads(params, batch, cfg, plain_backward))
@@ -748,20 +773,30 @@ def phase_train_split(cfg, step, batch, params, state):
     g_32 = model_grads(p32, batch, cfg32, plain_attention)
     fp32 = leaf_errs(model_grads(p32, batch, cfg32), g_32)
     del p32
+    k_vs_32, p_vs_32 = leaf_errs(g_k, g_32), leaf_errs(g_p, g_32)
+    median_limit = max(GRAD_REL, 1.5 * p_vs_32[2])
+    max_limit = max(GRAD_REL, 2.0 * p_vs_32[1])
     names = ("leaf", "rel_err", "median_rel_err")
     emit({"phase": "train_split", "split_ms": split, "loss": loss.item(),
           "grad_batch": int(batch["tokens"].shape[0]),
           "grad_bf16_bwd_kernels_vs_plain_bwd": dict(zip(names, bwd)),
           "grad_fp32_kernels_vs_plain": dict(zip(names, fp32)),
           "grad_bf16_kernels_vs_plain": dict(zip(names, full_bf16)),
-          "grad_bf16_kernels_vs_fp32": dict(zip(names, leaf_errs(g_k, g_32))),
-          "grad_bf16_plain_vs_fp32": dict(zip(names, leaf_errs(g_p, g_32)))})
+          "grad_bf16_kernels_vs_fp32": dict(zip(names, k_vs_32)),
+          "grad_bf16_plain_vs_fp32": dict(zip(names, p_vs_32)),
+          "grad_bf16_vs_fp32_median_limit": median_limit,
+          "grad_bf16_vs_fp32_max_limit": max_limit})
     check(finite and bwd[1] <= GRAD_REL, "train_split",
           "bf16 gradient through the backward kernels differs from the "
           "plain backward's at %s" % bwd[0])
     check(fp32[1] <= GRAD_REL, "train_split",
           "fp32 gradient differs from the plain-attention one at %s"
           % fp32[0])
+    check(k_vs_32[2] <= median_limit and k_vs_32[1] <= max_limit,
+          "train_split", "bf16 gradient through the kernels is further from "
+          "the fp32 gradient than the plain bf16 path: median %s > %s or "
+          "worst %s (%s) > %s" % (k_vs_32[2], median_limit, k_vs_32[1],
+                                  k_vs_32[0], max_limit))
 
 
 def kernel_group(name):
@@ -2594,6 +2629,390 @@ def phase_bert_train_throughput(net, trainer, batch):
           "the profiler saw no device time")
 
 
+# ---------------------------------------------------------------------------
+# main path 6: sparse embeddings (kernel #11)
+# ---------------------------------------------------------------------------
+SPARSE_KERNELS = ("segment_sum",)
+SPARSE_VOCAB, SPARSE_DIM, SPARSE_NNZ, SPARSE_STEPS = 1_000_000, 64, 8192, 20
+SPARSE_REL = 1e-6               # table vs the CPU replay, over its max abs:
+                                # each row takes one gradient a step, so the
+                                # same fp32 ops give the same bits
+DLRM_REL = 1e-5                 # loss, towers and tables vs the CPU: fp32
+                                # matmuls sum in another order
+# facebookresearch/dlrm bench/dlrm_s_criteo_kaggle.sh: the 26 Criteo Kaggle
+# vocab sizes, --arch-sparse-feature-size=16, --arch-mlp-bot=13-512-256-64-16,
+# --arch-mlp-top=512-256-1 (dot interaction: 16 + 27 * 26 / 2 = 367 wide),
+# --mini-batch-size=128, --test-mini-batch-size=16384
+KAGGLE_VOCABS = (1460, 583, 10131227, 2202608, 305, 24, 12517, 633, 3, 93145,
+                 5683, 8351593, 3194, 27, 14992, 5461306, 10, 5652, 2173, 4,
+                 7046547, 18, 15, 286181, 105, 142572)
+DLRM_BATCH, DLRM_TEST_BATCH, DLRM_STEPS, DLRM_CPU_STEPS = 128, 16384, 10, 3
+SEGSUM_MAIN = [
+    # name, nnz, row, num_segments: the table update of a bench_sparse
+    # push (8192 ascending ids into the 1,000,000 rows and the scratch
+    # row) and of the largest Kaggle table at batch 128
+    ("sparse_embed_update", 8192, (64,), SPARSE_VOCAB + 1),
+    ("dlrm_largest_table", 128, (16,), KAGGLE_VOCABS[2] + 1),
+]
+
+
+def profile_window(fn):
+    """fn() under torch.profiler: its wall time, the device time of its
+    kernels, the idle share (one stream) and the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    top = {}
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = ev.self_cuda_time_total
+        top[ev.key[:120]] = top.get(ev.key[:120], 0.0) + us / 1e3
+    device_ms = sum(top.values())
+    return {"wall_ms": wall_ms, "device_ms": device_ms,
+            "idle_share": 1.0 - device_ms / wall_ms,
+            "top_kernels_ms": dict(sorted(top.items(),
+                                          key=lambda kv: -kv[1])[:10])}
+
+
+def segsum_ids(rng, nnz, segments, sort, low=0, unique=False):
+    """Ids in [low, segments) with many duplicates, or ascending unique
+    ids below the last segment (the main paths' case)."""
+    if unique:
+        return np.sort(rng.choice(segments - 1, size=nnz, replace=False))
+    ids = rng.randint(low, segments, size=nnz)
+    return np.sort(ids) if sort else ids
+
+
+def phase_kernel_segment_sum(gen):
+    """Kernel #11 against its plain version (run on the CPU, where it adds
+    in occurrence order), bit for bit, over dtypes, id dtypes, widths,
+    sorted and shuffled ids with many duplicates, negative ids and nnz 0;
+    then at the main paths' shapes, timed beside its bound and torch's
+    index_add_ (atomics) on the same non-negative ids."""
+    from mxnet_tpu_torch.ops.sparse_ops import _segment_sum_plain, segment_sum
+    rng = np.random.RandomState(0)
+    cases, worst = [], 0.0
+
+    def held(vals, ids, segments, what):
+        nonlocal worst
+        got = segment_sum(vals.cuda(), ids.cuda(), segments)
+        torch.cuda.synchronize()
+        want = _segment_sum_plain(vals, ids, segments)
+        ok = got.shape == want.shape and got.dtype == want.dtype
+        if ok and want.numel():
+            got = got.cpu()
+            worst = max(worst, (got.float() - want.float()).abs().max()
+                        .item())
+            ok = ulps_apart(got, want).max().item() == 0
+        cases.append(what)
+        check(ok, "kernel_segment_sum", "kernel differs from the plain "
+              "version (%s)" % (what,))
+
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        for id_dtype in (torch.int32, torch.int64):
+            for row in ((1,), (3,), (16,), (64,), (65,), (129,), (3, 43)):
+                for sort, low in ((True, 0), (False, -3)):
+                    ids = torch.from_numpy(segsum_ids(rng, 4096, 600, sort,
+                                                      low)).to(id_dtype)
+                    vals = torch.randn((4096,) + row, generator=gen,
+                                       device="cuda").cpu().to(dtype)
+                    held(vals, ids, 1000, (str(dtype), str(id_dtype), row,
+                                           sort, low))
+            held(torch.zeros((0, 7), dtype=dtype),
+                 torch.zeros((0,), dtype=id_dtype), 33, (str(dtype), "nnz 0"))
+            held(torch.randn((300, 5), generator=gen, device="cuda").cpu()
+                 .to(dtype), torch.full((300,), 4, dtype=id_dtype), 10 ** 6,
+                 (str(dtype), "one run, segments far above the ids"))
+    main = {}
+    for name, nnz, row, segments in SEGSUM_MAIN:
+        ids = torch.from_numpy(segsum_ids(rng, nnz, segments, True,
+                                          unique=True)).to(torch.int32)
+        vals = torch.randn((nnz,) + row, generator=gen, device="cuda")
+        held(vals.cpu(), ids, segments, name)
+        ids_c, ids64 = ids.cuda(), ids.cuda().long()
+        # the output written once, the values and int32 ids read once
+        nbytes = (segments + nnz) * row[0] * vals.element_size() + nnz * 4
+        main[name] = {
+            "nnz": nnz, "row": list(row), "num_segments": segments,
+            "ms": time_ms(lambda: segment_sum(vals, ids_c, segments),
+                          iters=20),
+            "plain_ms": time_ms(lambda: _segment_sum_plain(
+                vals, ids_c, segments), iters=20),
+            "library_ms": time_ms(lambda: torch.zeros(
+                (segments,) + row, device="cuda").index_add_(0, ids64, vals),
+                iters=20),
+            "bound_ms": nbytes / PEAK_BYTES * 1e3, "bound_by": "bytes",
+            "bytes": nbytes}
+    emit({"phase": "kernel_segment_sum", "cases": len(cases),
+          "max_abs_err": worst, "main_shapes": main})
+    head = main[SEGSUM_MAIN[0][0]]
+    return {"max_abs_err": worst, "ms": head["ms"],
+            "plain_ms": head["plain_ms"], "library_ms": head["library_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": "bytes"}
+
+
+def sparse_traffic():
+    """bench_sparse's traffic: zipf(1.3) ids modulo the vocab, unique per
+    step, and fp32 gradient rows, from RandomState(0) in its order."""
+    rng = np.random.RandomState(0)
+    raw = rng.zipf(1.3, size=(SPARSE_STEPS, SPARSE_NNZ)).astype(np.int64) \
+        % SPARSE_VOCAB
+    batches = [np.unique(b).astype(np.int32) for b in raw]
+    return [(ids, rng.randn(len(ids), SPARSE_DIM).astype(np.float32))
+            for ids in batches]
+
+
+def sparse_loop(mx, kv, ctx, traffic, lookup_ms=None):
+    """bench_sparse's loop: push each step's row-sparse gradient, then
+    row_sparse_pull its first 256 ids. Returns the last pull."""
+    sp = mx.nd.sparse
+    out = None
+    for ids, grads in traffic:
+        kv.push(0, sp.RowSparseNDArray(grads, ids,
+                                       (SPARSE_VOCAB, SPARSE_DIM), ctx=ctx))
+        out = sp.zeros("row_sparse", (SPARSE_VOCAB, SPARSE_DIM), ctx=ctx)
+        t1 = time.perf_counter()
+        kv.row_sparse_pull(0, out=out, row_ids=mx.nd.array(
+            ids[:256], ctx=ctx, dtype="int32"))
+        if lookup_ms is not None:
+            torch.cuda.synchronize()
+            lookup_ms.append((time.perf_counter() - t1) * 1e3)
+    return out
+
+
+def phase_sparse_embed():
+    """bench.py::bench_sparse's loop at its accelerator shape on the card:
+    kv.create("local"), ShardedEmbedding(1,000,000, 64, sgd, lr 0.1),
+    init_embedding, 20 steps of push + row_sparse_pull; the table and the
+    last pull held against the same 20 steps on the CPU. Returns the
+    launches of the 20 steps."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.embedding import ShardedEmbedding
+    from mxnet_tpu_torch.ops import launch_counts, reset_launch_counts
+    traffic = sparse_traffic()
+    gpu = mx.gpu(0)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    table = ShardedEmbedding(SPARSE_VOCAB, SPARSE_DIM, optimizer="sgd",
+                             learning_rate=0.1, name="bench.sparse")
+    w0 = table.weight.cpu()
+    kv = mx.kv.create("local")
+    kv.init_embedding(0, table, max_batch=SPARSE_NNZ)
+    telemetry.reset()
+    lookup_ms = []
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    pulled = sparse_loop(mx, kv, gpu, traffic, lookup_ms)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = launch_counts()
+    counters = telemetry.snapshot()["counters"]
+    peak = torch.cuda.max_memory_allocated()
+    got = table.gathered_weight().cpu()
+    # the same 20 steps on the CPU, from the same table
+    ctable = ShardedEmbedding(SPARSE_VOCAB, SPARSE_DIM, optimizer="sgd",
+                              learning_rate=0.1, device="cpu", weight=w0)
+    ckv = mx.kv.create("local")
+    ckv.init_embedding(0, ctable, max_batch=SPARSE_NNZ)
+    cpulled = sparse_loop(mx, ckv, mx.cpu(), traffic)
+    want = ctable.gathered_weight()
+    diff = (got - want).abs()
+    err = diff.max().item()
+    limit = SPARSE_REL * want.abs().max().item()
+    worst_row = int(diff.max(dim=1).values.argmax())
+    pushed = sum(len(ids) for ids, _ in traffic)
+    prof = profile_window(lambda: sparse_loop(mx, kv, gpu, traffic[:2]))
+    lookup_ms.sort()
+    rec = {"phase": "sparse_embed", "vocab": SPARSE_VOCAB,
+           "dim": SPARSE_DIM, "ids_per_step": SPARSE_NNZ,
+           "steps": SPARSE_STEPS, "pushed_rows": pushed,
+           "pushed_rows_per_s": pushed / dt, "seconds": dt,
+           "lookup_ms_p50": lookup_ms[len(lookup_ms) // 2],
+           "lookup_ms_p99": lookup_ms[min(len(lookup_ms) - 1,
+                                          int(0.99 * len(lookup_ms)))],
+           "serve_retraces": counters.get("serve.retrace", 0),
+           "unique_rows": counters.get("embedding.push.unique_rows", 0),
+           "launches": {k: v for k, v in launches.items() if v},
+           "max_memory_allocated_bytes": peak,
+           "table_vs_cpu_max_abs": err, "table_vs_cpu_limit": limit,
+           "table_vs_cpu_ulps": ulps_apart(got, want).max().item(),
+           "worst_row": worst_row, "profile_2_steps": prof}
+    emit(rec)
+    check(launches == {k: (2 * SPARSE_STEPS if k in SPARSE_KERNELS else 0)
+                       for k in launches}, "sparse_embed",
+          "launches %s, expected 2 segment_sum a push and nothing else"
+          % launches)
+    check(rec["serve_retraces"] == 0, "sparse_embed", "pulls retraced")
+    check(rec["unique_rows"] == pushed, "sparse_embed",
+          "unique rows %s, pushed %s" % (rec["unique_rows"], pushed))
+    check(bool(torch.isfinite(got).all()) and err <= limit, "sparse_embed",
+          "table differs from the CPU replay by %s (limit %s) at row %d"
+          % (err, limit, worst_row))
+    check(torch.equal(pulled._indices.cpu(), cpulled._indices)
+          and torch.equal(pulled._values.cpu(), cpulled._values),
+          "sparse_embed", "the last pull differs from the CPU replay's")
+    check(prof["device_ms"] > 0, "sparse_embed",
+          "the profiler saw no device time")
+    return launches
+
+
+def dlrm_batch(cfg, batch, seed, device):
+    """Seeded dense features in [0, 1), zipf(1.3) ids per field modulo its
+    vocab, Bernoulli(0.25) labels."""
+    rng = np.random.RandomState(seed)
+    dense = rng.rand(batch, cfg.dense_dim).astype(np.float32)
+    ids = np.stack([rng.zipf(1.3, batch) % v for v in cfg.vocab_sizes],
+                   axis=1).astype(np.int32)
+    labels = (rng.rand(batch) < 0.25).astype(np.float32)
+    return tuple(torch.from_numpy(a).to(device) for a in (dense, ids, labels))
+
+
+def dlrm_leaves(towers):
+    return [t for layer in towers["bottom"] + towers["top"]
+            for t in layer.values()]
+
+
+def dlrm_step(cfg, towers, tables, batch, lr=0.1):
+    """One training step: look the rows up, forward and loss with the rows
+    as leaves, backward, apply_grads for each table, SGD on the towers.
+    Returns the loss (a 0-d tensor)."""
+    from mxnet_tpu_torch.models.dlrm import dlrm_loss
+    dense, ids, labels = batch
+    rows = [t.lookup(ids[:, f]).requires_grad_()
+            for f, t in enumerate(tables)]
+    leaves = dlrm_leaves(towers)
+    for p in leaves:
+        p.requires_grad_(True)
+    loss = dlrm_loss(towers, dense, ids, labels, cfg,
+                     embed_fn=lambda f, _ids: rows[f])
+    loss.backward()
+    for f, t in enumerate(tables):
+        t.apply_grads(ids[:, f], rows[f].grad)
+    with torch.no_grad():
+        for p in leaves:
+            p -= lr * p.grad
+            p.grad = None
+    return loss.detach()
+
+
+def phase_dlrm_train(gen):
+    """DLRM at the Criteo Kaggle widths: 26 ShardedEmbedding tables (sgd,
+    lr 0.1; 33,762,577 rows of 16) through embed_fn, the towers by plain
+    SGD (lr 0.1), 10 steps on one seeded batch of 128; the first 3 steps
+    held against the CPU; a forward at batch 16384. Returns the launches of
+    the 10 steps."""
+    from mxnet_tpu_torch.embedding import ShardedEmbedding
+    from mxnet_tpu_torch.models.dlrm import (DLRMConfig, dlrm_forward,
+                                             dlrm_init)
+    from mxnet_tpu_torch.ops import launch_counts, reset_launch_counts
+    cfg = DLRMConfig(vocab_sizes=KAGGLE_VOCABS, embed_dim=16, dense_dim=13,
+                     bottom_dims=(512, 256, 64), top_dims=(512, 256))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    towers = dlrm_init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                       with_tables=False)
+    tables = [ShardedEmbedding(v, cfg.embed_dim, optimizer="sgd",
+                               learning_rate=0.1, seed=f, name="t%d" % f)
+              for f, v in enumerate(cfg.vocab_sizes)]
+    table_bytes = sum(t._nbytes() for t in tables)
+    cpu_towers = {part: [{k: v.to("cuda", copy=True).cpu()
+                          for k, v in layer.items()}
+                         for layer in towers[part]]
+                  for part in ("bottom", "top")}
+    cpu_w0 = [t.weight.cpu() for t in tables]
+    batch = dlrm_batch(cfg, DLRM_BATCH, 0, "cuda")
+    losses, times, after = [], [], None
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    for i in range(DLRM_STEPS):
+        t0 = time.perf_counter()
+        loss = dlrm_step(cfg, towers, tables, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss.item())
+        if i + 1 == DLRM_CPU_STEPS:
+            # each step makes new tables, so these stay the step-3 ones
+            after = ([t.weight for t in tables],
+                     [p.detach().clone() for p in dlrm_leaves(towers)])
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    med = statistics.median(times[1:])
+    # the first 3 steps on the CPU, from the same towers and tables
+    ctables = [ShardedEmbedding(v, cfg.embed_dim, optimizer="sgd",
+                                learning_rate=0.1, device="cpu", weight=w)
+               for v, w in zip(cfg.vocab_sizes, cpu_w0)]
+    del cpu_w0
+    cbatch = tuple(t.cpu() for t in batch)
+    closses = [dlrm_step(cfg, cpu_towers, ctables, cbatch).item()
+               for _ in range(DLRM_CPU_STEPS)]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, closses))
+    table_err, touched = 0.0, 0
+    for f, (w_card, ct) in enumerate(zip(after[0], ctables)):
+        rows = torch.unique(cbatch[1][:, f].long())
+        scale = ct.weight[rows].abs().max().item()
+        # over the whole table: the untouched rows must be equal too
+        table_err = max(table_err, (w_card.cpu() - ct.weight).abs().max()
+                        .item() / scale)
+        touched += rows.numel()
+    tower_err = max(rel_err(a.cpu(), b) for a, b in
+                    zip(after[1], dlrm_leaves(cpu_towers)))
+    del ctables, cpu_towers, after
+    prof = profile_window(lambda: [dlrm_step(cfg, towers, tables, batch)
+                                   for _ in range(2)])
+    # one forward at the script's test batch
+    tb = dlrm_batch(cfg, DLRM_TEST_BATCH, 1, "cuda")
+
+    def forward():
+        with torch.no_grad():
+            return dlrm_forward(towers, tb[0], tb[1], cfg,
+                                embed_fn=lambda f, ids: tables[f].lookup(ids))
+
+    logits = forward()
+    fwd_ms = time_ms(forward, iters=5, warmup=1)
+    rec = {"phase": "dlrm_train", "config": "dlrm_s_criteo_kaggle",
+           "tables": cfg.n_fields, "rows": sum(cfg.vocab_sizes),
+           "table_bytes": table_bytes, "batch": DLRM_BATCH,
+           "losses": losses, "step_ms": times, "step_ms_median_2_10": med,
+           "examples_per_s": DLRM_BATCH / med * 1e3,
+           "launches": {k: v for k, v in launches.items() if v},
+           "max_memory_allocated_bytes": peak,
+           "cpu_losses": closses, "loss_rel_err_vs_cpu": loss_err,
+           "table_err_vs_cpu": table_err, "touched_rows_checked": touched,
+           "tower_rel_err_vs_cpu": tower_err,
+           "forward_batch": DLRM_TEST_BATCH, "forward_ms": fwd_ms,
+           "forward_examples_per_s": DLRM_TEST_BATCH / fwd_ms * 1e3,
+           "profile_2_steps": prof}
+    emit(rec)
+    per_step = 2 * cfg.n_fields
+    check(launches == {k: (per_step * DLRM_STEPS if k in SPARSE_KERNELS
+                           else 0) for k in launches}, "dlrm_train",
+          "launches %s, expected %d segment_sum a step and nothing else"
+          % (launches, per_step))
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          "dlrm_train", "losses not finite or not falling: %s" % losses)
+    check(loss_err <= DLRM_REL and table_err <= DLRM_REL
+          and tower_err <= DLRM_REL, "dlrm_train",
+          "3 steps differ from the CPU: loss %s, tables %s, towers %s"
+          % (loss_err, table_err, tower_err))
+    check(logits.shape == (DLRM_TEST_BATCH,)
+          and bool(torch.isfinite(logits).all()), "dlrm_train",
+          "forward at batch %d: shape %s or not finite"
+          % (DLRM_TEST_BATCH, tuple(logits.shape)))
+    check(prof["device_ms"] > 0, "dlrm_train",
+          "the profiler saw no device time")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2662,6 +3081,15 @@ def main():
         net, trainer, batch, bert_launches = phase_bert_train(gen, tmp)
     phase_bert_train_throughput(net, trainer, batch)
     del net, trainer
+    torch.cuda.empty_cache()
+
+    # main path 6: sparse embeddings (counts reset inside, read right after
+    # the 20 pushes and after the 10 DLRM steps)
+    entries["segment_sum"] = phase_kernel_segment_sum(gen)
+    sparse_launches = phase_sparse_embed()
+    check_path(sparse_launches, SPARSE_KERNELS, "main_path_sparse_embed")
+    dlrm_launches = phase_dlrm_train(gen)
+    check_path(dlrm_launches, SPARSE_KERNELS, "main_path_dlrm_train")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2674,7 +3102,8 @@ def main():
         # launches on the main paths that run the kernel
         launches = serve_launches[name] + train_launches[name] \
             + resnet_launches[name] + train4_launches[name] \
-            + bert_launches[name]
+            + bert_launches[name] + sparse_launches[name] \
+            + dlrm_launches[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": "mxnet_tpu_torch/" + source, "replaces": replaces,

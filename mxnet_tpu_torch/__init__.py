@@ -15,7 +15,11 @@ the vision model zoo's ResNets and the fused conv3x3 + BN + ReLU kernels
 (`ops.fused_conv`, inference and training); and Gluon training: the
 autograd tape, losses, `optimizer` (SGD, Adam, with the flat update
 kernels of `ops.fused_optimizer`), `lr_scheduler`, `gluon.Trainer` and
-`gluon.FusedTrainStep`:
+`gluon.FusedTrainStep`; BERT-base pretraining with LAMB on the ZeRO
+updater (`optimizer.zero`, `kvstore`); and sparse embeddings: row-sparse
+and CSR arrays (`nd.sparse`), vocab-sharded tables (`embedding`), the
+kvstore's row_sparse push and pull, and the DLRM model (`models.dlrm`),
+on the segment-sum kernel of `ops.sparse_ops`:
 
     import mxnet_tpu_torch as mx
     net = mx.gluon.model_zoo.vision.resnet50_v1(layout="NHWC")
@@ -30,10 +34,11 @@ kernels of `ops.fused_optimizer`), `lr_scheduler`, `gluon.Trainer` and
 """
 from __future__ import annotations
 
-from . import (autograd, base, context, gluon, initializer, io,
-               lr_scheduler, models, name, ndarray, ops, optimizer,
+from . import (autograd, base, context, embedding, gluon, initializer, io,
+               kvstore, lr_scheduler, models, name, ndarray, ops, optimizer,
                parallel, random, serve, telemetry, util)
 from . import initializer as init
+from . import kvstore as kv
 from . import ndarray as nd
 from . import optimizer as opt
 from .base import MXNetError, resolve_device
@@ -41,8 +46,8 @@ from .context import Context, cpu, current_context, gpu
 
 __version__ = "0.1.0"
 
-__all__ = ["autograd", "base", "context", "gluon", "init", "initializer",
-           "io", "lr_scheduler", "models", "name", "nd", "ndarray", "ops",
+__all__ = ["autograd", "base", "context", "embedding", "gluon", "init",
+           "initializer", "io", "kv", "kvstore", "lr_scheduler", "models", "name", "nd", "ndarray", "ops",
            "opt", "optimizer", "parallel", "random", "serve", "telemetry",
            "util", "Context", "cpu", "gpu", "current_context", "MXNetError",
            "resolve_device"]

@@ -10,22 +10,26 @@ bucketing run into a checkpointable bucket -> key layout: the unit of
 ZeRO-1 weight-update sharding, each bucket padded to a multiple of the
 world size so that every rank owns one contiguous shard of it.
 `pack_flat`/`unpack_flat` are the concat+pad / split inverses, on the
-tensors' own device.
+tensors' own device. `SparseGradBucketer` packs row-sparse pushes ((key,
+ids, rows) triples) into `SparseBucket`s sized by the bytes of the touched
+rows, not of the table, so a huge table whose push touches a few thousand
+rows packs beside its neighbours.
 
 Dtypes are named by string ("float32", "bfloat16", ...), as the `.params`
 format and `BucketLayout.to_payload` name them. Readiness-ordered flushing,
-schedule autotuning, the sparse bucketers and the fused flatten -> comm ->
-unflatten programs come with the port's multi-rank communication slice.
+schedule autotuning and the fused flatten -> comm -> unflatten programs
+come with the port's multi-rank communication slice.
 """
 from __future__ import annotations
 
 import torch
 
+from .. import telemetry as _telem
 from ..base import dtype_name, get_env, register_env, torch_dtype
 
 __all__ = ["DEFAULT_BUCKET_MB", "bucket_bytes", "Bucket", "GradBucketer",
            "bucketize", "BucketSpec", "BucketLayout", "pack_flat",
-           "unpack_flat"]
+           "unpack_flat", "SparseBucket", "SparseGradBucketer"]
 
 DEFAULT_BUCKET_MB = 25.0
 
@@ -131,6 +135,95 @@ def bucketize(entries, cap_bytes=None):
     if tail is not None:
         out.append(tail)
     return out
+
+
+# ---------------------------------------------------------------------------
+# sparse (row_sparse) buckets: the comm unit is a set of keys' (row ids,
+# rows) pairs, sized by the touched bytes
+# ---------------------------------------------------------------------------
+class SparseBucket:
+    """One sparse comm unit: ordered (key, ids, vals) triples of a single
+    row dtype. `nbytes` counts the ids and the touched rows, not the dense
+    table."""
+
+    __slots__ = ("keys", "ids", "vals", "dtype", "nbytes", "reason")
+
+    def __init__(self, items, reason):
+        self.keys = [k for k, _, _ in items]
+        self.ids = [i for _, i, _ in items]
+        self.vals = [v for _, _, v in items]
+        self.dtype = dtype_name(self.vals[0].dtype)
+        self.nbytes = sum(_nbytes(i) + _nbytes(v)
+                          for i, v in zip(self.ids, self.vals))
+        self.reason = reason
+
+    def __len__(self):
+        return len(self.keys)
+
+    def key_range(self):
+        if len(self.keys) == 1:
+            return str(self.keys[0])
+        return "%s..%s" % (self.keys[0], self.keys[-1])
+
+    def __repr__(self):
+        return ("SparseBucket(keys=[%s], %d keys, %d bytes, %s, reason=%s)"
+                % (self.key_range(), len(self), self.nbytes, self.dtype,
+                   self.reason))
+
+
+class SparseGradBucketer:
+    """`GradBucketer` over (key, ids, vals) sparse pushes, counting the
+    touched rows' bytes. Flush reasons are the dense packer's and count
+    under ``comm.sparse.bucket.flush_reason.*``."""
+
+    def __init__(self, cap_bytes=None):
+        self.cap = bucket_bytes() if cap_bytes is None else int(cap_bytes)
+        self._open = []
+        self._open_bytes = 0
+        self._dtype = None
+
+    def add(self, key, ids, vals):
+        """Queue one key's rows; returns the buckets that just closed.
+        A push with no rows is skipped (``comm.sparse.bucket.skipped``)."""
+        ready = []
+        if vals is None or vals.numel() == 0:
+            _telem.inc("comm.sparse.bucket.skipped")
+            return ready
+        dt = vals.dtype
+        nbytes = _nbytes(ids) + _nbytes(vals)
+        if self._open and dt != self._dtype:
+            ready.append(self._flush("dtype_split"))
+        if self.cap and nbytes >= self.cap:
+            if self._open:
+                ready.append(self._flush("full"))
+            ready.append(_count_sparse_bucket(
+                SparseBucket([(key, ids, vals)], "oversize")))
+            return ready
+        if self._open and self.cap and self._open_bytes + nbytes > self.cap:
+            ready.append(self._flush("full"))
+        self._open.append((key, ids, vals))
+        self._open_bytes += nbytes
+        self._dtype = dt
+        return ready
+
+    def flush(self, reason="final"):
+        if not self._open:
+            return None
+        return self._flush(reason)
+
+    def _flush(self, reason):
+        b = SparseBucket(self._open, reason)
+        self._open = []
+        self._open_bytes = 0
+        self._dtype = None
+        return _count_sparse_bucket(b)
+
+
+def _count_sparse_bucket(bucket):
+    _telem.inc("comm.sparse.bucket.count")
+    _telem.inc("comm.sparse.bucket.bytes", bucket.nbytes)
+    _telem.inc("comm.sparse.bucket.flush_reason.%s" % bucket.reason)
+    return bucket
 
 
 class BucketSpec:

@@ -206,7 +206,7 @@ class Embedding(HybridBlock):
         super().__init__(**kwargs)
         if sparse_grad:
             raise NotImplementedError("Embedding(sparse_grad=True) comes "
-                                      "with the port's sparse slice")
+                                      "with the port's Gluon-sparse slice")
         self._input_dim = input_dim
         self._output_dim = output_dim
         self._kwargs = {"input_dim": input_dim, "output_dim": output_dim,

@@ -9,24 +9,36 @@ store holds the weights and the updater applies the summed gradient. With
 takes every key of a multi-key push in one call (world 1 on one process).
 `pull` copies the stored value into the given arrays.
 
+Row-sparse values: the replicas of a row-sparse push stay row-sparse when
+summed (`ndarray.sparse.elemwise_add`), so an updater takes its lazy path
+and touches only the pushed rows. A multi-key row-sparse push goes through
+`engine.SparseGradBucketer`, its buckets sized by the touched rows.
+`init_embedding` registers an `embedding.ShardedEmbedding` under a key: a
+row-sparse push to it is the table's `apply_grads`, and `row_sparse_pull`
+answers from the table's `EmbeddingLookupService`. `row_sparse_pull` of a
+dense or row-sparse stored value gathers the requested rows. The counters
+``comm.sparse.push``, ``comm.sparse.rows`` and ``comm.sparse.unique_rows``
+are the reference's.
+
 The reference's fused per-bucket merge programs are a JAX launch-count
 device; here the per-key sum is the same arithmetic (replicas added in
-order). Row-sparse values and `row_sparse_pull`, sharded embeddings,
-readiness-ordered push sessions and the ``dist*`` stores raise
-NotImplementedError naming the slice that brings them.
+order). The fault-injection retry of a sparse bucket comes with the port's
+resilience package; readiness-ordered push sessions and the ``dist*``
+stores raise NotImplementedError naming the slice that brings them.
 """
 from __future__ import annotations
 
 import torch
 
+from .. import engine as _engine
 from .. import ndarray as nd
 from .. import optimizer as opt
+from .. import telemetry as _telem
 from ..base import MXNetError
 
 __all__ = ["KVStore", "KVStoreLocal", "create"]
 
 _COMM = "the port's multi-rank communication slice"
-_SPARSE = "the port's sparse slice"
 
 
 def _key_list(key):
@@ -79,7 +91,7 @@ class KVStore:
             self.pull(key, out=out, priority=priority)
 
     def row_sparse_pull(self, key, out=None, priority=0, row_ids=None):
-        raise NotImplementedError("row_sparse_pull comes with %s" % _SPARSE)
+        raise NotImplementedError
 
     def set_gradient_compression(self, compression_params):
         """Recorded only: a local store compresses nothing (reference:
@@ -130,6 +142,8 @@ class KVStoreLocal(KVStore):
         super().__init__()
         self._type = type_name
         self._store = {}          # key -> stored NDArray
+        self._embeddings = {}     # key -> ShardedEmbedding
+        self._embed_services = {}  # key -> EmbeddingLookupService
 
     @property
     def type(self):
@@ -147,8 +161,21 @@ class KVStoreLocal(KVStore):
             self._store[str(k)] = v.copy()
 
     def init_embedding(self, key, table, max_batch=1024, warmup=True):
-        raise NotImplementedError("sharded embeddings come with %s"
-                                  % _SPARSE)
+        """Register a vocab-sharded `embedding.ShardedEmbedding` under
+        `key`: row-sparse pushes to it go to the table's update of its
+        owned rows, and `row_sparse_pull` to an `EmbeddingLookupService`
+        over the table, warmed here so that steady pulls count no retrace.
+        Returns the service."""
+        from ..embedding.serving import EmbeddingLookupService
+        k = str(key)
+        if k in self._store or k in self._embeddings:
+            raise ValueError("duplicate init of key " + k)
+        self._embeddings[k] = table
+        svc = EmbeddingLookupService(table, max_batch=max_batch)
+        if warmup:
+            svc.warmup()
+        self._embed_services[k] = svc
+        return svc
 
     def ready_session(self, canonical_keys=None):
         raise NotImplementedError("readiness-ordered push sessions come "
@@ -156,16 +183,21 @@ class KVStoreLocal(KVStore):
 
     def _check_keys(self, keys):
         for k in keys:
-            if str(k) not in self._store:
+            if str(k) not in self._store and str(k) not in self._embeddings:
                 raise MXNetError("key %s has not been initialized" % str(k))
 
     def _merge(self, vals):
         """The sum of a key's replicas, in order, on the first replica's
-        context."""
+        context; row-sparse replicas give a row-sparse sum."""
         if isinstance(vals, nd.NDArray):
             return vals
         if len(vals) == 1:
             return vals[0]
+        if all(isinstance(v, nd.sparse.RowSparseNDArray) for v in vals):
+            acc = vals[0]
+            for v in vals[1:]:
+                acc = nd.sparse.elemwise_add(acc, v)
+            return acc
         ctx = vals[0].context
         with torch.no_grad():
             acc = vals[0]._data.detach().clone()
@@ -179,7 +211,9 @@ class KVStoreLocal(KVStore):
         entries, nrep = [], None
         for k, v in zip(keys, values):
             vals = list(v) if isinstance(v, (list, tuple)) else [v]
-            if not vals or any(not isinstance(x, nd.NDArray) for x in vals):
+            if not vals or any(not isinstance(x, nd.NDArray)
+                               or isinstance(x, nd.sparse.BaseSparseNDArray)
+                               for x in vals):
                 return None
             if nrep is None:
                 nrep = len(vals)
@@ -216,8 +250,18 @@ class KVStoreLocal(KVStore):
         values = _val_list(value, len(keys))
         assert len(keys) == len(values), "key/value length mismatch"
         self._check_keys(keys)
+        if self._embeddings:
+            keys, values = self._push_embeddings(keys, values)
+            if not keys:
+                return
         if self._maybe_push_zero(keys, values):
             return
+        cap = _engine.bucket_bytes()
+        if cap and len(keys) > 1:
+            sentries = self._sparse_entries(keys, values)
+            if sentries is not None:
+                self._push_sparse_bucketed(sentries, cap)
+                return
         for k, v in zip(keys, values):
             merged = self._merge(v if isinstance(v, (list, tuple)) else [v])
             k = str(k)
@@ -225,7 +269,91 @@ class KVStoreLocal(KVStore):
             if self._updater is not None:
                 self._updater(int(k) if k.isdigit() else k, merged, stored)
             else:
-                merged.copyto(stored)
+                _write(stored, merged)
+
+    # -- row-sparse pushes -------------------------------------------------
+    def _sparse_entries(self, keys, values):
+        """[(str key, [RowSparseNDArray replicas])] when every key is
+        row-sparse and none is a registered embedding; else None."""
+        entries = []
+        for k, v in zip(keys, values):
+            if str(k) in self._embeddings:
+                return None
+            vals = list(v) if isinstance(v, (list, tuple)) else [v]
+            if not vals or any(not isinstance(x, nd.sparse.RowSparseNDArray)
+                               for x in vals):
+                return None
+            entries.append((str(k), vals))
+        return entries
+
+    def _sparse_sync(self, key, ids, vals, shape):
+        """The cross-worker completion of a locally merged sparse push:
+        the identity on a local store, where one worker holds every
+        replica. Returns the (ids, vals) of the globally merged rows."""
+        return ids, vals
+
+    def _apply_sparse(self, k, ids, vals, shape):
+        """The updater (or store write) for one merged sparse key."""
+        stored = self._store[k]
+        merged = nd.sparse.RowSparseNDArray(vals, ids, shape,
+                                            ctx=stored.context)
+        if self._updater is not None:
+            self._updater(int(k) if k.isdigit() else k, merged, stored)
+        else:
+            _write(stored, merged)
+
+    def _count_sparse(self, vals, merged):
+        _telem.inc("comm.sparse.push")
+        _telem.inc("comm.sparse.rows",
+                   sum(int(v._indices.shape[0]) for v in vals))
+        _telem.inc("comm.sparse.unique_rows", int(merged._indices.shape[0]))
+
+    def _push_sparse_bucketed(self, entries, cap):
+        """Each key's replicas merged (deduped), then size-capped
+        `SparseGradBucketer` buckets applied as they close. A bucket's
+        bytes count the touched rows, not the table's."""
+        shapes = {}
+
+        def apply_bucket(bucket):
+            for k, ids, vals in zip(bucket.keys, bucket.ids, bucket.vals):
+                gids, gvals = self._sparse_sync(k, ids, vals, shapes[k])
+                self._apply_sparse(k, gids, gvals, shapes[k])
+
+        bucketer = _engine.SparseGradBucketer(cap)
+        for k, vals in entries:
+            merged = self._merge(vals)
+            shapes[k] = merged.shape
+            self._count_sparse(vals, merged)
+            for bucket in bucketer.add(k, merged._indices, merged._values):
+                apply_bucket(bucket)
+        tail = bucketer.flush()
+        if tail is not None:
+            apply_bucket(tail)
+
+    def _push_embeddings(self, keys, values):
+        """Apply the pushes to registered sharded tables (row-sparse
+        gradients -> `ShardedEmbedding.apply_grads`, then a fresh serving
+        snapshot) and return the other (keys, values)."""
+        rest_k, rest_v = [], []
+        for k, v in zip(keys, values):
+            table = self._embeddings.get(str(k))
+            if table is None:
+                rest_k.append(k)
+                rest_v.append(v)
+                continue
+            vals = list(v) if isinstance(v, (list, tuple)) else [v]
+            if any(not isinstance(x, nd.sparse.RowSparseNDArray)
+                   for x in vals):
+                raise MXNetError(
+                    "push to sharded embedding key %s requires row_sparse "
+                    "gradients" % k)
+            merged = self._merge(vals)
+            self._count_sparse(vals, merged)
+            table.apply_grads(merged._indices, merged._values)
+            svc = self._embed_services.get(str(k))
+            if svc is not None:
+                svc.refresh()   # serving reads the post-step snapshot
+        return rest_k, rest_v
 
     def pull(self, key, out=None, priority=0, ignore_sparse=True):
         """Copy each key's stored value into its arrays."""
@@ -237,6 +365,49 @@ class KVStoreLocal(KVStore):
             src = self._store[str(k)]
             for t in (o if isinstance(o, (list, tuple)) else [o]):
                 src.copyto(t)
+
+    def row_sparse_pull(self, key, out=None, priority=0, row_ids=None):
+        """Pull only the rows `row_ids` (sorted and deduped here) into
+        row-sparse `out` arrays: from a registered table's lookup service,
+        or gathered from a dense or row-sparse stored value."""
+        assert out is not None and row_ids is not None
+        keys = _key_list(key)
+        outs = _val_list(out, len(keys))
+        rids = row_ids if isinstance(row_ids, (list, tuple)) else [row_ids]
+        if len(rids) == 1 and len(keys) > 1:
+            rids = rids * len(keys)
+        self._check_keys(keys)
+        for k, o, r in zip(keys, outs, rids):
+            svc = self._embed_services.get(str(k))
+            src = None if svc is not None else self._store[str(k)]
+            for t in (o if isinstance(o, (list, tuple)) else [o]):
+                if not isinstance(t, nd.sparse.RowSparseNDArray):
+                    raise ValueError(
+                        "row_sparse_pull requires row_sparse outs "
+                        "(reference kvstore restriction); got stype %s"
+                        % t.stype)
+                dev = svc._weight.device if svc is not None \
+                    else src.context.torch_device
+                # sorted unique ids: the RowSparseNDArray invariant
+                rows = torch.unique(nd.sparse._tensor(r, torch.int32, dev))
+                if svc is not None:
+                    vals = svc.lookup(rows)
+                elif isinstance(src, nd.sparse.RowSparseNDArray):
+                    vals = nd.sparse.retain(src, rows)._values
+                else:
+                    vals = src._data[rows.long()]
+                t._set_rows(vals.to(t._values.dtype), rows)
+
+
+def _write(stored, value):
+    """Replace a stored value with `value` (dense or row-sparse), cast to
+    the stored dtype."""
+    dense = value.as_in_context(stored.context)._data
+    with torch.no_grad():
+        if isinstance(stored, nd.sparse.RowSparseNDArray):
+            stored._write(dense.to(stored._values.dtype))
+        else:
+            stored._data.copy_(dense)
 
 
 def create(name="local"):

@@ -35,9 +35,10 @@ def _leaf(norm, a, dtype, device):
 
 
 def params_from_jax(tree, dtype=None, device=None):
-    """Nested dict of numpy arrays -> the same dict of tensors on `device`
-    (default cuda): a Llama tree (norm scales ``...norm``) or a BERT tree
-    (layernorms ``..._norm/{gamma, beta}``). `dtype`, when given, casts
+    """Nested dicts and lists of numpy arrays -> the same tree of tensors
+    on `device` (default cuda): a Llama tree (norm scales ``...norm``), a
+    BERT tree (layernorms ``..._norm/{gamma, beta}``) or a DLRM tree (the
+    lists ``bottom``, ``top`` and ``tables``). `dtype`, when given, casts
     every floating weight except the norm parameters."""
     device = resolve_device(device)
 
@@ -45,6 +46,8 @@ def params_from_jax(tree, dtype=None, device=None):
         norm = norm or name.endswith("norm")
         if isinstance(node, dict):
             return {k: walk(v, k, norm) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [walk(v, name, norm) for v in node]
         return _leaf(norm, node, dtype, device)
 
     return walk(tree, "", False)

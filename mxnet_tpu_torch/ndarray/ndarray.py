@@ -52,8 +52,17 @@ class NDArray:
 
     @property
     def dtype(self):
-        name = dtype_name(self._data.dtype)
-        return name if name == "bfloat16" else np.dtype(name)
+        return _dtype_of(self._data.dtype)
+
+    @property
+    def stype(self):
+        """The storage type: ``default`` (dense); the sparse arrays of
+        `ndarray.sparse` say ``row_sparse`` or ``csr``."""
+        return "default"
+
+    def tostype(self, stype):
+        from . import sparse
+        return sparse.cast_storage(self, stype)
 
     @property
     def size(self):
@@ -128,7 +137,8 @@ class NDArray:
         of the tape."""
         if stype not in (None, "default"):
             raise NotImplementedError("attach_grad: sparse gradient buffers "
-                                      "come with the port's sparse slice")
+                                      "come with the port's Gluon-sparse "
+                                      "slice")
         self._grad = zeros(self.shape, ctx=self._ctx, dtype=self.dtype)
         _autograd.mark_variable(self, grad_req)
 
@@ -183,6 +193,13 @@ class NDArray:
 
     def __neg__(self):
         return invoke("negative", self)
+
+
+def _dtype_of(torch_dt):
+    """A torch dtype as the port names it: a numpy dtype, or the string
+    ``"bfloat16"``."""
+    name = dtype_name(torch_dt)
+    return name if name == "bfloat16" else np.dtype(name)
 
 
 def _unwrap(a):

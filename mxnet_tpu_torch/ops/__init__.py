@@ -31,6 +31,8 @@ KERNELS = {
                   "mxnet_tpu/ops/fused_optimizer.py:149"),
     "flat_lamb1": ("csrc/lamb.cu", "mxnet_tpu/ops/fused_optimizer.py:177"),
     "flat_lamb2": ("csrc/lamb.cu", "mxnet_tpu/ops/fused_optimizer.py:229"),
+    "segment_sum": ("csrc/segment_sum.cu",
+                    "mxnet_tpu/ops/sparse_ops.py:88"),
 }
 
 _launches = dict.fromkeys(KERNELS, 0)

@@ -186,10 +186,10 @@ def _embedding(data, weight, input_dim=None, output_dim=None, dtype=None,
     """weight[data]: the rows of the (input_dim, output_dim) table at the
     (float or integer) indices, a negative index counted from the end. The
     gradient is dense (a scatter-add into the table); row-sparse gradients
-    come with the port's sparse slice."""
+    come with the port's Gluon-sparse slice."""
     if sparse_grad:
         raise NotImplementedError("Embedding(sparse_grad=True) comes with "
-                                  "the port's sparse slice")
+                                  "the port's Gluon-sparse slice")
     idx = data.long()
     idx = torch.where(idx < 0, idx + weight.shape[0], idx)
     return torch.nn.functional.embedding(idx, weight)

@@ -64,14 +64,33 @@ def _run_op(name, *arrays, **kwargs):
     """Run optimizer op `name` on (weight, grad, *states) NDArrays and
     write the updated weight and states back into them (the reference's
     out=weight convention). A GPU context takes the op's kernel, which
-    updates in place; the plain version's new tensors are copied in. Dense
-    gradients only: row-sparse ones come with the sparse slice."""
+    updates in place; the plain version's new tensors are copied in.
+
+    A row-sparse gradient with ``lazy_update`` takes the reference's lazy
+    path: the op runs on the gradient's rows alone (the weight's and
+    states' rows gathered, updated, and written back), so the state of
+    the absent rows does not decay. Any other row-sparse gradient is read
+    dense."""
+    from ..ndarray.sparse import RowSparseNDArray
     fn = _op_fn(name, arrays[0])
+    grad = arrays[1] if len(arrays) > 1 else None
+    targets = [arrays[0]] + list(arrays[2:])
     with torch.no_grad():
+        if isinstance(grad, RowSparseNDArray) and kwargs.get("lazy_update") \
+                and grad._indices.shape[0] < grad.shape[0]:
+            idx = grad._indices.long()
+            fulls = [t._data for t in targets]
+            rows = [f[idx] for f in fulls]
+            out = fn(rows[0], grad._values, *rows[1:], **kwargs)
+            if not isinstance(out, tuple):
+                out = (out,)
+            assert len(targets) == len(out)
+            for full, new in zip(fulls, out):
+                full[idx] = new.to(full.dtype)
+            return
         out = fn(*(a._data for a in arrays), **kwargs)
         if not isinstance(out, tuple):
             out = (out,)
-        targets = [arrays[0]] + list(arrays[2:])
         assert len(targets) == len(out), \
             "optimizer op %s returned %d outputs for %d targets" % (
                 name, len(out), len(targets))

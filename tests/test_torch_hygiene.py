@@ -102,7 +102,26 @@ def test_lamb_kernels_replace_distinct_tpu_kernels():
         assert text.startswith(want), (name, text)
 
 
+def test_scan_covers_the_sparse_slice():
+    names = {p.relative_to(ROOT).as_posix() for p in FILES}
+    for module in ("ops/sparse_ops.py", "parallel/collectives.py",
+                   "ndarray/sparse.py", "embedding/__init__.py",
+                   "embedding/table.py", "embedding/serving.py",
+                   "models/dlrm.py"):
+        assert "mxnet_tpu_torch/" + module in names
+
+
+def test_segment_sum_replaces_the_sparse_tpu_kernel():
+    from mxnet_tpu_torch.ops import KERNELS
+    assert KERNELS["segment_sum"] == ("csrc/segment_sum.cu",
+                                      "mxnet_tpu/ops/sparse_ops.py:88")
+    path, line = KERNELS["segment_sum"][1].split(":")
+    text = (ROOT / path).read_text().splitlines()[int(line) - 1]
+    assert text.startswith("def _kernel_segment_sum"), text
+
+
 KERNEL_MODULES = ["mxnet_tpu_torch/ops/fused_optimizer.py",
+                  "mxnet_tpu_torch/ops/sparse_ops.py",
                   "mxnet_tpu_torch/ops/fused_conv.py",
                   "mxnet_tpu_torch/parallel/flash_attention.py",
                   "mxnet_tpu_torch/ops/optimizer_ops.py",

@@ -400,7 +400,24 @@ def test_kvstore_refuses_what_comes_with_later_slices():
     kv = create("local")
     with pytest.raises(NotImplementedError, match="communication slice"):
         kv.ready_session()
-    with pytest.raises(NotImplementedError, match="sparse slice"):
-        kv.row_sparse_pull(0, out=None, row_ids=None)
     with pytest.raises(ValueError, match="unknown"):
         create("nope")
+
+
+def test_kvstore_row_sparse_pull_of_a_dense_key():
+    """row_sparse_pull gathers the requested rows (sorted, deduped) of a
+    dense stored value into a row-sparse out, as the reference's does."""
+    w = np.arange(12, dtype=np.float32).reshape(6, 2)
+    outs = []
+    for pkg in (mx, jmx):
+        with pkg.cpu():
+            kv = pkg.kv.create("local")
+            kv.init(0, pkg.nd.array(w))
+            out = pkg.nd.sparse.zeros("row_sparse", (6, 2))
+            kv.row_sparse_pull(0, out=out,
+                               row_ids=pkg.nd.array(np.array([4, 1, 4])))
+            outs.append((out.indices.asnumpy(), out.data.asnumpy()))
+    np.testing.assert_array_equal(outs[0][0], [1, 4])
+    np.testing.assert_array_equal(outs[0][1], w[[1, 4]])
+    for a, b in zip(*outs):
+        np.testing.assert_array_equal(a, b)
