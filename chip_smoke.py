@@ -39,8 +39,10 @@ Phases (one JSON line each; any failure exits non-zero):
 10. kernel_cbr — the fused conv3x3 + folded-BN + ReLU kernel against its
                  plain version at ResNet-50's four bottleneck 3x3 shapes
                  (batch 64; bf16 and fp32, with and without a residual) and
-                 at edge shapes, with timings beside its bound and the
-                 cuDNN conv alone.
+                 at edge shapes (the wgmma variant's ragged M, W not a
+                 multiple of 8, grids under a wave), with the variant and
+                 tile each launch took, two launches bit-equal, and timings
+                 beside its bound and the cuDNN conv alone.
 11. resnet_infer — resnet50_v1(layout="NHWC") with MXNET_TPU_FUSED_CONVBN=1
                  at full width and depth, seeded random weights and running
                  statistics, bf16: one predict-mode forward of 64 images at
@@ -52,8 +54,10 @@ Phases (one JSON line each; any failure exits non-zero):
 13. kernel_cbr_train — the training conv + batch statistics kernel
                  (conv_bn_stats) and the BN + ReLU backward kernel
                  (cbr_train_bwd) against their plain versions at ResNet-50's
-                 four bottleneck 3x3 shapes (batch 256) and edge shapes, bf16
-                 and fp32, with and without a residual, with timings.
+                 four bottleneck 3x3 shapes (batch 256) and kernel_cbr's
+                 edge shapes, bf16 and fp32, with and without a residual,
+                 with conv_bn_stats's variant and tile, two launches
+                 bit-equal (conv output and sums), and timings.
 14. kernel_opt — the flat SGD and Adam kernels against their plain versions
                  over every flag combination (bit for bit), timed at 25.6M
                  elements and over one ResNet-50 step's parameters.
@@ -113,10 +117,11 @@ Phases (one JSON line each; any failure exits non-zero):
 Six main paths, each with its own expected kernels, counts set to 0 just
 before and read just after: serving (phases 3-5: flash_fwd), training
 (phase 7's 6 steps: flash_fwd, flash_bwd_dq, flash_bwd_dkv), ResNet-50
-inference (phase 11's forward: conv_bn_relu, 16 launches), ResNet-50
-training (phase 15: 16 conv_bn_stats, 16 cbr_train_bwd and one flat_sgd
-per trainable parameter in each FusedTrainStep step; one flat_adam per
-trainable parameter in each Adam step) and BERT-base pretraining (phase
+inference (phase 11's forward: conv_bn_relu, 16 launches, all on the
+wgmma variant), ResNet-50 training (phase 15: 16 conv_bn_stats, all on the
+wgmma variant, 16 cbr_train_bwd and one flat_sgd per trainable parameter
+in each FusedTrainStep step; one flat_adam per trainable parameter in
+each Adam step) and BERT-base pretraining (phase
 18's 6 steps: one flat_lamb1 and one flat_lamb2 per ZeRO bucket a step;
 its functional step: 12 launches of each flash kernel) and sparse
 embeddings (phase 21's 20 pushes: 2 segment_sum a push; phase 22's 10
@@ -179,6 +184,16 @@ CBR_EDGES = [
     ("image_1x1", 4, 1, 1, 64, 64),
     ("batch1_7x7", 1, 7, 7, 64, 64),
     ("cin20_cout36", 3, 9, 11, 20, 36),
+] + [
+    # the wgmma variant's ragged edges: M = 147, not a multiple of BM
+    ("ragged_m_3x7x7x512", 3, 7, 7, 512, 512),
+    # W = 14, not a multiple of 8
+    ("w14_2x14x14x256", 2, 14, 14, 256, 256),
+    # 49 blocks of 64 x 64: one grid under a wave
+    ("under_a_wave_1x56x56x64", 1, 56, 56, 64, 64),
+    # 128-row tiles with a ragged last tile, BN 128 and 64
+    ("ragged_bm128_37x28x28x128", 37, 28, 28, 128, 128),
+    ("ragged_bm128_7x56x56x64", 7, 56, 56, 64, 64),
 ]
 RESNET_BATCH, RESNET_IMAGE = 64, 224
 RESNET_BF16_REL = 2e-2          # bf16 logits vs the same net on the CPU:
@@ -906,6 +921,23 @@ def phase_checkpoint(step, batch, params, state, ckpt_dir):
           "corrupted step 6 did not fall back to step 5")
 
 
+def launched_variant(fn):
+    """(fn's result, the "kernel/variant_BMxBN" labels of the launches it
+    made), read from the wrappers' variant counts around the call."""
+    from mxnet_tpu_torch.ops import variant_counts
+    before = variant_counts()
+    result = fn()
+    after = variant_counts()
+    return result, sorted("%s/%s" % k for k, n in after.items()
+                          if n != before.get(k, 0))
+
+
+def wgmma_launches(variants, kernel):
+    """Launches of `kernel`'s wgmma variant in a variant_counts() dict."""
+    return sum(n for (name, label), n in variants.items()
+               if name == kernel and label.startswith("wgmma"))
+
+
 def cbr_work(N, H, W, C, Cout, residual, dtype):
     """conv_bn_relu's (flops, bytes): 2*N*H*W*9*C*Cout flops; x, w, out
     (and the residual) in the working dtype plus scale and shift in fp32,
@@ -953,7 +985,9 @@ def phase_kernel_cbr(gen):
                     memory_format=torch.channels_last)
                 lib_ms = time_ms(lambda: F.conv2d(xl, wl, padding=1))
             for res in (None, rnd(N, H, W, Co).to(dtype)):
-                out = conv_bn_relu(x, w, scale, shift, res)
+                out, variant = launched_variant(
+                    lambda: conv_bn_relu(x, w, scale, shift, res))
+                again = conv_bn_relu(x, w, scale, shift, res)
                 ref = _ref_conv_bn_relu(x, w, scale, shift, res)
                 torch.cuda.synchronize()
                 err = (out.float() - ref.float()).abs()
@@ -967,10 +1001,11 @@ def phase_kernel_cbr(gen):
                 rec = {"phase": "kernel_cbr", "kernel": "conv_bn_relu",
                        "shape": name, "NHWC": [N, H, W, C], "Cout": Co,
                        "dtype": str(dtype).split(".")[-1],
-                       "residual": res is not None,
+                       "residual": res is not None, "variant": variant,
                        "max_abs_err": err.max().item(),
                        "out_max_abs": out_scale,
-                       "finite": bool(torch.isfinite(out).all())}
+                       "finite": bool(torch.isfinite(out).all()),
+                       "rerun_bit_equal": bool(torch.equal(out, again))}
                 if timed:
                     rec["ms"] = time_ms(lambda: conv_bn_relu(x, w, scale,
                                                              shift, res))
@@ -991,6 +1026,14 @@ def phase_kernel_cbr(gen):
                 check(rec["finite"] and ok, "kernel_cbr",
                       "conv_bn_relu disagrees with _ref_conv_bn_relu at %s "
                       "%s residual=%s" % (name, dtype, res is not None))
+                check(rec["rerun_bit_equal"], "kernel_cbr",
+                      "two conv_bn_relu launches differ at %s %s" % (name,
+                                                                     dtype))
+                check(len(variant) == 1 and (variant[0].split("/")[1]
+                                             .startswith("wgmma")) == (
+                    dtype == torch.bfloat16 and C % 64 == 0
+                    and Co % 64 == 0), "kernel_cbr",
+                      "%s %s launched %s" % (name, dtype, variant))
     bms, by = bound(weighted["flops"] / 16, weighted["bytes"] / 16,
                     torch.bfloat16)
     return {"max_abs_err": weighted["max_abs_err"], "ms": weighted["ms"],
@@ -1065,7 +1108,8 @@ def phase_resnet_infer(gen, tmp, batch=RESNET_BATCH, image=RESNET_IMAGE):
     off) as a second route, and a .params round trip on the card. Returns
     (net, launches on the path)."""
     import mxnet_tpu_torch as mx
-    from mxnet_tpu_torch.ops import launch_counts, reset_launch_counts
+    from mxnet_tpu_torch.ops import (launch_counts, reset_launch_counts,
+                                     variant_counts)
     gpu = mx.gpu(0)
     net = resnet50(True)
     randomize(net, 0, gpu, image)
@@ -1087,9 +1131,13 @@ def phase_resnet_infer(gen, tmp, batch=RESNET_BATCH, image=RESNET_IMAGE):
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
     launches = launch_counts()
+    variants = variant_counts()
     check_path(launches, RESNET_KERNELS, "main_path_resnet")
     check(launches["conv_bn_relu"] == 16, "resnet_infer",
           "expected 16 conv_bn_relu launches, saw %s" % launches)
+    check(wgmma_launches(variants, "conv_bn_relu") == 16, "resnet_infer",
+          "expected all 16 conv_bn_relu launches on the wgmma variant, saw "
+          "%s" % variants)
     logits = out.data_torch.float()
     check(tuple(logits.shape) == (batch, 1000)
           and bool(torch.isfinite(logits).all()), "resnet_infer",
@@ -1135,6 +1183,7 @@ def phase_resnet_infer(gen, tmp, batch=RESNET_BATCH, image=RESNET_IMAGE):
     emit({"phase": "resnet_infer", "config": "resnet50_v1 NHWC fused",
           "batch": batch, "image": image, "dtype": "bfloat16",
           "first_forward_ms": ms, "launches": launches,
+          "variants": {"%s/%s" % k: n for k, n in variants.items()},
           "logits_shape": list(logits.shape),
           "rel_err_fp32_vs_cpu": rel32, "rel_err_bf16_vs_cpu": rel16,
           "composed_launches": composed_launches,
@@ -1145,7 +1194,7 @@ def phase_resnet_infer(gen, tmp, batch=RESNET_BATCH, image=RESNET_IMAGE):
 
 def infer_kernel_group(name):
     n = name.lower()
-    if "cbr_" in n:
+    if "cbr_" in n:    # cbr_wgmma_kernel<false, ...>, cbr_mma_kernel<false>
         return "conv_bn_relu"
     if any(t in n for t in ("fprop", "conv", "cudnn", "dgrad", "xmma")):
         return "cudnn_conv"
@@ -1242,12 +1291,6 @@ CBR_TRAIN_STAGES = [
     ("stage3_14x14x256", 256, 14, 14, 256, 256, 6),
     ("stage4_7x7x512", 256, 7, 7, 512, 512, 3),
 ]
-CBR_TRAIN_EDGES = [
-    ("cin3_cout12", 2, 5, 5, 3, 12),
-    ("image_1x1", 4, 1, 1, 64, 64),
-    ("batch1_7x7", 1, 7, 7, 64, 64),
-    ("cin20_cout36", 3, 9, 11, 20, 36),
-]
 TRAIN_FP32_REL = 1e-5           # fp32 kernel outputs (#5, #6): max abs error
                                 # over the output's max abs; summation order
                                 # only
@@ -1336,7 +1379,7 @@ def phase_kernel_cbr_train(gen):
     shapes = [(n, N, H, W, C, Co, k, True) for n, N, H, W, C, Co, k
               in CBR_TRAIN_STAGES] + [(n, N, H, W, C, Co, 0, False)
                                       for n, N, H, W, C, Co
-                                      in CBR_TRAIN_EDGES]
+                                      in CBR_EDGES]
     eps = 1e-3
     for name, N, H, W, C, Co, per_step, timed in shapes:
         for dtype in (torch.bfloat16, torch.float32):
@@ -1356,7 +1399,11 @@ def phase_kernel_cbr_train(gen):
                 var = torch.clamp_min(sq / M - mean * mean, 0.0)
                 return conv, mean, var, torch.rsqrt(var + eps)
 
-            got, want = stats(conv_bn_stats), stats(_ref_conv_bn_stats)
+            raw, variant = launched_variant(lambda: conv_bn_stats(x, w))
+            rerun = conv_bn_stats(x, w)
+            rerun_equal = all(torch.equal(a, b) for a, b in zip(raw, rerun))
+            del rerun
+            got, want = stats(lambda *_: raw), stats(_ref_conv_bn_stats)
             lib_ms = None
             if timed:
                 # yardstick only: the conv alone through cuDNN on
@@ -1369,7 +1416,9 @@ def phase_kernel_cbr_train(gen):
                 rec = {"phase": "kernel_cbr_train", "shape": name,
                        "NHWC": [N, H, W, C], "Cout": Co,
                        "dtype": str(dtype).split(".")[-1],
-                       "residual": res is not None}
+                       "residual": res is not None,
+                       "conv_bn_stats_variant": variant,
+                       "rerun_bit_equal": rerun_equal}
                 outs = []
                 for conv, mean, _, invstd in (got, want):
                     _, y = _normalize_relu(conv, mean, invstd, gamma, beta,
@@ -1379,6 +1428,13 @@ def phase_kernel_cbr_train(gen):
                 bad = []           # the outputs out of their bound
                 if not bool(torch.isfinite(got[0].float()).all()):
                     bad.append("conv_out finite")
+                if not rerun_equal:
+                    bad.append("conv_out and sums differ between launches")
+                if len(variant) != 1 or (variant[0].split("/")[1]
+                                         .startswith("wgmma")) != (
+                        dtype == torch.bfloat16 and C % 64 == 0
+                        and Co % 64 == 0):
+                    bad.append("variant %s" % variant)
                 # #5: the conv output, and the op's out, mean and var
                 if dtype == torch.bfloat16:
                     # bf16: one ulp of the larger of the two values (each
@@ -1737,7 +1793,8 @@ def resnet_train_checks(gen, tmp, batch, image, steps, adam_batch,
     the card-vs-CPU comparison's sample of rounding, changes from run to
     run. Returns (net, loss_fn, {kernel: launches on the path})."""
     import mxnet_tpu_torch as mx
-    from mxnet_tpu_torch.ops import launch_counts, reset_launch_counts
+    from mxnet_tpu_torch.ops import (launch_counts, reset_launch_counts,
+                                     variant_counts)
     gpu = mx.gpu(0)
     net = train_net(0, gpu, image)
     n_train = n_trainable(net)
@@ -1755,7 +1812,12 @@ def resnet_train_checks(gen, tmp, batch, image, steps, adam_batch,
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     sgd_launches = launch_counts()
+    sgd_variants = variant_counts()
     check_path(sgd_launches, RESNET_TRAIN_KERNELS, "main_path_resnet_train")
+    check(wgmma_launches(sgd_variants, "conv_bn_stats") == 16 * steps,
+          "resnet_train", "expected all %d conv_bn_stats launches of the "
+          "FusedTrainStep steps on the wgmma variant, saw %s"
+          % (16 * steps, sgd_variants))
     want = {"conv_bn_stats": 16 * steps, "cbr_train_bwd": 16 * steps,
             "flat_sgd": n_train * steps, "conv_bn_relu": 0, "flat_adam": 0}
     check(all(sgd_launches[k] == v for k, v in want.items()),
@@ -1806,7 +1868,12 @@ def resnet_train_checks(gen, tmp, batch, image, steps, adam_batch,
                    .asnumpy().mean().item() for _ in range(ADAM_STEPS)]
     torch.cuda.synchronize()
     adam_launches = launch_counts()
+    adam_variants = variant_counts()
     check_path(adam_launches, RESNET_ADAM_KERNELS, "main_path_resnet_adam")
+    check(wgmma_launches(adam_variants, "conv_bn_stats") == 16 * ADAM_STEPS,
+          "resnet_train", "expected all %d conv_bn_stats launches of the "
+          "Adam loop on the wgmma variant, saw %s"
+          % (16 * ADAM_STEPS, adam_variants))
     want = {"conv_bn_stats": 16 * ADAM_STEPS,
             "cbr_train_bwd": 16 * ADAM_STEPS,
             "flat_adam": n_train * ADAM_STEPS, "flat_sgd": 0,
@@ -1905,10 +1972,13 @@ def resnet_train_checks(gen, tmp, batch, image, steps, adam_batch,
           "batch": batch, "image": image, "steps": steps,
           "trainable_params": n_train, "losses": losses,
           "steps_wall_s": wall_s, "launches": sgd_launches,
+          "variants": {"%s/%s" % k: n for k, n in sgd_variants.items()},
           "running_stats_moved": moved,
           "routes_bit_equal": route_equal, "routes_max_abs_diff": route_diff,
           "adam": {"batch": adam_batch, "steps": ADAM_STEPS,
-                   "losses": adam_losses, "launches": adam_launches},
+                   "losses": adam_losses, "launches": adam_launches,
+                   "variants": {"%s/%s" % k: n
+                                for k, n in adam_variants.items()}},
           "card_vs_cpu_batch": cpu_batch,
           "card_vs_cpu_max_leaf_rel_err": {
               k: v["card_vs_cpu"]["max"] for k, v in vs_cpu.items()}})
@@ -1919,8 +1989,8 @@ def resnet_train_checks(gen, tmp, batch, image, steps, adam_batch,
 
 def train_kernel_group(name):
     n = name.lower()
-    if "cbr_mma_kernel<true" in n or "cbr_fma_kernel<true" in n \
-            or "stats_col_sum" in n:
+    if "cbr_wgmma_kernel<true" in n or "cbr_mma_kernel<true" in n \
+            or "cbr_fma_kernel<true" in n or "stats_col_sum" in n:
         return "conv_bn_stats"
     if "cbr_bwd" in n or "bwd_col_sum" in n:
         return "cbr_train_bwd"

@@ -3,12 +3,14 @@
 Each kernel's wrapper adds one to its count right after the kernel
 launched, and nowhere else, so a run can show that its main path went
 through the kernel and not through the kernel's plain PyTorch version
-(which the wrappers use only for tensors that lie on the CPU).
+(which the wrappers use only for tensors that lie on the CPU). A kernel
+with several variants, chosen by shape before the launch, also records
+which variant and tile each launch took (`variant_counts`).
 """
 from __future__ import annotations
 
 __all__ = ["KERNELS", "count_launch", "launch_counts",
-           "reset_launch_counts"]
+           "reset_launch_counts", "variant_counts"]
 
 # kernel name -> (source in the package, file:line of the TPU kernel it
 # replaces). Several kernels may share one source, which is built once.
@@ -36,16 +38,27 @@ KERNELS = {
 }
 
 _launches = dict.fromkeys(KERNELS, 0)
+_variants = {}      # (kernel name, variant) -> launches
 
 
-def count_launch(name):
+def count_launch(name, variant=None):
     _launches[name] += 1
+    if variant is not None:
+        key = (name, variant)
+        _variants[key] = _variants.get(key, 0) + 1
 
 
 def launch_counts():
     return dict(_launches)
 
 
+def variant_counts():
+    """{(kernel name, variant): launches} since the last reset, for the
+    kernels whose wrappers name a variant."""
+    return dict(_variants)
+
+
 def reset_launch_counts():
     for name in _launches:
         _launches[name] = 0
+    _variants.clear()

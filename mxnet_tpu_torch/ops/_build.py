@@ -6,8 +6,10 @@ compiles a source for Hopper (``sm_90a``) into a shared library of its
 own, which is loaded with ctypes. No file includes PyTorch's headers, so a
 build takes seconds rather than the minutes a torch extension takes.
 Libraries land in ``build/torch_kernels/`` at the root of the checkout,
-named by a hash of the source and the flags, so an unchanged source is
-built once. `build` starts one ``nvcc`` per source, all at once, and waits
+named by a hash of the source, the package-local headers it includes
+(``#include "..."``, followed through the headers they include) and the
+flags, so an unchanged source is built once and a changed header builds
+anew. `build` starts one ``nvcc`` per source, all at once, and waits
 for them together.
 """
 from __future__ import annotations
@@ -15,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -51,11 +54,33 @@ def _source(name):
     return KERNELS[name][0]
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def _local_files(src):
+    """`src` and, in include order, every file it includes with quotes
+    that exists beside its includer (as nvcc looks first), each once."""
+    seen, order, todo = set(), [], [src.resolve()]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.add(path)
+        order.append(path)
+        for name in _LOCAL_INCLUDE.findall(path.read_bytes()):
+            dep = (path.parent / name.decode()).resolve()
+            if dep.is_file():
+                todo.append(dep)
+    return order
+
+
 def _target(source):
     src = _PKG / source
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return src, BUILD_DIR / ("lib%s-%s.so" % (src.stem, digest[:16]))
+    h = hashlib.sha256()
+    for path in _local_files(src):
+        h.update(path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return src, BUILD_DIR / ("lib%s-%s.so" % (src.stem, h.hexdigest()[:16]))
 
 
 def build(names):

@@ -9,7 +9,13 @@ interior ResNet bottleneck conv. BN is the folded (inference) form,
 version (`_ref_conv_bn_relu`) on a CPU context; on a GPU context its
 `cuda_impl` launches the hand-written kernel of ``csrc/conv_bn_relu.cu``
 (`conv_bn_relu`), which takes every shape, so no shape falls back to the
-composite. A CUDA tensor that the kernel cannot take raises.
+composite. A CUDA tensor that the kernel cannot take raises. The kernel
+has variants, chosen by `conv_tile` from the shape before the launch (never
+after a failure): a pipelined wgmma implicit GEMM for bf16 with C and Cout
+multiples of 64 (every ResNet-50 bottleneck 3x3 conv), the general
+mma.sync kernel for other bf16 shapes, and an fp32 FMA kernel. Each launch
+counts under its kernel's name and records its variant and tile
+(`ops.variant_counts`).
 
 The training op `_contrib_conv_bn_relu_train(x, w, gamma, beta,
 *residual, eps)` returns (out, batch mean, batch var) through a
@@ -27,7 +33,9 @@ reference's running-statistics semantics).
 """
 from __future__ import annotations
 
+import collections
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -37,9 +45,46 @@ from ._build import bind
 from .registry import get, register
 
 __all__ = ["fold_bn_params", "conv_bn_relu", "conv_bn_stats",
-           "cbr_train_bwd"]
+           "cbr_train_bwd", "conv_tile", "ConvTile"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_VARIANTS = {"mma": 0, "fma": 0, "wgmma": 1}    # the C entries' variant codes
+H100_SMS = 132
+
+
+class ConvTile(collections.namedtuple("ConvTile", "variant bm bn")):
+    """The kernel variant ("wgmma", "mma" or "fma") and its tile: bm output
+    pixels by bn output channels per block."""
+
+    @property
+    def label(self):
+        return "%s_%dx%d" % self
+
+
+def conv_tile(N, H, W, C, Cout, dtype, sms=H100_SMS):
+    """The variant and tile `conv_bn_relu` and `conv_bn_stats` launch for
+    x (N,H,W,C) and w (3,3,C,Cout) of `dtype` on a card with `sms`
+    multiprocessors. bf16 with C and Cout multiples of 64 takes the wgmma
+    kernel: 128 channels a block where Cout allows, else 64; 128 pixels a
+    block, or 64 where 128 would give fewer blocks than `sms` (under one
+    wave). Other bf16 shapes take the general mma.sync kernel and fp32 the
+    FMA kernel, both at 64 x 64."""
+    if dtype == torch.bfloat16 and C % 64 == 0 and Cout % 64 == 0 \
+            and Cout > 0:
+        bn = 128 if Cout % 128 == 0 else 64
+        bm = 128 if -(-N * H * W // 128) * (Cout // bn) >= sms else 64
+        return ConvTile("wgmma", bm, bn)
+    return ConvTile("mma" if dtype == torch.bfloat16 else "fma", 64, 64)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _device_tile(x, Cout):
+    N, H, W, C = x.shape
+    return conv_tile(N, H, W, C, Cout, x.dtype, _sm_count(x.device.index))
 
 
 def fold_bn_params(gamma, beta, moving_mean, moving_var, eps=1e-3):
@@ -109,8 +154,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 def _kernel_fn():
-    # x, w, scale, shift, residual, out, N, H, W, C, Cout, dtype, stream
-    return bind("conv_bn_relu", "mx_conv_bn_relu", [_P] * 6 + [_I] * 6
+    # x, w, scale, shift, residual, out, N, H, W, C, Cout, dtype, variant,
+    # bm, bn, stream
+    return bind("conv_bn_relu", "mx_conv_bn_relu", [_P] * 6 + [_I] * 9
                  + [_P])
 
 
@@ -125,8 +171,8 @@ def conv_bn_relu(x, w, scale, shift, residual=None):
 
     x (N,H,W,C) NHWC; w (3,3,C,Cout) HWIO; scale, shift (Cout,) fp32;
     residual (N,H,W,Cout) in x's dtype or None. CUDA tensors go through the
-    hand-written kernel, CPU tensors through its plain version; any other
-    device raises.
+    hand-written kernel (the variant `conv_tile` picks), CPU tensors
+    through its plain version; any other device raises.
     """
     if x.device.type == "cpu":
         return _ref_conv_bn_relu(x, w, scale, shift, residual)
@@ -138,15 +184,17 @@ def conv_bn_relu(x, w, scale, shift, residual=None):
     out = torch.empty((N, H, W, Cout), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
+    tile = _device_tile(x, Cout)
     lib, fn = _kernel_fn()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), w.data_ptr(), scale.data_ptr(),
                  shift.data_ptr(),
                  residual.data_ptr() if residual is not None else None,
-                 out.data_ptr(), N, H, W, C, Cout, _DTYPES[x.dtype], stream)
+                 out.data_ptr(), N, H, W, C, Cout, _DTYPES[x.dtype],
+                 _VARIANTS[tile.variant], tile.bm, tile.bn, stream)
     _raise_on(err, lib, "conv_bn_relu")
-    count_launch("conv_bn_relu")
+    count_launch("conv_bn_relu", tile.label)
     return out
 
 
@@ -190,8 +238,9 @@ def conv_bn_stats(x, w):
     """(conv3x3_same(x, w) in x's dtype, per-channel sum, per-channel sum
     of squares), the sums fp32 and taken from the fp32 accumulator over
     the N*H*W rows. x (N,H,W,C) NHWC, w (3,3,C,Cout) HWIO, one dtype
-    (float32 or bfloat16). CUDA tensors go through the hand-written kernel,
-    CPU tensors through its plain version; any other device raises."""
+    (float32 or bfloat16). CUDA tensors go through the hand-written kernel
+    (the variant `conv_tile` picks), CPU tensors through its plain version;
+    any other device raises."""
     if x.device.type == "cpu":
         return _ref_conv_bn_stats(x, w)
     if x.device.type != "cuda":
@@ -219,19 +268,29 @@ def conv_bn_stats(x, w):
     sums = torch.zeros((2, Cout), dtype=torch.float32, device=x.device)
     if M == 0 or Cout == 0:
         return out, sums[0], sums[1]
-    partial = torch.empty((-(-M // 64), 2, Cout), dtype=torch.float32,
-                          device=x.device)
-    # x, w, out, partial, sums, N, H, W, C, Cout, dtype, stream
+    tile = _device_tile(x, Cout)
+    partial = torch.empty(stats_scratch_shape(M, Cout, tile),
+                          dtype=torch.float32, device=x.device)
+    # x, w, out, partial, sums, N, H, W, C, Cout, dtype, variant, bm, bn,
+    # stream
     lib, fn = bind("conv_bn_stats", "mx_conv_bn_stats",
-                    [_P] * 5 + [_I] * 6 + [_P])
+                    [_P] * 5 + [_I] * 9 + [_P])
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(),
                  partial.data_ptr(), sums.data_ptr(), N, H, W, C, Cout,
-                 _DTYPES[x.dtype], stream)
+                 _DTYPES[x.dtype], _VARIANTS[tile.variant], tile.bm,
+                 tile.bn, stream)
     _raise_on(err, lib, "conv_bn_stats")
-    count_launch("conv_bn_stats")
+    count_launch("conv_bn_stats", tile.label)
     return out, sums[0], sums[1]
+
+
+def stats_scratch_shape(M, Cout, tile):
+    """The fp32 partial-sum scratch of `conv_bn_stats` over M rows: one
+    (sum, sum of squares) row pair per tile of `tile.bm` rows. The C entry
+    takes the same bm and walks the same tiles."""
+    return (-(-M // tile.bm), 2, Cout)
 
 
 def _normalize_relu(conv_out, mean, invstd, gamma, beta, residual):

@@ -165,16 +165,73 @@ def test_inputs_the_kernel_cannot_take_raise(bad):
         tfc._check(x, w, s, s, res)
 
 
+# ResNet-50's bottleneck 3x3 convs: (H, W, C, Cout), and the tile the
+# wgmma variant takes at batch 1, 64 and 256 on a 132-SM card: BN 64 where
+# Cout is 64, else 128; BM 64 where 128-row tiles give under 132 blocks
+STAGES = [(56, 56, 64, 64), (28, 28, 128, 128), (14, 14, 256, 256),
+          (7, 7, 512, 512)]
+STAGE_TILES = {
+    1: [(64, 64), (64, 128), (64, 128), (64, 128)],
+    64: [(128, 64), (128, 128), (128, 128), (64, 128)],
+    256: [(128, 64), (128, 128), (128, 128), (128, 128)],
+}
+
+
+@pytest.mark.parametrize("batch", sorted(STAGE_TILES))
+def test_stage_shapes_take_the_wgmma_variant(batch):
+    for (H, W, C, Cout), (bm, bn) in zip(STAGES, STAGE_TILES[batch]):
+        tile = tfc.conv_tile(batch, H, W, C, Cout, torch.bfloat16)
+        assert tile == ("wgmma", bm, bn), (batch, H, tile)
+        assert tile.label == "wgmma_%dx%d" % (bm, bn)
+
+
+@pytest.mark.parametrize("case", [(2, 5, 5, 3, 12), (3, 9, 11, 20, 36),
+                                  (2, 8, 8, 64, 96), (2, 8, 8, 96, 64),
+                                  (2, 8, 8, 16, 16)],
+                         ids=lambda c: "x".join(map(str, c)))
+def test_other_bf16_shapes_take_the_general_kernel(case):
+    assert tfc.conv_tile(*case, torch.bfloat16) == ("mma", 64, 64)
+
+
+@pytest.mark.parametrize("shape", STAGES)
+def test_fp32_takes_the_fma_kernel(shape):
+    assert tfc.conv_tile(64, *shape, torch.float32) == ("fma", 64, 64)
+
+
+def test_tile_rows_follow_the_wave():
+    # 3 x 7 x 7 x 512: 2 tiles of 128 rows x 4 = 8 blocks, under one wave
+    assert tfc.conv_tile(3, 7, 7, 512, 512, torch.bfloat16).bm == 64
+    # the same grid on a card of 8 SMs fills a wave at 128 rows
+    assert tfc.conv_tile(3, 7, 7, 512, 512, torch.bfloat16, sms=8).bm == 128
+    # 37 x 28 x 28: 227 tiles of 128 rows (the last ragged), over a wave
+    assert tfc.conv_tile(37, 28, 28, 128, 128, torch.bfloat16) == (
+        "wgmma", 128, 128)
+
+
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_the_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     torch.backends.cudnn.allow_tf32 = False
-    for case in CASES + ODD_CASES + [(1, 1, 1, 16, 16), (4, 7, 7, 64, 64)]:
+    # small-batch stage shapes and ragged edges reach the wgmma variant
+    # at every tile it has
+    wgmma = [(1,) + st for st in STAGES] + [(2,) + STAGES[3],
+                                            (3, 7, 7, 512, 512),
+                                            (2, 14, 14, 256, 256),
+                                            (7, 56, 56, 64, 64),
+                                            (37, 28, 28, 128, 128)]
+    tiles = set()
+    for case in CASES + ODD_CASES + [(1, 1, 1, 16, 16),
+                                     (4, 7, 7, 64, 64)] + wgmma:
         for dtype in (torch.float32, torch.bfloat16):
             x, w, g, b, m, v, res = (torch.from_numpy(a).cuda() for a in
                                      _inputs(*case))
             scale, shift = tfc.fold_bn_params(g, b, m, v)
+            tile = tfc.conv_tile(*case, dtype)
+            assert (tile.variant == "wgmma") == (
+                dtype == torch.bfloat16 and case[3] % 64 == 0
+                and case[4] % 64 == 0)
+            tiles.add(tile)
             for r in (None, res.to(dtype)):
                 before = launch_counts()["conv_bn_relu"]
                 got = tfc.conv_bn_relu(x.to(dtype), w.to(dtype), scale,
@@ -189,5 +246,7 @@ def test_kernel_matches_plain_on_the_card():
                 else:
                     assert bool((err <= 2e-2 + 2e-2 * want.float().abs())
                                 .all())
+    assert {("wgmma", 64, 64), ("wgmma", 64, 128), ("wgmma", 128, 64),
+            ("wgmma", 128, 128)} <= tiles
     with pytest.raises(ValueError):
         tfc.conv_bn_relu(x.half(), w.half(), scale, shift)

@@ -213,16 +213,57 @@ def test_cpu_tensors_launch_nothing():
     assert launch_counts() == before
 
 
+@pytest.mark.parametrize("M, Cout, tile, rows", [
+    (256 * 56 * 56, 64, ("wgmma", 128, 64), 6272),
+    (64 * 7 * 7, 512, ("wgmma", 64, 128), 49),
+    (3 * 7 * 7, 512, ("wgmma", 64, 128), 3),
+    (37 * 28 * 28, 128, ("wgmma", 128, 128), 227),
+    (3 * 9 * 11, 36, ("mma", 64, 64), 5),
+    (2 * 6 * 6, 16, ("fma", 64, 64), 2),
+])
+def test_stats_scratch_follows_the_tile(M, Cout, tile, rows):
+    assert tfc.stats_scratch_shape(M, Cout, tfc.ConvTile(*tile)) == (
+        rows, 2, Cout)
+
+
+def test_stats_scratch_of_the_stage_shapes():
+    # the tile the wrapper launches sets the scratch's rows: one pair of
+    # partial sums per tile of bm rows
+    for N, H, W, C, Cout in [(256, 56, 56, 64, 64), (64, 7, 7, 512, 512),
+                             (1, 28, 28, 128, 128)]:
+        tile = tfc.conv_tile(N, H, W, C, Cout, torch.bfloat16)
+        M = N * H * W
+        assert tfc.stats_scratch_shape(M, Cout, tile)[0] * tile.bm >= M
+        assert (tfc.stats_scratch_shape(M, Cout, tile)[0] - 1) * tile.bm < M
+
+
 @pytest.mark.cuda
 def test_kernels_match_plain_versions_on_the_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    for case in CASES + ODD_CASES:
+    # small-batch stage shapes and ragged edges reach the wgmma variant
+    wgmma = [(1, 56, 56, 64, 64), (1, 28, 28, 128, 128),
+             (1, 14, 14, 256, 256), (2, 7, 7, 512, 512),
+             (3, 7, 7, 512, 512), (7, 56, 56, 64, 64),
+             (37, 28, 28, 128, 128)]
+    for case in CASES + ODD_CASES + wgmma:
         x, w, gamma, beta, res, dy = _inputs(*case)
         for dtype in ("float32", "bfloat16"):
             xt, wt = _t(x, dtype).cuda(), _t(w, dtype).cuda()
             got = tfc.conv_bn_stats(xt, wt)
             want = tfc._ref_conv_bn_stats(xt, wt)
+            again = tfc.conv_bn_stats(xt, wt)
+            assert all(torch.equal(a, b) for a, b in zip(got, again))
+            a, b = got[0].float().cpu(), want[0].float().cpu()
+            if dtype == "bfloat16":
+                # one bf16 ulp of the larger value, plus the fp32 sum's
+                # order share (it decides the rounding near zero)
+                ulp = torch.exp2(torch.floor(torch.log2(torch.maximum(
+                    a.abs(), b.abs()).clamp_min(1e-30))) - 7)
+                assert bool(((a - b).abs() <= ulp + FP32_REL
+                             * b.abs().max()).all())
+            else:
+                _close(a, b, "float32")
             for a, b in zip(got[1:], want[1:]):
                 _close(a.cpu(), b.cpu(), "float32")
             M = case[0] * case[1] * case[2]
