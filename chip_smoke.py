@@ -8,9 +8,18 @@ Phases (one JSON line each; any failure exits non-zero):
                  (one nvcc per source, all started together).
 2. kernel      — the forward kernel against its plain PyTorch version on
                  the card, at the main path's shapes and a few edge shapes,
-                 with timings beside its bound and a library call's time.
+                 with timings beside its bound and a library call's time
+                 (SDPA: the device time of its kernels under
+                 torch.profiler, and the event time of the call beside it).
    kernel_bwd  — the two backward kernels (dq; dk/dv) against the plain
-                 backward, likewise, at the training shapes and edge shapes.
+                 backward, likewise, at the training and BERT shapes and
+                 edge shapes: the variant and GQA split each launch took
+                 (flash_bwd_plan; a GQA shape with and without the split),
+                 two launches bit-equal, ragged Sq/Sk (70, 130, 160, 200),
+                 keys sharing a large mean (k = randn + 4, beside what a
+                 single-bf16 dS would give), bf16 dq/dk within 5e-4 (1e-3
+                 with the shared mean) and dv within 5e-3 of the plain
+                 version; SDPA's backward timed by device time likewise.
 3. forward     — llama_110m (bf16, full width, 12 layers, seeded random
                  weights): llama_forward on 4 x 512 tokens through the
                  flash-attention kernel, against the same model with the
@@ -24,13 +33,15 @@ Phases (one JSON line each; any failure exits non-zero):
                  the top-2 margin is under 1e-3 (counted and printed).
 7. train       — llama_110m bf16, full width and depth: ShardedTrainStep
                  (llama_loss, adamw, lr 3e-4), 6 steps on one seeded
-                 8 x 1025 token batch; then one step split into
+                 8 x 1025 token batch, every flash-backward launch on the
+                 wgmma variant (12/12 a step); then one step split into
                  forward+loss / backward / optimizer by CUDA events, and the
                  loss gradient: at bf16 through the backward kernels vs the
                  plain backward, at fp32 through all kernels vs plain
                  attention, and both bf16 paths vs the fp32 gradient.
 8. train_gqa   — llama3_8b_dry (8B widths, 2 layers, GQA 32/8, D 128,
-                 remat, one-hot embedding): 3 steps on 2 x 513 tokens.
+                 remat, one-hot embedding): 3 steps on 2 x 513 tokens, the
+                 flash backward on the wgmma variant (2/2 a step).
    train_profile — torch.profiler over 2 more steps: device time by
                  kernel group and the device's idle share of the window.
 9. checkpoint  — the train phase's state saved after steps 5 and 6,
@@ -88,7 +99,8 @@ Phases (one JSON line each; any failure exits non-zero):
                  per-parameter LAMB routes at fp32 (batch 8); one fp32
                  batch-8 step's gradients against the CPU; a .params round
                  trip; the functional bert_mlm_loss at bert_base (bf16,
-                 128 x 128) through the flash kernels, non-causal, against
+                 128 x 128) through the flash kernels, non-causal (12/12
+                 flash-backward launches on the wgmma variant), against
                  plain attention.
 19. bert_train_throughput — step time (median of steps 2-6), tokens/s,
                  peak memory, and torch.profiler over one step.
@@ -159,12 +171,20 @@ BWD_BF16_REL = 2e-2             # ||a - b|| / ||b|| of bf16 dq, dk, dv: P is
                                 # rounded to bf16 as an mma operand, and the
                                 # outputs to bf16
 BWD_FP32_ATOL = 1e-4            # fp32 dq, dk, dv: summation order only
+BWD_BF16_DQK_REL = 5e-4         # bf16 dq, dk: dS enters as bf16 hi + lo
+                                # (~16 bits), so only the outputs' rounding
+                                # and the order of the fp32 sums remain
+BWD_BF16_DV_REL = 5e-3          # bf16 dv: P is rounded to bf16 as an operand
+BWD_SHARED_MEAN_REL = 1e-3      # bf16 dq, dk with keys that share a large
+                                # mean (k = randn + 4), where a single bf16
+                                # dS would lose several percent
 GRAD_REL = 2e-2                 # per-leaf ||a - b|| / ||b|| of model
                                 # gradients: bf16 with the backward kernels
                                 # vs the plain backward (same forward), and
                                 # fp32 with all kernels vs plain attention
 SERVE_KERNELS = ("flash_fwd",)
 TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+BWD_KERNELS = ("flash_bwd_dq", "flash_bwd_dkv")
 RESNET_KERNELS = ("conv_bn_relu",)
 
 CBR_FP32_REL = 1e-4             # fp32 conv_bn_relu: max abs error over the
@@ -231,6 +251,16 @@ def time_ms(fn, iters=50, warmup=5):
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, calls=20, warmup=5):
+    """fn's device time per call: the CUDA kernels it launches, summed under
+    torch.profiler over `calls` calls after `warmup` (the library
+    yardsticks' time without their host and autograd overhead)."""
+    for _ in range(warmup):
+        fn()
+    return profile_window(lambda: [fn() for _ in range(calls)])[
+        "device_ms"] / calls
+
+
 def bound(flops, nbytes, dtype):
     """(ms, "operations" | "bytes"): the larger of the two least times."""
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
@@ -292,7 +322,7 @@ def phase_kernel(gen):
          False),
         ("fp32_77x301", 2, 4, 2, 77, 301, 64, False, torch.float32, False),
         ("bert_base_path", 128, 12, 12, 128, 128, 64, False, torch.bfloat16,
-         False),
+         True),
         ("fp32_77x301_causal", 2, 4, 2, 77, 301, 128, True, torch.float32,
          False),
     ]
@@ -324,13 +354,21 @@ def phase_kernel(gen):
                 if g > 1 else (k, v)
             rec["ms"] = time_ms(lambda: _flash_forward(q, k, v, causal,
                                                           sc))
+            # the kernel's own device time: the event time of back-to-back
+            # wrapper calls carries host time where the host is slower
+            rec["device_ms"] = device_ms(lambda: _flash_forward(
+                q, k, v, causal, sc))
             rec["plain_ms"] = time_ms(lambda: _ref_forward(q, k, v,
                                                               causal, sc),
                                       iters=5)
-            # yardstick only: the port never calls it
-            rec["library_ms"] = time_ms(
-                lambda: F.scaled_dot_product_attention(q, ke, ve,
-                                                       is_causal=causal))
+            # yardstick only: the port never calls it. Its kernels' device
+            # time, and beside it the event time of the call
+
+            def sdpa():
+                return F.scaled_dot_product_attention(q, ke, ve,
+                                                      is_causal=causal)
+            rec["library_ms"] = device_ms(sdpa)
+            rec["library_wall_ms"] = time_ms(sdpa)
             rec["bound_ms"], rec["bound_by"] = attention_bound(
                 B, H, Hkv, Sq, Sk, D, causal, dtype)
         emit(rec)
@@ -342,88 +380,145 @@ def phase_kernel(gen):
 
 
 def phase_kernel_bwd(gen):
-    """The backward kernels vs the plain backward; returns {kernel: the
-    kernels-line entry measured at the training path's shape}."""
+    """The backward kernels vs the plain backward, at the main paths' shapes
+    and edge shapes, with the variant and split each launch took, two
+    launches bit-equal, and timings beside the bounds and SDPA's backward;
+    returns {kernel: the kernels-line entry measured at the training
+    path's shape}."""
     import torch.nn.functional as F
 
-    from mxnet_tpu_torch.parallel.flash_attention import (_delta, _launch,
+    from mxnet_tpu_torch.parallel.flash_attention import (FlashBwdPlan,
+                                                          _delta,
+                                                          _device_plan,
                                                           _flash_backward,
                                                           _flash_forward,
+                                                          _launch_dkv,
+                                                          _launch_dq,
                                                           _ref_backward)
+    bf16, fp32 = torch.bfloat16, torch.float32
+    no_split = FlashBwdPlan("wgmma", 128, 64, 1)
     shapes = [
-        # name, B, H, Hkv, Sq, Sk, D, causal, dtype, timed
-        ("train_path", 8, 12, 12, 1024, 1024, 64, True, torch.bfloat16,
-         True),
-        ("llama3_8b_dry_gqa", 2, 32, 8, 512, 512, 128, True, torch.bfloat16,
-         True),
-        ("bf16_160_gqa", 2, 4, 2, 160, 160, 64, True, torch.bfloat16, False),
-        ("bf16_200_d128", 1, 4, 4, 200, 200, 128, True, torch.bfloat16,
-         False),
-        ("bf16_130x70_causal", 1, 2, 2, 130, 70, 64, True, torch.bfloat16,
-         False),
-        ("fp32_77x301", 2, 4, 2, 77, 301, 64, False, torch.float32, False),
-        ("bert_base_path", 128, 12, 12, 128, 128, 64, False, torch.bfloat16,
-         False),
-        ("fp32_77x301_causal", 2, 4, 2, 77, 301, 64, True, torch.float32,
-         False),
-        ("fp32_77x301_d128", 2, 4, 2, 77, 301, 128, False, torch.float32,
-         False),
-        ("fp32_77x301_causal_d128", 2, 4, 2, 77, 301, 128, True,
-         torch.float32, False),
+        # name, B, H, Hkv, Sq, Sk, D, causal, dtype, timed, plan (None:
+        # the wrapper's), key mean
+        ("train_path", 8, 12, 12, 1024, 1024, 64, True, bf16, True, None, 0),
+        # the wrapper splits the GQA group into 2 shares here ...
+        ("llama3_8b_dry_gqa", 2, 32, 8, 512, 512, 128, True, bf16, True,
+         None, 0),
+        # ... and the same shape without the split
+        ("llama3_8b_dry_gqa_no_split", 2, 32, 8, 512, 512, 128, True, bf16,
+         True, no_split, 0),
+        ("bert_base_path", 128, 12, 12, 128, 128, 64, False, bf16, True,
+         None, 0),
+        # ragged: S not a multiple of the 64-row step or the 128-row tile
+        ("bf16_160_gqa", 2, 4, 2, 160, 160, 64, True, bf16, False, None, 0),
+        ("bf16_200_d128", 1, 4, 4, 200, 200, 128, True, bf16, False, None,
+         0),
+        ("bf16_130x70_causal", 1, 2, 2, 130, 70, 64, True, bf16, False, None,
+         0),
+        ("bf16_70x130_causal", 1, 2, 2, 70, 130, 64, True, bf16, False, None,
+         0),
+        ("bf16_200x160_d128_gqa", 2, 8, 2, 200, 160, 128, False, bf16, False,
+         None, 0),
+        ("bf16_130x200_gqa_dkv128_split2", 3, 8, 2, 130, 200, 64, True,
+         bf16, False, FlashBwdPlan("wgmma", 64, 128, 2), 0),
+        # keys sharing a large mean component: dS's hi/lo split at work
+        ("bf16_shared_key_mean", 2, 8, 8, 512, 512, 64, True, bf16, False,
+         None, 4.0),
+        ("bf16_shared_key_mean_d128_gqa", 1, 8, 2, 256, 256, 128, True, bf16,
+         False, None, 4.0),
+        ("fp32_77x301", 2, 4, 2, 77, 301, 64, False, fp32, False, None, 0),
+        ("fp32_77x301_causal", 2, 4, 2, 77, 301, 64, True, fp32, False, None,
+         0),
+        ("fp32_77x301_d128", 2, 4, 2, 77, 301, 128, False, fp32, False, None,
+         0),
+        ("fp32_77x301_causal_d128", 2, 4, 2, 77, 301, 128, True, fp32, False,
+         None, 0),
     ]
     entries = {}
-    for name, B, H, Hkv, Sq, Sk, D, causal, dtype, timed in shapes:
-        def rnd(*shape):
-            return torch.randn(shape, generator=gen, device="cuda",
-                               dtype=torch.float32).to(dtype)
-        q, k, v = rnd(B, H, Sq, D), rnd(B, Hkv, Sk, D), rnd(B, Hkv, Sk, D)
-        do = rnd(B, H, Sq, D)
+    for (name, B, H, Hkv, Sq, Sk, D, causal, dtype, timed, forced,
+         kmean) in shapes:
+        def rnd(*shape, mean=0.0):
+            return (torch.randn(shape, generator=gen, device="cuda",
+                                dtype=torch.float32) + mean).to(dtype)
+        q, k = rnd(B, H, Sq, D), rnd(B, Hkv, Sk, D, mean=kmean)
+        v, do = rnd(B, Hkv, Sk, D), rnd(B, H, Sq, D)
         sc = D ** -0.5
         o, lse = _flash_forward(q, k, v, causal, sc)
-        got = _flash_backward(q, k, v, o, lse, do, causal, sc)
+        delta = _delta(o, do)
+        plan = forced or _device_plan(q, k)
+
+        def backward():
+            if forced is None:      # the wrapper, which plans by itself
+                return _flash_backward(q, k, v, o, lse, do, causal, sc)
+            dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+            _launch_dq(q, k, v, do, lse, delta, dq, causal, sc, plan)
+            _launch_dkv(q, k, v, do, lse, delta, dk, dv, causal, sc, plan)
+            return dq, dk, dv
+        got, variants = launched_variant(backward)
+        again = backward()
         want = _ref_backward(q, k, v, o, lse, do, causal, sc)
         torch.cuda.synchronize()
         rec = {"phase": "kernel_bwd", "shape": name, "B": B, "H": H,
                "Hkv": Hkv, "Sq": Sq, "Sk": Sk, "D": D, "causal": causal,
-               "dtype": str(dtype).split(".")[-1]}
-        ok = True
+               "dtype": str(dtype).split(".")[-1], "key_mean": kmean,
+               "plan": plan._asdict(), "variants": variants,
+               "bit_equal": all(torch.equal(a, b)
+                                for a, b in zip(got, again))}
+        ok = rec["bit_equal"] and variants == sorted(
+            ["flash_bwd_dq/" + plan.dq_label,
+             "flash_bwd_dkv/" + plan.dkv_label])
+        ok &= plan.variant == ("wgmma" if dtype == bf16 else "fma")
+        dqk_rel = BWD_SHARED_MEAN_REL if kmean else BWD_BF16_DQK_REL
         for grad, a, b in zip(("dq", "dk", "dv"), got, want):
             a, b = a.float(), b.float()
             rec[grad + "_max_abs_err"] = (a - b).abs().max().item()
             rec[grad + "_rel_err"] = rel_err(a, b)
             rec[grad + "_norm"] = b.norm().item()
             finite = bool(torch.isfinite(a).all())
-            if dtype == torch.bfloat16:
-                ok &= finite and rec[grad + "_rel_err"] <= BWD_BF16_REL
+            if dtype == bf16:
+                limit = BWD_BF16_DV_REL if grad == "dv" else dqk_rel
+                ok &= finite and rec[grad + "_rel_err"] <= min(limit,
+                                                               BWD_BF16_REL)
             else:
                 ok &= finite and rec[grad + "_max_abs_err"] <= BWD_FP32_ATOL
+        if kmean:
+            for grad, a, b in zip(("dq", "dk"), single_bf16_ds(
+                    q, k, v, lse, delta, do, causal, sc), want):
+                rec["single_bf16_ds_%s_rel_err" % grad] = rel_err(
+                    a.float(), b.float())
         if timed:
-            delta = _delta(o, do)
             dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-            rec["ms"] = {
-                "flash_bwd_dq": time_ms(lambda: _launch(
-                    "flash_bwd_dq", "mx_flash_bwd_dq",
-                    (q, k, v, do, lse, delta, dq), q, k, causal, sc)),
-                "flash_bwd_dkv": time_ms(lambda: _launch(
-                    "flash_bwd_dkv", "mx_flash_bwd_dkv",
-                    (q, k, v, do, lse, delta, dk, dv), q, k, causal, sc))}
+            launches = {
+                "flash_bwd_dq": lambda: _launch_dq(
+                    q, k, v, do, lse, delta, dq, causal, sc, plan),
+                "flash_bwd_dkv": lambda: _launch_dkv(
+                    q, k, v, do, lse, delta, dk, dv, causal, sc, plan)}
+            rec["ms"] = {kern: time_ms(fn) for kern, fn in launches.items()}
+            rec["device_ms"] = {kern: device_ms(fn)
+                                for kern, fn in launches.items()}
             # the plain version computes dq, dk and dv together
             rec["plain_ms"] = time_ms(lambda: _ref_backward(
                 q, k, v, o, lse, do, causal, sc), iters=5)
             # yardstick only: the backward of PyTorch's own attention (dq,
-            # dk and dv together; K/V repeated over the group beforehand)
+            # dk and dv together; K/V repeated over the group beforehand):
+            # its kernels' device time, and the event time of the call
             g = H // Hkv
             qs, ks, vs = (t.detach().clone().requires_grad_() for t in (
                 q, k.repeat_interleave(g, 1), v.repeat_interleave(g, 1)))
             out = F.scaled_dot_product_attention(qs, ks, vs,
                                                  is_causal=causal)
-            rec["library_ms"] = time_ms(lambda: torch.autograd.grad(
-                out, (qs, ks, vs), do, retain_graph=True))
+
+            def sdpa_backward():
+                return torch.autograd.grad(out, (qs, ks, vs), do,
+                                           retain_graph=True)
+            rec["library_ms"] = device_ms(sdpa_backward)
+            rec["library_wall_ms"] = time_ms(sdpa_backward)
             rec["bound"] = backward_bounds(B, H, Hkv, Sq, Sk, D, causal,
                                            dtype)
         emit(rec)
         check(ok, "kernel_bwd",
-              "backward kernels disagree with _ref_backward at %s" % name)
+              "backward kernels disagree with _ref_backward (or launched "
+              "another variant, or differ between launches) at %s" % name)
         if name == "train_path":
             for kern, err in (("flash_bwd_dq", rec["dq_max_abs_err"]),
                               ("flash_bwd_dkv", max(rec["dk_max_abs_err"],
@@ -435,6 +530,29 @@ def phase_kernel_bwd(gen):
                     "bound_ms": rec["bound"][kern][0],
                     "bound_by": rec["bound"][kern][1]}
     return entries
+
+
+def single_bf16_ds(q, k, v, lse, delta, do, causal, sc):
+    """(dq, dk) as the plain backward computes them but with dS rounded
+    once to bf16 before dS K and dS^T Q: what the kernels would give
+    without dS's hi/lo split (a yardstick of that split only)."""
+    from mxnet_tpu_torch.parallel.flash_attention import _visible
+    B, H, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    g = H // Hkv
+    qg = q.reshape(B, Hkv, g, Sq, D).float()
+    dog = do.reshape(B, Hkv, g, Sq, D).float()
+    kf, vf = k.float()[:, :, None], v.float()[:, :, None]
+    s = torch.matmul(qg, kf.transpose(-1, -2)) * sc
+    p = torch.where(_visible(Sq, Sk, causal, q.device),
+                    torch.exp(s - lse.reshape(B, Hkv, g, Sq, 1)),
+                    torch.zeros_like(s))
+    dp = torch.matmul(dog, vf.transpose(-1, -2))
+    ds = (p * (dp - delta.reshape(B, Hkv, g, Sq, 1)) * sc).to(
+        torch.bfloat16).float()
+    dq = torch.matmul(ds, kf).reshape(B, H, Sq, D)
+    dk = torch.matmul(ds.transpose(-1, -2), qg).sum(dim=2)
+    return dq.to(q.dtype), dk.to(k.dtype)
 
 
 class _PlainBackward(torch.autograd.Function):
@@ -658,14 +776,25 @@ def launches_per_step(before, after, steps):
     return {k: (after[k] - before[k]) / steps for k in after}
 
 
+def check_bwd_wgmma(before, after, launches, phase, what):
+    """Every flash-backward launch between two variant_counts() readings
+    took the wgmma variant: `launches` of each kernel."""
+    diff = {key: n - before.get(key, 0) for key, n in after.items()}
+    got = {kern: wgmma_launches(diff, kern) for kern in BWD_KERNELS}
+    check(got == {kern: launches for kern in BWD_KERNELS}, phase,
+          "%s: flash-backward launches on the wgmma variant %s, expected %d "
+          "of each (all variants: %s)" % (what, got, launches, diff))
+
+
 def run_steps(step, params, state, batch, n, phase, expect, first=0,
               on_step=None):
     """n training steps, each synchronised and timed on the host clock,
-    with its kernel launches read around it."""
-    from mxnet_tpu_torch.ops import launch_counts
+    with its kernel launches read around it; every flash-backward launch
+    must take the wgmma variant."""
+    from mxnet_tpu_torch.ops import launch_counts, variant_counts
     losses, times = [], []
     for i in range(n):
-        before = launch_counts()
+        before, vbefore = launch_counts(), variant_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         params, state, loss = step(params, state, batch, step_num=first + i)
@@ -675,6 +804,9 @@ def run_steps(step, params, state, batch, n, phase, expect, first=0,
         per = launches_per_step(before, launch_counts(), 1)
         check(all(per[k] == expect.get(k, 0) for k in per), phase,
               "step %d launched %s, expected %s" % (first + i, per, expect))
+        check_bwd_wgmma(vbefore, variant_counts(),
+                        expect.get("flash_bwd_dq", 0), phase,
+                        "step %d" % (first + i))
         if on_step is not None:
             on_step(first + i + 1, params, state)
     return params, state, losses, times
@@ -2391,7 +2523,8 @@ def functional_bert_step(gen):
     attention (bf16), and both against the plain step at fp32. Returns
     (record, launches)."""
     from mxnet_tpu_torch.models.bert import CONFIGS, bert_init, bert_mlm_loss
-    from mxnet_tpu_torch.ops import launch_counts, reset_launch_counts
+    from mxnet_tpu_torch.ops import (launch_counts, reset_launch_counts,
+                                     variant_counts)
     cfg = CONFIGS[BERT_FN_CONFIG]
     params = bert_init(gen, cfg, device=gen.device)
     rng = np.random.RandomState(4)
@@ -2421,6 +2554,8 @@ def functional_bert_step(gen):
     loss, kern = grads(params, contextlib.nullcontext)
     torch.cuda.synchronize()
     launches = launch_counts()
+    check_bwd_wgmma({}, variant_counts(), 12, "bert_train",
+                    "functional step")
     ploss, plain = grads(params, plain_attention)
     _, exact = grads(to_fp32(params), plain_attention)
     # the key bias adds q . bk to every score of a query row, which the

@@ -1,7 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: shared-
 // memory addresses, mbarriers, cp.async with zero fill and an mbarrier
 // arrival on completion, the async-proxy fence, warpgroup MMA (wgmma) with
-// A and B read from shared memory through descriptors, and named barriers.
+// A and B read from shared memory through descriptors, and named barriers;
+// for the flash-attention backward also 4-byte cp.async, wgmma with B
+// K-major (imm-trans-b 0) and wgmma with A from registers.
 // Plain inline PTX; no PyTorch or CUTLASS headers.
 #pragma once
 
@@ -193,6 +195,132 @@ __device__ __forceinline__ void wgmma_m64n128k16_bf16(float (&d)[64],
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
+
+
+// ------------------------------------------------- flash-attention backward
+// 4-byte global -> shared copy through L1; src_bytes 0 writes 4 zero bytes
+// and reads nothing (for rows of fp32 vectors at any alignment)
+__device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src,
+                                           uint32_t src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+// keep the compiler from reusing an A fragment's registers while an
+// asynchronous MMA may still read them
+template <int R>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(a[i])::"memory");
+}
+
+#define HOPPER_ACC8(d, i)                                                  \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),              \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define HOPPER_OUT8(d, i)                                                  \
+  "=&f"(d[i]), "=&f"(d[i + 1]), "=&f"(d[i + 2]), "=&f"(d[i + 3]),          \
+      "=&f"(d[i + 4]), "=&f"(d[i + 5]), "=&f"(d[i + 6]), "=&f"(d[i + 7])
+#define HOPPER_OUT32(d)                                                    \
+  HOPPER_OUT8(d, 0), HOPPER_OUT8(d, 8), HOPPER_OUT8(d, 16), HOPPER_OUT8(d, 24)
+#define HOPPER_ACC32(d)                                                    \
+  HOPPER_ACC8(d, 0), HOPPER_ACC8(d, 8), HOPPER_ACC8(d, 16), HOPPER_ACC8(d, 24)
+#define HOPPER_ACC64(d)                                                    \
+  HOPPER_ACC32(d), HOPPER_ACC8(d, 32), HOPPER_ACC8(d, 40),                 \
+      HOPPER_ACC8(d, 48), HOPPER_ACC8(d, 56)
+
+// bf16 x bf16 -> fp32 with both operands K-major in shared memory
+// (imm-trans-b 0: B is read as it lies, N rows of K). The K-major
+// descriptor of B is built as A's (sbo = 1024 bytes between 8-row groups,
+// K steps of 32 bytes within a 64-column block).
+// d (64 x 64) += A (64 x 16) * B (64 x 16)^T
+__device__ __forceinline__ void wgmma_m64n64k16_bf16_kk(float (&d)[32],
+                                                      uint64_t desc_a,
+                                                      uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : HOPPER_ACC32(d)
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// d (64 x 64) = A (64 x 16) * B (64 x 16)^T, the same operands: d is
+// written only (scale-d 0), so its old values need not stay live.
+__device__ __forceinline__ void wgmma_m64n64k16_bf16_kk_first(
+    float (&d)[32], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : HOPPER_OUT32(d)
+      : "l"(desc_a), "l"(desc_b), "r"(0));
+}
+
+// A from registers (the m16n8k16 A fragment of each warp's 16 rows: four
+// bf16 pairs), B N-major in shared memory, read through imm-trans-b 1 as in
+// wgmma_m64n64k16_bf16; always accumulates.
+// d (64 x 64) += A (64 x 16) * B (16 x 64)
+__device__ __forceinline__ void wgmma_m64n64k16_bf16_rs(float (&d)[32],
+                                                      const uint32_t (&a)[4],
+                                                      uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : HOPPER_ACC32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// d (64 x 128) += A (64 x 16, registers) * B (16 x 128, N-major)
+__device__ __forceinline__ void wgmma_m64n128k16_bf16_rs(float (&d)[64],
+                                                       const uint32_t (&a)[4],
+                                                       uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, "
+      " %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, "
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : HOPPER_ACC64(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+#undef HOPPER_ACC64
+#undef HOPPER_ACC32
+#undef HOPPER_ACC8
+#undef HOPPER_OUT32
+#undef HOPPER_OUT8
 
 
 }  // namespace hopper

@@ -8,9 +8,11 @@ tiles, fp32 accumulation, GQA, causal with the (Sk - Sq) diagonal offset,
 any sequence length) and saves (q, k, v, o, lse); its backward computes
 delta = rowsum(dO * O) in PyTorch, as the JAX package leaves it to XLA, and
 launches the two kernels of ``csrc/flash_bwd.cu``: dq, and dk/dv with the
-GQA group-sum folded in. On CPU tensors each kernel's plain PyTorch version
-runs instead (`_ref_forward`, `_ref_backward_inner`). There is no other
-route: a CUDA tensor a kernel does not take raises.
+GQA group-sum folded in. `flash_bwd_plan` picks their variant (warp-
+specialised wgmma for bf16, FMA for fp32), tile and GQA group split from
+the shape before the launch. On CPU tensors each kernel's plain PyTorch
+version runs instead (`_ref_forward`, `_ref_backward_inner`). There is no
+other route: a CUDA tensor a kernel does not take raises.
 
 `paged_attention` and `paged_attention_chunk` stay plain PyTorch (a gather
 plus two batched products), as the JAX package leaves them to XLA.
@@ -19,18 +21,22 @@ Shapes: q (B, H, Sq, D); k/v (B, Hkv, Sk, D) with H % Hkv == 0.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
 
 from ..ops import count_launch
-from ..ops._build import library
+from ..ops._build import bind
+from ..ops.fused_conv import H100_SMS, _sm_count
 
-__all__ = ["flash_attention", "paged_attention", "paged_attention_chunk"]
+__all__ = ["flash_attention", "flash_bwd_plan", "FlashBwdPlan",
+           "paged_attention", "paged_attention_chunk"]
 
 _NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
+_VARIANTS = {"fma": 0, "wgmma": 1}      # the C entries' variant codes
 
 
 def _ref_forward(q, k, v, causal, sm_scale):
@@ -136,43 +142,34 @@ def _check(q, k, v):
                          "aligned q, k, v")
 
 
-_SIGNATURES = {
-    # C function -> number of pointer arguments before the int arguments
-    "mx_flash_fwd": 5,
-    "mx_flash_bwd_dq": 7,
-    "mx_flash_bwd_dkv": 8,
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# B, H, Hkv, Sq, Sk, D, causal, scale, dtype
+_SHAPE_ARGS = [_I] * 7 + [ctypes.c_float, _I]
+_ARGTYPES = {
+    # pointers, the shape, the variant's ints, the stream
+    "mx_flash_fwd": [_P] * 5 + _SHAPE_ARGS + [_P],
+    "mx_flash_bwd_dq": [_P] * 7 + _SHAPE_ARGS + [_I] * 2 + [_P],
+    "mx_flash_bwd_dkv": [_P] * 9 + _SHAPE_ARGS + [_I] * 3 + [_P],
 }
 
 
-def _kernel(name, fn_name):
-    """The C entry point `fn_name` of kernel `name`'s library, typed."""
-    lib = library(name)
-    fn = getattr(lib, fn_name)
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        # pointers, B, H, Hkv, Sq, Sk, D, causal, scale, dtype, stream
-        fn.argtypes = [p] * _SIGNATURES[fn_name] + [i] * 7 \
-            + [ctypes.c_float, i, p]
-        fn.restype = i
-        lib.mx_cuda_error_string.argtypes = [i]
-        lib.mx_cuda_error_string.restype = ctypes.c_char_p
-    return lib, fn
-
-
-def _launch(name, fn_name, tensors, q, k, causal, sm_scale):
-    """Launch one kernel on q's device and current stream; count it."""
-    lib, fn = _kernel(name, fn_name)
+def _launch(name, fn_name, tensors, q, k, causal, sm_scale, extra=(),
+            variant=None):
+    """Launch one kernel on q's device and current stream; count it (with
+    its variant, where it has several). `tensors` may hold None for a
+    pointer the kernel does not read; `extra` are the variant's ints."""
+    lib, fn = bind(name, fn_name, _ARGTYPES[fn_name])
     B, H, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(*(t.data_ptr() for t in tensors), B, H, Hkv, Sq, Sk, D,
-                 int(bool(causal)), float(sm_scale), _DTYPES[q.dtype],
-                 stream)
+        err = fn(*(None if t is None else t.data_ptr() for t in tensors),
+                 B, H, Hkv, Sq, Sk, D, int(bool(causal)), float(sm_scale),
+                 _DTYPES[q.dtype], *extra, stream)
     if err:
         raise RuntimeError("flash_attention: %s launch failed: %s"
                            % (name, lib.mx_cuda_error_string(err).decode()))
-    count_launch(name)
+    count_launch(name, variant)
 
 
 def _on_cuda(q):
@@ -226,11 +223,90 @@ def _check_backward(q, k, v, lse, delta, do):
                          "16-byte aligned dO, lse, delta")
 
 
+class FlashBwdPlan(collections.namedtuple(
+        "FlashBwdPlan", "variant dq_rows dkv_rows split")):
+    """The backward kernels' variant ("wgmma" or "fma"), the query rows of
+    a dq block, the key rows of a dk/dv block, and the number of shares the
+    GQA group is split into across dk/dv blocks (1: none)."""
+
+    @property
+    def dq_label(self):
+        return "%s_%d" % (self.variant, self.dq_rows)
+
+    @property
+    def dkv_label(self):
+        return "%s_%d_split%d" % (self.variant, self.dkv_rows, self.split)
+
+
+def flash_bwd_plan(B, H, Hkv, Sq, Sk, D, dtype, sms=H100_SMS):
+    """The plan the backward kernels launch for q (B, H, Sq, D) and k/v
+    (B, Hkv, Sk, D) of `dtype` on a card with `sms` multiprocessors.
+
+    bf16 takes the wgmma kernels at every Sq and Sk. dq blocks own 64
+    query rows at D 64 (one consumer warpgroup: two blocks fit an SM) and
+    128 at D 128 (two consumers); dk/dv blocks own 128 key rows at D 64
+    and 64 at D 128 (the register budget of dk and dv). Where the dk/dv
+    grid is under two waves and H > Hkv, the GQA group is split into the
+    fewest shares that give one and a half waves (at most one head a
+    share): each block writes fp32 partials and a second launch sums them
+    in a fixed order. fp32 takes the FMA kernels (64 rows, no split). Raises
+    ValueError for a shape or dtype the kernels do not take."""
+    if D not in _HEAD_DIMS:
+        raise ValueError("flash_bwd_plan: head_dim %s, got %d"
+                         % (_HEAD_DIMS, D))
+    if min(B, H, Hkv, Sq, Sk) < 1 or H % Hkv:
+        raise ValueError("flash_bwd_plan: no kernel for B=%d H=%d Hkv=%d "
+                         "Sq=%d Sk=%d" % (B, H, Hkv, Sq, Sk))
+    if dtype == torch.float32:
+        return FlashBwdPlan("fma", 64, 64, 1)
+    if dtype != torch.bfloat16:
+        raise ValueError("flash_bwd_plan: float32 or bfloat16, got %s"
+                         % dtype)
+    dq_rows = 64 if D == 64 else 128
+    dkv_rows = 128 if D == 64 else 64
+    group = H // Hkv
+    blocks = -(-Sk // dkv_rows) * B * Hkv
+    split = 1
+    if group > 1 and blocks < 2 * sms:
+        split = next(s for s in range(2, group + 1)
+                     if group % s == 0 and (2 * blocks * s >= 3 * sms
+                                            or s == group))
+    return FlashBwdPlan("wgmma", dq_rows, dkv_rows, split)
+
+
+def _device_plan(q, k):
+    B, H, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    return flash_bwd_plan(B, H, Hkv, Sq, Sk, D, q.dtype,
+                          _sm_count(q.device.index))
+
+
+def _launch_dq(q, k, v, do, lse, delta, dq, causal, sm_scale, plan):
+    _launch("flash_bwd_dq", "mx_flash_bwd_dq", (q, k, v, do, lse, delta, dq),
+            q, k, causal, sm_scale, (_VARIANTS[plan.variant], plan.dq_rows),
+            plan.dq_label)
+
+
+def _launch_dkv(q, k, v, do, lse, delta, dk, dv, causal, sm_scale, plan):
+    """The dk/dv kernel; with a split, the fp32 partials live in scratch
+    that the stream reuses once both launches behind the entry are done."""
+    partial = None
+    if plan.split > 1:
+        B, Hkv, Sk, D = k.shape
+        partial = torch.empty((2, B, Hkv, plan.split, Sk, D),
+                              dtype=torch.float32, device=k.device)
+    _launch("flash_bwd_dkv", "mx_flash_bwd_dkv",
+            (q, k, v, do, lse, delta, dk, dv, partial), q, k, causal,
+            sm_scale, (_VARIANTS[plan.variant], plan.dkv_rows, plan.split),
+            plan.dkv_label)
+
+
 def _backward_inner(q, k, v, lse, delta, do, causal, sm_scale):
     """(dq, dk, dv) from a given (lse, delta) — the split of the JAX
     package's `_pallas_backward_inner`, kept so that ring attention can run
     per-block backwards against the global lse. On CUDA tensors: the dq
-    kernel, then the dk/dv kernel (GQA group-sum inside it)."""
+    kernel, then the dk/dv kernel (GQA group-sum inside it, or behind it
+    where the plan splits the group), as `flash_bwd_plan` picks them."""
     if not _on_cuda(q):
         return _ref_backward_inner(q, k, v, lse, delta, do, causal, sm_scale)
     _check_backward(q, k, v, lse, delta, do)
@@ -239,10 +315,9 @@ def _backward_inner(q, k, v, lse, delta, do, causal, sm_scale):
     dv = torch.empty_like(v)
     if dq.numel() == 0 or dk.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    _launch("flash_bwd_dq", "mx_flash_bwd_dq",
-            (q, k, v, do, lse, delta, dq), q, k, causal, sm_scale)
-    _launch("flash_bwd_dkv", "mx_flash_bwd_dkv",
-            (q, k, v, do, lse, delta, dk, dv), q, k, causal, sm_scale)
+    plan = _device_plan(q, k)
+    _launch_dq(q, k, v, do, lse, delta, dq, causal, sm_scale, plan)
+    _launch_dkv(q, k, v, do, lse, delta, dk, dv, causal, sm_scale, plan)
     return dq, dk, dv
 
 

@@ -47,3 +47,10 @@ def test_the_conv_source_hashes_its_hopper_header():
     source = KERNELS["conv_bn_relu"][0]
     files = _build._local_files(_build._PKG / source)
     assert [p.name for p in files] == ["conv_bn_relu.cu", "hopper.cuh"]
+
+
+def test_the_flash_backward_source_hashes_its_hopper_header():
+    for kernel in ("flash_bwd_dq", "flash_bwd_dkv"):
+        source = KERNELS[kernel][0]
+        files = _build._local_files(_build._PKG / source)
+        assert [p.name for p in files] == ["flash_bwd.cu", "hopper.cuh"]
