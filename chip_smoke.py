@@ -7,10 +7,15 @@ Phases (one JSON line each; any failure exits non-zero):
 1. build       — nvcc builds every kernel source of the paths from csrc/
                  (one nvcc per source, all started together).
 2. kernel      — the forward kernel against its plain PyTorch version on
-                 the card, at the main path's shapes and a few edge shapes,
-                 with timings beside its bound and a library call's time
-                 (SDPA: the device time of its kernels under
-                 torch.profiler, and the event time of the call beside it).
+                 the card, at the main path's shapes and edge shapes
+                 (ragged causal Sq != Sk both ways, rows with no visible
+                 key reading o = 0 and lse = -1e30, a GQA prefill with a
+                 short Sq), with the variant each launch took
+                 (flash_fwd_plan: wgmma for bf16, fma for fp32), two
+                 launches bit-equal, and timings (event and device time)
+                 beside its bound and a library call's time (SDPA: the
+                 device time of its kernels under torch.profiler, and the
+                 event time of the call beside it).
    kernel_bwd  — the two backward kernels (dq; dk/dv) against the plain
                  backward, likewise, at the training and BERT shapes and
                  edge shapes: the variant and GQA split each launch took
@@ -23,7 +28,8 @@ Phases (one JSON line each; any failure exits non-zero):
 3. forward     — llama_110m (bf16, full width, 12 layers, seeded random
                  weights): llama_forward on 4 x 512 tokens through the
                  flash-attention kernel, against the same model with the
-                 plain attention.
+                 plain attention. Phases 3-5 check that every forward
+                 launch took the wgmma variant, phase 6 (fp32) the FMA one.
 4. prefill     — llama_prefill_paged of one 300-token prompt into the pool.
 5. serve       — InferenceServer (batch 8, 512 KV blocks of 16): 16
                  requests, ~2/3 sharing a 48-token system prompt, 32 new
@@ -33,15 +39,16 @@ Phases (one JSON line each; any failure exits non-zero):
                  the top-2 margin is under 1e-3 (counted and printed).
 7. train       — llama_110m bf16, full width and depth: ShardedTrainStep
                  (llama_loss, adamw, lr 3e-4), 6 steps on one seeded
-                 8 x 1025 token batch, every flash-backward launch on the
-                 wgmma variant (12/12 a step); then one step split into
+                 8 x 1025 token batch, every flash launch on the wgmma
+                 variant (12/12/12 a step); then one step split into
                  forward+loss / backward / optimizer by CUDA events, and the
                  loss gradient: at bf16 through the backward kernels vs the
                  plain backward, at fp32 through all kernels vs plain
                  attention, and both bf16 paths vs the fp32 gradient.
 8. train_gqa   — llama3_8b_dry (8B widths, 2 layers, GQA 32/8, D 128,
-                 remat, one-hot embedding): 3 steps on 2 x 513 tokens, the
-                 flash backward on the wgmma variant (2/2 a step).
+                 remat, one-hot embedding): 3 steps on 2 x 513 tokens, every
+                 flash launch on the wgmma variant (4 forward with the
+                 remat recompute, 2/2 backward a step).
    train_profile — torch.profiler over 2 more steps: device time by
                  kernel group and the device's idle share of the window.
 9. checkpoint  — the train phase's state saved after steps 5 and 6,
@@ -99,9 +106,9 @@ Phases (one JSON line each; any failure exits non-zero):
                  per-parameter LAMB routes at fp32 (batch 8); one fp32
                  batch-8 step's gradients against the CPU; a .params round
                  trip; the functional bert_mlm_loss at bert_base (bf16,
-                 128 x 128) through the flash kernels, non-causal (12/12
-                 flash-backward launches on the wgmma variant), against
-                 plain attention.
+                 128 x 128) through the flash kernels, non-causal (12/12/12
+                 flash launches on the wgmma variant), against plain
+                 attention.
 19. bert_train_throughput — step time (median of steps 2-6), tokens/s,
                  peak memory, and torch.profiler over one step.
 20. kernel_segment_sum — the segment-sum kernel against its plain version
@@ -109,8 +116,10 @@ Phases (one JSON line each; any failure exits non-zero):
                  ids, widths 1, 3, 16, 64, 65, 129 and rank-3 rows, sorted
                  and shuffled ids with many duplicates, negative ids, nnz 0;
                  timed at the main paths' shapes (8192 x 64 into 1,000,001
-                 rows; 128 x 16 into 10,131,228) beside its bytes bound and
-                 torch's index_add_.
+                 rows; 128 x 16 into 10,131,228) by event and device time
+                 beside its bytes bound and torch's index_add_ (zeros +
+                 index_add_ by event and device time, and index_add_ alone
+                 into a buffer zeroed outside the timed call).
 21. sparse_embed — bench.py::bench_sparse's loop at its accelerator shape:
                  kv.create("local"), ShardedEmbedding(1,000,000, 64, sgd,
                  lr 0.1), init_embedding, 20 steps of a row-sparse push of
@@ -165,6 +174,7 @@ PEAK_BYTES = 3.35e12
 BF16_ATOL = BF16_RTOL = 2e-2    # bf16 o: p is rounded to bf16 in the plain
 FP32_ATOL = 1e-4                # fp32 o: summation order only
 LSE_ATOL = 1e-3
+NEG_INF = -1e30                 # masked logits; lse of a row that sees no key
 LOGITS_REL = 2e-2               # ||a - b|| / ||b|| of bf16 model logits
 MARGIN = 1e-3                   # fp32 consistency: near-ties exempt
 BWD_BF16_REL = 2e-2             # ||a - b|| / ||b|| of bf16 dq, dk, dv: P is
@@ -251,14 +261,20 @@ def time_ms(fn, iters=50, warmup=5):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, calls=20, warmup=5):
+def device_ms(fn, calls=20, warmup=5, tries=3):
     """fn's device time per call: the CUDA kernels it launches, summed under
     torch.profiler over `calls` calls after `warmup` (the library
-    yardsticks' time without their host and autograd overhead)."""
+    yardsticks' time without their host and autograd overhead). A window
+    in which the profiler saw no kernel at all is read again, up to
+    `tries` windows; None if none saw one."""
     for _ in range(warmup):
         fn()
-    return profile_window(lambda: [fn() for _ in range(calls)])[
-        "device_ms"] / calls
+    for _ in range(tries):
+        ms = profile_window(lambda: [fn() for _ in range(calls)])[
+            "device_ms"] / calls
+        if ms > 0:
+            return ms
+    return None
 
 
 def bound(flops, nbytes, dtype):
@@ -305,26 +321,36 @@ def phase_build():
 
 
 def phase_kernel(gen):
-    """flash_attention kernel vs _ref_forward; returns the kernels-line
-    entry measured at the forward phase's shape."""
+    """flash_attention kernel vs _ref_forward, with the variant each launch
+    took (flash_fwd_plan) and two launches bit-equal; returns the
+    kernels-line entry measured at the forward phase's shape."""
     import torch.nn.functional as F
 
     from mxnet_tpu_torch.parallel.flash_attention import (_flash_forward,
-                                                          _ref_forward)
+                                                          _ref_forward,
+                                                          flash_fwd_plan)
+    bf16, fp32 = torch.bfloat16, torch.float32
     shapes = [
         # name, B, H, Hkv, Sq, Sk, D, causal, dtype, timed
-        ("forward_path", 4, 12, 12, 512, 512, 64, True, torch.bfloat16, True),
-        ("llama_110m_s1024", 4, 12, 12, 1024, 1024, 64, True,
-         torch.bfloat16, True),
-        ("llama3_8b_layer_gqa", 1, 32, 8, 2048, 2048, 128, True,
-         torch.bfloat16, True),
-        ("prefill_path", 1, 12, 12, 304, 304, 64, True, torch.bfloat16,
-         False),
-        ("fp32_77x301", 2, 4, 2, 77, 301, 64, False, torch.float32, False),
-        ("bert_base_path", 128, 12, 12, 128, 128, 64, False, torch.bfloat16,
+        ("forward_path", 4, 12, 12, 512, 512, 64, True, bf16, True),
+        ("llama_110m_s1024", 4, 12, 12, 1024, 1024, 64, True, bf16, True),
+        ("llama3_8b_layer_gqa", 1, 32, 8, 2048, 2048, 128, True, bf16,
          True),
-        ("fp32_77x301_causal", 2, 4, 2, 77, 301, 128, True, torch.float32,
+        ("prefill_path", 1, 12, 12, 304, 304, 64, True, bf16, False),
+        ("fp32_77x301", 2, 4, 2, 77, 301, 64, False, fp32, False),
+        ("bert_base_path", 128, 12, 12, 128, 128, 64, False, bf16, True),
+        ("fp32_77x301_causal", 2, 4, 2, 77, 301, 128, True, fp32, False),
+        # ragged and causal with Sq != Sk: Sq < Sk (offset diagonal) and
+        # Sq > Sk (the first 224 rows see no key: o = 0, lse = -1e30)
+        ("bf16_ragged_causal_77x301", 2, 8, 2, 77, 301, 64, True, bf16,
+         True),
+        ("bf16_ragged_causal_301x77_g8", 1, 8, 1, 301, 77, 128, True, bf16,
          False),
+        ("fp32_ragged_causal_301x77_g8", 1, 8, 1, 301, 77, 64, True, fp32,
+         False),
+        # a GQA prefill with a short Sq: 16 tokens of 32 heads against
+        # 1040 cached keys of 8
+        ("bf16_gqa_short_sq", 1, 32, 8, 16, 1040, 128, True, bf16, True),
     ]
     entry = None
     for name, B, H, Hkv, Sq, Sk, D, causal, dtype, timed in shapes:
@@ -333,7 +359,10 @@ def phase_kernel(gen):
                                dtype=torch.float32).to(dtype)
         q, k, v = rnd(B, H, Sq, D), rnd(B, Hkv, Sk, D), rnd(B, Hkv, Sk, D)
         sc = D ** -0.5
-        o, lse = _flash_forward(q, k, v, causal, sc)
+        plan = flash_fwd_plan(B, H, Hkv, Sq, Sk, D, dtype)
+        (o, lse), variants = launched_variant(
+            lambda: _flash_forward(q, k, v, causal, sc))
+        o2, lse2 = _flash_forward(q, k, v, causal, sc)
         o_ref, lse_ref = _ref_forward(q, k, v, causal, sc)
         torch.cuda.synchronize()
         err = (o.float() - o_ref.float()).abs()
@@ -346,8 +375,17 @@ def phase_kernel(gen):
         rec = {"phase": "kernel", "kernel": "flash_fwd", "shape": name,
                "B": B, "H": H, "Hkv": Hkv, "Sq": Sq, "Sk": Sk, "D": D,
                "causal": causal, "dtype": str(dtype).split(".")[-1],
+               "plan": plan._asdict(), "variants": variants,
+               "bit_equal": torch.equal(o, o2) and torch.equal(lse, lse2),
                "max_abs_err": err.max().item(), "lse_max_abs_err": lse_err,
                "finite": bool(torch.isfinite(o).all())}
+        ok = rec["bit_equal"] and variants == ["flash_fwd/" + plan.label] \
+            and plan.variant == ("wgmma" if dtype == bf16 else "fma")
+        if causal and Sq > Sk:
+            blind = Sq - Sk
+            rec["blind_rows"] = blind
+            ok &= not o[:, :, :blind].any() \
+                and bool((lse[:, :, :blind] == NEG_INF).all())
         if timed:
             g = H // Hkv
             ke, ve = (k.repeat_interleave(g, 1), v.repeat_interleave(g, 1)) \
@@ -374,6 +412,9 @@ def phase_kernel(gen):
         emit(rec)
         check(rec["finite"] and ok_o and lse_err <= LSE_ATOL, "kernel",
               "flash_fwd disagrees with _ref_forward at %s" % name)
+        check(ok, "kernel", "flash_fwd launched another variant than its "
+              "plan, differs between launches, or gave rows with no "
+              "visible key other than o = 0, lse = -1e30 at %s" % name)
         if name == "forward_path":
             entry = rec
     return entry
@@ -776,21 +817,37 @@ def launches_per_step(before, after, steps):
     return {k: (after[k] - before[k]) / steps for k in after}
 
 
+def check_wgmma(before, after, expect, phase, what):
+    """Every launch of the kernels in `expect` between two variant_counts()
+    readings took the wgmma variant: expect[kernel] launches of each, and
+    none of another variant."""
+    diff = {key: n - before.get(key, 0) for key, n in after.items()}
+    got = {kern: wgmma_launches(diff, kern) for kern in expect}
+    other = {"%s/%s" % key: n for key, n in diff.items()
+             if key[0] in expect and n and not key[1].startswith("wgmma")}
+    check(got == expect and not other, phase,
+          "%s: launches on the wgmma variant %s, expected %s (all variants: "
+          "%s)" % (what, got, expect, diff))
+
+
 def check_bwd_wgmma(before, after, launches, phase, what):
     """Every flash-backward launch between two variant_counts() readings
     took the wgmma variant: `launches` of each kernel."""
-    diff = {key: n - before.get(key, 0) for key, n in after.items()}
-    got = {kern: wgmma_launches(diff, kern) for kern in BWD_KERNELS}
-    check(got == {kern: launches for kern in BWD_KERNELS}, phase,
-          "%s: flash-backward launches on the wgmma variant %s, expected %d "
-          "of each (all variants: %s)" % (what, got, launches, diff))
+    check_wgmma(before, after, dict.fromkeys(BWD_KERNELS, launches), phase,
+                what)
+
+
+def check_fwd_wgmma(before, after, launches, phase, what):
+    """Every flash-forward launch between two variant_counts() readings
+    took the wgmma variant: `launches` of them (bf16 paths)."""
+    check_wgmma(before, after, {"flash_fwd": launches}, phase, what)
 
 
 def run_steps(step, params, state, batch, n, phase, expect, first=0,
               on_step=None):
     """n training steps, each synchronised and timed on the host clock,
-    with its kernel launches read around it; every flash-backward launch
-    must take the wgmma variant."""
+    with its kernel launches read around it; every flash-forward and
+    flash-backward launch must take the wgmma variant."""
     from mxnet_tpu_torch.ops import launch_counts, variant_counts
     losses, times = [], []
     for i in range(n):
@@ -804,8 +861,10 @@ def run_steps(step, params, state, batch, n, phase, expect, first=0,
         per = launches_per_step(before, launch_counts(), 1)
         check(all(per[k] == expect.get(k, 0) for k in per), phase,
               "step %d launched %s, expected %s" % (first + i, per, expect))
-        check_bwd_wgmma(vbefore, variant_counts(),
-                        expect.get("flash_bwd_dq", 0), phase,
+        vafter = variant_counts()
+        check_bwd_wgmma(vbefore, vafter, expect.get("flash_bwd_dq", 0),
+                        phase, "step %d" % (first + i))
+        check_fwd_wgmma(vbefore, vafter, expect.get("flash_fwd", 0), phase,
                         "step %d" % (first + i))
         if on_step is not None:
             on_step(first + i + 1, params, state)
@@ -2556,6 +2615,8 @@ def functional_bert_step(gen):
     launches = launch_counts()
     check_bwd_wgmma({}, variant_counts(), 12, "bert_train",
                     "functional step")
+    check_fwd_wgmma({}, variant_counts(), 12, "bert_train",
+                    "functional step")
     ploss, plain = grads(params, plain_attention)
     _, exact = grads(to_fp32(params), plain_attention)
     # the key bias adds q . bk to every score of a query row, which the
@@ -2945,22 +3006,39 @@ def phase_kernel_segment_sum(gen):
         ids_c, ids64 = ids.cuda(), ids.cuda().long()
         # the output written once, the values and int32 ids read once
         nbytes = (segments + nnz) * row[0] * vals.element_size() + nnz * 4
+        out = torch.zeros((segments,) + row, device="cuda")
+
+        def fill_and_add():
+            return torch.zeros((segments,) + row,
+                               device="cuda").index_add_(0, ids64, vals)
         main[name] = {
             "nnz": nnz, "row": list(row), "num_segments": segments,
+            # the whole wrapper call (sort, zero fill, sums) by event time,
+            # and its kernels' device time
             "ms": time_ms(lambda: segment_sum(vals, ids_c, segments),
                           iters=20),
+            "device_ms": device_ms(lambda: segment_sum(vals, ids_c,
+                                                       segments)),
             "plain_ms": time_ms(lambda: _segment_sum_plain(
                 vals, ids_c, segments), iters=20),
-            "library_ms": time_ms(lambda: torch.zeros(
-                (segments,) + row, device="cuda").index_add_(0, ids64, vals),
-                iters=20),
+            # yardsticks: zeros + index_add_ by event time (the same
+            # function, allocation included) and by device time; and
+            # index_add_ alone into a buffer zeroed outside the timed call
+            # (its sums pile up across calls, which does not change its
+            # work), by device time
+            "library_ms": time_ms(fill_and_add, iters=20),
+            "library_fill_device_ms": device_ms(fill_and_add),
+            "library_device_ms": device_ms(
+                lambda: out.index_add_(0, ids64, vals)),
             "bound_ms": nbytes / PEAK_BYTES * 1e3, "bound_by": "bytes",
             "bytes": nbytes}
+        del out
     emit({"phase": "kernel_segment_sum", "cases": len(cases),
           "max_abs_err": worst, "main_shapes": main})
     head = main[SEGSUM_MAIN[0][0]]
     return {"max_abs_err": worst, "ms": head["ms"],
-            "plain_ms": head["plain_ms"], "library_ms": head["library_ms"],
+            "device_ms": head["device_ms"], "plain_ms": head["plain_ms"],
+            "library_ms": head["library_ms"],
             "bound_ms": head["bound_ms"], "bound_by": "bytes"}
 
 
@@ -3224,7 +3302,7 @@ def main():
         sys.exit(2)
     from mxnet_tpu_torch.models.llama import CONFIGS, llama_init
     from mxnet_tpu_torch.ops import (KERNELS, launch_counts,
-                                     reset_launch_counts)
+                                     reset_launch_counts, variant_counts)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
@@ -3241,7 +3319,18 @@ def main():
     serve_once(params, cfg, "serve")
     serve_launches = launch_counts()
     check_path(serve_launches, SERVE_KERNELS, "main_path_serve")
+    # bf16 serving: every forward launch (forward, prefill, the server's
+    # prefill windows) on the wgmma variant
+    check_fwd_wgmma({}, variant_counts(), serve_launches["flash_fwd"],
+                    "main_path_serve", "serving")
+    vbefore = variant_counts()
     phase_consistency(params, cfg)
+    # fp32 serving: every forward launch on the FMA variant
+    fma = {key: n - vbefore.get(key, 0)
+           for key, n in variant_counts().items()
+           if key[0] == "flash_fwd" and n != vbefore.get(key, 0)}
+    check(len(fma) == 1 and next(iter(fma))[1].startswith("fma"),
+          "consistency", "fp32 flash_fwd launches took %s" % fma)
     del params
 
     # main path 2: training (counts reset inside, read right after step 6)
@@ -3315,7 +3404,10 @@ def main():
             "launches": launches, "max_abs_err": rec["max_abs_err"],
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
-            "library_ms": rec["library_ms"]})
+            "library_ms": rec["library_ms"],
+            # the kernel's own device time, where the phase read it
+            **({"device_ms": rec["device_ms"]} if "device_ms" in rec
+               else {})})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -126,28 +126,10 @@ constexpr int BM = 32;        // dk/dv: query rows per tile
 // wgmma kernels: every step takes a 64-row tile of the other side
 constexpr int STEP = 64;
 
-// 2^x on the special-function unit (ex2.approx.ftz: relative error about
-// 2^-22)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Accumulator columns 16 kk .. 16 kk + 15 of a wgmma m64nN fragment
-// (x = acc + 8 kk) re-packed as the A fragment of a product whose k
-// dimension is those columns.
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float* x) {
-  a[0] = pack_bf16(x[0], x[1]);
-  a[1] = pack_bf16(x[2], x[3]);
-  a[2] = pack_bf16(x[4], x[5]);
-  a[3] = pack_bf16(x[6], x[7]);
-}
+using hopper::acc_to_a;
+using hopper::ex2;
+using hopper::kmajor_desc;
+using hopper::pack_bf16;
 
 // The same with each value split into hi = bf16(x) and lo = bf16(x - hi),
 // for products whose A operand needs more than 8 bits.
@@ -167,13 +149,9 @@ __device__ __forceinline__ void acc_to_a_split(uint32_t (&hi)[4],
 }
 
 // ------------------------------------------------------------ bf16, wgmma
-// Shared-memory tiles. A tile of R rows x D bf16 columns lies as D/64
-// column blocks of R rows x 128 bytes, 128-byte swizzled from a 1024-byte
-// aligned base: 16-byte chunk c (0-7) of row r of block cb at
-// cb * R * 128 + r * 128 + ((c ^ (r % 8)) * 16). One copy serves both
-// readings: K-major (rows along the product's K: the tile is an A operand,
-// or a B operand read with imm-trans-b 0) and N-major (rows along K, columns
-// along N: a B operand read through imm-trans-b 1).
+// Tiles lie in shared memory 128-byte swizzled, as hopper.cuh describes,
+// and are read K-major and N-major; every step's tile of the other side
+// has STEP rows.
 
 // The producer warp's copy of rows [r0, r0 + R) of a (S, D) matrix into a
 // tile; rows past S are zero-filled by the copy itself.
@@ -191,33 +169,6 @@ __device__ __forceinline__ void load_tile(uint32_t dst,
         dst + (c >> 3) * (R * 128) + r * 128 + (((c & 7) ^ (r & 7)) << 4),
         src, on ? 16u : 0u);
   }
-}
-
-// K-major descriptor of K step kk (16 columns) of rows row0.. of a tile of
-// R rows: sbo 1024 bytes between 8-row groups, 32 bytes a K step within a
-// 64-column block.
-template <int R>
-__device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int row0,
-                                                int kk) {
-  return hopper::sw128_desc(
-      tile + (kk >> 2) * (R * 128) + row0 * 128 + (kk & 3) * 32, 1, 64);
-}
-
-// N-major descriptor of K step kk (16 rows) of a STEP-row tile: sbo 1024
-// bytes between 8-row groups, lbo STEP * 128 bytes between 64-column blocks.
-__device__ __forceinline__ uint64_t nmajor_desc(uint32_t tile, int kk) {
-  return hopper::sw128_desc(tile + kk * 16 * 128, STEP * 128 / 16, 64);
-}
-
-// acc (64 x D) += A (64 x 16, registers) * tile's K step kk, N-major
-template <int D>
-__device__ __forceinline__ void mma_rs(float (&acc)[D / 2],
-                                       const uint32_t (&a)[4], uint32_t tile,
-                                       int kk) {
-  if constexpr (D == 128)
-    hopper::wgmma_m64n128k16_bf16_rs(acc, a, nmajor_desc(tile, kk));
-  else
-    hopper::wgmma_m64n64k16_bf16_rs(acc, a, nmajor_desc(tile, kk));
 }
 
 // s (64 x STEP) = A rows a_row0.. of tile a (R_A rows) * B tile b^T (STEP
@@ -387,8 +338,8 @@ __global__ void __launch_bounds__(DqTile<D, CONS>::kThreads, 1)
       hopper::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
-        mma_rs<D>(acc, hi[kk], kt, kk);
-        mma_rs<D>(acc, lo[kk], kt, kk);
+        hopper::mma_rs<D, STEP>(acc, hi[kk], kt, kk);
+        hopper::mma_rs<D, STEP>(acc, lo[kk], kt, kk);
       }
       hopper::wgmma_commit();
       hopper::wgmma_wait<0>();
@@ -587,9 +538,9 @@ __global__ void __launch_bounds__(DkvTile<D, CONS>::kThreads, 1)
       hopper::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
-        mma_rs<D>(dva, pa[kk], tdo, kk);
-        mma_rs<D>(dka, hi[kk], tq, kk);
-        mma_rs<D>(dka, lo[kk], tq, kk);
+        hopper::mma_rs<D, STEP>(dva, pa[kk], tdo, kk);
+        hopper::mma_rs<D, STEP>(dka, hi[kk], tq, kk);
+        hopper::mma_rs<D, STEP>(dka, lo[kk], tq, kk);
       }
       hopper::wgmma_commit();
       hopper::wgmma_wait<0>();

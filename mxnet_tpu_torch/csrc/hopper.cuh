@@ -2,11 +2,15 @@
 // memory addresses, mbarriers, cp.async with zero fill and an mbarrier
 // arrival on completion, the async-proxy fence, warpgroup MMA (wgmma) with
 // A and B read from shared memory through descriptors, and named barriers;
-// for the flash-attention backward also 4-byte cp.async, wgmma with B
-// K-major (imm-trans-b 0) and wgmma with A from registers.
+// for the flash-attention kernels also 4-byte cp.async, TMA tensor copies
+// completing on an mbarrier, setmaxnreg, wgmma with B K-major
+// (imm-trans-b 0), wgmma with A from registers, and the tile helpers both
+// flash sources share (ex2, the accumulator-to-A re-pack, the swizzled
+// tile layout's two descriptors).
 // Plain inline PTX; no PyTorch or CUTLASS headers.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace hopper {
@@ -78,6 +82,30 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
+// ------------------------------------------------------------------- TMA
+// one arrival on `bar` that also expects `bytes` more of asynchronous
+// copies to complete on it in the current phase
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar,
+                                                      uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// the tensor map's box at coordinates (c0, c1, c2) -> shared memory at
+// `dst`, laid out as the map's swizzle says; its bytes complete on `bar`.
+// Elements outside the tensor are written as zeros (and counted).
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const void* map,
+                                            int c0, int c1, int c2,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(bar)
+      : "memory");
+}
+
 // order this thread's view of shared memory (generic proxy: plain and
 // cp.async writes) before its later async-proxy accesses (wgmma operands)
 __device__ __forceinline__ void fence_proxy_async() {
@@ -87,6 +115,20 @@ __device__ __forceinline__ void fence_proxy_async() {
 // named barrier `id` (1-15; 0 is __syncthreads) over `threads` threads
 __device__ __forceinline__ void bar_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Move registers between warpgroups (sm_90a): every warp of the calling
+// warpgroup lowers (dec) or raises (inc) its per-thread limit to N; an inc
+// waits until the block has the registers free. Only in a kernel whose
+// roles split once and never reconverge, or ptxas ignores it.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 // ------------------------------------------------------------------ wgmma
@@ -223,6 +265,9 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[R]) {
       "=&f"(d[i + 4]), "=&f"(d[i + 5]), "=&f"(d[i + 6]), "=&f"(d[i + 7])
 #define HOPPER_OUT32(d)                                                    \
   HOPPER_OUT8(d, 0), HOPPER_OUT8(d, 8), HOPPER_OUT8(d, 16), HOPPER_OUT8(d, 24)
+#define HOPPER_OUT64(d)                                                    \
+  HOPPER_OUT32(d), HOPPER_OUT8(d, 32), HOPPER_OUT8(d, 40),                 \
+      HOPPER_OUT8(d, 48), HOPPER_OUT8(d, 56)
 #define HOPPER_ACC32(d)                                                    \
   HOPPER_ACC8(d, 0), HOPPER_ACC8(d, 8), HOPPER_ACC8(d, 16), HOPPER_ACC8(d, 24)
 #define HOPPER_ACC64(d)                                                    \
@@ -268,6 +313,52 @@ __device__ __forceinline__ void wgmma_m64n64k16_bf16_kk_first(
       "%32, %33, p, 1, 1, 0, 0;\n"
       "}\n"
       : HOPPER_OUT32(d)
+      : "l"(desc_a), "l"(desc_b), "r"(0));
+}
+
+// d (64 x 128) += A (64 x 16) * B (128 x 16)^T, both K-major in shared
+// memory (imm-trans-b 0), as wgmma_m64n64k16_bf16_kk
+__device__ __forceinline__ void wgmma_m64n128k16_bf16_kk(float (&d)[64],
+                                                       uint64_t desc_a,
+                                                       uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, "
+      " %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, "
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : HOPPER_ACC64(d)
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// d (64 x 128) = A (64 x 16) * B (128 x 16)^T, d written only (scale-d 0)
+__device__ __forceinline__ void wgmma_m64n128k16_bf16_kk_first(
+    float (&d)[64], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, "
+      " %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, "
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : HOPPER_OUT64(d)
       : "l"(desc_a), "l"(desc_b), "r"(0));
 }
 
@@ -319,8 +410,70 @@ __device__ __forceinline__ void wgmma_m64n128k16_bf16_rs(float (&d)[64],
 #undef HOPPER_ACC64
 #undef HOPPER_ACC32
 #undef HOPPER_ACC8
+#undef HOPPER_OUT64
 #undef HOPPER_OUT32
 #undef HOPPER_OUT8
 
+// ------------------------------------------- flash-attention tile helpers
+// 2^x on the special-function unit (ex2.approx.ftz: relative error about
+// 2^-22)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Accumulator columns 16 kk .. 16 kk + 15 of a wgmma m64nN fragment
+// (x = acc + 8 kk) re-packed as the A fragment of a product whose k
+// dimension is those columns.
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float* x) {
+  a[0] = pack_bf16(x[0], x[1]);
+  a[1] = pack_bf16(x[2], x[3]);
+  a[2] = pack_bf16(x[4], x[5]);
+  a[3] = pack_bf16(x[6], x[7]);
+}
+
+// Shared-memory tiles. A tile of R rows x D bf16 columns lies as D/64
+// column blocks of R rows x 128 bytes, 128-byte swizzled from a 1024-byte
+// aligned base: 16-byte chunk c (0-7) of row r of block cb at
+// cb * R * 128 + r * 128 + ((c ^ (r % 8)) * 16), as a TMA copy with
+// 128-byte swizzle writes a box of 64 columns. One copy serves both
+// readings: K-major (rows along the product's K: the tile is an A operand,
+// or a B operand read with imm-trans-b 0) and N-major (rows along K, columns
+// along N: a B operand read through imm-trans-b 1).
+
+// K-major descriptor of K step kk (16 columns) of rows row0.. of a tile of
+// R rows: sbo 1024 bytes between 8-row groups, 32 bytes a K step within a
+// 64-column block.
+template <int R>
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int row0,
+                                                int kk) {
+  return sw128_desc(tile + (kk >> 2) * (R * 128) + row0 * 128 + (kk & 3) * 32,
+                    1, 64);
+}
+
+// N-major descriptor of K step kk (16 rows) of a tile of R rows: sbo 1024
+// bytes between 8-row groups, lbo R * 128 bytes between 64-column blocks.
+template <int R>
+__device__ __forceinline__ uint64_t nmajor_desc(uint32_t tile, int kk) {
+  return sw128_desc(tile + kk * 16 * 128, R * 128 / 16, 64);
+}
+
+// acc (64 x D) += A (64 x 16, registers) * K step kk of a tile of R rows,
+// read N-major
+template <int D, int R>
+__device__ __forceinline__ void mma_rs(float (&acc)[D / 2],
+                                       const uint32_t (&a)[4], uint32_t tile,
+                                       int kk) {
+  if constexpr (D == 128)
+    wgmma_m64n128k16_bf16_rs(acc, a, nmajor_desc<R>(tile, kk));
+  else
+    wgmma_m64n64k16_bf16_rs(acc, a, nmajor_desc<R>(tile, kk));
+}
 
 }  // namespace hopper

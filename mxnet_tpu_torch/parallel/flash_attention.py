@@ -5,7 +5,9 @@ attention of serving.
 `flash_attention`: a `torch.autograd.Function` whose forward launches the
 hand-written kernel in ``csrc/flash_fwd.cu`` (online softmax over K/V
 tiles, fp32 accumulation, GQA, causal with the (Sk - Sq) diagonal offset,
-any sequence length) and saves (q, k, v, o, lse); its backward computes
+any sequence length; `flash_fwd_plan` picks its variant, warp-specialised
+wgmma for bf16 or FMA for fp32, and tile) and saves (q, k, v, o, lse); its
+backward computes
 delta = rowsum(dO * O) in PyTorch, as the JAX package leaves it to XLA, and
 launches the two kernels of ``csrc/flash_bwd.cu``: dq, and dk/dv with the
 GQA group-sum folded in. `flash_bwd_plan` picks their variant (warp-
@@ -30,8 +32,9 @@ from ..ops import count_launch
 from ..ops._build import bind
 from ..ops.fused_conv import H100_SMS, _sm_count
 
-__all__ = ["flash_attention", "flash_bwd_plan", "FlashBwdPlan",
-           "paged_attention", "paged_attention_chunk"]
+__all__ = ["flash_attention", "flash_fwd_plan", "FlashFwdPlan",
+           "flash_bwd_plan", "FlashBwdPlan", "paged_attention",
+           "paged_attention_chunk"]
 
 _NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -42,21 +45,27 @@ _VARIANTS = {"fma": 0, "wgmma": 1}      # the C entries' variant codes
 def _ref_forward(q, k, v, causal, sm_scale):
     """Plain attention with an fp32 softmax: (o in q's dtype, lse fp32
     (B, H, Sq)). GQA runs as a grouped product over (kv_head, group), with
-    no repeated copy of K/V."""
+    no repeated copy of K/V. Masked logits are -1e30; a query row with no
+    visible key (causal with Sq > Sk) reads o = 0 and lse = -1e30, as in
+    the kernels (P = 0 on every masked entry)."""
     B, H, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     g = H // Hkv
     qg = q.reshape(B, Hkv, g, Sq, D).float()
     logits = torch.matmul(qg, k.float()[:, :, None].transpose(-1, -2))
     logits = logits * sm_scale
+    probs = None
     if causal:
-        qi = torch.arange(Sq, device=q.device)[:, None] + (Sk - Sq)
-        ki = torch.arange(Sk, device=q.device)[None, :]
-        logits = torch.where(ki <= qi, logits,
+        visible = _visible(Sq, Sk, True, q.device)
+        logits = torch.where(visible, logits,
                              torch.full_like(logits, _NEG_INF))
+        if Sq > Sk:     # the first Sq - Sk rows see no key, not even 0
+            probs = torch.where(visible[:, :1], torch.softmax(logits, -1),
+                                torch.zeros_like(logits))
     lse = torch.logsumexp(logits, dim=-1).reshape(B, H, Sq)
-    probs = torch.softmax(logits, dim=-1).to(v.dtype)
-    out = torch.matmul(probs, v[:, :, None])
+    if probs is None:
+        probs = torch.softmax(logits, dim=-1)
+    out = torch.matmul(probs.to(v.dtype), v[:, :, None])
     return out.reshape(B, H, Sq, D).to(q.dtype), lse
 
 
@@ -147,7 +156,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SHAPE_ARGS = [_I] * 7 + [ctypes.c_float, _I]
 _ARGTYPES = {
     # pointers, the shape, the variant's ints, the stream
-    "mx_flash_fwd": [_P] * 5 + _SHAPE_ARGS + [_P],
+    "mx_flash_fwd": [_P] * 5 + _SHAPE_ARGS + [_I] * 2 + [_P],
     "mx_flash_bwd_dq": [_P] * 7 + _SHAPE_ARGS + [_I] * 2 + [_P],
     "mx_flash_bwd_dkv": [_P] * 9 + _SHAPE_ARGS + [_I] * 3 + [_P],
 }
@@ -183,21 +192,56 @@ def _on_cuda(q):
     return True
 
 
+class FlashFwdPlan(collections.namedtuple("FlashFwdPlan",
+                                          "variant rows block_k")):
+    """The forward kernel's variant ("wgmma" or "fma"), the query rows of
+    a work item and the key rows of a K/V tile."""
+
+    @property
+    def label(self):
+        return "%s_%dx%d" % (self.variant, self.rows, self.block_k)
+
+
+def flash_fwd_plan(B, H, Hkv, Sq, Sk, D, dtype):
+    """The plan the forward kernel launches for q (B, H, Sq, D) and k/v
+    (B, Hkv, Sk, D) of `dtype`.
+
+    bf16 takes the wgmma kernel at every Sq and Sk, D 64 and 128 alike:
+    work items of 128 query rows (two consumer warpgroups share each K/V
+    tile) over K/V tiles of 128 rows, one persistent block an SM. fp32
+    takes the FMA kernel (64 x 64 tiles). Raises ValueError for a shape or
+    dtype the kernels do not take."""
+    if D not in _HEAD_DIMS:
+        raise ValueError("flash_fwd_plan: head_dim %s, got %d"
+                         % (_HEAD_DIMS, D))
+    if min(B, H, Hkv, Sq, Sk) < 1 or H % Hkv:
+        raise ValueError("flash_fwd_plan: no kernel for B=%d H=%d Hkv=%d "
+                         "Sq=%d Sk=%d" % (B, H, Hkv, Sq, Sk))
+    if dtype == torch.float32:
+        return FlashFwdPlan("fma", 64, 64)
+    if dtype != torch.bfloat16:
+        raise ValueError("flash_fwd_plan: float32 or bfloat16, got %s"
+                         % dtype)
+    return FlashFwdPlan("wgmma", 128, 128)
+
+
 def _flash_forward(q, k, v, causal, sm_scale):
     """(o, lse): o (B, H, Sq, D) in q's dtype, lse (B, H, Sq) fp32 — the
-    pair the backward kernels consume."""
+    pair the backward kernels consume. On CUDA tensors: the kernel, in the
+    variant and tile `flash_fwd_plan` picks."""
     if not _on_cuda(q):
         return _ref_forward(q, k, v, causal, sm_scale)
     _check(q, k, v)
-    B, H, Sq, _ = q.shape
+    B, H, Sq, D = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     if o.numel() == 0:
         return o, lse.fill_(_NEG_INF)
     if k.shape[2] == 0:
         raise ValueError("flash_attention: empty key sequence")
+    plan = flash_fwd_plan(B, H, k.shape[1], Sq, k.shape[2], D, q.dtype)
     _launch("flash_fwd", "mx_flash_fwd", (q, k, v, o, lse), q, k, causal,
-            sm_scale)
+            sm_scale, (_VARIANTS[plan.variant], plan.rows), plan.label)
     return o, lse
 
 

@@ -24,6 +24,7 @@ from mxnet_tpu_torch.parallel import (paged_attention,
                                       paged_attention_chunk)
 from mxnet_tpu_torch.parallel import flash_attention as tflash
 from mxnet_tpu_torch.parallel.flash_attention import (FlashBwdPlan,
+                                                      FlashFwdPlan,
                                                       _backward_inner,
                                                       _check,
                                                       _check_backward,
@@ -34,7 +35,8 @@ from mxnet_tpu_torch.parallel.flash_attention import (FlashBwdPlan,
                                                       _launch_dq,
                                                       _ref_backward,
                                                       _ref_forward,
-                                                      flash_bwd_plan)
+                                                      flash_bwd_plan,
+                                                      flash_fwd_plan)
 
 jfa = sys.modules["mxnet_tpu.parallel.flash_attention"]
 
@@ -160,24 +162,152 @@ def test_kernel_wrapper_accepts_the_kernel_shapes():
                    _t(2, 2, 7, D, dtype=dtype))
 
 
+# the forward's card cases beyond CASES: Sq 1, ragged Sq and Sk (Sk not a
+# multiple of the 128-row K/V tile), causal with Sq < Sk and Sq > Sk (rows
+# with no visible key), GQA groups 4 and 8, and a GQA prefill with a short Sq
+FWD_CARD_CASES = CASES + [
+    (1, 2, 2, 1, 301, 64, True),        # Sq 1
+    (2, 8, 2, 77, 301, 128, True),      # group 4, Sq < Sk, ragged
+    (1, 8, 1, 301, 77, 64, True),       # group 8, Sq > Sk: rows see no key
+    (2, 4, 2, 200, 330, 64, False),     # Sk not a multiple of 128
+    (1, 32, 8, 16, 1040, 128, True),    # GQA prefill, short Sq
+]
+
+
 @pytest.mark.cuda
 def test_kernel_matches_plain_version_on_the_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     for (B, H, Hkv, Sq, Sk, D, causal), (dtype, atol) in zip(
-            CASES * 2, [(torch.float32, 1e-4)] * len(CASES)
-            + [(torch.bfloat16, 2e-2)] * len(CASES)):
+            FWD_CARD_CASES * 2, [(torch.float32, 1e-4)] * len(FWD_CARD_CASES)
+            + [(torch.bfloat16, 2e-2)] * len(FWD_CARD_CASES)):
         q, k, v = (torch.from_numpy(a).cuda().to(dtype) for a in
                    _qkv(B, H, Hkv, Sq, Sk, D))
-        before = launch_counts()["flash_fwd"]
+        plan = flash_fwd_plan(B, H, Hkv, Sq, Sk, D, dtype)
+        assert plan.variant == ("wgmma" if dtype == torch.bfloat16
+                                else "fma")
+        before, vbefore = launch_counts()["flash_fwd"], variant_counts()
         o, lse = _flash_forward(q, k, v, causal, D ** -0.5)
+        o2, lse2 = _flash_forward(q, k, v, causal, D ** -0.5)
         torch.cuda.synchronize()
-        assert launch_counts()["flash_fwd"] == before + 1
+        assert launch_counts()["flash_fwd"] == before + 2
+        assert variant_counts().get(("flash_fwd", plan.label), 0) \
+            == vbefore.get(("flash_fwd", plan.label), 0) + 2
+        # two launches bit-equal
+        assert torch.equal(o, o2) and torch.equal(lse, lse2)
         o_ref, lse_ref = _ref_forward(q, k, v, causal, D ** -0.5)
         torch.testing.assert_close(o.float(), o_ref.float(), atol=atol,
                                    rtol=atol)
         torch.testing.assert_close(lse, lse_ref, atol=1e-3, rtol=0)
+        if causal and Sq > Sk:
+            # rows with no visible key: o = 0 and lse = -1e30 exactly
+            blind = Sq - Sk
+            assert not o[:, :, :blind].any()
+            assert bool((lse[:, :, :blind] == -1e30).all())
+
+
+def test_rows_without_a_visible_key_read_zero():
+    """Causal with Sq > Sk: query rows i < Sq - Sk see no key. The port's
+    plain forward (like its kernels) gives them o = 0 and lse = -1e30 (P =
+    0 on every masked entry); every other row matches the Pallas kernel
+    (interpret mode). The JAX kernel's values on the blind rows depend on
+    its tile geometry, so they are not compared."""
+    B, H, Hkv, Sq, Sk, D = 1, 4, 2, 200, 77, 64
+    q, k, v = _qkv(B, H, Hkv, Sq, Sk, D, seed=10)
+    sc = D ** -0.5
+    o_j, lse_j = jfa._pallas_forward(jnp.asarray(q), jnp.asarray(k),
+                                     jnp.asarray(v), True, sc)
+    o_t, lse_t = _flash_forward(torch.from_numpy(q), torch.from_numpy(k),
+                                torch.from_numpy(v), True, sc)
+    blind = Sq - Sk
+    assert not o_t[:, :, :blind].any()
+    assert bool((lse_t[:, :, :blind] == -1e30).all())
+    np.testing.assert_allclose(o_t[:, :, blind:].numpy(),
+                               np.asarray(o_j)[:, :, blind:], atol=ATOL,
+                               rtol=0)
+    np.testing.assert_allclose(lse_t[:, :, blind:].numpy(),
+                               np.asarray(lse_j)[:, :, blind:], atol=ATOL,
+                               rtol=0)
+
+
+# the main paths' forward shapes: llama_110m serving (4 x 512), llama_110m
+# training (8 x 1024), llama3_8b (GQA 32/8, D 128), BERT-base (non-causal)
+FWD_PATH_SHAPES = [(4, 12, 12, 512, 512, 64), (8, 12, 12, 1024, 1024, 64),
+                   (1, 32, 8, 2048, 2048, 128), (2, 32, 8, 512, 512, 128),
+                   (128, 12, 12, 128, 128, 64)]
+
+
+@pytest.mark.parametrize("shape", FWD_PATH_SHAPES + [
+    (1, 12, 12, 304, 304, 64), (2, 4, 2, 77, 301, 64), (1, 2, 2, 1, 301, 64),
+    (1, 8, 1, 301, 77, 64), (1, 32, 8, 16, 1040, 128),
+    (3, 8, 2, 200, 330, 128), (1, 1, 1, 1, 1, 64)])
+def test_forward_plan_takes_wgmma_for_every_bf16_shape(shape):
+    plan = flash_fwd_plan(*shape, torch.bfloat16)
+    assert plan == FlashFwdPlan("wgmma", 128, 128)
+    assert plan.label == "wgmma_128x128"
+
+
+@pytest.mark.parametrize("shape", FWD_PATH_SHAPES + [(2, 4, 2, 77, 301, 64),
+                                                     (1, 4, 1, 33, 5, 128)])
+def test_forward_plan_takes_fma_for_fp32(shape):
+    plan = flash_fwd_plan(*shape, torch.float32)
+    assert plan == FlashFwdPlan("fma", 64, 64)
+    assert plan.label == "fma_64x64"
+
+
+def test_forward_plan_tiles_per_head_dim():
+    # both head dims: 128-row work items over 128-row K/V tiles
+    for D in (64, 128):
+        for S in (1, 128, 129, 4096):
+            plan = flash_fwd_plan(2, 8, 2, S, S, D, torch.bfloat16)
+            assert (plan.rows, plan.block_k) == (128, 128), (D, S)
+
+
+@pytest.mark.parametrize("args,match", [
+    ((1, 2, 2, 8, 8, 96, torch.bfloat16), "head_dim"),
+    ((1, 3, 2, 8, 8, 64, torch.bfloat16), "no kernel"),
+    ((0, 2, 2, 8, 8, 64, torch.bfloat16), "no kernel"),
+    ((1, 2, 2, 8, 0, 64, torch.bfloat16), "no kernel"),
+    ((1, 2, 2, 8, 8, 64, torch.float16), "bfloat16"),
+])
+def test_forward_plan_refuses_what_no_kernel_takes(args, match):
+    with pytest.raises(ValueError, match=match):
+        flash_fwd_plan(*args)
+
+
+@pytest.mark.parametrize("dtype,code", [(torch.bfloat16, 1),
+                                        (torch.float32, 0)])
+def test_forward_wrapper_counts_the_plans_variant(monkeypatch, dtype, code):
+    """The wrapper's launch path with the kernel stubbed: the plan's
+    variant and rows reach the C entry, and its label reaches
+    variant_counts."""
+    import contextlib
+    import types
+    fa_mod = sys.modules["mxnet_tpu_torch.parallel.flash_attention"]
+    calls = []
+
+    def entry(*args):
+        calls.append(args)
+        return 0
+    monkeypatch.setattr(fa_mod, "_on_cuda", lambda q: True)
+    monkeypatch.setattr(fa_mod, "bind", lambda *a: (None, entry))
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: types.SimpleNamespace(cuda_stream=7))
+    q, k, v = (torch.from_numpy(a).to(dtype)
+               for a in _qkv(2, 8, 2, 77, 301, 128))
+    plan = flash_fwd_plan(2, 8, 2, 77, 301, 128, dtype)
+    before, vbefore = launch_counts()["flash_fwd"], variant_counts()
+    o, lse = _flash_forward(q, k, v, True, 0.125)
+    assert o.shape == q.shape and lse.shape == (2, 8, 77)
+    assert launch_counts()["flash_fwd"] == before + 1
+    assert variant_counts()[("flash_fwd", plan.label)] == \
+        vbefore.get(("flash_fwd", plan.label), 0) + 1
+    # (..., causal, scale, dtype, variant, rows, stream)
+    (args,) = calls
+    assert args[-6:] == (1, 0.125, code, code, plan.rows, 7)
 
 
 def _grad_case(B, H, Hkv, Sq, Sk, D, seed):
