@@ -74,8 +74,10 @@ Phases (one JSON line each; any failure exits non-zero):
                  (cbr_train_bwd) against their plain versions at ResNet-50's
                  four bottleneck 3x3 shapes (batch 256) and kernel_cbr's
                  edge shapes, bf16 and fp32, with and without a residual,
-                 with conv_bn_stats's variant and tile, two launches
-                 bit-equal (conv output and sums), and timings.
+                 with the variant (and tile) each launch took, two launches
+                 of each bit-equal, and timings: cbr_train_bwd by event and
+                 device time, with its three-launch split_v8 variant's
+                 device time beside it.
 14. kernel_opt — the flat SGD and Adam kernels against their plain versions
                  over every flag combination (bit for bit), timed at 25.6M
                  elements and over one ResNet-50 step's parameters.
@@ -112,14 +114,19 @@ Phases (one JSON line each; any failure exits non-zero):
 19. bert_train_throughput — step time (median of steps 2-6), tokens/s,
                  peak memory, and torch.profiler over one step.
 20. kernel_segment_sum — the segment-sum kernel against its plain version
-                 (on the CPU) bit for bit: fp32/bf16/fp16 values, int32/int64
-                 ids, widths 1, 3, 16, 64, 65, 129 and rank-3 rows, sorted
-                 and shuffled ids with many duplicates, negative ids, nnz 0;
-                 timed at the main paths' shapes (8192 x 64 into 1,000,001
-                 rows; 128 x 16 into 10,131,228) by event and device time
-                 beside its bytes bound and torch's index_add_ (zeros +
+                 (on the CPU) bit for bit, each call on the route
+                 segment_sum_plan picks and two launches bit-equal:
+                 fp32/bf16/fp16 values, int32/int64 ids, widths 1, 3, 16,
+                 64, 65, 129 and rank-3 rows, sorted and shuffled ids with
+                 many duplicates, all-equal ids, negative ids and ids past
+                 the last segment (and past int32's range), nnz 0 and nnz at
+                 the fused route's edge; timed at the main paths' shapes
+                 (8192 x 64 into 1,000,001 rows; 128 x 16 into 10,131,228)
+                 and with shuffled ids at the first, by event and device
+                 time, beside its bytes bound, torch's index_add_ (zeros +
                  index_add_ by event and device time, and index_add_ alone
-                 into a buffer zeroed outside the timed call).
+                 into a buffer zeroed outside the timed call) and
+                 cudaMemsetAsync of the output's bytes.
 21. sparse_embed — bench.py::bench_sparse's loop at its accelerator shape:
                  kv.create("local"), ShardedEmbedding(1,000,000, 64, sgd,
                  lr 0.1), init_embedding, 20 steps of a row-sparse push of
@@ -140,13 +147,15 @@ before and read just after: serving (phases 3-5: flash_fwd), training
 (phase 7's 6 steps: flash_fwd, flash_bwd_dq, flash_bwd_dkv), ResNet-50
 inference (phase 11's forward: conv_bn_relu, 16 launches, all on the
 wgmma variant), ResNet-50 training (phase 15: 16 conv_bn_stats, all on the
-wgmma variant, 16 cbr_train_bwd and one flat_sgd per trainable parameter
-in each FusedTrainStep step; one flat_adam per trainable parameter in
-each Adam step) and BERT-base pretraining (phase
+wgmma variant, 16 cbr_train_bwd, all on the persistent variant, and one
+flat_sgd per trainable parameter in each FusedTrainStep step; one
+flat_adam per trainable parameter in each Adam step) and BERT-base
+pretraining (phase
 18's 6 steps: one flat_lamb1 and one flat_lamb2 per ZeRO bucket a step;
 its functional step: 12 launches of each flash kernel) and sparse
 embeddings (phase 21's 20 pushes: 2 segment_sum a push; phase 22's 10
-steps: 2 segment_sum per table a step). Then the card's
+steps: 2 segment_sum per table a step; all on the fused route). Then the
+card's
 name and power limit, the `kernels` line, and as the last line {"ok":
 true, "device": {...}}. Exits non-zero without a CUDA card.
 """
@@ -156,6 +165,7 @@ import contextlib
 import dataclasses
 import itertools
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -262,19 +272,30 @@ def time_ms(fn, iters=50, warmup=5):
 
 
 def device_ms(fn, calls=20, warmup=5, tries=3):
-    """fn's device time per call: the CUDA kernels it launches, summed under
-    torch.profiler over `calls` calls after `warmup` (the library
-    yardsticks' time without their host and autograd overhead). A window
-    in which the profiler saw no kernel at all is read again, up to
-    `tries` windows; None if none saw one."""
+    """fn's device time per call under torch.profiler, after `warmup`
+    calls (the library yardsticks' time without their host and autograd
+    overhead): for each kernel name, its mean duration over the launches
+    the profiler saw in `calls` calls, times its launches a call (its
+    count over `calls`, rounded). Late in a long run the profiler drops
+    some records (17 of 20 launches seen), so the sum over `calls` would
+    read low. A window in which the profiler saw no kernel at all is read
+    again, up to `tries` windows; None if none saw one."""
     for _ in range(warmup):
         fn()
     for _ in range(tries):
-        ms = profile_window(lambda: [fn() for _ in range(calls)])[
-            "device_ms"] / calls
+        win = profile_window(lambda: [fn() for _ in range(calls)],
+                             per_kernel=True)
+        ms = per_call_ms(win["per_kernel"], calls)
         if ms > 0:
             return ms
     return None
+
+
+def per_call_ms(per_kernel, calls):
+    """Device ms a call from profile_window's per_kernel counts: each
+    kernel's mean duration times its launches a call."""
+    return sum(total / seen * max(1, round(seen / calls))
+               for seen, total in per_kernel.values())
 
 
 def bound(flops, nbytes, dtype):
@@ -1555,16 +1576,19 @@ def phase_kernel_cbr_train(gen):
     import torch.nn.functional as F
 
     from mxnet_tpu_torch.ops.fused_conv import (_conv3x3_backward,
+                                                _launch_cbr_bwd,
                                                 _normalize_relu,
                                                 _ref_cbr_train_bwd,
                                                 _ref_conv_bn_stats,
-                                                cbr_train_bwd, conv_bn_stats)
+                                                cbr_bwd_plan, cbr_train_bwd,
+                                                conv_bn_stats)
     names = ("conv_bn_stats", "cbr_train_bwd")
     # the fused blocks' dx/dw: PyTorch's conv backward in full fp32 from
     # the fp32 dconv (the reference's numerics), per training step
     dxdw = {"ms": 0.0, "flops": 0.0}
     weighted = {k: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-                    "flops": 0.0, "bytes": 0.0, "max_abs_err": 0.0}
+                    "flops": 0.0, "bytes": 0.0, "max_abs_err": 0.0,
+                    "device_ms": 0.0}
                 for k in names}
     weighted["cbr_train_bwd"]["library_ms"] = None
     shapes = [(n, N, H, W, C, Co, k, True) for n, N, H, W, C, Co, k
@@ -1658,12 +1682,22 @@ def phase_kernel_cbr_train(gen):
                         got[i], want[i], TRAIN_FP32_REL)
                     if not good:
                         bad.append(key)
-                # #6 on the same (plain) saved tensors
+                # #6 on the same (plain) saved tensors: the variant the plan
+                # picks, two launches bit-equal
                 conv, mean, _, invstd = want
-                kb = cbr_train_bwd(conv, dy, mean, invstd, gamma, beta, res)
+                kb, bwd_variant = launched_variant(lambda: cbr_train_bwd(
+                    conv, dy, mean, invstd, gamma, beta, res))
+                kb2 = cbr_train_bwd(conv, dy, mean, invstd, gamma, beta, res)
                 pb = _ref_cbr_train_bwd(conv, dy, mean, invstd, gamma, beta,
                                         res)
                 torch.cuda.synchronize()
+                rec["cbr_train_bwd_variant"] = bwd_variant
+                if bwd_variant != ["cbr_train_bwd/" + cbr_bwd_plan(Co)]:
+                    bad.append("cbr_train_bwd variant %s" % bwd_variant)
+                if not all(torch.equal(a, b) for a, b in zip(kb, kb2)
+                           if a is not None):
+                    bad.append("cbr_train_bwd differs between launches")
+                del kb2
                 for key, a, b in zip(("dconv", "dgamma", "dbeta"), kb, pb):
                     rec[key + "_max_abs_err"], good = close_rel(
                         a, b, TRAIN_FP32_REL)
@@ -1683,6 +1717,16 @@ def phase_kernel_cbr_train(gen):
                             lambda: conv_bn_stats(x, w)),
                         "cbr_train_bwd": time_ms(lambda: cbr_train_bwd(
                             conv, dy, mean, invstd, gamma, beta, res))}
+                    # #6's own device time; and the three-launch variant
+                    # that vectorizes without holding rows on chip
+                    rec["device_ms"] = {"cbr_train_bwd": device_ms(
+                        lambda: cbr_train_bwd(conv, dy, mean, invstd, gamma,
+                                              beta, res))}
+                    if dtype == torch.bfloat16 and res is None:
+                        rec["split_v8_device_ms"] = device_ms(
+                            lambda: _launch_cbr_bwd("split_v8", conv, dy,
+                                                    mean, invstd, gamma,
+                                                    beta, res))
                     rec["plain_ms"] = {
                         "conv_bn_stats": time_ms(
                             lambda: _ref_conv_bn_stats(x, w), iters=5),
@@ -1702,6 +1746,8 @@ def phase_kernel_cbr_train(gen):
                                 rec["dconv_max_abs_err"],
                                 rec["dgamma_max_abs_err"],
                                 rec["dbeta_max_abs_err"])}
+                        weighted["cbr_train_bwd"]["device_ms"] += \
+                            per_step * rec["device_ms"]["cbr_train_bwd"] / 16
                         for k in names:
                             acc = weighted[k]
                             acc["ms"] += per_step * rec["ms"][k] / 16
@@ -1736,6 +1782,8 @@ def phase_kernel_cbr_train(gen):
                   "plain_ms": acc["plain_ms"],
                   "library_ms": acc["library_ms"], "bound_ms": bms,
                   "bound_by": by}
+    out["cbr_train_bwd"]["device_ms"] = weighted["cbr_train_bwd"][
+        "device_ms"]
     return out
 
 
@@ -2009,6 +2057,10 @@ def resnet_train_checks(gen, tmp, batch, image, steps, adam_batch,
           "resnet_train", "expected all %d conv_bn_stats launches of the "
           "FusedTrainStep steps on the wgmma variant, saw %s"
           % (16 * steps, sgd_variants))
+    check(sgd_variants.get(("cbr_train_bwd", "persistent"), 0)
+          == 16 * steps, "resnet_train", "expected all %d cbr_train_bwd "
+          "launches of the FusedTrainStep steps on the persistent variant, "
+          "saw %s" % (16 * steps, sgd_variants))
     want = {"conv_bn_stats": 16 * steps, "cbr_train_bwd": 16 * steps,
             "flat_sgd": n_train * steps, "conv_bn_relu": 0, "flat_adam": 0}
     check(all(sgd_launches[k] == v for k, v in want.items()),
@@ -2064,6 +2116,10 @@ def resnet_train_checks(gen, tmp, batch, image, steps, adam_batch,
     check(wgmma_launches(adam_variants, "conv_bn_stats") == 16 * ADAM_STEPS,
           "resnet_train", "expected all %d conv_bn_stats launches of the "
           "Adam loop on the wgmma variant, saw %s"
+          % (16 * ADAM_STEPS, adam_variants))
+    check(adam_variants.get(("cbr_train_bwd", "persistent"), 0)
+          == 16 * ADAM_STEPS, "resnet_train", "expected all %d cbr_train_bwd "
+          "launches of the Adam loop on the persistent variant, saw %s"
           % (16 * ADAM_STEPS, adam_variants))
     want = {"conv_bn_stats": 16 * ADAM_STEPS,
             "cbr_train_bwd": 16 * ADAM_STEPS,
@@ -2183,7 +2239,8 @@ def train_kernel_group(name):
     if "cbr_wgmma_kernel<true" in n or "cbr_mma_kernel<true" in n \
             or "cbr_fma_kernel<true" in n or "stats_col_sum" in n:
         return "conv_bn_stats"
-    if "cbr_bwd" in n or "bwd_col_sum" in n:
+    if "cbr_bwd" in n or "bwd_col_sum" in n or "split_partial" in n \
+            or "split_dconv" in n:
         return "cbr_train_bwd"
     if "flat_sgd" in n:
         return "flat_sgd"
@@ -2914,17 +2971,31 @@ KAGGLE_VOCABS = (1460, 583, 10131227, 2202608, 305, 24, 12517, 633, 3, 93145,
                  7046547, 18, 15, 286181, 105, 142572)
 DLRM_BATCH, DLRM_TEST_BATCH, DLRM_STEPS, DLRM_CPU_STEPS = 128, 16384, 10, 3
 SEGSUM_MAIN = [
-    # name, nnz, row, num_segments: the table update of a bench_sparse
+    # name, nnz, row, num_segments, ids: the table update of a bench_sparse
     # push (8192 ascending ids into the 1,000,000 rows and the scratch
     # row) and of the largest Kaggle table at batch 128
-    ("sparse_embed_update", 8192, (64,), SPARSE_VOCAB + 1),
-    ("dlrm_largest_table", 128, (16,), KAGGLE_VOCABS[2] + 1),
+    ("sparse_embed_update", 8192, (64,), SPARSE_VOCAB + 1, "unique"),
+    ("dlrm_largest_table", 128, (16,), KAGGLE_VOCABS[2] + 1, "unique"),
 ]
+# the first shape with shuffled ids, about two of each of 4000 ids: the
+# fused route's sort
+SEGSUM_SHUFFLED = [("shuffled_8192x64", 8192, (64,), SPARSE_VOCAB + 1,
+                    "shuffled")]
+SEGSUM_SHUFFLED_IDS = 4000
+# #11's bound: its bytes over the card's write rate, the HBM rate. No zero
+# fill of 256 MB or more beats it on an H100 by events
+# (tools/kernel_times.py: cudaMemsetAsync and zero_ reach 3.1-3.27 TB/s);
+# the device times that read faster came from profiler windows that had
+# dropped kernel records, which device_ms now counts. (A fill that L2
+# holds, 32 MB, does finish faster by device time.)
+SEGSUM_WRITE_RATE = PEAK_BYTES
 
 
-def profile_window(fn):
+def profile_window(fn, per_kernel=False):
     """fn() under torch.profiler: its wall time, the device time of its
-    kernels, the idle share (one stream) and the top kernels."""
+    kernels, the kernels the profiler saw, the idle share (one stream) and
+    the top kernels; with `per_kernel`, {kernel: (launches seen, device
+    ms)} too."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -2933,7 +3004,7 @@ def profile_window(fn):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    top = {}
+    top, per = {}, {}
     for ev in prof.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -2941,11 +3012,17 @@ def profile_window(fn):
         if us is None:
             us = ev.self_cuda_time_total
         top[ev.key[:120]] = top.get(ev.key[:120], 0.0) + us / 1e3
+        seen, total = per.get(ev.key, (0, 0.0))
+        per[ev.key] = (seen + ev.count, total + us / 1e3)
     device_ms = sum(top.values())
-    return {"wall_ms": wall_ms, "device_ms": device_ms,
-            "idle_share": 1.0 - device_ms / wall_ms,
-            "top_kernels_ms": dict(sorted(top.items(),
-                                          key=lambda kv: -kv[1])[:10])}
+    rec = {"wall_ms": wall_ms, "device_ms": device_ms,
+           "kernel_count": sum(seen for seen, _ in per.values()),
+           "idle_share": 1.0 - device_ms / wall_ms,
+           "top_kernels_ms": dict(sorted(top.items(),
+                                         key=lambda kv: -kv[1])[:10])}
+    if per_kernel:
+        rec["per_kernel"] = per
+    return rec
 
 
 def segsum_ids(rng, nnz, segments, sort, low=0, unique=False):
@@ -2960,27 +3037,45 @@ def segsum_ids(rng, nnz, segments, sort, low=0, unique=False):
 def phase_kernel_segment_sum(gen):
     """Kernel #11 against its plain version (run on the CPU, where it adds
     in occurrence order), bit for bit, over dtypes, id dtypes, widths,
-    sorted and shuffled ids with many duplicates, negative ids and nnz 0;
-    then at the main paths' shapes, timed beside its bound and torch's
-    index_add_ (atomics) on the same non-negative ids."""
-    from mxnet_tpu_torch.ops.sparse_ops import _segment_sum_plain, segment_sum
+    sorted and shuffled ids with many duplicates, all-equal ids, negative
+    and out-of-range ids, nnz 0 and nnz at the edge of the fused route,
+    each with the route it took (segment_sum_plan) and two launches
+    bit-equal; then at the main paths' shapes, timed beside its bound,
+    torch's index_add_ (atomics) on the same non-negative ids and
+    cudaMemsetAsync of the same output bytes; and at the first main shape
+    with shuffled, duplicated ids."""
+    import ctypes
+
+    from mxnet_tpu_torch.ops._build import bind
+    from mxnet_tpu_torch.ops.sparse_ops import (FUSED_MAX_NNZ,
+                                                _segment_sum_plain,
+                                                segment_sum, segment_sum_plan)
     rng = np.random.RandomState(0)
-    cases, worst = [], 0.0
+    cases, worst, routes = [], 0.0, {}
 
     def held(vals, ids, segments, what):
         nonlocal worst
-        got = segment_sum(vals.cuda(), ids.cuda(), segments)
+        vc, ic = vals.cuda(), ids.cuda()
+        got, variant = launched_variant(lambda: segment_sum(vc, ic,
+                                                            segments))
+        again = segment_sum(vc, ic, segments)
         torch.cuda.synchronize()
         want = _segment_sum_plain(vals, ids, segments)
-        ok = got.shape == want.shape and got.dtype == want.dtype
+        plan = segment_sum_plan(vals.shape[0], math.prod(vals.shape[1:]),
+                                vals.dtype, vc.data_ptr() % 16 == 0)
+        ok = got.shape == want.shape and got.dtype == want.dtype \
+            and torch.equal(got, again) \
+            and variant == ["segment_sum/" + plan.variant]
         if ok and want.numel():
             got = got.cpu()
             worst = max(worst, (got.float() - want.float()).abs().max()
                         .item())
             ok = ulps_apart(got, want).max().item() == 0
         cases.append(what)
+        routes[plan.variant] = routes.get(plan.variant, 0) + 1
         check(ok, "kernel_segment_sum", "kernel differs from the plain "
-              "version (%s)" % (what,))
+              "version, between launches, or took another route than %s "
+              "(%s; took %s)" % (plan.variant, what, variant))
 
     for dtype in (torch.float32, torch.bfloat16, torch.float16):
         for id_dtype in (torch.int32, torch.int64):
@@ -2997,44 +3092,98 @@ def phase_kernel_segment_sum(gen):
             held(torch.randn((300, 5), generator=gen, device="cuda").cpu()
                  .to(dtype), torch.full((300,), 4, dtype=id_dtype), 10 ** 6,
                  (str(dtype), "one run, segments far above the ids"))
+            held(torch.randn((2000, 64), generator=gen, device="cuda").cpu()
+                 .to(dtype), torch.full((2000,), 999, dtype=id_dtype), 1000,
+                 (str(dtype), str(id_dtype), "all ids equal, the last row"))
+            # ids past the last segment (and, as int64, past int32's range)
+            far = rng.randint(-5, 1300, size=3000).astype(np.int64)
+            if id_dtype == torch.int64:
+                far[::7] = 2 ** 33 + 17
+                far[::11] = -2 ** 40
+            held(torch.randn((3000, 16), generator=gen, device="cuda").cpu()
+                 .to(dtype), torch.from_numpy(far).to(id_dtype), 1000,
+                 (str(dtype), str(id_dtype), "ids out of range"))
+    # the fused route's edge
+    for nnz, sort in ((FUSED_MAX_NNZ, True), (FUSED_MAX_NNZ, False),
+                      (FUSED_MAX_NNZ + 1, False)):
+        held(torch.randn((nnz, 16), generator=gen, device="cuda").cpu(),
+             torch.from_numpy(segsum_ids(rng, nnz, 5000, sort)).to(
+                 torch.int32), 5000, ("nnz", nnz, "sorted" if sort
+                                      else "shuffled"))
+    # cudaMemsetAsync of an output's bytes: the fill's yardstick
+    _, memset_fn = bind("segment_sum", "mx_memset_zero",
+                        [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p])
+
+    def yardstick(fn):
+        """fn by event time and under the profiler (device time per call,
+        and the kernels the profiler saw in its 20 calls)."""
+        for _ in range(5):
+            fn()
+        win = profile_window(lambda: [fn() for _ in range(20)],
+                             per_kernel=True)
+        return {"ms": time_ms(fn, iters=20),
+                "device_ms": per_call_ms(win["per_kernel"], 20),
+                "kernels_seen": win["kernel_count"]}
+
     main = {}
-    for name, nnz, row, segments in SEGSUM_MAIN:
-        ids = torch.from_numpy(segsum_ids(rng, nnz, segments, True,
-                                          unique=True)).to(torch.int32)
+    for name, nnz, row, segments, kind in SEGSUM_MAIN + SEGSUM_SHUFFLED:
+        if kind == "unique":
+            ids = torch.from_numpy(segsum_ids(rng, nnz, segments, True,
+                                              unique=True)).to(torch.int32)
+        else:
+            ids = torch.from_numpy(rng.randint(0, SEGSUM_SHUFFLED_IDS,
+                                               size=nnz)).to(torch.int32)
         vals = torch.randn((nnz,) + row, generator=gen, device="cuda")
         held(vals.cpu(), ids, segments, name)
         ids_c, ids64 = ids.cuda(), ids.cuda().long()
         # the output written once, the values and int32 ids read once
-        nbytes = (segments + nnz) * row[0] * vals.element_size() + nnz * 4
-        out = torch.zeros((segments,) + row, device="cuda")
-
-        def fill_and_add():
-            return torch.zeros((segments,) + row,
-                               device="cuda").index_add_(0, ids64, vals)
-        main[name] = {
+        out_bytes = segments * row[0] * vals.element_size()
+        nbytes = out_bytes + nnz * row[0] * vals.element_size() + nnz * 4
+        _, variant = launched_variant(lambda: segment_sum(vals, ids_c,
+                                                          segments))
+        rec = {
             "nnz": nnz, "row": list(row), "num_segments": segments,
-            # the whole wrapper call (sort, zero fill, sums) by event time,
-            # and its kernels' device time
+            "ids": kind, "variant": variant,
+            "plan": segment_sum_plan(nnz, row[0], vals.dtype)._asdict(),
+            # the whole wrapper call by event time, and its kernels' device
+            # time
             "ms": time_ms(lambda: segment_sum(vals, ids_c, segments),
                           iters=20),
             "device_ms": device_ms(lambda: segment_sum(vals, ids_c,
                                                        segments)),
             "plain_ms": time_ms(lambda: _segment_sum_plain(
                 vals, ids_c, segments), iters=20),
-            # yardsticks: zeros + index_add_ by event time (the same
-            # function, allocation included) and by device time; and
+            "bound_ms": nbytes / SEGSUM_WRITE_RATE * 1e3,
+            "bound_by": "bytes", "bytes": nbytes}
+        if kind == "unique":
+            out = torch.zeros((segments,) + row, device="cuda")
+
+            def fill_and_add():
+                return torch.zeros((segments,) + row,
+                                   device="cuda").index_add_(0, ids64, vals)
+            # yardsticks: zeros + index_add_ (the same function, allocation
+            # included), cudaMemsetAsync of the output's bytes, and
             # index_add_ alone into a buffer zeroed outside the timed call
             # (its sums pile up across calls, which does not change its
             # work), by device time
-            "library_ms": time_ms(fill_and_add, iters=20),
-            "library_fill_device_ms": device_ms(fill_and_add),
-            "library_device_ms": device_ms(
-                lambda: out.index_add_(0, ids64, vals)),
-            "bound_ms": nbytes / PEAK_BYTES * 1e3, "bound_by": "bytes",
-            "bytes": nbytes}
-        del out
+            lib = yardstick(fill_and_add)
+            mem = yardstick(lambda: memset_fn(
+                out.data_ptr(), out_bytes,
+                torch.cuda.current_stream().cuda_stream))
+            rec.update({
+                "library_ms": lib["ms"],
+                "library_fill_device_ms": lib["device_ms"],
+                "library_kernels_seen": lib["kernels_seen"],
+                "memset_ms": mem["ms"], "memset_device_ms": mem["device_ms"],
+                "memset_kernels_seen": mem["kernels_seen"],
+                "library_device_ms": device_ms(
+                    lambda: out.index_add_(0, ids64, vals))})
+            del out
+        main[name] = rec
+        check(variant == ["segment_sum/fused"], "kernel_segment_sum",
+              "%s took %s, not the fused route" % (name, variant))
     emit({"phase": "kernel_segment_sum", "cases": len(cases),
-          "max_abs_err": worst, "main_shapes": main})
+          "routes": routes, "max_abs_err": worst, "main_shapes": main})
     head = main[SEGSUM_MAIN[0][0]]
     return {"max_abs_err": worst, "ms": head["ms"],
             "device_ms": head["device_ms"], "plain_ms": head["plain_ms"],
@@ -3080,7 +3229,8 @@ def phase_sparse_embed():
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch import telemetry
     from mxnet_tpu_torch.embedding import ShardedEmbedding
-    from mxnet_tpu_torch.ops import launch_counts, reset_launch_counts
+    from mxnet_tpu_torch.ops import (launch_counts, reset_launch_counts,
+                                     variant_counts)
     traffic = sparse_traffic()
     gpu = mx.gpu(0)
     torch.cuda.empty_cache()
@@ -3099,6 +3249,7 @@ def phase_sparse_embed():
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = launch_counts()
+    variants = variant_counts()
     counters = telemetry.snapshot()["counters"]
     peak = torch.cuda.max_memory_allocated()
     got = table.gathered_weight().cpu()
@@ -3126,6 +3277,7 @@ def phase_sparse_embed():
            "serve_retraces": counters.get("serve.retrace", 0),
            "unique_rows": counters.get("embedding.push.unique_rows", 0),
            "launches": {k: v for k, v in launches.items() if v},
+           "variants": {"%s/%s" % k: n for k, n in variants.items()},
            "max_memory_allocated_bytes": peak,
            "table_vs_cpu_max_abs": err, "table_vs_cpu_limit": limit,
            "table_vs_cpu_ulps": ulps_apart(got, want).max().item(),
@@ -3135,6 +3287,9 @@ def phase_sparse_embed():
                        for k in launches}, "sparse_embed",
           "launches %s, expected 2 segment_sum a push and nothing else"
           % launches)
+    check(variants == {("segment_sum", "fused"): 2 * SPARSE_STEPS},
+          "sparse_embed", "segment_sum launches took %s, expected all %d "
+          "on the fused route" % (variants, 2 * SPARSE_STEPS))
     check(rec["serve_retraces"] == 0, "sparse_embed", "pulls retraced")
     check(rec["unique_rows"] == pushed, "sparse_embed",
           "unique rows %s, pushed %s" % (rec["unique_rows"], pushed))
@@ -3197,7 +3352,8 @@ def phase_dlrm_train(gen):
     from mxnet_tpu_torch.embedding import ShardedEmbedding
     from mxnet_tpu_torch.models.dlrm import (DLRMConfig, dlrm_forward,
                                              dlrm_init)
-    from mxnet_tpu_torch.ops import launch_counts, reset_launch_counts
+    from mxnet_tpu_torch.ops import (launch_counts, reset_launch_counts,
+                                     variant_counts)
     cfg = DLRMConfig(vocab_sizes=KAGGLE_VOCABS, embed_dim=16, dense_dim=13,
                      bottom_dims=(512, 256, 64), top_dims=(512, 256))
     torch.cuda.empty_cache()
@@ -3228,6 +3384,7 @@ def phase_dlrm_train(gen):
             after = ([t.weight for t in tables],
                      [p.detach().clone() for p in dlrm_leaves(towers)])
     launches = launch_counts()
+    variants = variant_counts()
     peak = torch.cuda.max_memory_allocated()
     med = statistics.median(times[1:])
     # the first 3 steps on the CPU, from the same towers and tables
@@ -3268,6 +3425,7 @@ def phase_dlrm_train(gen):
            "losses": losses, "step_ms": times, "step_ms_median_2_10": med,
            "examples_per_s": DLRM_BATCH / med * 1e3,
            "launches": {k: v for k, v in launches.items() if v},
+           "variants": {"%s/%s" % k: n for k, n in variants.items()},
            "max_memory_allocated_bytes": peak,
            "cpu_losses": closses, "loss_rel_err_vs_cpu": loss_err,
            "table_err_vs_cpu": table_err, "touched_rows_checked": touched,
@@ -3281,6 +3439,9 @@ def phase_dlrm_train(gen):
                            else 0) for k in launches}, "dlrm_train",
           "launches %s, expected %d segment_sum a step and nothing else"
           % (launches, per_step))
+    check(variants == {("segment_sum", "fused"): per_step * DLRM_STEPS},
+          "dlrm_train", "segment_sum launches took %s, expected all %d on "
+          "the fused route" % (variants, per_step * DLRM_STEPS))
     check(all(np.isfinite(losses)) and losses[-1] < losses[0],
           "dlrm_train", "losses not finite or not falling: %s" % losses)
     check(loss_err <= DLRM_REL and table_err <= DLRM_REL

@@ -6,7 +6,8 @@
 // completing on an mbarrier, setmaxnreg, wgmma with B K-major
 // (imm-trans-b 0), wgmma with A from registers, and the tile helpers both
 // flash sources share (ex2, the accumulator-to-A re-pack, the swizzled
-// tile layout's two descriptors).
+// tile layout's two descriptors); for the persistent kernels of
+// segment_sum.cu and cbr_train_bwd.cu cp.async groups and a grid barrier.
 // Plain inline PTX; no PyTorch or CUTLASS headers.
 #pragma once
 
@@ -80,6 +81,18 @@ __device__ __forceinline__ void cp_async_arrive_noinc(uint32_t bar) {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// commit this thread's cp.async copies issued since the last commit as one
+// group; wait until at most N of its groups are still in flight (the
+// copies of the others are then visible to this thread)
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // ------------------------------------------------------------------- TMA
@@ -474,6 +487,38 @@ __device__ __forceinline__ void mma_rs(float (&acc)[D / 2],
     wgmma_m64n128k16_bf16_rs(acc, a, nmajor_desc<R>(tile, kk));
   else
     wgmma_m64n64k16_bf16_rs(acc, a, nmajor_desc<R>(tile, kk));
+}
+
+// ----------------------------------------------------------- grid barrier
+// Every block of a cooperative launch (all blocks resident at once) waits
+// here until all have arrived; writes before it are visible to every block
+// after it (read them with __ldcg: L1 is not coherent). `bar` is two
+// unsigned words in device memory, zero before the first launch that uses
+// them: an arrival count, which the last arrival puts back to 0, and a
+// generation number that it then advances. So the words are ready for the
+// next barrier and the next launch, as long as launches that share them
+// run one after another (one stream). A wait that outlasts 2^26 polls of
+// at least 64 ns (over 4 s) is a deadlock, and traps.
+__device__ __forceinline__ void grid_barrier(unsigned int* bar,
+                                             unsigned int nblocks) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    volatile unsigned int* gen = bar + 1;
+    const unsigned int g = *gen;
+    __threadfence();
+    if (atomicAdd(bar, 1u) == nblocks - 1) {
+      atomicExch(bar, 0u);
+      __threadfence();
+      atomicAdd(bar + 1, 1u);
+    } else {
+      for (unsigned int polls = 0; *gen == g; ++polls) {
+        if (polls == (1u << 26)) __trap();
+        __nanosleep(64);
+      }
+    }
+    __threadfence();
+  }
+  __syncthreads();
 }
 
 }  // namespace hopper

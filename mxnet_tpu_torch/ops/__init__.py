@@ -9,7 +9,7 @@ which variant and tile each launch took (`variant_counts`).
 """
 from __future__ import annotations
 
-__all__ = ["KERNELS", "count_launch", "launch_counts",
+__all__ = ["KERNELS", "barrier_words", "count_launch", "launch_counts",
            "reset_launch_counts", "variant_counts"]
 
 # kernel name -> (source in the package, file:line of the TPU kernel it
@@ -39,6 +39,7 @@ KERNELS = {
 
 _launches = dict.fromkeys(KERNELS, 0)
 _variants = {}      # (kernel name, variant) -> launches
+_barriers = {}      # (device, stream) -> the persistent kernels' words
 
 
 def count_launch(name, variant=None):
@@ -62,3 +63,18 @@ def reset_launch_counts():
     for name in _launches:
         _launches[name] = 0
     _variants.clear()
+
+
+def barrier_words(dev, stream):
+    """32 int32 words on `dev` for the persistent kernels launched on
+    `stream` (segment_sum's fused route, cbr_train_bwd's persistent
+    variant): their grid barriers' words, zero at first and zero again
+    after every launch, then flags a launch writes before it reads them.
+    Launches on one stream run one after another, so they share them."""
+    key = (dev, stream)
+    words = _barriers.get(key)
+    if words is None:
+        import torch
+        words = _barriers[key] = torch.zeros(32, dtype=torch.int32,
+                                             device=dev)
+    return words

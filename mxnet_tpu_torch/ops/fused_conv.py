@@ -40,12 +40,12 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from . import count_launch
+from . import barrier_words, count_launch
 from ._build import bind
 from .registry import get, register
 
 __all__ = ["fold_bn_params", "conv_bn_relu", "conv_bn_stats",
-           "cbr_train_bwd", "conv_tile", "ConvTile"]
+           "cbr_train_bwd", "conv_tile", "ConvTile", "cbr_bwd_plan"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _VARIANTS = {"mma": 0, "fma": 0, "wgmma": 1}    # the C entries' variant codes
@@ -321,14 +321,85 @@ def _ref_cbr_train_bwd(conv_out, dy, mean, invstd, gamma, beta,
     return dconv, dgamma, dbeta, dres
 
 
+def cbr_bwd_plan(Cout, aligned=True):
+    """The variant `cbr_train_bwd` launches for Cout channels:
+    "persistent" (one cooperative launch that holds part of conv/dy on chip
+    between its two phases) for Cout a multiple of 8 up to 4096 with
+    16-byte `aligned` rows; else "split_v8" (three launches, 8 channels a
+    thread) for the other multiples of 8, "split_v1" (one channel a
+    thread) for the rest."""
+    if Cout % 8 == 0 and aligned:
+        return "persistent" if Cout <= 4096 else "split_v8"
+    return "split_v1"
+
+
+_BWD_VARIANTS = {"split_v1": 0, "split_v8": 1, "persistent": 2}
+
+
+def _bwd_grid(variant, M, Cout, dev):
+    """(the C entry's `grid`, the partial-sum scratch's rows) of variant
+    `variant`: persistent, a block on every multiprocessor and a
+    partial-sum row pair each; split, chunks of 8 rows a thread (256
+    threads over min(Cout / vec, 256) channel groups) and a row pair a
+    chunk."""
+    if variant == "persistent":
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        return sms, sms
+    vec = 8 if variant == "split_v8" else 1
+    chunk = 8 * (256 // min(Cout // vec, 256))
+    return chunk, -(-M // chunk)
+
+
+def _launch_bwd_entry(dev, args_of):
+    """Call mx_cbr_train_bwd with args_of(stream) on dev's current stream
+    (the last argument); raise on a launch error."""
+    # conv, dy, mean, invstd, gamma, beta, residual, partial, sums, dconv,
+    # dres, bar, M, Cout, dtype, res_dtype, variant, grid, stream
+    lib, fn = bind("cbr_train_bwd", "mx_cbr_train_bwd",
+                   [_P] * 12 + [_I] * 6 + [_P])
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(*args_of(stream), stream)
+    _raise_on(err, lib, "cbr_train_bwd")
+
+
+def _launch_cbr_bwd(variant, conv_out, dy, mean, invstd, gamma, beta,
+                    residual):
+    """cbr_train_bwd's outputs through kernel variant `variant` (checked
+    inputs on a CUDA device)."""
+    dev = conv_out.device
+    Cout = conv_out.shape[3]
+    M = conv_out.numel() // max(Cout, 1)
+    dconv = torch.empty(conv_out.shape, dtype=torch.float32, device=dev)
+    sums = torch.empty((2, Cout), dtype=torch.float32, device=dev)
+    dres = None if residual is None else torch.empty_like(residual)
+    if M == 0 or Cout == 0:
+        sums.zero_()
+        return dconv, sums[1], sums[0], dres
+    grid, rows = _bwd_grid(variant, M, Cout, dev)
+    partial = torch.empty((rows, 2, Cout), dtype=torch.float32, device=dev)
+    _launch_bwd_entry(dev, lambda stream: (
+        conv_out.data_ptr(), dy.data_ptr(), mean.data_ptr(),
+        invstd.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+        None if residual is None else residual.data_ptr(),
+        partial.data_ptr(), sums.data_ptr(), dconv.data_ptr(),
+        None if dres is None else dres.data_ptr(),
+        barrier_words(dev, stream).data_ptr(), M, Cout,
+        _DTYPES[conv_out.dtype],
+        _DTYPES[residual.dtype] if residual is not None else 0,
+        _BWD_VARIANTS[variant], grid))
+    count_launch("cbr_train_bwd", variant)
+    return dconv, sums[1], sums[0], dres
+
+
 def cbr_train_bwd(conv_out, dy, mean, invstd, gamma, beta, residual=None):
     """BatchNorm + ReLU (+ residual) backward: (dconv fp32, dgamma fp32,
     dbeta fp32, dres in the residual's dtype or None) from the saved conv
     output, the output's gradient dy (both (N,H,W,Cout), one dtype, float32
     or bfloat16), mean, invstd, gamma and beta (Cout,) fp32 and the
-    residual. CUDA tensors go through the hand-written kernel (three
-    launches, one count), CPU tensors through its plain version; any other
-    device raises."""
+    residual. CUDA tensors go through the hand-written kernel (the variant
+    `cbr_bwd_plan` picks; one count, with the variant), CPU tensors through
+    its plain version; any other device raises."""
     if conv_out.device.type == "cpu":
         return _ref_cbr_train_bwd(conv_out, dy, mean, invstd, gamma, beta,
                                   residual)
@@ -358,34 +429,12 @@ def cbr_train_bwd(conv_out, dy, mean, invstd, gamma, beta, residual=None):
                                 tuple(residual.shape)))
         tensors.append(residual)
     _check_common("cbr_train_bwd", tensors)
-    M = conv_out.numel() // max(Cout, 1)
-    if M >= 2 ** 31:
+    if conv_out.numel() // max(Cout, 1) >= 2 ** 31:
         raise ValueError("cbr_train_bwd: N*H*W must be < 2**31")
-    dev = conv_out.device
-    dconv = torch.empty(conv_out.shape, dtype=torch.float32, device=dev)
-    sums = torch.zeros((2, Cout), dtype=torch.float32, device=dev)
-    dres = None if residual is None else torch.empty_like(residual)
-    if M == 0 or Cout == 0:
-        return dconv, sums[1], sums[0], dres
-    partial = torch.empty((-(-M // 256), 2, Cout), dtype=torch.float32,
-                          device=dev)
-    # conv, dy, mean, invstd, gamma, beta, residual, partial, sums, dconv,
-    # dres, M, Cout, dtype, res_dtype, stream
-    lib, fn = bind("cbr_train_bwd", "mx_cbr_train_bwd",
-                    [_P] * 11 + [_I] * 4 + [_P])
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(conv_out.data_ptr(), dy.data_ptr(), mean.data_ptr(),
-                 invstd.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-                 None if residual is None else residual.data_ptr(),
-                 partial.data_ptr(), sums.data_ptr(), dconv.data_ptr(),
-                 None if dres is None else dres.data_ptr(), M, Cout,
-                 _DTYPES[conv_out.dtype],
-                 _DTYPES[residual.dtype] if residual is not None else 0,
-                 stream)
-    _raise_on(err, lib, "cbr_train_bwd")
-    count_launch("cbr_train_bwd")
-    return dconv, sums[1], sums[0], dres
+    rows = [conv_out, dy] + ([residual] if residual is not None else [])
+    variant = cbr_bwd_plan(Cout, all(t.data_ptr() % 16 == 0 for t in rows))
+    return _launch_cbr_bwd(variant, conv_out, dy, mean, invstd, gamma, beta,
+                           residual)
 
 
 def _conv3x3_backward(x, w, dconv):

@@ -12,7 +12,9 @@ that are not multiples of 8. Inputs come from numpy with a seed and go to
 both sides. Tolerances, as max |a - b| over max |b|: fp32 1e-5 (the
 summation order only), bf16 2e-2 (both sides round the conv output and
 the gradients to bf16, on either side of a rounding boundary). The CUDA
-kernels run only on a card (`cuda` marker).
+kernels run only on a card (`cuda` marker); the plan that picks #6's
+variant is pure Python and is tested here, with a stubbed launch for the
+count of each variant.
 """
 import numpy as np
 import pytest
@@ -25,7 +27,8 @@ import mxnet_tpu as jmx
 from mxnet_tpu.ops import fused_conv as jfc
 import mxnet_tpu_torch as mx
 from mxnet_tpu_torch.ops import fused_conv as tfc
-from mxnet_tpu_torch.ops import launch_counts, registry
+from mxnet_tpu_torch.ops import (launch_counts, registry,
+                                 reset_launch_counts, variant_counts)
 
 FP32_REL = 1e-5
 BF16_REL = 2e-2
@@ -237,6 +240,88 @@ def test_stats_scratch_of_the_stage_shapes():
         assert (tfc.stats_scratch_shape(M, Cout, tile)[0] - 1) * tile.bm < M
 
 
+@pytest.mark.parametrize("Cout,aligned,variant", [
+    (64, True, "persistent"), (512, True, "persistent"),
+    (4096, True, "persistent"), (8, True, "persistent"),
+    (8192, True, "split_v8"), (12, True, "split_v1"), (36, True, "split_v1"),
+    (64, False, "split_v1")])
+def test_cbr_bwd_plan(Cout, aligned, variant):
+    assert tfc.cbr_bwd_plan(Cout, aligned) == variant
+
+
+@pytest.mark.parametrize("variant,Cout,grid,rows", [
+    # split: chunks of 8 rows a thread over min(Cout / vec, 256) groups
+    ("split_v8", 64, 256, 4), ("split_v8", 512, 32, 32),
+    ("split_v8", 8192, 8, 125), ("split_v1", 12, 168, 6),
+    ("split_v1", 36, 56, 18)])
+def test_split_scratch_follows_the_chunk(variant, Cout, grid, rows):
+    assert tfc._bwd_grid(variant, 1000, Cout, "cpu") == (grid, rows)
+
+
+@pytest.mark.parametrize("case,residual", [((2, 6, 6, 8, 16), False),
+                                           ((2, 5, 7, 16, 12), True)])
+def test_cbr_bwd_counts_the_variant_it_launches(monkeypatch, case,
+                                                residual):
+    """The wrapper's variant reaches variant_counts, with the launch
+    stubbed (no card here): one count per call, under the planned
+    variant, and the grid and scratch the variant needs."""
+    args = []
+    monkeypatch.setattr(tfc, "_launch_bwd_entry",
+                        lambda dev, args_of: args.append(args_of))
+    monkeypatch.setattr(tfc, "_bwd_grid", lambda variant, M, Cout, dev: (
+        132, 132) if variant == "persistent" else (8, -(-M // 8)))
+    N, H, W, C, Cout = case
+    x = torch.zeros(N, H, W, Cout)
+    vec = torch.ones(Cout)
+    reset_launch_counts()
+    outs = tfc._launch_cbr_bwd(tfc.cbr_bwd_plan(Cout), x, x, vec, vec, vec,
+                               vec, x if residual else None)
+    assert len(args) == 1
+    assert outs[0].shape == x.shape and outs[0].dtype == torch.float32
+    assert (outs[3] is not None) == residual
+    assert variant_counts() == {("cbr_train_bwd", tfc.cbr_bwd_plan(Cout)): 1}
+
+
+@pytest.mark.cuda
+def test_cbr_train_bwd_variants_on_the_card():
+    """Each variant of #6 on the card (the planned one, and the split ones
+    where Cout allows them) within FP32_REL of the plain version, dres
+    equal, two launches bit-equal: ResNet-50's four stage shapes at batch
+    32, the edge shapes of chip_smoke.py's CBR_EDGES, a residual, bf16 and
+    fp32."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    shapes = [(32, 56, 56, 64), (32, 28, 28, 128), (32, 14, 14, 256),
+              (32, 7, 7, 512), (2, 5, 5, 12), (4, 1, 1, 64), (1, 7, 7, 64),
+              (3, 9, 11, 36), (3, 7, 7, 512), (2, 14, 14, 256),
+              (1, 56, 56, 64), (37, 28, 28, 128), (7, 56, 56, 64)]
+    for N, H, W, Cout in shapes:
+        rng = np.random.RandomState(N + Cout)
+        for dtype in ("bfloat16", "float32"):
+            conv = _t(rng.randn(N, H, W, Cout), dtype).cuda()
+            dy = _t(rng.randn(N, H, W, Cout), dtype).cuda()
+            vecs = [_t(a, "float32").cuda() for a in (
+                rng.randn(Cout) * 0.1, rng.rand(Cout) + 0.5,
+                rng.rand(Cout) + 0.5, rng.randn(Cout) * 0.1)]
+            for res in (None, _t(rng.randn(N, H, W, Cout), dtype).cuda()):
+                want = tfc._ref_cbr_train_bwd(conv, dy, *vecs, res)
+                variants = {tfc.cbr_bwd_plan(Cout), "split_v1"} | (
+                    {"split_v8"} if Cout % 8 == 0 else set())
+                for variant in sorted(variants):
+                    reset_launch_counts()
+                    got = tfc._launch_cbr_bwd(variant, conv, dy, *vecs, res)
+                    again = tfc._launch_cbr_bwd(variant, conv, dy, *vecs,
+                                                res)
+                    torch.cuda.synchronize()
+                    assert variant_counts() == {("cbr_train_bwd", variant): 2}
+                    for a, b in zip(got[:3], want[:3]):
+                        _close(a.cpu(), b.cpu(), "float32")
+                    assert all(torch.equal(a, b) for a, b in zip(got, again)
+                               if a is not None)
+                    if res is not None:
+                        assert torch.equal(got[3], want[3])
+
+
 @pytest.mark.cuda
 def test_kernels_match_plain_versions_on_the_card():
     if not torch.cuda.is_available():
@@ -273,8 +358,13 @@ def test_kernels_match_plain_versions_on_the_card():
             args = (want[0], _t(dy, dtype).cuda(), mean, invstd,
                     _t(gamma, "float32").cuda(), _t(beta, "float32").cuda(),
                     _t(res, dtype).cuda())
+            reset_launch_counts()
             kb, pb = tfc.cbr_train_bwd(*args), tfc._ref_cbr_train_bwd(*args)
+            again = tfc.cbr_train_bwd(*args)
+            assert variant_counts() == {
+                ("cbr_train_bwd", tfc.cbr_bwd_plan(case[4])): 2}
             for a, b in zip(kb[:3], pb[:3]):
                 _close(a.cpu(), b.cpu(), "float32")
             assert torch.equal(kb[3], pb[3])
+            assert all(torch.equal(a, b) for a, b in zip(kb, again))
 

@@ -8,7 +8,8 @@ that path with those rows removed: the reference's XLA path wraps them,
 while the kernel and the port drop them. The Pallas interpret path is not
 used (its two reference tests fail). `merge_unique_rows` is bit-equal to
 the reference's, ids and rows. The card test holds the kernel bit-equal to
-the plain version.
+the plain version. The route plan (fused or presorted) is pure Python and
+is tested here, with a stubbed launch for the count of each route.
 """
 import ml_dtypes
 import numpy as np
@@ -20,7 +21,8 @@ import jax.numpy as jnp
 from mxnet_tpu.ops import sparse_ops as jsops
 from mxnet_tpu.parallel.collectives import merge_unique_rows as jmerge
 import mxnet_tpu_torch as mx
-from mxnet_tpu_torch.ops import KERNELS, launch_counts, reset_launch_counts
+from mxnet_tpu_torch.ops import (KERNELS, launch_counts, reset_launch_counts,
+                                 variant_counts)
 from mxnet_tpu_torch.ops import sparse_ops as sops
 from mxnet_tpu_torch.parallel.collectives import merge_unique_rows
 
@@ -130,6 +132,53 @@ def test_plain_version_counts_no_launch():
                                       "mxnet_tpu/ops/sparse_ops.py:88")
 
 
+@pytest.mark.parametrize("nnz,dim,dtype,want", [
+    # the main paths: bench_sparse's push, a Kaggle table at batch 128
+    (8192, 64, torch.float32, ("fused", 4, 16, 8192)),
+    (128, 16, torch.float32, ("fused", 4, 4, 1024)),
+    # the route's edge
+    (sops.FUSED_MAX_NNZ, 16, torch.float32, ("fused", 4, 4, 16384)),
+    (sops.FUSED_MAX_NNZ + 1, 16, torch.float32, ("presorted", 1, 32, 0)),
+    # 16 bytes a lane where the width allows, one value where it does not
+    (300, 64, torch.bfloat16, ("fused", 8, 8, 1024)),
+    (300, 16, torch.float16, ("fused", 8, 2, 1024)),
+    (300, 65, torch.float32, ("fused", 1, 32, 1024)),
+    (300, 1, torch.bfloat16, ("fused", 1, 1, 1024)),
+    (0, 7, torch.float32, ("fused", 1, 8, 1024)),
+    (1025, 129, torch.float16, ("fused", 1, 32, 2048)),
+])
+def test_segment_sum_plan(nnz, dim, dtype, want):
+    assert tuple(sops.segment_sum_plan(nnz, dim, dtype)) == want
+
+
+def test_segment_sum_plan_unaligned_values_load_one_value_a_lane():
+    assert sops.segment_sum_plan(300, 64, torch.float32, aligned=False) \
+        == ("fused", 1, 32, 1024)
+    assert sops.segment_sum_plan(300, 2 ** 31, torch.float32).variant \
+        == "presorted"
+
+
+@pytest.mark.parametrize("nnz,id_dtype,variant", [
+    (64, torch.int32, "fused"), (64, torch.int16, "fused"),
+    (sops.FUSED_MAX_NNZ + 1, torch.int64, "presorted")])
+def test_wrapper_counts_the_route_it_launches(monkeypatch, nnz, id_dtype,
+                                              variant):
+    """The wrapper's route reaches variant_counts, with the launch
+    stubbed (no card here): one count per call, under its route."""
+    launched = []
+    monkeypatch.setattr(sops, "_launch", lambda dev, symbol, argtypes,
+                        args_of: launched.append(symbol))
+    reset_launch_counts()
+    vals = torch.ones(nnz, 8)
+    ids = torch.arange(nnz).to(id_dtype) % 50
+    out = sops._segment_sum_cuda(vals, ids, 50)
+    assert out.shape == (50, 8)
+    assert launched == ["mx_segment_sum_" + variant
+                        if variant == "fused" else "mx_segment_sum"]
+    assert launch_counts()["segment_sum"] == 1
+    assert variant_counts() == {("segment_sum", variant): 1}
+
+
 @pytest.mark.parametrize("case", ["dups_and_pads", "pad_free_unique",
                                   "all_pads", "one_run", "rank3"])
 def test_merge_unique_rows_matches_reference(case):
@@ -160,21 +209,39 @@ def test_merge_unique_rows_matches_reference(case):
 
 @pytest.mark.cuda
 def test_segment_sum_kernel_bit_equal_to_plain_on_the_card():
+    """Both routes, each call's route as the plan says, bit-equal to the
+    plain version and to a second launch: sorted, shuffled and all-equal
+    ids, int32 and int64 ids (negative, past the last segment and past
+    int32's range), widths 1, 16, 64, 65 and rank-3 rows, nnz 0 and at the
+    fused route's edge."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     rng = np.random.RandomState(0)
+    edge = sops.FUSED_MAX_NNZ
+    cases = [(1000, 37, (65,), -3, False), (0, 5, (3,), 0, False),
+             (513, 10 ** 5, (1,), 0, False), (300, 50, (2, 3), -1, False),
+             (4096, 600, (16,), 0, True), (4096, 600, (64,), 0, False),
+             (2000, 1, (64,), 0, False), (edge, 3000, (16,), 0, True),
+             (edge, 3000, (16,), 0, False), (edge + 1, 3000, (16,), 0, False)]
     for dtype in (torch.float32, torch.bfloat16, torch.float16):
-        for n, segments, row, low in ((1000, 37, (65,), -3), (0, 5, (3,), 0),
-                                      (513, 10 ** 5, (1,), 0),
-                                      (300, 50, (2, 3), -1)):
-            ids = torch.from_numpy(_ids(rng, n, segments, low=low))
-            vals = torch.from_numpy(_vals(rng, (n,) + row)).to(dtype)
-            want = sops.segment_sum(vals, ids, segments)
-            reset_launch_counts()
-            got = sops.segment_sum(vals.cuda(), ids.cuda(), segments)
-            torch.cuda.synchronize()
-            assert launch_counts()["segment_sum"] == 1
-            assert torch.equal(got.cpu(), want)
+        for n, segments, row, low, sort in cases:
+            for id_dtype in (np.int32, np.int64):
+                ids = _ids(rng, n, segments, low=low, sort=sort).astype(
+                    id_dtype)
+                if id_dtype == np.int64 and n > 100:
+                    ids[::13] = 2 ** 33 + 1      # past int32, dropped
+                    ids[::17] = segments         # past the last segment
+                ids = torch.from_numpy(ids)
+                vals = torch.from_numpy(_vals(rng, (n,) + row)).to(dtype)
+                want = sops.segment_sum(vals, ids, segments)
+                plan = sops.segment_sum_plan(n, int(np.prod(row)), dtype)
+                reset_launch_counts()
+                got = sops.segment_sum(vals.cuda(), ids.cuda(), segments)
+                again = sops.segment_sum(vals.cuda(), ids.cuda(), segments)
+                torch.cuda.synchronize()
+                assert variant_counts() == {("segment_sum", plan.variant): 2}
+                assert torch.equal(got.cpu(), want)
+                assert torch.equal(got, again)
     with pytest.raises(TypeError):
         sops.segment_sum(torch.ones(3, 2, dtype=torch.int32, device="cuda"),
                          torch.zeros(3, dtype=torch.int32, device="cuda"), 2)
