@@ -79,8 +79,12 @@ Phases (one JSON line each; any failure exits non-zero):
                  device time, with its three-launch split_v8 variant's
                  device time beside it.
 14. kernel_opt — the flat SGD and Adam kernels against their plain versions
-                 over every flag combination (bit for bit), timed at 25.6M
-                 elements and over one ResNet-50 step's parameters.
+                 over every flag combination (bit for bit), one-tensor and
+                 multi-tensor launches (mixed bf16/fp32 lists, a tensor off
+                 16 bytes, a list longer than one launch holds: 0 ulps
+                 against the one-tensor launches and the plain version),
+                 timed at 25.6M elements and over one ResNet-50 step's
+                 193 tensors in one launch.
 15. resnet_train — resnet50_v1 NHWC fused, bf16 with fp32 BatchNorm,
                  224x224: FusedTrainStep + Trainer("sgd", lr 0.1, momentum
                  0.9) + SoftmaxCrossEntropyLoss, 8 steps at batch 256; the
@@ -148,8 +152,9 @@ before and read just after: serving (phases 3-5: flash_fwd), training
 inference (phase 11's forward: conv_bn_relu, 16 launches, all on the
 wgmma variant), ResNet-50 training (phase 15: 16 conv_bn_stats, all on the
 wgmma variant, 16 cbr_train_bwd, all on the persistent variant, and one
-flat_sgd per trainable parameter in each FusedTrainStep step; one
-flat_adam per trainable parameter in each Adam step) and BERT-base
+multi-tensor flat_sgd over every trainable parameter in each
+FusedTrainStep step; one multi-tensor flat_adam in each Adam step) and
+BERT-base
 pretraining (phase
 18's 6 steps: one flat_lamb1 and one flat_lamb2 per ZeRO bucket a step;
 its functional step: 12 launches of each flash kernel) and sparse
@@ -1852,15 +1857,93 @@ def resnet50_param_shapes():
             for p in net.collect_params().values() if p.grad_req != "null"]
 
 
+def multi_list(kind, specs, gen, offset_at=()):
+    """Seeded tensors of one multi-tensor update: per (n, weight dtype,
+    gradient dtype) a dict as opt_inputs makes it (states in the weight's
+    dtype, an fp32 master beside every weight), with lr and wd of its own.
+    A tensor whose index is in
+    `offset_at` is a view one element into a larger buffer: off 16
+    bytes."""
+    out = []
+    for j, (n, wdt, gdt) in enumerate(specs):
+        t = opt_inputs(kind, n + 1, wdt, gdt, wdt, True, False, gen)
+        cut = (lambda x: x[1:]) if j in offset_at else (lambda x: x[:n])
+        t = {k: cut(v) if torch.is_tensor(v) else v for k, v in t.items()}
+        t["lr"], t["wd"] = 0.01 * (1 + j % 5), 1e-4 * (j % 3)
+        out.append(t)
+    return out
+
+
+def run_multi(kind, ts, mom_on, clip_on, mp):
+    """One multi_sgd / multi_adam call over the list `ts` (opt_inputs
+    dicts), with opt_inputs' per-tensor scalar lr/wd."""
+    from mxnet_tpu_torch.ops.fused_optimizer import multi_adam, multi_sgd
+    ws, gs = [t["w"] for t in ts], [t["g"] for t in ts]
+    masters = [t["master"] for t in ts]
+    lrs = [t["lr"] for t in ts]
+    wds = [t["wd"] for t in ts]
+    if kind == "sgd":
+        multi_sgd(ws, gs, [t["mom"] for t in ts], masters, lrs, wds, 0.9,
+                  1.0 / 256, 0.5, mom_on, clip_on, mp)
+    else:
+        multi_adam(ws, gs, [t["mean"] for t in ts], [t["var"] for t in ts],
+                   masters, lrs, wds, 0.9, 1.0 - 0.9, 0.999, 1.0 - 0.999,
+                   1e-8, 1.0 / 256, 0.5, clip_on, mp)
+
+
+def outputs(kind, t, mom_on, mp):
+    keys = ["w"] + ((["mom"] if mom_on else []) if kind == "sgd"
+                    else ["mean", "var"]) + (["master"] if mp else [])
+    return [t[k] for k in keys]
+
+
+def fused_library(kind, ts):
+    """torch._fused_sgd_ / torch._fused_adam_ over the tensors of `ts`,
+    one call per dtype (they take one dtype a list). Another function:
+    SGD's lr outside the momentum and no clip; Adam's sqrt(v / bc2)."""
+    groups = {}
+    for t in ts:
+        groups.setdefault(t["w"].dtype, []).append(t)
+    calls = []
+    for dt, grp in groups.items():
+        ws, gs = [t["w"] for t in grp], [t["g"] for t in grp]
+        if kind == "sgd":
+            moms = [t["mom"] for t in grp]
+            calls.append(lambda ws=ws, gs=gs, moms=moms: torch._fused_sgd_(
+                ws, gs, moms, weight_decay=1e-4, momentum=0.9, lr=0.05,
+                dampening=0.0, nesterov=False, maximize=False,
+                is_first_step=False))
+        else:
+            means, vs = [t["mean"] for t in grp], [t["var"] for t in grp]
+            steps = [torch.ones((), device="cuda") for _ in grp]
+            calls.append(lambda ws=ws, gs=gs, means=means, vs=vs,
+                         steps=steps: torch._fused_adam_(
+                             ws, gs, means, vs, [], steps, lr=1e-3,
+                             beta1=0.9, beta2=0.999, weight_decay=1e-4,
+                             eps=1e-8, amsgrad=False, maximize=False))
+    return lambda: [c() for c in calls]
+
+
 def phase_kernel_opt(gen):
-    """flat_sgd (#7) and flat_adam (#8) against their plain versions on
-    the card: momentum on/off, clip on/off, mp on/off, scalar and
-    per-element lr/wd, fp32 and bf16 weights (and a bf16 gradient with an
-    fp32 weight), n = 1, 7, 4097. fp32 and bf16 outputs must be bit-equal
-    to the plain version's; a difference of 1 ulp is allowed and printed
-    with its count. Then times at n = 25.6M (ResNet-50's parameter count,
-    one launch) and over one ResNet-50 step's parameters (one launch per
-    parameter, as the main path runs them): the kernels-line entries."""
+    """flat_sgd (#7) and flat_adam (#8) on the card. One-tensor launches
+    against their plain versions: momentum on/off, clip on/off, mp on/off,
+    scalar and per-element lr/wd, fp32 and bf16 weights (and a bf16
+    gradient with an fp32 weight), n = 1, 7, 4097; fp32 and bf16 outputs
+    must be bit-equal to the plain version's (a difference of 1 ulp is
+    allowed and printed with its count). Multi-tensor launches (the
+    aggregated route) over every flag combination, on a mixed list (n = 1,
+    7, 4097 with fp32/bf16 weights and gradients, one tensor off 16-byte
+    alignment, and one ResNet-50 step's 193 tensors: bf16 weights beside
+    fp32 BatchNorm vectors) and on a list longer than one launch holds:
+    every output bit-equal (0 ulps) to the one-tensor launches' and to the
+    plain version's, and the launches counted. Then times: one ResNet-50
+    step's 193 tensors in one multi-tensor call (by events and by device
+    time; the kernels-line entry), beside the one-launch-per-tensor loop,
+    torch._fused_sgd_ / _fused_adam_ (another function: context only) and
+    the bound; and one launch over 25.6M elements (ResNet-50's parameter
+    count) at fp32 and bf16."""
+    from mxnet_tpu_torch.ops import reset_launch_counts, variant_counts
+    from mxnet_tpu_torch.ops._build import library
     from mxnet_tpu_torch.ops.fused_optimizer import (_ref_flat_adam,
                                                      _ref_flat_sgd, flat_adam,
                                                      flat_sgd)
@@ -1902,8 +1985,60 @@ def phase_kernel_opt(gen):
           "flat kernels differ from their plain versions by more than 1 ulp: "
           "%s" % ulp_cases)
 
-    entries = {}
+    # multi-tensor launches: 0 ulps against the one-tensor launches and
+    # the plain version
     shapes = resnet50_param_shapes()
+    cap = library("flat_sgd").mx_multi_capacity()
+    small = [(1, b16, b16), (7, f32, f32), (4097, b16, b16), (7, f32, b16),
+             (4097, f32, f32), (1, f32, b16)]
+    mixed = small + [(int(np.prod(s)), dt, dt) for s, dt in shapes]
+    long_list = [((1, 7, 4097, 64)[j % 4], (b16, f32)[j % 2],
+                  (b16, f32)[j % 2]) for j in range(cap + 7)]
+    lists = {"mixed_%d" % len(mixed): (mixed, (2,)),
+             "longer_than_capacity_%d" % len(long_list): (long_list, (5,))}
+    multi_cases, multi_fail = [], []
+    for kind in ("sgd", "adam"):
+        kernel, plain = fns[kind]
+        for mom_on in ((True, False) if kind == "sgd" else (True,)):
+            for clip_on in (True, False):
+                for mp in (False, True):
+                    for label, (specs, offset) in lists.items():
+                        ts = multi_list(kind, specs, gen, offset)
+                        single = [clone_inputs(t) for t in ts]
+                        ref = [clone_inputs(t) for t in ts]
+                        reset_launch_counts()
+                        run_multi(kind, ts, mom_on, clip_on, mp)
+                        seen = variant_counts()
+                        want = {("flat_" + kind, "multi"):
+                                -(-len(specs) // cap)}
+                        diff = 0
+                        for t, s1, r in zip(ts, single, ref):
+                            got = outputs(kind, t, mom_on, mp)
+                            one = run_flat(kind, kernel, s1, mom_on,
+                                           clip_on, mp)
+                            pl = run_flat(kind, plain, r, mom_on, clip_on,
+                                          mp)
+                            for a, b, c in zip(got, one, pl):
+                                diff = max(diff, ulps_apart(a, b).max()
+                                           .item(), ulps_apart(a, c).max()
+                                           .item())
+                        torch.cuda.synchronize()
+                        case = [kind, mom_on, clip_on, mp, label, diff,
+                                seen.get(("flat_" + kind, "multi"), 0)]
+                        multi_cases.append(case)
+                        if diff or seen != want:
+                            multi_fail.append(case + [str(want)])
+    emit({"phase": "kernel_opt", "multi_capacity": cap,
+          "multi_cases": len(multi_cases),
+          "multi_max_ulps": max(c[5] for c in multi_cases),
+          "multi_launches": {c[4]: c[6] for c in multi_cases}})
+    check(not multi_fail, "kernel_opt",
+          "multi-tensor launches differ from the one-tensor launches or the "
+          "plain version, or launched otherwise than expected "
+          "([kind, momentum, clip, mp, list, max ulps, launches, "
+          "expected]): %s" % multi_fail)
+
+    entries = {}
     for kind, name in (("sgd", "flat_sgd"), ("adam", "flat_adam")):
         kernel, plain = fns[kind]
         for wdt in (b16, f32):
@@ -1911,45 +2046,63 @@ def phase_kernel_opt(gen):
             t = opt_inputs(kind, n, wdt, wdt, wdt, False, False, gen)
             kt = clone_inputs(t)
             nbytes = opt_bytes(t, kind, True, False)
+
+            def one():
+                run_flat(kind, kernel, kt, True, False, False)
             rec = {"phase": "kernel_opt", "kernel": name, "n": n,
-                   "dtype": str(wdt)[6:],
-                   "ms": time_ms(lambda: run_flat(kind, kernel, kt, True,
-                                                  False, False)),
+                   "dtype": str(wdt)[6:], "variant": "single",
+                   "ms": time_ms(one), "device_ms": device_ms(one),
                    "plain_ms": time_ms(lambda: run_flat(
                        kind, plain, t, True, False, False), iters=10),
                    "library_ms": None}
             rec["bound_ms"], rec["bound_by"] = bound(0.0, nbytes, f32)
             emit(rec)
-        # one ResNet-50 step: one launch per trainable parameter, bf16
-        # conv/dense weights and fp32 BN parameters, states in the
+            del t, kt
+        # one ResNet-50 step: all 193 tensors in one multi-tensor call,
+        # bf16 conv/dense weights and fp32 BN parameters, states in the
         # weight's dtype
         params = [opt_inputs(kind, int(np.prod(shape)), dt, dt, dt, False,
                              False, gen) for shape, dt in shapes]
         kparams = [clone_inputs(t) for t in params]
         nbytes = sum(opt_bytes(t, kind, True, False) for t in params)
-        err = 0
-        for kt, t in zip(kparams, params):
-            for a, b in zip(run_flat(kind, kernel, clone_inputs(kt), True,
-                                     False, False),
+        err = 0.0
+        multi = [clone_inputs(t) for t in kparams]
+        run_multi(kind, multi, True, False, False)
+        for mt, t in zip(multi, params):
+            for a, b in zip(outputs(kind, mt, True, False),
                             run_flat(kind, plain, clone_inputs(t), True,
                                      False, False)):
                 err = max(err, (a.float() - b.float()).abs().max().item())
-        rec = {"phase": "kernel_opt", "kernel": name,
+        del multi
+
+        def step():
+            run_multi(kind, kparams, True, False, False)
+
+        def loop():
+            for kt in kparams:
+                run_flat(kind, kernel, kt, True, False, False)
+        lib = fused_library(kind, kparams)
+        rec = {"phase": "kernel_opt", "kernel": name, "variant": "multi",
                "resnet50_step_params": len(shapes),
                "elements": sum(int(np.prod(s)) for s, _ in shapes),
-               "max_abs_err": err,
-               "ms": time_ms(lambda: [run_flat(kind, kernel, kt, True,
-                                               False, False)
-                                      for kt in kparams], iters=10),
+               "max_abs_err": err, "ms": time_ms(step, iters=20),
+               "device_ms": device_ms(step),
+               "per_tensor_loop_ms": time_ms(loop, iters=5),
+               "per_tensor_loop_device_ms": device_ms(loop, calls=5),
                "plain_ms": time_ms(lambda: [run_flat(kind, plain, t, True,
                                                      False, False)
                                             for t in params], iters=3),
-               "library_ms": None}
+               "library_ms": None,
+               "another_function": "torch._fused_%s_" % kind,
+               "another_function_ms": time_ms(lib, iters=20),
+               "another_function_device_ms": device_ms(lib)}
         rec["bound_ms"], rec["bound_by"] = bound(0.0, nbytes, f32)
         emit(rec)
         entries[name] = {k: rec[k] for k in ("max_abs_err", "ms",
-                                             "plain_ms", "library_ms",
-                                             "bound_ms", "bound_by")}
+                                             "device_ms", "plain_ms",
+                                             "library_ms", "bound_ms",
+                                             "bound_by")}
+        del params, kparams
     return entries
 
 
@@ -2062,10 +2215,12 @@ def resnet_train_checks(gen, tmp, batch, image, steps, adam_batch,
           "launches of the FusedTrainStep steps on the persistent variant, "
           "saw %s" % (16 * steps, sgd_variants))
     want = {"conv_bn_stats": 16 * steps, "cbr_train_bwd": 16 * steps,
-            "flat_sgd": n_train * steps, "conv_bn_relu": 0, "flat_adam": 0}
-    check(all(sgd_launches[k] == v for k, v in want.items()),
-          "resnet_train", "FusedTrainStep launches %s, expected %s"
-          % (sgd_launches, want))
+            "flat_sgd": steps, "conv_bn_relu": 0, "flat_adam": 0}
+    check(all(sgd_launches[k] == v for k, v in want.items())
+          and sgd_variants.get(("flat_sgd", "multi"), 0) == steps,
+          "resnet_train", "FusedTrainStep launches %s (%s), expected %s, "
+          "every flat_sgd launch multi-tensor: one a step over all %d "
+          "parameters" % (sgd_launches, sgd_variants, want, n_train))
     check(all(np.isfinite(losses)) and losses[-1] < losses[0],
           "resnet_train", "loss not finite or not falling: %s" % losses)
     after = snapshot(net)
@@ -2080,7 +2235,7 @@ def resnet_train_checks(gen, tmp, batch, image, steps, adam_batch,
     path = os.path.join(tmp, "resnet50_train.params")
     net.save_parameters(path)
     xs, ys = train_batch(adam_batch, image, gpu, seed=1)
-    routes = []
+    routes, route_launches = [], {}
     for fused in (True, False):
         rnet = resnet50(True)
         rnet.cast("bfloat16")
@@ -2088,13 +2243,24 @@ def resnet_train_checks(gen, tmp, batch, image, steps, adam_batch,
         rtr = mx.gluon.Trainer(rnet.collect_params(), "sgd",
                                {"learning_rate": 0.1, "momentum": 0.9})
         rstep = mx.gluon.FusedTrainStep(rnet, loss_fn, rtr)
+        torch.cuda.synchronize()
+        reset_launch_counts()
         for _ in range(2):
             if fused:
                 rstep(xs, ys)
             else:
                 imperative_step(mx, rnet, loss_fn, rtr, xs, ys)
+        torch.cuda.synchronize()
+        route = "fused_step" if fused else "imperative"
+        route_launches[route] = {
+            "flat_sgd": launch_counts()["flat_sgd"],
+            "multi": variant_counts().get(("flat_sgd", "multi"), 0)}
         routes.append(snapshot(rnet))
         del rnet, rtr, rstep
+    check(all(v == {"flat_sgd": 2, "multi": 2}
+              for v in route_launches.values()), "resnet_train",
+          "route comparison: flat_sgd launches %s, expected one "
+          "multi-tensor launch a step on each route" % route_launches)
     route_diff = max((a.float() - routes[1][k].float()).abs().max().item()
                      for k, a in routes[0].items())
     route_equal = all(torch.equal(a, routes[1][k])
@@ -2107,8 +2273,12 @@ def resnet_train_checks(gen, tmp, batch, image, steps, adam_batch,
                                 {"learning_rate": 1e-3})
     torch.cuda.synchronize()
     reset_launch_counts()
-    adam_losses = [imperative_step(mx, net, loss_fn, atrainer, xs, ys)
-                   .asnumpy().mean().item() for _ in range(ADAM_STEPS)]
+    adam_losses, adam_ms = [], []
+    for _ in range(ADAM_STEPS):
+        t0 = time.perf_counter()
+        adam_losses.append(imperative_step(mx, net, loss_fn, atrainer, xs,
+                                           ys).asnumpy().mean().item())
+        adam_ms.append((time.perf_counter() - t0) * 1e3)
     torch.cuda.synchronize()
     adam_launches = launch_counts()
     adam_variants = variant_counts()
@@ -2123,11 +2293,13 @@ def resnet_train_checks(gen, tmp, batch, image, steps, adam_batch,
           % (16 * ADAM_STEPS, adam_variants))
     want = {"conv_bn_stats": 16 * ADAM_STEPS,
             "cbr_train_bwd": 16 * ADAM_STEPS,
-            "flat_adam": n_train * ADAM_STEPS, "flat_sgd": 0,
-            "conv_bn_relu": 0}
-    check(all(adam_launches[k] == v for k, v in want.items()),
-          "resnet_train", "Adam loop launches %s, expected %s"
-          % (adam_launches, want))
+            "flat_adam": ADAM_STEPS, "flat_sgd": 0, "conv_bn_relu": 0}
+    check(n_train >= 2 and all(adam_launches[k] == v
+                               for k, v in want.items())
+          and adam_variants.get(("flat_adam", "multi"), 0) == ADAM_STEPS,
+          "resnet_train", "Adam loop launches %s (%s), expected %s, every "
+          "flat_adam launch multi-tensor: one a step over all %d "
+          "parameters" % (adam_launches, adam_variants, want, n_train))
     check(all(np.isfinite(adam_losses)), "resnet_train",
           "Adam loss not finite: %s" % adam_losses)
     del atrainer
@@ -2222,8 +2394,10 @@ def resnet_train_checks(gen, tmp, batch, image, steps, adam_batch,
           "variants": {"%s/%s" % k: n for k, n in sgd_variants.items()},
           "running_stats_moved": moved,
           "routes_bit_equal": route_equal, "routes_max_abs_diff": route_diff,
+          "route_launches": route_launches,
           "adam": {"batch": adam_batch, "steps": ADAM_STEPS,
-                   "losses": adam_losses, "launches": adam_launches,
+                   "losses": adam_losses, "step_ms": adam_ms,
+                   "launches": adam_launches,
                    "variants": {"%s/%s" % k: n
                                 for k, n in adam_variants.items()}},
           "card_vs_cpu_batch": cpu_batch,

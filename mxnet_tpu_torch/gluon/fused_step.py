@@ -7,14 +7,17 @@
 
 A call runs the forward and the loss under `autograd.record()`, takes the
 gradients of the loss *sum* over the batch (the reference's cotangent of
-ones) with respect to the trainable parameters, updates each parameter
-through its registered optimizer op with ``rescale_grad = scale /
+ones) with respect to the trainable parameters, updates every parameter
+in one `multi_sgd` / `multi_adam` call with ``rescale_grad = scale /
 batch_size`` and the optimizer's own lr/wd bookkeeping (the reference's
 host functions, `_sgd_host` and `_bias_corrected_host`), and then writes
 the auxiliary updates (BatchNorm's running statistics) that the forward
-collected, once each, outside the graph. On a card each update is one
-launch of the flat SGD or Adam kernel, and each fused conv block's forward
-and backward launch theirs.
+collected, once each, outside the graph. On a card the update is one
+launch of the flat SGD or Adam kernel over all the parameters, and each
+fused conv block's forward and backward launch theirs. Adam's 1 - beta
+is computed in double here, as the reference's step (which calls the
+per-parameter op's function) computes it; `Trainer.step` takes the
+reference's aggregated route, which computes it in fp32.
 
 Semantics match `loss.backward(); trainer.step(batch_size)`, so the two
 routes leave the same parameters and running statistics. The optimizer
@@ -36,7 +39,7 @@ import torch
 
 from .. import autograd
 from ..ndarray import NDArray
-from ..ops.registry import get as _get_op
+from ..ops.fused_optimizer import multi_adam, multi_sgd
 from .block import _AUX_COLLECTOR
 
 __all__ = ["FusedTrainStep"]
@@ -63,29 +66,31 @@ def _bias_corrected_host(opt, indices):
     return {"lrs": lrs, "wds": wds}
 
 
-def _clipv(opt):
-    return -1.0 if opt.clip_gradient is None else opt.clip_gradient
+def _clip(opt):
+    """(clip value, clip on) as the per-parameter ops read
+    clip_gradient."""
+    c = opt.clip_gradient
+    on = c is not None and c >= 0
+    return (c if on else 0.0), on
 
 
-def _sgd_device(opt, w, g, state, sc, rescale, on_gpu):
-    kw = dict(lr=sc["lrs"], wd=sc["wds"], rescale_grad=rescale,
-              clip_gradient=_clipv(opt))
-    if state is None:
-        return (_get_op("sgd_update").best_fn(on_gpu)(w, g, **kw),)
-    return _get_op("sgd_mom_update").best_fn(on_gpu)(
-        w, g, state, momentum=opt.momentum, **kw)
+def _sgd_device(opt, ws, gs, states, sc, rescale):
+    clip, clip_on = _clip(opt)
+    mom_on = states[0] is not None
+    multi_sgd(ws, gs, states if mom_on else [], None, sc["lrs"], sc["wds"],
+              opt.momentum, rescale, clip, mom_on, clip_on, False)
 
 
-def _adam_device(opt, w, g, state, sc, rescale, on_gpu):
-    mean, var = state
-    return _get_op("adam_update").best_fn(on_gpu)(
-        w, g, mean, var, lr=sc["lrs"], wd=sc["wds"], beta1=opt.beta1,
-        beta2=opt.beta2, epsilon=opt.epsilon, rescale_grad=rescale,
-        clip_gradient=_clipv(opt))
+def _adam_device(opt, ws, gs, states, sc, rescale):
+    clip, clip_on = _clip(opt)
+    # 1 - beta in Python double, as the reference's step computes it
+    multi_adam(ws, gs, [s[0] for s in states], [s[1] for s in states], None,
+               sc["lrs"], sc["wds"], opt.beta1, 1.0 - opt.beta1, opt.beta2,
+               1.0 - opt.beta2, opt.epsilon, rescale, clip, clip_on, False)
 
 
-# optimizer name -> (host function: per-step scalars, device function: one
-# parameter's update through the registered op)
+# optimizer name -> (host function: per-step scalars, device function: the
+# update of every parameter in one call)
 _FUSABLE = {
     "sgd": (_sgd_host, _sgd_device),
     "adam": (_bias_corrected_host, _adam_device),
@@ -174,20 +179,13 @@ class FusedTrainStep:
         grads = torch.autograd.grad(lvec._data.sum(), weights,
                                     allow_unused=True)
 
-        on_gpu = ctx.device_type == "gpu"
+        # a parameter that the loss does not reach gets a zero gradient
+        grads = [torch.zeros_like(w) if g is None else g
+                 for w, g in zip(weights, grads)]
         with torch.no_grad():
-            for j, (w, g) in enumerate(zip(weights, grads)):
-                if g is None:       # the loss does not reach it
-                    g = torch.zeros_like(w)
-                state = _raw(self._states[j])
-                sc = {k: v[j] for k, v in scal.items()}
-                new = self._dev_fn(opt, w, g, state, sc, opt.rescale_grad,
-                                   on_gpu)
-                dsts = [w] + ([] if state is None else [state]
-                              if torch.is_tensor(state) else list(state))
-                for dst, src in zip(dsts, new):
-                    if src is not dst:
-                        dst.copy_(src)
+            self._dev_fn(opt, weights, grads,
+                         [_raw(s) for s in self._states], scal,
+                         opt.rescale_grad)
             for target, value in aux:
                 target._data.copy_(value)
         loss = lvec._data.detach()

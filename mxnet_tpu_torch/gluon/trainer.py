@@ -6,8 +6,10 @@ through the kvstore where there is one and runs the optimizer.
 
 Without a store (one context, dense parameters and no
 ``update_on_kvstore=True``: the reference's single-device short cut) the
-optimizer runs one update per trainable parameter through the `Updater`,
-which on a card launches the flat kernel once per parameter. With a store
+optimizer runs every trainable parameter through the `Updater` in one
+call, which for SGD and Adam is the reference's aggregated update (on by
+default, ``MXNET_OPTIMIZER_AGGREGATION_SIZE``): one launch of the flat
+kernel over all of them on a card. With a store
 and ``update_on_kvstore`` the optimizer runs on the store: the gradients
 go in one multi-key push in reverse registration order (about the order
 backward finishes them) and the updated weights are pulled back into the
@@ -19,6 +21,8 @@ NotImplementedError: they come with the port's multi-rank communication
 slice.
 """
 from __future__ import annotations
+
+import os
 
 from torch.profiler import record_function
 
@@ -108,6 +112,11 @@ class Trainer:
         else:
             self._optimizer = opt.create(optimizer, param_dict=param_dict,
                                          **optimizer_params)
+        if self._optimizer.aggregate_num == 0:
+            # the reference's Trainer turns on the aggregated update, sized
+            # by MXNET_OPTIMIZER_AGGREGATION_SIZE (0 turns it off)
+            self._optimizer.aggregate_num = int(
+                os.environ.get("MXNET_OPTIMIZER_AGGREGATION_SIZE", "4"))
         self._updaters = [opt.get_updater(self._optimizer)
                           for _ in self._contexts]
 
@@ -223,6 +232,9 @@ class Trainer:
         self._update(ignore_stale_grad)
 
     def _update(self, ignore_stale_grad=False):
+        # each updater slot's parameters in one call, so that the
+        # aggregated update takes the whole step (the reference's batching)
+        batched = [[] for _ in self._updaters]
         for i, param in enumerate(self._params):
             if param.grad_req == "null":
                 continue
@@ -232,9 +244,15 @@ class Trainer:
                     self._kvstore.pull(self._param2idx[param.name],
                                        param.list_data(), priority=-i)
                 continue
-            for upd, arr, grad in zip(self._updaters, param.list_data(),
-                                      param.list_grad()):
-                upd(i, grad, arr)
+            for slot, (arr, grad) in enumerate(zip(param.list_data(),
+                                                   param.list_grad())):
+                batched[slot].append((i, grad, arr))
+        for upd, entries in zip(self._updaters, batched):
+            if len(entries) == 1:
+                upd(*entries[0])
+            elif entries:
+                idxs, grads, arrs = zip(*entries)
+                upd(list(idxs), list(grads), list(arrs))
 
     def save_states(self, fname):
         """Write the optimizer and its states (pickled): the store's when

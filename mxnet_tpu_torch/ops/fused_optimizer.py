@@ -1,18 +1,22 @@
 """One-pass SGD(-momentum) and Adam updates and LAMB's two passes (the
 port of `mxnet_tpu.ops.fused_optimizer`).
 
-`flat_sgd` and `flat_adam` wrap the hand-written kernels of
-``csrc/fused_optimizer.cu``: one launch reads every element of the weight,
-its gradient and its state once, runs the update in fp32 and writes every
-output once. They update their tensors IN PLACE (the weight, the state and
-the fp32 master) and return them, which saves an allocation per parameter
-per step; the reference's functions return new arrays. CUDA tensors go
-through the kernel, CPU tensors through the plain version
-(`_ref_flat_sgd`, `_ref_flat_adam`: the reference's `_fused_flat_xla`
-arithmetic as separate fp32 torch ops, rounded once to each output's
-dtype), whose results are then copied in. On the card each torch op rounds
-once and the kernel uses round-to-nearest intrinsics in the same order, so
-the two agree bit for bit at fp32.
+`multi_sgd` and `multi_adam` wrap the hand-written kernels #7 and #8 of
+``csrc/fused_optimizer.cu`` over a list of tensors (the reference's
+aggregated `SGD`/`Adam.fused_update`): one launch (a table of up to 320
+tensors in the kernel's parameters; a longer list takes consecutive
+launches) reads every element of each weight, its gradient and its state
+once, runs the update in fp32 and writes every output once. `flat_sgd`
+and `flat_adam` launch the same kernels over one tensor. All of them
+update their tensors IN PLACE (the weight, the state and the fp32
+master), which saves an allocation per parameter per step; the
+reference's functions return new arrays. CUDA tensors go through the
+kernel (each launch counted under variant "multi" or "single"), CPU
+tensors through the plain version (`_ref_flat_sgd`, `_ref_flat_adam`:
+the reference's `_fused_flat_xla` arithmetic as separate fp32 torch ops,
+rounded once to each output's dtype), whose results are then copied in.
+On the card each torch op rounds once and the kernel uses round-to-nearest
+intrinsics in the same order, so the two agree bit for bit at fp32.
 
 `flat_update_fn(kind, momentum_on, clip_on, mp_on)` has the call signature
 of the reference's (flat vectors, per-element lr/wd), for the ZeRO slice;
@@ -34,13 +38,18 @@ scale. fp32, bf16 and fp16 tensors all launch the kernels.
 from __future__ import annotations
 
 import ctypes
+import itertools
+import operator
+import weakref
 
+import numpy as np
 import torch
 
 from . import count_launch
 from ._build import bind
 
-__all__ = ["flat_sgd", "flat_adam", "flat_update_fn", "flat_lamb1",
+__all__ = ["multi_sgd", "multi_adam", "flat_sgd", "flat_adam",
+           "flat_update_fn", "flat_lamb1",
            "flat_lamb2", "lamb_chunk_table", "lamb_flat_phase1_fn",
            "lamb_flat_apply_fn", "LAMB_CHUNK"]
 
@@ -133,93 +142,329 @@ def _launch(kernel, symbol, argtypes, args, dev):
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
+# One tensor of a launch of kernel #7/#8, as csrc/fused_optimizer.cu's
+# HostEntry: w, g, the states (momentum, or Adam's mean and var) and the
+# fp32 master as pointers (0 where absent), n, lr, wd, and the w/g/state
+# dtype codes.
+_ENTRY = np.dtype([("w", np.uint64), ("g", np.uint64), ("s0", np.uint64),
+                   ("s1", np.uint64), ("master", np.uint64),
+                   ("n", np.int64), ("lr", np.float32), ("wd", np.float32),
+                   ("w_dtype", np.int32), ("g_dtype", np.int32),
+                   ("s_dtype", np.int32), ("pad", np.int32)])
+_SGD_ARGS = [_P, _I, _P, _P] + [_F] * 3 + [_I, _P]
+_ADAM_ARGS = [_P, _I, _P, _P] + [_F] * 7 + [_I, _P]
+_capacity = {}      # kernel -> tensors one launch takes
+_T = torch.Tensor
+_DTYPE_OF = operator.attrgetter("dtype")
+
+
+def _plain_update(plain, targets, args):
+    """The plain version over CPU tensors, its results copied into
+    `targets` (None where an output is not kept)."""
+    new = plain(*args)
+    with torch.no_grad():
+        for dst, src in zip(targets, new):
+            if dst is not None and dst is not src:
+                dst.copy_(src)
+
+
+def _bad(name, label, ts, ns, dev, fp32_only=False):
+    """The error for the first tensor of `ts` that is not a contiguous
+    fp32/bf16 (fp32_only: fp32) tensor of its entry's element count on
+    device index `dev`."""
+    for j, t in enumerate(ts):
+        if (t.dtype != torch.float32 if fp32_only else t.dtype not in
+                _DTYPES) or t.numel() != ns[j] or t.get_device() != dev \
+                or not t.is_contiguous():
+            return ValueError(
+                "%s: the %s of tensor %d must be a contiguous %s tensor of "
+                "%d elements on the weight's device, got %s %s of %d on %s"
+                % (name, label, j, "float32" if fp32_only
+                   else "float32/bfloat16", ns[j], t.dtype,
+                   "contiguous" if t.is_contiguous() else "strided",
+                   t.numel(), t.device))
+    return ValueError("%s: bad %s" % (name, label))
+
+
+def _codes(name, label, ts, ns, dev, fp32_only=False):
+    """Each tensor's dtype code, after checking every tensor of `ts` (a
+    list at a time: C-level maps, ~0.1 ms for a step's ~200 tensors)."""
+    codes = list(map(_DTYPES.get, map(_DTYPE_OF, ts)))
+    if None in codes or (fp32_only and any(codes)) \
+            or list(map(_T.numel, ts)) != ns \
+            or set(map(_T.get_device, ts)) != {dev} \
+            or not all(map(_T.is_contiguous, ts)):
+        raise _bad(name, label, ts, ns, dev, fp32_only)
+    return codes
+
+
+class _Plan:
+    """A list's weights, states and masters checked and packed into a
+    table of _ENTRY (the non-empty tensors). A step passes the same live
+    tensors again, updated in place, so the next call reuses the plan while
+    the tensors' ids and data pointers are unchanged and none of them has
+    been freed (a weak reference drops the plan then), and checks and packs
+    only the gradients, lr and wd."""
+
+    def __init__(self, name, ws, states, masters, mp_on):
+        fixed = self.fixed(ws, states, masters, mp_on)
+        self.ids = list(map(id, fixed))
+        self.ptrs = list(map(_T.data_ptr, fixed))
+        self.alive = True
+        self.refs = [weakref.ref(t, self._drop) for t in fixed]
+        ns = list(map(_T.numel, ws))
+        self.keep = None
+        if 0 in ns:
+            self.keep = [j for j, n in enumerate(ns) if n]
+            ws, ns = [ws[j] for j in self.keep], [ns[j] for j in self.keep]
+            states = [(lab, [lst[j] for j in self.keep])
+                      for lab, lst in states]
+            masters = [masters[j] for j in self.keep] if mp_on else masters
+        self.ns = ns
+        self.table = np.zeros(len(ws), _ENTRY)
+        self.g_dtypes = None
+        if not ws:
+            return
+        self.dev = dev = ws[0].get_device()
+        self.table["w_dtype"] = _codes(name, "weight", ws, ns, dev)
+        self.table["w"] = list(map(_T.data_ptr, ws))
+        for i, (label, lst) in enumerate(states):
+            codes = _codes(name, label, lst, ns, dev)
+            if i and codes != list(self.table["s_dtype"]):
+                j = next(j for j, c in enumerate(codes)
+                         if c != self.table["s_dtype"][j])
+                raise ValueError("%s: mean and var of tensor %d must share "
+                                 "one dtype, got %s %s" % (
+                                     name, j, states[0][1][j].dtype,
+                                     lst[j].dtype))
+            self.table["s_dtype"] = codes
+            self.table["s%d" % i] = list(map(_T.data_ptr, lst))
+        if mp_on:
+            _codes(name, "master copy", masters, ns, dev, True)
+            self.table["master"] = list(map(_T.data_ptr, masters))
+        self.table["n"] = ns
+
+    @staticmethod
+    def fixed(ws, states, masters, mp_on):
+        return list(itertools.chain(ws, *(lst for _, lst in states),
+                                    masters if mp_on else ()))
+
+    def _drop(self, _ref):
+        self.alive = False
+
+    def matches(self, ws, states, masters, mp_on):
+        fixed = self.fixed(ws, states, masters, mp_on)
+        return self.alive and list(map(id, fixed)) == self.ids \
+            and list(map(_T.data_ptr, fixed)) == self.ptrs
+
+
+_plans = {}     # (name, state slots, mp_on) -> the last list's _Plan
+
+
+def _table(name, ws, gs, states, masters, lrs, wds, mp_on):
+    """The _ENTRY table of a list: every tensor checked as `_check` does,
+    the empty ones left out. states: [(label, list)] for the state slots.
+    The weights, states and masters are checked and packed once while the
+    same live tensors come again (`_Plan`); the gradients, lr and wd on
+    every call. The table is the plan's own buffer, valid until the next
+    call."""
+    k = len(ws)
+    lists = [("grad", gs), ("lr", lrs), ("wd", wds)] + states \
+        + ([("master", masters)] if mp_on else [])
+    for label, lst in lists:
+        if len(lst) != k:
+            raise ValueError("%s: %d weights but %d %ss"
+                             % (name, k, len(lst), label))
+    key = (name, len(states), mp_on)
+    plan = _plans.get(key)
+    if plan is None or not plan.matches(ws, states, masters, mp_on):
+        plan = _plans[key] = _Plan(name, ws, states, masters, mp_on)
+    table = plan.table
+    if not len(table):
+        return table
+    if plan.keep is not None:
+        gs, lrs, wds = ([lst[j] for j in plan.keep] for lst in (gs, lrs, wds))
+    g_dtypes = list(map(_DTYPE_OF, gs))
+    if g_dtypes != plan.g_dtypes:
+        table["g_dtype"] = _codes(name, "grad", gs, plan.ns, plan.dev)
+        plan.g_dtypes = g_dtypes
+    elif list(map(_T.numel, gs)) != plan.ns \
+            or set(map(_T.get_device, gs)) != {plan.dev} \
+            or not all(map(_T.is_contiguous, gs)):
+        raise _bad(name, "grad", gs, plan.ns, plan.dev)
+    table["g"] = list(map(_T.data_ptr, gs))
+    table["lr"] = lrs
+    table["wd"] = wds
+    return table
+
+
+def _launch_table(kernel, symbol, argtypes, table, args, dev, variant,
+                  vecs=(None, None)):
+    """Kernel #7/#8 over `table`, in launches of at most the kernel's
+    capacity, each counted under `variant`."""
+    lib, fn = bind(kernel, symbol, argtypes)
+    cap = _capacity.get(kernel)
+    if cap is None:
+        cap = _capacity[kernel] = lib.mx_multi_capacity()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for s in range(0, len(table), cap):
+            part = table[s:s + cap]
+            err = fn(part.ctypes.data, len(part), _ptr(vecs[0]),
+                     _ptr(vecs[1]), *args, stream)
+            if err:
+                raise RuntimeError("%s: launch failed: %s" % (
+                    kernel, lib.mx_cuda_error_string(err).decode()))
+            count_launch(kernel, variant)
+
+
+def _device(name, ws):
+    """The one device of a list's weights; a list on the CPU must lie there
+    whole (its plain version runs there, and nowhere else)."""
+    dev = ws[0].device
+    if dev.type == "cpu":
+        if any(w.device.type != "cpu" for w in ws):
+            raise ValueError("%s: a list mixes CPU and other tensors" % name)
+    elif dev.type != "cuda":
+        raise ValueError("%s: no kernel for device %s" % (name, dev))
+    return dev
+
+
+def _flags(momentum_on, clip_on, mp_on, vec=False):
+    return (_MOMENTUM * bool(momentum_on) | _CLIP * bool(clip_on)
+            | _MP * bool(mp_on) | _VEC * bool(vec))
+
+
+def multi_sgd(ws, gs, moms, masters, lrs, wds, momentum, rescale, clip,
+              momentum_on, clip_on, mp_on):
+    """SGD(-momentum) over every tensor of a list, in place, in one launch
+    of kernel #7 (several where the list is longer than one launch holds;
+    the reference's aggregated `SGD.fused_update`). ws, gs: weights and
+    their gradients; moms: momenta (ignored without momentum); masters:
+    fp32 masters (mp_on); lrs, wds: one float each. Tensors with no
+    elements are skipped."""
+    if not ws:
+        return
+    dev = _device("multi_sgd", ws)
+    if dev.type == "cpu":
+        for j, w in enumerate(ws):
+            mom = moms[j] if momentum_on else None
+            master = masters[j] if mp_on else None
+            _plain_update(_ref_flat_sgd, (w, mom, master), (
+                w, gs[j], mom, master, lrs[j], wds[j], momentum, rescale,
+                clip, momentum_on, clip_on, mp_on))
+        return
+    table = _table("multi_sgd", ws, gs,
+                   [("momentum", moms)] if momentum_on else [], masters,
+                   lrs, wds, mp_on)
+    if len(table):
+        _launch_table("flat_sgd", "mx_multi_sgd", _SGD_ARGS, table, [
+            float(momentum), float(rescale),
+            float(clip) if clip_on else 0.0,
+            _flags(momentum_on, clip_on, mp_on)], dev, "multi")
+
+
+def multi_adam(ws, gs, means, vars, masters, lrs, wds, beta1, omb1, beta2,
+               omb2, eps, rescale, clip, clip_on, mp_on):
+    """Adam over every tensor of a list, in place, in one launch of kernel
+    #8 (the reference's aggregated `Adam.fused_update`): bias correction
+    folded into each lr by the caller, omb1 = 1 - beta1 and omb2 = 1 -
+    beta2 as the caller computes them. Each tensor's mean and var share one
+    dtype. Tensors with no elements are skipped."""
+    if not ws:
+        return
+    dev = _device("multi_adam", ws)
+    if dev.type == "cpu":
+        for j, w in enumerate(ws):
+            master = masters[j] if mp_on else None
+            _plain_update(_ref_flat_adam, (w, means[j], vars[j], master), (
+                w, gs[j], means[j], vars[j], master, lrs[j], wds[j], beta1,
+                omb1, beta2, omb2, eps, rescale, clip, clip_on, mp_on))
+        return
+    table = _table("multi_adam", ws, gs, [("mean", means), ("var", vars)],
+                   masters, lrs, wds, mp_on)
+    if len(table):
+        _launch_table("flat_adam", "mx_multi_adam", _ADAM_ARGS, table, [
+            float(beta1), float(omb1), float(beta2), float(omb2),
+            float(eps), float(rescale), float(clip) if clip_on else 0.0,
+            _flags(False, clip_on, mp_on)], dev, "multi")
+
+
+def _one(w, g, s0, s1, master, lr, wd):
+    """The one-entry table of a checked tensor (the per-parameter route:
+    a new tensor each call, so no `_Plan`)."""
+    return np.array([(w.data_ptr(), g.data_ptr(), _ptr(s0) or 0,
+                      _ptr(s1) or 0, _ptr(master) or 0, w.numel(), lr, wd,
+                      _DTYPES[w.dtype], _DTYPES[g.dtype],
+                      0 if s0 is None else _DTYPES[s0.dtype], 0)], _ENTRY)
+
+
+def _lrwd(name, lr, wd, w):
+    """(lr, wd, lr vector, wd vector) of one tensor: scalars, or both
+    per-element fp32 vectors (then the scalars are 0)."""
+    n = w.numel()
+    lr_s, lr_v = _scalar_or_vec(name, "lr", lr, n, w.device)
+    wd_s, wd_v = _scalar_or_vec(name, "wd", wd, n, w.device)
+    if (lr_v is None) != (wd_v is None):
+        raise ValueError("%s: lr and wd must both be scalars or both "
+                         "per-element vectors" % name)
+    return lr_s, wd_s, lr_v, wd_v
+
+
 def flat_sgd(w, g, mom, master, lr, wd, momentum, rescale, clip,
              momentum_on, clip_on, mp_on):
-    """SGD(-momentum) over every element of w, in place; returns (w, mom,
-    master). mom has w's element count (any of fp32/bf16; ignored without
-    momentum); master is fp32 (mp_on); lr and wd are floats or fp32
-    per-element tensors."""
-    if w.device.type == "cpu":
-        new = _ref_flat_sgd(w, g, mom, master, lr, wd, momentum, rescale,
-                            clip, momentum_on, clip_on, mp_on)
-        with torch.no_grad():
-            for dst, src, on in ((w, new[0], True),
-                                 (mom, new[1], momentum_on),
-                                 (master, new[2], mp_on)):
-                if on and dst is not src:
-                    dst.copy_(src)
+    """SGD(-momentum) over every element of w, in place, in one launch of
+    kernel #7 (a one-tensor table); returns (w, mom, master). mom has w's
+    element count (any of fp32/bf16; ignored without momentum); master is
+    fp32 (mp_on); lr and wd are floats or fp32 per-element tensors."""
+    dev = _device("flat_sgd", [w])
+    if dev.type == "cpu":
+        _plain_update(_ref_flat_sgd, (w, mom if momentum_on else None,
+                                      master if mp_on else None),
+                      (w, g, mom, master, lr, wd, momentum, rescale, clip,
+                       momentum_on, clip_on, mp_on))
         return w, mom, master
-    if w.device.type != "cuda":
-        raise ValueError("flat_sgd: no kernel for device %s" % w.device)
+    if w.numel() == 0:
+        return w, mom, master
     _check("flat_sgd", w, g, [("momentum", mom)] if momentum_on else [],
            master, mp_on)
-    n = w.numel()
-    if n == 0:
-        return w, mom, master
-    lr_s, lr_v = _scalar_or_vec("flat_sgd", "lr", lr, n, w.device)
-    wd_s, wd_v = _scalar_or_vec("flat_sgd", "wd", wd, n, w.device)
-    if (lr_v is None) != (wd_v is None):
-        raise ValueError("flat_sgd: lr and wd must both be scalars or both "
-                         "per-element vectors")
-    flags = (_MOMENTUM * bool(momentum_on) | _CLIP * bool(clip_on)
-             | _MP * bool(mp_on) | _VEC * (lr_v is not None))
-    state_dtype = _DTYPES[mom.dtype] if momentum_on else 0
-    # w, g, mom, master, lr_vec, wd_vec, n, lr, wd, momentum, rescale,
-    # clip, w_dtype, g_dtype, state_dtype, flags, stream
-    _launch("flat_sgd", "mx_flat_sgd",
-            [_P] * 6 + [ctypes.c_longlong] + [_F] * 5 + [_I] * 4 + [_P],
-            [w.data_ptr(), g.data_ptr(),
-             _ptr(mom) if momentum_on else None,
-             _ptr(master) if mp_on else None, _ptr(lr_v), _ptr(wd_v), n,
-             lr_s, wd_s, float(momentum), float(rescale),
-             float(clip) if clip_on else 0.0, _DTYPES[w.dtype],
-             _DTYPES[g.dtype], state_dtype, flags], w.device)
+    lr_s, wd_s, lr_v, wd_v = _lrwd("flat_sgd", lr, wd, w)
+    table = _one(w, g, mom if momentum_on else None, None,
+                 master if mp_on else None, lr_s, wd_s)
+    _launch_table("flat_sgd", "mx_multi_sgd", _SGD_ARGS, table, [
+        float(momentum), float(rescale), float(clip) if clip_on else 0.0,
+        _flags(momentum_on, clip_on, mp_on, lr_v is not None)], dev,
+        "single", (lr_v, wd_v))
     return w, mom, master
 
 
 def flat_adam(w, g, mean, var, master, lr, wd, beta1, omb1, beta2, omb2,
               eps, rescale, clip, clip_on, mp_on):
-    """Adam over every element of w, in place (bias correction folded into
-    lr by the caller; omb1 = 1 - beta1 and omb2 = 1 - beta2 computed in
-    Python double); returns (w, mean, var, master). mean and var share one
-    dtype (fp32 or bf16)."""
-    if w.device.type == "cpu":
-        new = _ref_flat_adam(w, g, mean, var, master, lr, wd, beta1, omb1,
-                             beta2, omb2, eps, rescale, clip, clip_on, mp_on)
-        with torch.no_grad():
-            for dst, src, on in ((w, new[0], True), (mean, new[1], True),
-                                 (var, new[2], True),
-                                 (master, new[3], mp_on)):
-                if on and dst is not src:
-                    dst.copy_(src)
+    """Adam over every element of w, in place, in one launch of kernel #8
+    (a one-tensor table; bias correction folded into lr by the caller,
+    omb1 = 1 - beta1 and omb2 = 1 - beta2 as the caller computes them);
+    returns (w, mean, var, master). mean and var share one dtype (fp32 or
+    bf16)."""
+    dev = _device("flat_adam", [w])
+    if dev.type == "cpu":
+        _plain_update(_ref_flat_adam, (w, mean, var,
+                                       master if mp_on else None),
+                      (w, g, mean, var, master, lr, wd, beta1, omb1, beta2,
+                       omb2, eps, rescale, clip, clip_on, mp_on))
         return w, mean, var, master
-    if w.device.type != "cuda":
-        raise ValueError("flat_adam: no kernel for device %s" % w.device)
+    if w.numel() == 0:
+        return w, mean, var, master
     _check("flat_adam", w, g, [("mean", mean), ("var", var)], master, mp_on)
     if var.dtype != mean.dtype:
         raise ValueError("flat_adam: mean and var must share one dtype, got "
                          "%s %s" % (mean.dtype, var.dtype))
-    n = w.numel()
-    if n == 0:
-        return w, mean, var, master
-    lr_s, lr_v = _scalar_or_vec("flat_adam", "lr", lr, n, w.device)
-    wd_s, wd_v = _scalar_or_vec("flat_adam", "wd", wd, n, w.device)
-    if (lr_v is None) != (wd_v is None):
-        raise ValueError("flat_adam: lr and wd must both be scalars or both "
-                         "per-element vectors")
-    flags = (_CLIP * bool(clip_on) | _MP * bool(mp_on)
-             | _VEC * (lr_v is not None))
-    # w, g, mean, var, master, lr_vec, wd_vec, n, lr, wd, beta1, omb1,
-    # beta2, omb2, eps, rescale, clip, w_dtype, g_dtype, state_dtype,
-    # flags, stream
-    _launch("flat_adam", "mx_flat_adam",
-            [_P] * 7 + [ctypes.c_longlong] + [_F] * 9 + [_I] * 4 + [_P],
-            [w.data_ptr(), g.data_ptr(), mean.data_ptr(), var.data_ptr(),
-             _ptr(master) if mp_on else None, _ptr(lr_v), _ptr(wd_v), n,
-             lr_s, wd_s, float(beta1), float(omb1), float(beta2),
-             float(omb2), float(eps), float(rescale),
-             float(clip) if clip_on else 0.0, _DTYPES[w.dtype],
-             _DTYPES[g.dtype], _DTYPES[mean.dtype], flags], w.device)
+    lr_s, wd_s, lr_v, wd_v = _lrwd("flat_adam", lr, wd, w)
+    table = _one(w, g, mean, var, master if mp_on else None, lr_s, wd_s)
+    _launch_table("flat_adam", "mx_multi_adam", _ADAM_ARGS, table, [
+        float(beta1), float(omb1), float(beta2), float(omb2), float(eps),
+        float(rescale), float(clip) if clip_on else 0.0,
+        _flags(False, clip_on, mp_on, lr_v is not None)], dev, "single",
+        (lr_v, wd_v))
     return w, mean, var, master
 
 

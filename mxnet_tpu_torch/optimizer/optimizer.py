@@ -9,16 +9,20 @@ correction (folded into lr, in Python double), `rescale_grad` and
 `clip_gradient`, and the picklable `Updater` that `Trainer.save_states`
 writes.
 
-Every update runs one registered optimizer op per parameter through
+A single update runs one registered optimizer op per parameter through
 `_run_op`: on a GPU context the op's `cuda_impl`, which launches the
-hand-written flat SGD or Adam kernel once and updates the weight and state
-in place; on a CPU context the plain version. The reference's aggregated
-multi-parameter path (`fused_update`, `aggregate_num`) computes the same
-fp32-then-round numbers in one jitted call; the port runs it as one launch
-per parameter (a multi-tensor launch is later work), so `aggregate_num` is
-kept for the API only. The reference's flat-shard update
-(`_fused_flat_fn`) is `ops.fused_optimizer.flat_update_fn` here, and
-the ZeRO updater (`optimizer.zero`) runs it per bucket.
+hand-written flat SGD or Adam kernel once (a one-tensor table) and updates
+the weight and state in place; on a CPU context the plain version. As in
+the reference, an `Updater` with ``aggregate_num > 0`` (which `Trainer`
+sets from ``MXNET_OPTIMIZER_AGGREGATION_SIZE``, default 4) that is given a
+list of parameters hands exactly-SGD or exactly-Adam updates of dense,
+non-float16 parameters to `fused_update`: one launch of kernel #7 or #8
+over the whole list (`ops.fused_optimizer.multi_sgd` / `multi_adam`). Like
+the reference's `_fused_fn`, Adam's aggregated route computes 1 - beta in
+fp32, where its per-parameter op computes it in double. The reference's
+flat-shard update (`_fused_flat_fn`) is
+`ops.fused_optimizer.flat_update_fn` here, and the ZeRO updater
+(`optimizer.zero`) runs it per bucket.
 
 LAMB's two phases go through the registry too (`_op_fn`): on a GPU context
 phase 1 launches kernel #9 and phase 2 kernel #10 once per parameter. The
@@ -41,6 +45,7 @@ import torch
 
 from .. import ndarray as nd
 from ..ndarray import NDArray
+from ..ops import fused_optimizer as _fo
 from ..ops import registry as _reg
 
 __all__ = ["Optimizer", "create", "register", "get_updater", "Updater",
@@ -314,6 +319,23 @@ class SGD(Optimizer):
         use_mp = self.multi_precision and weight.dtype == np.float16
         self._update_impl(index, weight, grad, state, multi_precision=use_mp)
 
+    def fused_update(self, indices, weights, grads, states):
+        """The reference's aggregated step (`multi_sgd_update` /
+        `multi_sgd_mom_update`): every parameter of the list in one
+        `multi_sgd` call, one launch on a card."""
+        for i in indices:
+            self._update_count(i)
+        clip = self.clip_gradient
+        mom_on = self.momentum != 0.0
+        with torch.no_grad():
+            _fo.multi_sgd([w._data for w in weights],
+                          [g._data for g in grads],
+                          [s._data for s in states] if mom_on else [], None,
+                          self._get_lrs(indices), self._get_wds(indices),
+                          self.momentum, self.rescale_grad,
+                          0.0 if clip is None else clip, mom_on,
+                          clip is not None, False)
+
     def _update_impl(self, index, weight, grad, state, multi_precision=False):
         self._update_count(index)
         kwargs = dict(lr=self._get_lr(index), wd=self._get_wd(index),
@@ -363,6 +385,31 @@ class Adam(Optimizer):
                 epsilon=self.epsilon, rescale_grad=self.rescale_grad,
                 clip_gradient=_clip(self.clip_gradient),
                 lazy_update=self.lazy_update)
+
+    def fused_update(self, indices, weights, grads, states):
+        """The reference's aggregated step: the bias correction folded into
+        each lr in double, then every parameter of the list in one
+        `multi_adam` call, one launch on a card. 1 - beta is computed in
+        fp32, as the reference's `_fused_fn` computes it."""
+        lrs, wds = [], []
+        for i in indices:
+            self._update_count(i)
+            t = self._index_update_count[i]
+            lrs.append(self._get_lr(i) * math.sqrt(1. - self.beta2 ** t)
+                       / (1. - self.beta1 ** t))
+            wds.append(self._get_wd(i))
+        one = np.float32(1.0)
+        clip = self.clip_gradient
+        with torch.no_grad():
+            _fo.multi_adam([w._data for w in weights],
+                           [g._data for g in grads],
+                           [s[0]._data for s in states],
+                           [s[1]._data for s in states], None, lrs, wds,
+                           self.beta1, float(one - np.float32(self.beta1)),
+                           self.beta2, float(one - np.float32(self.beta2)),
+                           self.epsilon, self.rescale_grad,
+                           0.0 if clip is None else clip, clip is not None,
+                           False)
 
 
 @register
@@ -416,18 +463,21 @@ class LAMB(Optimizer):
 
 class Updater:
     """The per-(index, grad, weight) update function object, with the
-    optimizer's states; picklable (`get_states`/`set_states`)."""
+    optimizer's states; picklable (`get_states`/`set_states`). Given lists
+    and an optimizer with ``aggregate_num > 0``, it takes the aggregated
+    route where `_can_fuse` allows it, as the reference's does."""
 
     def __init__(self, optimizer):
         self.optimizer = optimizer
         self.states = {}
         self.states_synced = {}
+        self.aggregate_updates = optimizer.aggregate_num > 0
 
     def __call__(self, index, grad, weight):
         indices = index if isinstance(index, (list, tuple)) else [index]
         grads = grad if isinstance(grad, (list, tuple)) else [grad]
         weights = weight if isinstance(weight, (list, tuple)) else [weight]
-        for idx, g, w in zip(indices, grads, weights):
+        for idx, w in zip(indices, weights):
             if idx not in self.states:
                 self.states[idx] = \
                     self.optimizer.create_state_multi_precision(idx, w)
@@ -436,8 +486,25 @@ class Updater:
                 self.states[idx] = self.sync_state_context(self.states[idx],
                                                            w.context)
                 self.states_synced[idx] = True
+        if len(indices) > 1 and self.aggregate_updates and \
+                self._can_fuse(weights, grads):
+            self.optimizer.fused_update(indices, weights, grads,
+                                        [self.states[i] for i in indices])
+            return
+        for idx, g, w in zip(indices, grads, weights):
             self.optimizer.update_multi_precision(idx, w, g,
                                                   self.states[idx])
+
+    def _can_fuse(self, weights, grads):
+        """The aggregated route takes exactly SGD or Adam (a subclass may
+        change the update), dense gradients and no float16 weight (those
+        take the multi-precision path)."""
+        from ..ndarray.sparse import BaseSparseNDArray
+        if type(self.optimizer) not in (SGD, Adam):
+            return False
+        if any(isinstance(g, BaseSparseNDArray) for g in grads):
+            return False
+        return all(w.dtype != np.float16 for w in weights)
 
     def sync_state_context(self, state, context):
         if isinstance(state, NDArray):

@@ -336,15 +336,41 @@ def test_trainer_zero_and_per_parameter_lamb_agree(tmp_path):
         np.testing.assert_allclose(pa[k], pb[k], rtol=5e-5, atol=5e-6)
 
 
-def test_trainer_update_on_kvstore_equals_the_local_update(tmp_path):
+def test_trainer_update_on_kvstore_equals_the_local_update(tmp_path,
+                                                           monkeypatch):
+    """The store's updater runs once per key (the per-parameter route, as
+    the reference's store does); the local update with the aggregated
+    route turned off (MXNET_OPTIMIZER_AGGREGATION_SIZE=0) runs the same
+    route: bit-equal. (With aggregation on, Adam's 1 - beta is fp32 on the
+    local route, as in the reference; see the next test.)"""
     _, a = _pair(tmp_path)
     _, b = _pair(tmp_path)
     x, y = _batch(seed=4)
     tra, _ = _train(mx, a, "adam", None, x, y, steps=2,
                     update_on_kvstore=True)
     assert tra._kvstore is not None and tra._update_on_kvstore
+    monkeypatch.setenv("MXNET_OPTIMIZER_AGGREGATION_SIZE", "0")
     trb, _ = _train(mx, b, "adam", None, x, y, steps=2)
-    assert trb._kvstore is None
+    assert trb._kvstore is None and trb.optimizer.aggregate_num == 0
+    pa, pb = _params(a), _params(b)
+    for k in pa:
+        np.testing.assert_array_equal(pa[k], pb[k])
+
+
+def test_trainer_update_on_kvstore_equals_the_aggregated_local_sgd(
+        tmp_path, monkeypatch):
+    """SGD computes the same fp32 arithmetic on both routes, so the local
+    update through the aggregated route (one multi_sgd call a step, the
+    default) is bit-equal to the store's per-key updates."""
+    _, a = _pair(tmp_path)
+    _, b = _pair(tmp_path)
+    x, y = _batch(seed=4)
+    tra, _ = _train(mx, a, "sgd", None, x, y, steps=2,
+                    update_on_kvstore=True)
+    assert tra._kvstore is not None and tra._update_on_kvstore
+    monkeypatch.delenv("MXNET_OPTIMIZER_AGGREGATION_SIZE", raising=False)
+    trb, _ = _train(mx, b, "sgd", None, x, y, steps=2)
+    assert trb._kvstore is None and trb.optimizer.aggregate_num == 4
     pa, pb = _params(a), _params(b)
     for k in pa:
         np.testing.assert_array_equal(pa[k], pb[k])

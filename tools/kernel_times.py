@@ -1,6 +1,6 @@
-"""Times of the segment-sum kernel (#11) and the BN + ReLU backward kernel
-(#6) at the main paths' shapes, and the card's write rate, for the port
-found under --root.
+"""Times of the segment-sum kernel (#11), the BN + ReLU backward kernel
+(#6) and the flat SGD and Adam kernels (#7/#8) at the main paths' shapes,
+and the card's write rate, for the port found under --root.
 
 Prints one JSON line per shape and per fill size, then the card's name
 and power limit:
@@ -12,7 +12,13 @@ the profiler saw, times its launches a call), with the launches seen.
 (bench_sparse's table update), 128 x 16 into 10,131,228 (the largest
 Criteo Kaggle table at batch 128), and the first shape with shuffled ids
 (about two of each of 4000). #6: bf16 conv output and dy at ResNet-50's
-four bottleneck 3x3 shapes at batch 256, no residual. Inputs are seeded.
+four bottleneck 3x3 shapes at batch 256, no residual. #7/#8 (momentum
+on, no clip, no master): one ResNet-50 step's 193 trainable tensors (bf16
+weights, fp32 BatchNorm vectors, states and gradients in the weight's
+dtype) as one multi-tensor call where the tree has `multi_sgd` /
+`multi_adam`, and as one launch per tensor (the route of a tree without
+them); and one launch over 25.6M elements at bf16 and fp32. Inputs are
+seeded.
 #11 is almost all zero fill, so its bound is the output's bytes over the
 card's write rate: the fills are torch's zero_ and, where the tree's
 segment-sum library has the entry, cudaMemsetAsync, from 32 MB (which L2
@@ -24,7 +30,8 @@ To compare two trees on one card, run it for each in turns in one call
     python tools/kernel_times.py --root path/to/parent
     python tools/kernel_times.py
 
-Needs a CUDA card; builds the two kernels from the tree under --root.
+Needs a CUDA card; builds the kernels it times from the tree under
+--root.
 """
 from __future__ import annotations
 
@@ -119,6 +126,90 @@ def fills(root):
         del buf
 
 
+def resnet50_shapes():
+    """(shape, dtype) of every trainable tensor of resnet50_v1 NHWC with
+    the fused gate, cast to bf16 (BatchNorm's stay fp32)."""
+    import mxnet_tpu_torch as mx
+    os.environ["MXNET_TPU_FUSED_CONVBN"] = "1"
+    with mx.name.NameManager():
+        net = mx.gluon.model_zoo.vision.resnet50_v1(classes=1000,
+                                                    layout="NHWC")
+    net.initialize(mx.init.Xavier(), ctx=mx.cpu())
+    with mx.autograd.predict_mode():
+        net(mx.nd.zeros((1, 32, 32, 3), ctx=mx.cpu()))
+    net.cast("bfloat16")
+    return [(p.shape, p.data().data_torch.dtype)
+            for p in net.collect_params().values() if p.grad_req != "null"]
+
+
+def opt_tensors(kind, n, dtype, gen):
+    """w, g N(0, 1); momentum or mean N(0, 0.1^2); var from squares."""
+    def rnd(scale=1.0):
+        return (torch.randn(n, generator=gen, device="cuda") * scale).to(
+            dtype)
+    t = {"w": rnd(), "g": rnd()}
+    if kind == "sgd":
+        t["mom"] = rnd(0.1)
+    else:
+        t["mean"] = rnd(0.1)
+        t["var"] = (0.1 * rnd().float() ** 2).to(dtype)
+    return t
+
+
+def optimizer_times(root):
+    """#7/#8: one ResNet-50 step's tensors in one multi-tensor call (where
+    the tree has one) and one launch per tensor, and one 25.6M launch."""
+    import mxnet_tpu_torch.ops.fused_optimizer as fo
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    shapes = resnet50_shapes()
+
+    def one(kind, t):
+        if kind == "sgd":
+            fo.flat_sgd(t["w"], t["g"], t["mom"], None, 0.05, 1e-4, 0.9,
+                        1.0 / 256, 0.0, True, False, False)
+        else:
+            fo.flat_adam(t["w"], t["g"], t["mean"], t["var"], None, 1e-3,
+                         1e-4, 0.9, 0.1, 0.999, 1.0 - 0.999, 1e-8,
+                         1.0 / 256, 0.0, False, False)
+
+    def multi(kind, ts):
+        ws, gs = [t["w"] for t in ts], [t["g"] for t in ts]
+        lrs, wds = [0.05] * len(ts), [1e-4] * len(ts)
+        if kind == "sgd":
+            fo.multi_sgd(ws, gs, [t["mom"] for t in ts], None, lrs, wds,
+                         0.9, 1.0 / 256, 0.0, True, False, False)
+        else:
+            fo.multi_adam(ws, gs, [t["mean"] for t in ts],
+                          [t["var"] for t in ts], None, lrs, wds, 0.9, 0.1,
+                          0.999, 1.0 - 0.999, 1e-8, 1.0 / 256, 0.0, False,
+                          False)
+
+    for kind in ("sgd", "adam"):
+        name = "flat_" + kind
+        ts = [opt_tensors(kind, int(np.prod(s)), dt, gen)
+              for s, dt in shapes]
+        routes = {"per_tensor": lambda: [one(kind, t) for t in ts]}
+        if hasattr(fo, "multi_" + kind):
+            routes["multi"] = lambda: multi(kind, ts)
+        for route, fn in routes.items():
+            ms, seen = device_ms(fn, calls=10)
+            print(json.dumps({"kernel": name, "shape": "resnet50_step_193",
+                              "route": route, "root": root,
+                              "ms": event_ms(fn, iters=20),
+                              "device_ms": ms, "launches_seen": seen}),
+                  flush=True)
+        del ts
+        for dt in (torch.bfloat16, torch.float32):
+            t = opt_tensors(kind, 25_600_000, dt, gen)
+            fn = lambda: one(kind, t)
+            ms, seen = device_ms(fn)
+            print(json.dumps({"kernel": name, "shape": "25.6M",
+                              "dtype": str(dt)[6:], "root": root,
+                              "ms": event_ms(fn, iters=50), "device_ms": ms,
+                              "launches_seen": seen}), flush=True)
+            del t
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
@@ -158,6 +249,7 @@ def main():
                           "root": args.root, "ms": event_ms(fn, iters=50),
                           "device_ms": ms, "launches_seen": seen}),
               flush=True)
+    optimizer_times(args.root)
     fills(args.root)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
