@@ -146,7 +146,32 @@ Phases (one JSON line each; any failure exits non-zero):
                  against the CPU, a profile of 2 steps, and one forward at
                  batch 16384.
 
-Six main paths, each with its own expected kernels, counts set to 0 just
+23. optimizers — the reference's 16 fusable (optimizer, args) pairs
+                 (tests/test_fused_step.py) on its MLP at fp32, 4 steps of
+                 Trainer.step and of FusedTrainStep from one state, within
+                 rtol 2e-5 / atol 2e-6, each pair's kernel launches as
+                 expected (#7 for SGD and LARS, #8 for Adam, #9/#10 for
+                 LAMB, none for the plain ops); SGLD through Trainer.step,
+                 its noise N(0, lr) over 1e5 elements; the four multi-SGD
+                 registry ops over 8 mixed, ragged bf16/fp32 tensors (one
+                 flat_sgd launch of variant multi a call, 0 ulps from the
+                 plain version) and the mp LAMB phases (one flat_lamb1 and
+                 one flat_lamb2 launch, 0 ulps).
+24. bert_gluon_train — bench.py::bench_bert_gluon: bert_12_768_12 (bf16,
+                 dropout 0, hybridized), Trainer("adamw", lr 1e-4, wd 0.01)
+                 + FusedTrainStep, SoftmaxCrossEntropyLoss on out[3], one
+                 seeded 128 x 128 batch: 3 warm-up and 10 timed steps (the
+                 bench runs 10 + 50; cut for the smoke run's time),
+                 tokens/s, the median step, peak memory, one profiled step
+                 (device time, idle share, top kernels, the AdamW update's
+                 `fused_step.update` range), the card's name and power
+                 limit; then the bench's narrow CPU configuration at fp32:
+                 FusedTrainStep against Trainer.step on the card (3 steps,
+                 rtol 2e-5 / atol 2e-6), step 1's gradients against the CPU
+                 (the card's one-ulp spread) and the parameters after 3
+                 fused steps against the CPU (1e-4 per leaf).
+
+Seven main paths, each with its own expected kernels, counts set to 0 just
 before and read just after: serving (phases 3-5: flash_fwd), training
 (phase 7's 6 steps: flash_fwd, flash_bwd_dq, flash_bwd_dkv), ResNet-50
 inference (phase 11's forward: conv_bn_relu, 16 launches, all on the
@@ -159,7 +184,10 @@ pretraining (phase
 18's 6 steps: one flat_lamb1 and one flat_lamb2 per ZeRO bucket a step;
 its functional step: 12 launches of each flash kernel) and sparse
 embeddings (phase 21's 20 pushes: 2 segment_sum a push; phase 22's 10
-steps: 2 segment_sum per table a step; all on the fused route). Then the
+steps: 2 segment_sum per table a step; all on the fused route) and
+BERT-base through Gluon with AdamW (phase 24's 13 steps: no kernel, as
+the reference runs no Pallas kernel there; its update is the plain
+adamw_update per parameter). Then the
 card's
 name and power limit, the `kernels` line, and as the last line {"ok":
 true, "device": {...}}. Exits non-zero without a CUDA card.
@@ -3127,6 +3155,459 @@ def phase_bert_train_throughput(net, trainer, batch):
 
 
 # ---------------------------------------------------------------------------
+# the optimizer family (card phase `optimizers`) and main path 7: BERT-base
+# through Gluon with AdamW and FusedTrainStep
+# ---------------------------------------------------------------------------
+FUSED_RTOL, FUSED_ATOL = 2e-5, 2e-6     # FusedTrainStep against Trainer.step
+                                        # at fp32: the reference's own bar
+                                        # (tests/test_fused_step.py)
+OPT_PAIRS = [                           # tests/test_fused_step.py:33-49
+    ("sgd", {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}),
+    ("adam", {"learning_rate": 0.01}),
+    ("nag", {"learning_rate": 0.1, "momentum": 0.9}),
+    ("signum", {"learning_rate": 0.01, "momentum": 0.9, "wd_lh": 1e-4}),
+    ("signsgd", {"learning_rate": 0.005}),
+    ("ftml", {"learning_rate": 0.01}),
+    ("adagrad", {"learning_rate": 0.05}),
+    ("adadelta", {"rho": 0.9, "epsilon": 1e-5}),
+    ("adamax", {"learning_rate": 0.002}),
+    ("nadam", {"learning_rate": 0.005}),
+    ("rmsprop", {"learning_rate": 0.005}),
+    ("rmsprop", {"learning_rate": 0.005, "centered": True, "gamma2": 0.85}),
+    ("ftrl", {"learning_rate": 0.05, "lamda1": 0.001}),
+    ("lamb", {"learning_rate": 0.01}),
+    ("lars", {"learning_rate": 0.05, "momentum": 0.9, "eta": 0.001}),
+    ("dcasgd", {"learning_rate": 0.05, "momentum": 0.9}),
+]
+OPT_STEPS, OPT_PARAMS = 4, 4            # steps; the MLP's trainable tensors
+# kernel launches of both routes over OPT_STEPS steps: SGD and Adam one
+# multi-tensor launch a step each route (Trainer's aggregated route and
+# FusedTrainStep); LAMB #9 and #10 once per tensor a step each route; LARS
+# #7 once per tensor a step each route (sgd_mom_update); the rest none
+OPT_LAUNCHES = {"sgd": {"flat_sgd": 2 * OPT_STEPS},
+                "adam": {"flat_adam": 2 * OPT_STEPS},
+                "lamb": {"flat_lamb1": 2 * OPT_STEPS * OPT_PARAMS,
+                         "flat_lamb2": 2 * OPT_STEPS * OPT_PARAMS},
+                "lars": {"flat_sgd": 2 * OPT_STEPS * OPT_PARAMS}}
+SGLD_NOISE_N = 100_000
+MULTI_SGD_OPS = {"multi_sgd_update": ("w", "g"),
+                 "multi_sgd_mom_update": ("w", "g", "mom"),
+                 "multi_mp_sgd_update": ("w", "g", "w32"),
+                 "multi_mp_sgd_mom_update": ("w", "g", "mom", "w32")}
+MULTI_SIZES = [1, 7, 300, 4097, 64, 2048, 33, 8192]
+GLUON_BERT_WARMUP, GLUON_BERT_STEPS = 3, 10   # bench.py runs 10 + 50
+ADAMW_ARGS = {"learning_rate": 1e-4, "wd": 0.01}
+NARROW_BERT = dict(vocab_size=256, units=64, hidden_size=128, num_layers=2,
+                   num_heads=4, max_length=32, dropout=0.0)
+NARROW_BATCH, NARROW_SEQ, NARROW_STEPS = 4, 32, 3   # bench.py:280-284
+NARROW_PARAM_REL = 1e-4         # per-leaf ||card - cpu|| / ||cpu|| after 3
+                                # fp32 AdamW steps
+
+
+def opt_mlp(mx, ctx):
+    """The reference test's MLP: Dense(32, relu), Dense(8), Xavier
+    (gaussian) weights from the current seed."""
+    nn = mx.gluon.nn
+    net = nn.HybridSequential()
+    with net.name_scope():
+        net.add(nn.Dense(32, activation="relu"))
+        net.add(nn.Dense(8))
+    net.initialize(mx.init.Xavier(rnd_type="gaussian"), ctx=ctx)
+    return net
+
+
+def route_excess(a, b, rtol, atol):
+    """(max over tensors of max(|a - b| - atol - rtol |b|), max |a - b|)
+    between two {name: tensor} snapshots of one net's parameters."""
+    excess = max(((a[k] - v).abs() - atol - rtol * v.abs()).max().item()
+                 for k, v in b.items())
+    diff = max((a[k] - v).abs().max().item() for k, v in b.items())
+    return excess, diff
+
+
+def mixed_sgd_list(keys, seed):
+    """MULTI_SIZES tensors, bf16 and fp32 (every third fp32), on the card:
+    the interleaved argument list of a multi-SGD op (fp32 masters)."""
+    rng = np.random.RandomState(seed)
+    args = []
+    for j, n in enumerate(MULTI_SIZES):
+        dt = torch.float32 if j % 3 == 2 else torch.bfloat16
+        w32 = torch.from_numpy(rng.randn(n).astype(np.float32)).cuda()
+        t = {"w": w32.to(dt), "w32": w32,
+             "g": torch.from_numpy(rng.randn(n).astype(np.float32)).cuda()
+             .to(dt),
+             "mom": torch.from_numpy((rng.randn(n) * 0.1).astype(np.float32))
+             .cuda().to(dt)}
+        args += [t[k] for k in keys]
+    return args
+
+
+def phase_optimizers():
+    """The reference's 16 fusable (optimizer, args) pairs on the card: its
+    MLP at fp32, OPT_STEPS steps of Trainer.step and of FusedTrainStep from
+    one state, within rtol 2e-5 / atol 2e-6, each pair's kernel launches
+    as expected; SGLD through Trainer.step alone, and its noise's mean
+    and deviation; then the four multi-SGD registry ops over 8 mixed,
+    ragged tensors (one flat_sgd launch of variant multi a call, 0 ulps
+    from the plain version on the card) and the mp LAMB phases (one
+    flat_lamb1 / flat_lamb2 launch each, 0 ulps)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import (launch_counts, registry,
+                                     reset_launch_counts, variant_counts)
+    gpu = mx.gpu(0)
+    rng = np.random.RandomState(0)
+    x = mx.nd.array(rng.randn(16, 12).astype(np.float32), ctx=gpu)
+    y = mx.nd.array(rng.randint(0, 8, (16,)).astype(np.float32), ctx=gpu)
+    sce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    routes = {}
+    for name, args in OPT_PAIRS:
+        label = name + ("_centered" if args.get("centered") else "")
+        mx.random.seed(7)
+        a, b = opt_mlp(mx, gpu), opt_mlp(mx, gpu)
+        a(x)
+        b(x)
+        for (_, pa), (_, pb) in zip(sorted(a.collect_params().items()),
+                                    sorted(b.collect_params().items())):
+            pb.set_data(pa.data().copy())
+        ta = mx.gluon.Trainer(a.collect_params(), name, dict(args))
+        tb = mx.gluon.Trainer(b.collect_params(), name, dict(args))
+        fused = mx.gluon.FusedTrainStep(b, sce, tb)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        losses = []
+        for _ in range(OPT_STEPS):
+            la = imperative_step(mx, a, sce, ta, x, y)
+            lb = fused(x, y)
+            losses.append((la.asnumpy().astype(np.float64).mean().item(),
+                           float(lb.asnumpy())))
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in launch_counts().items() if v}
+        excess, diff = route_excess(snapshot(b), snapshot(a), FUSED_RTOL,
+                                    FUSED_ATOL)
+        routes[label] = {"max_abs_diff": diff, "excess": excess,
+                         "losses": losses, "launches": launches}
+        check(np.isfinite(losses).all() and excess <= 0, "optimizers",
+              "%s: FusedTrainStep and Trainer.step differ beyond rtol %g / "
+              "atol %g: %s" % (label, FUSED_RTOL, FUSED_ATOL, routes[label]))
+        check(launches == OPT_LAUNCHES.get(name, {}), "optimizers",
+              "%s: launches %s, expected %s" % (
+                  label, launches, OPT_LAUNCHES.get(name, {})))
+
+    # SGLD: the imperative route alone (no fused route takes it)
+    mx.random.seed(7)
+    net = opt_mlp(mx, gpu)
+    net(x)
+    tr = mx.gluon.Trainer(net.collect_params(), "sgld",
+                          {"learning_rate": 0.01})
+    before = snapshot(net)
+    sgld_losses = [imperative_step(mx, net, sce, tr, x, y).asnumpy()
+                   .astype(np.float64).mean().item() for _ in range(4)]
+    after = snapshot(net)
+    moved = all(not torch.equal(after[k], v) for k, v in before.items())
+    lr = 0.01
+    mx.random.seed(3)
+    w = mx.nd.zeros((SGLD_NOISE_N,), ctx=gpu)
+    mx.optimizer.get_updater(mx.optimizer.create("sgld", learning_rate=lr))(
+        0, mx.nd.zeros((SGLD_NOISE_N,), ctx=gpu), w)
+    noise = w.data_torch.double()
+    sgld = {"losses": sgld_losses, "every_tensor_moved": moved,
+            "noise_mean": noise.mean().item(),
+            "noise_std_over_sqrt_lr": noise.std().item() / math.sqrt(lr)}
+    check(np.isfinite(sgld_losses).all() and moved
+          and abs(sgld["noise_mean"]) <= 5 * math.sqrt(lr / SGLD_NOISE_N)
+          and abs(sgld["noise_std_over_sqrt_lr"] - 1.0) <= 0.01,
+          "optimizers", "SGLD on the card: %s" % sgld)
+
+    # the multi-SGD registry ops: one launch a call, 0 ulps from the plain
+    multi = {}
+    for name, keys in MULTI_SGD_OPS.items():
+        for seed, clip in ((0, -1.0), (1, 0.3)):
+            args = mixed_sgd_list(keys, seed)
+            kw = dict(lrs=[0.01 * (j + 1) for j in range(len(MULTI_SIZES))],
+                      wds=[1e-4] * len(MULTI_SIZES), rescale_grad=0.5,
+                      clip_gradient=clip)
+            if "mom" in keys:
+                kw["momentum"] = 0.9
+            want = registry.get(name).fn(*[t.clone() for t in args], **kw)
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            got = registry.get(name).best_fn(True)(*args, **kw)
+            torch.cuda.synchronize()
+            variants = variant_counts()
+            ulps = max(ulps_apart(g, w).max().item()
+                       for g, w in zip(got, want))
+            multi["%s_clip%s" % (name, clip)] = {
+                "ulps": ulps, "variants": {"/".join(k): v
+                                           for k, v in variants.items()}}
+            check(variants == {("flat_sgd", "multi"): 1} and ulps == 0
+                  and all(g.dtype == w.dtype for g, w in zip(got, want)),
+                  "optimizers", "%s: launches %s, %d ulps from the plain "
+                  "version" % (name, variants, ulps))
+
+    # the mp LAMB phases: one launch each, 0 ulps
+    r = np.random.RandomState(3)
+    n = 4097
+    w32 = torch.from_numpy(r.randn(n).astype(np.float32)).cuda()
+    wb = w32.bfloat16()
+    g = torch.from_numpy(r.randn(n).astype(np.float32)).cuda()
+    mean = torch.from_numpy((r.randn(n) * 0.1).astype(np.float32)).cuda()
+    var = (g * g * 0.1).contiguous()
+    kw = dict(beta1=0.9, beta2=0.999, epsilon=1e-6, t=3, wd=0.01,
+              rescale_grad=0.5, clip_gradient=1.0)
+    op1 = registry.get("mp_lamb_update_phase1")
+    want1 = op1.fn(wb, g, mean.clone(), var.clone(), w32.clone(), **kw)
+    reset_launch_counts()
+    got1 = op1.best_fn(True)(wb, g, mean, var, w32, **kw)
+    torch.cuda.synchronize()
+    l1 = launch_counts()["flat_lamb1"]
+    op2 = registry.get("mp_lamb_update_phase2")
+    r1, r2 = w32.norm(), got1[0].norm()
+    want2 = op2.fn(wb.clone(), got1[0], r1, r2, w32.clone(), lr=1e-3,
+                   lower_bound=0.1, upper_bound=10.0)
+    reset_launch_counts()
+    got2 = op2.best_fn(True)(wb, got1[0], r1, r2, w32, lr=1e-3,
+                             lower_bound=0.1, upper_bound=10.0)
+    torch.cuda.synchronize()
+    l2 = launch_counts()["flat_lamb2"]
+    lamb_ulps = max(ulps_apart(a, b).max().item()
+                    for a, b in zip(got1 + got2, want1 + want2))
+    emit({"phase": "optimizers", "steps": OPT_STEPS, "routes": routes,
+          "sgld": sgld, "multi_sgd_ops": multi,
+          "mp_lamb": {"flat_lamb1": l1, "flat_lamb2": l2,
+                      "ulps": lamb_ulps}})
+    check(l1 == 1 and l2 == 1 and lamb_ulps == 0, "optimizers",
+          "mp LAMB phases: %d / %d launches, %d ulps" % (l1, l2, lamb_ulps))
+
+
+def card_name_and_limit():
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()
+    return smi[0] if smi else "nvidia-smi: no output"
+
+
+def adamw_step(mx, net):
+    """Trainer("adamw", lr 1e-4, wd 0.01) and FusedTrainStep with the MLM
+    loss on out[3], as bench.py::bench_bert_gluon builds them."""
+    sce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    trainer = mx.gluon.Trainer(net.collect_params(), "adamw",
+                               dict(ADAMW_ARGS))
+    return mx.gluon.FusedTrainStep(net, lambda out, label: sce(out[3], label),
+                                   trainer)
+
+
+def narrow_bert(mx, ctx, path):
+    """bench_bert_gluon's CPU configuration at fp32, from `path`."""
+    from mxnet_tpu_torch.gluon.model_zoo import bert
+    net = bert.BERTModel(**NARROW_BERT)
+    net.load_parameters(path, ctx=ctx)
+    net.hybridize(static_alloc=True)
+    return net
+
+
+def narrow_batch(mx, ctx, seed):
+    rng = np.random.RandomState(seed)
+    shape = (NARROW_BATCH, NARROW_SEQ)
+    x = rng.randint(0, NARROW_BERT["vocab_size"], shape).astype(np.float32)
+    y = rng.randint(0, NARROW_BERT["vocab_size"], shape).astype(np.float32)
+    return mx.nd.array(x, ctx=ctx), mx.nd.array(y, ctx=ctx)
+
+
+def narrow_checks(mx, tmp):
+    """bench_bert_gluon's narrow configuration at fp32: FusedTrainStep
+    against record/backward/Trainer.step on the card (3 steps, rtol 2e-5 /
+    atol 2e-6), step 1's gradients card against CPU (the card's one-ulp
+    spread, as bert_train holds them) and the parameters after 3 fused
+    steps, card against CPU, within 1e-4 per leaf."""
+    from mxnet_tpu_torch.gluon.model_zoo import bert
+    gpu = mx.gpu(0)
+    mx.random.seed(0)
+    init = bert.BERTModel(**NARROW_BERT)
+    init.initialize(mx.init.Normal(0.02), ctx=mx.cpu())
+    with mx.autograd.predict_mode():
+        init(mx.nd.zeros((1, 8), ctx=mx.cpu()))
+    path = os.path.join(tmp, "narrow_bert.params")
+    init.save_parameters(path)
+    sce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    xc, yc = narrow_batch(mx, mx.cpu(), 1)
+    xg, yg = xc.as_in_context(gpu), yc.as_in_context(gpu)
+
+    # the two routes on the card
+    fnet, inet = narrow_bert(mx, gpu, path), narrow_bert(mx, gpu, path)
+    fstep = adamw_step(mx, fnet)
+    itr = mx.gluon.Trainer(inet.collect_params(), "adamw", dict(ADAMW_ARGS))
+    losses = []
+    for _ in range(NARROW_STEPS):
+        lf = float(fstep(xg, yg).asnumpy())
+        with mx.autograd.record():
+            li = sce(inet(xg)[3], yg)
+        li.backward()
+        itr.step(NARROW_BATCH)
+        losses.append((lf, li.asnumpy().astype(np.float64).mean().item()))
+    card = snapshot(fnet)
+    excess, diff = route_excess(card, snapshot(inet), FUSED_RTOL, FUSED_ATOL)
+    del inet, itr
+
+    # the same fused steps on the CPU
+    cnet = narrow_bert(mx, mx.cpu(), path)
+    cstep = adamw_step(mx, cnet)
+    cpu_losses = [float(cstep(xc, yc).asnumpy())
+                  for _ in range(NARROW_STEPS)]
+    host = snapshot(cnet)
+    leaf = {k: (card[k].cpu() - v).norm().item()
+            / max(v.norm().item(), 1e-30) for k, v in host.items()}
+
+    # step 1's gradients, card against CPU, and the card's own spread
+    # under a one-ulp change of every weight
+    g_card = bert_grads(mx, narrow_bert(mx, gpu, path), sce, xg, yg)
+    nudged_net = narrow_bert(mx, gpu, path)
+    with torch.no_grad():
+        for p in nudged_net.collect_params().values():
+            d = p.data().data_torch
+            d.copy_(torch.nextafter(d, torch.tensor(float("inf"),
+                                                    device=d.device)))
+    g_nudged = bert_grads(mx, nudged_net, sce, xg, yg)
+    g_host = bert_grads(mx, narrow_bert(mx, mx.cpu(), path), sce, xc, yc)
+
+    def stats(a, b):
+        errs = {k: rel_err(v, b[k]) for k, v in a.items() if b[k].norm() > 0}
+        return {"median": statistics.median(errs.values()),
+                "max": max(errs.values()),
+                "worst_leaves": dict(sorted(errs.items(),
+                                            key=lambda kv: -kv[1])[:4])}
+
+    vs_cpu, spread = stats(g_card, g_host), stats(g_card, g_nudged)
+    rec = {"config": "BERTModel units 64, hidden 128, 2 layers, 4 heads, "
+           "vocab 256, fp32", "batch": NARROW_BATCH, "seq": NARROW_SEQ,
+           "steps": NARROW_STEPS,
+           "fused_vs_imperative": {"losses": losses, "max_abs_diff": diff,
+                                   "excess": excess},
+           "card_vs_cpu": {"cpu_losses": cpu_losses,
+                           "params_rel_max": max(leaf.values()),
+                           "params_worst_leaves": dict(sorted(
+                               leaf.items(), key=lambda kv: -kv[1])[:4]),
+                           "grads": vs_cpu, "one_ulp_weights": spread,
+                           "median_limit": max(GRAD_FP32_REL,
+                                               2.0 * spread["median"]),
+                           "max_limit": max(GRAD_FP32_REL,
+                                            2.0 * spread["max"])}}
+    return rec
+
+
+def phase_bert_gluon_train(tmp):
+    """Main path 7: bench.py::bench_bert_gluon on the card.
+    bert_12_768_12 (bf16, dropout 0, hybridized), Trainer("adamw", lr 1e-4,
+    wd 0.01) and FusedTrainStep with SoftmaxCrossEntropyLoss on out[3], one
+    seeded batch of 128 x 128: GLUON_BERT_WARMUP warm-up and
+    GLUON_BERT_STEPS timed steps (the bench runs 10 + 50; cut for the smoke
+    run's time), counts reset just before and read just after; then one
+    profiled step (device time, idle share, top kernels, the AdamW
+    update's `fused_step.update` range) and the narrow configuration's
+    checks at fp32. Returns {kernel: launches on the path}."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import launch_counts, reset_launch_counts
+    from torch.profiler import ProfilerActivity, profile
+    gpu = mx.gpu(0)
+    net = bert_net(gpu)
+    dtypes = {k: t.dtype for k, t in snapshot(net).items()}
+    sce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    step = adamw_step(mx, net)
+    x, y = bert_batch(BERT_BATCH, gpu, seed=1)
+    eval_before = bert_eval_loss(mx, net, sce, x, y)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    out = [step(x, y) for _ in range(GLUON_BERT_WARMUP)]
+    torch.cuda.synchronize()
+    times = []
+    t0 = time.perf_counter()
+    for _ in range(GLUON_BERT_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out.append(step(x, y))
+        end.record()
+        times.append((start, end))
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = [s.elapsed_time(e) for s, e in times]
+    losses = [float(v.asnumpy()) for v in out]
+    eval_after = bert_eval_loss(mx, net, sce, x, y)
+    after = snapshot(net)
+    kept = all(after[k].dtype == dt for k, dt in dtypes.items())
+    del after
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        step(x, y)
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - t1) * 1e3
+    top, update = {}, {}
+    for ev in prof.key_averages():
+        if ev.key == "fused_step.update":
+            if ev.device_type == torch.autograd.DeviceType.CPU:
+                us = getattr(ev, "device_time_total", None)
+                update = {"kernels_device_ms": (ev.cuda_time_total
+                                                if us is None else us) / 1e3,
+                          "host_ms": ev.cpu_time_total / 1e3,
+                          "calls": ev.count}
+            continue
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = ev.self_cuda_time_total
+        top[ev.key[:120]] = top.get(ev.key[:120], 0.0) + us / 1e3
+    device_ms = sum(top.values())
+    med = statistics.median(step_ms)
+    narrow = narrow_checks(mx, tmp)
+    emit({"phase": "bert_gluon_train",
+          "config": "bench.py::bench_bert_gluon: bert_12_768_12 bf16, "
+          "dropout 0, hybridize(static_alloc), Trainer(adamw lr 1e-4 wd "
+          "0.01) + FusedTrainStep, SoftmaxCrossEntropyLoss on out[3]",
+          "batch": BERT_BATCH, "seq": BERT_SEQ,
+          "steps": "%d warm-up + %d timed (bench.py: 10 + 50; cut for the "
+          "smoke run's time)" % (GLUON_BERT_WARMUP, GLUON_BERT_STEPS),
+          "card": card_name_and_limit(),
+          "losses": losses, "fp32_eval_loss_before": eval_before,
+          "fp32_eval_loss_after": eval_after, "dtypes_kept": kept,
+          "tokens_per_s": BERT_BATCH * BERT_SEQ * GLUON_BERT_STEPS / wall_s,
+          "step_ms_median": med, "step_ms": step_ms,
+          "tokens_per_s_at_median_step": BERT_BATCH * BERT_SEQ / med * 1e3,
+          "max_memory_allocated_bytes": peak,
+          "launches": {k: v for k, v in launches.items()},
+          "profile_wall_ms": prof_wall_ms, "profile_device_ms": device_ms,
+          "idle_share": 1.0 - device_ms / prof_wall_ms,
+          "adamw_update": update,
+          "top_kernels_ms": dict(sorted(top.items(),
+                                        key=lambda kv: -kv[1])[:12]),
+          "narrow_fp32": narrow})
+    check(all(np.isfinite(losses)) and eval_after < eval_before,
+          "bert_gluon_train", "loss not finite or not falling: steps %s, "
+          "fp32 loss before %r after %r" % (losses, eval_before, eval_after))
+    check(kept, "bert_gluon_train", "a parameter changed its dtype")
+    check(device_ms > 0 and update.get("calls") == 1, "bert_gluon_train",
+          "the profiler saw no device time or no fused_step.update range")
+    fi, cc = narrow["fused_vs_imperative"], narrow["card_vs_cpu"]
+    check(fi["excess"] <= 0 and np.isfinite(fi["losses"]).all(),
+          "bert_gluon_train", "narrow: FusedTrainStep and Trainer.step "
+          "differ beyond rtol %g / atol %g (max abs %g)"
+          % (FUSED_RTOL, FUSED_ATOL, fi["max_abs_diff"]))
+    check(cc["grads"]["median"] <= cc["median_limit"]
+          and cc["grads"]["max"] <= cc["max_limit"], "bert_gluon_train",
+          "narrow: step 1's gradients vs the CPU: %s" % cc["grads"])
+    check(cc["params_rel_max"] <= NARROW_PARAM_REL, "bert_gluon_train",
+          "narrow: parameters after %d steps vs the CPU: %s"
+          % (NARROW_STEPS, cc["params_worst_leaves"]))
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # main path 6: sparse embeddings (kernel #11)
 # ---------------------------------------------------------------------------
 SPARSE_KERNELS = ("segment_sum",)
@@ -3719,12 +4200,18 @@ def main():
     check_path(sparse_launches, SPARSE_KERNELS, "main_path_sparse_embed")
     dlrm_launches = phase_dlrm_train(gen)
     check_path(dlrm_launches, SPARSE_KERNELS, "main_path_dlrm_train")
+    torch.cuda.empty_cache()
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip().splitlines()
-    print(smi[0] if smi else "nvidia-smi: no output", flush=True)
+    # the optimizer family on the card; main path 7: BERT-base through
+    # Gluon with AdamW and FusedTrainStep (counts reset inside, read right
+    # after the timed steps)
+    phase_optimizers()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_gluon_bert_") as tmp:
+        gluon_bert_launches = phase_bert_gluon_train(tmp)
+    check_path(gluon_bert_launches, (), "main_path_bert_gluon")
+
+    print(card_name_and_limit(), flush=True)
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         rec = entries[name]
@@ -3732,7 +4219,7 @@ def main():
         launches = serve_launches[name] + train_launches[name] \
             + resnet_launches[name] + train4_launches[name] \
             + bert_launches[name] + sparse_launches[name] \
-            + dlrm_launches[name]
+            + dlrm_launches[name] + gluon_bert_launches[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": "mxnet_tpu_torch/" + source, "replaces": replaces,

@@ -13,9 +13,10 @@ forward and backward kernels (`parallel.flash_attention`); the Gluon core
 (`nd`, `gluon`, `init`, `random`, `autograd`, `cpu`/`gpu` contexts) with
 the vision model zoo's ResNets and the fused conv3x3 + BN + ReLU kernels
 (`ops.fused_conv`, inference and training); and Gluon training: the
-autograd tape, losses, `optimizer` (SGD, Adam, with the flat update
-kernels of `ops.fused_optimizer`), `lr_scheduler`, `gluon.Trainer` and
-`gluon.FusedTrainStep`; BERT-base pretraining with LAMB on the ZeRO
+autograd tape, losses, `optimizer` (the reference's 19 optimizers; SGD
+and Adam on the flat update kernels of `ops.fused_optimizer`),
+`lr_scheduler`, `gluon.Trainer` and `gluon.FusedTrainStep` (16 fusable
+optimizers); BERT-base pretraining with LAMB on the ZeRO
 updater (`optimizer.zero`, `kvstore`); and sparse embeddings: row-sparse
 and CSR arrays (`nd.sparse`), vocab-sharded tables (`embedding`), the
 kvstore's row_sparse push and pull, and the DLRM model (`models.dlrm`),

@@ -8,26 +8,37 @@
 A call runs the forward and the loss under `autograd.record()`, takes the
 gradients of the loss *sum* over the batch (the reference's cotangent of
 ones) with respect to the trainable parameters, updates every parameter
-in one `multi_sgd` / `multi_adam` call with ``rescale_grad = scale /
-batch_size`` and the optimizer's own lr/wd bookkeeping (the reference's
-host functions, `_sgd_host` and `_bias_corrected_host`), and then writes
-the auxiliary updates (BatchNorm's running statistics) that the forward
-collected, once each, outside the graph. On a card the update is one
-launch of the flat SGD or Adam kernel over all the parameters, and each
-fused conv block's forward and backward launch theirs. Adam's 1 - beta
-is computed in double here, as the reference's step (which calls the
-per-parameter op's function) computes it; `Trainer.step` takes the
-reference's aggregated route, which computes it in fp32.
+with ``rescale_grad = scale / batch_size`` and the optimizer's own lr/wd
+bookkeeping (the reference's host functions: `_sgd_host`,
+`_bias_corrected_host`, `_adamax_host`, `_t_host`, `_nadam_host`,
+`_lars_host`), and then writes the auxiliary updates (BatchNorm's running
+statistics) that the forward collected, once each, outside the graph.
+
+The update takes the reference's 16 fusable optimizers (`_FUSABLE`). SGD
+and Adam update every parameter in one `multi_sgd` / `multi_adam` call:
+on a card one launch of the flat SGD or Adam kernel over all the
+parameters (Adam's 1 - beta in double, as the reference's step computes
+it; `Trainer.step` takes the reference's aggregated route, which computes
+it in fp32). The others loop over the parameters with the op that the
+imperative `Trainer.step` calls (`apply_op`: the op's kernel on a card
+where it has one, as LAMB's #9/#10 and LARS's #7, else its torch
+version), so the
+two routes compute the same thing. As in the reference, the per-step
+scalars are float32 here (lr, wd, the update count, Nadam's m_schedule)
+where the imperative route keeps them in double; FTML's and Nadam's
+schedules differ between the routes by about 1e-7 relative. LARS computes
+its rates on the device. SGLD is refused (its noise stream), as is
+`multi_precision`.
 
 Semantics match `loss.backward(); trainer.step(batch_size)`, so the two
 routes leave the same parameters and running statistics. The optimizer
 state is the step's own (created by the optimizer, as the reference's
-is). Only "sgd" and "adam" are fused (`_FUSABLE`); `multi_precision` is
-refused as in the reference.
+is).
 
 Deviation: the step runs eagerly, one kernel at a time. Capturing it as
 one CUDA graph is later work; every kernel already launches on the current
-stream and allocates through `torch.empty`, as capture needs. `mesh`,
+stream and allocates through `torch.empty`, as capture needs. The update
+runs inside a ``fused_step.update`` profiler range. `mesh`,
 `bucket_mb`, the integrity sentinel and the compile cache of the reference
 are not ported.
 """
@@ -35,20 +46,28 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
+from torch.profiler import record_function
 
 from .. import autograd
 from ..ndarray import NDArray
 from ..ops.fused_optimizer import multi_adam, multi_sgd
+from ..optimizer.optimizer import _clip as _off
+from ..optimizer.optimizer import apply_op
+from ..optimizer.optimizer import dcasgd_update
 from .block import _AUX_COLLECTOR
 
 __all__ = ["FusedTrainStep"]
 
 
 def _count_and_lrs(opt, indices):
+    """Advance each index's update count; its lr and wd as float32 arrays
+    (the reference ships every per-step scalar as float32)."""
     for i in indices:
         opt._update_count(i)
-    return opt._get_lrs(indices), opt._get_wds(indices)
+    return (np.asarray(opt._get_lrs(indices), np.float32),
+            np.asarray(opt._get_wds(indices), np.float32))
 
 
 def _sgd_host(opt, indices):
@@ -57,13 +76,57 @@ def _sgd_host(opt, indices):
 
 
 def _bias_corrected_host(opt, indices):
-    """Adam: fold sqrt(1 - beta2^t) / (1 - beta1^t) into each lr, in Python
-    double, exactly as `Adam.update` does."""
+    """Adam and AdamW: fold sqrt(1 - beta2^t) / (1 - beta1^t) into each
+    lr, as `Adam.update` does (the correction in double, the lr float32)."""
     lrs, wds = _count_and_lrs(opt, indices)
     for j, i in enumerate(indices):
         t = opt._index_update_count[i]
         lrs[j] *= math.sqrt(1.0 - opt.beta2 ** t) / (1.0 - opt.beta1 ** t)
     return {"lrs": lrs, "wds": wds}
+
+
+def _adamax_host(opt, indices):
+    """Adamax folds only the first moment's correction (`Adamax.update`)."""
+    lrs, wds = _count_and_lrs(opt, indices)
+    for j, i in enumerate(indices):
+        t = opt._index_update_count[i]
+        lrs[j] /= (1.0 - opt.beta1 ** t)
+    return {"lrs": lrs, "wds": wds}
+
+
+def _t_host(opt, indices):
+    """FTML and LAMB: the update count t enters the op, as float32."""
+    lrs, wds = _count_and_lrs(opt, indices)
+    ts = np.asarray([opt._index_update_count[i] for i in indices],
+                    np.float32)
+    return {"lrs": lrs, "wds": wds, "ts": ts}
+
+
+def _nadam_host(opt, indices):
+    """Nadam: t and the running m_schedule product, advanced per index in
+    update order, exactly as `Nadam.update` keeps them."""
+    lrs, wds = _count_and_lrs(opt, indices)
+    ts, mscheds = [], []
+    for i in indices:
+        t = opt._index_update_count[i]
+        ts.append(t)
+        mscheds.append(opt.m_schedule)
+        momentum_t = opt.beta1 * (
+            1.0 - 0.5 * 0.96 ** (t * opt.schedule_decay))
+        opt.m_schedule = opt.m_schedule * momentum_t
+    return {"lrs": lrs, "wds": wds, "ts": np.asarray(ts, np.float32),
+            "mscheds": np.asarray(mscheds, np.float32)}
+
+
+def _lars_host(opt, indices):
+    """LARS skips the rate scaling of gamma/beta/bias parameters by name
+    (the index as a string where idx2name has none): a 0/1 mask."""
+    lrs, wds = _count_and_lrs(opt, indices)
+    mask = np.asarray(
+        [0.0 if opt.idx2name.get(i, str(i)).endswith(
+            ("gamma", "beta", "bias")) else 1.0 for i in indices],
+        np.float32)
+    return {"lrs": lrs, "wds": wds, "lars_masks": mask}
 
 
 def _clip(opt):
@@ -77,32 +140,187 @@ def _clip(opt):
 def _sgd_device(opt, ws, gs, states, sc, rescale):
     clip, clip_on = _clip(opt)
     mom_on = states[0] is not None
-    multi_sgd(ws, gs, states if mom_on else [], None, sc["lrs"], sc["wds"],
-              opt.momentum, rescale, clip, mom_on, clip_on, False)
+    multi_sgd(ws, gs, states if mom_on else [], None, list(sc["lrs"]),
+              list(sc["wds"]), opt.momentum, rescale, clip, mom_on, clip_on,
+              False)
 
 
 def _adam_device(opt, ws, gs, states, sc, rescale):
     clip, clip_on = _clip(opt)
     # 1 - beta in Python double, as the reference's step computes it
     multi_adam(ws, gs, [s[0] for s in states], [s[1] for s in states], None,
-               sc["lrs"], sc["wds"], opt.beta1, 1.0 - opt.beta1, opt.beta2,
-               1.0 - opt.beta2, opt.epsilon, rescale, clip, clip_on, False)
+               list(sc["lrs"]), list(sc["wds"]), opt.beta1, 1.0 - opt.beta1,
+               opt.beta2, 1.0 - opt.beta2, opt.epsilon, rescale, clip,
+               clip_on, False)
+
+
+# --- one parameter at a time, through the op that the imperative route
+# calls (`apply_op`) ---------------------------------------------------------
+def _clipv(opt):
+    return _off(opt.clip_gradient)
+
+
+def _nag_device(opt, w, g, state, sc, rescale):
+    kw = dict(lr=sc["lrs"], wd=sc["wds"], rescale_grad=rescale,
+              clip_gradient=_clipv(opt))
+    if state is None:
+        apply_op("sgd_update", w, g, (), **kw)
+    else:
+        apply_op("nag_mom_update", w, g, (state,), momentum=opt.momentum, **kw)
+
+
+def _adamw_device(opt, w, g, state, sc, rescale):
+    apply_op("adamw_update", w, g, state, lr=sc["lrs"], wd=sc["wds"],
+             beta1=opt.beta1, beta2=opt.beta2, epsilon=opt.epsilon,
+             eta=opt.eta, rescale_grad=rescale, clip_gradient=_clipv(opt))
+
+
+def _signum_device(opt, w, g, state, sc, rescale):
+    kw = dict(lr=sc["lrs"], wd=sc["wds"], rescale_grad=rescale,
+              clip_gradient=_clipv(opt))
+    if state is None:
+        apply_op("signsgd_update", w, g, (), **kw)
+    else:
+        apply_op("signum_update", w, g, (state,), momentum=opt.momentum,
+                 wd_lh=opt.wd_lh, **kw)
+
+
+def _ftml_device(opt, w, g, state, sc, rescale):
+    apply_op("ftml_update", w, g, state, lr=sc["lrs"], wd=sc["wds"],
+             beta1=opt.beta1, beta2=opt.beta2, epsilon=opt.epsilon,
+             rescale_grad=rescale, clip_grad=_clipv(opt), t=sc["ts"])
+
+
+def _adagrad_device(opt, w, g, state, sc, rescale):
+    apply_op("adagrad_update", w, g, (state,), lr=sc["lrs"], wd=sc["wds"],
+             epsilon=opt.float_stable_eps, rescale_grad=rescale,
+             clip_gradient=_clipv(opt))
+
+
+def _adadelta_device(opt, w, g, state, sc, rescale):
+    apply_op("adadelta_update", w, g, state, rho=opt.rho, epsilon=opt.epsilon,
+             wd=sc["wds"], rescale_grad=rescale, clip_gradient=_clipv(opt))
+
+
+def _adamax_device(opt, w, g, state, sc, rescale):
+    apply_op("adamax_update", w, g, state, lr=sc["lrs"], wd=sc["wds"],
+             beta1=opt.beta1, beta2=opt.beta2, rescale_grad=rescale,
+             clip_gradient=_clipv(opt))
+
+
+def _nadam_device(opt, w, g, state, sc, rescale):
+    apply_op("nadam_update", w, g, state, lr=sc["lrs"], wd=sc["wds"],
+             beta1=opt.beta1, beta2=opt.beta2, epsilon=opt.epsilon,
+             schedule_decay=opt.schedule_decay, rescale_grad=rescale,
+             clip_gradient=_clipv(opt), t=sc["ts"], m_schedule=sc["mscheds"])
+
+
+def _rmsprop_device(opt, w, g, state, sc, rescale):
+    kw = dict(lr=sc["lrs"], wd=sc["wds"], gamma1=opt.gamma1,
+              epsilon=opt.epsilon, rescale_grad=rescale,
+              clip_gradient=_clipv(opt),
+              clip_weights=_off(opt.clip_weights))
+    if not opt.centered:
+        apply_op("rmsprop_update", w, g, (state,), **kw)
+    else:
+        apply_op("rmspropalex_update", w, g, state, gamma2=opt.gamma2, **kw)
+
+
+def _ftrl_device(opt, w, g, state, sc, rescale):
+    apply_op("ftrl_update", w, g, state, lr=sc["lrs"], wd=sc["wds"],
+             lamda1=opt.lamda1, beta=opt.beta, rescale_grad=rescale,
+             clip_gradient=_clipv(opt))
+
+
+def _lamb_device(opt, w, g, state, sc, rescale):
+    """`LAMB.update`'s two phases (kernels #9 and #10 on a card)."""
+    mean, var = state
+    opt.update_tensors(w, g, mean, var, sc["lrs"], sc["wds"], sc["ts"],
+                       rescale)
+
+
+def _lars_device(opt, w, g, state, sc, rescale):
+    """`LARS.update` with its layer rate eta * ||w|| / (||g|| + wd * ||w||
+    + eps) on the raw gradient computed on the device (no host sync),
+    skipped where the mask is 0, then the SGD ops. On a card the rate
+    reaches kernel #7 as per-element lr and wd vectors."""
+    lr, wd = sc["lrs"], sc["wds"]
+    if sc["lars_masks"] > 0.0:
+        w_norm = torch.linalg.vector_norm(w.float())
+        g_norm = torch.linalg.vector_norm(g.float())
+        lars = torch.where((w_norm > 0.0) & (g_norm > 0.0),
+                           opt.eta * w_norm / (g_norm + wd * w_norm
+                                               + opt.eps),
+                           torch.ones_like(w_norm))
+        lr = lars * lr
+        if w.is_cuda:
+            lr = lr.expand(w.shape).contiguous()
+            wd = torch.full(w.shape, wd, dtype=torch.float32,
+                            device=w.device)
+    kw = dict(lr=lr, wd=wd, rescale_grad=rescale, clip_gradient=_clipv(opt))
+    if state is None:
+        apply_op("sgd_update", w, g, (), **kw)
+    else:
+        apply_op("sgd_mom_update", w, g, (state,), momentum=opt.momentum, **kw)
+
+
+def _dcasgd_device(opt, w, g, state, sc, rescale):
+    mom, prev = state
+    dcasgd_update(w, g, mom, prev, sc["lrs"], sc["wds"], opt.momentum,
+                  opt.lamda, rescale, opt.clip_gradient)
+
+
+def _each(update):
+    """A device function over the list that runs `update(opt, w, g,
+    state, sc, rescale)` on each parameter in turn, with that parameter's
+    scalars: lr and wd as Python floats of their float32 values, the
+    update count and Nadam's m_schedule as 0-d float32 tensors (so that
+    their powers and products compute in float32, as the reference's
+    traced scalars do)."""
+    def dev(opt, ws, gs, states, sc, rescale):
+        host = {k: v for k, v in sc.items() if k in ("lrs", "wds",
+                                                     "lars_masks")}
+        traced = {k: torch.from_numpy(v) for k, v in sc.items()
+                  if k not in host}
+        for j, (w, g, s) in enumerate(zip(ws, gs, states)):
+            one = {k: float(v[j]) for k, v in host.items()}
+            one.update((k, v[j]) for k, v in traced.items())
+            update(opt, w, g, s, one, rescale)
+    return dev
 
 
 # optimizer name -> (host function: per-step scalars, device function: the
-# update of every parameter in one call)
+# update of every parameter in one call). SGD and Adam update the whole
+# list in one multi-tensor launch; the others loop over the parameters.
 _FUSABLE = {
     "sgd": (_sgd_host, _sgd_device),
+    "nag": (_sgd_host, _each(_nag_device)),
     "adam": (_bias_corrected_host, _adam_device),
+    "adamw": (_bias_corrected_host, _each(_adamw_device)),
+    "signum": (_sgd_host, _each(_signum_device)),
+    "signsgd": (_sgd_host, _each(_signum_device)),
+    "ftml": (_t_host, _each(_ftml_device)),
+    "adagrad": (_sgd_host, _each(_adagrad_device)),
+    "adadelta": (_sgd_host, _each(_adadelta_device)),
+    "adamax": (_adamax_host, _each(_adamax_device)),
+    "nadam": (_nadam_host, _each(_nadam_device)),
+    "rmsprop": (_sgd_host, _each(_rmsprop_device)),
+    "ftrl": (_sgd_host, _each(_ftrl_device)),
+    "lamb": (_t_host, _each(_lamb_device)),
+    "lars": (_lars_host, _each(_lars_device)),
+    "dcasgd": (_sgd_host, _each(_dcasgd_device)),
 }
+# SGLD stays imperative-only, as in the reference: its Langevin noise
+# draws from the generator on every update call, and a fused step could
+# not keep that stream's imperative-path reproducibility.
 
 
 def _raw(state):
-    """An optimizer state (None, an NDArray or a tuple of them) as
-    tensors."""
+    """An optimizer state (None, an NDArray or a tuple of them, with None
+    allowed inside) as tensors."""
     if state is None or isinstance(state, NDArray):
         return None if state is None else state._data
-    return tuple(s._data for s in state)
+    return tuple(_raw(s) for s in state)
 
 
 class FusedTrainStep:
@@ -183,9 +401,10 @@ class FusedTrainStep:
         grads = [torch.zeros_like(w) if g is None else g
                  for w, g in zip(weights, grads)]
         with torch.no_grad():
-            self._dev_fn(opt, weights, grads,
-                         [_raw(s) for s in self._states], scal,
-                         opt.rescale_grad)
+            with record_function("fused_step.update"):
+                self._dev_fn(opt, weights, grads,
+                             [_raw(s) for s in self._states], scal,
+                             opt.rescale_grad)
             for target, value in aux:
                 target._data.copy_(value)
         loss = lvec._data.detach()

@@ -5,7 +5,8 @@ in `nd.contrib`."""
 import sys as _sys
 import types as _types
 
-from ..ops import fused_conv as _fused_conv  # noqa: F401 (registers ops)
+from ..ops import extended as _extended  # noqa: F401 (registers ops)
+from ..ops import fused_conv as _fused_conv  # noqa: F401
 from ..ops import nn as _nn  # noqa: F401
 from ..ops import optimizer_ops as _optimizer_ops  # noqa: F401
 from ..ops import registry as _reg

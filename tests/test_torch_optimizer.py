@@ -333,14 +333,28 @@ def test_lr_schedulers_match_reference(name, kw):
     assert [mine(t) for t in range(30)] == [theirs(t) for t in range(30)]
 
 
-@pytest.mark.parametrize("name,match", [("rmsprop", "later slice"),
-                                        ("nag", "later slice"),
-                                        ("adamw", "later slice")])
-def test_optimizers_not_ported_raise(name, match):
-    with pytest.raises(NotImplementedError, match=match):
-        mx.optimizer.create(name)
-    with pytest.raises(ValueError, match="Cannot find"):
-        mx.optimizer.create("no_such_optimizer")
+# the 19 optimizers that the reference's optimizer module registers (its
+# contrib modules may register more once imported)
+REFERENCE_OPTIMIZERS = sorted(
+    name for name, klass in jopt.Optimizer.opt_registry.items()
+    if klass.__module__ == jopt.__name__)
+
+
+@pytest.mark.parametrize("name", REFERENCE_OPTIMIZERS
+                         + ["no_such_optimizer"])
+def test_every_reference_optimizer_is_registered(name):
+    """`create` makes each of the reference's registered optimizers, as
+    the class of the same name, and refuses a name the reference does not
+    know as the reference does."""
+    assert len(REFERENCE_OPTIMIZERS) == 19
+    if name not in REFERENCE_OPTIMIZERS:
+        for pkg in (mx, jmx):
+            with pytest.raises(ValueError, match="Cannot find optimizer"):
+                pkg.optimizer.create(name)
+        return
+    opt = mx.optimizer.create(name)
+    assert type(opt).__name__ == jopt.Optimizer.opt_registry[name].__name__
+    assert mx.optimizer.create(name.upper()).__class__ is type(opt)
 
 
 def test_updater_states_round_trip_keeps_dtypes():
