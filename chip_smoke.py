@@ -121,12 +121,17 @@ Phases (one JSON line each; any failure exits non-zero):
                  (on the CPU) bit for bit, each call on the route
                  segment_sum_plan picks and two launches bit-equal:
                  fp32/bf16/fp16 values, int32/int64 ids, widths 1, 3, 16,
-                 64, 65, 129 and rank-3 rows, sorted and shuffled ids with
-                 many duplicates, all-equal ids, negative ids and ids past
-                 the last segment (and past int32's range), nnz 0 and nnz at
-                 the fused route's edge; timed at the main paths' shapes
-                 (8192 x 64 into 1,000,001 rows; 128 x 16 into 10,131,228)
-                 and with shuffled ids at the first, by event and device
+                 64, 65, 128, 129 and rank-3 rows, sorted and shuffled ids
+                 with many duplicates, all-equal ids, negative ids and ids
+                 past the last segment (and past int32's range), nnz 0 and
+                 nnz at the fused route's edge and past it (widths 16 and
+                 1); timed at the main paths' shapes (8192 x 64 into
+                 1,000,001 rows; 128 x 16 into 10,131,228; the
+                 factorization machine's 39,000 x 16 and 39,000 x 1 into
+                 1,000 rows and into 1,000,000, all on the presorted route;
+                 matrix factorization's merge of 128 x 128 into its 120
+                 unique ids, 16-byte loads over 32 lanes) and with
+                 shuffled ids at the first, by event and device
                  time, beside its bytes bound, torch's index_add_ (zeros +
                  index_add_ by event and device time, and index_add_ alone
                  into a buffer zeroed outside the timed call) and
@@ -170,8 +175,34 @@ Phases (one JSON line each; any failure exits non-zero):
                  rtol 2e-5 / atol 2e-6), step 1's gradients against the CPU
                  (the card's one-ulp spread) and the parameters after 3
                  fused steps against the CPU (1e-4 per leaf).
+25. gluon_sparse_fm — the factorization machine of BASELINE config 4 at
+                 the Criteo widths (1,000,000 features, 39 nonzeros a row,
+                 factor 16, batch 1000): a seeded libsvm file of 13,000
+                 rows, LibSVMIter, 3 warm-up and 10 timed steps of the
+                 reference's loop (models.factorization.fm_step: three CSR
+                 dots under autograd.record, the logistic loss, row-sparse
+                 pushes to kv.create("local") with AdaGrad, row_sparse_pull
+                 of the touched rows, the bias by SGD), the iterator's
+                 next() inside the window; examples/s, the median step by
+                 CUDA events, peak memory, a step's host syncs, the
+                 iterator's host time, a profiled step; 6 segment_sum a
+                 step, all presorted; two narrow copies (2,000 features,
+                 factor 4, batch 50 and batch 450, the second on the
+                 presorted route) 3 steps on the card and the CPU.
+26. gluon_sparse_mf — matrix factorization through Gluon at
+                 MovieLens-10M's id ranges (71,569 users, 65,135 items,
+                 factor 128, batch 128): MFNet's four
+                 Embedding(sparse_grad=True) tables, L2Loss,
+                 Trainer("sgd", lr 0.1, momentum 0.9, lazy_update), 3
+                 warm-up and 20 timed steps over 4 cycled batches of
+                 seeded low-rank ratings; Trainer.step's host time, a
+                 profiled step; one segment_sum (fused) and one flat_sgd
+                 (single) a table a step; rows no batch touched and their
+                 momentum bit-unchanged; two narrow copies (60 users, 50
+                 items, batch 16, factor 8 and factor 128, the second on
+                 the path's merge plan) 3 steps on the card and the CPU.
 
-Seven main paths, each with its own expected kernels, counts set to 0 just
+Nine main paths, each with its own expected kernels, counts set to 0 just
 before and read just after: serving (phases 3-5: flash_fwd), training
 (phase 7's 6 steps: flash_fwd, flash_bwd_dq, flash_bwd_dkv), ResNet-50
 inference (phase 11's forward: conv_bn_relu, 16 launches, all on the
@@ -187,7 +218,10 @@ embeddings (phase 21's 20 pushes: 2 segment_sum a push; phase 22's 10
 steps: 2 segment_sum per table a step; all on the fused route) and
 BERT-base through Gluon with AdamW (phase 24's 13 steps: no kernel, as
 the reference runs no Pallas kernel there; its update is the plain
-adamw_update per parameter). Then the
+adamw_update per parameter) and Gluon-sparse: the factorization machine
+(phase 25's 10 steps: 6 segment_sum a step, all presorted) and matrix
+factorization (phase 26's 20 steps: 4 segment_sum, all fused, and 4
+flat_sgd, all single, a step). Then the
 card's
 name and power limit, the `kernels` line, and as the last line {"ok":
 true, "device": {...}}. Exits non-zero without a CUDA card.
@@ -3631,6 +3665,20 @@ SEGSUM_MAIN = [
     # row) and of the largest Kaggle table at batch 128
     ("sparse_embed_update", 8192, (64,), SPARSE_VOCAB + 1, "unique"),
     ("dlrm_largest_table", 128, (16,), KAGGLE_VOCABS[2] + 1, "unique"),
+    # the factorization machine's CSR dots at batch 1000 x 39 nonzeros,
+    # factor 16, both on the presorted route: a row sum (the entries of a
+    # row are adjacent) and the gradient's scatter into the 1,000,000
+    # feature rows (Criteo-layout zipf ids, duplicates across rows)
+    ("fm_dot_rows", 39_000, (16,), 1000, "csr_rows"),
+    ("fm_dot_grad", 39_000, (16,), 1_000_000, "csr_cols"),
+    # the same for its linear term x.w, one value a row
+    ("fm_lin_rows", 39_000, (1,), 1000, "csr_rows"),
+    ("fm_lin_grad", 39_000, (1,), 1_000_000, "csr_cols"),
+    # matrix factorization's merge of a factor table's row-sparse
+    # gradient: merge_rows sums 128 rows of 128 values into their unique
+    # ids, by the int64 inverse of a host np.unique (unsorted, 8
+    # duplicates): the fused route's 16-byte loads over 32 lanes
+    ("mf_merge", 128, (128,), 120, "merge"),
 ]
 # the first shape with shuffled ids, about two of each of 4000 ids: the
 # fused route's sort
@@ -3701,6 +3749,7 @@ def phase_kernel_segment_sum(gen):
     with shuffled, duplicated ids."""
     import ctypes
 
+    from mxnet_tpu_torch.test_utils import CRITEO_FIELDS, criteo_ids
     from mxnet_tpu_torch.ops._build import bind
     from mxnet_tpu_torch.ops.sparse_ops import (FUSED_MAX_NNZ,
                                                 _segment_sum_plain,
@@ -3734,7 +3783,8 @@ def phase_kernel_segment_sum(gen):
 
     for dtype in (torch.float32, torch.bfloat16, torch.float16):
         for id_dtype in (torch.int32, torch.int64):
-            for row in ((1,), (3,), (16,), (64,), (65,), (129,), (3, 43)):
+            for row in ((1,), (3,), (16,), (64,), (65,), (128,), (129,),
+                        (3, 43)):
                 for sort, low in ((True, 0), (False, -3)):
                     ids = torch.from_numpy(segsum_ids(rng, 4096, 600, sort,
                                                       low)).to(id_dtype)
@@ -3759,12 +3809,15 @@ def phase_kernel_segment_sum(gen):
                  .to(dtype), torch.from_numpy(far).to(id_dtype), 1000,
                  (str(dtype), str(id_dtype), "ids out of range"))
     # the fused route's edge
-    for nnz, sort in ((FUSED_MAX_NNZ, True), (FUSED_MAX_NNZ, False),
-                      (FUSED_MAX_NNZ + 1, False)):
-        held(torch.randn((nnz, 16), generator=gen, device="cuda").cpu(),
+    for nnz, sort, width in ((FUSED_MAX_NNZ, True, 16),
+                             (FUSED_MAX_NNZ, False, 16),
+                             (FUSED_MAX_NNZ + 1, False, 16),
+                             (FUSED_MAX_NNZ + 1, True, 1),
+                             (FUSED_MAX_NNZ + 1, False, 1)):
+        held(torch.randn((nnz, width), generator=gen, device="cuda").cpu(),
              torch.from_numpy(segsum_ids(rng, nnz, 5000, sort)).to(
-                 torch.int32), 5000, ("nnz", nnz, "sorted" if sort
-                                      else "shuffled"))
+                 torch.int32), 5000, ("nnz", nnz, "width", width,
+                                      "sorted" if sort else "shuffled"))
     # cudaMemsetAsync of an output's bytes: the fill's yardstick
     _, memset_fn = bind("segment_sum", "mx_memset_zero",
                         [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p])
@@ -3785,21 +3838,36 @@ def phase_kernel_segment_sum(gen):
         if kind == "unique":
             ids = torch.from_numpy(segsum_ids(rng, nnz, segments, True,
                                               unique=True)).to(torch.int32)
+        elif kind == "csr_rows":
+            ids = torch.arange(segments, dtype=torch.int32) \
+                .repeat_interleave(nnz // segments)
+        elif kind == "csr_cols":
+            ids = torch.from_numpy(criteo_ids(rng, nnz // CRITEO_FIELDS,
+                                              segments).reshape(-1)).to(
+                torch.int32)
+        elif kind == "merge":
+            users = rng.choice(MF_USERS, segments, replace=False)
+            raw = rng.permutation(np.concatenate(
+                [users, users[:nnz - segments]]))
+            ids = torch.from_numpy(np.unique(raw, return_inverse=True)[1]
+                                   .reshape(-1).astype(np.int64))
         else:
             ids = torch.from_numpy(rng.randint(0, SEGSUM_SHUFFLED_IDS,
                                                size=nnz)).to(torch.int32)
         vals = torch.randn((nnz,) + row, generator=gen, device="cuda")
         held(vals.cpu(), ids, segments, name)
         ids_c, ids64 = ids.cuda(), ids.cuda().long()
-        # the output written once, the values and int32 ids read once
+        # the output written once, the values and ids read once
         out_bytes = segments * row[0] * vals.element_size()
-        nbytes = out_bytes + nnz * row[0] * vals.element_size() + nnz * 4
+        nbytes = out_bytes + nnz * row[0] * vals.element_size() \
+            + nnz * ids.element_size()
         _, variant = launched_variant(lambda: segment_sum(vals, ids_c,
                                                           segments))
         rec = {
             "nnz": nnz, "row": list(row), "num_segments": segments,
             "ids": kind, "variant": variant,
-            "plan": segment_sum_plan(nnz, row[0], vals.dtype)._asdict(),
+            "plan": segment_sum_plan(nnz, row[0], vals.dtype,
+                                     vals.data_ptr() % 16 == 0)._asdict(),
             # the whole wrapper call by event time, and its kernels' device
             # time
             "ms": time_ms(lambda: segment_sum(vals, ids_c, segments),
@@ -3810,7 +3878,7 @@ def phase_kernel_segment_sum(gen):
                 vals, ids_c, segments), iters=20),
             "bound_ms": nbytes / SEGSUM_WRITE_RATE * 1e3,
             "bound_by": "bytes", "bytes": nbytes}
-        if kind == "unique":
+        if kind != "shuffled":
             out = torch.zeros((segments,) + row, device="cuda")
 
             def fill_and_add():
@@ -3835,8 +3903,13 @@ def phase_kernel_segment_sum(gen):
                     lambda: out.index_add_(0, ids64, vals))})
             del out
         main[name] = rec
-        check(variant == ["segment_sum/fused"], "kernel_segment_sum",
-              "%s took %s, not the fused route" % (name, variant))
+        route = "presorted" if nnz > FUSED_MAX_NNZ else "fused"
+        check(variant == ["segment_sum/" + route], "kernel_segment_sum",
+              "%s took %s, not the %s route" % (name, variant, route))
+        if kind == "merge":
+            check(rec["plan"]["vec"] == 4 and rec["plan"]["lanes"] == 32,
+                  "kernel_segment_sum", "%s planned %s, not 16-byte loads "
+                  "over 32 lanes" % (name, rec["plan"]))
     emit({"phase": "kernel_segment_sum", "cases": len(cases),
           "routes": routes, "max_abs_err": worst, "main_shapes": main})
     head = main[SEGSUM_MAIN[0][0]]
@@ -4112,6 +4185,395 @@ def phase_dlrm_train(gen):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# main paths 8 and 9: Gluon-sparse (kernels #11 and #7)
+# ---------------------------------------------------------------------------
+# the factorization machine (BASELINE config 4): the Criteo display-ad set
+# as the LIBSVM datasets page publishes it (1,000,000 features, 13 integer
+# and 26 categorical fields, 39 nonzeros a row); factor size 16 and batch
+# 1000 (taken as upstream example/sparse/factorization_machine/train.py's
+# defaults); a seeded file of 13,000 rows: 3 warm-up and 10 timed steps
+FM_FEATURES, FM_FACTOR, FM_BATCH = 1_000_000, 16, 1000
+FM_ROWS, FM_WARMUP, FM_STEPS = 13_000, 3, 10
+# narrow copies, card vs CPU (features, factor, batch): the second's
+# 450 x 39 = 17,550 entries take #11's presorted route, as the path does
+FM_NARROW = ((2000, 4, 50), (2000, 4, 450))
+FM_LAUNCHES = 6                          # a step: 3 CSR dots + 3 gradients
+# matrix factorization through Gluon: MovieLens-10M's id ranges (the
+# upstream example's max_user / max_movie), factor 128 and batch 128 (taken
+# as that example's defaults), SGD lr 0.1, momentum 0.9, lazy_update; 512
+# seeded low-rank ratings, 4 batches cycled: 3 warm-up and 20 timed steps
+MF_USERS, MF_ITEMS, MF_FACTOR, MF_BATCH = 71_569, 65_135, 128, 128
+MF_OBS, MF_WARMUP, MF_STEPS = 4 * 128, 3, 20
+# narrow copies (users, items, factor, batch): the second at the path's
+# factor 128, whose gradient merges take the fused route's 16-byte loads
+# over 32 lanes
+MF_NARROW = ((60, 50, 8, 16), (60, 50, 128, 16))
+MF_KERNELS = ("segment_sum", "flat_sgd")
+MF_TABLES = 4
+GLUON_SPARSE_REL = 1e-5                  # card vs CPU, 3 narrow steps: per
+                                         # leaf over its max abs, and the
+                                         # losses; fp32 both sides
+
+
+def count_syncs(fn):
+    """fn()'s result and the host syncs torch's sync debug mode reported
+    during it (device-to-host copies, stream waits)."""
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in seen)
+
+
+def leaf_rel(card, host):
+    """Max abs difference over the host leaf's max abs."""
+    card, host = card.detach().cpu(), host.detach().cpu()
+    return (card - host).abs().max().item() / max(host.abs().max().item(),
+                                                   1e-30)
+
+
+def fm_run(mx, path, features, factor, batch, steps, ctx):
+    """`steps` FM steps from the file at `path` on `ctx`; returns the
+    losses and (w, v, b)."""
+    from mxnet_tpu_torch.models import factorization as fz
+    with ctx:
+        it = mx.io.LibSVMIter(data_libsvm=path, data_shape=features,
+                              batch_size=batch)
+        w, v, b = fz.fm_init(features, factor, seed=0)
+        kv = mx.kv.create("local")
+        fz.fm_store(kv, w, v, batch)
+        losses = [float(fz.fm_step(kv, next(it), w, v, b, batch).asnumpy())
+                  for _ in range(steps)]
+    return losses, (w, v, b)
+
+
+def fm_narrow(mx, tmp, shape):
+    """A narrow FM for 3 steps on the card and on the CPU, with the
+    kernel variants the card's steps took (the CPU launches none)."""
+    from mxnet_tpu_torch.ops import reset_launch_counts, variant_counts
+    from mxnet_tpu_torch.test_utils import criteo_libsvm
+    features, factor, batch = shape
+    path = os.path.join(tmp, "fm_narrow_%d.libsvm" % batch)
+    criteo_libsvm(path, 3 * batch, features, seed=1)
+    reset_launch_counts()
+    card = fm_run(mx, path, features, factor, batch, 3, mx.gpu(0))
+    host = fm_run(mx, path, features, factor, batch, 3, mx.cpu())
+    return {"shape": list(shape), "card_losses": card[0],
+            "cpu_losses": host[0],
+            "loss_rel": max(abs(a - b) / abs(b)
+                            for a, b in zip(card[0], host[0])),
+            "leaf_rel": [leaf_rel(a._data, b._data)
+                         for a, b in zip(card[1], host[1])],
+            "variants": {"%s/%s" % k: n
+                         for k, n in variant_counts().items()}}
+
+
+def phase_gluon_sparse_fm(tmp):
+    """Main path 8: the factorization machine at the Criteo widths. A
+    seeded libsvm file of 13,000 rows (written before the timed window),
+    LibSVMIter, 3 warm-up and 10 timed steps of models.factorization's
+    fm_step (the reference's loop), the iterator's next() inside the
+    window; the host syncs of a step, a profiled step, and the narrow
+    copy against the CPU. Returns the launches of the timed steps."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.models import factorization as fz
+    from mxnet_tpu_torch.ops import (launch_counts, reset_launch_counts,
+                                     variant_counts)
+    from mxnet_tpu_torch.test_utils import criteo_libsvm
+    path = os.path.join(tmp, "criteo.libsvm")
+    t0 = time.perf_counter()
+    criteo_libsvm(path, FM_ROWS, FM_FEATURES, seed=0)
+    write_s = time.perf_counter() - t0
+    gpu = mx.gpu(0)
+    torch.cuda.empty_cache()
+    with gpu:
+        t0 = time.perf_counter()
+        it = mx.io.LibSVMIter(data_libsvm=path, data_shape=FM_FEATURES,
+                              batch_size=FM_BATCH)
+        parse_s = time.perf_counter() - t0
+        w, v, b = fz.fm_init(FM_FEATURES, FM_FACTOR, seed=0)
+        kv = mx.kv.create("local")
+        fz.fm_store(kv, w, v, FM_BATCH)
+
+        def step():
+            t1 = time.perf_counter()
+            batch = next(it)
+            iter_s.append(time.perf_counter() - t1)
+            return float(fz.fm_step(kv, batch, w, v, b, FM_BATCH).asnumpy())
+
+        iter_s, losses = [], []
+        for i in range(FM_WARMUP):
+            if i + 1 < FM_WARMUP:
+                losses.append(step())
+            else:
+                loss, syncs = count_syncs(step)
+                losses.append(loss)
+        iter_s.clear()
+        events = [(torch.cuda.Event(enable_timing=True),
+                   torch.cuda.Event(enable_timing=True))
+                  for _ in range(FM_STEPS)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        for start, end in events:
+            start.record()
+            losses.append(step())
+            end.record()
+        torch.cuda.synchronize()
+        window_s = time.perf_counter() - t0
+        launches = launch_counts()
+        variants = variant_counts()
+        peak = torch.cuda.max_memory_allocated()
+        step_ms = [s.elapsed_time(e) for s, e in events]
+        dtypes = [str(p._data.dtype) for p in (w, v, b)]
+        it.reset()
+        prof = profile_window(step, per_kernel=True)
+    narrow = [fm_narrow(mx, tmp, shape) for shape in FM_NARROW]
+    segsum_ms = sum(total for name, (_, total) in prof["per_kernel"].items()
+                    if "ordered_sums" in name or "fill_zero" in name)
+    rec = {"phase": "gluon_sparse_fm", "features": FM_FEATURES,
+           "factor": FM_FACTOR, "batch": FM_BATCH, "nnz_per_row": 39,
+           "file_rows": FM_ROWS, "write_s": write_s, "parse_s": parse_s,
+           "steps": FM_STEPS, "examples_per_s":
+               FM_STEPS * FM_BATCH / window_s, "window_s": window_s,
+           "step_ms": step_ms, "step_ms_median": statistics.median(step_ms),
+           "iterator_host_ms": [s * 1e3 for s in iter_s[:FM_STEPS]],
+           "host_syncs_per_step": syncs,
+           "max_memory_allocated_bytes": peak, "losses": losses,
+           "launches": {k: n for k, n in launches.items() if n},
+           "variants": {"%s/%s" % k: n for k, n in variants.items()},
+           "dtypes": dtypes,
+           "profile_one_step": {k: prof[k] for k in prof
+                                if k != "per_kernel"},
+           "segment_sum_device_ms_one_step": segsum_ms,
+           "narrow_vs_cpu": narrow}
+    emit(rec)
+    n = FM_LAUNCHES * FM_STEPS
+    check(launches == {k: (n if k in SPARSE_KERNELS else 0)
+                       for k in launches},
+          "gluon_sparse_fm", "launches %s, expected %d segment_sum a step "
+          "and nothing else" % (launches, FM_LAUNCHES))
+    check(variants == {("segment_sum", "presorted"): n}, "gluon_sparse_fm",
+          "segment_sum took %s, expected all %d presorted (nnz 39,000 > "
+          "16384)" % (variants, n))
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          "gluon_sparse_fm", "losses not finite or not falling: %s" % losses)
+    check(dtypes == ["torch.float32"] * 3, "gluon_sparse_fm",
+          "dtypes changed: %s" % dtypes)
+    for nar in narrow:
+        check(nar["loss_rel"] <= GLUON_SPARSE_REL
+              and max(nar["leaf_rel"]) <= GLUON_SPARSE_REL,
+              "gluon_sparse_fm", "narrow FM on the card vs the CPU: %s" % nar)
+    # the wide copy on the path's route: 6 launches a step, 3 steps
+    check(narrow[1]["variants"] == {"segment_sum/presorted":
+                                    FM_LAUNCHES * 3}, "gluon_sparse_fm",
+          "the narrow FM at batch %d took %s, not the presorted route"
+          % (FM_NARROW[1][2], narrow[1]["variants"]))
+    check(prof["device_ms"] > 0 and segsum_ms > 0, "gluon_sparse_fm",
+          "the profiler saw no device time or no segment_sum kernel")
+    return launches
+
+
+def mf_tables(net, seed):
+    """Seeded N(0, 0.1) tables for MFNet's parameters, in name order."""
+    rng = np.random.RandomState(seed)
+    return {name: rng.normal(0, 0.1, p.shape).astype(np.float32)
+            for name, p in sorted(net.collect_params().items())}
+
+
+def mf_setup(mx, users, items, factor, ctx, seed=0):
+    """MFNet on `ctx` with seeded tables, L2Loss and the path's Trainer."""
+    from mxnet_tpu_torch.models.factorization import MFNet
+    net = MFNet(users, items, k=factor)
+    net.initialize(ctx=ctx)
+    init = mf_tables(net, seed)
+    for name, p in net.collect_params().items():
+        p.set_data(mx.nd.array(init[name], ctx=ctx))
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                               {"learning_rate": 0.1, "momentum": 0.9,
+                                "lazy_update": True})
+    return net, mx.gluon.loss.L2Loss(), trainer, init
+
+
+def mf_batches(mx, data, batch, steps, ctx):
+    users, items, ratings = data
+    n = len(users) // batch
+    out = []
+    for s in range(steps):
+        sl = slice((s % n) * batch, (s % n + 1) * batch)
+        out.append((mx.nd.array(users[sl], ctx=ctx, dtype="int32"),
+                    mx.nd.array(items[sl], ctx=ctx, dtype="int32"),
+                    mx.nd.array(ratings[sl], ctx=ctx)))
+    return out
+
+
+def mf_step(mx, net, loss_fn, trainer, batch, host_ms=None):
+    u, i, r = batch
+    with mx.autograd.record():
+        loss = loss_fn(net(u, i), r)
+    loss.backward()
+    t0 = time.perf_counter()
+    trainer.step(u.shape[0])
+    if host_ms is not None:
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    return float(loss.mean().asnumpy())
+
+
+def mf_narrow(mx, shape):
+    """A narrow MF for 3 steps on the card and on the CPU, with the
+    kernel variants the card's steps took (the CPU launches none) and the
+    plan of a factor table's gradient merge."""
+    from mxnet_tpu_torch.ops import reset_launch_counts, variant_counts
+    from mxnet_tpu_torch.ops.sparse_ops import segment_sum_plan
+    from mxnet_tpu_torch.test_utils import synthetic_ratings
+    users, items, factor, batch = shape
+    data = synthetic_ratings(users, items, 3 * batch, seed=1)[:3]
+    runs = []
+    reset_launch_counts()
+    for ctx in (mx.gpu(0), mx.cpu()):
+        with ctx:
+            net, loss_fn, trainer, _ = mf_setup(mx, users, items, factor,
+                                                ctx, seed=1)
+            losses = [mf_step(mx, net, loss_fn, trainer, bt) for bt in
+                      mf_batches(mx, data, batch, 3, ctx)]
+            # by name without the net's prefix, which counts nets
+            runs.append((losses, {k[len(net.prefix):]: p.data()._data
+                                  for k, p in net.collect_params().items()}))
+    (cl, cp), (hl, hp) = runs
+    return {"shape": list(shape), "card_losses": cl, "cpu_losses": hl,
+            "loss_rel": max(abs(a - b) / abs(b) for a, b in zip(cl, hl)),
+            "leaf_rel": {k: leaf_rel(cp[k], hp[k]) for k in hp},
+            "variants": {"%s/%s" % k: n
+                         for k, n in variant_counts().items()},
+            "factor_merge_plan": segment_sum_plan(
+                batch, factor, torch.float32)._asdict()}
+
+
+def phase_gluon_sparse_mf():
+    """Main path 9: matrix factorization through Gluon at MovieLens-10M's
+    id ranges. MFNet (four Embedding(sparse_grad=True) tables), L2Loss,
+    Trainer("sgd", lr 0.1, momentum 0.9, lazy_update): 3 warm-up and 20
+    timed steps; Trainer.step's host time, a profiled step, the rows no
+    batch touched (and their momentum) bit-unchanged, the narrow copy
+    against the CPU. Returns the launches of the timed steps."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.test_utils import synthetic_ratings
+    from mxnet_tpu_torch.ops import (launch_counts, reset_launch_counts,
+                                     variant_counts)
+    gpu = mx.gpu(0)
+    torch.cuda.empty_cache()
+    data = synthetic_ratings(MF_USERS, MF_ITEMS, MF_OBS)[:3]
+    with gpu:
+        net, loss_fn, trainer, init = mf_setup(mx, MF_USERS, MF_ITEMS,
+                                               MF_FACTOR, gpu)
+        batches = mf_batches(mx, data, MF_BATCH, MF_WARMUP + MF_STEPS, gpu)
+        losses, host_ms = [], []
+        for i, bt in enumerate(batches[:MF_WARMUP]):
+            if i + 1 < MF_WARMUP:
+                losses.append(mf_step(mx, net, loss_fn, trainer, bt))
+            else:
+                loss, syncs = count_syncs(
+                    lambda: mf_step(mx, net, loss_fn, trainer, bt))
+                losses.append(loss)
+        events = [(torch.cuda.Event(enable_timing=True),
+                   torch.cuda.Event(enable_timing=True))
+                  for _ in range(MF_STEPS)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        for (start, end), bt in zip(events, batches[MF_WARMUP:]):
+            start.record()
+            losses.append(mf_step(mx, net, loss_fn, trainer, bt, host_ms))
+            end.record()
+        torch.cuda.synchronize()
+        window_s = time.perf_counter() - t0
+        launches = launch_counts()
+        variants = variant_counts()
+        peak = torch.cuda.max_memory_allocated()
+        step_ms = [s.elapsed_time(e) for s, e in events]
+        # rows no batch touched: weights and momentum as they were
+        params = dict(net.collect_params().items())
+        states = trainer._updaters[0].states
+        ids_of = {net.user.weight.name: data[0], net.user_b.weight.name:
+                  data[0], net.item.weight.name: data[1],
+                  net.item_b.weight.name: data[1]}
+        untouched = {}
+        for name, p in params.items():
+            rest = np.setdiff1d(np.arange(p.shape[0]), ids_of[name])
+            idx = torch.from_numpy(rest).cuda()
+            w = p.data().data_torch[idx].cpu().numpy()
+            mom = states[trainer._param2idx[name]]._data[idx]
+            untouched[name] = {
+                "rows": int(len(rest)),
+                "weights_equal": bool(np.array_equal(w, init[name][rest])),
+                "momentum_zero": bool((mom == 0).all().item())}
+        dtypes = [str(p.data()._data.dtype) for p in params.values()]
+        prof = profile_window(lambda: mf_step(mx, net, loss_fn, trainer,
+                                              batches[0]), per_kernel=True)
+    narrow = [mf_narrow(mx, shape) for shape in MF_NARROW]
+    n = len(data[0]) // MF_BATCH
+    rec = {"phase": "gluon_sparse_mf", "users": MF_USERS,
+           "items": MF_ITEMS, "factor": MF_FACTOR, "batch": MF_BATCH,
+           "ratings": MF_OBS, "steps": MF_STEPS,
+           "examples_per_s": MF_STEPS * MF_BATCH / window_s,
+           "window_s": window_s, "step_ms": step_ms,
+           "step_ms_median": statistics.median(step_ms),
+           "trainer_step_host_ms": host_ms,
+           "trainer_step_host_ms_median": statistics.median(host_ms),
+           "host_syncs_per_step": syncs,
+           "max_memory_allocated_bytes": peak, "losses": losses,
+           "first_cycle_mean": statistics.mean(losses[:n]),
+           "last_cycle_mean": statistics.mean(losses[-n:]),
+           "launches": {k: c for k, c in launches.items() if c},
+           "variants": {"%s/%s" % k: c for k, c in variants.items()},
+           "dtypes": dtypes, "untouched": untouched,
+           "profile_one_step": {k: prof[k] for k in prof
+                                if k != "per_kernel"},
+           "narrow_vs_cpu": narrow}
+    emit(rec)
+    per = MF_TABLES * MF_STEPS
+    check(launches == {k: (per if k in MF_KERNELS else 0) for k in launches},
+          "gluon_sparse_mf", "launches %s, expected one segment_sum and one "
+          "flat_sgd a table a step and nothing else" % launches)
+    check(variants == {("segment_sum", "fused"): per,
+                       ("flat_sgd", "single"): per}, "gluon_sparse_mf",
+          "variants %s, expected %d fused segment_sum and %d single "
+          "flat_sgd" % (variants, per, per))
+    # 4 batches cycled: the last cycle's losses against the first's (the
+    # same batches)
+    check(all(np.isfinite(losses))
+          and rec["last_cycle_mean"] < rec["first_cycle_mean"],
+          "gluon_sparse_mf", "losses not finite or not falling: %s" % losses)
+    check(dtypes == ["torch.float32"] * MF_TABLES, "gluon_sparse_mf",
+          "dtypes changed: %s" % dtypes)
+    check(all(u["weights_equal"] and u["momentum_zero"] and u["rows"] > 0
+              for u in untouched.values()), "gluon_sparse_mf",
+          "rows no batch touched changed: %s" % untouched)
+    for nar in narrow:
+        check(nar["loss_rel"] <= GLUON_SPARSE_REL
+              and max(nar["leaf_rel"].values()) <= GLUON_SPARSE_REL,
+              "gluon_sparse_mf", "narrow MF on the card vs the CPU: %s" % nar)
+    # the wide copy's factor merges on the path's plan; 4 tables, 3 steps
+    plan = narrow[1]["factor_merge_plan"]
+    check(plan["variant"] == "fused" and plan["vec"] == 4
+          and plan["lanes"] == 32 and narrow[1]["variants"] == {
+              "segment_sum/fused": MF_TABLES * 3,
+              "flat_sgd/single": MF_TABLES * 3}, "gluon_sparse_mf",
+          "the narrow MF at factor %d planned %s and took %s"
+          % (MF_NARROW[1][2], plan, narrow[1]["variants"]))
+    check(prof["device_ms"] > 0, "gluon_sparse_mf",
+          "the profiler saw no device time")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4210,6 +4672,17 @@ def main():
     with tempfile.TemporaryDirectory(prefix="chip_smoke_gluon_bert_") as tmp:
         gluon_bert_launches = phase_bert_gluon_train(tmp)
     check_path(gluon_bert_launches, (), "main_path_bert_gluon")
+    torch.cuda.empty_cache()
+
+    # main path 8: the factorization machine; main path 9: matrix
+    # factorization through Gluon (counts reset inside, read right after
+    # the timed steps)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fm_") as tmp:
+        fm_launches = phase_gluon_sparse_fm(tmp)
+    check_path(fm_launches, SPARSE_KERNELS, "main_path_gluon_sparse_fm")
+    torch.cuda.empty_cache()
+    mf_launches = phase_gluon_sparse_mf()
+    check_path(mf_launches, MF_KERNELS, "main_path_gluon_sparse_mf")
 
     print(card_name_and_limit(), flush=True)
     kernels = []
@@ -4219,7 +4692,8 @@ def main():
         launches = serve_launches[name] + train_launches[name] \
             + resnet_launches[name] + train4_launches[name] \
             + bert_launches[name] + sparse_launches[name] \
-            + dlrm_launches[name] + gluon_bert_launches[name]
+            + dlrm_launches[name] + gluon_bert_launches[name] \
+            + fm_launches[name] + mf_launches[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": "mxnet_tpu_torch/" + source, "replaces": replaces,

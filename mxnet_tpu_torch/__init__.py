@@ -20,7 +20,10 @@ optimizers); BERT-base pretraining with LAMB on the ZeRO
 updater (`optimizer.zero`, `kvstore`); and sparse embeddings: row-sparse
 and CSR arrays (`nd.sparse`), vocab-sharded tables (`embedding`), the
 kvstore's row_sparse push and pull, and the DLRM model (`models.dlrm`),
-on the segment-sum kernel of `ops.sparse_ops`:
+on the segment-sum kernel of `ops.sparse_ops`; and Gluon-sparse:
+`Embedding(sparse_grad=True)`, row-sparse gradient buffers and
+Parameters, the CSR `dot` with its gradient, `mx.io`'s iterators
+(`LibSVMIter`) and the factorization models (`models.factorization`):
 
     import mxnet_tpu_torch as mx
     net = mx.gluon.model_zoo.vision.resnet50_v1(layout="NHWC")

@@ -11,6 +11,18 @@ respect to every live marked array and writes them into the arrays'
 `grad` returns them without touching the buffers. An array that took no
 part in the graph keeps its buffer as it was, as in the reference.
 
+Row-sparse cotangents (the reference's ``RowSparseRows``): an op whose
+weight gradient is naturally row-sparse, `Embedding(sparse_grad=True)`,
+returns an uncoalesced ``torch.sparse_coo_tensor`` for its dense weight,
+one row per lookup. Torch adds two of them by concatenation and a sparse
+one to a dense one densely, as the reference's ``_add_cot`` does. At the
+leaf, a row-sparse buffer (``attach_grad(stype="row_sparse")``, a
+Parameter's ``grad_stype="row_sparse"``) takes the rows merged by
+`ndarray.sparse.merge_rows` (sorted unique ids, duplicates summed in
+occurrence order: kernel #11 on a card), ``grad_req="add"`` the union
+with the rows it holds; a dense buffer takes them densified; `grad`
+returns a `RowSparseNDArray`.
+
 Not ported yet: `Function` (custom ops with a hand-written backward) and
 the reference's grad-ready hooks (they feed the readiness-ordered
 kvstore, which comes with the communication slice).
@@ -140,12 +152,48 @@ def _heads_and_cots(heads, head_grads):
     return outs, cots
 
 
+def _merged_rows(cot, dtype, extra=None):
+    """(sorted unique int32 ids, summed rows) of an uncoalesced sparse
+    cotangent, after the rows of `extra` (a RowSparseNDArray's) where
+    given, as the reference's ``_canonical_rows``."""
+    from .ndarray.sparse import merge_rows
+    ids, vals = cot._indices()[0], cot._values().to(dtype)
+    if extra is not None and extra._indices.shape[0]:
+        ids = torch.cat([ids, extra._indices.to(ids.dtype)])
+        vals = torch.cat([vals, extra._values.to(dtype)])
+    return merge_rows(ids, vals)
+
+
+def _densify(cot):
+    """A sparse cotangent as a dense tensor, its rows added in occurrence
+    order (`segment_sum`)."""
+    from .ops.sparse_ops import segment_sum
+    return segment_sum(cot._values(), cot._indices()[0], cot.shape[0])
+
+
 def _write_leaf_grad(nd, cot):
     """Write one leaf's gradient into its `.grad` buffer: "write"
-    overwrites, "add" accumulates."""
+    overwrites, "add" accumulates. A sparse cotangent keeps a row-sparse
+    buffer row-sparse and is densified for a dense one."""
     from .ndarray.ndarray import zeros
+    from .ndarray.sparse import RowSparseNDArray
     if nd._grad is None:
         nd._grad = zeros(nd.shape, ctx=nd._ctx, dtype=nd.dtype)
+    if isinstance(nd._grad, RowSparseNDArray):
+        gbuf = nd._grad
+        dt = nd._data.dtype
+        with torch.no_grad():
+            if cot.is_sparse:
+                extra = gbuf if nd._grad_req == "add" else None
+                ids, vals = _merged_rows(cot, dt, extra)
+                gbuf._set_rows(vals, ids)
+            elif nd._grad_req == "add":
+                gbuf._write(gbuf._dense() + cot.to(dt))
+            else:
+                gbuf._write(cot.to(dt))
+        return
+    if cot.is_sparse:
+        cot = _densify(cot)
     buf = nd._grad._data
     with torch.no_grad():
         if nd._grad_req == "add":
@@ -197,6 +245,11 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
         g = got.get(id(v))
         if g is None:
             g = torch.zeros_like(v._data, requires_grad=False)
+        elif g.is_sparse:
+            from .ndarray.sparse import RowSparseNDArray
+            ids, vals = _merged_rows(g.detach(), v._data.dtype)
+            res.append(RowSparseNDArray(vals, ids, v.shape, ctx=v._ctx))
+            continue
         elif not create_graph:
             g = g.detach()
         res.append(NDArray(g.to(v._data.dtype), ctx=v._ctx))

@@ -199,21 +199,21 @@ class BatchNorm(HybridBlock):
 
 
 class Embedding(HybridBlock):
-    """Index -> vector lookup in an (input_dim, output_dim) table."""
+    """Index -> vector lookup in an (input_dim, output_dim) table; with
+    `sparse_grad` the weight's gradient is row-sparse (the rows the batch
+    looked up)."""
 
     def __init__(self, input_dim, output_dim, dtype="float32",
                  weight_initializer=None, sparse_grad=False, **kwargs):
         super().__init__(**kwargs)
-        if sparse_grad:
-            raise NotImplementedError("Embedding(sparse_grad=True) comes "
-                                      "with the port's Gluon-sparse slice")
         self._input_dim = input_dim
         self._output_dim = output_dim
         self._kwargs = {"input_dim": input_dim, "output_dim": output_dim,
                         "dtype": dtype, "sparse_grad": sparse_grad}
         self.weight = self.params.get(
             "weight", shape=(input_dim, output_dim),
-            init=weight_initializer, dtype=dtype, allow_deferred_init=True)
+            init=weight_initializer, dtype=dtype, allow_deferred_init=True,
+            grad_stype="row_sparse" if sparse_grad else "default")
 
     def hybrid_forward(self, F, x, weight):
         return F.Embedding(x, weight, **self._kwargs)

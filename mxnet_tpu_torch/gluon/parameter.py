@@ -7,7 +7,13 @@ ParameterDict prefixes, the `.params` load rules (shape and dtype checks,
 `cast_dtype`), gradient buffers by `grad_req` ("write" overwrites, "add"
 accumulates, "null" has none): each context's data array is marked as a
 variable of the tape (`autograd.mark_variable`) with a zero buffer of its
-shape and dtype beside it, which `autograd.backward` fills.
+shape and dtype beside it, which `autograd.backward` fills. Row-sparse
+parameters: ``grad_stype="row_sparse"`` makes that buffer a
+`RowSparseNDArray` (the rows a backward touched; none after `zero_grad`),
+and ``stype="row_sparse"`` a weight that its `Trainer` keeps on a store:
+`row_sparse_data` pulls the rows a batch needs from that store into the
+replica (dense on each context here, densified when saved, as in the
+reference).
 
 Deviation: a parameter that is loaded or initialized without a context
 goes to the current context (`gpu(0)` by default), not to `cpu(0)`; see
@@ -15,19 +21,23 @@ goes to the current context (`gpu(0)` by default), not to `cpu(0)`; see
 """
 from __future__ import annotations
 
+import weakref
 from collections import OrderedDict
 
 import numpy as np
-
 import torch
 
 from .. import autograd, initializer
 from .. import ndarray as nd
 from ..base import MXNetError, dtype_name
 from ..context import Context, cpu, current_context
+from ..ndarray.ndarray import _zero_buffer
 
 __all__ = ["DeferredInitializationError", "Parameter", "Constant",
            "ParameterDict"]
+
+
+_STYPES = ("default", "row_sparse", "csr")
 
 
 class DeferredInitializationError(MXNetError):
@@ -39,7 +49,8 @@ class Parameter:
 
     def __init__(self, name, grad_req="write", shape=None, dtype="float32",
                  lr_mult=1.0, wd_mult=1.0, init=None,
-                 allow_deferred_init=False, differentiable=True):
+                 allow_deferred_init=False, differentiable=True,
+                 stype="default", grad_stype="default"):
         self._data = None          # OrderedDict[Context, NDArray]
         self._grad = None          # OrderedDict[Context, NDArray] or None
         self._deferred_init = ()
@@ -55,6 +66,13 @@ class Parameter:
         self.wd_mult = wd_mult
         self.init = init
         self.allow_deferred_init = allow_deferred_init
+        for name_, st in (("stype", stype), ("grad_stype", grad_stype)):
+            if st not in _STYPES:
+                raise ValueError("invalid %s %s for Parameter '%s'; valid "
+                                 "are %s" % (name_, st, name, _STYPES))
+        self._stype = stype
+        self._grad_stype = grad_stype
+        self._trainer = None       # weakref to the Trainer that updates it
 
     def __repr__(self):
         return "Parameter %s (shape=%s, dtype=%s)" % (self.name, self._shape,
@@ -75,6 +93,14 @@ class Parameter:
         self._grad_req = req
         if self._data is not None:
             self._init_grad()
+
+    @property
+    def stype(self):
+        return self._stype
+
+    @property
+    def grad_stype(self):
+        return self._grad_stype
 
     @property
     def shape(self):
@@ -199,14 +225,17 @@ class Parameter:
             return
         self._grad = OrderedDict()
         for ctx, d in self._data.items():
-            g = nd.zeros(d.shape, dtype=dtype_name(d._data.dtype), ctx=ctx)
+            g = nd.sparse.zeros(
+                "row_sparse" if self._grad_stype == "row_sparse"
+                else "default", d.shape, ctx=ctx,
+                dtype=dtype_name(d._data.dtype))
             self._grad[ctx] = g
             d._grad = g
             autograd.mark_variable(d, self.grad_req)
 
     def _reduce(self):
-        """The data on the host (used by save); the mean over contexts
-        when there are several."""
+        """The data on the host (used by save), dense whatever the stype;
+        the mean over contexts when there are several."""
         blocks = self._check_and_get(self._data, list)
         if len(blocks) == 1:
             return blocks[0].copyto(cpu())
@@ -257,7 +286,67 @@ class Parameter:
             arr[:] = data
 
     def data(self, ctx=None):
+        """The data on `ctx`; refused for a row-sparse stype, whose rows
+        come through `row_sparse_data`."""
+        if self._stype != "default":
+            raise RuntimeError(
+                "Cannot return a copy of Parameter '%s' on ctx %s via data() "
+                "because its storage type is %s. Please use row_sparse_data() "
+                "instead." % (self.name, str(ctx), self._stype))
         return self._check_and_get(self._data, ctx)
+
+    def _set_trainer(self, trainer):
+        """Note the Trainer that updates this parameter; a row-sparse
+        weight lives on that Trainer's store, so it takes only one."""
+        if self._stype != "default" and self._trainer is not None \
+                and trainer is not None and self._trainer() is not trainer:
+            raise RuntimeError(
+                "Failed to set the trainer for Parameter '%s' because it was "
+                "already set. More than one trainers for a %s Parameter is "
+                "not supported." % (self.name, self._stype))
+        self._trainer = weakref.ref(trainer) if trainer is not None else None
+
+    def _get_row_sparse(self, ctx, row_id):
+        """The replica(s) on `ctx` (None: `row_id`'s context) with the rows
+        `row_id` pulled from the Trainer's store (upstream MXNet's
+        `_get_row_sparse`; the other rows keep what they held)."""
+        if not isinstance(row_id, nd.NDArray):
+            raise TypeError("row_id must have NDArray type, but %s is given"
+                            % type(row_id))
+        trainer = self._trainer() if self._trainer is not None else None
+        if trainer is None:
+            raise RuntimeError(
+                "Cannot get row_sparse data for Parameter '%s' when no "
+                "Trainer is created with it." % self.name)
+        arrs = self._check_and_get(self._data, ctx or row_id.context)
+        for arr in (arrs if isinstance(arrs, list) else [arrs]):
+            rows = nd.sparse.zeros("row_sparse", arr.shape, ctx=arr.context,
+                                   dtype=arr.dtype)
+            trainer._row_sparse_pull(self, rows, row_id)
+            with torch.no_grad():
+                arr._data[rows._indices.long()] = rows._values
+        return arrs
+
+    def row_sparse_data(self, row_id):
+        """The data on `row_id`'s context, for a row-sparse stype, with the
+        rows `row_id` names pulled from its Trainer's store (which updated
+        them). The JAX reference's version calls `data()`, which refuses
+        this stype, so it always raises there; this is upstream MXNet's."""
+        if self._stype != "row_sparse":
+            raise RuntimeError(
+                "Cannot return a copy of Parameter %s via row_sparse_data() "
+                "because its storage type is %s" % (self.name, self._stype))
+        return self._get_row_sparse(None, row_id)
+
+    def list_row_sparse_data(self, row_id):
+        """The data on every context, for a row-sparse stype, with the rows
+        `row_id` names pulled as in `row_sparse_data`."""
+        if self._stype != "row_sparse":
+            raise RuntimeError(
+                "Cannot return copies of Parameter '%s' on all contexts via "
+                "list_row_sparse_data() because its storage type is %s"
+                % (self.name, self._stype))
+        return self._get_row_sparse(list, row_id)
 
     def list_data(self):
         return self._check_and_get(self._data, list)
@@ -277,11 +366,11 @@ class Parameter:
         return self._check_and_get(self._grad, list)
 
     def zero_grad(self):
+        """Zero the gradients (a row-sparse buffer keeps no rows)."""
         if self._grad is None:
             return
-        with torch.no_grad():
-            for g in self._grad.values():
-                g._data.zero_()
+        for g in self._grad.values():
+            _zero_buffer(g)
 
     def list_ctx(self):
         if self._data is None:

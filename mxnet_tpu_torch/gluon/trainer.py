@@ -4,7 +4,7 @@
 gradients are of the loss *sum* over the batch), reduces the gradients
 through the kvstore where there is one and runs the optimizer.
 
-Without a store (one context, dense parameters and no
+Without a store (one context, weights of the default stype and no
 ``update_on_kvstore=True``: the reference's single-device short cut) the
 optimizer runs every trainable parameter through the `Updater` in one
 call, which for SGD and Adam is the reference's aggregated update (on by
@@ -15,7 +15,13 @@ go in one multi-key push in reverse registration order (about the order
 backward finishes them) and the updated weights are pulled back into the
 parameters. ``zero=True`` makes the store's updater the ZeRO-1
 `optimizer.zero.ZeroUpdater` (SGD, Adam, LAMB over gradient buckets; world
-1 on one process). Several contexts, distributed stores,
+1 on one process). A weight of row-sparse stype makes a store on one
+context too, updating on it by default, as in the reference: the step
+pulls back only the dense weights, and `_row_sparse_pull` the rows a
+batch needs of the others (`Parameter.row_sparse_data`). Row-sparse gradients of dense weights
+(`Embedding(sparse_grad=True)`) need no store: the `Updater` runs each
+through the optimizer's lazy path, which touches only their rows.
+Several contexts, distributed stores,
 readiness-ordered communication and gradient compression raise
 NotImplementedError: they come with the port's multi-rank communication
 slice.
@@ -58,6 +64,7 @@ class Trainer:
                     "got list of %s." % (type(param)))
             self._param2idx[param.name] = i
             self._params.append(param)
+            param._set_trainer(self)
         for name, value in (("comm_ready", comm_ready),
                             ("compression_params", compression_params)):
             if value:
@@ -126,15 +133,20 @@ class Trainer:
         update_on_kvstore=True needs no store."""
         name = self._kvstore_params["kvstore"]
         update_on_kvstore = self._kvstore_params["update_on_kvstore"]
+        sparse_params = any(p.stype != "default" for p in self._params)
         if self._zero:
+            if sparse_params:
+                raise ValueError("zero=True requires dense parameters")
             update_on_kvstore = True
         kvstore = None
         if name and (not isinstance(name, str) or update_on_kvstore is True
-                     or name.startswith("dist")):
+                     or sparse_params or name.startswith("dist")):
             kvstore = kvs.create(name) if isinstance(name, str) else name
         if kvstore is not None:
             if update_on_kvstore is None:
-                update_on_kvstore = False   # one process, dense parameters
+                # the reference's default: on the store for sparse weights
+                # (one process, so never for a distributed store here)
+                update_on_kvstore = sparse_params
             if update_on_kvstore:
                 kvstore.set_optimizer(self._optimizer, zero=self._zero)
             self._kvstore = kvstore
@@ -146,8 +158,8 @@ class Trainer:
 
     def _init_params(self):
         """Put each initialized parameter into the store (a deferred one
-        waits for its shape); when the store updates, the parameters take
-        the stored weights."""
+        waits for its shape); when the store updates, the dense parameters
+        take the stored weights."""
         waiting = []
         for param in self._params_to_init:
             if param._deferred_init:
@@ -156,7 +168,7 @@ class Trainer:
             idx = self._param2idx[param.name]
             arrays = param.list_data()
             self._kvstore.init(idx, arrays[0])
-            if self._update_on_kvstore:
+            if self._update_on_kvstore and param.stype == "default":
                 self._kvstore.pull(idx, arrays, priority=-idx)
         self._params_to_init = waiting
 
@@ -165,6 +177,16 @@ class Trainer:
             self._init_kvstore()
         if self._kvstore is not None and self._params_to_init:
             self._init_params()
+
+    def _row_sparse_pull(self, parameter, out, row_id, full_idx=False):
+        """Pull the rows `row_id` of `parameter`'s stored weight into the
+        row-sparse `out` (every row with `full_idx`: a plain pull)."""
+        self._ensure_store()
+        idx = self._param2idx[parameter.name]
+        if full_idx:
+            self._kvstore.pull(idx, out=out, ignore_sparse=False)
+        else:
+            self._kvstore.row_sparse_pull(idx, out=out, row_ids=row_id)
 
     @property
     def learning_rate(self):
@@ -201,9 +223,10 @@ class Trainer:
         entries = [(i, p) for i, p in enumerate(self._params)
                    if p.grad_req != "null"]
         # ZeRO always takes the multi-key path: its updater needs every key
-        # of the step in one call
+        # of the step in one call; sparse weights go one key at a time
         if entries and (_engine.bucket_bytes() or self._zero) \
-                and (len(entries) > 1 or self._zero):
+                and (len(entries) > 1 or self._zero) \
+                and all(p.stype == "default" for _, p in entries):
             keys, grads = [], []
             for _, param in reversed(entries):
                 keys.append(self._param2idx[param.name])
@@ -239,10 +262,11 @@ class Trainer:
             if param.grad_req == "null":
                 continue
             if self._kvstore and self._update_on_kvstore:
-                # the store updated its weights: write them back
-                with record_function("trainer.writeback"):
-                    self._kvstore.pull(self._param2idx[param.name],
-                                       param.list_data(), priority=-i)
+                # the store updated its weights: write the dense ones back
+                if param.stype == "default":
+                    with record_function("trainer.writeback"):
+                        self._kvstore.pull(self._param2idx[param.name],
+                                           param.list_data(), priority=-i)
                 continue
             for slot, (arr, grad) in enumerate(zip(param.list_data(),
                                                    param.list_grad())):

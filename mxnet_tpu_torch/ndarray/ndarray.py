@@ -83,11 +83,13 @@ class NDArray:
             self.asnumpy(), "x".join(str(d) for d in self.shape), self._ctx)
 
     def asnumpy(self):
-        """Blocking copy to numpy (bfloat16 comes back as float32)."""
+        """Blocking copy to numpy (bfloat16 comes back as float32); a copy
+        on the CPU too, so later in-place updates of the array do not
+        reach it."""
         t = self._data.detach()
         if t.dtype == torch.bfloat16:
             t = t.float()
-        return t.cpu().numpy()
+        return t.to("cpu", copy=True).numpy()
 
     def copy(self):
         return NDArray(self._data.detach().clone(), ctx=self._ctx)
@@ -96,7 +98,13 @@ class NDArray:
         """Copy into another array (cast to its dtype) or onto a Context."""
         if isinstance(other, NDArray):
             with torch.no_grad():
-                other._data.copy_(self._data)
+                if other.stype == "row_sparse":
+                    # every row becomes stored, as the reference's write
+                    other._write(self._data.detach().to(
+                        other._values.device, other._values.dtype,
+                        copy=True))
+                else:
+                    other._data.copy_(self._data)
             return other
         if isinstance(other, Context):
             return NDArray(self._data.detach().to(other.torch_device,
@@ -134,12 +142,18 @@ class NDArray:
     # -- autograd (reference: NDArray.attach_grad / grad / backward) -------
     def attach_grad(self, grad_req="write", stype=None):
         """Give this array a zero gradient buffer and mark it as a variable
-        of the tape."""
-        if stype not in (None, "default"):
-            raise NotImplementedError("attach_grad: sparse gradient buffers "
-                                      "come with the port's Gluon-sparse "
-                                      "slice")
-        self._grad = zeros(self.shape, ctx=self._ctx, dtype=self.dtype)
+        of the tape; ``stype="row_sparse"`` makes the buffer a
+        `RowSparseNDArray` with no rows, which `backward` fills with the
+        rows a row-sparse cotangent touched."""
+        if stype == "row_sparse":
+            from .sparse import zeros as sparse_zeros
+            self._grad = sparse_zeros("row_sparse", self.shape, ctx=self._ctx,
+                                      dtype=self.dtype)
+        elif stype in (None, "default"):
+            self._grad = zeros(self.shape, ctx=self._ctx, dtype=self.dtype)
+        else:
+            raise ValueError("attach_grad: stype must be default or "
+                             "row_sparse, got %s" % stype)
         _autograd.mark_variable(self, grad_req)
 
     @property
@@ -147,9 +161,9 @@ class NDArray:
         return self._grad
 
     def zero_grad(self):
+        """Zero the gradient buffer (a row-sparse one keeps no rows)."""
         if self._grad is not None:
-            with torch.no_grad():
-                self._grad._data.zero_()
+            _zero_buffer(self._grad)
 
     def backward(self, out_grad=None, retain_graph=False, train_mode=True):
         _autograd.backward([self], [out_grad] if out_grad is not None
@@ -193,6 +207,15 @@ class NDArray:
 
     def __neg__(self):
         return invoke("negative", self)
+
+
+def _zero_buffer(buf):
+    """Zero a gradient buffer in place: a row-sparse one keeps no rows."""
+    with torch.no_grad():
+        if buf.stype == "row_sparse":
+            buf._set_rows(buf._values[:0], buf._indices[:0])
+        else:
+            buf._data.zero_()
 
 
 def _dtype_of(torch_dt):

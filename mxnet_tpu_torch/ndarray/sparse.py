@@ -10,9 +10,11 @@ which adds them in occurrence order on every run; torch's CUDA
 ``index_add_`` adds with atomics, so with three or more duplicates its sums
 would change from run to run.
 
-`dot` with a CSR left-hand side needs the ``_sparse_dot_csr_dense`` op and
-its gradient; it comes with the port's Gluon-sparse slice (the
-factorization-machine path), and raises here until then.
+`dot` with a CSR left-hand side runs the ``_sparse_dot_csr_dense`` op,
+which the tape records, so the dense right-hand side gets its gradient:
+each stored entry's product with its rhs row, summed by `segment_sum`
+(kernel #11 on a card) into the output rows, or scattered into the
+columns' rows for ``transpose_a``.
 """
 from __future__ import annotations
 
@@ -27,9 +29,6 @@ from .ndarray import NDArray, _dtype_of, invoke
 __all__ = ["BaseSparseNDArray", "RowSparseNDArray", "CSRNDArray",
            "row_sparse_array", "csr_matrix", "cast_storage", "zeros",
            "retain", "dot", "merge_rows", "add", "elemwise_add"]
-
-_GLUON_SPARSE = "the port's Gluon-sparse slice"
-
 
 def _tensor(a, dtype, device):
     """A tensor of `dtype` (None: its own) on `device` from a tensor, an
@@ -165,12 +164,12 @@ class CSRNDArray(BaseSparseNDArray):
         return NDArray(self._indptr, ctx=self._ctx)
 
     def _row_ids(self):
-        """The row of each stored entry."""
-        nnz = self._sp_data.shape[0]
-        return torch.searchsorted(
-            self._indptr, torch.arange(nnz, dtype=torch.int32,
-                                       device=self._indptr.device),
-            right=True).long() - 1
+        """The row of each stored entry, from `indptr` on its device (the
+        nnz is known on the host, so nothing waits for the device)."""
+        counts = (self._indptr[1:] - self._indptr[:-1]).long()
+        return torch.repeat_interleave(
+            torch.arange(self._shape_full[0], device=counts.device), counts,
+            output_size=self._sp_data.shape[0])
 
     def _dense(self):
         out = torch.zeros(self._shape_full, dtype=self._sp_data.dtype,
@@ -294,12 +293,19 @@ def retain(arr, indices):
 
 
 def dot(lhs, rhs, transpose_a=False, transpose_b=False):
-    """Sparse dot. A row-sparse lhs multiplies its stored rows; a CSR lhs
-    comes with the Gluon-sparse slice; dense operands go to the ``dot``
-    op."""
-    if isinstance(lhs, CSRNDArray):
-        raise NotImplementedError("dot with a csr lhs comes with %s"
-                                  % _GLUON_SPARSE)
+    """Sparse dot. A CSR lhs times a dense rhs (or its transpose, with
+    `transpose_a`) is the recorded ``_sparse_dot_csr_dense`` op; a
+    row-sparse lhs multiplies its stored rows; dense operands go to the
+    ``dot`` op."""
+    if isinstance(lhs, CSRNDArray) and not isinstance(rhs, BaseSparseNDArray):
+        if transpose_b:
+            raise NotImplementedError("transpose_b with csr lhs")
+        m, k = lhs.shape
+        ctx = lhs._ctx
+        return invoke("_sparse_dot_csr_dense", NDArray(lhs._sp_data, ctx=ctx),
+                      NDArray(lhs._sp_indices, ctx=ctx),
+                      NDArray(lhs._row_ids(), ctx=ctx), rhs, m=m, k=k,
+                      transpose_a=transpose_a)
     if isinstance(lhs, RowSparseNDArray) \
             and not isinstance(rhs, BaseSparseNDArray):
         if transpose_a:

@@ -2,8 +2,9 @@
 `mxnet_tpu.ops.tensor` that Gluon's ResNet and BERT layers, the losses and
 NDArray arithmetic call): the binary broadcast ops and comparisons, unary
 math, identity, zeros_like, cast, reshape (with the codes 0, -1, -3),
-Flatten, transpose, slice_axis, broadcast_to, the reductions, pick, dot
-and Embedding."""
+Flatten, transpose, slice_axis, broadcast_to, the reductions, pick, dot,
+Embedding (dense or row-sparse gradient) and the CSR dot
+``_sparse_dot_csr_dense``."""
 from __future__ import annotations
 
 import torch
@@ -60,7 +61,7 @@ alias("broadcast_lesser", "_lesser", "_lesser_scalar")
 
 _UNARY = {"negative": torch.neg, "square": torch.square, "abs": torch.abs,
           "exp": torch.exp, "relu": torch.relu, "sigmoid": torch.sigmoid,
-          "tanh": torch.tanh}
+          "tanh": torch.tanh, "log": torch.log}
 
 for _n, _f in _UNARY.items():
     register(_n, arity=1)(_f)
@@ -180,19 +181,98 @@ def _broadcast_to(x, shape=None):
                           for i, s in enumerate(shape)))
 
 
+class _SparseLookup(torch.autograd.Function):
+    """weight[ids] whose weight gradient is row-sparse (the reference's
+    ``RowSparseRows`` recorder): an uncoalesced sparse COO tensor of one
+    row per lookup, duplicates kept, which `autograd` merges into a
+    `RowSparseNDArray`. `ids` are in range; the rows of `valid` False
+    carry a zero cotangent."""
+
+    @staticmethod
+    def forward(ctx, ids, valid, weight):
+        ctx.save_for_backward(ids, valid)
+        ctx.weight_shape = weight.shape
+        return weight[ids]
+
+    @staticmethod
+    def backward(ctx, cot):
+        ids, valid = ctx.saved_tensors
+        row = ctx.weight_shape[1:]
+        vals = cot.reshape((-1,) + tuple(row))
+        vals = torch.where(valid.reshape((-1,) + (1,) * len(row)), vals,
+                           torch.zeros((), dtype=vals.dtype,
+                                       device=vals.device))
+        grad = torch.sparse_coo_tensor(ids.reshape(1, -1), vals,
+                                       ctx.weight_shape,
+                                       check_invariants=False)
+        return None, None, grad
+
+
 @register("Embedding")
 def _embedding(data, weight, input_dim=None, output_dim=None, dtype=None,
                sparse_grad=False):
     """weight[data]: the rows of the (input_dim, output_dim) table at the
-    (float or integer) indices, a negative index counted from the end. The
-    gradient is dense (a scatter-add into the table); row-sparse gradients
-    come with the port's Gluon-sparse slice."""
-    if sparse_grad:
-        raise NotImplementedError("Embedding(sparse_grad=True) comes with "
-                                  "the port's Gluon-sparse slice")
+    (float or integer) indices, as the reference's ``jnp.take``: a
+    negative index counts from the end once, and an index still outside
+    the table reads a NaN row (the smallest value for an integer table)
+    and gets no gradient. The gather itself never leaves the table: the
+    ids are masked first, then the fill is written. The weight gradient
+    is dense, or row-sparse with `sparse_grad` (`_SparseLookup`)."""
+    rows = weight.shape[0]
     idx = data.long()
-    idx = torch.where(idx < 0, idx + weight.shape[0], idx)
-    return torch.nn.functional.embedding(idx, weight)
+    idx = torch.where(idx < 0, idx + rows, idx)
+    valid = (idx >= 0) & (idx < rows)
+    safe = idx.clamp(0, max(rows - 1, 0))
+    if sparse_grad:
+        out = _SparseLookup.apply(safe.reshape(-1), valid.reshape(-1),
+                                  weight).reshape(
+            tuple(idx.shape) + tuple(weight.shape[1:]))
+    else:
+        out = torch.nn.functional.embedding(safe, weight)
+    fill = float("nan") if weight.is_floating_point() \
+        else torch.iinfo(weight.dtype).min
+    return torch.where(valid.reshape(tuple(valid.shape) + (1,) * (
+        weight.dim() - 1)), out, torch.full((), fill, dtype=out.dtype,
+                                            device=out.device))
+
+
+@register("_sparse_dot_csr_dense", arity=4)
+def _sparse_dot_csr_dense(sp_data, sp_indices, rows, rhs, m=0, k=0,
+                          transpose_a=False):
+    """csr (m, k) . dense (k, n), or csr^T . dense (m, n) -> (k, n): each
+    stored entry's product with its rhs row, summed into the output rows
+    by `ops.sparse_ops.segment_sum` in occurrence order (kernel #11 on a
+    card; the reference's gather + ``jax.ops.segment_sum``). `rows` is the
+    row of each stored entry. The rhs gets a gradient (the other
+    orientation of the same product); the CSR values get none."""
+    return _CSRDot.apply(sp_data, sp_indices.long(), rows.long(), rhs,
+                         int(m), int(k), bool(transpose_a))
+
+
+def _csr_products(data, gather_at, scatter_at, rhs, segments):
+    from .sparse_ops import segment_sum
+    vals = data.reshape((-1,) + (1,) * (rhs.dim() - 1)) * rhs[gather_at]
+    return segment_sum(vals, scatter_at, segments)
+
+
+class _CSRDot(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, data, cols, rows, rhs, m, k, transpose_a):
+        ctx.save_for_backward(data, cols, rows)
+        ctx.dims = (m, k, transpose_a)
+        if transpose_a:
+            return _csr_products(data, rows, cols, rhs, k)
+        return _csr_products(data, cols, rows, rhs, m)
+
+    @staticmethod
+    def backward(ctx, cot):
+        data, cols, rows = ctx.saved_tensors
+        m, k, transpose_a = ctx.dims
+        grad = None
+        if ctx.needs_input_grad[3]:
+            grad = _csr_products(data, cols, rows, cot, m) if transpose_a \
+                else _csr_products(data, rows, cols, cot, k)
+        return None, None, None, grad, None, None, None
 
 
 @register("dot")

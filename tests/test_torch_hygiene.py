@@ -111,6 +111,15 @@ def test_scan_covers_the_sparse_slice():
         assert "mxnet_tpu_torch/" + module in names
 
 
+def test_scan_covers_the_gluon_sparse_slice():
+    names = {p.relative_to(ROOT).as_posix() for p in FILES}
+    for module in ("io/io.py", "io/__init__.py", "models/factorization.py",
+                   "autograd.py", "ops/tensor.py", "gluon/parameter.py",
+                   "gluon/trainer.py", "gluon/nn/basic_layers.py",
+                   "test_utils.py"):
+        assert "mxnet_tpu_torch/" + module in names
+
+
 def test_segment_sum_replaces_the_sparse_tpu_kernel():
     from mxnet_tpu_torch.ops import KERNELS
     assert KERNELS["segment_sum"] == ("csrc/segment_sum.cu",

@@ -76,8 +76,12 @@ def test_csr_round_trip_matches_reference():
     three = sp.csr_matrix((theirs.data.asnumpy(), theirs.indices.asnumpy(),
                            theirs.indptr.asnumpy()), shape=(6, 7))
     np.testing.assert_array_equal(three.asnumpy(), dense)
-    with pytest.raises(NotImplementedError, match="Gluon-sparse"):
-        sp.dot(mine, mx.nd.ones((7, 2)))
+    # the CSR dot (the Gluon-sparse slice)
+    got = sp.dot(mine, mx.nd.array(np.arange(14, dtype=np.float32)
+                                   .reshape(7, 2)))
+    want = jsp.dot(theirs, jmx.nd.array(np.arange(14, dtype=np.float32)
+                                        .reshape(7, 2)))
+    np.testing.assert_allclose(got.asnumpy(), want.asnumpy(), rtol=1e-6)
 
 
 @pytest.mark.parametrize("keep", [[0, 4], [4, 8, 2], []])

@@ -212,8 +212,9 @@ def test_segment_sum_kernel_bit_equal_to_plain_on_the_card():
     """Both routes, each call's route as the plan says, bit-equal to the
     plain version and to a second launch: sorted, shuffled and all-equal
     ids, int32 and int64 ids (negative, past the last segment and past
-    int32's range), widths 1, 16, 64, 65 and rank-3 rows, nnz 0 and at the
-    fused route's edge."""
+    int32's range), widths 1, 16, 64, 65, 128 and rank-3 rows, nnz 0, at
+    the fused route's edge, and width 1 past it (the factorization
+    machine's linear term on the presorted route)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     rng = np.random.RandomState(0)
@@ -222,7 +223,9 @@ def test_segment_sum_kernel_bit_equal_to_plain_on_the_card():
              (513, 10 ** 5, (1,), 0, False), (300, 50, (2, 3), -1, False),
              (4096, 600, (16,), 0, True), (4096, 600, (64,), 0, False),
              (2000, 1, (64,), 0, False), (edge, 3000, (16,), 0, True),
-             (edge, 3000, (16,), 0, False), (edge + 1, 3000, (16,), 0, False)]
+             (edge, 3000, (16,), 0, False), (edge + 1, 3000, (16,), 0, False),
+             (128, 120, (128,), 0, False), (edge + 1, 1000, (1,), 0, True),
+             (edge + 1, 10 ** 5, (1,), 0, False)]
     for dtype in (torch.float32, torch.bfloat16, torch.float16):
         for n, segments, row, low, sort in cases:
             for id_dtype in (np.int32, np.int64):
