@@ -201,8 +201,29 @@ Phases (one JSON line each; any failure exits non-zero):
                  momentum bit-unchanged; two narrow copies (60 users, 50
                  items, batch 16, factor 8 and factor 128, the second on
                  the path's merge plan) 3 steps on the card and the CPU.
+27. gluon_mlp_mnist — BASELINE config 1, examples/mnist_mlp.py's Gluon
+                 MLP through gluon.data.vision.MNIST: 60,000 + 10,000
+                 seeded digits (one template set) written as MNIST's idx
+                 files, transform_first(ToTensor()), DataLoader(batch 128,
+                 shuffle), Dense 128-64-10 (ReLU) on gpu(0), hybridized,
+                 SoftmaxCrossEntropyLoss, Trainer("sgd", lr 0.05, momentum
+                 0.9), metric.Accuracy: one epoch of 469 steps (one multi
+                 flat_sgd each), then the test set; examples/s, the median
+                 step, the loader's and metric.update's host ms, host
+                 syncs, peak memory, a profiled step; the same epoch
+                 through Estimator.fit bit-equal; 3 steps against the CPU.
+28. gluon_data_resnet50 — path 4's ResNet-50 (NHWC, fused, bf16,
+                 FusedTrainStep + SGD) fed by a GluonCV-style DataLoader:
+                 1,024 seeded 256x341 uint8 images in a memory-mapped .npy,
+                 RandomResizedCrop(224), flips, colour jitter, lighting,
+                 ToTensor, Normalize in 4 and then min(16, cpus) spawned
+                 workers, batch 256; 2 warm-up and 10 timed steps each,
+                 Accuracy, TopKAccuracy(5) and a Speedometer; the loader's
+                 share of the step; labels in the sampler's order, no
+                 worker with CUDA, workers bit-equal to the main process on
+                 a deterministic chain, no shared memory left behind.
 
-Nine main paths, each with its own expected kernels, counts set to 0 just
+Eleven main paths, each with its own expected kernels, counts set to 0 just
 before and read just after: serving (phases 3-5: flash_fwd), training
 (phase 7's 6 steps: flash_fwd, flash_bwd_dq, flash_bwd_dkv), ResNet-50
 inference (phase 11's forward: conv_bn_relu, 16 launches, all on the
@@ -221,13 +242,16 @@ the reference runs no Pallas kernel there; its update is the plain
 adamw_update per parameter) and Gluon-sparse: the factorization machine
 (phase 25's 10 steps: 6 segment_sum a step, all presorted) and matrix
 factorization (phase 26's 20 steps: 4 segment_sum, all fused, and 4
-flat_sgd, all single, a step). Then the
+flat_sgd, all single, a step) and the data layer: the MLP on MNIST (phase
+27's epoch: one flat_sgd, multi, a step) and ResNet-50 behind a DataLoader
+(phase 28's timed steps: as phase 15). Then the
 card's
 name and power limit, the `kernels` line, and as the last line {"ok":
 true, "device": {...}}. Exits non-zero without a CUDA card.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import itertools
@@ -4574,6 +4598,496 @@ def phase_gluon_sparse_mf():
     return launches
 
 
+
+# -- main path 10: the Gluon MLP on MNIST (BASELINE config 1) -------------
+MNIST_TRAIN, MNIST_TEST, MNIST_BATCH = 60_000, 10_000, 128
+MNIST_STEPS = -(-MNIST_TRAIN // MNIST_BATCH)     # 469, the last of 96
+MNIST_SEED = 0
+MLP_CPU_STEPS = 3
+MLP_CPU_REL = 1e-5              # card vs CPU after 3 steps, per leaf over
+                                # its max abs: fp32 both sides, TF32 off
+MLP_ACC = 0.9                   # train (over the epoch) and test accuracy
+
+
+def mlp_net(mx, ctx, seed):
+    """examples/mnist_mlp.py's net, Dense 128-64-10 with ReLU, initialized
+    on `ctx` from mx.random.seed(seed) (shapes by one predict-mode pass)
+    and hybridized."""
+    mx.random.seed(seed)
+    net = mx.gluon.nn.HybridSequential()
+    net.add(mx.gluon.nn.Dense(128, activation="relu"),
+            mx.gluon.nn.Dense(64, activation="relu"),
+            mx.gluon.nn.Dense(10))
+    net.initialize(ctx=ctx)
+    with mx.autograd.predict_mode():
+        net(mx.nd.zeros((1, 1, 28, 28), ctx=ctx))
+    net.hybridize()
+    return net
+
+
+def mlp_trainer(mx, net):
+    return mx.gluon.Trainer(net.collect_params(), "sgd",
+                            {"learning_rate": 0.05, "momentum": 0.9})
+
+
+def mlp_step(mx, net, loss_fn, trainer, data, label, ctx):
+    """The example's step: the batch to `ctx`, record, backward, step."""
+    data = data.as_in_context(ctx)
+    label = label.as_in_context(ctx)
+    with mx.autograd.record():
+        out = net(data)
+        loss = loss_fn(out, label)
+    loss.backward()
+    trainer.step(data.shape[0])
+    return out, label, loss
+
+
+def params_of(net):
+    return [p.data().data_torch.clone()
+            for p in net.collect_params().values()]
+
+
+def phase_gluon_mlp(tmp):
+    """Main path 10: examples/mnist_mlp.py as a user runs it through
+    gluon.data.vision.MNIST, at MNIST's size: one epoch of 469 steps with
+    the loader's next() inside the window, counts reset just before and
+    read just after; then the test set, the same epoch through
+    Estimator.fit from the same seed (bit-equal parameters), 3 steps
+    against the CPU, a step's host syncs and a profiled step. Returns the
+    launches of the epoch."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.gluon.data.vision import MNIST, transforms
+    from mxnet_tpu_torch.ops import (launch_counts, reset_launch_counts,
+                                     variant_counts)
+    from mxnet_tpu_torch.test_utils import synthetic_mnist, write_mnist
+    gpu, cpu = mx.gpu(0), mx.cpu()
+    root = os.path.join(tmp, "mnist")
+    os.makedirs(root)
+    xtr, ytr, xte, yte = synthetic_mnist(MNIST_TRAIN, MNIST_TEST,
+                                         seed=MNIST_SEED)
+    write_mnist(root, xtr, ytr, train=True)
+    write_mnist(root, xte, yte, train=False)
+    train_set = MNIST(root=root, train=True)
+    test_set = MNIST(root=root, train=False)
+    datasets_on_host = (train_set._data.context == cpu
+                        and test_set._data.context == cpu)
+    to_tensor = transforms.ToTensor()
+    train_data = train_set.transform_first(to_tensor)
+    test_data = test_set.transform_first(to_tensor)
+    loader = mx.gluon.data.DataLoader(train_data, batch_size=MNIST_BATCH,
+                                      shuffle=True)
+    net = mlp_net(mx, gpu, MNIST_SEED)
+    init = params_of(net)
+    init_path = os.path.join(tmp, "mlp_init.params")
+    net.save_parameters(init_path)
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    trainer = mlp_trainer(mx, net)
+    metric = mx.metric.Accuracy()
+    losses, load_ms, metric_ms, wall_ms, first = [], [], [], [], []
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True))
+              for _ in range(MNIST_STEPS)]
+    syncs0 = telemetry.counter_value("metric.host_syncs")
+    np.random.seed(MNIST_SEED)
+    it = iter(loader)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t_start = time.perf_counter()
+    for start, end in events:
+        t0 = time.perf_counter()
+        start.record()
+        data, label = next(it)
+        t1 = time.perf_counter()
+        if len(first) < MLP_CPU_STEPS:
+            first.append((data, label))
+        out, lab, loss = mlp_step(mx, net, loss_fn, trainer, data, label,
+                                  gpu)
+        t2 = time.perf_counter()
+        metric.update([lab], [out])
+        t3 = time.perf_counter()
+        end.record()
+        losses.append(loss.mean())
+        load_ms.append((t1 - t0) * 1e3)
+        metric_ms.append((t3 - t2) * 1e3)
+        wall_ms.append((t3 - t0) * 1e3)
+    torch.cuda.synchronize()
+    window_s = time.perf_counter() - t_start
+    launches = launch_counts()
+    variants = variant_counts()
+    peak = torch.cuda.max_memory_allocated()
+    epoch_over = next(it, None) is None
+    metric_syncs = (telemetry.counter_value("metric.host_syncs")
+                    - syncs0) / MNIST_STEPS
+    losses = [float(v.asscalar()) for v in losses]
+    train_acc = metric.get()[1]
+    step_ms = [s.elapsed_time(e) for s, e in events]
+    final = params_of(net)
+    dtypes = [str(t.dtype) for t in final]
+    batch_on_host = all(a.context == cpu for a in first[0])
+
+    test_metric = mx.metric.Accuracy()
+    with mx.autograd.predict_mode():
+        for data, label in mx.gluon.data.DataLoader(test_data,
+                                                    batch_size=MNIST_BATCH):
+            test_metric.update([label], [net(data.as_in_context(gpu))])
+    test_acc = test_metric.get()[1]
+
+    # the same epoch through Estimator.fit: a fresh net from the same
+    # seed, the sampler from the same numpy seed
+    enet = mlp_net(mx, gpu, MNIST_SEED)
+    same_init = all(torch.equal(a, b) for a, b in zip(params_of(enet), init))
+    est = mx.gluon.contrib.estimator.Estimator(
+        enet, mx.gluon.loss.SoftmaxCrossEntropyLoss(),
+        metrics=mx.metric.Accuracy(), trainer=mlp_trainer(mx, enet),
+        context=gpu)
+    np.random.seed(MNIST_SEED)
+    est.fit(loader, epochs=1)
+    est_params = params_of(enet)
+    est_equal = all(torch.equal(a, b) for a, b in zip(est_params, final))
+    est_diff = max((a - b).abs().max().item()
+                   for a, b in zip(est_params, final))
+
+    # the first 3 steps on the card and on the CPU from the same weights
+    runs = []
+    for ctx in (gpu, cpu):
+        with ctx:
+            cnet = mlp_net(mx, ctx, MNIST_SEED)
+            cnet.load_parameters(init_path, ctx=ctx)
+            ctr = mlp_trainer(mx, cnet)
+            closses = [float(mlp_step(mx, cnet, loss_fn, ctr, d, lab,
+                                      ctx)[2].mean().asscalar())
+                       for d, lab in first]
+            runs.append((closses, params_of(cnet)))
+    (gl, gp), (hl, hp) = runs
+    cpu_leaf_rel = [leaf_rel(a, b) for a, b in zip(gp, hp)]
+    cpu_loss_rel = max(abs(a - b) / abs(b) for a, b in zip(gl, hl))
+
+    # one step's host syncs and a profiled step (the loader's next() in)
+    it2 = iter(loader)
+
+    def one_step():
+        data, label = next(it2)
+        out, lab, _ = mlp_step(mx, net, loss_fn, trainer, data, label, gpu)
+        metric.update([lab], [out])
+    _, syncs = count_syncs(one_step)
+    prof = profile_window(one_step)
+    del it2
+    rec = {"phase": "gluon_mlp_mnist", "train_images": MNIST_TRAIN,
+           "test_images": MNIST_TEST, "batch": MNIST_BATCH,
+           "steps": MNIST_STEPS, "examples_per_s": MNIST_TRAIN / window_s,
+           "window_s": window_s,
+           "examples_per_s_after_step_1": (MNIST_TRAIN - MNIST_BATCH)
+           / (window_s - wall_ms[0] / 1e3),
+           "step_ms_median": statistics.median(step_ms),
+           "step_ms_first": step_ms[0],
+           "step_ms_p90": float(np.percentile(step_ms, 90)),
+           "step_ms_max": max(step_ms),
+           "step_wall_ms_median": statistics.median(wall_ms),
+           "loader_ms_median": statistics.median(load_ms),
+           "loader_ms_mean": statistics.mean(load_ms),
+           "loader_share": sum(load_ms) / sum(wall_ms),
+           "metric_update_ms_median": statistics.median(metric_ms),
+           "metric_update_ms_mean": statistics.mean(metric_ms),
+           "metric_host_syncs_per_step": metric_syncs,
+           "host_syncs_per_step": syncs,
+           "max_memory_allocated_bytes": peak,
+           "train_accuracy": train_acc, "test_accuracy": test_acc,
+           "loss_first": losses[0], "loss_last": losses[-1],
+           "loss_first_20_mean": statistics.mean(losses[:20]),
+           "loss_last_20_mean": statistics.mean(losses[-20:]),
+           "launches": {k: c for k, c in launches.items() if c},
+           "variants": {"%s/%s" % k: c for k, c in variants.items()},
+           "dtypes": sorted(set(dtypes)),
+           "datasets_on_host": datasets_on_host,
+           "batch_on_host": batch_on_host, "epoch_over": epoch_over,
+           "estimator_same_init": same_init,
+           "estimator_bit_equal": est_equal,
+           "estimator_max_abs_diff": est_diff,
+           "estimator_train_accuracy": est.train_metrics[0].get()[1],
+           "cpu_3_steps_leaf_rel": cpu_leaf_rel,
+           "cpu_3_steps_loss_rel": cpu_loss_rel,
+           "profile_one_step": prof}
+    emit(rec)
+    phase = "gluon_mlp_mnist"
+    check(launches == {k: (MNIST_STEPS if k == "flat_sgd" else 0)
+                       for k in launches}
+          and variants == {("flat_sgd", "multi"): MNIST_STEPS}, phase,
+          "launches %s (%s), expected one multi flat_sgd a step and no "
+          "other kernel" % (launches, variants))
+    check(all(np.isfinite(losses)) and rec["loss_last_20_mean"]
+          < rec["loss_first_20_mean"], phase,
+          "losses not finite or not falling")
+    check(train_acc > MLP_ACC and test_acc > MLP_ACC, phase,
+          "accuracy train %s test %s, expected both above %s"
+          % (train_acc, test_acc, MLP_ACC))
+    check(dtypes == ["torch.float32"] * 6, phase, "dtypes %s" % dtypes)
+    check(datasets_on_host and batch_on_host and epoch_over, phase,
+          "datasets or batches not on the host, or the epoch not 469 "
+          "batches")
+    check(same_init and est_equal, phase, "Estimator.fit: same init %s, "
+          "parameters after the epoch bit-equal %s (max diff %s)"
+          % (same_init, est_equal, est_diff))
+    check(max(cpu_leaf_rel) <= MLP_CPU_REL and cpu_loss_rel <= MLP_CPU_REL,
+          phase, "3 steps vs the CPU: leaves %s, losses %s"
+          % (cpu_leaf_rel, cpu_loss_rel))
+    check(prof["device_ms"] > 0, phase, "the profiler saw no device time")
+    return launches
+
+
+# -- main path 11: ResNet-50 fed by a GluonCV-style DataLoader --------------
+IMNET_N, IMNET_H, IMNET_W = 1024, 256, 341     # short side 256 at 4:3
+LOADER_BATCH = 256
+LOADER_WARMUP, LOADER_STEPS = 2, 10
+LOADER_WORKERS = 4                  # train_imagenet.py --num-data-workers
+IMNET_MEAN, IMNET_STD = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
+
+
+class ImageNetNpy:
+    """Seeded HWC uint8 images in one .npy and their labels. Each process
+    memory-maps the file at its first access: a spawned worker receives
+    the path, not the pixels."""
+
+    def __init__(self, path, labels):
+        self._path = path
+        self._labels = labels
+        self._images = None
+
+    def __len__(self):
+        return len(self._labels)
+
+    def __getitem__(self, i):
+        import mxnet_tpu_torch as mx
+        if self._images is None:
+            self._images = np.load(self._path, mmap_mode="r")
+        return (mx.nd.array(self._images[i], ctx=mx.cpu(), dtype="uint8"),
+                self._labels[i])
+
+    def __getstate__(self):
+        return {"_path": self._path, "_labels": self._labels,
+                "_images": None}
+
+
+def worker_probe(_):
+    """A pool task: the worker's pid and whether it initialized CUDA."""
+    time.sleep(0.2)
+    return os.getpid(), torch.cuda.is_initialized()
+
+
+def shm_segments():
+    return {n for n in os.listdir("/dev/shm") if n.startswith("psm_")}
+
+
+def imagenet_train_chain(T):
+    """train_imagenet.py's training transforms with GluonCV's defaults."""
+    return T.Compose([T.RandomResizedCrop(224), T.RandomFlipLeftRight(),
+                      T.RandomColorJitter(0.4, 0.4, 0.4),
+                      T.RandomLighting(0.1), T.ToTensor(),
+                      T.Normalize(IMNET_MEAN, IMNET_STD)])
+
+
+def loader_epochs(loader, n, seed):
+    """(epoch, batch, expected indices, batch) forever: each epoch's
+    RandomSampler order replayed from np.random.seed(seed + epoch) just
+    before the loader shuffles with it."""
+    epoch = 0
+    while True:
+        np.random.seed(seed + epoch)
+        order = np.arange(n)
+        np.random.shuffle(order)
+        np.random.seed(seed + epoch)
+        for k, batch in enumerate(iter(loader)):
+            yield epoch, k, order[k * LOADER_BATCH:(k + 1) * LOADER_BATCH], \
+                batch
+        epoch += 1
+
+
+def loader_run(mx, step, ds, labels, workers, profile):
+    """Path 11's loop at `workers` workers: 2 warm-up and 10 timed steps,
+    counts reset just before the timed steps and read just after."""
+    from mxnet_tpu_torch.ops import (launch_counts, reset_launch_counts,
+                                     variant_counts)
+    gpu = mx.gpu(0)
+    Param = collections.namedtuple("Param", ["epoch", "nbatch",
+                                             "eval_metric"])
+    t_make = time.perf_counter()
+    loader = mx.gluon.data.DataLoader(ds, batch_size=LOADER_BATCH,
+                                      shuffle=True, last_batch="discard",
+                                      num_workers=workers)
+    acc, top5 = mx.metric.Accuracy(), mx.metric.TopKAccuracy(5)
+    speedometer = mx.callback.Speedometer(LOADER_BATCH, frequent=5)
+    gen = loader_epochs(loader, len(labels), seed=100 * workers)
+    losses, load_ms, metric_ms, wall_ms = [], [], [], []
+    labels_in_order = True
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True))
+              for _ in range(LOADER_STEPS)]
+
+    def one_step(i, timed):
+        nonlocal labels_in_order
+        t0 = time.perf_counter()
+        if timed:
+            events[i][0].record()
+        epoch, k, want, (data, label) = next(gen)
+        t1 = time.perf_counter()
+        labels_in_order &= bool(np.array_equal(label.asnumpy(),
+                                               labels[want]))
+        x = data.as_in_context(gpu).transpose((0, 2, 3, 1)).astype(
+            "bfloat16")
+        y = label.as_in_context(gpu)
+        loss = step(x, y)
+        t2 = time.perf_counter()
+        acc.update([y], [step.outputs])
+        top5.update([y], [step.outputs])
+        t3 = time.perf_counter()
+        if timed:
+            events[i][1].record()
+            losses.append(loss)
+            load_ms.append((t1 - t0) * 1e3)
+            metric_ms.append((t3 - t2) * 1e3)
+            wall_ms.append((t3 - t0) * 1e3)
+        speedometer(Param(epoch, k + 1, acc))
+
+    for i in range(LOADER_WARMUP):
+        one_step(i, False)
+    first_batches_s = time.perf_counter() - t_make
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t_start = time.perf_counter()
+    for i in range(LOADER_STEPS):
+        one_step(i, True)
+    torch.cuda.synchronize()
+    window_s = time.perf_counter() - t_start
+    launches = launch_counts()
+    variants = variant_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(v.asscalar()) for v in losses]
+    step_ms = [s.elapsed_time(e) for s, e in events]
+    # the metrics' own host time: the updates in the loop also wait there
+    # for the step's kernels (their first copy to the host is the sync)
+    synced = []
+    for _ in range(3):
+        fresh = (mx.metric.Accuracy(), mx.metric.TopKAccuracy(5))
+        y = mx.nd.array(labels[:LOADER_BATCH], ctx=gpu)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for m in fresh:
+            m.update([y], [step.outputs])
+        synced.append((time.perf_counter() - t0) * 1e3)
+    probes = [r.get(120) for r in [loader._pool.apply_async(
+        worker_probe, (j,)) for j in range(4 * workers)]]
+    rec = {"workers": workers, "examples_per_s":
+           LOADER_STEPS * LOADER_BATCH / window_s, "window_s": window_s,
+           "warmup_s_with_spawn": first_batches_s,
+           "step_ms_median": statistics.median(step_ms), "step_ms": step_ms,
+           "step_wall_ms_median": statistics.median(wall_ms),
+           "loader_ms": load_ms,
+           "loader_ms_median": statistics.median(load_ms),
+           "loader_share": sum(load_ms) / sum(wall_ms),
+           "metric_update_ms_median": statistics.median(metric_ms),
+           "metric_update_ms_synced": statistics.median(synced),
+           "max_memory_allocated_bytes": peak, "losses": losses,
+           "accuracy": acc.get()[1], "top5": top5.get()[1],
+           "labels_in_sampler_order": labels_in_order,
+           "worker_pids": len({p for p, _ in probes}),
+           "workers_with_cuda": sum(c for _, c in probes),
+           "launches": {k: c for k, c in launches.items() if c},
+           "variants": {"%s/%s" % k: c for k, c in variants.items()}}
+    if profile:
+        _, rec["host_syncs_per_step"] = count_syncs(
+            lambda: one_step(0, False))
+        rec["profile_one_step"] = profile_window(lambda: one_step(0, False))
+    gen.close()
+    del gen, loader
+    return rec, launches, variants
+
+
+def phase_resnet_dataloader(tmp):
+    """Main path 11: path 4's ResNet-50 training step fed by GluonCV's
+    ImageNet DataLoader (train_imagenet.py's transforms and
+    --num-data-workers 4), then at min(16, cpus) workers; the labels in
+    the sampler's order, no worker with CUDA, a deterministic chain's batch
+    from 4 workers bit-equal to the main process's, and no shared-memory
+    segment left. Returns the timed steps' launches (both runs)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.data.vision import transforms as T
+    phase = "gluon_data_resnet50"
+    shm_before = shm_segments()
+    rng = np.random.RandomState(0)
+    path = os.path.join(tmp, "imagenet_like.npy")
+    np.save(path, rng.randint(0, 256, (IMNET_N, IMNET_H, IMNET_W, 3),
+                              dtype=np.uint8))
+    labels = rng.randint(0, 1000, IMNET_N).astype(np.int32)
+    ds = mx.gluon.data.SimpleDataset(ImageNetNpy(path, labels)) \
+        .transform_first(imagenet_train_chain(T))
+    gpu = mx.gpu(0)
+    net = train_net(0, gpu)
+    dtypes = {k: t.dtype for k, t in snapshot(net).items()}
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                               {"learning_rate": 0.1, "momentum": 0.9})
+    step = mx.gluon.FusedTrainStep(net, mx.gluon.loss.SoftmaxCrossEntropyLoss(),
+                                   trainer)
+    cpus = os.cpu_count()
+    runs, total = [], {}
+    for workers, profile in ((LOADER_WORKERS, True),
+                             (min(16, cpus), False)):
+        rec, launches, variants = loader_run(mx, step, ds, labels, workers,
+                                             profile)
+        runs.append(rec)
+        want = {"conv_bn_stats": 16 * LOADER_STEPS,
+                "cbr_train_bwd": 16 * LOADER_STEPS,
+                "flat_sgd": LOADER_STEPS}
+        check(launches == {k: want.get(k, 0) for k in launches}
+              and variants.get(("flat_sgd", "multi"), 0) == LOADER_STEPS
+              and wgmma_launches(variants, "conv_bn_stats")
+              == 16 * LOADER_STEPS, phase,
+              "%d workers: launches %s (%s), expected %s a window, every "
+              "flat_sgd multi" % (workers, launches, variants, want))
+        check(all(np.isfinite(rec["losses"])), phase,
+              "losses not finite: %s" % rec["losses"])
+        check(rec["labels_in_sampler_order"], phase,
+              "a label batch differs from the sampler's indices")
+        check(rec["workers_with_cuda"] == 0
+              and rec["worker_pids"] == workers, phase,
+              "%d workers: %d answered, %d initialized CUDA"
+              % (workers, rec["worker_pids"], rec["workers_with_cuda"]))
+        for k, c in launches.items():
+            total[k] = total.get(k, 0) + c
+    after = snapshot(net)
+    dtypes_kept = all(after[k].dtype == dt for k, dt in dtypes.items())
+    del net, trainer, step
+
+    # a deterministic chain: 4 workers against the main process
+    det = mx.gluon.data.SimpleDataset(ImageNetNpy(path, labels)) \
+        .transform_first(T.Compose([T.CenterCrop(224), T.ToTensor(),
+                                    T.Normalize(IMNET_MEAN, IMNET_STD)]))
+    batches = []
+    for workers in (LOADER_WORKERS, 0):
+        loader = mx.gluon.data.DataLoader(det, batch_size=LOADER_BATCH,
+                                          num_workers=workers)
+        it = iter(loader)
+        batches.append(next(it))
+        del it, loader
+    det_equal = all(torch.equal(a.data_torch, b.data_torch)
+                    for a, b in zip(*batches))
+    leaked = sorted(shm_segments() - shm_before)
+    emit({"phase": phase, "images": IMNET_N, "image_hw": [IMNET_H, IMNET_W],
+          "batch": LOADER_BATCH, "warmup": LOADER_WARMUP,
+          "steps": LOADER_STEPS, "cpu_count": cpus, "runs": runs,
+          "dtypes_kept": dtypes_kept,
+          "deterministic_chain_bit_equal": det_equal,
+          "shm_leaked": leaked})
+    check(dtypes_kept, phase, "a parameter changed its dtype")
+    check(det_equal, phase, "the deterministic chain's batch from %d "
+          "workers differs from the main process's" % LOADER_WORKERS)
+    check(not leaked, phase, "shared-memory segments left: %s" % leaked)
+    check(runs[0]["profile_one_step"]["device_ms"] > 0, phase,
+          "the profiler saw no device time")
+    return total
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4683,6 +5197,19 @@ def main():
     torch.cuda.empty_cache()
     mf_launches = phase_gluon_sparse_mf()
     check_path(mf_launches, MF_KERNELS, "main_path_gluon_sparse_mf")
+    torch.cuda.empty_cache()
+
+    # main path 10: the Gluon MLP on MNIST; main path 11: ResNet-50 fed by
+    # a DataLoader (counts reset inside, read right after the epoch and
+    # after each worker count's timed steps)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mnist_") as tmp:
+        mlp_launches = phase_gluon_mlp(tmp)
+    check_path(mlp_launches, ("flat_sgd",), "main_path_gluon_mlp_mnist")
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_loader_") as tmp:
+        loader_launches = phase_resnet_dataloader(tmp)
+    check_path(loader_launches, RESNET_TRAIN_KERNELS,
+               "main_path_gluon_data_resnet50")
 
     print(card_name_and_limit(), flush=True)
     kernels = []
@@ -4693,7 +5220,8 @@ def main():
             + resnet_launches[name] + train4_launches[name] \
             + bert_launches[name] + sparse_launches[name] \
             + dlrm_launches[name] + gluon_bert_launches[name] \
-            + fm_launches[name] + mf_launches[name]
+            + fm_launches[name] + mf_launches[name] \
+            + mlp_launches[name] + loader_launches[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": "mxnet_tpu_torch/" + source, "replaces": replaces,

@@ -23,7 +23,12 @@ kvstore's row_sparse push and pull, and the DLRM model (`models.dlrm`),
 on the segment-sum kernel of `ops.sparse_ops`; and Gluon-sparse:
 `Embedding(sparse_grad=True)`, row-sparse gradient buffers and
 Parameters, the CSR `dot` with its gradient, `mx.io`'s iterators
-(`LibSVMIter`) and the factorization models (`models.factorization`):
+(`LibSVMIter`) and the factorization models (`models.factorization`);
+and the data and evaluation layer: `gluon.data` (samplers, datasets, the
+DataLoader with spawned CPU-only workers, MNIST/CIFAR and the vision
+transforms), `image` (the array augmenters), `metric`, all of the
+reference's loss blocks, `gluon.utils`, `callback` and
+`gluon.contrib.estimator`:
 
     import mxnet_tpu_torch as mx
     net = mx.gluon.model_zoo.vision.resnet50_v1(layout="NHWC")
@@ -38,9 +43,10 @@ Parameters, the CSR `dot` with its gradient, `mx.io`'s iterators
 """
 from __future__ import annotations
 
-from . import (autograd, base, context, embedding, gluon, initializer, io,
-               kvstore, lr_scheduler, models, name, ndarray, ops, optimizer,
-               parallel, random, serve, telemetry, util)
+from . import (autograd, base, callback, context, embedding, gluon, image,
+               initializer, io, kvstore, lr_scheduler, metric, models, name,
+               ndarray, ops, optimizer, parallel, random, serve, telemetry,
+               util)
 from . import initializer as init
 from . import kvstore as kv
 from . import ndarray as nd
@@ -50,8 +56,9 @@ from .context import Context, cpu, current_context, gpu
 
 __version__ = "0.1.0"
 
-__all__ = ["autograd", "base", "context", "embedding", "gluon", "init",
-           "initializer", "io", "kv", "kvstore", "lr_scheduler", "models", "name", "nd", "ndarray", "ops",
+__all__ = ["autograd", "base", "callback", "context", "embedding", "gluon",
+           "image", "init", "initializer", "io", "kv", "kvstore",
+           "lr_scheduler", "metric", "models", "name", "nd", "ndarray", "ops",
            "opt", "optimizer", "parallel", "random", "serve", "telemetry",
            "util", "Context", "cpu", "gpu", "current_context", "MXNetError",
            "resolve_device"]

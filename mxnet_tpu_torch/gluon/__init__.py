@@ -1,7 +1,8 @@
 """Gluon of the port: blocks, parameters, the ResNet layers, the fused
-conv blocks, the vision model zoo's ResNets, the losses, `Trainer` and
-`FusedTrainStep`."""
-from . import block, contrib, loss, model_zoo, nn
+conv blocks, the vision model zoo's ResNets, the losses, `Trainer`,
+`FusedTrainStep`, `data` (datasets, samplers, the DataLoader, the vision
+datasets and transforms), `utils` and `contrib.estimator`."""
+from . import block, contrib, data, loss, model_zoo, nn, utils
 from .block import Block, HybridBlock
 from .fused_step import FusedTrainStep
 from .parameter import (Constant, DeferredInitializationError, Parameter,
@@ -10,4 +11,4 @@ from .trainer import Trainer
 
 __all__ = ["Block", "HybridBlock", "Constant", "DeferredInitializationError",
            "Parameter", "ParameterDict", "Trainer", "FusedTrainStep",
-           "contrib", "loss", "model_zoo", "nn"]
+           "contrib", "data", "loss", "model_zoo", "nn", "utils"]

@@ -327,7 +327,11 @@ class FusedTrainStep:
     """Forward + loss + backward + optimizer update as one call. net: a
     (Hybrid)Block; loss: a Loss block or a callable (pred, label) -> one
     loss per sample; trainer: a `gluon.Trainer` over the net's
-    parameters, with an optimizer in `_FUSABLE`."""
+    parameters, with an optimizer in `_FUSABLE`.
+
+    `outputs` holds the net's output of the last step, cut from the tape,
+    for a metric (a port addition: the reference's compiled step returns
+    the loss only)."""
 
     def __init__(self, net, loss, trainer, donate=True, mesh=None,
                  rules=None, batch_spec=None, bucket_mb=None):
@@ -342,6 +346,7 @@ class FusedTrainStep:
         self._loss = loss
         self._trainer = trainer
         self._built = False
+        self.outputs = None
 
     def _build(self, ctx, args):
         trainer = self._trainer
@@ -390,7 +395,8 @@ class FusedTrainStep:
         _AUX_COLLECTOR.stack.append(aux)
         try:
             with autograd.record(train_mode=True):
-                lvec = self._loss(self._net(*args), label)
+                out = self._net(*args)
+                lvec = self._loss(out, label)
         finally:
             _AUX_COLLECTOR.stack.pop()
         weights = [p.data(ctx)._data for p in self._train_params]
@@ -407,5 +413,6 @@ class FusedTrainStep:
                              opt.rescale_grad)
             for target, value in aux:
                 target._data.copy_(value)
+        self.outputs = out.detach() if isinstance(out, NDArray) else out
         loss = lvec._data.detach()
         return NDArray(loss.float().mean().to(loss.dtype), ctx=ctx)

@@ -133,11 +133,55 @@ class NDArray:
     def broadcast_to(self, shape):
         return invoke("broadcast_to", self, shape=shape)
 
+    def __len__(self):
+        if not self.shape:
+            raise TypeError("len() of unsized object")
+        return self.shape[0]
+
+    def __getitem__(self, key):
+        """x[key]: a basic index gives a view of the same storage, an
+        advanced one (an array of indices) a copy; recorded under
+        `autograd.record()`."""
+        if isinstance(key, NDArray):
+            key = key._data.long()
+        return invoke("_getitem", self, index=key)
+
+    @property
+    def T(self):
+        return invoke("transpose", self)
+
+    def asscalar(self):
+        if self.size != 1:
+            raise ValueError("The current array is not a scalar")
+        return self.asnumpy().reshape(()).item()
+
+    def __bool__(self):
+        if self.size == 1:
+            return bool(self.asscalar())
+        raise ValueError("Truth value of multi-element NDArray is ambiguous")
+
+    def transpose(self, *axes):
+        if len(axes) == 1 and isinstance(axes[0], (list, tuple)):
+            axes = tuple(axes[0])
+        return invoke("transpose", self, axes=axes if axes else None)
+
+    def slice_axis(self, axis, begin, end):
+        return invoke("slice_axis", self, axis=axis, begin=begin, end=end)
+
     def sum(self, axis=None, keepdims=False):
         return invoke("sum", self, axis=axis, keepdims=keepdims)
 
     def mean(self, axis=None, keepdims=False):
         return invoke("mean", self, axis=axis, keepdims=keepdims)
+
+    def norm(self, ord=2, axis=None, keepdims=False):
+        return invoke("norm", self, ord=ord, axis=axis, keepdims=keepdims)
+
+    def sqrt(self):
+        return invoke("sqrt", self)
+
+    def square(self):
+        return invoke("square", self)
 
     # -- autograd (reference: NDArray.attach_grad / grad / backward) -------
     def attach_grad(self, grad_req="write", stype=None):
@@ -205,8 +249,33 @@ class NDArray:
     def __truediv__(self, other):
         return invoke("broadcast_div", self, other)
 
+    def __rtruediv__(self, other):
+        return invoke("broadcast_div", other, self)
+
     def __neg__(self):
         return invoke("negative", self)
+
+    # comparisons give 1/0 arrays; == and != stay Python's identity tests
+    # (arrays are dict keys and list members in the port)
+    def __lt__(self, other):
+        return invoke("broadcast_lesser", self, other)
+
+    def __le__(self, other):
+        return invoke("broadcast_lesser_equal", self, other)
+
+    def __gt__(self, other):
+        return invoke("broadcast_greater", self, other)
+
+    def __ge__(self, other):
+        return invoke("broadcast_greater_equal", self, other)
+
+    def __imul__(self, other):
+        """x *= y in place: the product is written into x's storage (so
+        views and the lists holding x see it), in x's dtype."""
+        res = invoke("broadcast_mul", self, other)
+        with torch.no_grad():
+            self._data.copy_(res._data)
+        return self
 
 
 def _zero_buffer(buf):

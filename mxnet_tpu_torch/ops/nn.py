@@ -2,7 +2,8 @@
 `mxnet_tpu.ops.nn` that Gluon's ResNet and BERT layers and the losses
 call): FullyConnected, Convolution, Pooling, BatchNorm (inference and
 training), LayerNorm, Activation, LeakyReLU, softmax, log_softmax,
-Dropout and the interleaved self-attention products.
+Dropout, the interleaved self-attention products and ctc_loss (the
+reference's ``optax.ctc_loss`` there, ``F.ctc_loss`` here).
 
 They are XLA ops in the reference, outside any Pallas kernel, so they stay
 `torch.nn.functional` calls here. A float32 convolution on the card runs
@@ -295,3 +296,25 @@ def _log_softmax(data, axis=-1, temperature=None, dtype=None):
     x = data if not temperature or temperature == 1.0 else data / temperature
     out = torch.log_softmax(x.float(), dim=axis)
     return out.to(torch_dtype(dtype) if dtype else data.dtype)
+
+
+@register("ctc_loss", arity=None)
+def _ctc_loss(data, label, data_lengths=None, label_lengths=None):
+    """CTC negative log-likelihood per sequence of TNC logits `data`
+    against NT labels, the blank the last class: a label below 0 is
+    padding (its row's length is its count of labels >= 0) unless
+    `label_lengths` is given; `data_lengths` cuts each row's frames."""
+    T, N, C = data.shape
+    logp = torch.log_softmax(data.float(), dim=-1)
+    lab = label.long()
+    if data_lengths is None:
+        in_len = torch.full((N,), T, dtype=torch.long, device=data.device)
+    else:
+        in_len = data_lengths.long()
+    if label_lengths is None:
+        tgt_len = (lab >= 0).sum(dim=1)
+    else:
+        tgt_len = label_lengths.long()
+    out = F.ctc_loss(logp, lab.clamp(min=0), in_len, tgt_len, blank=C - 1,
+                     reduction="none")
+    return out.to(data.dtype)

@@ -4,7 +4,9 @@ NDArray arithmetic call): the binary broadcast ops and comparisons, unary
 math, identity, zeros_like, cast, reshape (with the codes 0, -1, -3),
 Flatten, transpose, slice_axis, broadcast_to, the reductions, pick, dot,
 Embedding (dense or row-sparse gradient) and the CSR dot
-``_sparse_dot_csr_dense``."""
+``_sparse_dot_csr_dense``; and for the loss blocks, the image augmenters
+and the DataLoader: maximum/minimum, sqrt, ones_like, where, norm,
+swapaxes, reverse, stack, add_n, one_hot and pad."""
 from __future__ import annotations
 
 import torch
@@ -174,6 +176,12 @@ def _slice_axis(x, axis=0, begin=0, end=None):
     return x[tuple(idx)]
 
 
+@register("_getitem")
+def _getitem(x, index=None):
+    """x[index] (NDArray.__getitem__): basic indices give a view."""
+    return x[index]
+
+
 @register("broadcast_to")
 def _broadcast_to(x, shape=None):
     """Broadcast to `shape`; 0 keeps the input's dim."""
@@ -286,3 +294,124 @@ def _dot(a, b, transpose_a=False, transpose_b=False):
     if a.dim() <= 2 and b.dim() <= 2:
         return torch.matmul(a, b)
     return torch.tensordot(a, b, dims=1)
+
+
+# ---------------------------------------------------------------------------
+# the ops of the data and evaluation layer: the loss blocks, the image
+# augmenters and the DataLoader's batchify
+# ---------------------------------------------------------------------------
+_BINARY_MORE = {"broadcast_maximum": torch.maximum,
+                "broadcast_minimum": torch.minimum}
+
+
+def _binary_both(f):
+    def fn(a, b):
+        """Either side may be a scalar."""
+        if not torch.is_tensor(a):
+            a = torch.as_tensor(a, dtype=b.dtype, device=b.device)
+        if not torch.is_tensor(b):
+            b = torch.as_tensor(b, dtype=a.dtype, device=a.device)
+        return f(a, b)
+    return fn
+
+
+for _n, _f in _BINARY_MORE.items():
+    register(_n)(_binary_both(_f))
+
+alias("broadcast_maximum", "maximum", "_maximum")
+alias("broadcast_minimum", "minimum", "_minimum")
+
+register("sqrt", arity=1)(torch.sqrt)
+
+
+@register("ones_like", differentiable=False)
+def _ones_like(x):
+    return torch.ones_like(x)
+
+
+@register("where")
+def _where(condition, x, y):
+    """x where the condition is nonzero, else y (either may be a scalar)."""
+    cond = condition != 0
+    ref = x if torch.is_tensor(x) else y
+    if not torch.is_tensor(x):
+        x = torch.as_tensor(x, dtype=ref.dtype, device=ref.device)
+    if not torch.is_tensor(y):
+        y = torch.as_tensor(y, dtype=ref.dtype, device=ref.device)
+    return torch.where(cond, x, y)
+
+
+@register("norm")
+def _norm(x, ord=2, axis=None, keepdims=False):
+    """The 1- or 2-norm over `axis` (all axes by default), summed in fp32
+    for a narrower float and returned in x's dtype: sqrt(sum(x^2)), as the
+    reference computes it."""
+    ax = _axes(axis, False, x.dim())
+    xa = x.float() if x.dtype in (torch.bfloat16, torch.float16) else x
+    if ord == 1:
+        r = xa.abs().sum(dim=ax, keepdim=keepdims)
+    else:
+        r = xa.square().sum(dim=ax, keepdim=keepdims).sqrt()
+    return r.to(x.dtype)
+
+
+@register("swapaxes")
+def _swapaxes(x, dim1=0, dim2=1):
+    return x.transpose(dim1, dim2)
+
+
+alias("swapaxes", "SwapAxis")
+
+
+@register("reverse")
+def _reverse(x, axis=0):
+    return torch.flip(x, dims=(axis,) if isinstance(axis, int)
+                      else tuple(axis))
+
+
+alias("reverse", "flip")
+
+
+@register("stack", arity=None)
+def _stack(*xs, axis=0, num_args=None):
+    return torch.stack(xs, dim=axis)
+
+
+@register("add_n", arity=None)
+def _add_n(*xs, num_args=None):
+    out = xs[0]
+    for x in xs[1:]:
+        out = out + x
+    return out
+
+
+alias("add_n", "ElementWiseSum")
+
+
+@register("one_hot", differentiable=False)
+def _one_hot(indices, depth=1, on_value=1.0, off_value=0.0,
+             dtype="float32"):
+    """on_value at each index's position along a new last axis of size
+    `depth`, off_value elsewhere; an index outside [0, depth) gives a row
+    of off_value."""
+    idx = indices.long()
+    hit = idx.unsqueeze(-1) == torch.arange(depth, device=idx.device)
+    dt = torch_dtype(dtype)
+    return torch.where(hit, torch.tensor(on_value, dtype=dt,
+                                         device=idx.device),
+                       torch.tensor(off_value, dtype=dt, device=idx.device))
+
+
+@register("pad")
+def _pad(x, mode="constant", pad_width=None, constant_value=0.0):
+    """Pad with (before, after) pairs per axis, flattened in axis order;
+    constant mode only."""
+    if mode != "constant":
+        raise NotImplementedError("pad: only mode='constant' is ported")
+    pairs = [(pad_width[2 * i], pad_width[2 * i + 1])
+             for i in range(x.dim())]
+    flat = [p for pair in reversed(pairs) for p in pair]
+    return torch.nn.functional.pad(x, flat, value=constant_value)
+
+
+alias("pad", "Pad")

@@ -1,4 +1,5 @@
-"""Seeded data for tests and the smoke run of the sparse Gluon path.
+"""Seeded data for tests and the smoke runs of the sparse Gluon and MNIST
+paths.
 
 - `criteo_ids` / `criteo_libsvm`: feature ids and libsvm files of the
   Criteo display-ad layout, as the LIBSVM datasets page publishes it (13
@@ -6,13 +7,21 @@
   factorization machine.
 - `synthetic_ratings`: low-rank ratings for matrix factorization (the
   reference's `examples/matrix_factorization.py`).
+- `synthetic_mnist` / `write_mnist`: MNIST-shaped digits (class templates
+  plus noise, as the vision datasets' synthetic fallback draws them, but
+  train and test from one template set) and the idx files that
+  `gluon.data.vision.MNIST` reads.
 """
 from __future__ import annotations
+
+import gzip
+import os
+import struct
 
 import numpy as np
 
 __all__ = ["CRITEO_FIELDS", "criteo_ids", "criteo_libsvm",
-           "synthetic_ratings"]
+           "synthetic_ratings", "synthetic_mnist", "write_mnist"]
 
 # ids are drawn zipf(1.2) within a field
 CRITEO_FIELDS = 13 + 26
@@ -54,3 +63,34 @@ def synthetic_ratings(n_users, n_items, n_obs, k=8, noise=0.1, seed=0):
     ratings = (U[users] * V[items]).sum(-1) + \
         rng.normal(0, noise, n_obs).astype(np.float32)
     return users, items, ratings.astype(np.float32), noise ** 2
+
+
+def synthetic_mnist(num_train, num_test, seed=0, shape=(28, 28),
+                    num_classes=10):
+    """(train images, train labels, test images, test labels): uint8
+    images of `shape`, each a class template plus noise in [-40, 40), the
+    templates shared by train and test, uint8 labels."""
+    rng = np.random.RandomState(seed)
+    templates = rng.randint(0, 255, size=(num_classes,) + shape)
+    out = []
+    for n in (num_train, num_test):
+        labels = rng.randint(0, num_classes, size=(n,))
+        noise = rng.randint(-40, 40, size=(n,) + shape)
+        out += [np.clip(templates[labels] + noise, 0, 255).astype(np.uint8),
+                labels.astype(np.uint8)]
+    return tuple(out)
+
+
+def write_mnist(root, images, labels, train=True):
+    """Write uint8 (n, 28, 28) images and their labels into `root` as the
+    gzipped idx files of MNIST's train (or t10k) split."""
+    prefix = "train" if train else "t10k"
+    n, rows, cols = images.shape
+    with gzip.open(os.path.join(root, "%s-images-idx3-ubyte.gz" % prefix),
+                   "wb", compresslevel=1) as f:
+        f.write(struct.pack(">IIII", 2051, n, rows, cols))
+        f.write(np.ascontiguousarray(images, dtype=np.uint8).tobytes())
+    with gzip.open(os.path.join(root, "%s-labels-idx1-ubyte.gz" % prefix),
+                   "wb", compresslevel=1) as f:
+        f.write(struct.pack(">II", 2049, n))
+        f.write(np.ascontiguousarray(labels, dtype=np.uint8).tobytes())
