@@ -222,8 +222,27 @@ Phases (one JSON line each; any failure exits non-zero):
                  share of the step; labels in the sampler's order, no
                  worker with CUDA, workers bit-equal to the main process on
                  a deterministic chain, no shared memory left behind.
+29. module_resnet50 — examples/train_image_classification.py --api module
+                 at full width: resnet50_v1 (composed, NCHW, fp32, 1000
+                 classes) traced on mx.sym.Variable("data") with
+                 SoftmaxOutput, mx.mod.Module(context=gpu(0)).fit with
+                 Xavier, SGD (lr 0.01, momentum 0.9), Accuracy, a
+                 Speedometer and do_checkpoint, batch 128 from an
+                 NDArrayIter on the host (one seeded 224x224 batch, 1000
+                 classes, repeated; the example's ImageRecordIter is not
+                 ported): 3 warm-up and 10 timed batches on the whole-graph
+                 route, under cuDNN's deterministic algorithms; images/s,
+                 the median step by CUDA events, Module.update's host ms,
+                 whole-graph runs, compiler.fallback (0), peak memory, a
+                 profiled step; losses falling, all 53 running means
+                 moved; score and predict over 4 batches, Module.load of
+                 the checkpoint predicting bit-equal; one step with
+                 MXNET_TPU_WHOLE_GRAPH=0 against the whole-graph route and
+                 3 Module steps against 3 imperative Gluon steps
+                 (Trainer + SoftmaxCrossEntropyLoss), each within twice the
+                 route's own spread under a one-ulp weight change.
 
-Eleven main paths, each with its own expected kernels, counts set to 0 just
+Twelve main paths, each with its own expected kernels, counts set to 0 just
 before and read just after: serving (phases 3-5: flash_fwd), training
 (phase 7's 6 steps: flash_fwd, flash_bwd_dq, flash_bwd_dkv), ResNet-50
 inference (phase 11's forward: conv_bn_relu, 16 launches, all on the
@@ -244,9 +263,9 @@ adamw_update per parameter) and Gluon-sparse: the factorization machine
 factorization (phase 26's 20 steps: 4 segment_sum, all fused, and 4
 flat_sgd, all single, a step) and the data layer: the MLP on MNIST (phase
 27's epoch: one flat_sgd, multi, a step) and ResNet-50 behind a DataLoader
-(phase 28's timed steps: as phase 15). Then the
-card's
-name and power limit, the `kernels` line, and as the last line {"ok":
+(phase 28's timed steps: as phase 15) and ResNet-50 through the symbolic
+Module (phase 29's 10 timed steps: one flat_sgd, single, per trainable
+argument a step: 193). Then the card's name and power limit, the `kernels` line, and as the last line {"ok":
 true, "device": {...}}. Exits non-zero without a CUDA card.
 """
 from __future__ import annotations
@@ -5088,6 +5107,356 @@ def phase_resnet_dataloader(tmp):
     return total
 
 
+# -- main path 12: ResNet-50 through the symbolic Module API ---------------
+MODULE_BATCH, MODULE_IMAGE, MODULE_CLASSES = 128, 224, 1000
+MODULE_WARMUP, MODULE_STEPS = 3, 10
+MODULE_EVAL_BATCHES = 4
+MODULE_SEED = 0
+MODULE_SGD = {"learning_rate": 0.01, "momentum": 0.9}
+MODULE_ROUTE_REL = 1e-5         # per-leaf ||a - b|| / ||b||: whole-graph vs
+                                # op-by-op, one step's loss and gradients,
+                                # the same kernels in the same order; the
+                                # limit, or twice the card's own spread
+                                # under a one-ulp weight change
+MODULE_GLUON_REL = 1e-4         # Module vs imperative Gluon after 3 steps,
+                                # per parameter and running statistic: the
+                                # head's gradient is computed two ways
+                                # (SoftmaxOutput, log_softmax's autograd);
+                                # the limit, or twice the spread likewise
+
+
+def module_symbol(mx):
+    """examples/train_image_classification.py --api module's graph:
+    resnet50_v1 (composed, NCHW, 1000 classes) traced to a symbol, with
+    SoftmaxOutput named softmax."""
+    with mx.name.NameManager():
+        net = mx.gluon.model_zoo.vision.resnet50_v1(classes=MODULE_CLASSES)
+    return net, mx.sym.SoftmaxOutput(net(mx.sym.var("data")),
+                                     name="softmax")
+
+
+def module_data(batch, image, n_batches, seed=MODULE_SEED):
+    """One seeded batch (N(0, 1) images, labels uniform over the 1000
+    classes) repeated `n_batches` times, on the host: a fixed batch, as
+    path 4 trains on, so that a falling loss shows the update learns."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((batch, 3, image, image), dtype=np.float32)
+    y = rng.integers(0, MODULE_CLASSES, batch).astype(np.float32)
+    return np.tile(x, (n_batches, 1, 1, 1)), np.tile(y, n_batches)
+
+
+def module_iter(mx, x, y, batch):
+    with mx.cpu():
+        return mx.io.NDArrayIter(x, y, batch_size=batch,
+                                 label_name="softmax_label")
+
+
+def module_batch(mx, x, y, batch):
+    with mx.cpu():
+        return mx.io.DataBatch([mx.nd.array(x[:batch])],
+                               [mx.nd.array(y[:batch])])
+
+
+def module_bound(mx, sym, ctx, batch, image, arg_params, aux_params):
+    """A Module on `ctx` bound for training at (batch, 3, image, image)
+    with the given parameters and SGD-momentum."""
+    mod = mx.mod.Module(sym, context=ctx)
+    mod.bind(data_shapes=[("data", (batch, 3, image, image))],
+             label_shapes=[("softmax_label", (batch,))])
+    mod.init_params(arg_params=arg_params, aux_params=aux_params)
+    mod.init_optimizer(optimizer="sgd", optimizer_params=dict(MODULE_SGD))
+    return mod
+
+
+def ce_loss(out, label):
+    """Mean cross-entropy of SoftmaxOutput's probabilities (a tensor, no
+    host sync)."""
+    p = out.data_torch.float()
+    lab = label.data_torch.to(p.device).long()
+    return -torch.log(p.gather(1, lab[:, None]).clamp_min(1e-30)).mean()
+
+
+def module_grads(mx, sym, ctx, batch_data, shape, arg_params, aux_params):
+    """One forward_backward's loss and gradients {name: tensor}."""
+    mod = module_bound(mx, sym, ctx, shape[0], shape[2], arg_params,
+                       aux_params)
+    mod.forward_backward(batch_data)
+    loss = ce_loss(mod.get_outputs()[0], batch_data.label[0]).item()
+    grads = {n: g[0].data_torch.detach().clone()
+             for n, g in zip(mod._exec_group.param_names,
+                             mod._exec_group.grad_arrays)}
+    return loss, grads
+
+
+def nudged(params):
+    """The parameters moved up by one ulp each."""
+    import mxnet_tpu_torch as mx
+    out = {}
+    for k, v in params.items():
+        t = v.data_torch
+        out[k] = mx.nd.NDArray(torch.nextafter(
+            t, torch.tensor(float("inf"))), ctx=v.context)
+    return out
+
+
+def leaf_rel_stats(a, b, skip=()):
+    """Median, max and worst leaves of ||a - b|| / ||b|| over the leaves
+    of `b` (on the host) that are not skipped and not zero."""
+    errs = {k: rel_err(v.cpu(), b[k].cpu()) for k, v in a.items()
+            if k not in skip and b[k].norm() > 0}
+    return {"median": statistics.median(errs.values()),
+            "max": max(errs.values()),
+            "worst_leaves": dict(sorted(errs.items(),
+                                        key=lambda kv: -kv[1])[:5])}
+
+
+def module_three_steps(mx, sym, ctx, batch_data, shape, arg_params,
+                       aux_params):
+    """3 Module steps from the given state: {name: tensor} after."""
+    mod = module_bound(mx, sym, ctx, shape[0], shape[2], arg_params,
+                       aux_params)
+    for _ in range(3):
+        mod.forward_backward(batch_data)
+        mod.update()
+    args, auxs = mod.get_params()
+    return {k: v.data_torch.clone() for k, v in
+            list(args.items()) + list(auxs.items())}
+
+
+def gluon_three_steps(mx, ctx, batch_data, arg_params, aux_params):
+    """The same 3 steps through the imperative Gluon route: resnet50_v1
+    (named as `module_symbol`'s) with the Module's initial parameters,
+    Trainer("sgd") and SoftmaxCrossEntropyLoss, step(batch)."""
+    net, _ = module_symbol(mx)
+    net.initialize(ctx=ctx)
+    params = net.collect_params()
+    for name, v in dict(arg_params, **aux_params).items():
+        params[name].set_data(v)
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    trainer = mx.gluon.Trainer(params, "sgd", dict(MODULE_SGD))
+    x = batch_data.data[0].as_in_context(ctx)
+    y = batch_data.label[0].as_in_context(ctx)
+    for _ in range(3):
+        imperative_step(mx, net, loss_fn, trainer, x, y)
+    return {name: p.data().data_torch.clone()
+            for name, p in params.items()}
+
+
+def phase_module_resnet50(tmp, batch=MODULE_BATCH, image=MODULE_IMAGE):
+    """Main path 12: examples/train_image_classification.py --api module
+    at full width: resnet50_v1 traced to a symbol, Module(context=gpu)
+    .fit with SGD-momentum (lr 0.01, 0.9) and Xavier init over an
+    NDArrayIter, 3 warm-up and 10 timed batches, Speedometer and
+    do_checkpoint; counts reset just before the timed batches and read
+    just after. Then score and predict over 4 batches, Module.load of the
+    checkpoint (predictions bit-equal), one step with
+    MXNET_TPU_WHOLE_GRAPH=0 against the whole-graph route, 3 Module steps
+    against 3 imperative Gluon steps, and a profiled step. Returns the
+    launches of the timed batches."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.ops import (launch_counts, reset_launch_counts,
+                                     variant_counts)
+    phase = "module_resnet50"
+    gpu = mx.gpu(0)
+    torch.backends.cudnn.deterministic = True
+    _, sym = module_symbol(mx)
+    n_trainable = len(sym.list_arguments()) - 2
+    n_batches = MODULE_WARMUP + MODULE_STEPS
+    x, y = module_data(batch, image, n_batches)
+    it = module_iter(mx, x, y, batch)
+    telemetry.reset()
+    mod = mx.mod.Module(sym, context=gpu)
+    update_ms, step_events, step_wall, losses, counted = [], [], [], [], {}
+    update = mod.update
+
+    def timed_update():
+        t0 = time.perf_counter()
+        update()
+        update_ms.append((time.perf_counter() - t0) * 1e3)
+    mod.update = timed_update
+
+    def on_batch(param):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        step_events.append(ev)
+        losses.append(ce_loss(mod.get_outputs()[0],
+                              param.locals["data_batch"].label[0]))
+        if param.nbatch == MODULE_WARMUP - 1:
+            torch.cuda.synchronize()
+            counted["runs0"] = telemetry.counter_value(
+                "compiler.program_runs")
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            step_wall.append(time.perf_counter())
+        elif param.nbatch == n_batches - 1:
+            torch.cuda.synchronize()
+            step_wall.append(time.perf_counter())
+            counted["launches"] = launch_counts()
+            counted["variants"] = variant_counts()
+            counted["runs"] = telemetry.counter_value(
+                "compiler.program_runs") - counted["runs0"]
+            counted["peak"] = torch.cuda.max_memory_allocated()
+
+    prefix = os.path.join(tmp, "resnet50")
+    mx.random.seed(MODULE_SEED)
+    mod.bind(data_shapes=it.provide_data, label_shapes=it.provide_label)
+    mod.init_params(initializer=mx.init.Xavier())
+    args0, auxs0 = mod.get_params()
+    init_args = {k: v.copy() for k, v in args0.items()}
+    init_auxs = {k: v.copy() for k, v in auxs0.items()}
+    t_fit = time.perf_counter()
+    mod.fit(it, num_epoch=1, optimizer="sgd",
+            optimizer_params=dict(MODULE_SGD), eval_metric="acc",
+            batch_end_callback=[on_batch,
+                                mx.callback.Speedometer(batch, 5)],
+            epoch_end_callback=mx.callback.do_checkpoint(prefix))
+    fit_s = time.perf_counter() - t_fit
+    launches, variants = counted["launches"], counted["variants"]
+    losses = [float(v) for v in losses]
+    timed_ms = [a.elapsed_time(b) for a, b in
+                zip(step_events[MODULE_WARMUP - 1:-1],
+                    step_events[MODULE_WARMUP:])]
+    window_s = step_wall[1] - step_wall[0]
+    args_after, auxs_after = mod.get_params()
+    moved = sum(not torch.equal(auxs_after[k].data_torch,
+                                init_auxs[k].data_torch)
+                for k in init_auxs if k.endswith("running_mean"))
+    fallback = telemetry.counter_value("compiler.fallback")
+
+    # score and predict over 4 batches in inference mode
+    eval_it = module_iter(mx, x[:MODULE_EVAL_BATCHES * batch],
+                          y[:MODULE_EVAL_BATCHES * batch], batch)
+    score = mod.score(eval_it, "acc")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pred = mod.predict(eval_it)
+    pred_t = pred.data_torch.clone()
+    torch.cuda.synchronize()
+    predict_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pred_again = mod.predict(eval_it).data_torch
+    torch.cuda.synchronize()
+    predict2_s = time.perf_counter() - t0
+
+    # the checkpoint do_checkpoint wrote, loaded into a new Module
+    loaded = mx.mod.Module.load(prefix, 1, context=gpu)
+    loaded.bind(data_shapes=eval_it.provide_data,
+                label_shapes=eval_it.provide_label, for_training=False)
+    reloaded_equal = torch.equal(loaded.predict(eval_it).data_torch, pred_t)
+    del loaded
+    profile = profile_window(lambda: (mod.forward_backward(
+        module_batch(mx, x, y, batch)), mod.update()))
+    del mod
+    torch.cuda.empty_cache()
+
+    # one step with MXNET_TPU_WHOLE_GRAPH=0 against the whole-graph route,
+    # beside the whole-graph route's own one-ulp spread
+    one = module_batch(mx, x, y, batch)
+    shape = (batch, 3, image, image)
+    loss_wg, g_wg = module_grads(mx, sym, gpu, one, shape, init_args,
+                                 init_auxs)
+    prev = os.environ.get("MXNET_TPU_WHOLE_GRAPH")
+    os.environ["MXNET_TPU_WHOLE_GRAPH"] = "0"
+    try:
+        lowered = telemetry.counter_value("compiler.lower")
+        loss_op, g_op = module_grads(mx, sym, gpu, one, shape, init_args,
+                                     init_auxs)
+        op_lowered = telemetry.counter_value("compiler.lower") - lowered
+    finally:
+        if prev is None:
+            del os.environ["MXNET_TPU_WHOLE_GRAPH"]
+        else:
+            os.environ["MXNET_TPU_WHOLE_GRAPH"] = prev
+    _, g_nudged = module_grads(mx, sym, gpu, one, shape, nudged(init_args),
+                               init_auxs)
+    # conv biases before a batch-statistics BatchNorm: zero gradient in
+    # exact arithmetic, rounding noise in practice
+    null = {k for k in g_wg if k.endswith("_bias") and "dense" not in k}
+    routes = {"op_by_op_vs_whole_graph": leaf_rel_stats(g_op, g_wg, null),
+              "one_ulp_weights": leaf_rel_stats(g_nudged, g_wg, null),
+              "loss_whole_graph": loss_wg, "loss_op_by_op": loss_op,
+              "op_by_op_lowered": op_lowered}
+    routes["median_limit"] = max(MODULE_ROUTE_REL, 2.0 * routes[
+        "one_ulp_weights"]["median"])
+    routes["max_limit"] = max(MODULE_ROUTE_REL,
+                              2.0 * routes["one_ulp_weights"]["max"])
+    del g_wg, g_op, g_nudged
+    torch.cuda.empty_cache()
+
+    # 3 Module steps against 3 imperative Gluon steps from the same state
+    m3 = module_three_steps(mx, sym, gpu, one, shape, init_args, init_auxs)
+    m3_nudged = module_three_steps(mx, sym, gpu, one, shape,
+                                   nudged(init_args), init_auxs)
+    g3 = gluon_three_steps(mx, gpu, one, init_args, init_auxs)
+    vs_gluon = {"module_vs_gluon": leaf_rel_stats(g3, m3, null),
+                "one_ulp_weights": leaf_rel_stats(m3_nudged, m3, null)}
+    vs_gluon["median_limit"] = max(MODULE_GLUON_REL, 2.0 * vs_gluon[
+        "one_ulp_weights"]["median"])
+    vs_gluon["max_limit"] = max(MODULE_GLUON_REL,
+                                2.0 * vs_gluon["one_ulp_weights"]["max"])
+    del m3, m3_nudged, g3
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = False
+
+    step_med = statistics.median(timed_ms)
+    rec = {"phase": phase, "config": "resnet50_v1 composed NCHW fp32, "
+           "Module.fit sgd lr 0.01 momentum 0.9, Xavier",
+           "batch": batch, "image": image, "warmup": MODULE_WARMUP,
+           "steps": MODULE_STEPS, "trainable_arguments": n_trainable,
+           "images_per_s": MODULE_STEPS * batch / window_s,
+           "window_s": window_s, "fit_s": fit_s,
+           "step_ms_median": step_med, "step_ms": timed_ms,
+           "images_per_s_by_median_step": batch / step_med * 1e3,
+           "update_host_ms_median": statistics.median(
+               update_ms[MODULE_WARMUP:]),
+           "flat_sgd_launches_per_step": launches["flat_sgd"]
+           / MODULE_STEPS,
+           "launches": {k: c for k, c in launches.items() if c},
+           "variants": {"%s/%s" % k: c for k, c in variants.items()},
+           "program_runs_timed": counted["runs"],
+           "compiler_program_runs": telemetry.counter_value(
+               "compiler.program_runs"),
+           "compiler_fallback": fallback,
+           "max_memory_allocated_bytes": counted["peak"],
+           "losses": losses, "running_means_moved": moved,
+           "score": score, "predict_images_per_s":
+           MODULE_EVAL_BATCHES * batch / predict_s,
+           "predict_images_per_s_second_call":
+           MODULE_EVAL_BATCHES * batch / predict2_s,
+           "predict_repeat_bit_equal": torch.equal(pred_again, pred_t),
+           "reloaded_predict_bit_equal": reloaded_equal,
+           "routes": routes, "vs_gluon_3_steps": vs_gluon,
+           "profile_one_step": profile, "card": card_name_and_limit()}
+    emit(rec)
+    check(launches["flat_sgd"] == MODULE_STEPS * n_trainable
+          and sum(launches.values()) == launches["flat_sgd"]
+          and variants == {("flat_sgd", "single"): MODULE_STEPS * n_trainable},
+          phase, "launches %s (%s), expected one single flat_sgd per "
+          "trainable argument (%d) a step and no other kernel"
+          % (launches, variants, n_trainable))
+    check(counted["runs"] == MODULE_STEPS, phase,
+          "%s whole-graph runs in %d steps" % (counted["runs"],
+                                               MODULE_STEPS))
+    check(fallback == 0, phase, "compiler.fallback %s" % fallback)
+    check(all(np.isfinite(losses)) and statistics.mean(losses[-3:])
+          < statistics.mean(losses[:3]), phase,
+          "losses not finite or not falling: %s" % losses)
+    check(moved == 53, phase, "%d of 53 running means moved" % moved)
+    check(reloaded_equal, phase, "the reloaded checkpoint's predictions "
+          "differ")
+    check(op_lowered == 0 and routes["op_by_op_vs_whole_graph"]["median"]
+          <= routes["median_limit"]
+          and routes["op_by_op_vs_whole_graph"]["max"] <= routes["max_limit"]
+          and abs(loss_op - loss_wg) <= MODULE_ROUTE_REL * abs(loss_wg),
+          phase, "op-by-op vs whole-graph step: %s" % routes)
+    check(vs_gluon["module_vs_gluon"]["median"] <= vs_gluon["median_limit"]
+          and vs_gluon["module_vs_gluon"]["max"] <= vs_gluon["max_limit"],
+          phase, "Module vs Gluon after 3 steps: %s" % vs_gluon)
+    check(profile["device_ms"] > 0, phase, "the profiler saw no device time")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5210,6 +5579,13 @@ def main():
         loader_launches = phase_resnet_dataloader(tmp)
     check_path(loader_launches, RESNET_TRAIN_KERNELS,
                "main_path_gluon_data_resnet50")
+    torch.cuda.empty_cache()
+
+    # main path 12: ResNet-50 through mx.mod.Module.fit (counts reset inside,
+    # read right after the timed batches)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_module_") as tmp:
+        module_launches = phase_module_resnet50(tmp)
+    check_path(module_launches, ("flat_sgd",), "main_path_module_resnet50")
 
     print(card_name_and_limit(), flush=True)
     kernels = []
@@ -5221,7 +5597,8 @@ def main():
             + bert_launches[name] + sparse_launches[name] \
             + dlrm_launches[name] + gluon_bert_launches[name] \
             + fm_launches[name] + mf_launches[name] \
-            + mlp_launches[name] + loader_launches[name]
+            + mlp_launches[name] + loader_launches[name] \
+            + module_launches[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": "mxnet_tpu_torch/" + source, "replaces": replaces,

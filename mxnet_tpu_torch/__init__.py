@@ -28,7 +28,11 @@ and the data and evaluation layer: `gluon.data` (samplers, datasets, the
 DataLoader with spawned CPU-only workers, MNIST/CIFAR and the vision
 transforms), `image` (the array augmenters), `metric`, all of the
 reference's loss blocks, `gluon.utils`, `callback` and
-`gluon.contrib.estimator`:
+`gluon.contrib.estimator`; and the symbolic half: `sym` (graphs built
+from the op registry, their JSON, shape inference and the `Executor` with
+its whole-graph route in `compiler`), `mod` (`Module`,
+`BucketingModule`), `model` (checkpoints), `attribute`, `monitor`,
+`viz`, and Gluon's `export` and `SymbolBlock`:
 
     import mxnet_tpu_torch as mx
     net = mx.gluon.model_zoo.vision.resnet50_v1(layout="NHWC")
@@ -43,22 +47,29 @@ reference's loss blocks, `gluon.utils`, `callback` and
 """
 from __future__ import annotations
 
-from . import (autograd, base, callback, context, embedding, gluon, image,
-               initializer, io, kvstore, lr_scheduler, metric, models, name,
-               ndarray, ops, optimizer, parallel, random, serve, telemetry,
-               util)
+from . import (attribute, autograd, base, callback, compiler, context,
+               embedding, gluon, image, initializer, io, kvstore,
+               lr_scheduler, metric, model, models, module, monitor, name,
+               ndarray, ops, optimizer, parallel, random, serve, symbol,
+               telemetry, util, visualization)
 from . import initializer as init
 from . import kvstore as kv
+from . import module as mod
 from . import ndarray as nd
 from . import optimizer as opt
+from . import symbol as sym
+from . import visualization as viz
+from .attribute import AttrScope
 from .base import MXNetError, resolve_device
 from .context import Context, cpu, current_context, gpu
 
 __version__ = "0.1.0"
 
-__all__ = ["autograd", "base", "callback", "context", "embedding", "gluon",
-           "image", "init", "initializer", "io", "kv", "kvstore",
-           "lr_scheduler", "metric", "models", "name", "nd", "ndarray", "ops",
-           "opt", "optimizer", "parallel", "random", "serve", "telemetry",
-           "util", "Context", "cpu", "gpu", "current_context", "MXNetError",
-           "resolve_device"]
+__all__ = ["attribute", "autograd", "base", "callback", "compiler",
+           "context", "embedding", "gluon", "image", "init", "initializer",
+           "io", "kv", "kvstore", "lr_scheduler", "metric", "mod", "model",
+           "models", "module", "monitor", "name", "nd", "ndarray", "ops",
+           "opt", "optimizer", "parallel", "random", "serve", "sym",
+           "symbol", "telemetry", "util", "visualization", "viz",
+           "AttrScope", "Context", "cpu", "gpu", "current_context",
+           "MXNetError", "resolve_device"]

@@ -99,3 +99,8 @@ register_env("MXNET_TPU_FUSED_CONVBN", False, bool,
              "Build the model zoo's ResNets with fused conv3x3+BN+ReLU "
              "blocks (NHWC, stride 1) in place of the composed triple; the "
              "parameter names differ, so checkpoints do not cross the gate.")
+register_env("MXNET_TPU_WHOLE_GRAPH", True, bool,
+             "Run a bound symbolic graph as one whole-graph program "
+             "(mx.compiler) in place of op-by-op dispatch; a graph the "
+             "pipeline cannot lower falls back op by op, counted as "
+             "compiler.fallback.<reason>.")

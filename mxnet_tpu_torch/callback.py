@@ -1,8 +1,7 @@
 """Training callbacks (the port of `mxnet_tpu.callback`): `Speedometer`,
-`ProgressBar`, `log_train_metric` and `LogValidationMetricsCallback`.
-`module_checkpoint` and `do_checkpoint` save through `Module` and
-`model.save_checkpoint`, which the port does not have yet (ROADMAP Queue
-A 7): they raise."""
+`ProgressBar`, `log_train_metric`, `LogValidationMetricsCallback`, and the
+epoch-end checkpoints `module_checkpoint` (through `Module.save_checkpoint`)
+and `do_checkpoint` (through `model.save_checkpoint`)."""
 from __future__ import annotations
 
 import logging
@@ -14,15 +13,27 @@ __all__ = ["module_checkpoint", "do_checkpoint", "log_train_metric",
 
 
 def module_checkpoint(mod, prefix, period=1, save_optimizer_states=False):
-    raise NotImplementedError(
-        "module_checkpoint needs Module, which the port does not have yet "
-        "(ROADMAP Queue A 7)")
+    """An epoch-end callback saving `mod` every `period` epochs.
+    reference: callback.py (module_checkpoint)."""
+    period = int(max(1, period))
+
+    def _callback(iter_no, sym=None, arg=None, aux=None):
+        if (iter_no + 1) % period == 0:
+            mod.save_checkpoint(prefix, iter_no + 1, save_optimizer_states)
+    return _callback
 
 
 def do_checkpoint(prefix, period=1):
-    raise NotImplementedError(
-        "do_checkpoint needs model.save_checkpoint, which the port does not "
-        "have yet (ROADMAP Queue A 7)")
+    """An epoch-end callback writing `prefix-symbol.json` and
+    `prefix-%04d.params` every `period` epochs.
+    reference: callback.py (do_checkpoint)."""
+    from . import model
+    period = int(max(1, period))
+
+    def _callback(iter_no, sym, arg, aux):
+        if (iter_no + 1) % period == 0:
+            model.save_checkpoint(prefix, iter_no + 1, sym, arg, aux)
+    return _callback
 
 
 def log_train_metric(period, auto_reset=False):

@@ -10,6 +10,12 @@ Auxiliary states (BatchNorm's running statistics) change through
 `record_aux_update`: written at once outside the graph, or collected while
 a `FusedTrainStep` runs and written after its update.
 
+A HybridBlock called on a `Symbol` runs `hybrid_forward` with F the
+`mx.sym` namespace and its parameters as variables (`Parameter.var`), so a
+network traces to a graph: `export` writes it with the parameters
+(``path-symbol.json``, ``path-%04d.params``), `SymbolBlock` wraps a graph
+as a block and `SymbolBlock.imports` loads an exported model.
+
 Deviation: `hybridize` records its flags and the forward stays eager. The
 reference traces the block into one compiled program (its CachedOp); the
 port's counterpart, capturing the training step as one CUDA graph, is
@@ -22,12 +28,13 @@ import threading
 import warnings
 from collections import OrderedDict
 
+import numpy as _np
 import torch
 
 from .. import ndarray as nd
 from .parameter import DeferredInitializationError, Parameter, ParameterDict
 
-__all__ = ["Block", "HybridBlock", "record_aux_update"]
+__all__ = ["Block", "HybridBlock", "SymbolBlock", "record_aux_update"]
 
 # per thread: a stack of lists that collect (aux array, new value) pairs
 # while a FusedTrainStep runs its forward
@@ -100,6 +107,12 @@ class _BlockScope:
         self._name_scope.__exit__(ptype, value, trace)
         self._name_scope = None
         _BlockScope._current.value = self._old_scope
+
+
+def is_symbol(x):
+    """Whether `x` is a `mx.sym.Symbol` (a block traced to a graph)."""
+    from ..symbol import Symbol
+    return isinstance(x, Symbol)
 
 
 def _indent(s, num_spaces):
@@ -333,9 +346,15 @@ class HybridBlock(Block):
             p._finish_deferred_init()
 
     def forward(self, x, *args):
+        """Eager on NDArrays; on Symbols, `hybrid_forward` with F the
+        symbol namespace and the parameters as variables."""
+        if is_symbol(x):
+            return self._symbolic_forward(x, *args)
         if not isinstance(x, nd.NDArray):
-            raise ValueError("HybridBlock input must be an NDArray, got %s"
-                             % type(x))
+            raise ValueError("HybridBlock input must be NDArray or Symbol, "
+                             "got %s" % type(x))
+        self._cached_graph_inputs = [x.shape] + [
+            a.shape for a in args if isinstance(a, nd.NDArray)]
         ctx = x.context
         try:
             params = {k: v.data(ctx) for k, v in self._reg_params.items()}
@@ -344,6 +363,137 @@ class HybridBlock(Block):
             params = {k: v.data(ctx) for k, v in self._reg_params.items()}
         return self.hybrid_forward(nd, x, *args, **params)
 
+    def _symbolic_forward(self, *syms):
+        """forward() on Symbol inputs."""
+        from .. import symbol
+        params = {k: v.var() for k, v in self._reg_params.items()}
+        return self.hybrid_forward(symbol, *syms, **params)
+
+    def _trace_symbol(self, n_inputs=1):
+        """This block as a graph over inputs named data, data1, ..."""
+        from .. import symbol
+        data = [symbol.var("data%d" % i if i else "data")
+                for i in range(n_inputs)]
+        out = self._symbolic_forward(*data)
+        if isinstance(out, (list, tuple)):
+            out = symbol.Group(list(out))
+        return out
+
+    def infer_shape(self, *args):
+        """Resolve the parameters' unknown dims from input arrays by
+        symbolic shape inference over the traced graph."""
+        out = self._trace_symbol(len(args))
+        known = {("data%d" % i if i else "data"): a.shape
+                 for i, a in enumerate(args)}
+        arg_shapes, _, aux_shapes = out.infer_shape(**known)
+        params = self.collect_params()
+        for name, shape in zip(out.list_arguments() +
+                               out.list_auxiliary_states(),
+                               arg_shapes + aux_shapes):
+            if name in params and shape is not None:
+                params[name].shape = shape
+
+    def infer_type(self, *args):
+        """Give the parameters that are not initialized yet the dtype the
+        traced graph infers for them (the reference's simplified rule: the
+        first input's dtype, float32 for auxiliary states)."""
+        out = self._trace_symbol(len(args))
+        arg_types, _, aux_types = out.infer_type(*[a.dtype for a in args])
+        params = self.collect_params()
+        for name, dt in zip(out.list_arguments() +
+                            out.list_auxiliary_states(),
+                            arg_types + aux_types):
+            if name in params and params[name]._data is None:
+                params[name].dtype = _np.dtype(dt).name
+
+    def export(self, path, epoch=0, remove_amp_cast=True):
+        """Write the traced graph to ``path-symbol.json`` and the
+        parameters to ``path-%04d.params`` (``arg:``/``aux:`` keys, so
+        `SymbolBlock.imports` and `Module.load` read them). The block must
+        be hybridized and have run forward once."""
+        if not self._active:
+            raise RuntimeError(
+                "Please first call block.hybridize() and then run forward "
+                "with this block at least once before calling export.")
+        inputs = getattr(self, "_cached_graph_inputs", None)
+        if inputs is None:
+            raise RuntimeError(
+                "Please run forward with this block at least once before "
+                "calling export.")
+        out = self._trace_symbol(len(inputs))
+        out.save("%s-symbol.json" % path, remove_amp_cast=remove_amp_cast)
+        aux = set(out.list_auxiliary_states())
+        arg_dict = {("aux:%s" if name in aux else "arg:%s") % name:
+                    param._reduce()
+                    for name, param in self.collect_params().items()}
+        nd.save("%s-%04d.params" % (path, epoch), arg_dict)
+        return "%s-symbol.json" % path, "%s-%04d.params" % (path, epoch)
+
     def hybrid_forward(self, F, x, *args, **kwargs):
         """Override to define computation."""
+        raise NotImplementedError
+
+
+class SymbolBlock(HybridBlock):
+    """A symbol graph as a block: every argument that is not an input, and
+    every auxiliary state, becomes a parameter (deferred until loaded or
+    initialized). On NDArrays the graph runs op by op under the port's
+    autograd; BatchNorm takes the batch's statistics and moves the moving
+    ones while `autograd.is_training()`, the moving ones otherwise. On
+    Symbols it composes."""
+
+    @staticmethod
+    def imports(symbol_file, input_names, param_file=None, ctx=None):
+        """A SymbolBlock from an exported ``-symbol.json`` and, optionally,
+        its ``.params`` (on `ctx`, default the current context)."""
+        from .. import symbol
+        out = symbol.load(symbol_file)
+        if isinstance(input_names, str):
+            input_names = [input_names]
+        ret = SymbolBlock(out, [symbol.var(i) for i in input_names])
+        if param_file is not None:
+            ret.collect_params().load(param_file, ctx=ctx, cast_dtype=True,
+                                      dtype_source="saved")
+        elif ctx is not None:
+            ret.collect_params().reset_ctx(ctx)
+        return ret
+
+    def __init__(self, outputs, inputs, params=None):
+        super().__init__(prefix=None, params=None)
+        self._prefix = ""
+        self._params = ParameterDict("", params)
+        from .. import symbol
+        if is_symbol(inputs):
+            inputs = [inputs]
+        if isinstance(outputs, (list, tuple)):
+            outputs = symbol.Group(list(outputs))
+        self._input_names = [s.name for s in inputs]
+        self._output = outputs
+        for name in outputs.list_arguments():
+            if name not in self._input_names:
+                self.params.get(name, allow_deferred_init=True)
+        for name in outputs.list_auxiliary_states():
+            self.params.get(name, grad_req="null", allow_deferred_init=True)
+
+    def forward(self, x, *args):
+        from .. import autograd
+        if is_symbol(x):
+            return self._output._compose_with(
+                dict(zip(self._input_names, [x] + list(args))))
+        ctx = x.context
+        feed = dict(zip(self._input_names, [x] + list(args)))
+        for name, p in self.params.items():
+            if p._data is not None:
+                feed[name] = p.data(ctx)
+        updates = []
+        out = self._output.eval_with(feed, ctx, train=autograd.is_training(),
+                                     bn_updates=updates)
+        for mm, mv, mean, var, m in updates:
+            for moving, batch in ((mm, mean), (mv, var)):
+                record_aux_update(moving, moving.data_torch * m +
+                                  batch.data_torch.to(moving._data.dtype)
+                                  * (1 - m))
+        return out
+
+    def hybrid_forward(self, F, x, *args, **kwargs):
         raise NotImplementedError

@@ -187,6 +187,15 @@ class BatchNorm(HybridBlock):
 
     def hybrid_forward(self, F, x, gamma, beta, running_mean, running_var):
         from ... import autograd
+        from ..block import is_symbol
+        if is_symbol(x):
+            # traced to a graph: the executor picks the statistics by its
+            # mode, so use_global_stats is written only when the block
+            # sets it (as upstream MXNet exports it)
+            extra = {"use_global_stats": True} if self._use_global_stats \
+                else {}
+            return F.BatchNorm(x, gamma, beta, running_mean, running_var,
+                               **self._kwargs, **extra)
         if self._use_global_stats or not autograd.is_training():
             return F.BatchNorm(x, gamma, beta, running_mean, running_var,
                                use_global_stats=True, **self._kwargs)

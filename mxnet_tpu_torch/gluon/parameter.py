@@ -73,6 +73,7 @@ class Parameter:
         self._stype = stype
         self._grad_stype = grad_stype
         self._trainer = None       # weakref to the Trainer that updates it
+        self._var = None           # the symbolic variable, made once
 
     def __repr__(self):
         return "Parameter %s (shape=%s, dtype=%s)" % (self.name, self._shape,
@@ -380,6 +381,35 @@ class Parameter:
                                % self.name)
         return list(self._data.keys())
 
+    def var(self):
+        """The symbolic variable of this parameter (a Gluon block's inputs
+        when it is traced to a symbol), with its shape (0 for an unknown
+        dim), dtype, initializer, multipliers and storage type as
+        attributes."""
+        if self._var is None:
+            from .. import symbol
+            self._var = symbol.var(self.name, shape=self.shape,
+                                   dtype=self.dtype, init=self.init,
+                                   lr_mult=self.lr_mult, wd_mult=self.wd_mult,
+                                   stype=self._stype)
+        return self._var
+
+    def reset_ctx(self, ctx):
+        """Place the data (or the pending deferred init) on `ctx` (default
+        the current context)."""
+        if ctx is None:
+            ctx = [current_context()]
+        if isinstance(ctx, Context):
+            ctx = [ctx]
+        if self._data:
+            self._init_impl(self._reduce(), ctx)
+        elif self._deferred_init:
+            init, _, default_init, data = self._deferred_init
+            self._deferred_init = (init, ctx, default_init, data)
+        else:
+            raise ValueError("Cannot reset context for Parameter '%s' because "
+                             "it has not been initialized." % self.name)
+
     def cast(self, dtype):
         """Cast the data (and future loads) to `dtype`."""
         self.dtype = dtype_name(dtype)
@@ -500,6 +530,10 @@ class ParameterDict:
     def zero_grad(self):
         for v in self.values():
             v.zero_grad()
+
+    def reset_ctx(self, ctx):
+        for v in self.values():
+            v.reset_ctx(ctx)
 
     def load(self, filename, ctx=None, allow_missing=False,
              ignore_extra=False, restore_prefix="", cast_dtype=False,

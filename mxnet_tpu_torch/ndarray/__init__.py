@@ -12,6 +12,7 @@ from ..ops import optimizer_ops as _optimizer_ops  # noqa: F401
 from ..ops import registry as _reg
 from ..ops import sparse_ops as _sparse_ops  # noqa: F401
 from ..ops import tensor as _tensor  # noqa: F401
+from ..ops import shape_hints as _shape_hints  # noqa: F401,E402
 from . import register as _register
 from . import sparse  # noqa: F401  (row_sparse / csr)
 from .ndarray import (NDArray, arange, array, invoke, load, ones, save,

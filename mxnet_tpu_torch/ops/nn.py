@@ -3,7 +3,11 @@
 call): FullyConnected, Convolution, Pooling, BatchNorm (inference and
 training), LayerNorm, Activation, LeakyReLU, softmax, log_softmax,
 Dropout, the interleaved self-attention products and ctc_loss (the
-reference's ``optax.ctc_loss`` there, ``F.ctc_loss`` here).
+reference's ``optax.ctc_loss`` there, ``F.ctc_loss`` here); and the
+training-output heads of symbolic graphs: SoftmaxOutput (alias Softmax),
+LinearRegressionOutput, LogisticRegressionOutput, MAERegressionOutput and
+MakeLoss, whose hand-written gradients live in `torch.autograd.Function`s
+(the reference's custom VJPs).
 
 They are XLA ops in the reference, outside any Pallas kernel, so they stay
 `torch.nn.functional` calls here. A float32 convolution on the card runs
@@ -235,7 +239,7 @@ def _softmax(data, axis=-1, temperature=None, length=None, use_length=False,
     return out.to(torch_dtype(dtype) if dtype else data.dtype)
 
 
-@register("Dropout")
+@register("Dropout", random=True)
 def _dropout(data, p=0.5, mode="training", axes=None, cudnn_off=None,
              _training=None):
     """Each element kept with probability 1 - p and scaled by 1 / (1 - p)
@@ -318,3 +322,137 @@ def _ctc_loss(data, label, data_lengths=None, label_lengths=None):
     out = F.ctc_loss(logp, lab.clamp(min=0), in_len, tgt_len, blank=C - 1,
                      reduction="none")
     return out.to(data.dtype)
+
+
+# ---------------------------------------------------------------------------
+# training-output heads (reference: softmax_output.cc, regression_output.cc,
+# make_loss.cc): the backward is the hand-coded loss gradient, not the
+# derivative of the forward, and the incoming cotangent is ignored (except
+# by MakeLoss, which scales it)
+# ---------------------------------------------------------------------------
+def _onehot_along(label, depth, axis, like):
+    """onehot(label) with the classes along `axis` of `like`; a label
+    outside [0, depth) gives a row of zeros, as ``jax.nn.one_hot``."""
+    lab = label.long().unsqueeze(axis)
+    shape = [1] * like.dim()
+    shape[axis] = depth
+    classes = torch.arange(depth, device=like.device).reshape(shape)
+    return (lab == classes).to(like.dtype)
+
+
+class _SoftmaxOutputFn(torch.autograd.Function):
+    """softmax forward; backward (softmax - onehot(label)) * grad_scale,
+    masked by `use_ignore` and divided by the batch ("batch") or the count
+    of kept labels ("valid", with `use_ignore`)."""
+
+    @staticmethod
+    def forward(ctx, data, label, grad_scale, ignore_label, multi_output,
+                use_ignore, normalization, smooth_alpha):
+        axis = 1 if multi_output else data.dim() - 1
+        out = torch.softmax(data.float(), dim=axis).to(data.dtype)
+        ctx.save_for_backward(out, label)
+        ctx.cfg = (axis, grad_scale, ignore_label, use_ignore,
+                   normalization, smooth_alpha)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        out, label = ctx.saved_tensors
+        axis, grad_scale, ignore_label, use_ignore, normalization,             smooth_alpha = ctx.cfg
+        depth = out.shape[axis]
+        oh = _onehot_along(label, depth, axis, out)
+        if smooth_alpha:
+            oh = oh * (1 - smooth_alpha) + smooth_alpha / depth
+        grad = (out - oh) * grad_scale
+        keep = None
+        if use_ignore:
+            keep = (label != ignore_label).to(out.dtype).unsqueeze(axis)
+            grad = grad * keep
+        if normalization == "batch":
+            grad = grad / out.shape[0]
+        elif normalization == "valid" and keep is not None:
+            grad = grad / torch.clamp(keep.sum(), min=1.0)
+        return grad, None, None, None, None, None, None, None
+
+
+@register("SoftmaxOutput")
+def _softmax_output(data, label, grad_scale=1.0, ignore_label=-1.0,
+                    multi_output=False, use_ignore=False,
+                    preserve_shape=False, normalization="null",
+                    out_grad=False, smooth_alpha=0.0):
+    """softmax over the last axis (axis 1 with `multi_output`); its
+    gradient is the fused cross-entropy one (`_SoftmaxOutputFn`)."""
+    return _SoftmaxOutputFn.apply(data, label, float(grad_scale),
+                                  float(ignore_label), bool(multi_output),
+                                  bool(use_ignore), str(normalization),
+                                  float(smooth_alpha))
+
+
+alias("SoftmaxOutput", "Softmax")
+
+
+class _RegressionOutputFn(torch.autograd.Function):
+    """forward `kind`'s map of data; backward residual(out, label) *
+    grad_scale / (elements per example)."""
+
+    @staticmethod
+    def forward(ctx, data, label, kind, grad_scale):
+        out = torch.sigmoid(data) if kind == "logistic" else data.clone()
+        ctx.save_for_backward(out, label)
+        ctx.cfg = (kind, grad_scale, tuple(data.shape), data.dtype)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        out, label = ctx.saved_tensors
+        kind, grad_scale, shape, dtype = ctx.cfg
+        num_output = 1
+        for s in shape[1:]:
+            num_output *= s
+        lab = label.reshape(shape).to(out.dtype)
+        res = torch.sign(out - lab) if kind == "mae" else out - lab
+        grad = res * (grad_scale / num_output)
+        return grad.to(dtype), None, None, None
+
+
+def _regression_output(kind):
+    def fn(data, label, grad_scale=1.0):
+        return _RegressionOutputFn.apply(data, label, kind, float(grad_scale))
+    return fn
+
+
+register("LinearRegressionOutput")(_regression_output("linear"))
+register("MAERegressionOutput")(_regression_output("mae"))
+register("LogisticRegressionOutput")(_regression_output("logistic"))
+
+
+class _MakeLossFn(torch.autograd.Function):
+    """Identity forward; the cotangent times grad_scale, divided by the
+    batch ("batch") or by the count of |data| > valid_thresh ("valid")."""
+
+    @staticmethod
+    def forward(ctx, data, grad_scale, valid_thresh, normalization):
+        valid = None
+        if normalization == "valid":
+            valid = torch.clamp((data.float().abs() > valid_thresh)
+                                .float().sum(), min=1.0)
+        ctx.cfg = (grad_scale, normalization, valid)
+        return data.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        gs, normalization, valid = ctx.cfg
+        if normalization == "batch":
+            gs = gs / g.shape[0]
+        grad = g * gs
+        if valid is not None:
+            grad = grad / valid.to(g.dtype)
+        return grad, None, None, None
+
+
+@register("MakeLoss")
+def _make_loss(data, grad_scale=1.0, valid_thresh=0.0, normalization="null"):
+    if float(grad_scale) == 1.0 and normalization == "null":
+        return data
+    return _MakeLossFn.apply(data, float(grad_scale), float(valid_thresh),
+                             str(normalization))

@@ -19,14 +19,18 @@ _REGISTRY: dict = {}
 
 class Operator:
     def __init__(self, name, fn, *, arity=None, differentiable=True,
-                 num_outputs=1, doc=None):
+                 random=False, num_outputs=1, doc=None):
         self.name = name
         self.fn = fn
         self.arity = arity            # number of array inputs; None = variadic
         self.differentiable = differentiable
+        self.random = random          # draws from the context's generator
         self.num_outputs = num_outputs
         self.doc = doc or (fn.__doc__ if fn else None)
         self.cuda_fn = None           # optional hand-written CUDA kernel path
+        self.shape_hint = None        # fn(in_shapes, kwargs) -> in_shapes:
+        #   fills unknown (None) input shapes from known ones, the forward
+        #   half of the reference's FInferShape (`ops.shape_hints`)
 
     def cuda_impl(self, fn):
         """Register the implementation that runs on a GPU context (a

@@ -77,6 +77,15 @@ def _identity(x):
 alias("identity", "_copy")
 
 
+@register("BlockGrad")
+def _block_grad(x):
+    """The input, with no gradient flowing back through it."""
+    return x.detach()
+
+
+alias("BlockGrad", "stop_gradient")
+
+
 @register("zeros_like", differentiable=False)
 def _zeros_like(x):
     return torch.zeros_like(x)
@@ -415,3 +424,11 @@ def _pad(x, mode="constant", pad_width=None, constant_value=0.0):
 
 
 alias("pad", "Pad")
+
+
+@register("concat", arity=None)
+def _concat(*xs, dim=1, num_args=None):
+    return torch.cat(xs, dim=dim)
+
+
+alias("concat", "Concat")

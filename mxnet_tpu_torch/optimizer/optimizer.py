@@ -122,9 +122,9 @@ class Optimizer:
                  clip_gradient=None, learning_rate=0.01, lr_scheduler=None,
                  sym=None, begin_num_update=0, multi_precision=False,
                  param_dict=None, aggregate_num=0):
-        if sym is not None:
-            raise NotImplementedError("Optimizer(sym=...): symbols are not "
-                                      "ported")
+        # a symbol's __lr_mult__/__wd_mult__ attributes set the multipliers
+        self.sym_info = (sym.attr_dict(), sym.list_arguments()) \
+            if sym is not None else ()
         self.rescale_grad = rescale_grad
         self.lr = learning_rate
         self.lr_scheduler = lr_scheduler
@@ -214,17 +214,27 @@ class Optimizer:
                               "optimizer is undefined.")
         self.lr = lr
 
+    def _sym_mults(self, key):
+        """{argument: float(attr)} of the symbol's `key` attributes."""
+        if not self.sym_info:
+            return {}
+        attr, arg_names = self.sym_info
+        return {n: float(attr[n][key]) for n in arg_names
+                if n in attr and key in attr[n]}
+
     def set_lr_mult(self, args_lr_mult):
-        self.lr_mult = {}
+        self.lr_mult = self._sym_mults("__lr_mult__")
         self.lr_mult.update(args_lr_mult)
 
     def set_wd_mult(self, args_wd_mult):
         """Names that do not end in ``_weight`` default to wd_mult 0
-        (biases, gammas, betas), as in the reference."""
+        (biases, gammas, betas), as in the reference; a symbol's
+        ``__wd_mult__`` attributes come next."""
         self.wd_mult = {}
         for n in self.idx2name.values():
             if not n.endswith("_weight"):
                 self.wd_mult[n] = 0.0
+        self.wd_mult.update(self._sym_mults("__wd_mult__"))
         self.wd_mult.update(args_wd_mult)
 
     def _set_current_context(self, device_id):

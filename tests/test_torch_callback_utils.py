@@ -76,11 +76,38 @@ def test_callback_log_lines(caplog, case):
     assert mine, "no line was logged"
 
 
-def test_checkpoint_callbacks_wait_for_queue_a7():
-    for make in (lambda: mx.callback.module_checkpoint(None, "p"),
-                 lambda: mx.callback.do_checkpoint("p")):
-        with pytest.raises(NotImplementedError, match="Queue A 7"):
-            make()
+def test_checkpoint_callbacks_wait_for_queue_a7(tmp_path):
+    """The checkpoint callbacks (ported with Module and model.py): every
+    `period` epochs, do_checkpoint writes files the reference loads and
+    module_checkpoint calls the module's save_checkpoint."""
+    data = mx.sym.var("data")
+    net = mx.sym.FullyConnected(data, num_hidden=3, name="fc")
+    rng = np.random.RandomState(0)
+    w = rng.standard_normal((3, 4)).astype(np.float32)
+    b = rng.standard_normal(3).astype(np.float32)
+    args = {"fc_weight": mx.nd.array(w, ctx=mx.cpu()),
+            "fc_bias": mx.nd.array(b, ctx=mx.cpu())}
+    prefix = str(tmp_path / "cb")
+    cb = mx.callback.do_checkpoint(prefix, period=2)
+    cb(0, net, args, {})
+    assert not (tmp_path / "cb-0001.params").exists()
+    cb(1, net, args, {})
+    sym, arg, aux = jmx.model.load_checkpoint(prefix, 2)
+    assert sym.list_arguments() == ["data", "fc_weight", "fc_bias"]
+    np.testing.assert_array_equal(arg["fc_weight"].asnumpy(), w)
+    np.testing.assert_array_equal(arg["fc_bias"].asnumpy(), b)
+    assert aux == {}
+
+    saved = []
+
+    class _Mod:
+        def save_checkpoint(self, prefix, epoch, save_optimizer_states):
+            saved.append((prefix, epoch, save_optimizer_states))
+    mcb = mx.callback.module_checkpoint(_Mod(), "p", period=3,
+                                        save_optimizer_states=True)
+    for epoch in range(6):
+        mcb(epoch)
+    assert saved == [("p", 3, True), ("p", 6, True)]
 
 
 @pytest.mark.parametrize("num_slice,even", [(1, True), (2, True), (3, True),
