@@ -241,8 +241,31 @@ Phases (one JSON line each; any failure exits non-zero):
                  3 Module steps against 3 imperative Gluon steps
                  (Trainer + SoftmaxCrossEntropyLoss), each within twice the
                  route's own spread under a one-ulp weight change.
+30. gluon_word_lm — examples/word_lm.py's WordLM (Embedding -> rnn.LSTM
+                 NTC -> Dropout -> Dense) at upstream MXNet's medium Gluon
+                 word-LM widths (emsize 650, nhid 650, 2 layers, dropout
+                 0.5, bptt 35, batch 32, a 10,000-word vocabulary) on the
+                 example's seeded Zipf corpus, hybridize(static_alloc=True),
+                 Trainer("sgd", lr 1.0, clip_gradient 0.25): 3 warm-up and
+                 20 timed steps (one multi flat_sgd each); tokens/s, the
+                 median step, trainer.step's host ms, peak memory, a
+                 profiled step, the RNN op's forward and backward device
+                 time beside cuDNN's LSTM (torch._VF.lstm) on the same flat
+                 weights, perplexity falling; the first step's loss and
+                 gradients against the CPU; the greedy continuation.
+31. module_lstm_bucketing — upstream example/rnn/bucketing/lstm_bucketing.py
+                 through mx.rnn: 2 stacked LSTMCell(200), Embedding(10000,
+                 200), merged outputs, FullyConnected(10000), SoftmaxOutput,
+                 BucketSentenceIter over seeded Zipf sentences (buckets 10
+                 to 60, batch 32, invalid label 0), BucketingModule.fit with
+                 SGD (lr 0.01, wd 1e-5) and Perplexity(0): 2 warm-up and 20
+                 timed batches (one single flat_sgd per trainable argument
+                 each); batches/s, tokens/s, the median step per bucket,
+                 programs built (one per bucket), compiler.fallback (0),
+                 Module.update's host ms; perplexity falling; the rnn
+                 checkpoint reloaded bit-equal.
 
-Twelve main paths, each with its own expected kernels, counts set to 0 just
+Fourteen main paths, each with its own expected kernels, counts set to 0 just
 before and read just after: serving (phases 3-5: flash_fwd), training
 (phase 7's 6 steps: flash_fwd, flash_bwd_dq, flash_bwd_dkv), ResNet-50
 inference (phase 11's forward: conv_bn_relu, 16 launches, all on the
@@ -265,8 +288,12 @@ flat_sgd, all single, a step) and the data layer: the MLP on MNIST (phase
 27's epoch: one flat_sgd, multi, a step) and ResNet-50 behind a DataLoader
 (phase 28's timed steps: as phase 15) and ResNet-50 through the symbolic
 Module (phase 29's 10 timed steps: one flat_sgd, single, per trainable
-argument a step: 193). Then the card's name and power limit, the `kernels` line, and as the last line {"ok":
-true, "device": {...}}. Exits non-zero without a CUDA card.
+argument a step: 193) and the recurrent models: the Gluon word LM (phase
+30's 20 timed steps: one flat_sgd, multi, a step) and the LSTM
+BucketingModule (phase 31's 20 timed batches: one flat_sgd, single, per
+trainable argument a batch: 11). Then the card's name and power limit,
+the `kernels` line, and as the last line {"ok": true, "device": {...}}.
+Exits non-zero without a CUDA card.
 """
 from __future__ import annotations
 
@@ -2029,6 +2056,96 @@ def fused_library(kind, ts):
     return lambda: [c() for c in calls]
 
 
+def rnn_sgd_lists():
+    """The #7 calls of paths 13 and 14, at their shapes (fp32, no momentum,
+    no master): label -> (parameter shapes, lr, wd of the weights (biases
+    take none), rescale, clip or None, multi). Path 13's Trainer hands
+    WordLM's 11 parameters to one `multi` launch (the example's lr 1.0 and
+    clip 0.25); path 14's Updater sends the bucketing model's 11 to one
+    `single` launch each (lr 0.01, wd 1e-5, rescale 1/batch). The paths
+    check that their parameters have these shapes."""
+    def lstm(inp, hid, layers):
+        out = []
+        for i in range(layers):
+            out += [(4 * hid, inp if i == 0 else hid), (4 * hid, hid),
+                    (4 * hid,), (4 * hid,)]
+        return out
+    lm = [(LM_VOCAB, LM_EMB)] + lstm(LM_EMB, LM_HID, LM_LAYERS) \
+        + [(LM_VOCAB, LM_HID), (LM_VOCAB,)]
+    bk = [(BK_VOCAB, BK_EMB)] + lstm(BK_EMB, BK_HID, BK_LAYERS) \
+        + [(BK_VOCAB, BK_HID), (BK_VOCAB,)]
+    return {"gluon_word_lm": (lm, 1.0, 0.0, 1.0, 0.25, True),
+            "module_lstm_bucketing": (bk, BK_SGD["learning_rate"],
+                                      BK_SGD["wd"], 1.0 / BK_BATCH, None,
+                                      False)}
+
+
+def same_shapes(shapes, want):
+    return sorted(tuple(s) for s in shapes) == sorted(want)
+
+
+def kernel_opt_rnn_paths(gen):
+    """#7 at the recurrent paths' calls (rnn_sgd_lists): path 13's one
+    multi launch over WordLM's 11 tensors (6.5M elements each for the
+    embedding and the projection) and path 14's 11 single launches, every
+    weight bit-equal (0 ulps) to the plain version's, the launches counted;
+    then each path's update timed (events and device time) beside its
+    bound."""
+    from mxnet_tpu_torch.ops import reset_launch_counts, variant_counts
+    from mxnet_tpu_torch.ops.fused_optimizer import (_ref_flat_sgd, flat_sgd,
+                                                     multi_sgd)
+    f32 = torch.float32
+    recs = {}
+    for label, (shapes, lr, wd, rescale, clip, multi) in \
+            rnn_sgd_lists().items():
+        ws = [torch.randn(s, generator=gen, device="cuda") * 0.05
+              for s in shapes]
+        gs = [torch.randn(s, generator=gen, device="cuda") * 0.5
+              for s in shapes]
+        wds = [wd if len(s) == 2 else 0.0 for s in shapes]
+        clip_on = clip is not None
+        clip = clip if clip_on else 0.0
+
+        def update(ws=ws, gs=gs, wds=wds, lr=lr, rescale=rescale,
+                   clip=clip, clip_on=clip_on, multi=multi):
+            if multi:
+                multi_sgd(ws, gs, [], None, [lr] * len(ws), wds, 0.0,
+                          rescale, clip, False, clip_on, False)
+            else:
+                for w, g, d in zip(ws, gs, wds):
+                    flat_sgd(w, g, None, None, lr, d, 0.0, rescale, clip,
+                             False, clip_on, False)
+        want = [_ref_flat_sgd(w, g, None, None, lr, d, 0.0, rescale, clip,
+                              False, clip_on, False)[0]
+                for w, g, d in zip(ws, gs, wds)]
+        reset_launch_counts()
+        update()
+        seen = variant_counts()
+        torch.cuda.synchronize()
+        ulps = max(ulps_apart(a, b).max().item() for a, b in zip(ws, want))
+        expect = {("flat_sgd", "multi"): 1} if multi \
+            else {("flat_sgd", "single"): len(ws)}
+        n = sum(w.numel() for w in ws)
+        rec = {"phase": "kernel_opt", "kernel": "flat_sgd", "path": label,
+               "tensors": len(ws), "elements": n,
+               "largest": max(w.numel() for w in ws), "max_ulps": ulps,
+               "variants": {"%s/%s" % k: c for k, c in seen.items()},
+               "ms": time_ms(update, iters=20),
+               "device_ms": device_ms(update),
+               "plain_ms": time_ms(lambda: [
+                   _ref_flat_sgd(w, g, None, None, lr, d, 0.0, rescale,
+                                 clip, False, clip_on, False)
+                   for w, g, d in zip(ws, gs, wds)], iters=5)}
+        rec["bound_ms"], rec["bound_by"] = bound(0.0, 12 * n, f32)
+        emit(rec)
+        check(ulps == 0 and seen == expect, "kernel_opt",
+              "%s's #7 calls: %s ulps from the plain version, launches %s "
+              "(expected %s)" % (label, ulps, seen, expect))
+        recs[label] = rec
+        del ws, gs, want
+    return recs
+
+
 def phase_kernel_opt(gen):
     """flat_sgd (#7) and flat_adam (#8) on the card. One-tensor launches
     against their plain versions: momentum on/off, clip on/off, mp on/off,
@@ -2046,7 +2163,8 @@ def phase_kernel_opt(gen):
     time; the kernels-line entry), beside the one-launch-per-tensor loop,
     torch._fused_sgd_ / _fused_adam_ (another function: context only) and
     the bound; and one launch over 25.6M elements (ResNet-50's parameter
-    count) at fp32 and bf16."""
+    count) at fp32 and bf16. Last, the recurrent paths' own calls
+    (kernel_opt_rnn_paths)."""
     from mxnet_tpu_torch.ops import reset_launch_counts, variant_counts
     from mxnet_tpu_torch.ops._build import library
     from mxnet_tpu_torch.ops.fused_optimizer import (_ref_flat_adam,
@@ -2208,6 +2326,7 @@ def phase_kernel_opt(gen):
                                              "library_ms", "bound_ms",
                                              "bound_by")}
         del params, kparams
+    kernel_opt_rnn_paths(gen)
     return entries
 
 
@@ -5457,6 +5576,495 @@ def phase_module_resnet50(tmp, batch=MODULE_BATCH, image=MODULE_IMAGE):
     return launches
 
 
+
+# -- main path 13: the Gluon word-level language model ---------------------
+LM_VOCAB, LM_EMB, LM_HID, LM_LAYERS = 10000, 650, 650, 2
+LM_DROPOUT, LM_BPTT, LM_BATCH = 0.5, 35, 32
+LM_TOKENS = 200_000                 # examples/word_lm.py's corpus default
+LM_WARMUP, LM_STEPS = 3, 20
+LM_LOSS_REL = 1e-5              # the first step's loss, card vs CPU: fp32
+                                # on both sides (TF32 off), only the
+                                # summation order differs
+LM_GRAD_REL = 1e-4              # per-leaf ||card - cpu|| / ||cpu|| of the
+                                # first step's gradients: the same, through
+                                # 70 recurrent steps forward and back
+LM_PARAM_REL = 1e-5             # every parameter after the first
+                                # trainer.step, card vs CPU: max |diff|
+                                # over max |cpu| (the update itself is
+                                # bit-equal to its plain version)
+LM_CUDNN_ABS = 1e-5             # the RNN op vs cuDNN's LSTM on the same
+                                # flat weights: max abs difference over
+                                # the outputs and final states, relative to
+                                # max(1, their largest value)
+
+
+def word_lm_net(mx, dropout=LM_DROPOUT):
+    """examples/word_lm.py's WordLM at the path's widths: Embedding ->
+    rnn.LSTM(layout="NTC") -> Dropout -> Dense(vocab, flatten=False),
+    weights not tied."""
+    gluon = mx.gluon
+
+    class WordLM(gluon.HybridBlock):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            with self.name_scope():
+                self.embed = gluon.nn.Embedding(LM_VOCAB, LM_EMB)
+                self.lstm = gluon.rnn.LSTM(LM_HID, num_layers=LM_LAYERS,
+                                           dropout=dropout, layout="NTC")
+                self.drop = gluon.nn.Dropout(dropout)
+                self.proj = gluon.nn.Dense(LM_VOCAB, flatten=False)
+
+        def hybrid_forward(self, F, x, *args, **params):
+            return self.proj(self.drop(self.lstm(self.embed(x))))
+    return WordLM(prefix="wordlm_")
+
+
+def lm_batches(n):
+    """The first `n` (x, y) batches of examples/word_lm.py: its Zipf(1.3)
+    corpus (seed 0, 200,000 tokens, ids mod the vocabulary) batchified
+    into LM_BATCH rows of LM_BPTT steps, y the next token."""
+    data = (np.random.RandomState(0).zipf(1.3, LM_TOKENS)
+            % LM_VOCAB).astype(np.int32)
+    per = LM_BATCH * LM_BPTT
+    m = (len(data) - 1) // per * per
+    x = data[:m].reshape(LM_BATCH, -1)
+    y = data[1:m + 1].reshape(LM_BATCH, -1)
+    return [(x[:, t:t + LM_BPTT], y[:, t:t + LM_BPTT])
+            for t in range(0, LM_BPTT * n, LM_BPTT)]
+
+
+def lm_loss(mx, net, sce, xb, yb, ctx):
+    x = mx.nd.array(xb, ctx=ctx)
+    y = mx.nd.array(yb, ctx=ctx)
+    with mx.autograd.record():
+        logits = net(x)
+        loss = sce(logits.reshape((-1, LM_VOCAB)), y.reshape((-1,))).mean()
+    loss.backward()
+    return loss
+
+
+def rnn_vs_cudnn(gen):
+    """The RNN op (mode lstm, path 13's 2 x 650 over 35 x 32 x 650, fp32)
+    against cuDNN's LSTM through torch._VF.lstm on the same flat weights
+    (a layout check, and the layer's yardstick): the largest difference,
+    and each one's forward and forward+backward device time (torch.profiler)
+    and event time."""
+    from mxnet_tpu_torch.ops.rnn_ops import (_rnn, _slice_params,
+                                             rnn_param_size)
+    n = rnn_param_size("lstm", LM_EMB, LM_HID, LM_LAYERS)
+    flat = (torch.rand(n, generator=gen, device="cuda") - 0.5) * 0.1
+    x = torch.randn(LM_BPTT, LM_BATCH, LM_EMB, generator=gen, device="cuda")
+    h0 = torch.randn(LM_LAYERS, LM_BATCH, LM_HID, generator=gen,
+                     device="cuda") * 0.1
+    c0 = torch.randn(LM_LAYERS, LM_BATCH, LM_HID, generator=gen,
+                     device="cuda") * 0.1
+    # cuDNN's per-layer [w_ih, w_hh, b_ih, b_hh], copied out of the flat
+    # vector (gate order [i, f, g, o] in both)
+    weights = [t.clone() for spec in _slice_params(
+        flat, "lstm", LM_EMB, LM_HID, LM_LAYERS, False)
+        for t in (spec["i2h_w"], spec["h2h_w"], spec["i2h_b"],
+                  spec["h2h_b"])]
+    kw = dict(state_size=LM_HID, num_layers=LM_LAYERS, mode="lstm",
+              _training=False)
+
+    def ours():
+        return _rnn(x, flat, h0, c0, **kw)
+
+    def cudnn():
+        # train=True, which cuDNN's backward needs; dropout 0, so the
+        # forward is the inference one
+        return torch._VF.lstm(x, (h0, c0), weights, True, LM_LAYERS, 0.0,
+                              True, False, False)
+    with torch.no_grad():
+        got, want = ours(), cudnn()
+    err = max((a - b).abs().max().item() / max(1.0, b.abs().max().item())
+              for a, b in zip(got, want))
+    cot = torch.randn(LM_BPTT, LM_BATCH, LM_HID, generator=gen,
+                      device="cuda")
+    leaves = [x, flat, h0, c0] + weights
+
+    def with_backward(fn):
+        def run():
+            for t in leaves:
+                t.requires_grad_(True)
+            out = fn()
+            (out[0] * cot).sum().backward()
+            for t in leaves:
+                t.grad = None
+                t.requires_grad_(False)
+        return run
+    rec = {"max_rel_err": err}
+    for name, fn in (("rnn_op", ours), ("cudnn_lstm", cudnn)):
+        with torch.no_grad():
+            fwd_dev = device_ms(fn, calls=5, warmup=2)
+            fwd_ev = time_ms(fn, iters=5, warmup=1)
+        both_dev = device_ms(with_backward(fn), calls=5, warmup=2)
+        both_ev = time_ms(with_backward(fn), iters=5, warmup=1)
+        rec[name] = {"fwd_device_ms": fwd_dev, "fwd_event_ms": fwd_ev,
+                     "fwd_bwd_device_ms": both_dev,
+                     "fwd_bwd_event_ms": both_ev,
+                     "bwd_device_ms": None if None in (fwd_dev, both_dev)
+                     else both_dev - fwd_dev}
+    return rec
+
+
+def phase_gluon_word_lm(tmp):
+    """Main path 13: examples/word_lm.py at upstream MXNet's medium Gluon
+    word-LM widths, 3 warm-up and 20 timed steps with counts reset just
+    before the timed steps and read just after; then the first step (loss,
+    gradients, and every parameter after trainer.step) against the CPU (dropout off on both sides: the masks
+    come from each device's generator), the RNN op against cuDNN's LSTM,
+    a profiled step and the example's greedy continuation. Returns the
+    launches of the timed steps."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import (launch_counts, reset_launch_counts,
+                                     variant_counts)
+    phase = "gluon_word_lm"
+    gpu, cpu = mx.gpu(0), mx.cpu()
+    batches = lm_batches(LM_WARMUP + LM_STEPS + 1)
+    with gpu:
+        mx.random.seed(0)
+        net = word_lm_net(mx)
+        net.initialize(mx.init.Xavier(), ctx=gpu)
+        net.hybridize(static_alloc=True)
+        with mx.autograd.predict_mode():
+            net(mx.nd.array(batches[0][0], ctx=gpu))
+    check(same_shapes([p.shape for p in net.collect_params().values()],
+                      rnn_sgd_lists()[phase][0]), phase,
+          "parameters other than those kernel_opt checked #7 at")
+    init_path = os.path.join(tmp, "word_lm_init.params")
+    net.save_parameters(init_path)
+    sce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                               {"learning_rate": 1.0, "clip_gradient": 0.25})
+    n_steps = LM_WARMUP + LM_STEPS
+    events = [torch.cuda.Event(enable_timing=True)
+              for _ in range(n_steps + 1)]
+    losses, step_host_ms = [], []
+    events[0].record()
+    for i, (xb, yb) in enumerate(batches[:n_steps]):
+        if i == LM_WARMUP:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            t_start = time.perf_counter()
+        with gpu:
+            loss = lm_loss(mx, net, sce, xb, yb, gpu)
+            t0 = time.perf_counter()
+            trainer.step(1)
+            step_host_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss.data_torch)
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    window_s = time.perf_counter() - t_start
+    launches, variants = launch_counts(), variant_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(v) for v in losses]
+    step_ms = [events[i].elapsed_time(events[i + 1])
+               for i in range(LM_WARMUP, n_steps)]
+    ppl_first, ppl_last = math.exp(losses[LM_WARMUP]), math.exp(losses[-1])
+
+    def one_step():
+        with gpu:
+            lm_loss(mx, net, sce, *batches[n_steps], gpu)
+            trainer.step(1)
+    prof = profile_window(one_step)
+
+    # the example's greedy continuation from token 1
+    tokens = []
+    with gpu:
+        cur = mx.nd.array(np.full((1, 1), 1, np.int32), ctx=gpu)
+        for _ in range(10):
+            nxt = int(np.argmax(net(cur).asnumpy()[0, -1]))
+            tokens.append(nxt)
+            cur = mx.nd.array(np.array([[nxt]], np.int32), ctx=gpu)
+
+    # the first step on the card and on the CPU, the same weights and
+    # batch: the loss, three gradients, and every parameter after the
+    # Trainer's update (on the card one multi #7 launch, on the CPU its
+    # plain version)
+    first = []
+    for ctx in (gpu, cpu):
+        with ctx:
+            cnet = word_lm_net(mx, dropout=0.0)
+            cnet.load_parameters(init_path, ctx=ctx)
+            loss = lm_loss(mx, cnet, sce, *batches[0], ctx)
+            grads = {"l0_h2h_weight": cnet.lstm.l0_h2h_weight.grad(ctx)
+                     .data_torch.cpu(),
+                     "proj_weight": cnet.proj.weight.grad(ctx).data_torch
+                     .cpu(),
+                     "proj_bias": cnet.proj.bias.grad(ctx).data_torch.cpu()}
+            mx.gluon.Trainer(cnet.collect_params(), "sgd",
+                             {"learning_rate": 1.0,
+                              "clip_gradient": 0.25}).step(1)
+            first.append((float(loss.asscalar()), grads,
+                          {k: p.data(ctx).data_torch.cpu() for k, p in
+                           cnet.collect_params().items()}))
+            del cnet
+    (lg, gg, pg), (lc, gc, pc) = first
+    cpu_loss_rel = abs(lg - lc) / abs(lc)
+    cpu_grad_rel = {k: rel_err(gg[k], gc[k]) for k in gc}
+    # max |card - cpu| over max |cpu| for each parameter after the step
+    cpu_param_rel = {k: ((pg[k] - pc[k]).abs().max()
+                         / pc[k].abs().max()).item() for k in pc}
+    del first, gg, gc, pg, pc
+    cudnn = rnn_vs_cudnn(torch.Generator(device="cuda").manual_seed(13))
+
+    med = statistics.median(step_ms)
+    rec = {"phase": phase,
+           "config": "WordLM vocab %d, emsize %d, nhid %d, %d layers, "
+                     "dropout %s, bptt %d, batch %d, sgd lr 1.0 clip 0.25"
+                     % (LM_VOCAB, LM_EMB, LM_HID, LM_LAYERS, LM_DROPOUT,
+                        LM_BPTT, LM_BATCH),
+           "warmup": LM_WARMUP, "steps": LM_STEPS,
+           "step_ms_median": med, "step_ms": step_ms,
+           "tokens_per_s": LM_STEPS * LM_BATCH * LM_BPTT / window_s,
+           "tokens_per_s_by_median_step": LM_BATCH * LM_BPTT / med * 1e3,
+           "window_s": window_s,
+           "trainer_step_host_ms_median": statistics.median(
+               step_host_ms[LM_WARMUP:]),
+           "max_memory_allocated_bytes": peak,
+           "perplexity_first_timed": ppl_first,
+           "perplexity_last_timed": ppl_last, "losses": losses,
+           "launches": {k: c for k, c in launches.items() if c},
+           "variants": {"%s/%s" % k: c for k, c in variants.items()},
+           "profile_one_step": prof, "greedy_tokens": tokens,
+           "cpu_first_step_loss_rel": cpu_loss_rel,
+           "cpu_first_step_grad_rel": cpu_grad_rel,
+           "cpu_first_step_param_rel_max": max(cpu_param_rel.values()),
+           "cpu_first_step_param_rel": cpu_param_rel,
+           "rnn_op_vs_cudnn_lstm": cudnn, "card": card_name_and_limit()}
+    emit(rec)
+    check(launches["flat_sgd"] == LM_STEPS
+          and sum(launches.values()) == LM_STEPS
+          and variants == {("flat_sgd", "multi"): LM_STEPS}, phase,
+          "launches %s (%s), expected one multi flat_sgd a step and no "
+          "other kernel" % (launches, variants))
+    check(all(np.isfinite(losses)) and ppl_last < ppl_first, phase,
+          "perplexity not finite or not falling: %s -> %s"
+          % (ppl_first, ppl_last))
+    check(len(tokens) == 10 and all(0 <= t < LM_VOCAB for t in tokens),
+          phase, "greedy continuation %s" % tokens)
+    check(cpu_loss_rel <= LM_LOSS_REL
+          and max(cpu_grad_rel.values()) <= LM_GRAD_REL, phase,
+          "first step vs the CPU: loss %s, gradients %s"
+          % (cpu_loss_rel, cpu_grad_rel))
+    check(len(cpu_param_rel) == len(rnn_sgd_lists()["gluon_word_lm"][0])
+          and max(cpu_param_rel.values()) <= LM_PARAM_REL, phase,
+          "parameters after the first trainer.step vs the CPU: %s"
+          % cpu_param_rel)
+    check(cudnn["max_rel_err"] <= LM_CUDNN_ABS, phase,
+          "RNN op vs cuDNN's LSTM: %s" % cudnn["max_rel_err"])
+    check(prof["device_ms"] > 0, phase, "the profiler saw no device time")
+    return launches
+
+
+# -- main path 14: an LSTM BucketingModule through mx.rnn ------------------
+BK_VOCAB, BK_EMB, BK_HID, BK_LAYERS = 10000, 200, 200, 2
+BK_KEYS = [10, 20, 30, 40, 50, 60]
+BK_WARMUP_PER_KEY = [1] * 6         # one warm-up batch of each bucket
+BK_PER_KEY = [4, 4, 3, 3, 3, 3]     # timed batches per bucket: 20
+BK_BATCH = 32
+BK_WARMUP, BK_STEPS = sum(BK_WARMUP_PER_KEY), sum(BK_PER_KEY)
+BK_SGD = {"learning_rate": 0.01, "momentum": 0.0, "wd": 1e-5}
+
+
+def bucket_sentences(per_key, seed):
+    """Zipf(1.3) sentences (ids 1 to 9999; 0 is the invalid label), as
+    many of each bucket's lengths (above the bucket below, up to its own)
+    as `per_key` batches hold, in a seeded shuffled order."""
+    rng = np.random.RandomState(seed)
+    sents, low = [], 1
+    for key, n in zip(BK_KEYS, per_key):
+        for _ in range(n * BK_BATCH):
+            length = rng.randint(low + 1, key + 1)
+            sents.append(list(rng.zipf(1.3, length) % (BK_VOCAB - 1) + 1))
+        low = key
+    return [sents[i] for i in rng.permutation(len(sents))]
+
+
+def lstm_bucketing_sym_gen(mx, stack):
+    """upstream lstm_bucketing.py's sym_gen over the shared `stack`, with
+    zero begin states."""
+    def sym_gen(seq_len):
+        data = mx.sym.Variable("data")
+        label = mx.sym.Variable("softmax_label")
+        embed = mx.sym.Embedding(data=data, input_dim=BK_VOCAB,
+                                 output_dim=BK_EMB, name="embed")
+        stack.reset()
+        begin = [mx.sym.zeros((BK_BATCH, BK_HID))
+                 for _ in range(2 * BK_LAYERS)]
+        outputs, _ = stack.unroll(seq_len, inputs=embed, begin_state=begin,
+                                  merge_outputs=True)
+        pred = mx.sym.Reshape(outputs, shape=(-1, BK_HID))
+        pred = mx.sym.FullyConnected(data=pred, num_hidden=BK_VOCAB,
+                                     name="pred")
+        label = mx.sym.Reshape(label, shape=(-1,))
+        pred = mx.sym.SoftmaxOutput(data=pred, label=label, name="softmax")
+        return pred, ("data",), ("softmax_label",)
+    return sym_gen
+
+
+def phase_module_lstm_bucketing(tmp):
+    """Main path 14: upstream example/rnn/bucketing/lstm_bucketing.py on
+    the port at its defaults. BucketingModule.fit over one warm-up batch
+    of each bucket (every bucket's program built), then fit over 20 timed
+    batches, counts reset just before the timed fit and read just after
+    its last batch; the rnn checkpoint written and read back. Returns the
+    launches of the timed batches."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.ops import (launch_counts, reset_launch_counts,
+                                     variant_counts)
+    phase = "module_lstm_bucketing"
+    gpu = mx.gpu(0)
+    stack = mx.rnn.SequentialRNNCell()
+    for i in range(BK_LAYERS):
+        stack.add(mx.rnn.LSTMCell(num_hidden=BK_HID, prefix="lstm_l%d_" % i))
+    np.random.seed(0)
+    with mx.cpu():
+        warm_it, it = (mx.rnn.BucketSentenceIter(
+            bucket_sentences(per_key, seed), BK_BATCH, buckets=list(BK_KEYS),
+            invalid_label=0)
+            for per_key, seed in ((BK_WARMUP_PER_KEY, 1), (BK_PER_KEY, 0)))
+    mod = mx.mod.BucketingModule(lstm_bucketing_sym_gen(mx, stack),
+                                 default_bucket_key=it.default_bucket_key,
+                                 context=gpu)
+    update_ms, events, keys, ppl, counted = [], [], [], [], {}
+    prev = [0.0, 0]
+    update = mod.update
+
+    def timed_update():
+        t0 = time.perf_counter()
+        update()
+        update_ms.append((time.perf_counter() - t0) * 1e3)
+    mod.update = timed_update
+
+    def on_batch(param):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        keys.append(param.locals["data_batch"].bucket_key)
+        # the batch's perplexity from the fit's Perplexity(0) metric: its
+        # sums since the last batch (fit resets it at each epoch's start)
+        m = param.eval_metric
+        if param.nbatch == 0:
+            prev[:] = [0.0, 0]
+        n = m.num_inst - prev[1]
+        ppl.append((math.exp((m.sum_metric - prev[0]) / n), n))
+        prev[:] = [m.sum_metric, m.num_inst]
+        if len(keys) == BK_WARMUP + BK_STEPS:
+            torch.cuda.synchronize()
+            counted["t1"] = time.perf_counter()
+            counted["launches"] = launch_counts()
+            counted["variants"] = variant_counts()
+            counted["peak"] = torch.cuda.max_memory_allocated()
+            counted["built"] = telemetry.counter_value("compiler.compile")
+
+    def fit(data):
+        mod.fit(data, eval_metric=mx.metric.Perplexity(0), optimizer="sgd",
+                optimizer_params=dict(BK_SGD),
+                initializer=mx.init.Xavier(factor_type="in", magnitude=2.34),
+                num_epoch=1,
+                batch_end_callback=[on_batch, mx.callback.Speedometer(
+                    BK_BATCH, 5, auto_reset=False)])
+
+    telemetry.reset()
+    mx.random.seed(0)
+    with mx.cpu():      # the iterator's batches on the host
+        fit(warm_it)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        built_before = telemetry.counter_value("compiler.compile")
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        reset_launch_counts()
+        counted["t0"] = time.perf_counter()
+        fit(it)
+    launches, variants = counted["launches"], counted["variants"]
+    programs = telemetry.counter_value("compiler.compile")
+    fallback = telemetry.counter_value("compiler.fallback")
+    n_trainable = len(mod.symbol.list_arguments()) - 2
+    window_s = counted["t1"] - counted["t0"]
+    step_ms = [a.elapsed_time(b) for a, b in
+               zip([start] + events[BK_WARMUP:-1], events[BK_WARMUP:])]
+    timed_keys = keys[BK_WARMUP:]
+    by_key = {k: statistics.median(ms for ms, kk in zip(step_ms, timed_keys)
+                                   if kk == k)
+              for k in sorted(set(timed_keys))}
+
+    # a profiled batch of the longest bucket, and of the shortest
+    profiles = {}
+    with mx.cpu():
+        it.reset()
+        for batch in it:
+            if batch.bucket_key in (BK_KEYS[0], BK_KEYS[-1]) and \
+                    batch.bucket_key not in profiles:
+                profiles[batch.bucket_key] = profile_window(
+                    lambda: (mod.forward_backward(batch), mod.update()))
+
+    # the rnn checkpoint: written, read back bit-equal
+    arg, aux = mod.get_params()
+    check(same_shapes([v.shape for v in arg.values()],
+                      rnn_sgd_lists()[phase][0]), phase,
+          "parameters other than those kernel_opt checked #7 at")
+    prefix = os.path.join(tmp, "lstm_bucketing")
+    mx.rnn.save_rnn_checkpoint(stack, prefix, 1, mod.symbol, arg, aux)
+    _, arg2, aux2 = mx.rnn.load_rnn_checkpoint(stack, prefix, 1)
+    reloaded = sorted(arg2) == sorted(arg) and all(
+        torch.equal(arg2[k].data_torch.cpu(), arg[k].data_torch.cpu())
+        for k in arg)
+
+    rec = {"phase": phase,
+           "config": "2 x LSTMCell(%d), Embedding(%d, %d), buckets %s, "
+                     "batch %d, sgd lr 0.01 wd 1e-5, Xavier in 2.34"
+                     % (BK_HID, BK_VOCAB, BK_EMB, BK_KEYS, BK_BATCH),
+           "warmup": BK_WARMUP, "steps": BK_STEPS,
+           "batches_per_s": BK_STEPS / window_s, "window_s": window_s,
+           "tokens_per_s": sum(BK_BATCH * k for k in timed_keys) / window_s,
+           "valid_tokens_per_s": sum(n for _, n in ppl[BK_WARMUP:])
+           / window_s,
+           "step_ms": step_ms, "step_ms_median": statistics.median(step_ms),
+           "step_ms_median_by_bucket": by_key,
+           "bucket_keys": keys, "programs_built": programs,
+           "programs_built_in_window": counted["built"] - built_before,
+           "buckets_seen": len(set(keys)), "compiler_fallback": fallback,
+           "trainable_arguments": n_trainable,
+           "update_host_ms_median": statistics.median(
+               update_ms[BK_WARMUP:]),
+           "max_memory_allocated_bytes": counted["peak"],
+           "perplexity": [p for p, _ in ppl],
+           "launches": {k: c for k, c in launches.items() if c},
+           "variants": {"%s/%s" % k: c for k, c in variants.items()},
+           "checkpoint_reloaded_bit_equal": reloaded,
+           "profile_one_batch_by_bucket": profiles,
+           "card": card_name_and_limit()}
+    emit(rec)
+    first3 = statistics.mean(p for p, _ in ppl[:3])
+    last3 = statistics.mean(p for p, _ in ppl[-3:])
+    check(len(keys) == BK_WARMUP + BK_STEPS
+          and set(keys[:BK_WARMUP]) == set(BK_KEYS), phase,
+          "batches %s, expected one of each bucket, then %d"
+          % (keys, BK_STEPS))
+    check(launches["flat_sgd"] == BK_STEPS * n_trainable
+          and sum(launches.values()) == launches["flat_sgd"]
+          and variants == {("flat_sgd", "single"): BK_STEPS * n_trainable},
+          phase, "launches %s (%s), expected one single flat_sgd per "
+          "trainable argument (%d) a batch and no other kernel"
+          % (launches, variants, n_trainable))
+    check(programs == len(BK_KEYS) and counted["built"] == built_before
+          and fallback == 0, phase,
+          "%s programs for %d buckets (%s built in the timed window), "
+          "compiler.fallback %s" % (programs, len(BK_KEYS),
+                                    counted["built"] - built_before,
+                                    fallback))
+    check(all(np.isfinite([p for p, _ in ppl])) and last3 < first3, phase,
+          "perplexity not finite or not falling: %s" % ppl)
+    check(reloaded, phase, "the rnn checkpoint did not reload bit-equal")
+    check(all(p["device_ms"] > 0 for p in profiles.values()), phase,
+          "the profiler saw no device time")
+    return launches
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5586,6 +6194,19 @@ def main():
     with tempfile.TemporaryDirectory(prefix="chip_smoke_module_") as tmp:
         module_launches = phase_module_resnet50(tmp)
     check_path(module_launches, ("flat_sgd",), "main_path_module_resnet50")
+    torch.cuda.empty_cache()
+
+    # main path 13: the Gluon word LM; main path 14: an LSTM
+    # BucketingModule through mx.rnn (counts reset inside, read right after
+    # the timed steps and batches)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_word_lm_") as tmp:
+        word_lm_launches = phase_gluon_word_lm(tmp)
+    check_path(word_lm_launches, ("flat_sgd",), "main_path_gluon_word_lm")
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_bucketing_") as tmp:
+        bucketing_launches = phase_module_lstm_bucketing(tmp)
+    check_path(bucketing_launches, ("flat_sgd",),
+               "main_path_module_lstm_bucketing")
 
     print(card_name_and_limit(), flush=True)
     kernels = []
@@ -5598,7 +6219,8 @@ def main():
             + dlrm_launches[name] + gluon_bert_launches[name] \
             + fm_launches[name] + mf_launches[name] \
             + mlp_launches[name] + loader_launches[name] \
-            + module_launches[name]
+            + module_launches[name] + word_lm_launches[name] \
+            + bucketing_launches[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": "mxnet_tpu_torch/" + source, "replaces": replaces,

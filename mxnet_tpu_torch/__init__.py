@@ -32,7 +32,10 @@ reference's loss blocks, `gluon.utils`, `callback` and
 from the op registry, their JSON, shape inference and the `Executor` with
 its whole-graph route in `compiler`), `mod` (`Module`,
 `BucketingModule`), `model` (checkpoints), `attribute`, `monitor`,
-`viz`, and Gluon's `export` and `SymbolBlock`:
+`viz`, and Gluon's `export` and `SymbolBlock`; and the recurrent half:
+the fused `RNN` op (`ops.rnn_ops`), `gluon.rnn` (cells and the fused
+RNN/LSTM/GRU layers), `gluon.contrib.rnn` and the symbolic cells of
+`rnn` with `BucketSentenceIter`:
 
     import mxnet_tpu_torch as mx
     net = mx.gluon.model_zoo.vision.resnet50_v1(layout="NHWC")
@@ -50,7 +53,7 @@ from __future__ import annotations
 from . import (attribute, autograd, base, callback, compiler, context,
                embedding, gluon, image, initializer, io, kvstore,
                lr_scheduler, metric, model, models, module, monitor, name,
-               ndarray, ops, optimizer, parallel, random, serve, symbol,
+               ndarray, ops, optimizer, parallel, random, rnn, serve, symbol,
                telemetry, util, visualization)
 from . import initializer as init
 from . import kvstore as kv
@@ -69,7 +72,7 @@ __all__ = ["attribute", "autograd", "base", "callback", "compiler",
            "context", "embedding", "gluon", "image", "init", "initializer",
            "io", "kv", "kvstore", "lr_scheduler", "metric", "mod", "model",
            "models", "module", "monitor", "name", "nd", "ndarray", "ops",
-           "opt", "optimizer", "parallel", "random", "serve", "sym",
+           "opt", "optimizer", "parallel", "random", "rnn", "serve", "sym",
            "symbol", "telemetry", "util", "visualization", "viz",
            "AttrScope", "Context", "cpu", "gpu", "current_context",
            "MXNetError", "resolve_device"]

@@ -1,9 +1,10 @@
 """Gluon of the port: blocks, parameters, the ResNet layers, the fused
 conv blocks, the vision model zoo's ResNets, the losses, `Trainer`,
 `FusedTrainStep`, `data` (datasets, samplers, the DataLoader, the vision
-datasets and transforms), `utils`, `contrib.estimator`, and
-`SymbolBlock` with `HybridBlock.export`."""
-from . import block, contrib, data, loss, model_zoo, nn, utils
+datasets and transforms), `utils`, `contrib.estimator` and `contrib.rnn`,
+`SymbolBlock` with `HybridBlock.export`, and `rnn` (the recurrent cells
+and the fused RNN, LSTM and GRU layers)."""
+from . import block, contrib, data, loss, model_zoo, nn, rnn, utils
 from .block import Block, HybridBlock, SymbolBlock
 from .fused_step import FusedTrainStep
 from .parameter import (Constant, DeferredInitializationError, Parameter,
@@ -12,4 +13,4 @@ from .trainer import Trainer
 
 __all__ = ["Block", "HybridBlock", "SymbolBlock", "Constant", "DeferredInitializationError",
            "Parameter", "ParameterDict", "Trainer", "FusedTrainStep",
-           "contrib", "data", "loss", "model_zoo", "nn", "utils"]
+           "contrib", "data", "loss", "model_zoo", "nn", "rnn", "utils"]

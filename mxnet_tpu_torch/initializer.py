@@ -1,7 +1,8 @@
 """Weight initializers (the port of the part of `mxnet_tpu.initializer`
 that Gluon layers reach): `Initializer` with the reference's dispatch on
 the parameter's name ("...weight", "...bias", "...gamma", ...), and
-`Zero`, `One`, `Constant`, `Uniform`, `Normal`, `Xavier`.
+`Zero`, `One`, `Constant`, `Uniform`, `Normal`, `Xavier` and `FusedRNN`
+(the flat parameter vector of the `RNN` op).
 
 Random draws come from `mxnet_tpu_torch.random`, so `mx.random.seed` makes
 initialization reproducible (though not equal to the reference's).
@@ -13,7 +14,7 @@ import json
 import numpy as np
 
 __all__ = ["InitDesc", "Initializer", "register", "create", "Zero", "One",
-           "Constant", "Uniform", "Normal", "Xavier"]
+           "Constant", "Uniform", "Normal", "Xavier", "FusedRNN"]
 
 _INIT_REGISTRY = {}
 
@@ -35,11 +36,15 @@ def register(klass):
 
 
 def create(init, **kwargs):
-    """An initializer from a registered name, an instance or None."""
+    """An initializer from a registered name, its `dumps()` JSON, an
+    instance or None."""
     if init is None:
         return None
     if isinstance(init, Initializer):
         return init
+    if isinstance(init, str) and init.startswith("["):
+        name, kw = json.loads(init)
+        return _INIT_REGISTRY[name.lower()](**kw)
     if isinstance(init, str):
         return _INIT_REGISTRY[init.lower()](**kwargs)
     raise TypeError("cannot create initializer from %r" % (init,))
@@ -64,11 +69,7 @@ class Initializer:
         if init:
             # a parameter's own initializer, as `dumps` serialized it, or a
             # bare registered name ("zeros")
-            try:
-                spec = json.loads(init)
-                create(spec[0], **spec[1])._init_weight(desc, arr)
-            except ValueError:
-                create(init)._init_weight(desc, arr)
+            create(init)._init_weight(desc, arr)
             return
         name = str(desc)
         if name.endswith("weight"):
@@ -188,3 +189,70 @@ class Xavier(Initializer):
             arr[:] = _r.normal(0, scale, shape=shape, ctx=arr.context)
         else:
             raise ValueError("Unknown random type")
+
+
+@register
+class FusedRNN(Initializer):
+    """The flat parameter vector of the `RNN` op, in the layout
+    `ops/rnn_ops.py::_slice_params` reads: per layer and direction the
+    i2h and h2h weight blocks, then all biases. `init` (an Initializer, a
+    registered name, or None for the net's global initializer) fills each
+    weight block as a weight named ``<name>_l<layer>[_r]_<i2h|h2h>_weight``;
+    the biases are zero but the LSTM forget gate's, which gets
+    `forget_bias`."""
+
+    def __init__(self, init, num_hidden, num_layers, mode,
+                 bidirectional=False, forget_bias=1.0):
+        if isinstance(init, str):
+            init = create(init)
+        super().__init__(init=init.dumps() if init is not None else None,
+                         num_hidden=num_hidden, num_layers=num_layers,
+                         mode=mode, bidirectional=bidirectional,
+                         forget_bias=forget_bias)
+        self._init = init
+        self._num_hidden = num_hidden
+        self._num_layers = num_layers
+        self._mode = mode
+        self._bidirectional = bidirectional
+        self._forget_bias = forget_bias
+
+    def _init_weight(self, desc, arr):
+        from . import ndarray as nd
+        from .ops.rnn_ops import _gates, rnn_solve_input_size
+        mode = {"rnn": "rnn_tanh"}.get(self._mode, self._mode)
+        ng = _gates(mode)
+        h = self._num_hidden
+        ndir = 2 if self._bidirectional else 1
+        L = self._num_layers
+        total = int(np.prod(arr.shape))
+        in_sz = rnn_solve_input_size(mode, total, h, L, self._bidirectional)
+        flat = np.zeros((total,), dtype=np.float32)
+        off = 0
+        name = str(desc)
+        block_init = self._init or getattr(desc, "global_init", None)
+        for layer in range(L):
+            for d in range(ndir):
+                cur_in = in_sz if layer == 0 else h * ndir
+                for part, shape in (("i2h", (ng * h, cur_in)),
+                                    ("h2h", (ng * h, h))):
+                    n = int(np.prod(shape))
+                    if block_init is not None:
+                        block = nd.zeros(shape, ctx=arr.context,
+                                         dtype="float32")
+                        # the block's own name, without the vector's
+                        # __init__ (which names this initializer)
+                        attrs = {k: v for k, v in getattr(
+                            desc, "attrs", {}).items() if k != "__init__"}
+                        block_init(InitDesc(
+                            "%s_l%d%s_%s_weight" % (name, layer,
+                                                    "_r" if d else "", part),
+                            attrs), block)
+                        flat[off:off + n] = block.asnumpy().reshape(-1)
+                    off += n
+        # biases: zeros, but the LSTM forget gate's (gate order [i,f,g,o])
+        if mode == "lstm" and self._forget_bias:
+            boff = off
+            for _ in range(L * ndir * 2):
+                flat[boff + h:boff + 2 * h] = self._forget_bias
+                boff += ng * h
+        arr[:] = flat.reshape(arr.shape)

@@ -10,13 +10,14 @@ from ..ops import fused_conv as _fused_conv  # noqa: F401
 from ..ops import nn as _nn  # noqa: F401
 from ..ops import optimizer_ops as _optimizer_ops  # noqa: F401
 from ..ops import registry as _reg
+from ..ops import rnn_ops as _rnn_ops  # noqa: F401
 from ..ops import sparse_ops as _sparse_ops  # noqa: F401
 from ..ops import tensor as _tensor  # noqa: F401
 from ..ops import shape_hints as _shape_hints  # noqa: F401,E402
 from . import register as _register
 from . import sparse  # noqa: F401  (row_sparse / csr)
 from .ndarray import (NDArray, arange, array, invoke, load, ones, save,
-                      zeros)
+                      split_v2, zeros)
 
 _register.populate(globals())
 

@@ -26,7 +26,7 @@ from ..context import Context, context_of, current_context
 from ..ops import registry as _reg
 
 __all__ = ["NDArray", "invoke", "array", "zeros", "ones", "arange", "save",
-           "load"]
+           "load", "split_v2"]
 
 
 class NDArray:
@@ -183,6 +183,18 @@ class NDArray:
     def square(self):
         return invoke("square", self)
 
+    def expand_dims(self, axis):
+        return invoke("expand_dims", self, axis=axis)
+
+    def relu(self):
+        return invoke("relu", self)
+
+    def sigmoid(self):
+        return invoke("sigmoid", self)
+
+    def tanh(self):
+        return invoke("tanh", self)
+
     # -- autograd (reference: NDArray.attach_grad / grad / backward) -------
     def attach_grad(self, grad_req="write", stype=None):
         """Give this array a zero gradient buffer and mark it as a variable
@@ -301,9 +313,12 @@ def _unwrap(a):
 def invoke(op_name, *args, out=None, **kwargs):
     """Run registered op `op_name` on `args` (NDArrays, scalars) in the
     context of the first NDArray argument (else ``ctx=`` or the current
-    context); the GPU context takes the op's CUDA implementation. Torch
-    records the op only under `autograd.record()`."""
+    context); the GPU context takes the op's CUDA implementation. An
+    NDArray given by keyword (`SequenceMask`'s ``sequence_length=``)
+    reaches the op as its tensor. Torch records the op only under
+    `autograd.record()`."""
     op = _reg.get(op_name)
+    kwargs = {k: _unwrap(v) for k, v in kwargs.items()}
     ctx = next((a._ctx for a in args if isinstance(a, NDArray)), None)
     if ctx is None:
         ctx = kwargs.pop("ctx", None) or current_context()
@@ -326,6 +341,12 @@ def invoke(op_name, *args, out=None, **kwargs):
                 d._data.copy_(s._data)
         return out
     return outs
+
+
+def split_v2(ary, indices_or_sections, axis=0, squeeze_axis=False):
+    """Split `ary` into equal parts or at the given indices: a list."""
+    return invoke("_split_v2", ary, indices_or_sections=indices_or_sections,
+                  axis=axis, squeeze_axis=squeeze_axis)
 
 
 def _tensor_from_numpy(a):

@@ -42,6 +42,7 @@ import torch.nn.functional as F
 
 from . import barrier_words, count_launch
 from ._build import bind
+from .nn import cudnn_fp32
 from .registry import get, register
 
 __all__ = ["fold_bn_params", "conv_bn_relu", "conv_bn_stats",
@@ -96,10 +97,11 @@ def fold_bn_params(gamma, beta, moving_mean, moving_var, eps=1e-3):
 def _conv3x3_same(x, w):
     """The one conv this module fuses, in fp32: x (N,H,W,C) NHWC, w
     (3,3,C,Cout) HWIO, stride 1, SAME; returns (N,H,W,Cout) fp32. TF32 is
-    switched off for it (cuDNN would otherwise round fp32 operands)."""
-    torch.backends.cudnn.allow_tf32 = False
-    out = F.conv2d(x.permute(0, 3, 1, 2).float(),
-                   w.permute(3, 2, 0, 1).float(), padding=1)
+    switched off for it (cuDNN would otherwise round fp32 operands), and
+    the caller's switch restored after."""
+    with cudnn_fp32():
+        out = F.conv2d(x.permute(0, 3, 1, 2).float(),
+                       w.permute(3, 2, 0, 1).float(), padding=1)
     return out.permute(0, 2, 3, 1)
 
 
@@ -440,12 +442,12 @@ def cbr_train_bwd(conv_out, dy, mean, invstd, gamma, beta, residual=None):
 def _conv3x3_backward(x, w, dconv):
     """dx, dw of the fp32 conv3x3 (SAME) from the fp32 dconv (N,H,W,Cout),
     in full fp32: TF32 stays off for these convs too."""
-    torch.backends.cudnn.allow_tf32 = False
     x32 = x.permute(0, 3, 1, 2).float()
     w32 = w.permute(3, 2, 0, 1).float()
     g = dconv.permute(0, 3, 1, 2)
-    dx = torch.nn.grad.conv2d_input(x32.shape, w32, g, padding=1)
-    dw = torch.nn.grad.conv2d_weight(x32, w32.shape, g, padding=1)
+    with cudnn_fp32():
+        dx = torch.nn.grad.conv2d_input(x32.shape, w32, g, padding=1)
+        dw = torch.nn.grad.conv2d_weight(x32, w32.shape, g, padding=1)
     return (dx.permute(0, 2, 3, 1).to(x.dtype).contiguous(),
             dw.permute(2, 3, 1, 0).to(w.dtype).contiguous())
 

@@ -11,12 +11,16 @@ MakeLoss, whose hand-written gradients live in `torch.autograd.Function`s
 
 They are XLA ops in the reference, outside any Pallas kernel, so they stay
 `torch.nn.functional` calls here. A float32 convolution on the card runs
-with ``torch.backends.cudnn.allow_tf32 = False`` (set by `Convolution`):
-cuDNN would otherwise round fp32 operands to TF32, about three decimal
-digits, where the reference keeps fp32.
+with cuDNN's TF32 switch off (`cudnn_fp32`): cuDNN would otherwise round
+fp32 operands to TF32, about three decimal digits, where the reference
+keeps fp32. The switch is scoped to the port's own convolutions, forward
+and backward (`_FP32Conv2d` runs its backward inside the scope too), and
+the caller's setting of ``torch.backends.cudnn.allow_tf32`` is restored
+after each.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -74,6 +78,45 @@ def _fully_connected(data, weight, bias=None, num_hidden=None, no_bias=False,
     return F.linear(x.to(dt), weight.to(dt), None if b is None else b.to(dt))
 
 
+@contextlib.contextmanager
+def cudnn_fp32():
+    """cuDNN's TF32 switch off for the convolutions run inside; the
+    caller's setting restored on exit."""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+class _FP32Conv2d(torch.autograd.Function):
+    """F.conv2d with its forward and its backward inside `cudnn_fp32`:
+    autograd's own convolution backward would read the global switch when
+    the backward runs, not when the forward ran. The backward is the one
+    autograd runs for F.conv2d (`aten.convolution_backward` on the same
+    tensors), so gradients and their memory layout are unchanged."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, stride, padding, dilation, groups):
+        ctx.save_for_backward(x, w)
+        ctx.conf = (stride, padding, dilation, groups, b is not None)
+        with cudnn_fp32():
+            return F.conv2d(x, w, b, stride, padding, dilation, groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        stride, padding, dilation, groups, has_bias = ctx.conf
+        need = ctx.needs_input_grad
+        with cudnn_fp32():
+            dx, dw, db = torch.ops.aten.convolution_backward(
+                g, x, w, [w.shape[0]] if has_bias else None, stride, padding,
+                dilation, False, [0] * len(stride), groups,
+                [need[0], need[1], has_bias and need[2]])
+        return dx, dw, db, None, None, None, None
+
+
 @register("Convolution")
 def _convolution(data, weight, bias=None, kernel=None, stride=None,
                  dilate=None, pad=None, num_filter=None, num_group=1,
@@ -86,14 +129,12 @@ def _convolution(data, weight, bias=None, kernel=None, stride=None,
         raise NotImplementedError("Convolution: only 2-D convolutions are "
                                   "ported so far, got %d-D" % nd)
     _, last = layout_info(layout, nd)
-    torch.backends.cudnn.allow_tf32 = False
     w = weight.permute(0, 3, 1, 2) if last else weight
-    out = F.conv2d(_to_nchw(data, last), w,
-                   None if no_bias else bias,
-                   stride=_pair(stride if stride else 1, nd),
-                   padding=_pair(pad if pad else 0, nd),
-                   dilation=_pair(dilate if dilate else 1, nd),
-                   groups=num_group)
+    out = _FP32Conv2d.apply(_to_nchw(data, last), w,
+                            None if no_bias else bias,
+                            _pair(stride if stride else 1, nd),
+                            _pair(pad if pad else 0, nd),
+                            _pair(dilate if dilate else 1, nd), num_group)
     return _from_nchw(out, last)
 
 
@@ -202,7 +243,7 @@ def _gelu_erf(x):
 
 _ACTIVATIONS = {"relu": torch.relu, "sigmoid": torch.sigmoid,
                 "tanh": torch.tanh, "softrelu": F.softplus,
-                "gelu": _gelu_erf}
+                "softsign": F.softsign, "gelu": _gelu_erf}
 
 
 @register("Activation")

@@ -4,7 +4,7 @@ The input-filling half of the reference's FInferShape attributes: given the
 known input shapes of an op (None = unknown) and its hyper-parameters, fill
 the parameter shapes. Symbolic `infer_shape` and `simple_bind` use them.
 The hints of ops the port does not register yet (Deconvolution, the other
-norms, RNN) come with those ops.
+norms) come with those ops.
 """
 from __future__ import annotations
 
@@ -117,4 +117,25 @@ def _leaky_hint(shapes, kw):
     out = list(shapes)
     if len(out) > 1 and out[1] is None:
         out[1] = (data[1],)
+    return out
+
+
+@_hint("RNN")
+def _rnn_hint(shapes, kw):
+    """The flat parameter vector's length and the begin states' shapes
+    (layers * directions, N, state_size) from the TNC data shape."""
+    data = shapes[0]
+    if data is None:
+        return shapes
+    from .rnn_ops import rnn_param_size
+    h = kw.get("state_size")
+    L = kw.get("num_layers", 1)
+    ndir = 2 if kw.get("bidirectional") else 1
+    out = list(shapes)
+    if len(out) > 1 and out[1] is None:
+        out[1] = (rnn_param_size(kw.get("mode", "lstm"), data[2], h, L,
+                                 kw.get("bidirectional", False)),)
+    for i in (2, 3):
+        if len(out) > i and out[i] is None:
+            out[i] = (L * ndir, data[1], h)
     return out

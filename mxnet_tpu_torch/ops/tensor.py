@@ -6,7 +6,9 @@ Flatten, transpose, slice_axis, broadcast_to, the reductions, pick, dot,
 Embedding (dense or row-sparse gradient) and the CSR dot
 ``_sparse_dot_csr_dense``; and for the loss blocks, the image augmenters
 and the DataLoader: maximum/minimum, sqrt, ones_like, where, norm,
-swapaxes, reverse, stack, add_n, one_hot and pad."""
+swapaxes, reverse, stack, add_n, one_hot and pad; and for the recurrent
+cells: split (SliceChannel), _split_v2, expand_dims, clip and the
+Sequence* ops."""
 from __future__ import annotations
 
 import torch
@@ -432,3 +434,105 @@ def _concat(*xs, dim=1, num_args=None):
 
 
 alias("concat", "Concat")
+
+
+# ---------------------------------------------------------------------------
+# the ops of the recurrent cells: split (SliceChannel), _split_v2,
+# expand_dims, clip and the Sequence* ops
+# ---------------------------------------------------------------------------
+def _split_parts(x, sections, axis, squeeze_axis):
+    if isinstance(sections, int):
+        if x.shape[axis] % sections:
+            raise ValueError("split: axis %d of size %d does not divide "
+                             "into %d equal parts"
+                             % (axis, x.shape[axis], sections))
+    else:
+        sections = list(sections)
+    parts = torch.tensor_split(x, sections, dim=axis)
+    if squeeze_axis:
+        parts = tuple(p.squeeze(axis) for p in parts)
+    return tuple(parts)
+
+
+@register("split", num_outputs=0)
+def _split(x, num_outputs=1, axis=1, squeeze_axis=False):
+    """`num_outputs` equal parts along `axis` (a tuple; the one part when
+    `num_outputs` is 1), each without that axis with `squeeze_axis`."""
+    parts = _split_parts(x, num_outputs, axis, squeeze_axis)
+    return parts if num_outputs > 1 else parts[0]
+
+
+alias("split", "SliceChannel")
+
+
+@register("_split_v2", num_outputs=0)
+def _split_v2(x, indices_or_sections=1, axis=0, squeeze_axis=False):
+    """Split into a number of equal parts or at the given indices; always
+    a tuple."""
+    return _split_parts(x, indices_or_sections, axis, squeeze_axis)
+
+
+@register("expand_dims")
+def _expand_dims(x, axis=0):
+    return x.unsqueeze(axis)
+
+
+@register("clip")
+def _clip(x, a_min=None, a_max=None):
+    return torch.clamp(x, a_min, a_max)
+
+
+def _lengths(sequence_length):
+    # the reference's astype(int32): float lengths truncate
+    return sequence_length.to(torch.int32)
+
+
+@register("SequenceMask")
+def _sequence_mask(data, sequence_length=None, use_sequence_length=False,
+                   value=0.0, axis=0):
+    """`value` at the steps of each sequence at or past its length, along
+    time axis 0 (TN...) or 1 (NT...)."""
+    if not use_sequence_length or sequence_length is None:
+        return data
+    steps = torch.arange(data.shape[axis], device=data.device)
+    lengths = _lengths(sequence_length)
+    if axis == 0:
+        mask = steps[:, None] < lengths[None, :]
+    else:
+        mask = steps[None, :] < lengths[:, None]
+    mask = mask.reshape(tuple(mask.shape) + (1,) * (data.dim() - 2))
+    return torch.where(mask, data, torch.as_tensor(
+        value, dtype=data.dtype, device=data.device))
+
+
+@register("SequenceLast")
+def _sequence_last(data, sequence_length=None, use_sequence_length=False,
+                   axis=0):
+    """Each sequence's last valid step (the last step without lengths);
+    a length of 0 reads the final step, as the reference's index -1."""
+    if not use_sequence_length or sequence_length is None:
+        return data.select(axis, data.shape[axis] - 1)
+    idx = (_lengths(sequence_length) - 1).long()
+    idx = torch.where(idx < 0, idx + data.shape[axis], idx)
+    if axis == 0:
+        idx = idx.reshape((1, -1) + (1,) * (data.dim() - 2))
+    else:
+        idx = idx.reshape((-1, 1) + (1,) * (data.dim() - 2))
+    idx = idx.expand(tuple(1 if i == axis else s
+                           for i, s in enumerate(data.shape)))
+    return torch.gather(data, axis, idx).squeeze(axis)
+
+
+@register("SequenceReverse")
+def _sequence_reverse(data, sequence_length=None, use_sequence_length=False,
+                      axis=0):
+    """Reverse each sequence's first `length` steps along axis 0, the rest
+    in place; the whole axis without lengths. `axis` is accepted and, as
+    in the reference, time is always axis 0."""
+    if not use_sequence_length or sequence_length is None:
+        return torch.flip(data, dims=(0,))
+    steps = torch.arange(data.shape[0], device=data.device)[:, None]
+    lengths = _lengths(sequence_length)[None, :].long()
+    rev = torch.where(steps < lengths, lengths - 1 - steps, steps)
+    rev = rev.reshape(tuple(rev.shape) + (1,) * (data.dim() - 2))
+    return torch.gather(data, 0, rev.expand(data.shape))
