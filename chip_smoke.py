@@ -56,7 +56,8 @@ Phases (one JSON line each; any failure exits non-zero):
                  corrupted step 6 falls back to step 5.
 10. kernel_cbr — the fused conv3x3 + folded-BN + ReLU kernel against its
                  plain version at ResNet-50's four bottleneck 3x3 shapes
-                 (batch 64; bf16 and fp32, with and without a residual) and
+                 (batch 64; bf16 and fp32, with and without a residual), at
+                 SSD-512's (batch 32 at 512x512: phase 33's shapes) and
                  at edge shapes (the wgmma variant's ragged M, W not a
                  multiple of 8, grids under a wave), with the variant and
                  tile each launch took, two launches bit-equal, and timings
@@ -72,8 +73,9 @@ Phases (one JSON line each; any failure exits non-zero):
 13. kernel_cbr_train — the training conv + batch statistics kernel
                  (conv_bn_stats) and the BN + ReLU backward kernel
                  (cbr_train_bwd) against their plain versions at ResNet-50's
-                 four bottleneck 3x3 shapes (batch 256) and kernel_cbr's
-                 edge shapes, bf16 and fp32, with and without a residual,
+                 four bottleneck 3x3 shapes (batch 256), SSD-512's (batch
+                 32) and kernel_cbr's edge shapes, bf16 and fp32, with and
+                 without a residual,
                  with the variant (and tile) each launch took, two launches
                  of each bit-equal, and timings: cbr_train_bwd by event and
                  device time, with its three-launch split_v8 variant's
@@ -84,7 +86,8 @@ Phases (one JSON line each; any failure exits non-zero):
                  16 bytes, a list longer than one launch holds: 0 ulps
                  against the one-tensor launches and the plain version),
                  timed at 25.6M elements and over one ResNet-50 step's
-                 193 tensors in one launch.
+                 193 tensors in one launch; the calls of phases 30 and 31
+                 at 0 ulps (phase 33 checks its own).
 15. resnet_train — resnet50_v1 NHWC fused, bf16 with fp32 BatchNorm,
                  224x224: FusedTrainStep + Trainer("sgd", lr 0.1, momentum
                  0.9) + SoftmaxCrossEntropyLoss, 8 steps at batch 256; the
@@ -264,8 +267,35 @@ Phases (one JSON line each; any failure exits non-zero):
                  programs built (one per bucket), compiler.fallback (0),
                  Module.update's host ms; perplexity falling; the rnn
                  checkpoint reloaded bit-equal.
+32. ops        — every name the op-set slice registers (205: tensor, nn,
+                 linalg, random, image, quantization and detection ops)
+                 once on the card at a small seeded shape against the
+                 port's CPU result, within the CPU tests' tolerances (fp32
+                 1e-5, linalg 1e-4, box log/exp 1e-6, integers exact); the
+                 draws held to the CPU's shape and dtype and to their range.
+33. ssd_resnet50 — SSD-512 on resnet50_v1 (NHWC, fused gate, bf16),
+                 upstream example/ssd's get_config("resnet50", 512): the
+                 ends of stages 3 and 4, extra layers 512/256/256/128, the
+                 six maps' sizes and ratios (6,132 anchors), 21 classes,
+                 built from public Gluon blocks as examples/ssd_detection.py
+                 builds TinySSD; batch 32 at 512x512 of seeded synthetic
+                 images and boxes (1 to 8 a image, 16 label rows);
+                 MultiBoxTarget with hard-negative mining,
+                 SoftmaxCrossEntropyLoss with the keep mask, HuberLoss,
+                 Trainer("sgd", lr 0.002, momentum 0.9, wd 5e-4): 3 warm-up
+                 and 10 timed steps; images/s, the median step, the host ms
+                 of MultiBoxTarget and MultiBoxDetection, peak memory, a
+                 profiled step; inference images/s at batch 32 and batch-1
+                 p50/p99 over 20 calls (MultiBoxDetection, nms 0.45, top
+                 400); the loss falling; the last timed step's MultiBox
+                 results equal to the CPU route's on the same tensors;
+                 every #4-#6 variant the path launched held to its plain
+                 version at its shapes (kernel_cbr, kernel_cbr_train), and
+                 the Trainer's flat_sgd call over this net's parameter
+                 table (shapes, dtypes, lr and wd of each, momentum 0.9,
+                 rescale 1/32) at 0 ulps, timed beside its bound.
 
-Fourteen main paths, each with its own expected kernels, counts set to 0 just
+Fifteen main paths, each with its own expected kernels, counts set to 0 just
 before and read just after: serving (phases 3-5: flash_fwd), training
 (phase 7's 6 steps: flash_fwd, flash_bwd_dq, flash_bwd_dkv), ResNet-50
 inference (phase 11's forward: conv_bn_relu, 16 launches, all on the
@@ -291,7 +321,9 @@ Module (phase 29's 10 timed steps: one flat_sgd, single, per trainable
 argument a step: 193) and the recurrent models: the Gluon word LM (phase
 30's 20 timed steps: one flat_sgd, multi, a step) and the LSTM
 BucketingModule (phase 31's 20 timed batches: one flat_sgd, single, per
-trainable argument a batch: 11). Then the card's name and power limit,
+trainable argument a batch: 11) and SSD-512 (phase 33's 10 timed steps:
+16 conv_bn_stats, 16 cbr_train_bwd and one multi flat_sgd a step; one
+predict-mode forward: 16 conv_bn_relu). Then the card's name and power limit,
 the `kernels` line, and as the last line {"ok": true, "device": {...}}.
 Exits non-zero without a CUDA card.
 """
@@ -356,6 +388,18 @@ CBR_STAGES = [
     ("stage3_14x14x256", 64, 14, 14, 256, 256, 6),
     ("stage4_7x7x512", 64, 7, 7, 512, 512, 3),
 ]
+SSD_CBR_STAGES = [
+    # the same 3x3 convs in SSD-512's trunk (main path 15: batch 32 at
+    # 512x512; 3, 4, 6, 3 launches a forward and a step), checked, timed
+    # and printed for #4, #5 and #6; the kernels line keeps its weights
+    ("ssd512_stage1_128x128x64", 32, 128, 128, 64, 64),
+    ("ssd512_stage2_64x64x128", 32, 64, 64, 128, 128),
+    ("ssd512_stage3_32x32x256", 32, 32, 32, 256, 256),
+    ("ssd512_stage4_16x16x512", 32, 16, 16, 512, 512),
+]
+SSD_CHECKED_VARIANTS = set()    # "kernel/variant" labels that the kernel
+                                # phases held to the plain version at
+                                # SSD_CBR_STAGES; path 15 launches no other
 CBR_EDGES = [
     ("cin3_cout12", 2, 5, 5, 3, 12),
     ("image_1x1", 4, 1, 1, 64, 64),
@@ -1301,9 +1345,10 @@ def cbr_work(N, H, W, C, Cout, residual, dtype):
 def phase_kernel_cbr(gen):
     """conv_bn_relu vs _ref_conv_bn_relu on the card at ResNet-50's four
     bottleneck 3x3 shapes (batch 64; bf16 and fp32, with and without a
-    residual) and at edge shapes. Returns the kernels-line entry: the
-    bf16, residual-free stage shapes weighted by their launches in one
-    resnet50_v1 forward (3, 4, 6, 3 of 16)."""
+    residual), at SSD-512's (SSD_CBR_STAGES) and at edge shapes. Returns
+    the kernels-line entry: the bf16, residual-free batch-64 stage shapes
+    weighted by their launches in one resnet50_v1 forward (3, 4, 6, 3 of
+    16)."""
     import torch.nn.functional as F
 
     from mxnet_tpu_torch.ops.fused_conv import (_ref_conv_bn_relu,
@@ -1311,8 +1356,10 @@ def phase_kernel_cbr(gen):
     weighted = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "flops": 0.0,
                 "bytes": 0.0, "max_abs_err": 0.0}
     shapes = [(name, N, H, W, C, Co, n, True) for name, N, H, W, C, Co, n
-              in CBR_STAGES] + [(name, N, H, W, C, Co, 0, False)
-                                for name, N, H, W, C, Co in CBR_EDGES]
+              in CBR_STAGES] + [(name, N, H, W, C, Co, 0, True)
+                                for name, N, H, W, C, Co in SSD_CBR_STAGES] \
+        + [(name, N, H, W, C, Co, 0, False)
+           for name, N, H, W, C, Co in CBR_EDGES]
     for name, N, H, W, C, Co, per_forward, timed in shapes:
         for dtype in (torch.bfloat16, torch.float32):
             def rnd(*shape, scale=1.0):
@@ -1364,7 +1411,8 @@ def phase_kernel_cbr(gen):
                     rec["library"] = "conv only (cuDNN)"
                     work = cbr_work(N, H, W, C, Co, res is not None, dtype)
                     rec["bound_ms"], rec["bound_by"] = bound(*work, dtype)
-                    if dtype == torch.bfloat16 and res is None:
+                    if dtype == torch.bfloat16 and res is None \
+                            and per_forward:
                         for key in ("ms", "plain_ms", "library_ms"):
                             weighted[key] += per_forward * rec[key] / 16
                         weighted["flops"] += per_forward * work[0]
@@ -1372,6 +1420,8 @@ def phase_kernel_cbr(gen):
                         weighted["max_abs_err"] = max(
                             weighted["max_abs_err"], rec["max_abs_err"])
                 emit(rec)
+                if name.startswith("ssd512"):
+                    SSD_CHECKED_VARIANTS.update(variant)
                 check(rec["finite"] and ok, "kernel_cbr",
                       "conv_bn_relu disagrees with _ref_conv_bn_relu at %s "
                       "%s residual=%s" % (name, dtype, res is not None))
@@ -1705,11 +1755,11 @@ def cbr_train_works(N, H, W, C, Cout, residual, dtype):
 def phase_kernel_cbr_train(gen):
     """conv_bn_stats (#5) and cbr_train_bwd (#6) against their plain
     versions on the card at ResNet-50's four bottleneck 3x3 shapes (batch
-    256) and edge shapes, bf16 and fp32, with and without a residual.
-    Compared: the op's out, mean and var, and dconv, dgamma, dbeta, dres.
-    Returns {kernel: kernels-line entry}: the bf16, residual-free stage
-    shapes, weighted by their launches in one resnet50_v1 step (3, 4, 6, 3
-    of 16)."""
+    256), at SSD-512's (SSD_CBR_STAGES) and at edge shapes, bf16 and fp32,
+    with and without a residual. Compared: the op's out, mean and var, and
+    dconv, dgamma, dbeta, dres. Returns {kernel: kernels-line entry}: the
+    bf16, residual-free batch-256 stage shapes, weighted by their launches
+    in one resnet50_v1 step (3, 4, 6, 3 of 16)."""
     import torch.nn.functional as F
 
     from mxnet_tpu_torch.ops.fused_conv import (_conv3x3_backward,
@@ -1729,9 +1779,10 @@ def phase_kernel_cbr_train(gen):
                 for k in names}
     weighted["cbr_train_bwd"]["library_ms"] = None
     shapes = [(n, N, H, W, C, Co, k, True) for n, N, H, W, C, Co, k
-              in CBR_TRAIN_STAGES] + [(n, N, H, W, C, Co, 0, False)
+              in CBR_TRAIN_STAGES] + [(n, N, H, W, C, Co, 0, True)
                                       for n, N, H, W, C, Co
-                                      in CBR_EDGES]
+                                      in SSD_CBR_STAGES] \
+        + [(n, N, H, W, C, Co, 0, False) for n, N, H, W, C, Co in CBR_EDGES]
     eps = 1e-3
     for name, N, H, W, C, Co, per_step, timed in shapes:
         for dtype in (torch.bfloat16, torch.float32):
@@ -1859,7 +1910,8 @@ def phase_kernel_cbr_train(gen):
                     rec["device_ms"] = {"cbr_train_bwd": device_ms(
                         lambda: cbr_train_bwd(conv, dy, mean, invstd, gamma,
                                               beta, res))}
-                    if dtype == torch.bfloat16 and res is None:
+                    if dtype == torch.bfloat16 and res is None \
+                            and per_step:
                         rec["split_v8_device_ms"] = device_ms(
                             lambda: _launch_cbr_bwd("split_v8", conv, dy,
                                                     mean, invstd, gamma,
@@ -1875,7 +1927,8 @@ def phase_kernel_cbr_train(gen):
                                          "cbr_train_bwd": None}
                     rec["bound"] = {k: bound(*works[k], dtype)
                                     for k in names}
-                    if dtype == torch.bfloat16 and res is None:
+                    if dtype == torch.bfloat16 and res is None \
+                            and per_step:
                         errs = {"conv_bn_stats": max(
                             rec["mean_max_abs_err"], rec["var_max_abs_err"],
                             rec["out_max_abs_err"]),
@@ -1903,6 +1956,8 @@ def phase_kernel_cbr_train(gen):
                         dxdw["flops"] += per_step * 2 * 2.0 * N * H * W \
                             * 9 * C * Co
                 emit(rec)
+                if name.startswith("ssd512"):
+                    SSD_CHECKED_VARIANTS.update(variant + bwd_variant)
                 check(not bad, "kernel_cbr_train",
                       "conv_bn_stats/cbr_train_bwd disagree with their plain "
                       "versions at %s %s residual=%s: %s"
@@ -2084,65 +2139,93 @@ def same_shapes(shapes, want):
     return sorted(tuple(s) for s in shapes) == sorted(want)
 
 
-def kernel_opt_rnn_paths(gen):
-    """#7 at the recurrent paths' calls (rnn_sgd_lists): path 13's one
-    multi launch over WordLM's 11 tensors (6.5M elements each for the
-    embedding and the projection) and path 14's 11 single launches, every
-    weight bit-equal (0 ulps) to the plain version's, the launches counted;
-    then each path's update timed (events and device time) beside its
+def rnn_sgd_calls():
+    """rnn_sgd_lists as kernel_opt_paths takes them: fp32 tensors, no
+    momentum."""
+    out = {}
+    for label, (shapes, lr, wd, rescale, clip, multi) in \
+            rnn_sgd_lists().items():
+        params = [(s, torch.float32, lr, wd if len(s) == 2 else 0.0)
+                  for s in shapes]
+        out[label] = (params, None, rescale, clip, multi)
+    return out
+
+
+def kernel_opt_paths(gen, calls):
+    """#7 at main paths' own calls: label -> (params, momentum or None,
+    rescale, clip or None, multi), params a list of (shape, dtype, lr, wd)
+    (rnn_sgd_calls: path 13's one multi launch over WordLM's 11 tensors
+    and path 14's 11 single launches; ssd_sgd_call: path 15's one multi
+    launch over SSD-512's bf16 table with momentum). Gradients and momenta
+    in the weight's dtype, as the Trainer keeps them. Every weight and
+    momentum bit-equal (0 ulps) to the plain version's, the launches
+    counted; then each call timed (events and device time) beside its
     bound."""
     from mxnet_tpu_torch.ops import reset_launch_counts, variant_counts
     from mxnet_tpu_torch.ops.fused_optimizer import (_ref_flat_sgd, flat_sgd,
                                                      multi_sgd)
-    f32 = torch.float32
     recs = {}
-    for label, (shapes, lr, wd, rescale, clip, multi) in \
-            rnn_sgd_lists().items():
-        ws = [torch.randn(s, generator=gen, device="cuda") * 0.05
-              for s in shapes]
-        gs = [torch.randn(s, generator=gen, device="cuda") * 0.5
-              for s in shapes]
-        wds = [wd if len(s) == 2 else 0.0 for s in shapes]
+    for label, (params, momentum, rescale, clip, multi) in calls.items():
+        def rnd(s, dt, scale):
+            return (torch.randn(s, generator=gen, device="cuda")
+                    * scale).to(dt)
+        ws = [rnd(s, dt, 0.05) for s, dt, _, _ in params]
+        gs = [rnd(s, dt, 0.5) for s, dt, _, _ in params]
+        mom_on = momentum is not None
+        moms = [rnd(s, dt, 0.01) for s, dt, _, _ in params] if mom_on \
+            else [None] * len(params)
+        lrs, wds = [p[2] for p in params], [p[3] for p in params]
+        momentum = momentum if mom_on else 0.0
         clip_on = clip is not None
         clip = clip if clip_on else 0.0
 
-        def update(ws=ws, gs=gs, wds=wds, lr=lr, rescale=rescale,
+        def update(ws=ws, gs=gs, moms=moms, lrs=lrs, wds=wds,
+                   momentum=momentum, mom_on=mom_on, rescale=rescale,
                    clip=clip, clip_on=clip_on, multi=multi):
             if multi:
-                multi_sgd(ws, gs, [], None, [lr] * len(ws), wds, 0.0,
-                          rescale, clip, False, clip_on, False)
+                multi_sgd(ws, gs, moms if mom_on else [], None, lrs, wds,
+                          momentum, rescale, clip, mom_on, clip_on, False)
             else:
-                for w, g, d in zip(ws, gs, wds):
-                    flat_sgd(w, g, None, None, lr, d, 0.0, rescale, clip,
-                             False, clip_on, False)
-        want = [_ref_flat_sgd(w, g, None, None, lr, d, 0.0, rescale, clip,
-                              False, clip_on, False)[0]
-                for w, g, d in zip(ws, gs, wds)]
+                for w, g, m, lr, d in zip(ws, gs, moms, lrs, wds):
+                    flat_sgd(w, g, m, None, lr, d, momentum, rescale, clip,
+                             mom_on, clip_on, False)
+
+        def plain():
+            return [_ref_flat_sgd(w, g, m, None, lr, d, momentum, rescale,
+                                  clip, mom_on, clip_on, False)
+                    for w, g, m, lr, d in zip(ws, gs, moms, lrs, wds)]
+        want = plain()
         reset_launch_counts()
         update()
         seen = variant_counts()
         torch.cuda.synchronize()
-        ulps = max(ulps_apart(a, b).max().item() for a, b in zip(ws, want))
+        ulps = max(ulps_apart(w, ref[0]).max().item()
+                   for w, ref in zip(ws, want))
+        if mom_on:
+            ulps = max([ulps] + [ulps_apart(m, ref[1]).max().item()
+                                 for m, ref in zip(moms, want)])
         expect = {("flat_sgd", "multi"): 1} if multi \
             else {("flat_sgd", "single"): len(ws)}
         n = sum(w.numel() for w in ws)
+        # w and the momentum read and written, g read
+        nbytes = sum(w.numel() * w.element_size() * (5 if mom_on else 3)
+                     for w in ws)
         rec = {"phase": "kernel_opt", "kernel": "flat_sgd", "path": label,
                "tensors": len(ws), "elements": n,
+               "dtypes": sorted({str(w.dtype)[6:] for w in ws}),
+               "momentum": momentum, "rescale": rescale,
                "largest": max(w.numel() for w in ws), "max_ulps": ulps,
                "variants": {"%s/%s" % k: c for k, c in seen.items()},
                "ms": time_ms(update, iters=20),
                "device_ms": device_ms(update),
-               "plain_ms": time_ms(lambda: [
-                   _ref_flat_sgd(w, g, None, None, lr, d, 0.0, rescale,
-                                 clip, False, clip_on, False)
-                   for w, g, d in zip(ws, gs, wds)], iters=5)}
-        rec["bound_ms"], rec["bound_by"] = bound(0.0, 12 * n, f32)
+               "plain_ms": time_ms(plain, iters=5)}
+        rec["bound_ms"], rec["bound_by"] = bound(0.0, nbytes, torch.float32)
         emit(rec)
         check(ulps == 0 and seen == expect, "kernel_opt",
               "%s's #7 calls: %s ulps from the plain version, launches %s "
               "(expected %s)" % (label, ulps, seen, expect))
         recs[label] = rec
-        del ws, gs, want
+        del ws, gs, moms, want
     return recs
 
 
@@ -2164,7 +2247,7 @@ def phase_kernel_opt(gen):
     torch._fused_sgd_ / _fused_adam_ (another function: context only) and
     the bound; and one launch over 25.6M elements (ResNet-50's parameter
     count) at fp32 and bf16. Last, the recurrent paths' own calls
-    (kernel_opt_rnn_paths)."""
+    (kernel_opt_paths)."""
     from mxnet_tpu_torch.ops import reset_launch_counts, variant_counts
     from mxnet_tpu_torch.ops._build import library
     from mxnet_tpu_torch.ops.fused_optimizer import (_ref_flat_adam,
@@ -2326,7 +2409,7 @@ def phase_kernel_opt(gen):
                                              "library_ms", "bound_ms",
                                              "bound_by")}
         del params, kparams
-    kernel_opt_rnn_paths(gen)
+    kernel_opt_paths(gen, rnn_sgd_calls())
     return entries
 
 
@@ -6065,6 +6148,777 @@ def phase_module_lstm_bucketing(tmp):
           "the profiler saw no device time")
     return launches
 
+
+# ---------------------------------------------------------------------------
+# the op set: every op the op-set slice registers, once on the card
+# against the port's CPU result; and main path 15, SSD-512 on ResNet-50
+# ---------------------------------------------------------------------------
+NEW_OPS = """
+BatchNorm_v1 BilinearSampler Correlation Crop Deconvolution GridGenerator
+GroupNorm InstanceNorm L2Normalization RMSNorm ROIPooling SoftmaxActivation
+UpSampling _contrib_div_sqrt_dim crop dot_scaled hard_sigmoid
+softmax_cross_entropy softmin BlockGrad_inner _copyto _div_scalar
+_internal_getitem _minus_scalar _mul_scalar _plus_scalar _power
+_power_scalar amp_cast arccos arccosh arcsin arcsinh arctan arctan2 arctanh
+argmax argmin argsort batch_dot boolean_mask broadcast_axes broadcast_axis
+broadcast_hypot broadcast_logical_and broadcast_logical_or
+broadcast_logical_xor broadcast_mod broadcast_power cbrt ceil cos cosh
+cumsum degrees depth_to_space diag erf erfinv expm1 eye fix floor gamma
+gammaln gather_nd isfinite isinf isnan khatri_rao linalg_gemm2 linalg_potrf
+linalg_syrk log10 log1p log2 logical_not logsumexp max max_axis min min_axis
+moveaxis nanprod nansum pow prod radians reciprocal repeat rint round rsqrt
+scatter_nd shape_array sign sin sinh size_array slice slice_like smooth_l1
+softsign sort space_to_depth squeeze stop_gradient_passthrough take
+take_along_axis tan tile topk trunc where_index IdentityAttachKLSparseReg
+LRN SVMOutput SpatialTransformer argmax_channel batch_take broadcast_like
+cast_storage col2im digamma fill_element_0index im2col linalg_det
+linalg_extractdiag linalg_extracttrian linalg_gelqf linalg_gemm
+linalg_inverse linalg_makediag linalg_maketrian linalg_potri linalg_slogdet
+linalg_sumlogdiag linalg_trmm linalg_trsm linspace make_loss moments
+ravel_multi_index rcbrt reshape_like unravel_index
+_contrib_AdaptiveAvgPooling2D _contrib_BilinearResize2D
+_contrib_DeformableConvolution _contrib_MultiBoxDetection
+_contrib_MultiBoxPrior _contrib_MultiBoxTarget _contrib_PSROIPooling
+_contrib_ROIAlign _contrib_adaptive_avg_pooling2d _contrib_arange_like
+_contrib_bilinear_resize2d _contrib_box_decode _contrib_box_encode
+_contrib_box_iou _contrib_box_nms _contrib_dequantize _contrib_quantize_v2
+_contrib_quantized_conv _contrib_quantized_fully_connected
+_contrib_requantize _image_crop _image_flip_left_right
+_image_flip_top_bottom _image_normalize _image_random_brightness
+_image_random_contrast _image_random_flip_left_right
+_image_random_flip_top_bottom _image_resize _image_to_tensor
+_random_exponential _random_gamma _random_generalized_negative_binomial
+_random_negative_binomial _random_normal _random_poisson _random_randint
+_random_uniform _sample_gamma _sample_multinomial _sample_normal
+_sample_uniform _sample_unique_zipfian _shuffle bernoulli normal randint
+randn random_exponential random_gamma random_generalized_negative_binomial
+random_negative_binomial random_normal random_poisson random_randint
+random_uniform sample_multinomial shuffle uniform
+""".split()
+OPS_TOL = 1e-5              # fp32, card vs CPU, over max(1, max |CPU|): the
+                            # CPU tests' forward tolerance
+OPS_LINALG_TOL = 1e-4       # the linalg_* ops: the CPU tests' tolerance
+OPS_EXP_LOG_TOL = 1e-6      # box targets and decoded boxes (a log, an exp)
+
+
+def op_cases():
+    """{op name: [(inputs, kwargs, tolerance or a check of a draw)]}: every
+    name of NEW_OPS at a small seeded shape. Inputs are numpy arrays or
+    Python numbers."""
+    r = np.random.RandomState(0)
+
+    def N(*s):
+        return r.randn(*s).astype(np.float32)
+
+    def U(lo, hi, *s):
+        return r.uniform(lo, hi, s).astype(np.float32)
+
+    def I(lo, hi, *s, dt=np.float32):
+        return r.randint(lo, hi, s).astype(dt)
+
+    def spd(b, n):
+        a = N(b, n, n)
+        return a @ a.transpose(0, 2, 1) + n * np.eye(n, dtype=np.float32)
+
+    def lower(b, n):
+        return (np.tril(N(b, n, n) * .3, -1) + np.eye(n, dtype=np.float32)
+                * U(2, 3, b, n, 1)).astype(np.float32)
+
+    def boxes(*s):
+        xy = U(0, .6, *s, 2)
+        return np.concatenate([xy, xy + U(.05, .4, *s, 2)], -1)
+
+    cases = collections.defaultdict(list)
+
+    def add(names, args, kw=None, tol=OPS_TOL):
+        for name in names.split():
+            cases[name].append((args, kw or {}, tol))
+
+    x = N(3, 4)
+    add("sign expm1 sin cos tan arctan sinh cosh arcsinh erf softsign "
+        "degrees radians logical_not ceil floor trunc fix round rint "
+        "isnan isinf isfinite shape_array size_array _copyto "
+        "BlockGrad_inner stop_gradient_passthrough hard_sigmoid softmin "
+        "cast_storage", [x])
+    add("reciprocal cbrt rcbrt", [U(.5, 2, 3, 4) * np.sign(N(3, 4))])
+    add("rsqrt log2 log10 log1p gammaln digamma arccosh",
+        [U(1.2, 4, 3, 4)])
+    add("arcsin arccos arctanh erfinv", [U(-.9, .9, 3, 4)])
+    add("gamma", [U(.5, 4, 3, 4)])
+    add("amp_cast", [x], {"dtype": "float16"})
+    add("broadcast_mod", [N(3, 4) * 3, U(.5, 2, 1, 4)])
+    add("broadcast_power _power pow", [U(.5, 2, 3, 4), N(3, 1)])
+    add("broadcast_hypot arctan2", [N(3, 4), N(1, 4)])
+    add("broadcast_logical_and broadcast_logical_or broadcast_logical_xor",
+        [I(0, 2, 3, 4), I(0, 2, 3, 4)])
+    add("_plus_scalar _minus_scalar _mul_scalar _div_scalar _power_scalar",
+        [U(.5, 2, 3, 4), 2.5])
+    add("smooth_l1", [x * 2], {"scalar": 2.0})
+    x3 = U(.5, 1.5, 2, 3, 4)
+    add("prod max min nansum nanprod max_axis min_axis logsumexp", [x3],
+        {"axis": 1})
+    ties = np.array([[3, 1, 3, 2, 1, 3], [0, 0, 5, 5, 5, 1]], np.float32)
+    add("argmax argmin", [ties], {"axis": 1})
+    add("argsort", [ties], {"is_ascend": False})
+    add("sort", [N(3, 5)], {"is_ascend": False})
+    add("topk", [ties], {"k": 3, "ret_typ": "both"})
+    add("cumsum", [N(3, 4)], {"axis": 1})
+    add("squeeze", [N(2, 1, 3, 1)])
+    add("moveaxis", [x3], {"source": 0, "destination": 2})
+    add("broadcast_axis broadcast_axes", [N(2, 1, 3)], {"axis": 1,
+                                                         "size": 4})
+    add("tile", [x3], {"reps": (2, 1, 3)})
+    add("repeat", [x3], {"repeats": 3, "axis": 1})
+    add("slice", [x3], {"begin": (None, 2, 3), "end": (None, None, 0),
+                        "step": (1, -1, -2)})
+    add("slice_like", [N(4, 5), N(2, 3)])
+    add("space_to_depth", [N(1, 2, 4, 6)], {"block_size": 2})
+    add("depth_to_space", [N(1, 8, 2, 3)], {"block_size": 2})
+    add("diag", [N(3, 4)], {"k": -1})
+    add("eye", [], {"N": 3, "M": 4, "k": 1})
+    add("take", [N(5, 3), np.array([0, 4, 7, -1], np.float32)],
+        {"mode": "wrap"})
+    add("take_along_axis", [N(3, 4), I(0, 4, 3, 2)], {"axis": 1})
+    add("gather_nd", [N(3, 4, 5), I(0, 3, 2, 6)])
+    add("scatter_nd", [N(5), np.array([[0, 1, 2, 2, 0], [3, 0, 1, 2, 2]],
+                                      np.float32)], {"shape": (3, 4)})
+    add("boolean_mask", [N(5, 3), np.array([1, 0, 1, 1, 0], np.float32)])
+    add("where_index", [np.where(N(3, 4) > 0, 1.0, 0.0).astype(np.float32)])
+    add("_internal_getitem", [x3], {"index": (slice(0, 2), 1)})
+    add("batch_dot", [N(2, 3, 4), N(2, 4, 5)])
+    add("linalg_gemm2", [N(2, 4, 3), N(2, 4, 5)], {"transpose_a": True},
+        OPS_LINALG_TOL)
+    add("linalg_potrf linalg_inverse linalg_sumlogdiag", [spd(2, 3)], {},
+        OPS_LINALG_TOL)
+    add("linalg_syrk", [N(2, 3, 4)], {}, OPS_LINALG_TOL)
+    add("khatri_rao", [N(2, 3), N(4, 3)])
+    xi = N(2, 4, 5, 6)
+    g4, b4 = U(.5, 1.5, 4), N(4)
+    add("BatchNorm_v1", [xi, g4, b4, N(4), U(.5, 2, 4)],
+        {"fix_gamma": False, "use_global_stats": True})
+    add("InstanceNorm", [xi, g4, b4])
+    add("GroupNorm", [xi, g4, b4], {"num_groups": 2})
+    add("L2Normalization", [xi], {"mode": "channel"})
+    add("RMSNorm", [N(3, 5), U(.5, 1.5, 5)])
+    add("SoftmaxActivation", [xi])
+    add("softmax_cross_entropy", [N(4, 5), I(0, 5, 4)])
+    add("UpSampling", [N(1, 2, 3, 4)], {"scale": 2,
+                                        "sample_type": "bilinear"})
+    add("BilinearSampler", [N(2, 2, 5, 6), U(-1.1, 1.1, 2, 2, 4, 3)])
+    add("GridGenerator", [N(2, 6)], {"target_shape": (3, 4)})
+    add("SpatialTransformer", [N(2, 2, 5, 6), N(2, 6) * .5],
+        {"target_shape": (4, 3)})
+    rois = np.array([[0, 1, 1, 6, 5], [1, 0, 2, 7, 7], [0, 3.4, .6, 5.2,
+                                                       3.1]], np.float32)
+    add("ROIPooling", [N(2, 3, 8, 9), rois], {"pooled_size": (2, 3),
+                                              "spatial_scale": .9})
+    add("Correlation", [N(1, 3, 7, 8), N(1, 3, 7, 8)],
+        {"kernel_size": 3, "max_displacement": 2, "pad_size": 2})
+    add("dot_scaled", [N(3, 4), N(4, 2)], {"scale": .5})
+    add("crop Crop", [N(1, 2, 6, 7)], {"h_w": (3, 4), "offset": (1, 2)})
+    add("_contrib_div_sqrt_dim", [N(2, 3, 16)])
+    add("Deconvolution", [N(2, 3, 5, 4), N(3, 4, 3, 3), N(4)],
+        {"kernel": (3, 3), "stride": (2, 2), "pad": (1, 1), "adj": (1, 1),
+         "num_filter": 4, "no_bias": False})
+    add("Deconvolution", [N(2, 3, 4, 5, 3), N(3, 2, 2, 3, 3)],
+        {"kernel": (2, 3, 3), "stride": (1, 2, 2), "num_filter": 2})
+    add("IdentityAttachKLSparseReg", [U(.1, .9, 4, 3)])
+    add("LRN", [N(2, 6, 3, 3)], {"nsize": 3})
+    add("SVMOutput", [N(4, 5), I(0, 5, 4)], {"margin": .5})
+    add("argmax_channel", [N(3, 4, 2)])
+    add("batch_take", [N(4, 5), I(0, 5, 4)])
+    add("broadcast_like", [N(1, 3), N(4, 3)])
+    add("im2col", [N(2, 2, 4, 5)], {"kernel": (2, 3), "pad": (1, 0)})
+    add("col2im", [N(1, 8, 12)], {"output_size": (4, 5), "kernel": (2, 2)})
+    add("fill_element_0index", [N(3, 4), I(0, 4, 3), N(3)])
+    add("make_loss", [x], {"grad_scale": 2.0})
+    add("moments", [N(3, 4, 5)], {"axes": (0, 2)})
+    add("ravel_multi_index", [np.array([[0, 3, 5, 1], [2, 0, 7, 5]],
+                                       np.float32)], {"shape": (4, 6)})
+    add("unravel_index", [np.array([0, 5, 23, 11], np.float32)],
+        {"shape": (4, 6)})
+    add("reshape_like", [N(2, 6, 5), N(2, 3)], {"lhs_begin": 1, "lhs_end": 2,
+                                                "rhs_begin": 0,
+                                                "rhs_end": 2})
+    add("linspace", [], {"start": -1.0, "stop": 2.0, "num": 7})
+    add("linalg_det linalg_slogdet", [N(2, 3, 3)], {}, OPS_LINALG_TOL)
+    add("linalg_potri", [np.linalg.cholesky(spd(2, 3)).astype(np.float32)],
+        {}, OPS_LINALG_TOL)
+    add("linalg_gemm", [N(2, 3, 4), N(2, 5, 4), N(2, 3, 5)],
+        {"transpose_b": True, "beta": 2.0}, OPS_LINALG_TOL)
+    add("linalg_trmm linalg_trsm", [lower(2, 3), N(2, 3, 3)],
+        {"rightside": True, "transpose": True}, OPS_LINALG_TOL)
+    add("linalg_gelqf", [N(2, 3, 5)], {}, OPS_LINALG_TOL)
+    add("linalg_makediag", [N(2, 3)], {"offset": 1})
+    add("linalg_extractdiag", [N(2, 3, 4)], {"offset": -1})
+    add("linalg_maketrian", [N(2, 6)])
+    add("linalg_extracttrian", [N(2, 3, 3)], {"lower": False})
+    # detection and contrib vision
+    feat = np.zeros((2, 3, 5, 7), np.float32)
+    add("_contrib_MultiBoxPrior", [feat], {"sizes": (.2, .35),
+                                           "ratios": (1, 2, .5)})
+    n = 5 * 7 * 4
+    anchors = np.concatenate([boxes(1, n)], 0).astype(np.float32)
+    label = np.full((2, 4, 5), -1, np.float32)
+    label[:, :3, 0] = I(0, 3, 2, 3)
+    label[:, :3, 1:] = boxes(2, 3)
+    prob = r.dirichlet(np.ones(4), (2, n)).astype(np.float32).transpose(
+        0, 2, 1).copy()
+    add("_contrib_MultiBoxTarget", [anchors, label, prob],
+        {"negative_mining_ratio": 3.0}, OPS_EXP_LOG_TOL)
+    add("_contrib_MultiBoxDetection", [prob, N(2, n * 4) * .2, anchors],
+        {"nms_threshold": .45, "nms_topk": 50}, OPS_EXP_LOG_TOL)
+    nms = np.concatenate([I(0, 3, 2, 40, 1), r.choice(
+        [.2, .5, .7, .9], (2, 40, 1)).astype(np.float32),
+        boxes(2, 40) * .5], -1).astype(np.float32)
+    add("_contrib_box_nms", [nms], {"id_index": 0, "topk": 25})
+    add("_contrib_box_iou", [boxes(2, 5), boxes(2, 6)])
+    add("_contrib_box_encode", [U(0, 1, 2, 5), I(0, 6, 2, 5), boxes(2, 5),
+                                boxes(2, 6)], {}, OPS_EXP_LOG_TOL)
+    add("_contrib_box_decode", [N(2, 5, 4) * .3, boxes(2, 5)], {"clip": .2},
+        OPS_EXP_LOG_TOL)
+    img = U(0, 1, 2, 3, 9, 11)
+    add("_contrib_BilinearResize2D _contrib_bilinear_resize2d", [img],
+        {"height": 5, "width": 17})
+    add("_contrib_AdaptiveAvgPooling2D _contrib_adaptive_avg_pooling2d",
+        [img], {"output_size": (4, 3)})
+    add("_contrib_ROIAlign", [img, rois], {"pooled_size": (3, 2),
+                                           "spatial_scale": .9})
+    add("_contrib_PSROIPooling", [U(0, 1, 2, 18, 9, 11), rois],
+        {"spatial_scale": .9, "output_dim": 2, "pooled_size": 3})
+    add("_contrib_DeformableConvolution", [U(0, 1, 2, 4, 6, 7),
+                                           N(2, 36, 6, 7) * .8,
+                                           N(5, 4, 3, 3), N(5)],
+        {"kernel": (3, 3), "pad": (1, 1), "num_filter": 5,
+         "num_deformable_group": 2})
+    add("_contrib_arange_like", [img], {"start": 2, "step": .5,
+                                        "repeat": 3})
+    # quantization: integer results exact
+    rng8 = [np.array(v, np.float32) for v in (-1.5, 1.2, -.4, .6, -2., 2.)]
+    add("_contrib_quantize_v2", [N(4, 5) * .7], {}, 0.0)
+    add("_contrib_dequantize", [I(-127, 128, 3, 4, dt=np.int8), rng8[0],
+                                rng8[1]], {}, 0.0)
+    add("_contrib_requantize", [I(-200000, 200000, 3, 4, dt=np.int32),
+                                rng8[4], rng8[5]], {}, 0.0)
+    add("_contrib_quantized_fully_connected",
+        [I(-127, 128, 3, 16, dt=np.int8), I(-127, 128, 6, 16, dt=np.int8),
+         I(-127, 128, 6, dt=np.int8)] + rng8, {"num_hidden": 6}, 0.0)
+    add("_contrib_quantized_conv",
+        [I(-127, 128, 2, 4, 9, 10, dt=np.int8),
+         I(-127, 128, 5, 4, 3, 3, dt=np.int8), I(-127, 128, 5, dt=np.int8)]
+        + rng8, {"kernel": (3, 3), "pad": (1, 1), "num_filter": 5}, 0.0)
+    # images
+    u8 = I(0, 256, 2, 6, 8, 3, dt=np.uint8)
+    add("_image_to_tensor _image_flip_left_right _image_flip_top_bottom",
+        [u8])
+    add("_image_crop", [u8], {"x": 1, "y": 2, "width": 3, "height": 2})
+    add("_image_normalize", [U(0, 1, 2, 3, 5, 6)],
+        {"mean": (.4, .5, .6), "std": (.2, .3, .25)})
+    add("_image_resize", [U(0, 255, 2, 6, 8, 3)], {"size": (9, 7)})
+
+    # draws: shape and dtype as on the CPU, values in range
+    def within(lo, hi, integral=False):
+        def check(got):
+            return bool(np.all(got >= lo) and np.all(got < hi) and (
+                not integral or np.all(got == np.round(got))))
+        return check
+
+    big = 4096
+    for name in ("_random_uniform", "uniform", "random_uniform"):
+        cases[name].append(([], {"low": -2.0, "high": 3.0, "shape": (big,)},
+                            within(-2.0, 3.0)))
+    for name in ("_random_normal", "normal", "random_normal", "randn"):
+        cases[name].append(([], {"loc": 1.0, "scale": 2.0, "shape": (big,)},
+                            lambda g: bool(np.isfinite(g).all()
+                                           and abs(g.mean() - 1) < .3)))
+    for name in ("_random_randint", "randint", "random_randint"):
+        cases[name].append(([], {"low": -3, "high": 7, "shape": (big,)},
+                            within(-3, 7, True)))
+    for name in ("_random_gamma", "random_gamma"):
+        cases[name].append(([], {"alpha": 2.5, "beta": .5, "shape": (big,)},
+                            within(0, np.inf)))
+    for name in ("_random_exponential", "random_exponential"):
+        cases[name].append(([], {"lam": 4.0, "shape": (big,)},
+                            within(0, np.inf)))
+    for name in ("_random_poisson", "random_poisson"):
+        cases[name].append(([], {"lam": 3.5, "shape": (big,)},
+                            within(0, np.inf, True)))
+    for name in ("_random_negative_binomial", "random_negative_binomial"):
+        cases[name].append(([], {"k": 3, "p": .4, "shape": (big,)},
+                            within(0, np.inf, True)))
+    for name in ("_random_generalized_negative_binomial",
+                 "random_generalized_negative_binomial"):
+        cases[name].append(([], {"mu": 2.0, "alpha": .5, "shape": (big,)},
+                            within(0, np.inf, True)))
+    cases["_sample_unique_zipfian"].append(
+        ([], {"range_max": 1000, "shape": (big,)}, within(0, 1000, True)))
+    cases["_sample_uniform"].append(([np.array([0., -1.], np.float32),
+                                      np.array([1., 1.], np.float32)],
+                                     {"shape": (big,)}, within(-1, 1)))
+    cases["_sample_normal"].append(([np.array([0., 3.], np.float32),
+                                     np.array([1., .5], np.float32)],
+                                    {"shape": (big,)},
+                                    lambda g: bool(np.isfinite(g).all())))
+    cases["_sample_gamma"].append(([np.array([.5, 4.], np.float32),
+                                    np.array([2., .25], np.float32)],
+                                   {"shape": (big,)}, within(0, np.inf)))
+    for name in ("_sample_multinomial", "sample_multinomial"):
+        cases[name].append(([np.array([[.1, .2, .7], [.5, .25, .25]],
+                                      np.float32)], {"shape": (big,)},
+                            within(0, 3, True)))
+    for name in ("_shuffle", "shuffle"):
+        cases[name].append(([np.arange(64, dtype=np.float32)], {},
+                            lambda g: bool(np.array_equal(np.sort(g),
+                                                          np.arange(64)))))
+    cases["bernoulli"].append(([np.full((big,), .3, np.float32)], {},
+                               within(0, 2, True)))
+    flip = I(0, 256, 4, 5, 3, dt=np.uint8)
+    for name, axis in (("_image_random_flip_left_right", 1),
+                       ("_image_random_flip_top_bottom", 0)):
+        cases[name].append(([flip], {}, lambda g, a=axis: bool(
+            np.array_equal(g, flip) or np.array_equal(g, np.flip(flip, a)))))
+    pix = U(1, 200, 4, 5, 3)
+    cases["_image_random_brightness"].append(
+        ([pix], {"min_factor": .5, "max_factor": 1.5},
+         lambda g: bool(np.all((g / pix >= .5 - 1e-5)
+                               & (g / pix <= 1.5 + 1e-5)))))
+    cases["_image_random_contrast"].append(
+        ([pix], {"min_factor": .5, "max_factor": 1.5},
+         lambda g: bool(np.isfinite(g).all())))
+    return cases
+
+
+def _op_outputs(mx, name, args, kw, ctx):
+    vals = [mx.nd.array(a, ctx=ctx, dtype=a.dtype)
+            if isinstance(a, np.ndarray) else a for a in args]
+    out = mx.nd.invoke(name, *vals, ctx=ctx, **kw)
+    outs = out if isinstance(out, (list, tuple)) else [out]
+    for o in outs:
+        check(o.context == ctx, "ops", "%s gave an array on %s, not %s"
+              % (name, o.context, ctx))
+    return [o.asnumpy() for o in outs]
+
+
+def _ops_err(got, want):
+    """Max error over max(1, max |want|); inf where shape, dtype, NaNs or
+    infinities differ."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        return math.inf
+    if got.dtype.kind in "biu":
+        return 0.0 if np.array_equal(got, want) else math.inf
+    if not np.array_equal(np.isnan(got), np.isnan(want)):
+        return math.inf
+    fin = np.isfinite(want)
+    if not np.array_equal(got[~fin & ~np.isnan(want)],
+                          want[~fin & ~np.isnan(want)]):
+        return math.inf
+    if not fin.any():
+        return 0.0
+    scale = max(1.0, float(np.abs(want[fin]).max()))
+    return float(np.abs(got[fin].astype(np.float64)
+                        - want[fin].astype(np.float64)).max()) / scale
+
+
+def phase_ops():
+    """Every op of the op-set slice (NEW_OPS) once on the card at a small
+    seeded shape against the port's CPU result: within the CPU tests'
+    tolerances (1e-5 fp32, 1e-4 linalg, 1e-6 the box log/exp, integers
+    exact); the draws held to the CPU's shape and dtype and to their range.
+    Each result must lie on the card."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import launch_counts, reset_launch_counts
+    from mxnet_tpu_torch.ops import registry
+    phase = "ops"
+    cases = op_cases()
+    check(set(cases) == set(NEW_OPS) and len(NEW_OPS) == 205
+          and set(NEW_OPS) <= set(registry.list_ops()), phase,
+          "the table and the registry disagree: %s"
+          % sorted(set(NEW_OPS) ^ set(cases)))
+    gpu, cpu = mx.gpu(0), mx.cpu()
+    worst, failed, runs = {}, [], 0
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    for name in NEW_OPS:
+        for args, kw, tol in cases[name]:
+            mx.random.seed(7)
+            got = _op_outputs(mx, name, args, kw, gpu)
+            mx.random.seed(7)
+            want = _op_outputs(mx, name, args, kw, cpu)
+            runs += 1
+            if callable(tol):
+                ok = len(got) == len(want) and all(
+                    g.shape == w.shape and g.dtype == w.dtype
+                    for g, w in zip(got, want)) and all(tol(g) for g in got)
+                worst[name] = 0.0 if ok else math.inf
+            else:
+                err = max(_ops_err(g, w) for g, w in zip(got, want))
+                ok = len(got) == len(want) and err <= tol
+                worst[name] = max(worst.get(name, 0.0), err)
+            if not ok:
+                failed.append(name)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launched = {k: v for k, v in launch_counts().items() if v}
+    emit({"phase": phase, "ops": len(cases), "runs": runs,
+          "seconds": secs, "failed": failed,
+          "max_err_over_1e-7": sum(1 for v in worst.values() if v > 1e-7),
+          "worst": dict(sorted(worst.items(), key=lambda kv: -kv[1])[:8]),
+          "kernel_launches": launched})
+    check(not failed, phase, "ops off the CPU result: %s" % failed)
+
+
+SSD_BATCH, SSD_IMAGE, SSD_CLASSES, SSD_MAX_BOXES = 32, 512, 20, 16
+SSD_FILTERS = [512, 256, 256, 128]      # symbol_factory get_config
+SSD_SIZES = [[.1, .141], [.2, .272], [.37, .447], [.54, .619], [.71, .79],
+             [.88, .961]]
+SSD_RATIOS = [[1, 2, .5]] + [[1, 2, .5, 3, 1 / 3.]] * 3 + [[1, 2, .5]] * 2
+SSD_ANCHORS = 6132
+SSD_WARMUP, SSD_STEPS, SSD_LAT_CALLS = 3, 10, 20
+SSD_KERNELS_TRAIN = ("conv_bn_stats", "cbr_train_bwd", "flat_sgd")
+SSD_TARGET_KW = dict(overlap_threshold=0.5, ignore_label=-1,
+                     negative_mining_ratio=3, negative_mining_thresh=0.5,
+                     minimum_negative_samples=0,
+                     variances=(0.1, 0.1, 0.2, 0.2))
+SSD_DETECT_KW = dict(nms_threshold=0.45, nms_topk=400, threshold=0.01,
+                     force_suppress=False)
+
+
+def ssd_net(mx):
+    """SSD-512 over resnet50_v1 (NHWC, the fused conv-BN-ReLU gate on), as
+    upstream MXNet's example/ssd symbol_factory.get_config("resnet50",
+    512) lays it out: the ends of stages 3 and 4 (upstream's _plus12 and
+    _plus15), then one 1x1 conv to max(128, f / 2) + ReLU and one 3x3
+    stride-2 conv to f + ReLU for each of `filters`; a 3x3 class head and
+    box head on each of the six maps, flattened cell-major (as
+    examples/ssd_detection.py's TinySSD does) and concatenated. Built from
+    public Gluon blocks; returns (cls (B, N, classes + 1), box (B, 4 N))."""
+    os.environ["MXNET_TPU_FUSED_CONVBN"] = "1"
+    nn = mx.gluon.nn
+    classes = SSD_CLASSES
+    anchors = [len(s) + len(r) - 1 for s, r in zip(SSD_SIZES, SSD_RATIOS)]
+
+    class SSD(mx.gluon.HybridBlock):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            with self.name_scope():
+                self.base = mx.gluon.model_zoo.vision.resnet50_v1(
+                    layout="NHWC")
+                self.extras = nn.HybridSequential()
+                for f in SSD_FILTERS:
+                    blk = nn.HybridSequential()
+                    blk.add(nn.Conv2D(max(128, f // 2), 1, layout="NHWC"),
+                            nn.Activation("relu"),
+                            nn.Conv2D(f, 3, 2, 1, layout="NHWC"),
+                            nn.Activation("relu"))
+                    self.extras.add(blk)
+                self.cls_heads = nn.HybridSequential()
+                self.box_heads = nn.HybridSequential()
+                for a in anchors:
+                    self.cls_heads.add(nn.Conv2D(a * (classes + 1), 3, 1, 1,
+                                                 layout="NHWC"))
+                    self.box_heads.add(nn.Conv2D(a * 4, 3, 1, 1,
+                                                 layout="NHWC"))
+
+        def feature_maps(self, x):
+            stages = list(self.base.features._children.values())[:-1]
+            for blk in stages[:-1]:
+                x = blk(x)
+            maps = [x, stages[-1](x)]
+            for blk in self.extras._children.values():
+                maps.append(blk(maps[-1]))
+            return maps
+
+        def hybrid_forward(self, F, x):
+            cls, box = [], []
+            for m, ch, bh in zip(self.feature_maps(x),
+                                 self.cls_heads._children.values(),
+                                 self.box_heads._children.values()):
+                cls.append(F.reshape(ch(m), shape=(0, -1, classes + 1)))
+                box.append(F.reshape(bh(m), shape=(0, -1)))
+            return F.concat(*cls, dim=1), F.concat(*box, dim=1)
+
+    with mx.name.NameManager():
+        return SSD(prefix="ssd_")
+
+
+def ssd_anchors(mx, net, image, ctx):
+    """MultiBoxPrior over each map, given an NCHW-shaped (1, 1, H, W) array
+    of the map's size (the op reads shape[2], shape[3])."""
+    with mx.autograd.predict_mode():
+        maps = net.feature_maps(mx.nd.zeros((1, image, image, 3), ctx=ctx,
+                                            dtype=net_dtype(net)))
+    per = [mx.nd.contrib.MultiBoxPrior(
+        mx.nd.zeros((1, 1, m.shape[1], m.shape[2]), ctx=ctx), sizes=s,
+        ratios=r, clip=False) for m, s, r in zip(maps, SSD_SIZES,
+                                                  SSD_RATIOS)]
+    return mx.nd.concat(*per, dim=1), [m.shape[1:3] for m in maps]
+
+
+def net_dtype(net):
+    return next(iter(net.base.collect_params().values())).data().dtype
+
+
+def ssd_data(n_batches, batch, image, classes, seed=0):
+    """Seeded uint8 NHWC images (noise under 60, 1 to 8 filled rectangles,
+    each class its own color) and labels [cls, x1, y1, x2, y2] in [0, 1],
+    padded to SSD_MAX_BOXES rows with -1."""
+    rng = np.random.RandomState(seed)
+    colors = rng.randint(80, 256, (classes, 3)).astype(np.uint8)
+    out = []
+    for _ in range(n_batches):
+        x = rng.randint(0, 60, (batch, image, image, 3)).astype(np.uint8)
+        y = np.full((batch, SSD_MAX_BOXES, 5), -1, np.float32)
+        for i in range(batch):
+            for j in range(rng.randint(1, 9)):
+                w, h = rng.randint(image // 16, image // 2, 2)
+                x0 = rng.randint(0, image - w)
+                y0 = rng.randint(0, image - h)
+                c = rng.randint(0, classes)
+                x[i, y0:y0 + h, x0:x0 + w] = colors[c]
+                y[i, j] = [c, x0 / image, y0 / image, (x0 + w) / image,
+                           (y0 + h) / image]
+        out.append((x, y))
+    return out
+
+
+def ssd_inputs(mx, x, y, ctx, dtype):
+    """uint8 images -> [0, 1] in `dtype` on `ctx`; labels float32."""
+    xs = (mx.nd.array(x, ctx=ctx, dtype="uint8").astype("float32")
+          / 255.0).astype(dtype)
+    return xs, mx.nd.array(y, ctx=ctx)
+
+
+def ssd_step(mx, net, anchors, x, y, trainer, cls_loss, box_loss):
+    """One training step: heads to fp32, MultiBoxTarget with hard-negative
+    mining, SoftmaxCrossEntropyLoss with the keep mask, HuberLoss on the
+    masked boxes, Trainer.step. Returns (loss, prob, targets)."""
+    b = x.shape[0]
+    with mx.autograd.record():
+        cls, box = net(x)
+        cls, box = cls.astype("float32"), box.astype("float32")
+        prob = mx.nd.softmax(mx.nd.transpose(cls, axes=(0, 2, 1)), axis=1)
+        bt, bm, ct = mx.nd.contrib.MultiBoxTarget(anchors, y, prob,
+                                                  **SSD_TARGET_KW)
+        keep = (ct >= 0).reshape((b, -1, 1))
+        loss = cls_loss(cls, ct, keep).mean() + \
+            box_loss(box * bm, bt * bm).mean()
+    loss.backward()
+    trainer.step(b)
+    return loss, prob, (bt, bm, ct)
+
+
+def ssd_detect(mx, net, anchors, x):
+    with mx.autograd.predict_mode():
+        cls, box = net(x)
+        prob = mx.nd.softmax(mx.nd.transpose(cls.astype("float32"),
+                                             axes=(0, 2, 1)), axis=1)
+        return mx.nd.contrib.MultiBoxDetection(
+            prob, box.astype("float32"), anchors, **SSD_DETECT_KW), prob, box
+
+
+def ssd_sgd_call(trainer):
+    """Path 15's #7 call as kernel_opt_paths takes it: the Trainer's one
+    multi launch over every trainable parameter (their shapes and dtypes,
+    and the lr and wd the optimizer gives each), its momentum and its
+    rescale (1 / batch)."""
+    opt = trainer.optimizer
+    idx = [i for i, p in enumerate(trainer._params) if p.grad_req != "null"]
+    params = [(trainer._params[i].shape,
+               trainer._params[i].data().data_torch.dtype, lr, wd)
+              for i, lr, wd in zip(idx, opt._get_lrs(idx),
+                                   opt._get_wds(idx))]
+    return {"ssd_resnet50": (params, opt.momentum, opt.rescale_grad,
+                             opt.clip_gradient, True)}
+
+
+def host_ms(fn, calls=5):
+    """Median wall ms of fn() between two synchronizes (host dispatch and
+    device time together)."""
+    out = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(out)
+
+
+def phase_ssd_resnet50(batch=SSD_BATCH, image=SSD_IMAGE):
+    """Main path 15: SSD-512 on resnet50_v1 NHWC with the fused gate, bf16
+    (heads cast to fp32 before the MultiBox ops and losses), 21 classes,
+    6,132 anchors; Trainer("sgd", lr 0.002, momentum 0.9, wd 0.0005) as
+    upstream's train.py; seeded synthetic images and boxes (VOC is not in
+    the repository). Counts set to 0 just before the timed training steps
+    and read just after (16 conv_bn_stats, 16 cbr_train_bwd and one multi
+    flat_sgd a step, nothing else), and around one batch-32 forward in
+    predict mode (16 conv_bn_relu). Every variant of #4-#6 that the path
+    launched was held to its plain version at the path's shapes
+    (SSD_CHECKED_VARIANTS), and the Trainer's #7 call over this net's
+    parameter table at 0 ulps (kernel_opt_paths). The loss falls; the
+    three MultiBox ops on the last timed step's own tensors equal the CPU
+    route's."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.ops import (launch_counts, reset_launch_counts,
+                                     variant_counts)
+    phase = "ssd_resnet50"
+    gpu = mx.gpu(0)
+    mx.random.seed(0)
+    net = ssd_net(mx)
+    net.initialize(mx.init.Xavier(rnd_type="gaussian", magnitude=2), ctx=gpu)
+    with mx.autograd.predict_mode():
+        net(mx.nd.zeros((1, image, image, 3), ctx=gpu))
+    net.cast("bfloat16")
+    net.hybridize(static_alloc=True)
+    anchors, map_hw = ssd_anchors(mx, net, image, gpu)
+    check(image != SSD_IMAGE or (anchors.shape == (1, SSD_ANCHORS, 4)
+                                 and map_hw == [(32, 32), (16, 16), (8, 8),
+                                                (4, 4), (2, 2), (1, 1)]),
+          phase, "anchors %s over maps %s" % (anchors.shape, map_hw))
+    data = [ssd_inputs(mx, x, y, gpu, "bfloat16")
+            for x, y in ssd_data(2, batch, image, SSD_CLASSES)]
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd", {
+        "learning_rate": 0.002, "momentum": 0.9, "wd": 0.0005})
+    cls_loss = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    box_loss = mx.gluon.loss.HuberLoss()
+    telemetry.reset()
+
+    losses = []
+    for i in range(SSD_WARMUP):
+        losses.append(ssd_step(mx, net, anchors, *data[i % 2], trainer,
+                               cls_loss, box_loss)[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = []
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    for i in range(SSD_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss, prob, targets = ssd_step(mx, net, anchors, *data[i % 2],
+                                       trainer, cls_loss, box_loss)
+        end.record()
+        losses.append(loss)
+        torch.cuda.synchronize()
+        step_ms.append(start.elapsed_time(end))
+    window_s = time.perf_counter() - t0
+    launches, variants = launch_counts(), variant_counts()
+    peak = torch.cuda.max_memory_allocated()
+    last_x, last_y = data[(SSD_STEPS - 1) % 2]
+    losses = [float(l.asscalar()) for l in losses]
+    # the last timed step's targets through the CPU route
+    cpu = mx.cpu()
+    on_cpu = [a.as_in_context(cpu) for a in (anchors, last_y, prob)]
+    want = [t.asnumpy() for t in mx.nd.contrib.MultiBoxTarget(
+        *on_cpu, **SSD_TARGET_KW)]
+    got = [t.asnumpy() for t in targets]
+    target_err = float(np.abs(got[0] - want[0]).max())
+    target_equal = bool(np.array_equal(got[1], want[1])
+                        and np.array_equal(got[2], want[2]))
+    # #7 as the Trainer called it, at 0 ulps (outside the counted window)
+    opt_rec = kernel_opt_paths(torch.Generator(device="cuda").manual_seed(
+        15), ssd_sgd_call(trainer))["ssd_resnet50"]
+
+    # the MultiBox ops alone, and one profiled step
+    target_ms = host_ms(lambda: mx.nd.contrib.MultiBoxTarget(
+        anchors, last_y, prob, **SSD_TARGET_KW))
+    profile = profile_window(lambda: ssd_step(
+        mx, net, anchors, last_x, last_y, trainer, cls_loss, box_loss))
+
+    # inference: a batch-32 forward counted, detections vs the CPU route,
+    # images/s, batch-1 latency
+    reset_launch_counts()
+    dets, dprob, dbox = ssd_detect(mx, net, anchors, last_x)
+    torch.cuda.synchronize()
+    infer_launches = launch_counts()
+    path_variants = {"%s/%s" % k for k, c in variants.items() if c} | {
+        "%s/%s" % k for k, c in variant_counts().items() if c}
+    unchecked = sorted(path_variants - SSD_CHECKED_VARIANTS
+                       - {"flat_sgd/multi"})
+    det = dets.asnumpy()
+    det_cpu = mx.nd.contrib.MultiBoxDetection(
+        dprob.as_in_context(cpu), dbox.astype("float32").as_in_context(cpu),
+        anchors.as_in_context(cpu), **SSD_DETECT_KW).asnumpy()
+    det_equal = bool(np.array_equal(det[..., :2], det_cpu[..., :2]))
+    det_box_err = float(np.abs(det[..., 2:] - det_cpu[..., 2:]).max())
+    detect_ms = host_ms(lambda: mx.nd.contrib.MultiBoxDetection(
+        dprob, dbox.astype("float32"), anchors, **SSD_DETECT_KW))
+    infer_ms = host_ms(lambda: ssd_detect(mx, net, anchors, last_x)[0])
+    one = last_x[:1]
+    for _ in range(3):
+        ssd_detect(mx, net, anchors, one)
+    lat = []
+    for _ in range(SSD_LAT_CALLS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ssd_detect(mx, net, anchors, one)[0].asnumpy()
+        lat.append((time.perf_counter() - t1) * 1e3)
+    lat.sort()
+    fallback = telemetry.counter_value("compiler.fallback")
+
+    rec = {"phase": phase, "config": "SSD-512, resnet50_v1 NHWC fused, "
+           "bf16 (fp32 heads into MultiBox/losses), %d classes + background,"
+           " filters %s, batch %d at %dx%d, sgd lr 0.002 momentum 0.9 wd "
+           "5e-4" % (SSD_CLASSES, SSD_FILTERS, batch, image, image),
+           "anchors": anchors.shape[1], "maps": map_hw,
+           "warmup": SSD_WARMUP, "steps": SSD_STEPS,
+           "images_per_s": batch * SSD_STEPS / window_s,
+           "step_ms": step_ms, "step_ms_median": statistics.median(step_ms),
+           "multibox_target_host_ms": target_ms,
+           "multibox_detection_host_ms": detect_ms,
+           "max_memory_allocated_bytes": peak, "profile_one_step": profile,
+           "infer_images_per_s": batch / infer_ms * 1e3,
+           "infer_batch_ms": infer_ms,
+           "batch1_ms_p50": lat[len(lat) // 2],
+           "batch1_ms_p99": lat[min(len(lat) - 1,
+                                    int(round(.99 * (len(lat) - 1))))],
+           "losses": losses,
+           "launches": {k: c for k, c in launches.items() if c},
+           "variants": {"%s/%s" % k: c for k, c in variants.items()},
+           "infer_launches": {k: c for k, c in infer_launches.items() if c},
+           "variants_unchecked_at_path_shapes": unchecked,
+           "flat_sgd_path_call": {k: opt_rec[k] for k in (
+               "tensors", "elements", "dtypes", "max_ulps", "ms",
+               "device_ms", "plain_ms", "bound_ms", "bound_by")},
+           "target_box_err_vs_cpu": target_err,
+           "target_cls_mask_equal_cpu": target_equal,
+           "detections_ids_scores_equal_cpu": det_equal,
+           "detection_box_err_vs_cpu": det_box_err,
+           "detections_kept": int((det[..., 0] >= 0).sum()),
+           "compiler_fallback": fallback, "card": card_name_and_limit()}
+    emit(rec)
+    check(launches["conv_bn_stats"] == 16 * SSD_STEPS
+          and launches["cbr_train_bwd"] == 16 * SSD_STEPS
+          and launches["flat_sgd"] == SSD_STEPS
+          and variants.get(("flat_sgd", "multi")) == SSD_STEPS
+          and sum(launches.values()) == 33 * SSD_STEPS, phase,
+          "training launches %s (%s), expected 16 conv_bn_stats, 16 "
+          "cbr_train_bwd and one multi flat_sgd a step" % (launches,
+                                                             variants))
+    check(infer_launches["conv_bn_relu"] == 16
+          and sum(infer_launches.values()) == 16, phase,
+          "predict-mode launches %s, expected 16 conv_bn_relu"
+          % infer_launches)
+    check(not unchecked, phase, "kernel variants launched on the path but "
+          "not held to their plain versions at its shapes: %s" % unchecked)
+    check(all(np.isfinite(losses))
+          and statistics.mean(losses[-3:]) < statistics.mean(losses[:3]),
+          phase, "loss not finite or not falling: %s" % losses)
+    check(target_equal and target_err <= OPS_EXP_LOG_TOL, phase,
+          "MultiBoxTarget on the card vs the CPU: cls/mask equal %s, box "
+          "targets %.3g apart" % (target_equal, target_err))
+    check(det_equal and det_box_err <= OPS_EXP_LOG_TOL
+          and det.shape == (batch, anchors.shape[1], 6)
+          and np.isfinite(det).all(), phase,
+          "MultiBoxDetection on the card vs the CPU: ids/scores equal %s, "
+          "boxes %.3g apart, shape %s" % (det_equal, det_box_err, det.shape))
+    check(fallback == 0, phase, "compiler.fallback %s" % fallback)
+    check(profile["device_ms"] > 0, phase, "the profiler saw no device time")
+    return launches, infer_launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6207,6 +7061,16 @@ def main():
         bucketing_launches = phase_module_lstm_bucketing(tmp)
     check_path(bucketing_launches, ("flat_sgd",),
                "main_path_module_lstm_bucketing")
+    torch.cuda.empty_cache()
+
+    # the op set on the card against the CPU; main path 15: SSD-512 on
+    # ResNet-50 (counts reset inside, read right after the timed steps and
+    # around one predict-mode forward)
+    phase_ops()
+    torch.cuda.empty_cache()
+    ssd_launches, ssd_infer_launches = phase_ssd_resnet50()
+    check_path(ssd_launches, SSD_KERNELS_TRAIN, "main_path_ssd_train")
+    check_path(ssd_infer_launches, RESNET_KERNELS, "main_path_ssd_infer")
 
     print(card_name_and_limit(), flush=True)
     kernels = []
@@ -6220,7 +7084,8 @@ def main():
             + fm_launches[name] + mf_launches[name] \
             + mlp_launches[name] + loader_launches[name] \
             + module_launches[name] + word_lm_launches[name] \
-            + bucketing_launches[name]
+            + bucketing_launches[name] + ssd_launches[name] \
+            + ssd_infer_launches[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": "mxnet_tpu_torch/" + source, "replaces": replaces,

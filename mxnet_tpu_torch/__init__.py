@@ -35,7 +35,10 @@ its whole-graph route in `compiler`), `mod` (`Module`,
 `viz`, and Gluon's `export` and `SymbolBlock`; and the recurrent half:
 the fused `RNN` op (`ops.rnn_ops`), `gluon.rnn` (cells and the fused
 RNN/LSTM/GRU layers), `gluon.contrib.rnn` and the symbolic cells of
-`rnn` with `BucketSentenceIter`:
+`rnn` with `BucketSentenceIter`; and the reference's whole op set outside
+`mx.np`: tensor, nn, linalg, random, image, quantization and detection
+ops (`ops.contrib_vision`: the SSD MultiBox ops, NMS, ROI ops),
+`nd.contrib`'s control flow and custom ops (`operator`):
 
     import mxnet_tpu_torch as mx
     net = mx.gluon.model_zoo.vision.resnet50_v1(layout="NHWC")
@@ -53,8 +56,8 @@ from __future__ import annotations
 from . import (attribute, autograd, base, callback, compiler, context,
                embedding, gluon, image, initializer, io, kvstore,
                lr_scheduler, metric, model, models, module, monitor, name,
-               ndarray, ops, optimizer, parallel, random, rnn, serve, symbol,
-               telemetry, util, visualization)
+               ndarray, operator, ops, optimizer, parallel, random, rnn,
+               serve, symbol, telemetry, util, visualization)
 from . import initializer as init
 from . import kvstore as kv
 from . import module as mod
@@ -71,7 +74,8 @@ __version__ = "0.1.0"
 __all__ = ["attribute", "autograd", "base", "callback", "compiler",
            "context", "embedding", "gluon", "image", "init", "initializer",
            "io", "kv", "kvstore", "lr_scheduler", "metric", "mod", "model",
-           "models", "module", "monitor", "name", "nd", "ndarray", "ops",
+           "models", "module", "monitor", "name", "nd", "ndarray",
+           "operator", "ops",
            "opt", "optimizer", "parallel", "random", "rnn", "serve", "sym",
            "symbol", "telemetry", "util", "visualization", "viz",
            "AttrScope", "Context", "cpu", "gpu", "current_context",

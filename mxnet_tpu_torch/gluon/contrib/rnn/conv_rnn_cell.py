@@ -5,9 +5,8 @@ Conv{1D,2D,3D}{RNN,LSTM,GRU}Cell.
 The state is a feature map: the input-to-hidden and hidden-to-hidden
 transforms are convolutions (ConvLSTM, Shi et al. 2015), and the
 hidden-to-hidden kernel must be odd so that its 'same' padding keeps the
-state's shape from step to step. The 2-D cells run on the port's 2-D
-`Convolution`; the 1-D and 3-D cells raise when made, until the port has
-1-D and 3-D convolutions (ROADMAP Queue A 2).
+state's shape from step to step. The 1-, 2- and 3-D cells run on the
+port's `Convolution` of that many spatial dims.
 """
 from __future__ import annotations
 
@@ -37,10 +36,6 @@ class _BaseConvRNNCell(HybridRecurrentCell):
                  i2h_weight_initializer, h2h_weight_initializer,
                  i2h_bias_initializer, h2h_bias_initializer,
                  dims, conv_layout, activation, prefix=None, params=None):
-        if dims != 2:
-            raise NotImplementedError(
-                "%s: %d-D convolutions are not ported yet (ROADMAP Queue A "
-                "2); the 2-D cells are" % (type(self).__name__, dims))
         super().__init__(prefix=prefix, params=params)
         self._hidden_channels = hidden_channels
         self._input_shape = tuple(input_shape)

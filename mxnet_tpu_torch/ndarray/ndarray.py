@@ -313,7 +313,8 @@ def _unwrap(a):
 def invoke(op_name, *args, out=None, **kwargs):
     """Run registered op `op_name` on `args` (NDArrays, scalars) in the
     context of the first NDArray argument (else ``ctx=`` or the current
-    context); the GPU context takes the op's CUDA implementation. An
+    context); the GPU context takes the op's CUDA implementation, and a
+    creation op (no array input) gets that context as ``ctx=``. An
     NDArray given by keyword (`SequenceMask`'s ``sequence_length=``)
     reaches the op as its tensor. Torch records the op only under
     `autograd.record()`."""
@@ -324,6 +325,8 @@ def invoke(op_name, *args, out=None, **kwargs):
         ctx = kwargs.pop("ctx", None) or current_context()
     else:
         kwargs.pop("ctx", None)
+    if op.creation:
+        kwargs["ctx"] = ctx
     fn = op.best_fn(ctx.device_type == "gpu")
     rec = op.differentiable and _autograd.is_recording()
     if rec == torch.is_grad_enabled():

@@ -2,9 +2,7 @@
 "multi-tensor fused optimizer updates" section): `multi_sgd_update`,
 `multi_sgd_mom_update`, `multi_mp_sgd_update`, `multi_mp_sgd_mom_update`
 (alias `preloaded_multi_mp_sgd_mom_update`), `multi_all_finite`,
-`multi_lars`, `mp_lamb_update_phase1` and `mp_lamb_update_phase2`. The
-rest of the reference's `extended.py` (linear algebra, shape and other
-ops) comes with a later slice of the port.
+`multi_lars`, `mp_lamb_update_phase1` and `mp_lamb_update_phase2`.
 
 The four SGD ops take the reference's interleaved argument list (weight,
 grad[, mom][, weight32] for each tensor) and return the updated tensors in
@@ -18,9 +16,19 @@ The `mp_lamb` phases update with an fp32 master, through kernels #9 and
 #10 on a card (one launch each, in place, as `lamb_update_phase1/2` do)
 and their plain versions elsewhere. `multi_all_finite` and `multi_lars`
 are plain torch on both devices, as they are plain XLA in the reference.
+
+The rest of the reference's file follows them: `rcbrt`, `reshape_like`,
+`unravel_index`/`ravel_multi_index`, `argmax_channel`, `batch_take`,
+`fill_element_0index`, `moments`, `make_loss`, `cast_storage`,
+`IdentityAttachKLSparseReg`, `broadcast_like`, `LRN`, `SVMOutput`,
+`SpatialTransformer`, the `linalg_*` family (`torch.linalg`; the
+factorizations keep the reference's conventions: lower Cholesky factors,
+Householder signs for `gelqf`), `im2col`/`col2im`, `linspace` and
+`digamma`.
 """
 from __future__ import annotations
 
+import numpy as _np
 import torch
 
 from . import fused_optimizer as _fo
@@ -214,3 +222,361 @@ def _mp_lamb_update_phase2_cuda(weight, g, r1, r2, weight32=None, lr=0.01,
     _fo.flat_lamb2(weight.reshape(-1), master.reshape(-1), g.reshape(-1),
                    scale, True)
     return weight, master
+
+
+# ---------------------------------------------------------------------------
+# the rest of the reference's extended.py: shape and index ops, LRN,
+# SVMOutput, SpatialTransformer, the KL sparsity regularizer, the linalg_*
+# family, im2col/col2im, linspace and digamma
+# ---------------------------------------------------------------------------
+@register("rcbrt")
+def _rcbrt(data):
+    return 1.0 / (torch.sign(data) * torch.abs(data).pow(1.0 / 3.0))
+
+
+@register("reshape_like", arity=2)
+def _reshape_like(lhs, rhs, lhs_begin=None, lhs_end=None, rhs_begin=None,
+                  rhs_end=None):
+    """lhs reshaped to rhs's shape, or its dims [lhs_begin, lhs_end)
+    replaced by rhs's [rhs_begin, rhs_end)."""
+    if lhs_begin is None and rhs_begin is None:
+        return lhs.reshape(rhs.shape)
+    lb = 0 if lhs_begin is None else int(lhs_begin)
+    le = lhs.dim() if lhs_end is None else int(lhs_end)
+    rb = 0 if rhs_begin is None else int(rhs_begin)
+    re_ = rhs.dim() if rhs_end is None else int(rhs_end)
+    return lhs.reshape(tuple(lhs.shape[:lb]) + tuple(rhs.shape[rb:re_])
+                       + tuple(lhs.shape[le:]))
+
+
+@register("unravel_index", differentiable=False)
+def _unravel_index(data, shape=None):
+    """Flat indices -> (ndim, N) coordinates under `shape`, in data's
+    dtype."""
+    idx = torch.unravel_index(data.to(torch.long), tuple(shape))
+    return torch.stack(idx, dim=0).to(data.dtype)
+
+
+@register("ravel_multi_index", differentiable=False)
+def _ravel_multi_index(data, shape=None):
+    """(ndim, N) coordinates, each clipped into its dim -> flat indices
+    under `shape`, as int32."""
+    out = torch.zeros(data.shape[1:], dtype=torch.long, device=data.device)
+    for coord, size in zip(data.to(torch.long), tuple(shape)):
+        out = out * size + coord.clamp(0, size - 1)
+    return out.to(torch.int32)
+
+
+@register("argmax_channel", differentiable=False)
+def _argmax_channel(data):
+    return data.argmax(dim=1).to(torch.float32)
+
+
+@register("batch_take", arity=2)
+def _batch_take(a, indices):
+    """out[i] = a[i, indices[i]]."""
+    idx = indices.long()
+    idx = torch.where(idx < 0, idx + a.shape[1], idx)
+    return torch.gather(a, 1, idx[..., None])[..., 0]
+
+
+@register("fill_element_0index", arity=3, differentiable=False)
+def _fill_element_0index(lhs, mhs, rhs):
+    """lhs with out[i, mhs[i]] = rhs[i]."""
+    out = lhs.clone()
+    out[torch.arange(lhs.shape[0], device=lhs.device), mhs.long()] = \
+        rhs.to(lhs.dtype)
+    return out
+
+
+@register("moments", num_outputs=2)
+def _moments(data, axes=None, keepdims=False):
+    """(mean, population variance) over `axes` (all by default)."""
+    dims = tuple(axes) if axes is not None else tuple(range(data.dim()))
+    return (data.mean(dim=dims, keepdim=keepdims),
+            data.var(dim=dims, unbiased=False, keepdim=keepdims))
+
+
+@register("make_loss")
+def _make_loss_lower(data, grad_scale=1.0, valid_thresh=0.0,
+                     normalization="null"):
+    """`MakeLoss` under its other name: the same gradient scaling."""
+    return get("MakeLoss").fn(data, grad_scale=grad_scale,
+                              valid_thresh=valid_thresh,
+                              normalization=normalization)
+
+
+@register("cast_storage", differentiable=False)
+def _cast_storage(data, stype=None):
+    """The dense payload as it is; `nd.sparse.cast_storage` converts
+    storage."""
+    return data
+
+
+class _KLSparseRegFn(torch.autograd.Function):
+    """Identity forward; the backward adds the gradient of the KL
+    sparsity penalty, penalty * (-rho / rho_hat + (1 - rho) /
+    (1 - rho_hat)) / batch, rho_hat the batch mean clipped into
+    [1e-6, 1 - 1e-6] (the reference's pure form, without the running
+    average)."""
+
+    @staticmethod
+    def forward(ctx, data, target, penalty):
+        ctx.rho_hat = torch.clamp(data.float().mean(dim=0), 1e-6, 1 - 1e-6)
+        ctx.cfg = (target, penalty)
+        return data.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        target, penalty = ctx.cfg
+        rho = ctx.rho_hat
+        dkl = -target / rho + (1.0 - target) / (1.0 - rho)
+        grad = g.float() + penalty * dkl[None] / g.shape[0]
+        return grad.to(g.dtype), None, None
+
+
+@register("IdentityAttachKLSparseReg")
+def _identity_attach_kl_sparse_reg(data, sparseness_target=0.1,
+                                   penalty=0.001, momentum=0.9):
+    return _KLSparseRegFn.apply(data, float(sparseness_target),
+                                float(penalty))
+
+
+@register("broadcast_like", arity=2)
+def _broadcast_like(lhs, rhs, lhs_axes=None, rhs_axes=None):
+    if lhs_axes is None:
+        return lhs.expand(rhs.shape)
+    shape = list(lhs.shape)
+    for la, ra in zip(lhs_axes, rhs_axes):
+        shape[int(la)] = rhs.shape[int(ra)]
+    return lhs.expand(tuple(shape))
+
+
+@register("LRN")
+def _lrn(data, alpha=1e-4, beta=0.75, knorm=2.0, nsize=5):
+    """x / (knorm + alpha / nsize * (sum of x^2 over a window of nsize
+    channels)) ^ beta, in fp32."""
+    x32 = data.float()
+    half = int(nsize) // 2
+    pad = torch.nn.functional.pad(
+        x32.square(), (0, 0) * (data.dim() - 2) + (half, half))
+    window = pad[:, 0:data.shape[1]]
+    for i in range(1, int(nsize)):
+        window = window + pad[:, i:i + data.shape[1]]
+    norm = (knorm + (alpha / nsize) * window) ** beta
+    return (x32 / norm).to(data.dtype)
+
+
+class _SVMOutputFn(torch.autograd.Function):
+    """Identity forward; backward the hinge (or squared hinge) gradient
+    times regularization_coefficient and the cotangent."""
+
+    @staticmethod
+    def forward(ctx, data, label, margin, reg, use_linear):
+        ctx.save_for_backward(data, label)
+        ctx.cfg = (margin, reg, use_linear)
+        return data.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        data, label = ctx.saved_tensors
+        margin, reg, use_linear = ctx.cfg
+        k = data.shape[1]
+        onehot = (label.long()[:, None] == torch.arange(
+            k, device=data.device)[None]).to(data.dtype)
+        correct = (data * onehot).sum(dim=1, keepdim=True)
+        if use_linear:
+            violf = (((data - correct + margin) > 0) & (onehot == 0)).to(
+                data.dtype)
+            grad = violf - onehot * violf.sum(dim=1, keepdim=True)
+        else:
+            m = torch.clamp(data - correct + margin, min=0) * (1 - onehot)
+            grad = 2 * m - onehot * (2 * m).sum(dim=1, keepdim=True)
+        return reg * grad * g, None, None, None, None
+
+
+@register("SVMOutput")
+def _svm_output(data, label, margin=1.0, regularization_coefficient=1.0,
+                use_linear=False):
+    return _SVMOutputFn.apply(data, label, float(margin),
+                              float(regularization_coefficient),
+                              bool(use_linear))
+
+
+@register("SpatialTransformer", arity=2)
+def _spatial_transformer(data, loc, target_shape=None,
+                         transform_type="affine", sampler_type="bilinear",
+                         cudnn_off=None):
+    """GridGenerator's affine grid, then BilinearSampler."""
+    grid = get("GridGenerator").fn(loc, transform_type=transform_type,
+                                   target_shape=target_shape)
+    return get("BilinearSampler").fn(data, grid)
+
+
+# -- linalg_* ---------------------------------------------------------------
+def _t(x):
+    return x.transpose(-1, -2)
+
+
+def _solve_tri(a, b, lower, trans):
+    """x with op(a) x = b, op(a) = a^T with `trans`; only a's `lower`
+    (else upper) triangle is read."""
+    return torch.linalg.solve_triangular(_t(a) if trans else a, b,
+                                         upper=lower if trans else not lower)
+
+
+@register("linalg_det")
+def _linalg_det(a):
+    return torch.linalg.det(a)
+
+
+@register("linalg_slogdet", num_outputs=2)
+def _linalg_slogdet(a):
+    """(sign, log |det|)."""
+    sign, logdet = torch.linalg.slogdet(a)
+    return sign, logdet
+
+
+@register("linalg_inverse")
+def _linalg_inverse(a):
+    return torch.linalg.inv(a)
+
+
+@register("linalg_potri")
+def _linalg_potri(a):
+    """inv(L L^T) from the lower Cholesky factor L."""
+    eye = torch.eye(a.shape[-1], dtype=a.dtype, device=a.device)
+    linv = _solve_tri(a, eye.expand(a.shape), True, False)
+    return torch.matmul(_t(linv), linv)
+
+
+@register("linalg_gemm", arity=3)
+def _linalg_gemm(a, b, c, transpose_a=False, transpose_b=False, alpha=1.0,
+                 beta=1.0, axis=-2):
+    if axis != -2:
+        raise NotImplementedError("linalg_gemm: only axis=-2 (got %r)" % axis)
+    ta = _t(a) if transpose_a else a
+    tb = _t(b) if transpose_b else b
+    return alpha * torch.matmul(ta, tb) + beta * c
+
+
+@register("linalg_trmm", arity=2)
+def _linalg_trmm(a, b, transpose=False, rightside=False, lower=True,
+                 alpha=1.0):
+    """alpha op(a) b (b op(a) with `rightside`); as in the reference, the
+    whole of a is read (`lower` is not)."""
+    t = _t(a) if transpose else a
+    return alpha * (torch.matmul(b, t) if rightside else torch.matmul(t, b))
+
+
+@register("linalg_trsm", arity=2)
+def _linalg_trsm(a, b, transpose=False, rightside=False, lower=True,
+                 alpha=1.0):
+    """x with op(a) x = alpha b (x op(a) = alpha b with `rightside`)."""
+    if rightside:
+        return _t(_solve_tri(_t(a), _t(alpha * b), not lower, transpose))
+    return _solve_tri(a, alpha * b, lower, transpose)
+
+
+@register("linalg_gelqf", num_outputs=2)
+def _linalg_gelqf(a):
+    """A = L Q with Q's rows orthonormal, from the QR factorization of A^T
+    (Householder, as the reference's: L's diagonal may be negative)."""
+    q, r = torch.linalg.qr(_t(a))
+    return _t(r), _t(q)
+
+
+@register("linalg_makediag")
+def _linalg_makediag(a, offset=0):
+    return torch.diag_embed(a, offset=int(offset))
+
+
+@register("linalg_extractdiag")
+def _linalg_extractdiag(a, offset=0):
+    return torch.diagonal(a, offset=int(offset), dim1=-2, dim2=-1)
+
+
+@register("linalg_sumlogdiag")
+def _linalg_sumlogdiag(a):
+    return torch.log(torch.diagonal(a, dim1=-2, dim2=-1)).sum(dim=-1)
+
+
+def _tri_index(n, lower, device):
+    rows, cols = _np.tril_indices(n) if lower else _np.triu_indices(n)
+    return (torch.from_numpy(rows).to(device),
+            torch.from_numpy(cols).to(device))
+
+
+@register("linalg_maketrian")
+def _linalg_maketrian(a, offset=0, lower=True):
+    """Pack the last axis (n(n+1)/2 values, row by row) into an n x n
+    lower (or upper) triangle."""
+    if offset != 0:
+        raise NotImplementedError(
+            "linalg_maketrian: only offset=0 (got %r)" % offset)
+    n = int((_np.sqrt(8 * a.shape[-1] + 1) - 1) / 2)
+    rows, cols = _tri_index(n, lower, a.device)
+    flat = a.reshape(-1, a.shape[-1])
+    out = torch.zeros((flat.shape[0], n * n), dtype=a.dtype,
+                      device=a.device).index_copy(1, rows * n + cols, flat)
+    return out.reshape(tuple(a.shape[:-1]) + (n, n))
+
+
+@register("linalg_extracttrian")
+def _linalg_extracttrian(a, offset=0, lower=True):
+    if offset != 0:
+        raise NotImplementedError(
+            "linalg_extracttrian: only offset=0 (got %r)" % offset)
+    rows, cols = _tri_index(a.shape[-1], lower, a.device)
+    return a[..., rows, cols]
+
+
+# -- im2col / col2im, linspace, digamma -------------------------------------
+def _conv_tuples(kernel, stride, dilate, pad):
+    k = tuple(kernel)
+
+    def tup(v, d):
+        if v is None:
+            return (d,) * len(k)
+        return tuple(v) if isinstance(v, (tuple, list)) else (v,) * len(k)
+    return k, tup(stride, 1), tup(dilate, 1), tup(pad, 0)
+
+
+@register("im2col")
+def _im2col(data, kernel=None, stride=None, dilate=None, pad=None):
+    """NCHW -> (N, C * kh * kw, L) sliding patches (channel-major)."""
+    k, s, d, p = _conv_tuples(kernel, stride, dilate, pad)
+    return torch.nn.functional.unfold(data, k, dilation=d, padding=p,
+                                      stride=s)
+
+
+@register("col2im")
+def _col2im(data, output_size=None, kernel=None, stride=None, dilate=None,
+            pad=None):
+    """The transpose of im2col: the patches summed back into (N, C,
+    *output_size)."""
+    k, s, d, p = _conv_tuples(kernel, stride, dilate, pad)
+    return torch.nn.functional.fold(data, tuple(output_size), k, dilation=d,
+                                    padding=p, stride=s)
+
+
+@register("linspace", creation=True, differentiable=False)
+def _linspace(start=0.0, stop=1.0, num=50, endpoint=True, ctx=None,
+              dtype="float32"):
+    """`num` evenly spaced values from start (to stop with `endpoint`),
+    computed in float64 and cast."""
+    from ..base import torch_dtype
+    from ..context import current_context
+    num = int(num)
+    div = max(num - 1, 1) if endpoint else max(num, 1)
+    i = torch.arange(num, dtype=torch.float64)
+    out = float(start) + (float(stop) - float(start)) * i / div
+    if endpoint and num > 1:
+        out[-1] = float(stop)
+    return out.to(device=(ctx or current_context()).torch_device,
+                  dtype=torch_dtype(dtype))
+
+
+@register("digamma")
+def _digamma(data):
+    return torch.digamma(data)

@@ -19,11 +19,13 @@ _REGISTRY: dict = {}
 
 class Operator:
     def __init__(self, name, fn, *, arity=None, differentiable=True,
-                 random=False, num_outputs=1, doc=None):
+                 creation=False, random=False, num_outputs=1, doc=None):
         self.name = name
         self.fn = fn
         self.arity = arity            # number of array inputs; None = variadic
         self.differentiable = differentiable
+        self.creation = creation      # takes no array input; `invoke` hands
+        #   it the call's context as ``ctx=`` (eye, linspace, the draws)
         self.random = random          # draws from the context's generator
         self.num_outputs = num_outputs
         self.doc = doc or (fn.__doc__ if fn else None)
@@ -70,3 +72,9 @@ def get(name):
 
 def list_ops():
     return sorted(_REGISTRY)
+
+
+def prefixed(prefix):
+    """(short name, op name) of every op whose name starts with `prefix`:
+    the reference's `contrib`, `image` and `linalg` sub-namespaces."""
+    return [(n[len(prefix):], n) for n in list_ops() if n.startswith(prefix)]

@@ -3,8 +3,11 @@
 The input-filling half of the reference's FInferShape attributes: given the
 known input shapes of an op (None = unknown) and its hyper-parameters, fill
 the parameter shapes. Symbolic `infer_shape` and `simple_bind` use them.
-The hints of ops the port does not register yet (Deconvolution, the other
-norms) come with those ops.
+
+The output shapes come from running each op's plain version on `meta`
+tensors. Two ops cannot run there, because their output's size depends on
+their input's values: `boolean_mask` and `where_index`. As in the
+reference, a symbolic graph that holds them cannot infer its shapes.
 """
 from __future__ import annotations
 
@@ -60,6 +63,22 @@ def _conv_hint(shapes, kw):
     return out
 
 
+@_hint("Deconvolution")
+def _deconv_hint(shapes, kw):
+    """weight (C_in, num_filter / num_group, *kernel), bias (num_filter,)."""
+    data = shapes[0]
+    if data is None:
+        return shapes
+    num_filter = kw.get("num_filter")
+    out = list(shapes)
+    if len(out) > 1 and out[1] is None:
+        out[1] = (data[1], num_filter // kw.get("num_group", 1)) \
+            + tuple(kw.get("kernel"))
+    if len(out) > 2 and out[2] is None:
+        out[2] = (num_filter,)
+    return out
+
+
 def _channel_hint(axis_key="axis", default_axis=1):
     def hint(shapes, kw):
         data = shapes[0]
@@ -73,6 +92,9 @@ def _channel_hint(axis_key="axis", default_axis=1):
 
 _reg.get("BatchNorm").shape_hint = _channel_hint("axis", 1)
 _reg.get("LayerNorm").shape_hint = _channel_hint("axis", -1)
+_reg.get("InstanceNorm").shape_hint = _channel_hint("axis", 1)
+_reg.get("GroupNorm").shape_hint = _channel_hint("axis", 1)
+_reg.get("RMSNorm").shape_hint = _channel_hint("axis", -1)
 
 
 @_hint("Embedding")

@@ -1,14 +1,21 @@
-"""Tensor ops of the Gluon path (the port of the part of
-`mxnet_tpu.ops.tensor` that Gluon's ResNet and BERT layers, the losses and
-NDArray arithmetic call): the binary broadcast ops and comparisons, unary
-math, identity, zeros_like, cast, reshape (with the codes 0, -1, -3),
+"""Tensor ops (the port of `mxnet_tpu.ops.tensor`). First those of the
+Gluon path (the ResNet and BERT layers, the losses and NDArray
+arithmetic): the binary broadcast ops and comparisons, unary math,
+identity, zeros_like, cast, reshape (every code of the reference),
 Flatten, transpose, slice_axis, broadcast_to, the reductions, pick, dot,
 Embedding (dense or row-sparse gradient) and the CSR dot
 ``_sparse_dot_csr_dense``; and for the loss blocks, the image augmenters
 and the DataLoader: maximum/minimum, sqrt, ones_like, where, norm,
 swapaxes, reverse, stack, add_n, one_hot and pad; and for the recurrent
 cells: split (SliceChannel), _split_v2, expand_dims, clip and the
-Sequence* ops."""
+Sequence* ops. Then the rest of the reference's set: unary math (the
+trigonometric and hyperbolic functions, erf/erfinv, gamma/gammaln,
+rounding, ...), mod/power/hypot/arctan2 and the logical ops, the other
+reductions, argmax/argmin, sort/argsort/topk (stable: ties keep index
+order, as ``jnp.argsort`` and ``lax.top_k``), cumsum, squeeze, tile,
+repeat, slice (negative steps too), the indexing ops, diag, eye and
+batch_dot with the first linalg_* ops. `boolean_mask` and `where_index`
+have shapes that depend on the values, so they have no symbolic shape."""
 from __future__ import annotations
 
 import torch
@@ -18,6 +25,18 @@ from .registry import alias, register
 
 _BINARY = {"broadcast_add": torch.add, "broadcast_sub": torch.sub,
            "broadcast_mul": torch.mul, "broadcast_div": torch.div}
+
+
+def div_once(a, b):
+    """a / b with one rounding on every device, either side a Python
+    number. On a card torch divides by a Python number as a multiplication
+    by its reciprocal, and a Python number by a tensor as the reciprocal
+    times the number: two roundings, where the reference (and torch on the
+    CPU) rounds once. Where the quotient is floored, ceiled or rounded to
+    an integer, that ulp can change the result."""
+    ref = a if torch.is_tensor(a) else b
+    return torch.as_tensor(a, dtype=ref.dtype, device=ref.device) / \
+        torch.as_tensor(b, dtype=ref.dtype, device=ref.device)
 
 
 def _binary(f):
@@ -112,25 +131,12 @@ alias("flatten", "Flatten")
 
 @register("reshape")
 def _reshape(x, shape=None, reverse=False):
-    """Reshape with the reference's codes: 0 copies the input's dim, -1 is
-    inferred, -3 merges the next two input dims into one (-2, -4 and
-    reverse=True are not ported)."""
-    if reverse:
-        raise NotImplementedError("reshape: reverse=True is not ported")
-    src, out, i = tuple(x.shape), [], 0
-    for d in shape:
-        if d == 0:
-            out.append(src[i])
-            i += 1
-        elif d == -3:
-            out.append(src[i] * src[i + 1])
-            i += 2
-        elif d >= -1:
-            out.append(d)
-            i += 1
-        else:
-            raise NotImplementedError("reshape: code %d is not ported" % d)
-    return x.reshape(tuple(out))
+    """Reshape with the reference's codes (0, -1, -2, -3, -4, and
+    `reverse`; `_mx_reshape`)."""
+    shape = tuple(shape)
+    if reverse or any(s in (0, -2, -3, -4) for s in shape):
+        shape = _mx_reshape(tuple(x.shape), shape, reverse)
+    return x.reshape(shape)
 
 
 alias("reshape", "Reshape")
@@ -164,9 +170,9 @@ alias("sum", "sum_axis")
 
 @register("pick")
 def _pick(x, index, axis=-1, keepdims=False, mode="clip"):
-    """x[..., index, ...] along `axis`; indices are clipped into range."""
-    if mode != "clip":
-        raise NotImplementedError("pick: only mode='clip' is ported")
+    """x[..., index, ...] along `axis`. The indices are clipped into range
+    in every mode, as the reference's op does (its `mode` is accepted and
+    not read)."""
     axis %= x.dim()
     idx = index.long().clamp(0, x.shape[axis] - 1).unsqueeze(axis)
     out = torch.gather(x, axis, idx)
@@ -415,14 +421,20 @@ def _one_hot(indices, depth=1, on_value=1.0, off_value=0.0,
 
 @register("pad")
 def _pad(x, mode="constant", pad_width=None, constant_value=0.0):
-    """Pad with (before, after) pairs per axis, flattened in axis order;
-    constant mode only."""
-    if mode != "constant":
-        raise NotImplementedError("pad: only mode='constant' is ported")
+    """Pad with (before, after) pairs per axis, flattened in axis order:
+    the constant, the nearest edge ("edge") or the mirror image without
+    the edge (any other mode, as the reference's "reflect")."""
     pairs = [(pad_width[2 * i], pad_width[2 * i + 1])
              for i in range(x.dim())]
-    flat = [p for pair in reversed(pairs) for p in pair]
-    return torch.nn.functional.pad(x, flat, value=constant_value)
+    if mode == "constant":
+        flat = [p for pair in reversed(pairs) for p in pair]
+        return torch.nn.functional.pad(x, flat, value=constant_value)
+    mode = "edge" if mode == "edge" else "reflect"
+    for ax, (lo, hi) in enumerate(pairs):
+        if lo or hi:
+            x = x.index_select(ax, _pad_index(x.shape[ax], lo, hi, mode,
+                                              x.device))
+    return x
 
 
 alias("pad", "Pad")
@@ -536,3 +548,436 @@ def _sequence_reverse(data, sequence_length=None, use_sequence_length=False,
     rev = torch.where(steps < lengths, lengths - 1 - steps, steps)
     rev = rev.reshape(tuple(rev.shape) + (1,) * (data.dim() - 2))
     return torch.gather(data, 0, rev.expand(data.shape))
+
+
+# ---------------------------------------------------------------------------
+# the rest of the reference's tensor ops: unary math, the other binary and
+# logic ops, reductions, ordering, shape, indexing and linear algebra
+# ---------------------------------------------------------------------------
+def _cbrt(x):
+    return torch.sign(x) * torch.abs(x).pow(1.0 / 3.0)
+
+
+def _softsign(x):
+    return x / (1 + torch.abs(x))
+
+
+def _logical_not(x):
+    return torch.logical_not(x).to(x.dtype)
+
+
+_UNARY_MORE = {
+    "sign": torch.sign, "reciprocal": torch.reciprocal, "rsqrt": torch.rsqrt,
+    "cbrt": _cbrt, "log2": torch.log2, "log10": torch.log10,
+    "log1p": torch.log1p, "expm1": torch.expm1, "sin": torch.sin,
+    "cos": torch.cos, "tan": torch.tan, "arcsin": torch.asin,
+    "arccos": torch.acos, "arctan": torch.atan, "sinh": torch.sinh,
+    "cosh": torch.cosh, "arcsinh": torch.asinh, "arccosh": torch.acosh,
+    "arctanh": torch.atanh, "erf": torch.erf, "erfinv": torch.erfinv,
+    "gamma": lambda x: torch.exp(torch.lgamma(x)),
+    "gammaln": torch.lgamma, "softsign": _softsign,
+    "degrees": torch.rad2deg, "radians": torch.deg2rad,
+    "logical_not": _logical_not,
+}
+for _n, _f in _UNARY_MORE.items():
+    register(_n, arity=1)(lambda x, _f=_f: _f(x))
+
+_UNARY_NONDIFF = {
+    "round": torch.round, "rint": torch.round, "ceil": torch.ceil,
+    "floor": torch.floor, "trunc": torch.trunc, "fix": torch.trunc,
+    "isnan": lambda x: torch.isnan(x).to(torch.float32),
+    "isinf": lambda x: torch.isinf(x).to(torch.float32),
+    "isfinite": lambda x: torch.isfinite(x).to(torch.float32),
+}
+for _n, _f in _UNARY_NONDIFF.items():
+    register(_n, arity=1, differentiable=False)(lambda x, _f=_f: _f(x))
+
+
+def _floor_mod(a, b):
+    """a mod b with the divisor's sign, from the exact fmod, as
+    ``jnp.mod`` computes it."""
+    r = torch.fmod(a, b)
+    fix = (r != 0) & ((r < 0) != (b < 0))
+    return torch.where(fix, r + b, r)
+
+
+_BINARY_EXTRA = {"broadcast_mod": _floor_mod, "broadcast_power": torch.pow,
+                 "broadcast_hypot": torch.hypot, "arctan2": torch.atan2}
+for _n, _f in _BINARY_EXTRA.items():
+    register(_n)(_binary_both(_f))
+
+alias("broadcast_add", "_plus_scalar")
+alias("broadcast_sub", "_minus_scalar")
+alias("broadcast_mul", "_mul_scalar")
+alias("broadcast_div", "_div_scalar")
+alias("broadcast_power", "_power", "_power_scalar", "pow")
+
+_LOGIC = {"broadcast_logical_and": torch.logical_and,
+          "broadcast_logical_or": torch.logical_or,
+          "broadcast_logical_xor": torch.logical_xor}
+for _n, _f in _LOGIC.items():
+    register(_n, differentiable=False)(_compare(_f))
+
+
+@register("smooth_l1")
+def _smooth_l1(x, scalar=1.0):
+    """0.5 (s x)^2 where |x| < 1/s^2, else |x| - 0.5/s^2."""
+    s2 = scalar * scalar
+    absx = torch.abs(x)
+    return torch.where(absx < 1.0 / s2, 0.5 * s2 * x * x, absx - 0.5 / s2)
+
+
+@register("shape_array", differentiable=False)
+def _shape_array(x):
+    return torch.tensor(tuple(x.shape), dtype=torch.int32, device=x.device)
+
+
+@register("size_array", differentiable=False)
+def _size_array(x):
+    return torch.tensor([x.numel()], dtype=torch.int32, device=x.device)
+
+
+alias("identity", "_copyto", "stop_gradient_passthrough", "BlockGrad_inner")
+alias("cast", "amp_cast")
+alias("_getitem", "_internal_getitem")
+
+
+def _prod_dims(x, dim, keepdim):
+    for d in sorted(dim, reverse=True):
+        x = torch.prod(x, dim=d, keepdim=keepdim)
+    return x
+
+
+def _nanprod_dims(x, dim, keepdim):
+    return _prod_dims(torch.where(torch.isnan(x), torch.ones_like(x), x),
+                      dim, keepdim)
+
+
+register("prod")(_reduce(_prod_dims))
+register("max")(_reduce(torch.amax))
+register("min")(_reduce(torch.amin))
+register("nansum")(_reduce(torch.nansum))
+register("nanprod")(_reduce(_nanprod_dims))
+alias("max", "max_axis")
+alias("min", "min_axis")
+
+
+@register("logsumexp")
+def _logsumexp(x, axis=None, keepdims=False):
+    return torch.logsumexp(x, dim=_axes(axis, False, x.dim()),
+                           keepdim=keepdims)
+
+
+def _arg_reduce(f):
+    def fn(x, axis=None, keepdims=False):
+        """The index of the first extreme value, as float32 (the
+        reference's float indices)."""
+        if axis is None:
+            r = f(x.reshape(-1), dim=0)
+            if keepdims:
+                r = r.reshape((1,) * x.dim())
+        else:
+            r = f(x, dim=axis, keepdim=keepdims)
+        return r.to(torch.float32)
+    return fn
+
+
+register("argmax", differentiable=False)(_arg_reduce(torch.argmax))
+register("argmin", differentiable=False)(_arg_reduce(torch.argmin))
+
+
+@register("argsort", differentiable=False)
+def _argsort(x, axis=-1, is_ascend=True, dtype="float32"):
+    """Stable: equal values keep their order, either way."""
+    idx = torch.argsort(x if is_ascend else -x, dim=axis, stable=True)
+    return idx.to(torch_dtype(dtype))
+
+
+@register("sort")
+def _sort(x, axis=-1, is_ascend=True):
+    s = torch.sort(x, dim=axis, stable=True).values
+    return s if is_ascend else torch.flip(s, dims=(axis,))
+
+
+@register("topk", differentiable=False)
+def _topk(x, axis=-1, k=1, ret_typ="indices", is_ascend=False,
+          dtype="float32"):
+    """The k largest (smallest with `is_ascend`) along `axis`, ties in
+    index order (a stable sort, as the reference's ``lax.top_k``).
+    ret_typ "value", "both" (values, indices) or indices; as in the
+    reference, "mask" returns the indices too."""
+    s = torch.sort(x, dim=axis, descending=not is_ascend, stable=True)
+    vals = s.values.narrow(axis, 0, k)
+    idx = s.indices.narrow(axis, 0, k).to(torch_dtype(dtype))
+    if ret_typ == "value":
+        return vals
+    if ret_typ == "both":
+        return vals, idx
+    return idx
+
+
+@register("cumsum")
+def _cumsum(x, axis=None, dtype=None):
+    """Cumulative sum along `axis` (of the flattened array without one),
+    in the input's dtype unless `dtype` is given."""
+    if axis is None:
+        x, axis = x.reshape(-1), 0
+    r = torch.cumsum(x, dim=axis)
+    return r.to(torch_dtype(dtype) if dtype is not None else x.dtype)
+
+
+# -- reshape with every code --------------------------------------------
+def _mx_reshape(ishape, target, reverse=False):
+    """MXNet's reshape codes: 0 copies a dim, -1 is inferred, -2 copies the
+    rest, -3 merges two dims, -4 splits one into the next two values (one
+    may be -1); with `reverse` the codes apply from the right."""
+    ishape = list(ishape[::-1]) if reverse else list(ishape)
+    tgt = list(target[::-1]) if reverse else list(target)
+    out, i, j = [], 0, 0
+    while j < len(tgt):
+        t = tgt[j]
+        if t == 0:
+            out.append(ishape[i])
+            i += 1
+        elif t == -1:
+            out.append(-1)
+            i += 1
+        elif t == -2:
+            out.extend(ishape[i:])
+            i = len(ishape)
+        elif t == -3:
+            out.append(ishape[i] * ishape[i + 1])
+            i += 2
+        elif t == -4:
+            d1, d2 = tgt[j + 1], tgt[j + 2]
+            if d1 == -1:
+                d1 = ishape[i] // d2
+            if d2 == -1:
+                d2 = ishape[i] // d1
+            out.extend([d1, d2])
+            i += 1
+            j += 2
+        else:
+            out.append(t)
+            i += 1
+        j += 1
+    if -1 in out:
+        known = 1
+        for d in out:
+            if d != -1:
+                known *= d
+        total = 1
+        for d in ishape:
+            total *= d
+        out[out.index(-1)] = total // known
+    return tuple(out[::-1]) if reverse else tuple(out)
+
+
+@register("squeeze")
+def _squeeze(x, axis=None):
+    if axis is None:
+        return x.squeeze()
+    return x.squeeze(axis if isinstance(axis, int) else tuple(axis))
+
+
+@register("moveaxis")
+def _moveaxis(x, source=0, destination=0):
+    return torch.movedim(x, source, destination)
+
+
+@register("broadcast_axis")
+def _broadcast_axis(x, axis=None, size=None):
+    axes = (axis,) if isinstance(axis, int) else tuple(axis)
+    sizes = (size,) if isinstance(size, int) else tuple(size)
+    tgt = list(x.shape)
+    for a, s in zip(axes, sizes):
+        tgt[a] = s
+    return x.expand(tuple(tgt))
+
+
+alias("broadcast_axis", "broadcast_axes")
+
+
+@register("tile")
+def _tile(x, reps=None):
+    return torch.tile(x, (reps,) if isinstance(reps, int) else tuple(reps))
+
+
+@register("repeat")
+def _repeat(x, repeats=1, axis=None):
+    """Each element `repeats` times along `axis` (of the flattened array
+    without one)."""
+    return torch.repeat_interleave(x, repeats, dim=axis)
+
+
+def _pad_index(n, lo, hi, mode, device):
+    """The source index of each position of an axis padded by (lo, hi):
+    the nearest edge ("edge") or the mirror without the edge
+    ("reflect"), as numpy's modes."""
+    i = torch.arange(-lo, n + hi, device=device)
+    if mode == "edge" or n == 1:
+        return i.clamp(0, n - 1)
+    period = 2 * (n - 1)
+    m = torch.remainder(i, period)
+    return torch.where(m < n, m, period - m)
+
+
+@register("slice")
+def _slice(x, begin=None, end=None, step=None):
+    """x[b0:e0:s0, b1:e1:s1, ...] over the leading axes (None keeps an
+    end); a negative step walks backwards, as in numpy."""
+    nd = x.dim()
+    begin = list(begin) + [None] * (nd - len(begin))
+    end = list(end) + [None] * (nd - len(end))
+    step = (list(step) + [None] * (nd - len(step))) if step else [None] * nd
+    for ax, (b, e, s) in enumerate(zip(begin, end, step)):
+        if s is not None and s < 0:
+            idx = range(*slice(b, e, s).indices(x.shape[ax]))
+            x = x.index_select(ax, torch.tensor(list(idx), dtype=torch.long,
+                                                device=x.device))
+        elif (b, e, s) != (None, None, None):
+            x = x[(slice(None),) * ax + (slice(b, e, s),)]
+    return x
+
+
+@register("slice_like")
+def _slice_like(x, shape_like, axes=None):
+    """The leading corner of x with shape_like's size on `axes` (all by
+    default)."""
+    tgt = list(x.shape)
+    for a in (axes if axes else range(x.dim())):
+        tgt[a] = shape_like.shape[a]
+    return x[tuple(slice(0, t) for t in tgt)]
+
+
+@register("space_to_depth")
+def _space_to_depth(x, block_size=1):
+    n, c, h, w = x.shape
+    b = block_size
+    x = x.reshape(n, c, h // b, b, w // b, b).permute(0, 3, 5, 1, 2, 4)
+    return x.reshape(n, c * b * b, h // b, w // b)
+
+
+@register("depth_to_space")
+def _depth_to_space(x, block_size=1):
+    n, c, h, w = x.shape
+    b = block_size
+    x = x.reshape(n, b, b, c // (b * b), h, w).permute(0, 3, 4, 1, 5, 2)
+    return x.reshape(n, c // (b * b), h * b, w * b)
+
+
+def _tmat(x, t):
+    return x.transpose(-1, -2) if t else x
+
+
+@register("batch_dot")
+def _batch_dot(a, b, transpose_a=False, transpose_b=False):
+    """Matrix products over the leading (batch) dims."""
+    return torch.matmul(_tmat(a, transpose_a), _tmat(b, transpose_b))
+
+
+@register("linalg_gemm2")
+def _linalg_gemm2(a, b, transpose_a=False, transpose_b=False, alpha=1.0):
+    return alpha * torch.matmul(_tmat(a, transpose_a), _tmat(b, transpose_b))
+
+
+@register("linalg_potrf")
+def _linalg_potrf(a):
+    """The lower Cholesky factor L (A = L L^T)."""
+    return torch.linalg.cholesky(a)
+
+
+@register("linalg_syrk")
+def _linalg_syrk(a, transpose=False, alpha=1.0):
+    """alpha A A^T (alpha A^T A with `transpose`)."""
+    at = a.transpose(-1, -2)
+    return alpha * (torch.matmul(at, a) if transpose else torch.matmul(a, at))
+
+
+@register("khatri_rao", arity=None)
+def _khatri_rao(*mats):
+    """The column-wise Kronecker product of the matrices."""
+    out = mats[0]
+    for m in mats[1:]:
+        out = (out[:, None, :] * m[None, :, :]).reshape(-1, out.shape[-1])
+    return out
+
+
+# -- indexing -------------------------------------------------------------
+def _as_index(i):
+    """Float indices (the reference's convention) as int64; integer ones
+    as they are."""
+    return i if not i.is_floating_point() else i.to(torch.long)
+
+
+@register("take")
+def _take(a, indices, axis=0, mode="clip"):
+    """a's slices along `axis` at the indices (clipped into range, or
+    wrapped with mode="wrap"); the indices' shape replaces the axis."""
+    axis %= a.dim()
+    n = a.shape[axis]
+    idx = _as_index(indices).long()
+    idx = idx.clamp(0, n - 1) if mode == "clip" else torch.remainder(idx, n)
+    out = a.index_select(axis, idx.reshape(-1))
+    return out.reshape(tuple(a.shape[:axis]) + tuple(idx.shape)
+                       + tuple(a.shape[axis + 1:]))
+
+
+@register("take_along_axis")
+def _take_along_axis(a, indices, axis=0):
+    axis %= a.dim()
+    idx = _as_index(indices).long()
+    idx = torch.where(idx < 0, idx + a.shape[axis], idx)
+    shape = torch.broadcast_shapes(
+        tuple(1 if i == axis else s for i, s in enumerate(a.shape)),
+        tuple(1 if i == axis else s for i, s in enumerate(idx.shape)))
+    a_sh = tuple(a.shape[i] if i == axis else s for i, s in enumerate(shape))
+    i_sh = tuple(idx.shape[i] if i == axis else s
+                 for i, s in enumerate(shape))
+    return torch.gather(a.expand(a_sh), axis, idx.expand(i_sh))
+
+
+@register("gather_nd")
+def _gather_nd(data, indices):
+    """data[indices[0], indices[1], ...]: indices (M, ...) address the
+    first M axes."""
+    return data[tuple(_as_index(indices).long())]
+
+
+@register("scatter_nd")
+def _scatter_nd(data, indices, shape=None):
+    """A zero array of `shape` with data written at the indices."""
+    out = torch.zeros(tuple(shape), dtype=data.dtype, device=data.device)
+    return out.index_put(tuple(_as_index(indices).long()), data)
+
+
+@register("boolean_mask", differentiable=False)
+def _boolean_mask(data, index, axis=0):
+    """The slices of data along `axis` where index is nonzero (the size
+    depends on the values: no symbolic shape)."""
+    keep = torch.nonzero(index.reshape(-1) != 0).reshape(-1)
+    return data.index_select(axis, keep)
+
+
+@register("where_index", differentiable=False)
+def _where_index(x):
+    """The axis-0 coordinate of each nonzero element, in order, as
+    int32."""
+    return torch.nonzero(x)[:, 0].to(torch.int32)
+
+
+@register("diag")
+def _diag(x, k=0):
+    if x.dim() == 1:
+        return torch.diag(x, k)
+    return torch.diagonal(x, offset=k, dim1=-2, dim2=-1)
+
+
+@register("eye", creation=True, differentiable=False)
+def _eye(N=1, M=0, k=0, ctx=None, dtype="float32"):
+    from ..context import current_context
+    dev = (ctx or current_context()).torch_device
+    n, m = int(N), int(M) if M else int(N)
+    i = torch.arange(n, device=dev)[:, None]
+    j = torch.arange(m, device=dev)[None, :]
+    return (j - i == int(k)).to(torch_dtype(dtype))

@@ -1,11 +1,14 @@
 """`mx.sym`: the symbolic namespace (the port of `mxnet_tpu.symbol`),
-generated from the op registry, with the `random`, `contrib`, `image`,
-`linalg` and `sparse` sub-namespaces holding what the port's registry
-has."""
+generated from the op registry, with the `random`, `contrib` (the
+`_contrib_*` ops and the control flow of `nd.contrib`), `image`, `linalg`
+and `sparse` sub-namespaces of the reference."""
 import sys as _sys
 import types as _types
 
 from .. import ndarray as _nd  # noqa: F401  (registers every op)
+from .. import random as _random
+from ..ndarray.contrib_flow import cond as _cond, foreach as _foreach, \
+    while_loop as _while_loop
 from ..ops import registry as _reg_mod
 from .executor import Executor
 from .symbol import (Group, Symbol, Variable, _make_op, arange, load,
@@ -24,18 +27,13 @@ def _sub(short, pairs):
     return mod
 
 
-random = _sub("random", [(pub, src) for pub, src in [
-    ("uniform", "_random_uniform"), ("normal", "_random_normal"),
-    ("randint", "_random_randint"), ("gamma", "_random_gamma"),
-    ("exponential", "_random_exponential"), ("poisson", "_random_poisson"),
-    ("multinomial", "_sample_multinomial"), ("shuffle", "_shuffle")]
-    if src in _ALL_OPS])
-contrib = _sub("contrib", [(n[len("_contrib_"):], n) for n in sorted(_ALL_OPS)
-                           if n.startswith("_contrib_")])
-image = _sub("image", [(n[len("_image_"):], n) for n in sorted(_ALL_OPS)
-                       if n.startswith("_image_")])
-linalg = _sub("linalg", [(n[len("linalg_"):], n) for n in sorted(_ALL_OPS)
-                         if n.startswith("linalg_")])
+random = _sub("random", [(n, _random.OPS[n]) for n in _random.SYMBOL_NAMES])
+contrib = _sub("contrib", _reg_mod.prefixed("_contrib_"))
+contrib.foreach = _foreach
+contrib.while_loop = _while_loop
+contrib.cond = _cond
+image = _sub("image", _reg_mod.prefixed("_image_"))
+linalg = _sub("linalg", _reg_mod.prefixed("linalg_"))
 sparse = _sub("sparse", [(n, n) for n in (
     "dot", "elemwise_add", "cast_storage", "zeros_like", "square", "sqrt",
     "abs", "sum", "mean", "clip", "sign", "where", "negative")

@@ -42,6 +42,13 @@ __all__ = ["Symbol", "Variable", "var", "Group", "load", "load_json",
 _AUX_SUFFIXES = ("moving_mean", "moving_var", "running_mean", "running_var")
 
 
+class _MetaContext:
+    """The context shape inference hands a creation op (eye, linspace, the
+    draws): its output lands on `meta`, so nothing is allocated, and no
+    generator is drawn from."""
+    torch_device = torch.device("meta")
+
+
 def bn_call(kwargs, train):
     """(kwargs to call the BatchNorm op with, whether the call reports the
     batch statistics for the moving-average update). Training without
@@ -354,6 +361,8 @@ class Symbol:
                                  device="meta")
                      for i, s in zip(n._inputs, in_shapes)]
             kw = {k: _parse_attr(v) for k, v in n._kwargs.items()}
+            if op.creation:     # no input to take a device from
+                kw["ctx"] = _MetaContext()
             with torch.no_grad(), autograd.pause(train_mode=False):
                 out = op.fn(*metas, **kw)
             if isinstance(out, (tuple, list)):
@@ -780,7 +789,10 @@ def _auto_var_skip(op_name, slot, kwargs):
 
 def _make_op(op_name):
     op = _reg.get(op_name)
-    slots = _op_tensor_slots(op)
+    # a creation op takes no array: `loc` is _random_normal's mean, not
+    # an input (the reference makes it an auto-variable, so its
+    # sym.random.normal cannot infer a shape)
+    slots = [] if op.creation else _op_tensor_slots(op)
 
     def sym_op(*args, name=None, attr=None, **kwargs):
         sym_kwargs = {}

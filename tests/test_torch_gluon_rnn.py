@@ -423,16 +423,28 @@ def test_conv2d_cells_unroll_and_grad_match_reference(cls_name, n_states):
 
 
 def test_conv_cells_1d_3d_raise_until_those_convolutions_come():
-    for cls in (contrib.rnn.Conv1DLSTMCell, contrib.rnn.Conv1DRNNCell,
-                contrib.rnn.Conv1DGRUCell):
-        with pytest.raises(NotImplementedError, match="Queue A 2"):
-            cls(input_shape=(2, 10), hidden_channels=4, i2h_kernel=3,
-                h2h_kernel=3, i2h_pad=1)
-    for cls in (contrib.rnn.Conv3DGRUCell, contrib.rnn.Conv3DLSTMCell,
-                contrib.rnn.Conv3DRNNCell):
-        with pytest.raises(NotImplementedError, match="Queue A 2"):
-            cls(input_shape=(1, 4, 4, 4), hidden_channels=2, i2h_kernel=3,
-                h2h_kernel=3, i2h_pad=1)
+    """Named when these six cells raised NotImplementedError until the
+    port had 1-D and 3-D convolutions. It has them now, so the same
+    constructor calls must build the cells, and one step must keep the
+    state's shape ('same' recurrent padding). Their values are held to
+    the reference in tests/test_torch_conv_cells_nd.py."""
+    cases = [((2, 10), (3, 4, 10), (contrib.rnn.Conv1DLSTMCell,
+                                    contrib.rnn.Conv1DRNNCell,
+                                    contrib.rnn.Conv1DGRUCell)),
+             ((1, 4, 4, 4), (3, 2, 4, 4, 4), (contrib.rnn.Conv3DGRUCell,
+                                              contrib.rnn.Conv3DLSTMCell,
+                                              contrib.rnn.Conv3DRNNCell))]
+    for input_shape, state_shape, classes in cases:
+        hidden = state_shape[1]
+        for cls in classes:
+            with mx.cpu():
+                cell = cls(input_shape=input_shape, hidden_channels=hidden,
+                           i2h_kernel=3, h2h_kernel=3, i2h_pad=1)
+                cell.initialize(ctx=mx.cpu())
+                x = mx.nd.ones((3,) + input_shape)
+                out, states = cell(x, cell.begin_state(batch_size=3))
+            assert out.shape == state_shape
+            assert all(st.shape == state_shape for st in states)
 
 
 def test_conv_cell_shape_rules():
