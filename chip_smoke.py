@@ -294,8 +294,35 @@ Phases (one JSON line each; any failure exits non-zero):
                  the Trainer's flat_sgd call over this net's parameter
                  table (shapes, dtypes, lr and wd of each, momentum 0.9,
                  rescale 1/32) at 0 ulps, timed beside its bound.
+34. zoo_inception_v3 — get_model("inceptionv3") at full width (1000
+                 classes, 299x299, NCHW, fp32, seeded weights), hybridized,
+                 SoftmaxCrossEntropyLoss and Trainer("sgd", lr 0.01,
+                 momentum 0.9, wd 1e-4) on a seeded batch of 64: 3 warm-up
+                 and 10 timed steps (one multi flat_sgd per 320 trainable
+                 tensors a step); images/s, the median step, peak memory, a
+                 profiled step; the loss falling; the Trainer's flat_sgd
+                 call over this net's table at 0 ulps, timed beside its
+                 bound; the first step's loss and gradients at batch 4
+                 against the CPU (dropout off), within the limit or twice
+                 the card's own spread under a one-ulp weight change; then
+                 alexnet, vgg16_bn, squeezenet1.1, densenet121,
+                 mobilenet1.0 and mobilenetv2_1.0 at 224 and inceptionv3 at
+                 299 in predict mode, each at batch 2 against the CPU (fp32
+                 logits within 1e-5, top-1 equal) and timed at batch 64;
+                 all under cuDNN's deterministic algorithms.
+35. gluon_dcgan — examples/dcgan.py's generator and discriminator at
+                 upstream example/gluon/dc_gan's widths (ngf = ndf = 64,
+                 nc 3, 100-dim latent), batch 64 at 32x32 of the example's
+                 seeded blob images, Normal(0.02), hybridized,
+                 SigmoidBinaryCrossEntropyLoss, two Trainer("adam", lr
+                 2e-4, beta1 0.5) with the example's alternating D and G
+                 updates: 3 warm-up and 20 timed steps (one multi
+                 flat_adam per Trainer a step); steps/s, the median step,
+                 peak memory, a profiled step; each Trainer's flat_adam
+                 call over its own table at 0 ulps, timed beside its bound;
+                 one step of both nets against the CPU.
 
-Fifteen main paths, each with its own expected kernels, counts set to 0 just
+Seventeen main paths, each with its own expected kernels, counts set to 0 just
 before and read just after: serving (phases 3-5: flash_fwd), training
 (phase 7's 6 steps: flash_fwd, flash_bwd_dq, flash_bwd_dkv), ResNet-50
 inference (phase 11's forward: conv_bn_relu, 16 launches, all on the
@@ -323,7 +350,9 @@ argument a step: 193) and the recurrent models: the Gluon word LM (phase
 BucketingModule (phase 31's 20 timed batches: one flat_sgd, single, per
 trainable argument a batch: 11) and SSD-512 (phase 33's 10 timed steps:
 16 conv_bn_stats, 16 cbr_train_bwd and one multi flat_sgd a step; one
-predict-mode forward: 16 conv_bn_relu). Then the card's name and power limit,
+predict-mode forward: 16 conv_bn_relu) and the model zoo: Inception-v3
+(phase 34's 10 timed steps: one multi flat_sgd a step) and the DCGAN
+(phase 35's 20 timed steps: two multi flat_adam a step). Then the card's name and power limit,
 the `kernels` line, and as the last line {"ok": true, "device": {...}}.
 Exits non-zero without a CUDA card.
 """
@@ -2151,12 +2180,20 @@ def rnn_sgd_calls():
     return out
 
 
+def multi_launches(kernel, n):
+    """Launches one multi call of #7 or #8 over n tensors makes: one per
+    table of the kernel's capacity (read from the built library)."""
+    from mxnet_tpu_torch.ops.fused_optimizer import _capacity
+    return -(-n // _capacity[kernel])
+
+
 def kernel_opt_paths(gen, calls):
     """#7 at main paths' own calls: label -> (params, momentum or None,
     rescale, clip or None, multi), params a list of (shape, dtype, lr, wd)
     (rnn_sgd_calls: path 13's one multi launch over WordLM's 11 tensors
-    and path 14's 11 single launches; ssd_sgd_call: path 15's one multi
-    launch over SSD-512's bf16 table with momentum). Gradients and momenta
+    and path 14's 11 single launches; trainer_sgd_call: path 15's one multi
+    launch over SSD-512's bf16 table with momentum; path 16's over
+    Inception-v3's fp32 table). Gradients and momenta
     in the weight's dtype, as the Trainer keeps them. Every weight and
     momentum bit-equal (0 ulps) to the plain version's, the launches
     counted; then each call timed (events and device time) beside its
@@ -2204,7 +2241,8 @@ def kernel_opt_paths(gen, calls):
         if mom_on:
             ulps = max([ulps] + [ulps_apart(m, ref[1]).max().item()
                                  for m, ref in zip(moms, want)])
-        expect = {("flat_sgd", "multi"): 1} if multi \
+        expect = {("flat_sgd", "multi"): multi_launches("flat_sgd",
+                                                        len(ws))} if multi \
             else {("flat_sgd", "single"): len(ws)}
         n = sum(w.numel() for w in ws)
         # w and the momentum read and written, g read
@@ -5397,7 +5435,7 @@ def nudged(params):
     for k, v in params.items():
         t = v.data_torch
         out[k] = mx.nd.NDArray(torch.nextafter(
-            t, torch.tensor(float("inf"))), ctx=v.context)
+            t, torch.tensor(float("inf"), device=t.device)), ctx=v.context)
     return out
 
 
@@ -6716,19 +6754,24 @@ def ssd_detect(mx, net, anchors, x):
             prob, box.astype("float32"), anchors, **SSD_DETECT_KW), prob, box
 
 
-def ssd_sgd_call(trainer):
-    """Path 15's #7 call as kernel_opt_paths takes it: the Trainer's one
-    multi launch over every trainable parameter (their shapes and dtypes,
-    and the lr and wd the optimizer gives each), its momentum and its
-    rescale (1 / batch)."""
-    opt = trainer.optimizer
+def trainer_table(trainer):
+    """(indices, [(shape, dtype)]) of a Trainer's trainable parameters."""
     idx = [i for i, p in enumerate(trainer._params) if p.grad_req != "null"]
-    params = [(trainer._params[i].shape,
-               trainer._params[i].data().data_torch.dtype, lr, wd)
-              for i, lr, wd in zip(idx, opt._get_lrs(idx),
-                                   opt._get_wds(idx))]
-    return {"ssd_resnet50": (params, opt.momentum, opt.rescale_grad,
-                             opt.clip_gradient, True)}
+    return idx, [(trainer._params[i].shape,
+                  trainer._params[i].data().data_torch.dtype) for i in idx]
+
+
+def trainer_sgd_call(label, trainer):
+    """A path's #7 call as kernel_opt_paths takes it: the Trainer's multi
+    launch over every trainable parameter (their shapes and dtypes, and
+    the lr and wd the optimizer gives each), its momentum and its rescale
+    (1 / batch)."""
+    opt = trainer.optimizer
+    idx, table = trainer_table(trainer)
+    params = [(shape, dt, lr, wd) for (shape, dt), lr, wd in zip(
+        table, opt._get_lrs(idx), opt._get_wds(idx))]
+    return {label: (params, opt.momentum, opt.rescale_grad,
+                    opt.clip_gradient, True)}
 
 
 def host_ms(fn, calls=5):
@@ -6819,7 +6862,7 @@ def phase_ssd_resnet50(batch=SSD_BATCH, image=SSD_IMAGE):
                         and np.array_equal(got[2], want[2]))
     # #7 as the Trainer called it, at 0 ulps (outside the counted window)
     opt_rec = kernel_opt_paths(torch.Generator(device="cuda").manual_seed(
-        15), ssd_sgd_call(trainer))["ssd_resnet50"]
+        15), trainer_sgd_call("ssd_resnet50", trainer))["ssd_resnet50"]
 
     # the MultiBox ops alone, and one profiled step
     target_ms = host_ms(lambda: mx.nd.contrib.MultiBoxTarget(
@@ -6917,6 +6960,566 @@ def phase_ssd_resnet50(batch=SSD_BATCH, image=SSD_IMAGE):
     check(fallback == 0, phase, "compiler.fallback %s" % fallback)
     check(profile["device_ms"] > 0, phase, "the profiler saw no device time")
     return launches, infer_launches
+
+
+# -- main path 16: Inception-v3 training and the model zoo's families ------
+INC_BATCH, INC_IMAGE, INC_CLASSES = 64, 299, 1000
+INC_WARMUP, INC_STEPS = 3, 10
+INC_SGD = {"learning_rate": 0.01, "momentum": 0.9, "wd": 1e-4}
+INC_CPU_BATCH = 4
+INC_LOSS_REL = 1e-5             # the first step's loss, card vs CPU: fp32
+                                # on both sides (TF32 off), only the
+                                # summation order differs
+INC_GRAD_REL = 1e-3             # per-leaf ||card - cpu|| / ||cpu|| of the
+                                # first step's gradients: the limit, or
+                                # twice the card's own spread under a
+                                # one-ulp weight change where that is larger
+ZOO_FAMILIES = [("alexnet", 224), ("vgg16_bn", 224), ("squeezenet1.1", 224),
+                ("densenet121", 224), ("mobilenet1.0", 224),
+                ("mobilenetv2_1.0", 224), ("inceptionv3", 299)]
+ZOO_CPU_BATCH, ZOO_BATCH, ZOO_CALLS = 2, 64, 5
+
+
+def zoo_net(mx, name, seed, ctx, hw):
+    """get_model(name) on ctx with seeded weights (Xavier, gaussian,
+    fan-in, magnitude 2), BatchNorm's vectors as `randomize` draws them,
+    shapes resolved by one predict-mode forward, hybridized."""
+    with mx.name.NameManager():
+        net = mx.gluon.model_zoo.vision.get_model(name)
+    mx.random.seed(seed)
+    net.initialize(mx.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                  magnitude=2), ctx=ctx)
+    with mx.autograd.predict_mode():
+        net(mx.nd.zeros((1, 3, hw, hw), ctx=ctx))
+    g = torch.Generator(device=ctx.torch_device).manual_seed(seed)
+    for pname, p in net.collect_params().items():
+        if pname.endswith(("gamma", "running_var")):
+            p.set_data(mx.nd.array(torch.rand(
+                p.shape, generator=g, device=ctx.torch_device) + 0.5,
+                ctx=ctx))
+        elif pname.endswith(("beta", "running_mean")):
+            p.set_data(mx.nd.array(torch.randn(
+                p.shape, generator=g, device=ctx.torch_device) * 0.1,
+                ctx=ctx))
+    net.hybridize(static_alloc=True)
+    return net
+
+
+def cpu_twin(mx, name, path):
+    """The same zoo net on the CPU from a save_parameters file."""
+    with mx.name.NameManager():
+        net = mx.gluon.model_zoo.vision.get_model(name)
+    net.load_parameters(path, ctx=mx.cpu())
+    net.hybridize(static_alloc=True)
+    return net
+
+
+def nudge(net):
+    """Move every trainable parameter of `net` up by one ulp."""
+    params = net.collect_params()
+    for k, v in nudged({k: p.data() for k, p in params.items()
+                        if p.grad_req != "null"}).items():
+        params[k].set_data(v)
+
+
+def without_dropout(net):
+    """Dropout off in every block (each device draws its own masks)."""
+    import mxnet_tpu_torch as mx
+    net.apply(lambda b: isinstance(b, mx.gluon.nn.Dropout)
+              and setattr(b, "_rate", 0.0))
+    return net
+
+
+def sce_grads(mx, net, x, y, ctx):
+    """One recorded forward + SoftmaxCrossEntropyLoss + backward: (mean
+    loss, {name: gradient on the host})."""
+    sce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    with mx.autograd.record():
+        loss = sce(net(mx.nd.array(x, ctx=ctx)),
+                   mx.nd.array(y, ctx=ctx)).mean()
+    loss.backward()
+    return float(loss.asscalar()), {
+        k: p.grad(ctx).data_torch.detach().float().cpu()
+        for k, p in net.collect_params().items() if p.grad_req != "null"}
+
+
+def zoo_families(tmp):
+    """Each family in predict mode: batch ZOO_CPU_BATCH against its twin
+    on the CPU (fp32 logits within RESNET_FP32_REL, top-1 equal), then
+    images/s at batch ZOO_BATCH over ZOO_CALLS calls by CUDA events."""
+    import mxnet_tpu_torch as mx
+    gpu = mx.gpu(0)
+    out = {}
+    for i, (name, hw) in enumerate(ZOO_FAMILIES):
+        net = zoo_net(mx, name, 100 + i, gpu, hw)
+        path = os.path.join(tmp, "zoo_%s.params" % name)
+        net.save_parameters(path)
+        x = np.random.RandomState(i).rand(ZOO_BATCH, 3, hw, hw).astype(
+            np.float32)
+        got = logits_of(net, x[:ZOO_CPU_BATCH], gpu)
+        want = logits_of(cpu_twin(mx, name, path), x[:ZOO_CPU_BATCH],
+                         mx.cpu())
+        rel = compare_logits(got, want, RESNET_FP32_REL, "zoo_inception_v3",
+                             "%s at batch %d vs the CPU" % (
+                                 name, ZOO_CPU_BATCH))
+        xb = mx.nd.array(x, ctx=gpu)
+        with mx.autograd.predict_mode():
+            net(xb)
+            ms = time_ms(lambda: net(xb), iters=ZOO_CALLS, warmup=1)
+        out[name] = {"image": hw, "params": sum(
+            p.data().size for p in net.collect_params().values()),
+            "logits_rel_vs_cpu": rel, "batch": ZOO_BATCH,
+            "forward_ms": ms, "images_per_s": ZOO_BATCH / ms * 1e3}
+        del net, xb
+        os.remove(path)
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_zoo_inception_v3(tmp):
+    """Main path 16: get_model("inceptionv3") at full width (1000 classes,
+    299x299, NCHW, fp32), hybridized, SoftmaxCrossEntropyLoss and
+    Trainer("sgd", lr 0.01, momentum 0.9, wd 1e-4) on one seeded batch of
+    64: 3 warm-up and 10 timed steps, counts reset just before the timed
+    steps and read just after (one multi flat_sgd per 320 trainable
+    tensors a step, nothing else); the loss falls; the Trainer's #7 call
+    over this net's table at 0 ulps (kernel_opt_paths); the first step's
+    loss and gradients at batch 4 against the CPU; then the other
+    families in predict mode (zoo_families). Run whole under cuDNN's
+    deterministic algorithms. Returns the timed steps' launches."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import (launch_counts, reset_launch_counts,
+                                     variant_counts)
+    phase = "zoo_inception_v3"
+    gpu, cpu = mx.gpu(0), mx.cpu()
+    torch.backends.cudnn.deterministic = True
+    try:
+        net = zoo_net(mx, "inceptionv3", 0, gpu, INC_IMAGE)
+        init_path = os.path.join(tmp, "inception_init.params")
+        net.save_parameters(init_path)
+        n_tensors = sum(p.grad_req != "null"
+                        for p in net.collect_params().values())
+        rng = np.random.RandomState(16)
+        x = rng.rand(INC_BATCH, 3, INC_IMAGE, INC_IMAGE).astype(np.float32)
+        y = rng.randint(0, INC_CLASSES, INC_BATCH).astype(np.float32)
+        xb, yb = mx.nd.array(x, ctx=gpu), mx.nd.array(y, ctx=gpu)
+        sce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+        trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                                   dict(INC_SGD))
+
+        def step():
+            with mx.autograd.record():
+                loss = sce(net(xb), yb)
+            loss.backward()
+            trainer.step(INC_BATCH)
+            return loss.mean()
+
+        losses = [step() for _ in range(INC_WARMUP)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        events = [torch.cuda.Event(enable_timing=True)
+                  for _ in range(INC_STEPS + 1)]
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        events[0].record()
+        for i in range(INC_STEPS):
+            losses.append(step())
+            events[i + 1].record()
+        torch.cuda.synchronize()
+        window_s = time.perf_counter() - t0
+        launches, variants = launch_counts(), variant_counts()
+        peak = torch.cuda.max_memory_allocated()
+        losses = [float(v.asscalar()) for v in losses]
+        step_ms = [events[i].elapsed_time(events[i + 1])
+                   for i in range(INC_STEPS)]
+        per_step = multi_launches("flat_sgd", n_tensors)
+        profile = profile_window(step)
+        # #7 as the Trainer called it, at 0 ulps (outside the counted window)
+        opt_rec = kernel_opt_paths(
+            torch.Generator(device="cuda").manual_seed(16),
+            trainer_sgd_call(phase, trainer))[phase]
+        del net, trainer, xb, yb
+        torch.cuda.empty_cache()
+
+        # the first step at batch 4, card against CPU, and the card's own
+        # spread under a one-ulp weight change; dropout off on both sides
+        xs, ys = x[:INC_CPU_BATCH], y[:INC_CPU_BATCH]
+        first = {}
+        for label, ctx in (("card", gpu), ("cpu", cpu), ("nudged", gpu)):
+            twin = without_dropout(cpu_twin(mx, "inceptionv3", init_path))
+            params = twin.collect_params()
+            params.reset_ctx(ctx)
+            if label == "nudged":
+                nudge(twin)
+            first[label] = sce_grads(mx, twin, xs, ys, ctx)
+            del twin
+        (lg, gg), (lc, gc), (_, gn) = first["card"], first["cpu"], \
+            first["nudged"]
+        vs_cpu, spread = leaf_rel_stats(gg, gc), leaf_rel_stats(gn, gg)
+        grad_limits = {"median": max(INC_GRAD_REL, 2.0 * spread["median"]),
+                       "max": max(INC_GRAD_REL, 2.0 * spread["max"])}
+        loss_rel = abs(lg - lc) / abs(lc)
+        del first, gg, gc, gn
+        torch.cuda.empty_cache()
+        families = zoo_families(tmp)
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+    med = statistics.median(step_ms)
+    rec = {"phase": phase,
+           "config": "inceptionv3 (get_model), 1000 classes, %dx%d NCHW "
+                     "fp32, batch %d, sgd lr 0.01 momentum 0.9 wd 1e-4, "
+                     "cuDNN deterministic" % (INC_IMAGE, INC_IMAGE,
+                                              INC_BATCH),
+           "warmup": INC_WARMUP, "steps": INC_STEPS,
+           "trainable_tensors": n_tensors, "multi_launches_a_step": per_step,
+           "images_per_s": INC_BATCH * INC_STEPS / window_s,
+           "images_per_s_by_median_step": INC_BATCH / med * 1e3,
+           "step_ms_median": med, "step_ms": step_ms, "window_s": window_s,
+           "max_memory_allocated_bytes": peak, "profile_one_step": profile,
+           "losses": losses,
+           "launches": {k: c for k, c in launches.items() if c},
+           "variants": {"%s/%s" % k: c for k, c in variants.items()},
+           "flat_sgd_path_call": {k: opt_rec[k] for k in (
+               "tensors", "elements", "dtypes", "max_ulps", "ms",
+               "device_ms", "plain_ms", "bound_ms", "bound_by")},
+           "cpu_first_step_batch": INC_CPU_BATCH,
+           "cpu_first_step_loss_rel": loss_rel,
+           "cpu_first_step_grads": vs_cpu, "one_ulp_weights": spread,
+           "grad_limits": grad_limits, "families_predict": families,
+           "card": card_name_and_limit()}
+    emit(rec)
+    check(variants == {("flat_sgd", "multi"): per_step * INC_STEPS}
+          and sum(launches.values()) == per_step * INC_STEPS, phase,
+          "launches %s (%s), expected %d multi flat_sgd a step over %d "
+          "tensors and no other kernel" % (launches, variants, per_step,
+                                           n_tensors))
+    check(all(np.isfinite(losses))
+          and statistics.mean(losses[-3:]) < statistics.mean(losses[:3]),
+          phase, "loss not finite or not falling: %s" % losses)
+    check(loss_rel <= INC_LOSS_REL
+          and vs_cpu["median"] <= grad_limits["median"]
+          and vs_cpu["max"] <= grad_limits["max"], phase,
+          "first step vs the CPU: loss %s, gradients %s (limits %s)"
+          % (loss_rel, vs_cpu, grad_limits))
+    check(profile["device_ms"] > 0, phase, "the profiler saw no device time")
+    return launches
+
+
+# -- main path 17: examples/dcgan.py's DCGAN ------------------------------
+GAN_NGF = GAN_NDF = 64                  # upstream example/gluon/dc_gan
+GAN_NC, GAN_LATENT, GAN_BATCH, GAN_IMAGE = 3, 100, 64, 32
+GAN_WARMUP, GAN_STEPS = 3, 20
+GAN_ADAM = {"learning_rate": 2e-4, "beta1": 0.5}
+GAN_LOSS_REL = 1e-5             # one step's D and G losses, card vs CPU
+GAN_PARAM_REL = 1e-5            # per-leaf ||card - cpu|| / ||cpu|| of every
+                                # parameter after the step: the limit, or
+                                # twice the card's own spread under a
+                                # one-ulp weight change where that is
+                                # larger (Adam's first update is about
+                                # lr * g / (|g| + eps), so an element whose
+                                # gradient is near eps moves by what
+                                # rounding gives its gradient)
+
+
+def dcgan_nets(mx):
+    """examples/dcgan.py's build_generator(ngf, nc) and
+    build_discriminator(ndf), copied: latent (B, Z, 1, 1) -> image
+    (B, nc, 32, 32) in [-1, 1] -> logit (B, 1, 1, 1)."""
+    nn = mx.gluon.nn
+    gen = nn.HybridSequential(prefix="gen_")
+    with gen.name_scope():
+        gen.add(nn.Conv2DTranspose(GAN_NGF * 4, 4, strides=1, padding=0,
+                                   use_bias=False))
+        gen.add(nn.BatchNorm(), nn.Activation("relu"))
+        gen.add(nn.Conv2DTranspose(GAN_NGF * 2, 4, strides=2, padding=1,
+                                   use_bias=False))
+        gen.add(nn.BatchNorm(), nn.Activation("relu"))
+        gen.add(nn.Conv2DTranspose(GAN_NGF, 4, strides=2, padding=1,
+                                   use_bias=False))
+        gen.add(nn.BatchNorm(), nn.Activation("relu"))
+        gen.add(nn.Conv2DTranspose(GAN_NC, 4, strides=2, padding=1,
+                                   use_bias=False))
+        gen.add(nn.Activation("tanh"))
+    disc = nn.HybridSequential(prefix="disc_")
+    with disc.name_scope():
+        disc.add(nn.Conv2D(GAN_NDF, 4, strides=2, padding=1, use_bias=False))
+        disc.add(nn.LeakyReLU(0.2))
+        disc.add(nn.Conv2D(GAN_NDF * 2, 4, strides=2, padding=1,
+                           use_bias=False))
+        disc.add(nn.BatchNorm(), nn.LeakyReLU(0.2))
+        disc.add(nn.Conv2D(GAN_NDF * 4, 4, strides=2, padding=1,
+                           use_bias=False))
+        disc.add(nn.BatchNorm(), nn.LeakyReLU(0.2))
+        disc.add(nn.Conv2D(1, 4, strides=1, padding=0, use_bias=False))
+    return gen, disc
+
+
+def gan_batches(n, seed=0):
+    """examples/dcgan.py's synthetic blob images (its stand-in for a
+    dataset) and N(0, 1) latents, seeded: n (latent, real) pairs."""
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:GAN_IMAGE, 0:GAN_IMAGE].astype(np.float32) \
+        / GAN_IMAGE - 0.5
+    out = []
+    for _ in range(n):
+        shape = (GAN_BATCH, GAN_NC, 1, 1)
+        cx, cy = rng.uniform(-0.3, 0.3, shape), rng.uniform(-0.3, 0.3, shape)
+        s = rng.uniform(0.05, 0.15, shape)
+        img = np.exp(-(((xx - cx) ** 2 + (yy - cy) ** 2) / (2 * s ** 2)))
+        out.append((rng.randn(GAN_BATCH, GAN_LATENT, 1, 1).astype(np.float32),
+                    (img * 2.0 - 1.0).astype(np.float32)))
+    return out
+
+
+def gan_step(mx, gen, disc, trainers, latent, real, ctx):
+    """One iteration of the example's loop on arrays already on ctx: the
+    discriminator on real and detached fake, trainer_d.step, then the
+    generator through the discriminator, trainer_g.step. Returns the mean
+    D and G losses (arrays)."""
+    loss_fn = mx.gluon.loss.SigmoidBinaryCrossEntropyLoss()
+    trainer_g, trainer_d = trainers
+    real_label = mx.nd.ones((GAN_BATCH,), ctx=ctx)
+    fake_label = mx.nd.zeros((GAN_BATCH,), ctx=ctx)
+    with mx.autograd.record():
+        err_real = loss_fn(disc(real).reshape((-1,)), real_label)
+        fake = gen(latent)
+        err_fake = loss_fn(disc(fake.detach()).reshape((-1,)), fake_label)
+        err_d = err_real + err_fake
+    err_d.backward()
+    trainer_d.step(GAN_BATCH)
+    with mx.autograd.record():
+        err_g = loss_fn(disc(fake).reshape((-1,)), real_label)
+    err_g.backward()
+    trainer_g.step(GAN_BATCH)
+    return err_d.mean(), err_g.mean()
+
+
+def gan_setup(mx, ctx, paths=None):
+    """(gen, disc, trainers) on ctx: Normal(0.02) from seed 0, or the
+    parameters of `paths`; hybridized; two Adam Trainers."""
+    gen, disc = dcgan_nets(mx)
+    if paths is None:
+        mx.random.seed(0)
+        gen.initialize(mx.init.Normal(0.02), ctx=ctx)
+        disc.initialize(mx.init.Normal(0.02), ctx=ctx)
+        with mx.autograd.predict_mode():
+            disc(gen(mx.nd.zeros((1, GAN_LATENT, 1, 1), ctx=ctx)))
+    else:
+        gen.load_parameters(paths[0], ctx=ctx)
+        disc.load_parameters(paths[1], ctx=ctx)
+    gen.hybridize(static_alloc=True)
+    disc.hybridize(static_alloc=True)
+    trainers = (mx.gluon.Trainer(gen.collect_params(), "adam",
+                                 dict(GAN_ADAM)),
+                mx.gluon.Trainer(disc.collect_params(), "adam",
+                                 dict(GAN_ADAM)))
+    return gen, disc, trainers
+
+
+def trainer_adam_call(trainer):
+    """A Trainer's last #8 call: its trainable parameters' shapes and
+    dtypes, the bias-corrected lr of each at its step count, wd, the betas
+    (1 - beta in fp32, as the optimizer computes them), eps, rescale."""
+    opt = trainer.optimizer
+    idx, table = trainer_table(trainer)
+    lrs = [opt._get_lr(i) * math.sqrt(1. - opt.beta2 ** opt._index_update_count[i])
+           / (1. - opt.beta1 ** opt._index_update_count[i]) for i in idx]
+    params = [(shape, dt, lr, wd) for (shape, dt), lr, wd in zip(
+        table, lrs, opt._get_wds(idx))]
+    one = np.float32(1.0)
+    return (params, opt.beta1, float(one - np.float32(opt.beta1)),
+            opt.beta2, float(one - np.float32(opt.beta2)), opt.epsilon,
+            opt.rescale_grad)
+
+
+def kernel_adam_paths(gen, calls):
+    """#8 at a path's own calls: label -> trainer_adam_call's tuple. Seeded
+    weights, gradients and moments (the variance from squared draws) in
+    the weight's dtype; one multi_adam call bit-equal (0 ulps) to the
+    plain version for every weight and moment, its launches counted, then
+    timed (events and device time) beside its bound (w, mean and var read
+    and written, g read)."""
+    from mxnet_tpu_torch.ops import reset_launch_counts, variant_counts
+    from mxnet_tpu_torch.ops.fused_optimizer import _ref_flat_adam, multi_adam
+    recs = {}
+    for label, (params, b1, omb1, b2, omb2, eps, rescale) in calls.items():
+        def rnd(s, dt, scale):
+            return (torch.randn(s, generator=gen, device="cuda")
+                    * scale).to(dt)
+        ws = [rnd(s, dt, 0.05) for s, dt, _, _ in params]
+        gs = [rnd(s, dt, 0.5) for s, dt, _, _ in params]
+        means = [rnd(s, dt, 0.05) for s, dt, _, _ in params]
+        vs = [rnd(s, dt, 0.3) ** 2 for s, dt, _, _ in params]
+        lrs, wds = [p[2] for p in params], [p[3] for p in params]
+
+        def update():
+            multi_adam(ws, gs, means, vs, None, lrs, wds, b1, omb1, b2, omb2,
+                       eps, rescale, 0.0, False, False)
+
+        def plain():
+            return [_ref_flat_adam(w, g, m, v, None, lr, d, b1, omb1, b2,
+                                   omb2, eps, rescale, 0.0, False, False)
+                    for w, g, m, v, lr, d in zip(ws, gs, means, vs, lrs,
+                                                 wds)]
+        want = plain()
+        reset_launch_counts()
+        update()
+        seen = variant_counts()
+        torch.cuda.synchronize()
+        ulps = max(ulps_apart(a, b).max().item()
+                   for w, m, v, ref in zip(ws, means, vs, want)
+                   for a, b in zip((w, m, v), ref[:3]))
+        expect = {("flat_adam", "multi"): multi_launches("flat_adam",
+                                                         len(ws))}
+        n = sum(w.numel() for w in ws)
+        nbytes = sum(w.numel() * w.element_size() * 7 for w in ws)
+        rec = {"phase": "kernel_opt", "kernel": "flat_adam", "path": label,
+               "tensors": len(ws), "elements": n,
+               "dtypes": sorted({str(w.dtype)[6:] for w in ws}),
+               "largest": max(w.numel() for w in ws), "max_ulps": ulps,
+               "variants": {"%s/%s" % k: c for k, c in seen.items()},
+               "ms": time_ms(update, iters=20),
+               "device_ms": device_ms(update),
+               "plain_ms": time_ms(plain, iters=5)}
+        rec["bound_ms"], rec["bound_by"] = bound(0.0, nbytes, torch.float32)
+        emit(rec)
+        check(ulps == 0 and seen == expect, "kernel_opt",
+              "%s's #8 call: %s ulps from the plain version, launches %s "
+              "(expected %s)" % (label, ulps, seen, expect))
+        recs[label] = rec
+        del ws, gs, means, vs, want
+    return recs
+
+
+def phase_gluon_dcgan(tmp):
+    """Main path 17: examples/dcgan.py's generator and discriminator at
+    upstream MXNet's example/gluon/dc_gan widths (ngf = ndf = 64, nc 3),
+    a 100-dim latent, batch 64 at 32x32 of the example's seeded blob
+    images, Normal(0.02), hybridized, SigmoidBinaryCrossEntropyLoss and
+    two Trainer("adam", lr 2e-4, beta1 0.5) with the example's alternating
+    D and G updates: 3 warm-up and 20 timed steps, counts reset just before
+    the timed steps and read just after (two multi flat_adam a step, one
+    per Trainer, nothing else); each Trainer's #8 call over its own table
+    at 0 ulps (kernel_adam_paths); one step of both nets against the CPU
+    within the limit or twice the card's own one-ulp spread (cuDNN
+    deterministic). Returns the timed steps' launches."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import (launch_counts, reset_launch_counts,
+                                     variant_counts)
+    phase = "gluon_dcgan"
+    gpu, cpu = mx.gpu(0), mx.cpu()
+    batches = gan_batches(4)
+    with gpu:
+        gen, disc, trainers = gan_setup(mx, gpu)
+        paths = (os.path.join(tmp, "gen.params"),
+                 os.path.join(tmp, "disc.params"))
+        gen.save_parameters(paths[0])
+        disc.save_parameters(paths[1])
+        data = [(mx.nd.array(z, ctx=gpu), mx.nd.array(r, ctx=gpu))
+                for z, r in batches]
+        losses = [gan_step(mx, gen, disc, trainers, *data[i % 4], gpu)
+                  for i in range(GAN_WARMUP)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        events = [torch.cuda.Event(enable_timing=True)
+                  for _ in range(GAN_STEPS + 1)]
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        events[0].record()
+        for i in range(GAN_STEPS):
+            losses.append(gan_step(mx, gen, disc, trainers, *data[i % 4],
+                                   gpu))
+            events[i + 1].record()
+        torch.cuda.synchronize()
+        window_s = time.perf_counter() - t0
+        launches, variants = launch_counts(), variant_counts()
+        peak = torch.cuda.max_memory_allocated()
+        losses = [(float(d.asscalar()), float(g.asscalar()))
+                  for d, g in losses]
+        step_ms = [events[i].elapsed_time(events[i + 1])
+                   for i in range(GAN_STEPS)]
+        profile = profile_window(lambda: gan_step(
+            mx, gen, disc, trainers, *data[0], gpu))
+        sample = gen(mx.nd.array(np.random.RandomState(17).randn(
+            16, GAN_LATENT, 1, 1), ctx=gpu)).asnumpy()
+    adam_recs = kernel_adam_paths(
+        torch.Generator(device="cuda").manual_seed(17),
+        {"gluon_dcgan_" + name: trainer_adam_call(tr)
+         for name, tr in zip(("generator", "discriminator"), trainers)})
+    del gen, disc, trainers, data
+
+    # one step from the saved state on the card and on the CPU, and on the
+    # card from the state moved by one ulp (the card's own spread)
+    torch.backends.cudnn.deterministic = True
+    try:
+        one = {}
+        for label, ctx in (("card", gpu), ("cpu", cpu), ("nudged", gpu)):
+            with ctx:
+                g1, d1, tr1 = gan_setup(mx, ctx, paths)
+                if label == "nudged":
+                    nudge(g1)
+                    nudge(d1)
+                dl, gl = gan_step(mx, g1, d1, tr1, *[
+                    mx.nd.array(a, ctx=ctx) for a in batches[0]], ctx)
+                one[label] = ((float(dl.asscalar()), float(gl.asscalar())),
+                              {k: p.data().data_torch.float().cpu()
+                               for net in (g1, d1) for k, p in
+                               net.collect_params().items()})
+                del g1, d1, tr1
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (lg, pg), (lc, pc), (_, pn) = one["card"], one["cpu"], one["nudged"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lg, lc))
+    param_rel = {k: rel_err(pg[k], pc[k]) for k in pc if pc[k].norm() > 0}
+    spread = {k: rel_err(pn[k], pg[k]) for k in param_rel}
+    param_limit = max(GAN_PARAM_REL, 2.0 * max(spread.values()))
+
+    med = statistics.median(step_ms)
+    rec = {"phase": phase,
+           "config": "examples/dcgan.py, ngf %d ndf %d nc %d, latent %d, "
+                     "batch %d at %dx%d, Normal(0.02), adam lr 2e-4 beta1 "
+                     "0.5 x2" % (GAN_NGF, GAN_NDF, GAN_NC, GAN_LATENT,
+                                 GAN_BATCH, GAN_IMAGE, GAN_IMAGE),
+           "warmup": GAN_WARMUP, "steps": GAN_STEPS,
+           "steps_per_s": GAN_STEPS / window_s,
+           "steps_per_s_by_median_step": 1e3 / med,
+           "step_ms_median": med, "step_ms": step_ms, "window_s": window_s,
+           "max_memory_allocated_bytes": peak, "profile_one_step": profile,
+           "losses_d_g": losses,
+           "launches": {k: c for k, c in launches.items() if c},
+           "variants": {"%s/%s" % k: c for k, c in variants.items()},
+           "flat_adam_path_calls": {
+               label: {k: r[k] for k in (
+                   "tensors", "elements", "dtypes", "max_ulps", "ms",
+                   "device_ms", "plain_ms", "bound_ms", "bound_by")}
+               for label, r in adam_recs.items()},
+           "sample_range": [float(sample.min()), float(sample.max())],
+           "cpu_one_step_loss_rel": loss_rel,
+           "cpu_one_step_param_rel_max": max(param_rel.values()),
+           "cpu_one_step_param_rel_worst": dict(sorted(
+               param_rel.items(), key=lambda kv: -kv[1])[:5]),
+           "one_ulp_weights_param_rel_max": max(spread.values()),
+           "one_ulp_weights_param_rel_worst": dict(sorted(
+               spread.items(), key=lambda kv: -kv[1])[:5]),
+           "param_limit": param_limit,
+           "card": card_name_and_limit()}
+    emit(rec)
+    check(variants == {("flat_adam", "multi"): 2 * GAN_STEPS}
+          and sum(launches.values()) == 2 * GAN_STEPS, phase,
+          "launches %s (%s), expected two multi flat_adam a step and no "
+          "other kernel" % (launches, variants))
+    check(bool(np.isfinite(np.array(losses)).all())
+          and sample.shape == (16, GAN_NC, GAN_IMAGE, GAN_IMAGE)
+          and -1.0 <= sample.min() <= sample.max() <= 1.0, phase,
+          "losses %s, sample range %s" % (losses[-1], rec["sample_range"]))
+    check(loss_rel <= GAN_LOSS_REL
+          and len(param_rel) == len(pc)
+          and max(param_rel.values()) <= param_limit, phase,
+          "one step vs the CPU: losses %s, parameters %s (limit %s)"
+          % (loss_rel, rec["cpu_one_step_param_rel_worst"], param_limit))
+    check(profile["device_ms"] > 0, phase, "the profiler saw no device time")
+    return launches
 
 
 def main():
@@ -7071,6 +7674,18 @@ def main():
     ssd_launches, ssd_infer_launches = phase_ssd_resnet50()
     check_path(ssd_launches, SSD_KERNELS_TRAIN, "main_path_ssd_train")
     check_path(ssd_infer_launches, RESNET_KERNELS, "main_path_ssd_infer")
+    torch.cuda.empty_cache()
+
+    # main path 16: Inception-v3 training through Gluon and the zoo's other
+    # families; main path 17: the DCGAN (counts reset inside, read right
+    # after the timed steps)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_zoo_") as tmp:
+        inception_launches = phase_zoo_inception_v3(tmp)
+    check_path(inception_launches, ("flat_sgd",), "main_path_zoo_inception_v3")
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dcgan_") as tmp:
+        dcgan_launches = phase_gluon_dcgan(tmp)
+    check_path(dcgan_launches, ("flat_adam",), "main_path_gluon_dcgan")
 
     print(card_name_and_limit(), flush=True)
     kernels = []
@@ -7085,7 +7700,8 @@ def main():
             + mlp_launches[name] + loader_launches[name] \
             + module_launches[name] + word_lm_launches[name] \
             + bucketing_launches[name] + ssd_launches[name] \
-            + ssd_infer_launches[name]
+            + ssd_infer_launches[name] + inception_launches[name] \
+            + dcgan_launches[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": "mxnet_tpu_torch/" + source, "replaces": replaces,

@@ -23,9 +23,12 @@ occurrence order: kernel #11 on a card), ``grad_req="add"`` the union
 with the rows it holds; a dense buffer takes them densified; `grad`
 returns a `RowSparseNDArray`.
 
-Not ported yet: `Function` (custom ops with a hand-written backward) and
-the reference's grad-ready hooks (they feed the readiness-ordered
-kvstore, which comes with the communication slice).
+`Function` is a differentiable function with a hand-written backward: its
+`forward` and `backward` run inside one `torch.autograd.Function`, as
+custom ops do (`operator._CustomFn`).
+
+Not ported yet: the reference's grad-ready hooks (they feed the
+readiness-ordered kvstore, which comes with the communication slice).
 """
 from __future__ import annotations
 
@@ -36,7 +39,7 @@ import torch
 
 __all__ = ["is_recording", "is_training", "set_recording", "set_training",
            "record", "pause", "train_mode", "predict_mode", "backward",
-           "grad", "mark_variable"]
+           "grad", "mark_variable", "Function"]
 
 _state = threading.local()
 
@@ -254,3 +257,62 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
             g = g.detach()
         res.append(NDArray(g.to(v._data.dtype), ctx=v._ctx))
     return res[0] if single else res
+
+
+class _FunctionFn(torch.autograd.Function):
+    """Forward and backward through a user's `Function`."""
+
+    @staticmethod
+    def forward(ctx, fn, nd_ctx, *tensors):
+        from .ndarray.ndarray import NDArray
+        outs = fn.forward(*[NDArray(t, ctx=nd_ctx) for t in tensors])
+        ctx.fn, ctx.nd_ctx = fn, nd_ctx
+        fn._single = not isinstance(outs, (list, tuple))
+        return tuple(o._data for o in ([outs] if fn._single else outs))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        from .ndarray.ndarray import NDArray
+        with pause():
+            in_grads = ctx.fn.backward(*[NDArray(g.contiguous(),
+                                                 ctx=ctx.nd_ctx)
+                                         for g in grads])
+        if not isinstance(in_grads, (list, tuple)):
+            in_grads = [in_grads]
+        return (None, None) + tuple(
+            g._data if isinstance(g, NDArray) else g for g in in_grads)
+
+
+class Function:
+    """A differentiable function with a hand-written gradient: subclass it,
+    define `forward(*inputs)` and `backward(*output_grads)` over NDArrays
+    (one output or several; `backward` returns one gradient per input),
+    and call an instance on the inputs. `save_for_backward` keeps arrays
+    for `backward` as `saved_tensors`."""
+
+    def __init__(self):
+        self._saved = None
+
+    def save_for_backward(self, *args):
+        self._saved = args
+
+    @property
+    def saved_tensors(self):
+        return self._saved
+
+    def forward(self, *inputs):
+        raise NotImplementedError
+
+    def backward(self, *output_grads):
+        raise NotImplementedError
+
+    def __call__(self, *inputs):
+        from .ndarray.ndarray import NDArray
+        if not is_recording():
+            return self.forward(*inputs)
+        nd_ctx = inputs[0].context
+        with torch.enable_grad():
+            outs = _FunctionFn.apply(self, nd_ctx,
+                                     *(a._data for a in inputs))
+        outs = [NDArray(o, ctx=nd_ctx) for o in outs]
+        return outs[0] if self._single else outs

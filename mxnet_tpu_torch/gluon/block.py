@@ -6,6 +6,10 @@ Kept from the reference: child registration by attribute, prefix scoping
 `initialize`, and the `hybrid_forward(F, x, *args, **params)` calling
 convention with deferred parameter shapes resolved from the first input.
 
+Forward hooks (`register_forward_pre_hook`, `register_forward_hook`) run
+in `Block.__call__`, so they fire for a hybridized block too, and
+`summary` prints the reference's per-layer table through them.
+
 Auxiliary states (BatchNorm's running statistics) change through
 `record_aux_update`: written at once outside the graph, or collected while
 a `FusedTrainStep` runs and written after its update.
@@ -115,6 +119,54 @@ def is_symbol(x):
     return isinstance(x, Symbol)
 
 
+def _flatten(args, inout_str):
+    """A nested list/tuple of arrays -> (flat list, format for
+    `_regroup`)."""
+    if isinstance(args, nd.NDArray):
+        return [args], 0
+    if args is None:
+        return [None], None
+    if not isinstance(args, (list, tuple)):
+        raise ValueError("HybridBlock %s must be (nested) list of NDArray, "
+                         "but got %s of type %s"
+                         % (inout_str, str(args), str(type(args))))
+    flat, fmts = [], []
+    for i in args:
+        arg, fmt = _flatten(i, inout_str)
+        flat.extend(arg)
+        fmts.append(fmt)
+    return flat, fmts
+
+
+def _regroup(args, fmt):
+    """The inverse of `_flatten`: (nested value, rest of `args`)."""
+    if isinstance(fmt, int):
+        if fmt == 0:
+            return args[0], args[1:]
+        return args[:fmt], args[fmt:]
+    if fmt is None:
+        return None, args[1:]
+    ret = []
+    for i in fmt:
+        res, args = _regroup(args, i)
+        ret.append(res)
+    return ret, args
+
+
+class _HookHandle:
+    """Returned by the hook registrations; `detach` removes the hook."""
+
+    _next_id = [0]
+
+    def __init__(self, hooks_dict):
+        self._hooks_dict = hooks_dict
+        self.id = _HookHandle._next_id[0]
+        _HookHandle._next_id[0] += 1
+
+    def detach(self):
+        self._hooks_dict.pop(self.id, None)
+
+
 def _indent(s, num_spaces):
     lines = s.split("\n")
     return "\n".join([lines[0]] + [num_spaces * " " + ln
@@ -133,6 +185,8 @@ class Block:
         self._scope = _BlockScope(self)
         self._children = OrderedDict()
         self._reg_params = {}
+        self._forward_pre_hooks = OrderedDict()
+        self._forward_hooks = OrderedDict()
 
     def __repr__(self):
         modstr = "\n".join("  ({key}): {block}".format(
@@ -217,6 +271,20 @@ class Block:
             name = str(len(self._children))
         self._children[name] = block
 
+    def register_forward_pre_hook(self, hook):
+        """`hook(block, args)` runs before each forward; returns a handle
+        whose `detach` removes it."""
+        handle = _HookHandle(self._forward_pre_hooks)
+        self._forward_pre_hooks[handle.id] = hook
+        return handle
+
+    def register_forward_hook(self, hook):
+        """`hook(block, args, outputs)` runs after each forward; returns a
+        handle whose `detach` removes it."""
+        handle = _HookHandle(self._forward_hooks)
+        self._forward_hooks[handle.id] = hook
+        return handle
+
     def apply(self, fn):
         """Apply fn recursively to the children, then self."""
         for cld in self._children.values():
@@ -295,12 +363,92 @@ class Block:
         for _, param in self.params.items():
             param.cast(dtype)
 
+    def zero_grad(self):
+        """Zero the gradients of every parameter of the block."""
+        self.collect_params().zero_grad()
+
     def hybridize(self, active=True, **kwargs):
         for cld in self._children.values():
             cld.hybridize(active, **kwargs)
 
+    def summary(self, *inputs):
+        """Run one forward on `inputs` and print each layer's output shape
+        and parameter counts (total, trainable, shared), as the reference
+        prints them. Parameters whose shape waits for the first input are
+        counted after it. The block must not be hybridized."""
+        summary = OrderedDict()
+        seen = set()
+        hooks = []
+
+        def shape_str(args):
+            flat, fmts = _flatten(args, "input")
+            shapes = [x.shape if isinstance(x, nd.NDArray) else x
+                      for x in flat]
+            return str(_regroup(shapes, fmts)[0]).replace("'", "")
+
+        def add_hook(block):
+            if isinstance(block, HybridBlock) and block._active:
+                raise AssertionError(
+                    "\"{}\" must not be hybridized to print summary."
+                    .format(block.name))
+
+            def hook(block, _, outputs):
+                key = "%s-%i" % (block.__class__.__name__, len(summary))
+                row = summary[key] = OrderedDict()
+                row["output_shape"] = shape_str(outputs)
+                row["n_params"] = row["trainable"] = row["shared"] = 0
+                for p in block.params.values():
+                    size = p.data().size
+                    row["n_params"] += size
+                    row["trainable"] += 0 if p.grad_req == "null" else size
+                    if id(p) in seen:
+                        row["shared"] += size
+                    else:
+                        seen.add(id(p))
+
+            from .nn.basic_layers import HybridSequential, Sequential
+            if not isinstance(block, (Sequential, HybridSequential)):
+                hooks.append(block.register_forward_hook(hook))
+
+        summary["Input"] = OrderedDict(output_shape=shape_str(inputs),
+                                       n_params=0, trainable=0, shared=0)
+        try:
+            self.apply(add_hook)
+            self(*inputs)
+            line_format = "{:>20}  {:>42} {:>15}"
+            print("-" * 80)
+            print(line_format.format("Layer (type)", "Output Shape",
+                                     "Param #"))
+            print("=" * 80)
+            total = trainable = shared = 0
+            for layer, row in summary.items():
+                print(line_format.format(layer, str(row["output_shape"]),
+                                         row["n_params"]))
+                total += row["n_params"]
+                trainable += row["trainable"]
+                shared += row["shared"]
+            print("=" * 80)
+            print("Parameters in forward computation graph, duplicate "
+                  "included")
+            print("   Total params: " + str(total))
+            print("   Trainable params: " + str(trainable))
+            print("   Non-trainable params: " + str(total - trainable))
+            print("Shared params in forward computation graph: "
+                  + str(shared))
+            print("Unique parameters in model: " + str(total - shared))
+            print("-" * 80)
+        finally:
+            for h in hooks:
+                h.detach()
+
     def __call__(self, *args):
-        return self.forward(*args)
+        """Run the forward pre-hooks, `forward`, then the forward hooks."""
+        for hook in self._forward_pre_hooks.values():
+            hook(self, args)
+        out = self.forward(*args)
+        for hook in self._forward_hooks.values():
+            hook(self, args, out)
+        return out
 
     def forward(self, *args):
         """Override to define computation."""

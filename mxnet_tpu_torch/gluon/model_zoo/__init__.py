@@ -1,4 +1,5 @@
-"""Model zoo of the port (vision: the ResNets; bert: GluonNLP's BERT)."""
+"""Model zoo of the port (vision: the reference's 34 vision models; bert:
+GluonNLP's BERT)."""
 from . import bert, vision
 from .vision import get_model
 

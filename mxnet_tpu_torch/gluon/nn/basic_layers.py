@@ -1,17 +1,21 @@
-"""Basic layers (the port of the part of `mxnet_tpu.gluon.nn.basic_layers`
-that the ResNets and BERT use): Sequential, HybridSequential, Dense,
-Dropout, BatchNorm, Embedding, LayerNorm, Flatten. Same parameter names
-and deferred shapes as the reference."""
+"""Basic layers (the port of `mxnet_tpu.gluon.nn.basic_layers`):
+Sequential, HybridSequential, Dense, Dropout, BatchNorm, InstanceNorm,
+LayerNorm, GroupNorm, Embedding, Flatten, Lambda, HybridLambda,
+Concurrent, HybridConcurrent and Identity. Same parameter names and
+deferred shapes as the reference."""
 from __future__ import annotations
 
 import torch
 
+from ... import ndarray as nd
 from ...base import dtype_name
 from ..block import Block, HybridBlock, _indent, record_aux_update
 from .activations import Activation
 
 __all__ = ["Sequential", "HybridSequential", "Dense", "Dropout",
-           "BatchNorm", "Embedding", "LayerNorm", "Flatten"]
+           "BatchNorm", "InstanceNorm", "Embedding", "LayerNorm",
+           "GroupNorm", "Flatten", "Lambda", "HybridLambda",
+           "HybridConcurrent", "Concurrent", "Identity"]
 
 
 def update_running_stats(running_mean, running_var, mean, var, momentum):
@@ -275,3 +279,164 @@ class Flatten(HybridBlock):
 
     def __repr__(self):
         return self.__class__.__name__
+
+
+def _norm_repr(block, with_channels=True):
+    content = ", ".join("=".join([k, v.__repr__()])
+                        for k, v in block._kwargs.items())
+    if not with_channels:
+        return "{name}({content})".format(name=block.__class__.__name__,
+                                          content=content)
+    return "{name}({content}, in_channels={in_channels})".format(
+        name=block.__class__.__name__, content=content,
+        in_channels=block.gamma.shape[0])
+
+
+class InstanceNorm(HybridBlock):
+    """Normalization of each sample and channel over its spatial axes
+    (channels on `axis`); gamma is not learned by default (scale=False),
+    as in the reference."""
+
+    def __init__(self, axis=1, epsilon=1e-5, center=True, scale=False,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, **kwargs):
+        super().__init__(**kwargs)
+        self._kwargs = {"eps": epsilon}
+        self._axis = axis
+        self._epsilon = epsilon
+        self.gamma = self.params.get(
+            "gamma", grad_req="write" if scale else "null",
+            shape=(in_channels,), init=gamma_initializer,
+            allow_deferred_init=True)
+        self.beta = self.params.get(
+            "beta", grad_req="write" if center else "null",
+            shape=(in_channels,), init=beta_initializer,
+            allow_deferred_init=True)
+
+    def _shape_from_input(self, x, *args):
+        channels = x.shape[self._axis]
+        self.gamma.shape = (channels,)
+        self.beta.shape = (channels,)
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        if self._axis == 1:
+            return F.InstanceNorm(x, gamma, beta, eps=self._epsilon)
+        x = F.swapaxes(x, dim1=1, dim2=self._axis)
+        return F.swapaxes(F.InstanceNorm(x, gamma, beta, eps=self._epsilon),
+                          dim1=1, dim2=self._axis)
+
+    def __repr__(self):
+        return _norm_repr(self)
+
+
+class GroupNorm(HybridBlock):
+    """Normalization over groups of channels (axis 1) and the spatial
+    axes, with a per-channel gamma and beta."""
+
+    def __init__(self, num_groups=1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._kwargs = {"eps": epsilon, "num_groups": num_groups,
+                        "center": center, "scale": scale}
+        self._num_groups = num_groups
+        self._epsilon = epsilon
+        self.gamma = self.params.get(
+            "gamma", grad_req="write" if scale else "null",
+            shape=(in_channels,), init=gamma_initializer,
+            allow_deferred_init=True)
+        self.beta = self.params.get(
+            "beta", grad_req="write" if center else "null",
+            shape=(in_channels,), init=beta_initializer,
+            allow_deferred_init=True)
+
+    def _shape_from_input(self, x, *args):
+        channels = x.shape[1]
+        self.gamma.shape = (channels,)
+        self.beta.shape = (channels,)
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.GroupNorm(x, gamma, beta, num_groups=self._num_groups,
+                           eps=self._epsilon)
+
+    def __repr__(self):
+        return _norm_repr(self, with_channels=False)
+
+
+def _lambda_function(function, call):
+    """(implementation, name) of a Lambda's `function`: the name of an `nd`
+    function or a callable; `call` turns a name into the implementation."""
+    if isinstance(function, str):
+        if not hasattr(nd, function):
+            raise ValueError("Function name %s is not found in ndarray."
+                             % function)
+        return call(function), function
+    if callable(function):
+        return function, function.__name__
+    raise ValueError("Unrecognized function in lambda: {} of type {}"
+                     .format(function, type(function)))
+
+
+class Lambda(Block):
+    """A function as a Block: `function(*args)`, where `function` is a
+    callable or the name of an `nd` function."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        self._func_impl, self._func_name = _lambda_function(
+            function, lambda name: getattr(nd, name))
+
+    def forward(self, *args):
+        return self._func_impl(*args)
+
+    def __repr__(self):
+        return "{name}({function})".format(name=self.__class__.__name__,
+                                           function=self._func_name)
+
+
+class HybridLambda(HybridBlock):
+    """A function as a HybridBlock: `function(F, x, *args)`, where
+    `function` is a callable or the name of an `F` function."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        self._func, self._func_name = _lambda_function(
+            function, lambda name: (lambda F, *args: getattr(F, name)(*args)))
+
+    def hybrid_forward(self, F, x, *args):
+        return self._func(F, x, *args)
+
+    def __repr__(self):
+        return "{name}({function})".format(name=self.__class__.__name__,
+                                           function=self._func_name)
+
+
+class HybridConcurrent(HybridSequential):
+    """Runs every child on the same input and concatenates the outputs
+    along `axis`."""
+
+    def __init__(self, axis=-1, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self.axis = axis
+
+    def hybrid_forward(self, F, x):
+        return F.concat(*[block(x) for block in self._children.values()],
+                        dim=self.axis)
+
+
+class Concurrent(Sequential):
+    """Runs every child on the same input and concatenates the outputs
+    along `axis`."""
+
+    def __init__(self, axis=-1, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self.axis = axis
+
+    def forward(self, x):
+        return nd.concat(*[block(x) for block in self._children.values()],
+                         dim=self.axis)
+
+
+class Identity(HybridBlock):
+    def hybrid_forward(self, F, x):
+        return x

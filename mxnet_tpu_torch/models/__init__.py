@@ -1,5 +1,5 @@
 """Models of the port."""
-from . import bert, dlrm, factorization
+from . import bert, dlrm, factorization, resnet
 from .bert import BertConfig, bert_forward, bert_init, bert_mlm_loss
 from .convert import (gluon_params_from_jax, opt_state_from_jax,
                       params_from_jax)
@@ -11,4 +11,4 @@ __all__ = ["CONFIGS", "BertConfig", "DLRMConfig", "LlamaConfig", "bert",
            "dlrm_forward", "dlrm_init", "dlrm_loss", "factorization",
            "gluon_params_from_jax",
            "llama_forward", "llama_init", "llama_loss", "opt_state_from_jax",
-           "params_from_jax"]
+           "params_from_jax", "resnet"]

@@ -9,7 +9,9 @@ arrays, so this module needs no JAX. The layout is the same on both sides
 does the same for the state of `mxnet_tpu.parallel.train_step`'s
 optimizers, so that a test can start both trainers from one state.
 `gluon_params_from_jax` sets a Gluon block's parameters from the
-reference block's, by structural name.
+reference block's, by structural name. A transposed convolution's weight
+is flipped on its spatial axes on the way: the reference's correlates with
+the kernel unflipped, the port's is upstream MXNet's (`Deconvolution`).
 """
 from __future__ import annotations
 
@@ -37,8 +39,9 @@ def _leaf(norm, a, dtype, device):
 def params_from_jax(tree, dtype=None, device=None):
     """Nested dicts and lists of numpy arrays -> the same tree of tensors
     on `device` (default cuda): a Llama tree (norm scales ``...norm``), a
-    BERT tree (layernorms ``..._norm/{gamma, beta}``) or a DLRM tree (the
-    lists ``bottom``, ``top`` and ``tables``). `dtype`, when given, casts
+    BERT tree (layernorms ``..._norm/{gamma, beta}``), a DLRM tree (the
+    lists ``bottom``, ``top`` and ``tables``) or a functional ResNet tree
+    (fp32 BatchNorm leaves beside the convolutions: give no `dtype`). `dtype`, when given, casts
     every floating weight except the norm parameters."""
     device = resolve_device(device)
 
@@ -71,16 +74,29 @@ def opt_state_from_jax(tree, dtype=None, device=None):
     return out
 
 
+def _transposed_weights(block, prefix=""):
+    """Structural names of the weights of `block`'s transposed
+    convolutions."""
+    from ..gluon.nn.conv_layers import _ConvTranspose
+    out = {prefix + "weight"} if isinstance(block, _ConvTranspose) else set()
+    for name, child in block._children.items():
+        out |= _transposed_weights(child, prefix + name + ".")
+    return out
+
+
 def gluon_params_from_jax(arrays, net, ctx=None):
     """Set `net`'s parameters from `arrays`: {structural name: numpy
     array}, as the reference block's ``_collect_params_with_prefix()``
     gives them after ``.asnumpy()`` (``features.0.weight``, ...). Each
     parameter keeps its own dtype and goes to `ctx` (default: where it
-    already is, else the current context). Raises ValueError on a missing
-    or extra name or a shape mismatch. Returns `net`."""
+    already is, else the current context); a `Conv*DTranspose` weight is
+    flipped on its spatial axes, so that both blocks compute the same
+    function. Raises ValueError on a missing or extra name or a shape
+    mismatch. Returns `net`."""
     from ..context import cpu
     from ..ndarray import array
     params = net._collect_params_with_prefix()
+    flipped = _transposed_weights(net)
     missing = sorted(set(params) - set(arrays))
     extra = sorted(set(arrays) - set(params))
     if missing or extra:
@@ -93,5 +109,7 @@ def gluon_params_from_jax(arrays, net, ctx=None):
                 s not in (0, d) for s, d in zip(shape, a.shape))):
             raise ValueError("gluon_params_from_jax: %s has shape %s, the "
                              "block's parameter %s" % (name, a.shape, shape))
+        if name in flipped:
+            a = np.ascontiguousarray(np.flip(a, axis=tuple(range(2, a.ndim))))
         params[name]._load_init(array(a, ctx=cpu()), ctx, cast_dtype=True)
     return net
