@@ -321,8 +321,30 @@ Phases (one JSON line each; any failure exits non-zero):
                  peak memory, a profiled step; each Trainer's flat_adam
                  call over its own table at 0 ulps, timed beside its bound;
                  one step of both nets against the CPU.
+36. serve_spec — bench.py::bench_serve's accelerator leg: llama_110m
+                 (bf16, seeded) served with the identity draft at spec_k 4
+                 (512 KV blocks of 16, batch 8, 32 requests in 4 bursts
+                 of 8, ~2/3 sharing a 48-token system prompt, 32 + i mod 5
+                 new tokens, 2 oversized requests shed) and again with no
+                 draft: tokens/s, TTFT/TPOT p50/p99, accept rate, spec
+                 rounds, prefix hit rate, peak memory, a decode round's
+                 host syncs and profile; at fp32 (TF32 off) spec streams
+                 equal plain greedy but at near ties (top-two margin
+                 under 1e-3), the identity draft's rejections only at
+                 near ties, a 2-layer draft (seed 1) that disagrees with
+                 the same output; 8 sampled streams (temperature 0.8,
+                 top_k 50, top_p 0.95): the card's uniforms equal the
+                 CPU's bit for bit and its tokens the CPU's but at near
+                 ties, one B = 8 draw timed beside the former per-row
+                 loop; ReplicaGroup(2, max_restarts 0) under
+                 serve.step:error:3 with greedy and sampled streams: one
+                 replica dies, the other finishes every stream with the
+                 unfaulted tokens, its pool reconciles to 0, each trace
+                 covers >= 95% of its request's wall clock; one server
+                 under serve.step:hang:2 with a 2 s step deadline stalls
+                 once, recovers and finishes.
 
-Seventeen main paths, each with its own expected kernels, counts set to 0 just
+Eighteen main paths, each with its own expected kernels, counts set to 0 just
 before and read just after: serving (phases 3-5: flash_fwd), training
 (phase 7's 6 steps: flash_fwd, flash_bwd_dq, flash_bwd_dkv), ResNet-50
 inference (phase 11's forward: conv_bn_relu, 16 launches, all on the
@@ -352,7 +374,9 @@ trainable argument a batch: 11) and SSD-512 (phase 33's 10 timed steps:
 16 conv_bn_stats, 16 cbr_train_bwd and one multi flat_sgd a step; one
 predict-mode forward: 16 conv_bn_relu) and the model zoo: Inception-v3
 (phase 34's 10 timed steps: one multi flat_sgd a step) and the DCGAN
-(phase 35's 20 timed steps: two multi flat_adam a step). Then the card's name and power limit,
+(phase 35's 20 timed steps: two multi flat_adam a step) and speculative
+serving (phase 36's spec and baseline runs: no kernel; the server's
+windows run the plain paged attention). Then the card's name and power limit,
 the `kernels` line, and as the last line {"ok": true, "device": {...}}.
 Exits non-zero without a CUDA card.
 """
@@ -7522,6 +7546,484 @@ def phase_gluon_dcgan(tmp):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# main path 18: speculative serving, sampling, a replica kill, the watchdog
+# ---------------------------------------------------------------------------
+SPEC_K = 4
+SPEC_REQUESTS, SPEC_BURSTS, SPEC_SYS_LEN = 32, 4, 48
+SPEC_DRAFT_LAYERS, SPEC_DRAFT_SEED = 2, 1
+SAMPLE_KW = {"temperature": 0.8, "top_k": 50, "top_p": 0.95}
+SAMPLE_ROWS = 4                 # positions a sampled stream is checked at
+SAMPLE_NEAR_TIE = 1e-4          # top-two gap of a perturbed row (logits +
+                                # gumbel) under which the card's token may
+                                # differ from the CPU's: a one-ulp log
+KILL_REQUESTS = 16              # the replica-kill and watchdog traffic:
+KILL_SAMPLED = range(1, KILL_REQUESTS, 4)   # every 4th stream sampled
+WATCHDOG_REQUESTS, WATCHDOG_DEADLINE_S = 4, 2.0
+TRACE_ACCOUNTED = 0.95          # a request's spans cover >= 95% of its wall
+
+
+def spec_traffic(cfg):
+    """bench.py::bench_serve's accelerator traffic: 32 requests, ~2/3
+    sharing a 48-token system prompt, max_new_tokens 32 + (i mod 5)."""
+    rng = np.random.RandomState(0)
+    sys_prompt = rng.randint(1, cfg.vocab_size - 1,
+                             size=SPEC_SYS_LEN).tolist()
+    out = []
+    for i in range(SPEC_REQUESTS):
+        tail = rng.randint(1, cfg.vocab_size - 1,
+                           size=rng.randint(2, 8)).tolist()
+        out.append(((sys_prompt + tail) if i % 3 else tail, 32 + i % 5))
+    return out
+
+
+def spec_request(traffic, i, sampled=(), **kw):
+    from mxnet_tpu_torch.serve import Request
+    prompt, n = traffic[i]
+    if i in sampled:
+        kw = dict(SAMPLE_KW, seed=1000 + i, **kw)
+    return Request(prompt, max_new_tokens=n, request_id="r%d" % i, **kw)
+
+
+def spec_server(params, cfg, draft=None, **kw):
+    """bench_serve's server (batch 8, 512 KV blocks of 16, prefix sharing
+    on), with `draft` = (params, cfg) at spec_k 4, warmed up with two
+    throwaway requests before any clock starts."""
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.serve import InferenceServer, Request
+    if draft is not None:
+        kw.update(draft_params=draft[0], draft_cfg=draft[1], spec_k=SPEC_K)
+    server = InferenceServer(params, cfg, max_batch=8, kv_blocks=512,
+                             block_size=16, queue_cap=SPEC_REQUESTS + 4,
+                             device="cuda", **kw).warmup()
+    for seed in (1, 2):
+        server.submit(Request(np.random.RandomState(seed).randint(
+            1, cfg.vocab_size - 1, size=6).tolist(), max_new_tokens=4))
+    server.run()
+    telemetry.reset()
+    return server
+
+
+def serve_bursts(server, traffic, sampled=(), bursts=SPEC_BURSTS):
+    """The traffic in `bursts` bursts, each landing at once and drained
+    before the next, then two requests that can never fit. Returns
+    (handles, wall s, shed, peak bytes)."""
+    from mxnet_tpu_torch.serve import Overloaded, Request
+    per = -(-len(traffic) // bursts)
+    handles = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for w in range(bursts):
+        for i in range(w * per, min(len(traffic), (w + 1) * per)):
+            handles.append(server.submit(spec_request(traffic, i, sampled)))
+        server.run()
+    shed = 0
+    for _ in range(2):
+        try:
+            server.submit(Request([1] * 8, max_new_tokens=10000))
+        except Overloaded as exc:
+            shed += exc.reason == "too_large"
+    server.run()
+    torch.cuda.synchronize()
+    return (handles, time.perf_counter() - t0, shed,
+            torch.cuda.max_memory_allocated())
+
+
+def serve_stats(handles, wall, peak):
+    from mxnet_tpu_torch import telemetry
+    c = telemetry.snapshot()["counters"]
+    ttft = [h.ttft_ms for h in handles]
+    tpot = [ms for h in handles for ms in h.tpot_ms]
+    tokens = sum(len(h.tokens) for h in handles)
+    drafted = c.get("serve.spec.drafted", 0)
+    lookups = c.get("serve.prefix.lookups", 0)
+    return {"tokens": tokens, "wall_s": wall, "tokens_per_s": tokens / wall,
+            "ttft_ms_p50": float(np.percentile(ttft, 50)),
+            "ttft_ms_p99": float(np.percentile(ttft, 99)),
+            "tpot_ms_p50": float(np.percentile(tpot, 50)),
+            "tpot_ms_p99": float(np.percentile(tpot, 99)),
+            "accept_rate": (c.get("serve.spec.accepted", 0) / drafted
+                            if drafted else None),
+            "spec_rounds": c.get("serve.spec.rounds", 0),
+            "spec_drafted": drafted,
+            "spec_accepted": c.get("serve.spec.accepted", 0),
+            "spec_rejected": c.get("serve.spec.rejected", 0),
+            "spec_discarded": c.get("serve.spec.discarded", 0),
+            "decode_steps": c.get("serve.decode_steps", 0),
+            "prefix_hit_rate": (c.get("serve.prefix.hits", 0) / lookups
+                                if lookups else None),
+            "peak_memory_bytes": peak}
+
+
+def decode_round(server, traffic):
+    """One decode round with all 8 slots decoding: its host syncs (torch's
+    sync debug mode) and a profiled round (device time, idle share, top
+    kernels). The streams are left unfinished; the server is dropped."""
+    from mxnet_tpu_torch.serve import Request
+    for prompt, _ in traffic[:8]:
+        server.submit(Request(prompt, max_new_tokens=256))
+    while any(s is None or s.filling for s in server._slots):
+        server.step()
+    _, syncs = count_syncs(server.step)
+    return syncs, profile_window(server.step)
+
+
+def margins(params, cfg, traffic, outs, sampled=()):
+    """Per stream, the top-two margin at each emitted position of the
+    fp32 llama_forward logits over prompt + output (greedy rows), or of
+    the perturbed row (filtered logits + gumbel noise of the stream's
+    seed and position) for sampled streams."""
+    from mxnet_tpu_torch.models.llama import llama_forward
+    from mxnet_tpu_torch.serve.sampling import _filtered, _uniforms
+    out = []
+    for i, ((prompt, _), toks) in enumerate(zip(traffic, outs)):
+        ctx = torch.tensor([prompt + toks[:-1]], device="cuda")
+        logits = llama_forward(params, ctx, cfg)[0, len(prompt) - 1:]
+        if i in sampled:
+            n = logits.shape[0]
+            masked = _filtered(
+                logits, torch.full((n,), SAMPLE_KW["temperature"],
+                                   device="cuda"),
+                torch.full((n,), SAMPLE_KW["top_k"], device="cuda"),
+                torch.full((n,), SAMPLE_KW["top_p"], device="cuda"))
+            u = _uniforms(np.full(n, 1000 + i),
+                          len(prompt) + np.arange(n), logits.shape[1],
+                          "cuda")
+            logits = masked - torch.log(-torch.log(u))
+        top2 = logits.topk(2, dim=-1).values
+        out.append((top2[:, 0] - top2[:, 1]).tolist())
+    return out
+
+
+def same_streams(want, got, margin, phase, what):
+    """Each stream of `got` has `want`'s length and equals it up to a first
+    divergence at a near tie (margin under MARGIN). Returns the number of
+    streams that diverged."""
+    near_ties = 0
+    for s, (a, b, m) in enumerate(zip(want, got, margin)):
+        check(len(a) == len(b), phase, "%s: stream %d has %d tokens, the "
+              "reference %d" % (what, s, len(b), len(a)))
+        j = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is not None:
+            check(m[j] < MARGIN, phase, "%s: stream %d token %d: %d != %d "
+                  "(margin %.3g)" % (what, s, j, b[j], a[j], m[j]))
+            near_ties += 1
+    return near_ties
+
+
+def per_row_sample(logits, seeds, positions, temperature, top_k, top_p):
+    """The port's former draw, kept here as the timing yardstick: one
+    torch.Generator per sampled row, seeded by splitmix64 of (seed,
+    position), each row drawn in a host loop."""
+    from mxnet_tpu_torch.serve.sampling import _filtered
+    mask = (1 << 64) - 1
+
+    def draw_seed(seed, position):
+        z = (int(seed) & 0xffffffff) << 32 | (int(position) & 0xffffffff)
+        z = (z + 0x9E3779B97F4A7C15) & mask
+        z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & mask
+        z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & mask
+        return (z ^ (z >> 31)) & mask
+
+    dev = logits.device
+    greedy = torch.argmax(logits, dim=-1)
+    temperature = torch.as_tensor(temperature, dtype=torch.float32)
+    rows = torch.nonzero(temperature > 0).flatten().tolist()
+    seeds = torch.as_tensor(seeds).tolist()
+    positions = torch.as_tensor(positions).tolist()
+    masked = _filtered(logits, temperature.to(dev),
+                       torch.as_tensor(top_k, dtype=torch.long, device=dev),
+                       torch.as_tensor(top_p, dtype=torch.float32,
+                                       device=dev))
+    out = greedy.clone()
+    tiny = torch.finfo(torch.float32).tiny
+    for r in rows:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(draw_seed(seeds[r], positions[r]))
+        u = torch.rand(logits.shape[1], generator=gen, device=dev)
+        out[r] = torch.argmax(masked[r] - torch.log(-torch.log(
+            u.clamp(min=tiny))))
+    return out
+
+
+def sampling_checks(params, cfg, traffic, card):
+    """8 sampled streams served (temperature 0.8, top_k 50, top_p 0.95);
+    at the first SAMPLE_ROWS positions of each, the card's uniforms equal
+    the CPU's bit for bit and its tokens the CPU's except at near ties;
+    one B = 8 sample_tokens call timed beside the former per-row loop."""
+    from mxnet_tpu_torch.models.llama import llama_forward
+    from mxnet_tpu_torch.serve import sample_tokens
+    from mxnet_tpu_torch.serve.sampling import _filtered, _uniforms
+    phase = "serve_spec_sampling"
+    server = spec_server(params, cfg)
+    handles = [server.submit(spec_request(traffic, i, range(8)))
+               for i in range(8)]
+    server.run()
+    outs = [h.result(timeout=0) for h in handles]
+    del server
+    rows, seeds, positions = [], [], []
+    for i, ((prompt, _), toks) in enumerate(zip(traffic, outs)):
+        ctx = torch.tensor([prompt + toks[:SAMPLE_ROWS - 1]], device="cuda")
+        rows.append(llama_forward(params, ctx, cfg)[0, len(prompt) - 1:])
+        seeds += [1000 + i] * SAMPLE_ROWS
+        positions += list(range(len(prompt), len(prompt) + SAMPLE_ROWS))
+    logits = torch.cat(rows).float()
+    n, V = logits.shape
+    seeds, positions = np.asarray(seeds), np.asarray(positions)
+    u_card = _uniforms(seeds, positions, V, "cuda").cpu().numpy()
+    u_cpu = _uniforms(seeds, positions, V, "cpu").numpy()
+    bits_equal = bool(np.array_equal(u_card.view(np.uint32),
+                                     u_cpu.view(np.uint32)))
+    vec = (np.full(n, SAMPLE_KW["temperature"]), np.full(n,
+                                                         SAMPLE_KW["top_k"]),
+           np.full(n, SAMPLE_KW["top_p"]))
+    tok_card = sample_tokens(logits, seeds, positions, *vec).cpu()
+    host = logits.cpu()
+    tok_cpu = sample_tokens(host, seeds, positions, *vec)
+    perturbed = _filtered(
+        host, torch.tensor(vec[0], dtype=torch.float32),
+        torch.tensor(vec[1]), torch.tensor(vec[2], dtype=torch.float32)) \
+        - torch.log(-torch.log(torch.from_numpy(u_cpu)))
+    top2 = perturbed.topk(2, dim=-1).values
+    gap = (top2[:, 0] - top2[:, 1]).numpy()
+    differ = (tok_card != tok_cpu).numpy()
+    # one B = 8 call (each stream's first row), new draw and former loop
+    first = torch.arange(0, n, SAMPLE_ROWS, device="cuda")
+    b8 = (logits[first], seeds[::SAMPLE_ROWS], positions[::SAMPLE_ROWS],
+          *(v[:8] for v in vec))
+    batched_ms = host_ms(lambda: sample_tokens(*b8).cpu(), calls=20)
+    loop_ms = host_ms(lambda: per_row_sample(*b8).cpu(), calls=20)
+    rec = {"phase": phase, "streams": len(outs),
+           "tokens": sum(len(o) for o in outs), "rows_checked": n,
+           "vocab": V, "uniform_bits_equal": bits_equal,
+           "token_mismatches": int(differ.sum()),
+           "token_mismatches_at_near_ties": int((differ
+                                                 & (gap < SAMPLE_NEAR_TIE))
+                                                .sum()),
+           "sample_tokens_b8_ms": batched_ms,
+           "former_per_row_loop_b8_ms": loop_ms, "card": card}
+    emit(rec)
+    check(bits_equal, phase, "the card's uniforms differ from the CPU's")
+    check(not (differ & (gap >= SAMPLE_NEAR_TIE)).any(), phase,
+          "card and CPU tokens differ away from a near tie: %s"
+          % np.flatnonzero(differ & (gap >= SAMPLE_NEAR_TIE)).tolist())
+    check(all(len(o) == traffic[i][1] for i, o in enumerate(outs)), phase,
+          "a sampled stream fell short")
+
+
+def replica_kill(p32, cfg32, traffic, baseline, margin, card):
+    """ReplicaGroup(replicas=2, max_restarts=0) on the fp32 weights under
+    serve.step:error:3, greedy and sampled streams mixed, all submitted
+    before the replicas start (so the kill lands mid-stream): one replica
+    dies, the survivor finishes every stream, the outputs equal the
+    unfaulted run's, the survivor's pool reconciles to 0, and each
+    request's trace accounts for >= 95% of its wall clock."""
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.resilience import faults
+    from mxnet_tpu_torch.serve import ReplicaGroup
+    phase = "serve_spec_replica_kill"
+    telemetry.reset()
+    group = ReplicaGroup(p32, cfg32, replicas=2, max_restarts=0,
+                         max_batch=8, kv_blocks=512, block_size=16,
+                         queue_cap=SPEC_REQUESTS, device="cuda").warmup()
+    t0 = time.perf_counter()
+    with faults.inject("serve.step:error:3"):
+        handles = [group.submit(spec_request(traffic, i, KILL_SAMPLED))
+                   for i in range(KILL_REQUESTS)]
+        group.start()
+        outs = [h.result(timeout=300) for h in handles]
+        drained = group.drain(timeout=60)
+    stopped = group.stop(timeout=60)
+    wall = time.perf_counter() - t0
+    c = telemetry.snapshot()["counters"]
+    traces = {t["request_id"]: t for t in telemetry.request_traces()}
+    accounted = [traces[h.id]["accounted_ms"] / traces[h.id]["wall_ms"]
+                 for h in handles]
+    survivors = [s for s in group.servers if not s.dead]
+    rec = {"phase": phase, "requests": len(handles),
+           "sampled": len(KILL_SAMPLED), "wall_s": wall,
+           "alive_replicas": group.alive_replicas,
+           "recoveries": c.get("serve.recoveries", 0),
+           "requeued_streams": c.get("serve.requeued_streams", 0),
+           "replica_deaths": c.get("serve.replica_deaths", 0),
+           "requeues_per_stream": [h.requeues for h in handles],
+           "replicas_per_stream": [len(set(traces[h.id]["replicas"]))
+                                   for h in handles],
+           "trace_accounted_min": min(accounted), "card": card}
+    near = same_streams(baseline, outs, margin, phase, "replica kill")
+    rec["near_tie_divergences"] = near
+    rec["survivor_reconcile"] = (survivors[0].pool.reconcile()
+                                 if survivors else None)
+    emit(rec)
+    check(drained and stopped, phase, "the group did not drain or stop")
+    check(group.alive_replicas == 1 and rec["replica_deaths"] == 1, phase,
+          "expected one dead replica and one survivor")
+    check(rec["recoveries"] >= 1 and rec["requeued_streams"] >= 1, phase,
+          "the kill drained no in-flight stream")
+    check(rec["survivor_reconcile"] == 0, phase,
+          "the survivor's pool needed reconciling")
+    check(min(accounted) >= TRACE_ACCOUNTED, phase,
+          "a request trace accounts for %.3f of its wall clock"
+          % min(accounted))
+    check(all(traces[h.id]["outcome"] == "completed" for h in handles),
+          phase, "a stream did not complete")
+
+
+def watchdog_drill(p32, cfg32, traffic, baseline, margin, card):
+    """One fp32 server under serve.step:hang:2 with step_deadline_s 2: the
+    stall becomes a StallError, then a recovery, and the streams finish
+    with the unfaulted run's tokens."""
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.resilience import faults
+    phase = "serve_spec_watchdog"
+    server = spec_server(p32, cfg32, step_deadline_s=WATCHDOG_DEADLINE_S)
+    handles = [server.submit(spec_request(traffic, i, KILL_SAMPLED))
+               for i in range(WATCHDOG_REQUESTS)]
+    t0 = time.perf_counter()
+    with faults.inject("serve.step:hang:2"):
+        server.run()
+    wall = time.perf_counter() - t0
+    outs = [h.result(timeout=0) for h in handles]
+    c = telemetry.snapshot()["counters"]
+    rec = {"phase": phase, "requests": len(handles), "wall_s": wall,
+           "deadline_s": WATCHDOG_DEADLINE_S,
+           "stalls": c.get("resilience.stalls.serve.step", 0),
+           "recoveries": c.get("serve.recoveries", 0),
+           "requeued_streams": c.get("serve.requeued_streams", 0),
+           "card": card}
+    rec["near_tie_divergences"] = same_streams(
+        baseline[:WATCHDOG_REQUESTS], outs, margin, phase, "watchdog")
+    emit(rec)
+    check(rec["stalls"] == 1 and rec["recoveries"] == 1, phase,
+          "the hang did not become one stall and one recovery")
+    check(rec["requeued_streams"] >= 1, phase, "the stall drained nothing")
+
+
+def phase_serve_spec():
+    """Main path 18: bench.py::bench_serve's accelerator leg through the
+    port. llama_110m bf16 (seeded), the identity draft at spec_k 4, 512 KV
+    blocks of 16, batch 8, 32 requests in 4 bursts of 8 (~2/3 sharing a
+    48-token system prompt, max_new_tokens 32 + i mod 5) and two
+    oversized requests shed; the same traffic with no draft as the
+    baseline. Counts reset just before the spec run and read just after
+    the baseline: the server's windows run the plain paged attention, so
+    no kernel launches. Then a decode round's host syncs and profile, the
+    fp32 checks (spec = plain greedy, the identity draft's accept rate,
+    a 2-layer draft that disagrees), sampling on the card against the
+    CPU, a replica kill and the watchdog drill. Returns the launches."""
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.models.llama import CONFIGS, llama_init
+    from mxnet_tpu_torch.ops import launch_counts, reset_launch_counts
+    phase = "serve_spec"
+    card = card_name_and_limit()
+    cfg = CONFIGS["llama_110m"]
+    params = llama_init(torch.Generator(device="cuda").manual_seed(0), cfg)
+    traffic = spec_traffic(cfg)
+    spec = spec_server(params, cfg, draft=(params, cfg))
+    plain = spec_server(params, cfg)
+    reset_launch_counts()
+    spec_h, spec_wall, spec_shed, spec_peak = serve_bursts(spec, traffic)
+    spec_rec = serve_stats(spec_h, spec_wall, spec_peak)
+    telemetry.reset()
+    plain_h, plain_wall, plain_shed, plain_peak = serve_bursts(plain,
+                                                              traffic)
+    launches = launch_counts()
+    plain_rec = serve_stats(plain_h, plain_wall, plain_peak)
+    spec_outs = [h.result(timeout=0) for h in spec_h]
+    plain_outs = [h.result(timeout=0) for h in plain_h]
+    spec_syncs, spec_prof = decode_round(spec, traffic)
+    plain_syncs, plain_prof = decode_round(plain, traffic)
+    del spec, plain
+    torch.cuda.empty_cache()
+    emit({"phase": phase, "spec_k": SPEC_K, "requests": len(traffic),
+          "bursts": SPEC_BURSTS, "spec": spec_rec, "baseline": plain_rec,
+          "speedup_tokens_per_s": (spec_rec["tokens_per_s"]
+                                   / plain_rec["tokens_per_s"]),
+          "shed": [spec_shed, plain_shed],
+          "bf16_streams_differing": sum(a != b for a, b in
+                                        zip(spec_outs, plain_outs)),
+          "host_syncs_per_round": {"spec": spec_syncs,
+                                   "plain": plain_syncs},
+          "profile_round": {"spec": spec_prof, "plain": plain_prof},
+          "launches": launches, "card": card})
+    for rec, outs in ((spec_rec, spec_outs), (plain_rec, plain_outs)):
+        check(all(len(o) == n for o, (_, n) in zip(outs, traffic)), phase,
+              "a request fell short")
+    check(spec_shed == plain_shed == 2, phase,
+          "oversized requests were not shed")
+    check(spec_rec["spec_rounds"] > 0 and plain_rec["spec_rounds"] == 0,
+          phase, "spec rounds %d / %d" % (spec_rec["spec_rounds"],
+                                          plain_rec["spec_rounds"]))
+    check(spec_prof["device_ms"] > 0, phase,
+          "the profiler saw no device time")
+
+    # fp32 (TF32 off): spec equals plain greedy, the identity draft's
+    # accept rate is 1 but at near ties, a 2-layer draft that disagrees
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    p32 = to_fp32(params)
+    fp32 = {}
+    for label, draft in (("plain", None), ("identity", (p32, cfg32))):
+        server = spec_server(p32, cfg32, draft=draft)
+        hs, wall, _, peak = serve_bursts(server, traffic)
+        fp32[label] = ([h.result(timeout=0) for h in hs],
+                       serve_stats(hs, wall, peak))
+        del server
+    dcfg = dataclasses.replace(cfg, n_layers=SPEC_DRAFT_LAYERS)
+    dparams = to_fp32(llama_init(torch.Generator(device="cuda").manual_seed(
+        SPEC_DRAFT_SEED), dcfg))
+    server = spec_server(p32, cfg32, draft=(
+        dparams, dataclasses.replace(dcfg, dtype=torch.float32)))
+    hs, wall, _, peak = serve_bursts(server, traffic)
+    fp32["draft2"] = ([h.result(timeout=0) for h in hs],
+                      serve_stats(hs, wall, peak))
+    del server, dparams
+    torch.cuda.empty_cache()
+    base = fp32["plain"][0]
+    margin = margins(p32, cfg32, traffic, base)
+    near_positions = sum(m < MARGIN for ms in margin for m in ms)
+    ident, d2 = fp32["identity"][1], fp32["draft2"][1]
+    rec = {"phase": "serve_spec_fp32", "tokens": sum(map(len, base)),
+           "near_tie_positions": near_positions,
+           "identity_near_tie_divergences": same_streams(
+               base, fp32["identity"][0], margin, "serve_spec_fp32",
+               "identity draft"),
+           "draft2_near_tie_divergences": same_streams(
+               base, fp32["draft2"][0], margin, "serve_spec_fp32",
+               "2-layer draft"),
+           "identity": ident, "draft2": d2, "plain": fp32["plain"][1],
+           "bf16_accept_rate": spec_rec["accept_rate"], "card": card}
+    emit(rec)
+    for label, st in (("identity", ident), ("draft2", d2)):
+        check(st["spec_drafted"] == st["spec_accepted"]
+              + st["spec_rejected"], "serve_spec_fp32",
+              "%s: drafted != accepted + rejected" % label)
+    check(ident["spec_rejected"] <= SPEC_K * near_positions,
+          "serve_spec_fp32", "identity draft rejected %d drafts, %d near "
+          "ties" % (ident["spec_rejected"], near_positions))
+    check(d2["accept_rate"] < 0.5, "serve_spec_fp32",
+          "the 2-layer draft agreed at %.3f" % d2["accept_rate"])
+
+    sampling_checks(params, cfg, traffic, card)
+    torch.cuda.empty_cache()
+
+    # the replica kill and the watchdog against an unfaulted fp32 run of
+    # the same mixed greedy/sampled traffic
+    kill_traffic = traffic[:KILL_REQUESTS]
+    server = spec_server(p32, cfg32)
+    hs = [server.submit(spec_request(kill_traffic, i, KILL_SAMPLED))
+          for i in range(KILL_REQUESTS)]
+    server.run()
+    baseline = [h.result(timeout=0) for h in hs]
+    del server
+    kill_margin = margins(p32, cfg32, kill_traffic, baseline, KILL_SAMPLED)
+    replica_kill(p32, cfg32, kill_traffic, baseline, kill_margin, card)
+    watchdog_drill(p32, cfg32, kill_traffic, baseline, kill_margin, card)
+    del params, p32
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -7686,6 +8188,13 @@ def main():
     with tempfile.TemporaryDirectory(prefix="chip_smoke_dcgan_") as tmp:
         dcgan_launches = phase_gluon_dcgan(tmp)
     check_path(dcgan_launches, ("flat_adam",), "main_path_gluon_dcgan")
+    torch.cuda.empty_cache()
+
+    # main path 18: speculative serving, sampling, a replica kill and the
+    # watchdog (counts reset inside, read right after the spec and
+    # baseline runs: no kernel)
+    spec_launches = phase_serve_spec()
+    check_path(spec_launches, (), "main_path_serve_spec")
 
     print(card_name_and_limit(), flush=True)
     kernels = []
@@ -7701,7 +8210,7 @@ def main():
             + module_launches[name] + word_lm_launches[name] \
             + bucketing_launches[name] + ssd_launches[name] \
             + ssd_infer_launches[name] + inception_launches[name] \
-            + dcgan_launches[name]
+            + dcgan_launches[name] + spec_launches[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": "mxnet_tpu_torch/" + source, "replaces": replaces,

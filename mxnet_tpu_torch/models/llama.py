@@ -36,7 +36,7 @@ from ..parallel.flash_attention import (flash_attention, paged_attention,
 __all__ = ["LlamaConfig", "CONFIGS", "llama_init", "rms_norm", "rope_freqs",
            "apply_rope", "llama_forward", "llama_loss", "init_kv_cache",
            "llama_decode_step", "init_kv_pools", "llama_prefill_paged",
-           "llama_decode_paged", "llama_chunk_paged"]
+           "llama_decode_paged", "llama_chunk_paged", "llama_draft_loop"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -335,8 +335,9 @@ def llama_prefill_paged(params, pools, tokens, length, block_table,
 
 @torch.no_grad()
 def llama_chunk_paged(params, pools, tokens, positions, block_tables,
-                      cfg: LlamaConfig, block_size):
-    """Multi-row chunk forward over the paged pool (chunked prefill).
+                      cfg: LlamaConfig, block_size, logits_at="last"):
+    """Multi-row chunk forward over the paged pool: the one program shape
+    behind chunked prefill and speculative verify.
 
     Row b carries C consecutive context tokens of one stream: tokens[b, c]
     at absolute position positions[b, c] (-1 = padding: no write, output
@@ -345,8 +346,9 @@ def llama_chunk_paged(params, pools, tokens, positions, block_tables,
     earlier tokens of this chunk.
 
     tokens, positions (B, C) int; block_tables (B, nb) int. Returns
-    (logits (B, vocab) fp32 at each row's last valid position, pools
-    updated in place)."""
+    (logits, pools updated in place): logits_at="last" projects each
+    row's last valid position ((B, vocab) fp32, the prefill read); "all"
+    projects every position ((B, C, vocab), the verify read)."""
     emb = params["tok_embeddings"]
     tokens = _index(tokens, emb.device)
     positions = _index(positions, emb.device)
@@ -373,6 +375,8 @@ def llama_chunk_paged(params, pools, tokens, positions, block_tables,
                                   block_tables, lengths)
         x = _attn_out(lp, x, o)
         x = _mlp(lp, x, cfg)
+    if logits_at == "all":
+        return _logits(params, x, cfg), pools
     # fully padded rows read column 0, which the caller never uses
     last = (active.sum(dim=1) - 1).clamp(min=0)
     x = x[torch.arange(B, device=x.device), last][:, None]
@@ -411,3 +415,29 @@ def llama_decode_paged(params, pools, tokens, positions, block_tables,
         x = _attn_out(lp, x, o)
         x = _mlp(lp, x, cfg)
     return _logits(params, x, cfg)[:, 0], pools
+
+
+@torch.no_grad()
+def llama_draft_loop(params, pools, tokens, positions, block_tables,
+                     cfg: LlamaConfig, block_size, k):
+    """k greedy decode steps: the speculative-decoding draft. Step i feeds
+    step i-1's argmax and writes the draft model's KV as it goes
+    (position -1 = inactive slot throughout); one extra write-only pass
+    lands the LAST draft's KV too, or a fully accepted round would leave a
+    hole the next round's draft attends through.
+
+    tokens/positions (B,) int, block_tables (B, nb) int. Returns (draft
+    tokens (B, k) int64, pools updated in place)."""
+    emb = params["tok_embeddings"]
+    positions = _index(positions, emb.device)
+    tok, pos = _index(tokens, emb.device), positions
+    drafted = []
+    for _ in range(int(k)):
+        logits, pools = llama_decode_paged(params, pools, tok, pos,
+                                           block_tables, cfg, block_size)
+        tok = torch.argmax(logits, dim=-1)
+        drafted.append(tok)
+        pos = torch.where(positions >= 0, pos + 1, positions)
+    llama_decode_paged(params, pools, tok, pos, block_tables, cfg,
+                       block_size)
+    return torch.stack(drafted, dim=1), pools

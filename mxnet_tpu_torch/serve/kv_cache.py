@@ -24,10 +24,17 @@ asked for or raise `Overloaded(reason="kv_exhausted")` having reserved
 nothing. Freed blocks are not zeroed: positions past a stream's length are
 masked out of every gather.
 
-Telemetry: ``serve.kv.blocks_in_use`` gauge, ``serve.kv.allocs`` /
-``serve.kv.freed_blocks`` / ``serve.kv.exhausted`` counters, and
+Telemetry: ``serve.kv.blocks_in_use`` gauge (``serve.kv.
+draft_blocks_in_use`` for a draft model's pool), ``serve.kv.allocs`` /
+``serve.kv.freed_blocks`` / ``serve.kv.exhausted`` /
+``serve.kv.reconciled_blocks`` / ``serve.kv.storage_resets`` counters,
 ``serve.prefix.lookups`` / ``hits`` / ``blocks_shared`` / ``cow`` /
-``inserted`` / ``evictions`` with the ``serve.prefix.blocks`` gauge.
+``inserted`` / ``evictions`` with the ``serve.prefix.blocks`` gauge, and
+the byte story: ``serve.kv.bytes`` / ``serve.kv.draft_bytes`` (blocks in
+use x bytes a block) and ``serve.prefix.bytes`` gauges. The pool's
+storage is accounted to the memory ledger (scope ``kv_pool``, or
+``kv_draft``; prefix bytes as the ``prefix_cache`` overlay), and an
+`Overloaded(kv_exhausted)` carries the ledger's breakdown.
 """
 from __future__ import annotations
 
@@ -38,6 +45,7 @@ import numpy as np
 
 from .. import telemetry as _telem
 from ..base import resolve_device
+from ..telemetry import ledger as _ledger
 from .errors import Overloaded
 
 __all__ = ["KVBlockPool", "default_num_blocks", "default_block_size",
@@ -82,10 +90,12 @@ class KVBlockPool:
     """Physical paged KV pool + refcounted block accounting for one
     serving replica: the per-layer pool tensors (`models.llama.
     init_kv_pools` layout, on `device`, cuda by default), the stream ->
-    block-table map, per-block refcounts and the prefix index."""
+    block-table map, per-block refcounts and the prefix index. `scope`
+    names the pool in the memory ledger: ``kv_pool`` for the target
+    model, ``kv_draft`` for a draft model's mirror."""
 
     def __init__(self, cfg, num_blocks=None, block_size=None,
-                 prefix_sharing=None, device=None):
+                 prefix_sharing=None, device=None, scope="kv_pool"):
         from ..models.llama import init_kv_pools
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -93,6 +103,15 @@ class KVBlockPool:
         self.block_size = int(block_size or default_block_size())
         self.pools = init_kv_pools(cfg, self.num_blocks, self.block_size,
                                    device=self.device)
+        self.scope = str(scope)
+        draft = self.scope == "kv_draft"
+        self._blocks_gauge = ("serve.kv.draft_blocks_in_use" if draft
+                              else "serve.kv.blocks_in_use")
+        self._bytes_gauge = ("serve.kv.draft_bytes" if draft
+                             else "serve.kv.bytes")
+        self.storage_bytes = _ledger.tree_nbytes(self.pools)
+        self.bytes_per_block = self.storage_bytes // self.num_blocks
+        _ledger.account(self.scope, self.storage_bytes)
         # LIFO free-list: a just-freed block is reused first
         self._free = list(range(self.num_blocks - 1, -1, -1))
         self._tables = {}           # stream_id -> [block ids]
@@ -128,6 +147,18 @@ class KVBlockPool:
 
     def _in_use_locked(self):
         return self.num_blocks - len(self._free)
+
+    def _set_block_gauges(self, in_use):
+        _telem.set_gauge(self._blocks_gauge, in_use)
+        _telem.set_gauge(self._bytes_gauge, in_use * self.bytes_per_block)
+
+    def _set_prefix_gauges(self, n_blocks):
+        """The prefix gauges and the ledger's ``prefix_cache`` overlay
+        (these bytes live inside the pool's storage)."""
+        _telem.set_gauge("serve.prefix.blocks", n_blocks)
+        _telem.set_gauge("serve.prefix.bytes",
+                         n_blocks * self.bytes_per_block)
+        _ledger.account("prefix_cache", n_blocks * self.bytes_per_block)
 
     # -------------------------------------------------------- prefix match
     def _children_of(self, parent_key):
@@ -256,12 +287,15 @@ class KVBlockPool:
             if max(grow, 0) > len(self._free):
                 free = len(self._free)
                 _telem.inc("serve.kv.exhausted")
+                brk = _ledger.breakdown()
                 raise Overloaded(
                     "KV pool exhausted: stream %r needs %d more block(s) "
-                    "(%d tokens) but only %d of %d are free"
-                    % (stream_id, grow, n_tokens, free, self.num_blocks),
+                    "(%d tokens) but only %d of %d are free%s"
+                    % (stream_id, grow, n_tokens, free, self.num_blocks,
+                       ("; memory ledger: " + brk) if brk else ""),
                     reason="kv_exhausted", kv_free_blocks=free,
-                    kv_needed_blocks=grow)
+                    kv_needed_blocks=grow,
+                    ledger_breakdown=_ledger.scopes() or None)
             if grow <= 0 and not shared:
                 return list(table), 0, None
             for b in shared:
@@ -282,7 +316,7 @@ class KVBlockPool:
             _telem.inc("serve.prefix.blocks_shared", shared_n)
         if cow is not None:
             _telem.inc("serve.prefix.cow")
-        _telem.set_gauge("serve.kv.blocks_in_use", in_use)
+        self._set_block_gauges(in_use)
         return list(table), fill_start, cow
 
     def free(self, stream_id):
@@ -296,7 +330,7 @@ class KVBlockPool:
             in_use = self._in_use_locked()
         if freed:
             _telem.inc("serve.kv.freed_blocks", freed)
-        _telem.set_gauge("serve.kv.blocks_in_use", in_use)
+        self._set_block_gauges(in_use)
         return freed
 
     # -------------------------------------------------------- prefix index
@@ -326,12 +360,14 @@ class KVBlockPool:
             n_blocks = len(self._nodes)
         if inserted:
             _telem.inc("serve.prefix.inserted", inserted)
-        _telem.set_gauge("serve.prefix.blocks", n_blocks)
+        self._set_prefix_gauges(n_blocks)
         return inserted
 
     def clear_prefix_cache(self):
-        """Drop every cached prefix and its index references. Returns the
-        number of blocks that went back to the free-list."""
+        """Drop every cached prefix and its index references (recovery
+        calls it when the storage was re-made: every cached block's
+        content is gone). Returns the number of blocks that went back to
+        the free-list."""
         with self._lock:
             freed = sum(self._unref_locked(n.block)
                         for n in self._nodes.values())
@@ -340,8 +376,8 @@ class KVBlockPool:
             in_use = self._in_use_locked()
         if freed:
             _telem.inc("serve.kv.freed_blocks", freed)
-        _telem.set_gauge("serve.prefix.blocks", 0)
-        _telem.set_gauge("serve.kv.blocks_in_use", in_use)
+        self._set_prefix_gauges(0)
+        self._set_block_gauges(in_use)
         return freed
 
     def table(self, stream_id, width):
@@ -359,8 +395,12 @@ class KVBlockPool:
 
     def reconcile(self):
         """Rebuild refcounts and the free-list as the exact complement of
-        every live owner (stream tables + prefix index). Returns the net
-        number of blocks recovered: 0 when the accounting was exact."""
+        every live owner (stream tables + prefix index). Recovery calls it
+        because an asynchronous fault (the watchdog's StallError lands at
+        any bytecode) can tear an alloc or a free: blocks in neither a
+        table nor the list would leak, a torn refcount would free a shared
+        block under a live sibling. Returns the net number of blocks
+        recovered: 0 when the accounting was exact."""
         with self._lock:
             refs = {}
             for table in self._tables.values():
@@ -372,4 +412,29 @@ class KVBlockPool:
             self._refs = refs
             self._free = [b for b in range(self.num_blocks - 1, -1, -1)
                           if b not in refs]
-            return len(self._free) - before
+            recovered = len(self._free) - before
+            in_use = self._in_use_locked()
+        if recovered:
+            _telem.inc("serve.kv.reconciled_blocks", recovered)
+            self._set_block_gauges(in_use)
+        return recovered
+
+    def ensure_storage(self):
+        """Re-make the pool tensors if they were dropped (a layer missing,
+        or a tensor whose storage was released). The programs write the
+        pool in place and nothing is donated, so a fault cannot do this by
+        itself; recovery checks anyway, since every stream re-prefills and
+        the pool only has to exist. Returns True when the storage was
+        re-made: the caller then clears the prefix cache (the new tensors
+        are zeros)."""
+        from ..models.llama import init_kv_pools
+        layers = self.pools or {}
+        if len(layers) == self.cfg.n_layers and all(
+                t.untyped_storage().nbytes() >= t.nbytes
+                for layer in layers.values() for t in layer.values()):
+            return False
+        self.pools = init_kv_pools(self.cfg, self.num_blocks,
+                                   self.block_size, device=self.device)
+        _ledger.account(self.scope, _ledger.tree_nbytes(self.pools))
+        _telem.inc("serve.kv.storage_resets")
+        return True

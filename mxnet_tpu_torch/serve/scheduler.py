@@ -1,4 +1,5 @@
-"""Continuous-batching scheduler: admission, chunked prefill, decode.
+"""Continuous-batching scheduler: admission, chunked prefill, decode, spec,
+and drain recovery.
 
 The port of `mxnet_tpu.serve.scheduler`. One replica is one
 `InferenceServer`, driving `ServePrograms` over the paged pool
@@ -14,24 +15,45 @@ The port of `mxnet_tpu.serve.scheduler`. One replica is one
 * **prefix sharing** — admission looks the context up in the pool's
   prefix index: matched full blocks join the table by refcount and
   prefill skips them (copy-on-write at the divergence block);
+* **speculative decoding** — with a draft model, greedy streams decode by
+  draft-k / verify rounds (``serve.spec.*`` counters): the draft proposes
+  ``spec_k`` tokens, the target verifies them in one chunk-shaped pass,
+  and only tokens the target's own argmax agrees with are emitted, so the
+  output equals plain greedy decoding;
 * **sampling** — per-request temperature/top-k/top-p, draws keyed on
-  (stream seed, position);
+  (stream seed, position), so a recovered stream replays the same tokens;
+  sampled streams take the plain decode path;
 * **admission control** — a full queue answers `Overloaded(queue_full)`;
   a request whose worst-case context can never fit is shed at submit
   (`Overloaded(too_large)`); a transiently unfit one waits in the queue;
   the worst-case context is reserved at admission, so an admitted stream
   always finishes;
-* **deadlines** — checked in the queue and after every token
-  (`DeadlineExceeded` carries the partial output).
-
-Not ported yet: speculative decoding, replica groups, the fault plan,
-watchdog and retry/drain recovery, per-request traces.
+* **deadlines and retry budgets** — deadlines are checked in the queue and
+  after every token (`DeadlineExceeded` carries the partial output and
+  the request's trace); each request's replica-fault budget defaults to
+  `RetryPolicy().max_attempts` (``MXNET_TPU_RETRIES``);
+* **fault sites** — ``serve.admit`` (submission) and ``serve.step`` (top of
+  every step) are `resilience.faults` sites; the step body runs under the
+  hang watchdog (``MXNET_TPU_SERVE_STEP_DEADLINE_S``, else the global
+  step deadline), so a hung step becomes a recoverable `StallError`;
+* **drain and resume** — a fault drains the replica: every in-flight
+  stream's blocks are freed (a shared prefix block under a live sibling
+  survives) and the stream re-enters the queue at the front, budget
+  decremented, to resume here or on another replica by re-prefilling its
+  prompt + emitted tokens. Deterministic decoding makes the resumed
+  output identical: no token lost, none duplicated.
 
 Telemetry: ``serve.requests/admitted/completed/shed[.reason]/tokens/
-prefills/prefill_chunks/prefill_chunk_tokens/decode_steps`` counters,
-``serve.queue_depth`` / ``serve.batch_occupancy`` / ``serve.kv.*`` /
-``serve.tokens_per_s`` gauges, ``serve.ttft_ms`` / ``serve.tpot_ms`` /
-``serve.prefill_ms`` / ``serve.step_ms`` histograms.
+prefills/prefill_chunks/prefill_chunk_tokens/decode_steps/recoveries/
+requeued_streams/failed/replica_deaths`` and ``serve.spec.rounds/drafted/
+accepted/rejected/discarded`` counters, ``serve.queue_depth`` /
+``serve.batch_occupancy`` / ``serve.kv.*`` / ``serve.tokens_per_s``
+gauges, ``serve.ttft_ms`` / ``serve.tpot_ms`` / ``serve.prefill_ms`` /
+``serve.step_ms`` histograms, a ``serve.step`` span and a
+``telemetry.step_event`` per step naming the active and completed
+requests, flight-ring events for sheds and recoveries, and one
+`RequestTrace` per request (its spans tile its wall clock, across
+replicas).
 """
 from __future__ import annotations
 
@@ -45,6 +67,12 @@ from collections import deque
 import numpy as np
 
 from .. import telemetry as _telem
+from ..resilience import faults as _faults
+from ..resilience import watchdog as _watchdog
+from ..resilience.errors import RetriableError, RetryExhausted
+from ..resilience.retry import RetryPolicy
+from ..telemetry import flight as _flight
+from ..telemetry import request_trace as _reqtrace
 from .errors import DeadlineExceeded, Overloaded
 from .kv_cache import KVBlockPool
 from .programs import ServePrograms
@@ -76,19 +104,31 @@ def default_prefill_budget(rows, chunk):
     return raw if raw > 0 else rows * chunk
 
 
+def _step_deadline_s():
+    raw = os.environ.get("MXNET_TPU_SERVE_STEP_DEADLINE_S")
+    if raw:
+        try:
+            return float(raw)
+        except ValueError:
+            pass
+    return _watchdog.default_deadline_s()
+
+
 class Request:
     """One generation request: a token prompt plus its budgets and
     sampling policy.
 
     deadline_s is relative to submission and covers queue wait AND decode;
-    eos_id stops the stream early. temperature <= 0 is greedy (the
-    default); top_k/top_p filter the sampled distribution; seed pins the
-    draws (default: derived from request_id).
+    eos_id stops the stream early; retries overrides the replica-fault
+    budget (default: `RetryPolicy().max_attempts`). temperature <= 0 is
+    greedy (the default); top_k/top_p filter the sampled distribution;
+    seed pins the draws (default: derived from request_id, so retries of
+    one request replay the same tokens).
     """
 
     def __init__(self, prompt, max_new_tokens=16, request_id=None,
-                 deadline_s=None, eos_id=None, temperature=0.0, top_k=0,
-                 top_p=1.0, seed=None):
+                 deadline_s=None, eos_id=None, retries=None,
+                 temperature=0.0, top_k=0, top_p=1.0, seed=None):
         self.prompt = [int(t) for t in prompt]
         if not self.prompt:
             raise ValueError("serve: empty prompt")
@@ -99,6 +139,7 @@ class Request:
                            else uuid.uuid4().hex[:12])
         self.deadline_s = deadline_s
         self.eos_id = eos_id
+        self.retries = retries
         self.temperature = float(temperature)
         self.top_k = int(top_k)
         self.top_p = float(top_p)
@@ -109,10 +150,16 @@ class Request:
         self.seed = (int(seed) if seed is not None
                      else zlib.crc32(self.request_id.encode())) & 0xffffffff
 
+    @property
+    def greedy(self):
+        return self.temperature <= 0.0
+
 
 class StreamHandle:
     """The caller's view of an in-flight stream: tokens appear as decoded,
-    `result()` blocks for completion."""
+    `result()` blocks for completion. Survives replica faults: a requeued
+    stream keeps its handle (and its `trace`), so recovery shows to the
+    client only as `requeues` ticking up."""
 
     def __init__(self, request):
         self.request = request
@@ -121,7 +168,12 @@ class StreamHandle:
         self.error = None
         self.ttft_ms = None
         self.tpot_ms = []         # per-output-token latencies after the 1st
+        self.requeues = 0
+        self.trace = _reqtrace.NULL_TRACE
         self._done = threading.Event()
+
+    def done(self):
+        return self._done.is_set()
 
     def result(self, timeout=None):
         """Block until the stream completes; returns the emitted tokens or
@@ -141,15 +193,17 @@ class StreamHandle:
 
 
 class _Stream:
-    """Scheduler-internal in-flight state."""
+    """Scheduler-internal in-flight state; `handle.tokens` IS the emitted
+    list, so requeue and resume carry it untouched."""
 
-    __slots__ = ("handle", "request", "deadline", "last_token_t",
-                 "t_submit", "table_row", "kv_id", "fill_pos", "fill_len",
-                 "fill_chunks")
+    __slots__ = ("handle", "request", "retries_left", "deadline",
+                 "last_token_t", "t_submit", "owner", "table_row", "kv_id",
+                 "fill_pos", "fill_len", "fill_chunks")
 
-    def __init__(self, handle):
+    def __init__(self, handle, retries_left):
         self.handle = handle
         self.request = handle.request
+        self.retries_left = retries_left
         # `is not None`: deadline_s=0 means "already expired", not "none"
         self.deadline = (time.monotonic() + handle.request.deadline_s
                          if handle.request.deadline_s is not None else None)
@@ -158,6 +212,11 @@ class _Stream:
         self.kv_id = uuid.uuid4().hex[:12]
         self.last_token_t = None
         self.t_submit = time.perf_counter()
+        # who holds the stream: the RequestQueue while queued, the server
+        # that popped it while in flight; written and read only under the
+        # queue's lock, so recovery can ask atomically whether the stream
+        # is still its own
+        self.owner = None
         self.table_row = None     # padded block-table row, set at admission
         # chunked-prefill progress: positions [fill_pos, fill_len) still
         # need their KV written; the stream decodes once they are equal
@@ -176,51 +235,83 @@ class _Stream:
     def expired(self, now):
         return self.deadline is not None and now > self.deadline
 
+    def finished(self):
+        """Emitted all it ever will (budget spent, or EOS) but not yet
+        retired: a requeued stream can arrive so when a fault landed
+        between its last token and its finish check."""
+        tokens = self.handle.tokens
+        if len(tokens) >= self.request.max_new_tokens:
+            return True
+        return (self.request.eos_id is not None and bool(tokens)
+                and tokens[-1] == self.request.eos_id)
+
 
 class RequestQueue:
-    """Bounded admission queue: `push` sheds at capacity, `requeue` puts a
-    stream back at the front (KV backpressure)."""
+    """Bounded admission queue, shareable across replicas. `push` sheds at
+    capacity; `requeue` (recovery and backpressure re-entry) is cap-exempt
+    and goes to the FRONT: a stream is never shed by its replica's
+    death."""
 
     def __init__(self, cap=None):
         self.cap = int(cap or default_queue_cap())
         self._items = deque()
-        self._lock = threading.Lock()
+        self._cond = threading.Condition(threading.Lock())
 
     def push(self, stream):
-        with self._lock:
+        with self._cond:
             if len(self._items) >= self.cap:
                 raise Overloaded(
                     "serve queue full (%d waiting, cap %d)"
                     % (len(self._items), self.cap),
                     reason="queue_full", queue_depth=len(self._items),
                     retry_after_s=0.1)
+            stream.owner = self
             self._items.append(stream)
             depth = len(self._items)
+            self._cond.notify_all()
         _telem.set_gauge("serve.queue_depth", depth)
 
     def requeue(self, stream):
-        with self._lock:
+        with self._cond:
+            stream.owner = self
             self._items.appendleft(stream)
             depth = len(self._items)
+            self._cond.notify_all()
         _telem.set_gauge("serve.queue_depth", depth)
 
-    def pop(self):
-        with self._lock:
+    def pop(self, owner=None):
+        """Pop the head stream, handing its ownership to `owner` (the
+        popping replica) under the queue lock."""
+        with self._cond:
             if not self._items:
                 return None
             stream = self._items.popleft()
+            stream.owner = owner
             depth = len(self._items)
         _telem.set_gauge("serve.queue_depth", depth)
         return stream
 
+    def owned_by(self, stream, who):
+        """Atomic check: is `stream` still held by `who`, or did a requeue
+        already hand it on (perhaps straight into a sibling's pop)?"""
+        with self._cond:
+            return stream.owner is who
+
+    def wait_nonempty(self, timeout=None):
+        with self._cond:
+            if self._items:
+                return True
+            self._cond.wait(timeout)
+            return bool(self._items)
+
     def __len__(self):
-        with self._lock:
+        with self._cond:
             return len(self._items)
 
 
 class InferenceServer:
-    """One continuous-batching serving replica on `device` (cuda by
-    default; the params must already live there).
+    """One fault-tolerant continuous-batching serving replica on `device`
+    (cuda by default; the params must already live there).
 
     Usage::
 
@@ -228,33 +319,68 @@ class InferenceServer:
         h = server.submit(Request([1, 2, 3], max_new_tokens=8))
         server.run()                          # drive until idle
         print(h.result())
+
+    Speculative decoding rides a draft model::
+
+        server = InferenceServer(params, cfg, draft_params=dparams,
+                                 draft_cfg=dcfg, spec_k=4)
     """
 
     def __init__(self, params, cfg, *, max_batch=None, kv_blocks=None,
                  block_size=None, max_context=None, chunk_size=None,
                  prefill_rows=None, prefill_budget=None,
-                 prefix_sharing=None, queue_cap=None, device=None):
+                 prefix_sharing=None, draft_params=None, draft_cfg=None,
+                 spec_k=None, queue=None, queue_cap=None,
+                 step_deadline_s=None, max_restarts=3, name="replica0",
+                 device=None):
+        self.name = name
         self.cfg = cfg
         self.pool = KVBlockPool(cfg, num_blocks=kv_blocks,
                                 block_size=block_size,
                                 prefix_sharing=prefix_sharing, device=device)
-        where = params["tok_embeddings"].device
-        if where.type != self.pool.device.type:
-            raise ValueError("serve: params live on %s, the server on %s"
-                             % (where, self.pool.device))
+        for p in (params, draft_params):
+            where = None if p is None else p["tok_embeddings"].device
+            if where is not None and where.type != self.pool.device.type:
+                raise ValueError("serve: params live on %s, the server on "
+                                 "%s" % (where, self.pool.device))
         if max_context is None:
             max_context = min(cfg.max_seq_len,
                               self.pool.num_blocks * self.pool.block_size)
         self.max_batch = int(max_batch or default_max_batch())
+        # the draft pool mirrors the target pool's geometry and BLOCK IDS
+        # (one table indexes both); accounting lives on the target pool
+        self.draft_pool = None
+        if draft_params is not None:
+            if draft_cfg is None:
+                raise ValueError("serve: draft_params needs draft_cfg")
+            self.draft_pool = KVBlockPool(
+                draft_cfg, num_blocks=self.pool.num_blocks,
+                block_size=self.pool.block_size, prefix_sharing=False,
+                device=self.pool.device, scope="kv_draft")
         self.programs = ServePrograms(
             params, cfg, self.pool, self.max_batch, max_context,
-            chunk_size=chunk_size, prefill_rows=prefill_rows)
+            chunk_size=chunk_size, prefill_rows=prefill_rows,
+            draft_params=draft_params, draft_cfg=draft_cfg,
+            draft_pool=self.draft_pool, spec_k=spec_k)
         self.prefill_budget = (int(prefill_budget) if prefill_budget
                                else default_prefill_budget(
                                    self.programs.prefill_rows,
                                    self.programs.chunk_size))
-        self.queue = RequestQueue(queue_cap)
+        self.queue = queue if queue is not None else RequestQueue(queue_cap)
+        self.step_deadline_s = (step_deadline_s if step_deadline_s
+                                is not None else _step_deadline_s())
+        self.max_restarts = int(max_restarts)
+        self.restarts = 0
+        self.dead = False
         self._slots = [None] * self.max_batch
+        # the stream popped from the queue but not yet in a slot: a fault
+        # inside _admit (the watchdog's async StallError can land between
+        # any two bytecodes) must find it here, or recovery would lose it
+        self._admitting = None
+        # request ids retired during the current step, for its flight
+        # record
+        self._step_completed = []
+        self._default_retries = RetryPolicy().max_attempts
 
     # ------------------------------------------------------------ admission
     def _worst_blocks(self, request):
@@ -263,17 +389,25 @@ class InferenceServer:
         return self.pool.blocks_for(len(request.prompt)
                                     + request.max_new_tokens - 1)
 
-    def _note_shed(self, reason):
+    def _note_shed(self, reason, detail=""):
         _telem.inc("serve.shed")
         _telem.inc("serve.shed.%s" % reason)
+        _flight.note_event("serve_shed",
+                           "%s %s" % (reason, detail) if detail else reason)
 
     def submit(self, request):
         """Queue a request; returns a `StreamHandle`. Raises `Overloaded`
         when the queue is full or the request can never fit."""
+        _faults.check("serve.admit", context="request=%s"
+                      % request.request_id)
         _telem.inc("serve.requests")
+        # the trace starts at enqueue: a shed request leaves one too
+        trace = _reqtrace.start(request.request_id)
+        # the longest context a resumed stream can re-prefill
         max_prefill = len(request.prompt) + request.max_new_tokens - 1
         if (self._worst_blocks(request) > self.pool.num_blocks
                 or max_prefill > self.programs.max_context):
+            trace.finish("shed.too_large", tokens=0)
             self._note_shed("too_large")
             raise Overloaded(
                 "request %s can never fit: prompt %d + budget %d tokens "
@@ -285,9 +419,13 @@ class InferenceServer:
                 kv_needed_blocks=self._worst_blocks(request),
                 kv_free_blocks=self.pool.free_blocks)
         handle = StreamHandle(request)
+        handle.trace = trace
+        retries = (request.retries if request.retries is not None
+                   else self._default_retries)
         try:
-            self.queue.push(_Stream(handle))
+            self.queue.push(_Stream(handle, retries_left=retries))
         except Overloaded:
+            trace.finish("shed.queue_full", tokens=0)
             self._note_shed("queue_full")
             raise
         return handle
@@ -302,21 +440,38 @@ class InferenceServer:
                 return i
         return None
 
+    def _finish_trace(self, handle, outcome):
+        """Snapshot the request's trace into the ring (idempotent: an
+        earlier, more specific finish wins)."""
+        ttft = (round(handle.ttft_ms, 3) if handle.ttft_ms is not None
+                else None)
+        return handle.trace.finish(outcome, tokens=len(handle.tokens),
+                                   ttft_ms=ttft, requeues=handle.requeues)
+
     def _retire(self, slot, stream, error=None):
+        # the terminal event FIRST: if an async fault lands mid-retire, the
+        # stream is done-marked while still in its slot, and
+        # _drain_stream's done() branch finishes the cleanup
         if error is not None:
+            self._finish_trace(stream.handle, "deadline" if isinstance(
+                error, DeadlineExceeded) else "failed")
             stream.handle._fail(error)
         else:
+            self._finish_trace(stream.handle, "completed")
             _telem.inc("serve.completed")
             stream.handle._complete()
+        self._step_completed.append(stream.handle.id)
         self.pool.free(stream.kv_id)
         self._slots[slot] = None
 
     def _deadline_error(self, stream, where):
-        self._note_shed("deadline")
+        self._note_shed("deadline", stream.handle.id)
+        payload = self._finish_trace(stream.handle, "deadline")
         return DeadlineExceeded(
             "request %s missed its %.3gs deadline %s after %d token(s)"
             % (stream.handle.id, stream.request.deadline_s, where,
-               len(stream.handle.tokens)), tokens=stream.handle.tokens)
+               len(stream.handle.tokens)), tokens=stream.handle.tokens,
+            request_trace=payload)
 
     def _finish_check(self, slot, stream, token, now):
         request = stream.request
@@ -341,12 +496,29 @@ class InferenceServer:
             slot = self._free_slot()
             if slot is None:
                 break
-            stream = self.queue.pop()
+            # the pop marks the stream in flight in the same statement
+            # (and hands its ownership to this server under the queue lock)
+            self._admitting = stream = self.queue.pop(self)
             if stream is None:
                 break
+            # the wait just ended ("queue", or "recovery.queue" after a
+            # drain); note which replica now holds the stream
+            stream.handle.trace.mark("queue", replica=self.name) \
+                .note_replica(self.name)
+            if stream.finished():
+                # a fault landed between its last token and its finish
+                # check: retire it instead of re-prefilling a token too many
+                self._finish_trace(stream.handle, "completed")
+                self._step_completed.append(stream.handle.id)
+                _telem.inc("serve.completed")
+                stream.handle._complete()
+                self._admitting = None
+                continue
             if stream.expired(time.monotonic()):
+                self._step_completed.append(stream.handle.id)
                 stream.handle._fail(self._deadline_error(stream,
                                                          "in the queue"))
+                self._admitting = None
                 continue
             context = stream.context
             try:
@@ -357,14 +529,19 @@ class InferenceServer:
             except Overloaded:
                 # transient: the pool drains as running streams finish
                 self.queue.requeue(stream)
+                self._admitting = None
                 break
             stream.table_row = self.pool.table(
                 stream.kv_id, self.programs.blocks_per_stream)
             stream.fill_pos = fill_start
             stream.fill_len = len(context)
+            stream.fill_chunks = 0
             if cow is not None:
                 self.programs.copy_block(*cow)
+                if self.draft_pool is not None:
+                    self.programs.draft_copy_block(*cow)
             self._slots[slot] = stream
+            self._admitting = None
             _telem.inc("serve.admitted")
             admitted += 1
         return admitted
@@ -397,8 +574,9 @@ class InferenceServer:
         return plan
 
     def _prefill(self):
-        """One chunked-prefill window; emits the first token of every
-        stream whose fill completes."""
+        """One chunked-prefill window (target model, and the draft mirror
+        when spec is on); emits the first token of every stream whose
+        fill completes."""
         plan = self._plan_chunks()
         if not plan:
             return 0
@@ -429,6 +607,8 @@ class InferenceServer:
         t0 = time.perf_counter()
         out = self.programs.chunk_prefill(tokens, positions, tables, seeds,
                                           sample_pos, temps, top_k, top_p)
+        if self.draft_pool is not None:
+            self.programs.draft_prefill(tokens, positions, tables)
         _telem.inc("serve.prefill_chunks", len(plan))
         _telem.inc("serve.prefill_chunk_tokens",
                    int(sum(n for _, _, n in plan)))
@@ -444,6 +624,8 @@ class InferenceServer:
             self.pool.register_prefix(s.kv_id, s.request.prompt)
             s.handle.tokens.append(token)
             s.last_token_t = now
+            s.handle.trace.mark("prefill", tokens=s.fill_len,
+                                chunks=s.fill_chunks)
             _telem.inc("serve.tokens")
             if s.handle.ttft_ms is None:
                 # time to first token counts the queue wait too
@@ -453,13 +635,26 @@ class InferenceServer:
         return len(plan)
 
     # --------------------------------------------------------------- decode
-    def _decode(self):
-        """One decode step over every slot whose fill is complete (the
-        other slots ride along masked)."""
-        active = [(i, s) for i, s in enumerate(self._slots)
-                  if s is not None and not s.filling]
-        if not active:
-            return 0
+    def _emit(self, slot, stream, token, now, dt_share):
+        """Append one decoded token and run the retirement checks. Returns
+        True when the stream retired."""
+        stream.handle.tokens.append(token)
+        _telem.inc("serve.tokens")
+        if stream.last_token_t is not None:
+            stream.handle.tpot_ms.append(dt_share)
+            _telem.observe("serve.tpot_ms", dt_share)
+        stream.last_token_t = now
+        # one decode span per emitted token: the inter-token interval, so
+        # slot residency tiles the request's timeline
+        stream.handle.trace.mark("decode", token=len(stream.handle.tokens))
+        return self._finish_check(slot, stream, token, now)
+
+    def _spec_eligible(self, stream):
+        return self.programs.spec and stream.request.greedy
+
+    def _decode_plain(self, active):
+        """One decode step over `active` [(slot, stream)] (the other slots
+        ride along masked)."""
         B = self.max_batch
         tokens = np.zeros(B, np.int64)
         positions = np.full(B, -1, np.int64)
@@ -482,44 +677,230 @@ class InferenceServer:
                                    top_k, top_p)
         now = time.monotonic()
         for i, s in active:
-            token = int(out[i])
-            s.handle.tokens.append(token)
-            _telem.inc("serve.tokens")
-            dt = (now - s.last_token_t) * 1e3
-            s.handle.tpot_ms.append(dt)
-            _telem.observe("serve.tpot_ms", dt)
-            s.last_token_t = now
-            self._finish_check(i, s, token, now)
-        _telem.inc("serve.decode_steps")
+            dt = ((now - s.last_token_t) * 1e3
+                  if s.last_token_t is not None else 0.0)
+            self._emit(i, s, int(out[i]), now, dt)
         return len(active)
+
+    def _decode_spec(self, active):
+        """One draft-k / verify round over `active` greedy streams: the
+        draft proposes spec_k tokens per stream, one verify pass computes
+        the target's greedy token at every drafted position, and the
+        matching prefix plus the target's own next token is emitted —
+        1..spec_k+1 tokens per stream, equal to plain greedy decoding."""
+        B, k = self.max_batch, self.programs.spec_k
+        nb = self.programs.blocks_per_stream
+        tokens = np.zeros(B, np.int64)
+        positions = np.full(B, -1, np.int64)
+        tables = np.full((B, nb), self.pool.num_blocks, np.int64)
+        for i, s in active:
+            tokens[i] = s.handle.tokens[-1]
+            positions[i] = len(s.context) - 1
+            tables[i] = s.table_row
+        drafted = self.programs.draft_k(tokens, positions, tables)
+        # verify window: [last token, d1..dk] at positions p..p+k; the
+        # target's answer at column j is the token FOLLOWING the fed one.
+        # Columns past the stream's remaining budget ride position -1:
+        # they would write past its reserved blocks (the draft loop may
+        # still overrun its mirror pool, which costs accept rate only)
+        vt = np.zeros((B, k + 1), np.int64)
+        vp = np.full((B, k + 1), -1, np.int64)
+        vt[:, 0] = tokens
+        vt[:, 1:] = drafted
+        remaining = {}
+        for i, s in active:
+            rem = s.request.max_new_tokens - len(s.handle.tokens)
+            remaining[i] = rem
+            cols = min(k + 1, max(rem, 1))
+            vp[i, :cols] = np.arange(positions[i], positions[i] + cols)
+        ver = self.programs.verify(vt, vp, tables)
+        _telem.inc("serve.spec.rounds")
+        now = time.monotonic()
+        for i, s in active:
+            cap = min(k, max(remaining[i] - 1, 0))
+            accept = 0
+            while accept < cap and drafted[i, accept] == ver[i, accept]:
+                accept += 1
+            emit = [int(t) for t in ver[i, :accept + 1]]
+            # drafted counts the drafts that reached verification, so a
+            # budget-capped final round does not dilute the accept rate
+            _telem.inc("serve.spec.drafted", cap)
+            _telem.inc("serve.spec.accepted", accept)
+            _telem.inc("serve.spec.rejected", cap - accept)
+            if k > cap:
+                _telem.inc("serve.spec.discarded", k - cap)
+            dt = ((now - s.last_token_t) * 1e3 / len(emit)
+                  if s.last_token_t is not None else 0.0)
+            for token in emit:
+                if self._emit(i, s, token, now, dt):
+                    break
+        return len(active)
+
+    def _decode(self):
+        """One decode phase over every slot whose fill is complete: greedy
+        streams ride the draft/verify round when a draft model is set, the
+        rest the plain decode program."""
+        active = [(i, s) for i, s in enumerate(self._slots)
+                  if s is not None and not s.filling]
+        if not active:
+            return 0
+        spec = [(i, s) for i, s in active if self._spec_eligible(s)]
+        plain = [(i, s) for i, s in active if not self._spec_eligible(s)]
+        decoded = 0
+        if spec:
+            decoded += self._decode_spec(spec)
+        if plain:
+            decoded += self._decode_plain(plain)
+        _telem.inc("serve.decode_steps")
+        return decoded
 
     def step(self):
         """One scheduler iteration: admit, prefill a chunk window, decode.
-        Returns True while there is in-flight or queued work."""
+        Returns True while there is in-flight or queued work. Raises the
+        injected or real `RetriableError`s that `run` absorbs."""
         if not self.programs._warm:
             self.warmup()
         t0 = time.perf_counter()
-        admitted = self._admit()
-        prefilled = self._prefill()
-        decoded = self._decode()
+        ts = _telem.span_clock()
+        self._step_completed = []
+        with _watchdog.guard("serve.step", deadline_s=self.step_deadline_s):
+            _faults.check("serve.step", context="replica=%s" % self.name)
+            admitted = self._admit()
+            prefilled = self._prefill()
+            decoded = self._decode()
         occupancy = sum(1 for s in self._slots if s is not None)
         _telem.set_gauge("serve.batch_occupancy", occupancy)
-        if admitted or prefilled or decoded:
-            _telem.observe("serve.step_ms", (time.perf_counter() - t0) * 1e3)
+        # admission-only steps land in the step plane too, or their
+        # completed ids never reach a flight record
+        if decoded or admitted or prefilled or self._step_completed:
+            dur = time.perf_counter() - t0
+            _telem.observe("serve.step_ms", dur * 1e3)
+            _telem.record_span("serve.step", "step", ts, dur)
+            info = {"active_requests":
+                    [s.handle.id for s in self._slots if s is not None][:16]}
+            if self._step_completed:
+                info["completed_requests"] = self._step_completed[:16]
+            _telem.step_event("serve.step", dur * 1e3, info=info)
         return occupancy > 0 or len(self.queue) > 0
 
-    def run(self, max_steps=None):
-        """Drive the scheduler until idle (or `max_steps`). Returns the
+    # ------------------------------------------------------------- recovery
+    def _drain_stream(self, stream, exc):
+        """Free one in-flight stream's blocks and send it back to the
+        queue (front, budget decremented), or fail it when the budget is
+        spent. Returns 1 when the stream was requeued."""
+        stream.table_row = None
+        stream.fill_pos = stream.fill_len = 0
+        self.pool.free(stream.kv_id)
+        if stream.handle.done():
+            # its terminal event fired before the fault; only the pool and
+            # slot cleanup remained
+            return 0
+        stream.retries_left -= 1
+        if stream.retries_left < 0:
+            _telem.inc("serve.failed")
+            stream.handle.trace.mark("recovery.drain",
+                                     error=type(exc).__name__)
+            self._finish_trace(stream.handle, "failed")
+            stream.handle._fail(RetryExhausted(
+                "stream %s: replica-fault retry budget spent; last "
+                "error: %s: %s" % (stream.handle.id, type(exc).__name__,
+                                   exc),
+                site="serve.step", last_error=exc))
+            return 0
+        stream.handle.requeues += 1
+        # the recovery cost lands on the timeline: "recovery.drain" now,
+        # "recovery.queue" at re-admission
+        stream.handle.trace.note_drain(exc)
+        self.queue.requeue(stream)
+        _telem.inc("serve.requeued_streams")
+        return 1
+
+    def _recover(self, exc):
+        """Drain after a replica fault: every in-flight stream — the batch
+        slots and a stream caught mid-admission — frees its blocks and
+        re-enters the shared queue at the front, to resume here or on a
+        surviving replica by re-prefill. Streams whose budget is spent
+        fail with `RetryExhausted`."""
+        drained = 0
+        requeued_ids, lost_ids = [], []
+
+        def drain(stream):
+            nonlocal drained
+            n = self._drain_stream(stream, exc)
+            drained += n
+            (requeued_ids if n else lost_ids).append(stream.handle.id)
+
+        admitting, self._admitting = self._admitting, None
+        if admitting is not None and not admitting.handle.done() \
+                and self.queue.owned_by(admitting, self):
+            # drain the mid-admission stream only while the queue still
+            # names this server its owner: if a requeue already handed it
+            # on (perhaps into a sibling's pop), a second requeue would
+            # admit one stream into two slots
+            drain(admitting)
+        for i, stream in enumerate(self._slots):
+            if stream is None:
+                continue
+            self._slots[i] = None
+            if stream is admitting:
+                # caught between slot assignment and the _admitting clear:
+                # drained once above
+                continue
+            drain(stream)
+        # re-made storage is zeros: every cached prefix goes with it
+        reset = self.pool.ensure_storage()
+        if self.draft_pool is not None:
+            reset = self.draft_pool.ensure_storage() or reset
+        if reset:
+            self.pool.clear_prefix_cache()
+        # a fault inside an alloc or a free can tear the free-list or a
+        # refcount: rebuild both from the surviving tables and index
+        self.pool.reconcile()
+        _telem.inc("serve.recoveries")
+        msg = ("%s: %s (requeued %d: %s)"
+               % (self.name, type(exc).__name__, drained,
+                  ",".join(requeued_ids[:8]) if requeued_ids else "-"))
+        if lost_ids:
+            msg += " (not requeued: %s)" % ",".join(lost_ids[:8])
+        _flight.note_event("serve_recover", msg)
+        return drained
+
+    def run(self, max_steps=None, stop=None):
+        """Drive the scheduler: until idle (stop=None), or until `stop` (an
+        Event) is set — the replica-thread mode, parking on the queue when
+        idle. Retriable faults drain and continue up to `max_restarts`;
+        past that, or on any other error, the replica drains its streams
+        for the survivors, marks itself `dead` and re-raises. Returns the
         number of steps taken; sets the ``serve.tokens_per_s`` gauge."""
         steps = 0
         t0 = time.perf_counter()
         tokens0 = _telem.counter_value("serve.tokens")
         try:
-            while max_steps is None or steps < max_steps:
-                busy = self.step()
+            while stop is None or not stop.is_set():
+                try:
+                    busy = self.step()
+                except RetriableError as exc:
+                    self._recover(exc)
+                    self.restarts += 1
+                    if self.restarts > self.max_restarts:
+                        self.dead = True
+                        _telem.inc("serve.replica_deaths")
+                        raise
+                    continue
+                except Exception as exc:
+                    # a non-retriable escape (a device loss, a bug) still
+                    # must not strand in-flight streams
+                    self._recover(exc)
+                    self.dead = True
+                    _telem.inc("serve.replica_deaths")
+                    raise
                 steps += 1
-                if not busy:
+                if max_steps is not None and steps >= max_steps:
                     break
+                if not busy:
+                    if stop is None:
+                        break
+                    self.queue.wait_nonempty(timeout=0.05)
         finally:
             dt = time.perf_counter() - t0
             if dt > 0:
