@@ -343,8 +343,39 @@ Phases (one JSON line each; any failure exits non-zero):
                  covers >= 95% of its request's wall clock; one server
                  under serve.step:hang:2 with a 2 s step deadline stalls
                  once, recovers and finishes.
+37. multi_rank — main path 19, the port's multi-rank layer. The ranks
+                 (world = device_count(), one process a card) start under
+                 `python -m mxnet_tpu_torch.launch` over NCCL with a
+                 FileStore rendezvous and run this file with
+                 --multi-rank-worker: (c) allreduce_bench at 64 MB fp32
+                 (algorithmic and bus GB/s; at world 1 a copy, not
+                 BASELINE's metric); (a) path 4's ResNet-50 (bf16, batch
+                 256 a rank) through Trainer(kvstore="dist_device_sync",
+                 sgd, momentum 0.9), 4 steps in registration order and 4
+                 in readiness order (the first step initializes the
+                 store), from one state, beside the one-card device store:
+                 bit-equal at world 1 (at world > 1 the ranks' weights
+                 equal each other and rank 0 is within P19_DP_REL of the
+                 one card summing every rank's batch), readiness rounds
+                 and flushes during backward counted; (b) FusedTrainStep
+                 over a data mesh bit-equal to path 4's; (d) BERT-base
+                 LAMB on the ZeRO updater through Trainer(zero=True,
+                 "dist_device_sync") bit-equal to path 5's device store at
+                 world 1, then a fleet of 4 virtual ranks on the card
+                 (fp32, rank r pushing its own share (2r + 1)/16 of the
+                 gradients) within P19_ZERO_REL of world 1; (e) each
+                 rank's chunk of llama_110m's heads (S 4096, causal, bf16
+                 and fp32) through the public ring_attention and its
+                 backward over the process group; (f) bench_sparse's 20
+                 row-sparse pushes and pulls through a dist_sync store
+                 (#11 in the unique-rows exchange; rank r the traffic of
+                 seed r) against a local store pushing every rank's rows:
+                 bit-equal at world 1. Then, in this process, (e) ring
+                 attention at the same shapes over a fleet of 4 (4 blocks
+                 of 1024; the ranks call the ring's passes, past the
+                 autograd.Function), against the whole-sequence kernels.
 
-Eighteen main paths, each with its own expected kernels, counts set to 0 just
+Nineteen main paths, each with its own expected kernels, counts set to 0 just
 before and read just after: serving (phases 3-5: flash_fwd), training
 (phase 7's 6 steps: flash_fwd, flash_bwd_dq, flash_bwd_dkv), ResNet-50
 inference (phase 11's forward: conv_bn_relu, 16 launches, all on the
@@ -376,7 +407,12 @@ predict-mode forward: 16 conv_bn_relu) and the model zoo: Inception-v3
 (phase 34's 10 timed steps: one multi flat_sgd a step) and the DCGAN
 (phase 35's 20 timed steps: two multi flat_adam a step) and speculative
 serving (phase 36's spec and baseline runs: no kernel; the server's
-windows run the plain paged attention). Then the card's name and power limit,
+windows run the plain paged attention) and multi-rank communication
+(phase 37: 16 conv_bn_stats and 16 cbr_train_bwd a ResNet-50 step, 193
+single flat_sgd a store step, one multi a FusedTrainStep step; one
+flat_lamb1 and one flat_lamb2 a ZeRO bucket a rank a step; one
+segment_sum and one flat_sgd a sparse push; one flash launch of each
+kind a visible ring block). Then the card's name and power limit,
 the `kernels` line, and as the last line {"ok": true, "device": {...}}.
 Exits non-zero without a CUDA card.
 """
@@ -4226,10 +4262,11 @@ def phase_kernel_segment_sum(gen):
             "bound_ms": head["bound_ms"], "bound_by": "bytes"}
 
 
-def sparse_traffic():
+def sparse_traffic(seed=0):
     """bench_sparse's traffic: zipf(1.3) ids modulo the vocab, unique per
-    step, and fp32 gradient rows, from RandomState(0) in its order."""
-    rng = np.random.RandomState(0)
+    step, and fp32 gradient rows, from RandomState(seed) in its order
+    (bench_sparse's own is seed 0)."""
+    rng = np.random.RandomState(seed)
     raw = rng.zipf(1.3, size=(SPARSE_STEPS, SPARSE_NNZ)).astype(np.int64) \
         % SPARSE_VOCAB
     batches = [np.unique(b).astype(np.int32) for b in raw]
@@ -4237,18 +4274,20 @@ def sparse_traffic():
             for ids in batches]
 
 
-def sparse_loop(mx, kv, ctx, traffic, lookup_ms=None):
+def sparse_loop(mx, kv, ctx, traffic, lookup_ms=None, pulls=None):
     """bench_sparse's loop: push each step's row-sparse gradient, then
-    row_sparse_pull its first 256 ids. Returns the last pull."""
+    row_sparse_pull its first 256 ids (or the step's ids in `pulls`).
+    Returns the last pull."""
     sp = mx.nd.sparse
     out = None
-    for ids, grads in traffic:
+    for i, (ids, grads) in enumerate(traffic):
         kv.push(0, sp.RowSparseNDArray(grads, ids,
                                        (SPARSE_VOCAB, SPARSE_DIM), ctx=ctx))
         out = sp.zeros("row_sparse", (SPARSE_VOCAB, SPARSE_DIM), ctx=ctx)
         t1 = time.perf_counter()
         kv.row_sparse_pull(0, out=out, row_ids=mx.nd.array(
-            ids[:256], ctx=ctx, dtype="int32"))
+            ids[:256] if pulls is None else pulls[i], ctx=ctx,
+            dtype="int32"))
         if lookup_ms is not None:
             torch.cuda.synchronize()
             lookup_ms.append((time.perf_counter() - t1) * 1e3)
@@ -8024,6 +8063,744 @@ def phase_serve_spec():
     return launches
 
 
+# ---------------------------------------------------------------------------
+# main path 19: multi-rank communication
+# ---------------------------------------------------------------------------
+P19_STEPS = 4                   # (a): the first step initializes the store
+                                # (registration order in both modes), the
+                                # next three are readiness rounds
+P19_FUSED_STEPS = 2             # (b)
+P19_BERT_STEPS = 2              # (d)
+P19_FLEET = 4                   # (d), (e): virtual ranks in one process
+P19_BENCH_MB = 64               # (c): allreduce_bench's buffer, fp32
+P19_ZERO_REL = 1e-4             # (d) fleet vs world 1, at fp32: per-leaf
+                                # ||a - b|| / ||b|| of the weights' change
+                                # over the steps; the quarter gradients sum
+                                # back exactly, LAMB's norm partials add
+                                # in another order
+P19_RING = dict(B=2, H=12, Hkv=12, S=4096, D=64)   # llama_110m's heads,
+                                # 4 blocks of 1024
+P19_RING_TOL = {torch.bfloat16: {"o": 2e-2, "lse": 1e-2, "grad": 2e-2},
+                torch.float32: {"o": 1e-4, "lse": 1e-4, "grad": 1e-4}}
+                                # bf16: ||a - b|| / ||b|| (the blocks' o is
+                                # rounded to bf16 before the merge, the
+                                # dk/dv partials too before they travel);
+                                # fp32: max abs error (summation order)
+P19_DP_REL = 5e-2               # (a) at world > 1, rank 0 vs the one-card
+                                # device store summing the ranks' batches:
+                                # ||a - b|| / ||b|| of the trainable
+                                # weights' change over the steps, all
+                                # leaves together; bf16 gradients summed
+                                # in another order and bf16 weights, whose
+                                # rounding of a small update flips with
+                                # them (GRAD_BF16_REL's scale)
+P19_ZERO_KERNELS = ("flat_lamb1", "flat_lamb2")
+MULTI_RANK_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                      "conv_bn_stats", "cbr_train_bwd", "flat_sgd",
+                      "flat_lamb1", "flat_lamb2", "segment_sum")
+P19_SPARSE_KERNELS = ("segment_sum", "flat_sgd")
+
+
+class FleetComm:
+    """One virtual rank of an in-process fleet on the card: a barrier'd
+    mailbox, contributions added in rank order. Serves as a ZeRO exchange
+    (reduce_scatter, all_gather, all_reduce) and as ring attention's
+    (shift: what the previous rank posted)."""
+
+    def __init__(self, fleet, rank):
+        self.fleet, self.rank = fleet, rank
+        self.world = fleet["world"]
+        self.n = 0
+
+    def _post(self, tag, value):
+        fleet = self.fleet
+        key = (tag, self.n)
+        self.n += 1
+        with fleet["lock"]:
+            fleet["box"].setdefault(key, {})[self.rank] = value
+        fleet["barrier"].wait()
+        parts = dict(fleet["box"][key])
+        fleet["barrier"].wait()
+        return parts
+
+    def _sum(self, parts):
+        total = parts[0].clone()
+        for r in range(1, self.world):
+            total = total + parts[r]
+        return total
+
+    def reduce_scatter(self, spec, flat):
+        total = self._sum(self._post("rs", flat))
+        lo = self.rank * spec.shard
+        return total[lo:lo + spec.shard].clone()
+
+    def all_gather(self, spec, shard):
+        parts = self._post("ag", shard)
+        return torch.cat([parts[r] for r in range(self.world)])
+
+    def all_reduce(self, spec, value):
+        return self._sum(self._post("ar", value))
+
+    def shift(self, tensors):
+        parts = self._post("ring", [t.clone() for t in tensors])
+        got = parts[(self.rank - 1) % self.world]
+
+        class Done:
+            def wait(self):
+                return got
+        return Done()
+
+
+def run_fleet(world, fn):
+    """fn(rank, comm) on `world` threads; re-raise the first error."""
+    import threading
+    fleet = {"world": world, "lock": threading.Lock(), "box": {},
+             "barrier": threading.Barrier(world)}
+    errs = []
+
+    def wrap(rank):
+        try:
+            fn(rank, FleetComm(fleet, rank))
+        except BaseException as e:  # noqa: BLE001 - re-raised below
+            errs.append(e)
+            fleet["barrier"].abort()
+
+    threads = [threading.Thread(target=wrap, args=(r,)) for r in range(world)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errs:
+        raise errs[0]
+
+
+def ring_case(B, H, Hkv, S, D, dtype, seed=0):
+    """Seeded q, k, v, do on the card and the whole-sequence kernels'
+    causal o, lse, dq, dk, dv (#1-#3) on them."""
+    from mxnet_tpu_torch.parallel.flash_attention import (_backward_inner,
+                                                          _delta,
+                                                          _flash_forward)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    q, k, v, do = randn(B, H, S, D), randn(B, Hkv, S, D), \
+        randn(B, Hkv, S, D), randn(B, H, S, D)
+    sc = D ** -0.5
+    o, lse = _flash_forward(q, k, v, True, sc)
+    dq, dk, dv = _backward_inner(q, k, v, lse, _delta(o, do), do, True, sc)
+    return (q, k, v, do), (o, lse, dq, dk, dv)
+
+
+def ring_errors(got, want, dtype):
+    """({name: error}, within P19_RING_TOL) of the ring's o, lse, dq, dk,
+    dv against the whole-sequence kernels'."""
+    tol = P19_RING_TOL[dtype]
+    errs, ok = {}, True
+    for name, g, w in zip(("o", "lse", "dq", "dk", "dv"), got, want):
+        g, w = g.float(), w.float()
+        if dtype == torch.float32 or name == "lse":
+            err = (g - w).abs().max().item()
+        else:
+            err = ((g - w).norm() / w.norm()).item()
+        limit = tol["grad"] if name.startswith("d") else tol[name]
+        errs[name] = err
+        ok = ok and err <= limit
+    return errs, ok
+
+
+def ring_fleet_check(B, H, Hkv, S, D, dtype, world=P19_FLEET, seed=0):
+    """Ring attention over an in-process fleet of `world` ranks on the card
+    (kernels #1-#3 per block), causal, against the whole-sequence kernels:
+    o, lse, dq, dk, dv. The ranks call the ring's forward and backward
+    passes themselves, past the public `ring_attention` and its
+    autograd.Function (`ring_rank_check` drives those over the process
+    group): torch runs every CUDA backward of a process on one device
+    thread, where the first rank's backward would wait at the ring for
+    ranks queued behind it (a rank of a real ring is a process of its
+    own). Returns the errors, the ring's wall ms forward + backward, the
+    fleet's launches (counts reset just before it and read just after;
+    the whole-sequence reference launches before) and {"ok": within
+    P19_RING_TOL}."""
+    from mxnet_tpu_torch.parallel.ring_attention import (_ring_backward,
+                                                         _ring_forward)
+    (q, k, v, do), want = ring_case(B, H, Hkv, S, D, dtype, seed)
+    sc = D ** -0.5
+    c = S // world
+    res = [None] * world
+
+    def rank_fn(r, comm):
+        sl = slice(r * c, (r + 1) * c)
+        qs, ks, vs, dos = (t[:, :, sl].contiguous() for t in (q, k, v, do))
+        o, lse = _ring_forward(qs, ks, vs, True, sc, comm)
+        dq, dk, dv = _ring_backward(qs, ks, vs, o, lse, dos, True, sc, comm)
+        res[r] = (o, lse, dq, dk, dv)
+
+    from mxnet_tpu_torch.ops import launch_counts, reset_launch_counts
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    run_fleet(world, rank_fn)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = launch_counts()
+    got = [torch.cat([r[i] for r in res], 2) for i in range(5)]
+    errs, ok = ring_errors(got, want, dtype)
+    return {"errors": errs, "ok": ok, "wall_ms": wall_ms,
+            "launches": launches}
+
+
+def ring_rank_check(rank, world, B, H, Hkv, S, D, dtype, seed=0):
+    """This rank's chunk of the sequence through the public
+    `ring_attention` over the world's process group (RingExchange, NCCL)
+    and its autograd.Function backward, causal, against its slice of the
+    whole-sequence kernels (every rank draws the same seeded tensors).
+    Counts reset just before the ring and read just after."""
+    from mxnet_tpu_torch.ops import launch_counts, reset_launch_counts
+    from mxnet_tpu_torch.parallel.ring_attention import ring_attention
+    (q, k, v, do), want = ring_case(B, H, Hkv, S, D, dtype, seed)
+    c = S // world
+    sl = slice(rank * c, (rank + 1) * c)
+    qs, ks, vs = (t[:, :, sl].clone().requires_grad_() for t in (q, k, v))
+    dos = do[:, :, sl].contiguous()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    o, lse = ring_attention(qs, ks, vs, axis_name=None, causal=True,
+                            return_lse=True)
+    o.backward(dos)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = launch_counts()
+    got = (o.detach(), lse, qs.grad, ks.grad, vs.grad)
+    errs, ok = ring_errors(got, [w[:, :, sl] for w in want], dtype)
+    return {"errors": errs, "ok": ok, "wall_ms": wall_ms,
+            "launches": launches}
+
+
+def zero_fleet_check(weights, grads, steps, world=P19_FLEET, lr=1e-3,
+                     wd=0.01, cap_mb=None):
+    """LAMB on the ZeRO updater at world 1 and over an in-process fleet of
+    `world` virtual ranks on the card, from the same weights, all in fp32.
+    Rank r pushes its own share (2r + 1) / world**2 of the gradients
+    (rounded to bf16 first, as path 5's are): the shares differ, so an
+    exchange that sends a contribution to the wrong rank or counts one
+    rank's share more than once misses world 1, and for a power-of-two
+    world each share and each partial sum in rank order is exact in fp32,
+    so the shares add back to world 1's gradient bit for bit. Returns
+    (per-leaf relative error of the fleet's weight change against world
+    1's, the fleet's #9/#10 launches, buckets)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import engine
+    from mxnet_tpu_torch.ops import launch_counts, reset_launch_counts
+    from mxnet_tpu_torch.optimizer.zero import ZeroUpdater
+    keys = [str(i) for i in range(len(weights))]
+    weights = [w.float() for w in weights]
+    grads = [g.to(torch.bfloat16).float() for g in grads]
+    scope = engine.bucket_mb_scope(cap_mb) if cap_mb is not None \
+        else contextlib.nullcontext()
+
+    def opt():
+        return mx.optimizer.create("lamb", learning_rate=lr, wd=wd)
+
+    with scope:
+        zu = ZeroUpdater(opt())
+        w1 = [mx.nd.NDArray(w.clone()) for w in weights]
+        for _ in range(steps):
+            zu.step(keys, list(grads), w1)
+        outs = [None] * world
+        torch.cuda.synchronize()
+        reset_launch_counts()
+
+        def rank_fn(r, comm):
+            zr = ZeroUpdater(opt(), comm=comm)
+            ws = [mx.nd.NDArray(w.clone()) for w in weights]
+            share = (2 * r + 1) / world ** 2
+            parts = [g * share for g in grads]
+            for _ in range(steps):
+                zr.step(keys, parts, ws)
+            outs[r] = ws
+
+        run_fleet(world, rank_fn)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+    worst = 0.0
+    for r in range(world):
+        for w0, a, b in zip(weights, outs[r], w1):
+            da = a._data.float() - w0.float()
+            db = b._data.float() - w0.float()
+            den = db.norm().item()
+            if den > 0:
+                worst = max(worst, ((da - db).norm() / den).item())
+    return worst, launches, len(zu.layout)
+
+
+def p19_resnet(mx, gpu, rank, world, kv, comm_ready=None):
+    """P19_STEPS imperative steps of path 4's ResNet-50 through
+    Trainer(kvstore=kv, "sgd", lr 0.1, momentum 0.9) on this rank's
+    seeded batch of TRAIN_BATCH. Returns (final snapshot, step ms,
+    launches, ready counters, the trainable parameters' names)."""
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.ops import launch_counts, reset_launch_counts
+    net = train_net(0, gpu)
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                               {"learning_rate": 0.1, "momentum": 0.9},
+                               kvstore=kv, comm_ready=comm_ready)
+    x, y = train_batch(TRAIN_BATCH, RESNET_IMAGE, gpu, seed=rank)
+    telemetry.reset()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    ms = []
+    for _ in range(P19_STEPS):
+        t0 = time.perf_counter()
+        imperative_step(mx, net, loss_fn, trainer, x, y)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    launches = launch_counts()
+    c = telemetry.snapshot()["counters"]
+    ready = {k: c.get(k, 0) for k in (
+        "comm.ready.rounds", "comm.ready.aborted",
+        "comm.ready.flush_during_backward",
+        "comm.ready.first_flush_before_backward_end", "comm.bucket.count")}
+    snap = snapshot(net)
+    names = list(trainable(net))
+    del net, trainer
+    torch.cuda.empty_cache()
+    return snap, ms, launches, ready, names
+
+
+def snaps_equal(a, b):
+    return all(torch.equal(a[k], b[k]) for k in a)
+
+
+def trainable(net):
+    """{structural name: parameter} of the parameters with a gradient."""
+    return {k: p for k, p in net._collect_params_with_prefix().items()
+            if p.grad_req != "null"}
+
+
+def digest(snap, names):
+    """sha256 of the named tensors' bytes: ranks compare weights by it."""
+    import hashlib
+    h = hashlib.sha256()
+    for k in sorted(names):
+        t = snap[k].detach().contiguous().reshape(-1)
+        h.update(t.view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def p19_resnet_summed(mx, gpu, world):
+    """The one-card counterpart of (a) at world > 1: P19_STEPS steps of the
+    same net and optimizer through the device store, each summing the
+    gradients of every rank's batch (seeds 0..world-1, a backward each)
+    before one trainer.step(TRAIN_BATCH), as the ranks' all-reduce does.
+    Returns (initial, final) {name: tensor} of the trainable weights."""
+    net = train_net(0, gpu)
+    params = trainable(net)
+    init = {k: p.data().data_torch.clone() for k, p in params.items()}
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                               {"learning_rate": 0.1, "momentum": 0.9},
+                               kvstore="device")
+    batches = [train_batch(TRAIN_BATCH, RESNET_IMAGE, gpu, seed=r)
+               for r in range(world)]
+    for _ in range(P19_STEPS):
+        sums = None
+        for x, y in batches:
+            with mx.autograd.record():
+                loss = loss_fn(net(x), y)
+            loss.backward()
+            grads = [p.grad().data_torch for p in params.values()]
+            sums = [g.clone() for g in grads] if sums is None else \
+                [a.add_(g) for a, g in zip(sums, grads)]
+        for p, a in zip(params.values(), sums):
+            p.grad().data_torch.copy_(a)
+        trainer.step(TRAIN_BATCH)
+    final = {k: p.data().data_torch.clone() for k, p in params.items()}
+    del net, trainer, batches, sums
+    torch.cuda.empty_cache()
+    return init, final
+
+
+def change_rel_err(init, got, want):
+    """||(got - init) - (want - init)|| / ||want - init|| over every
+    tensor of `init` together, in fp32."""
+    num = den = 0.0
+    for k, w0 in init.items():
+        da = got[k].float() - w0.float()
+        db = want[k].float() - w0.float()
+        num += ((da - db) ** 2).sum().item()
+        den += (db ** 2).sum().item()
+    return math.sqrt(num / den) if den > 0 else math.sqrt(num)
+
+
+def p19_bert(mx, gpu, kv):
+    """P19_BERT_STEPS of path 5's BERT-base step with LAMB on the ZeRO
+    updater through a Trainer on store `kv`. Returns (snapshot, launches,
+    buckets, the net's weights and one step's gradients for the fleet,
+    the digest of its trainable weights)."""
+    from mxnet_tpu_torch.ops import launch_counts, reset_launch_counts
+    net = bert_net(gpu)
+    sce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    trainer = mx.gluon.Trainer(net.collect_params(), "lamb",
+                               {"learning_rate": 1e-3, "wd": 0.01},
+                               kvstore=kv, zero=True)
+    x, y = bert_batch(BERT_BATCH, gpu)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    for _ in range(P19_BERT_STEPS):
+        bert_step(mx, net, sce, trainer, x, y)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    snap = snapshot(net)
+    buckets = len(trainer._kvstore._updater.layout)
+    params = [p for p in net.collect_params().values()
+              if p.grad_req != "null"]
+    weights = [p.data()._data.detach().clone() for p in params]
+    grads = [p.grad()._data.detach().clone() for p in params]
+    sha = digest(snap, trainable(net))
+    del net, trainer
+    torch.cuda.empty_cache()
+    return snap, launches, buckets, weights, grads, sha
+
+
+def summed_traffic(traffics):
+    """Step by step, the rows of every rank's row-sparse gradient summed
+    by id in numpy, in rank order: what a dist_sync push of each rank's
+    step adds to the table."""
+    out = []
+    for steps in zip(*traffics):
+        ids = np.concatenate([i for i, _ in steps])
+        rows = np.concatenate([g for _, g in steps])
+        uniq, inv = np.unique(ids, return_inverse=True)
+        total = np.zeros((len(uniq), rows.shape[1]), np.float32)
+        np.add.at(total, inv, rows)
+        out.append((uniq.astype(np.int32), total))
+    return out
+
+
+def multi_rank_worker(out_dir):
+    """One rank of main path 19, started by `python -m
+    mxnet_tpu_torch.launch` (NCCL, one process a card): (c) the all-reduce
+    benchmark, (a) ResNet-50 through a dist_device_sync Trainer in
+    registration and readiness order beside the one-card device store, (b)
+    FusedTrainStep over a data mesh beside path 4's step, (d) BERT-base
+    LAMB on the ZeRO updater over NCCL beside the device store, then the
+    in-process fleet on the card, (e) this rank's chunk through the public
+    ring_attention over the process group, (f) bench_sparse's row-sparse
+    push and pull through a dist_sync store beside a local one. At world >
+    1 rank 0 also runs (a)'s steps on the one card with every rank's batch
+    summed. Writes rank<r>.json; counts reset before each leg and read
+    after it."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import launch_counts, reset_launch_counts
+    from mxnet_tpu_torch.parallel import collectives, create_mesh, dist
+    dist.initialize()
+    rank, world = dist.rank(), dist.num_workers()
+    gpu = mx.gpu(dist.local_rank())
+    torch.cuda.set_device(dist.local_rank())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    rec = {"rank": rank, "world": world, "backend": dist.backend(),
+           "card": card_name_and_limit()}
+    t_start = time.perf_counter()
+    # (c)
+    bench = collectives.allreduce_bench(size_mb=P19_BENCH_MB, iters=20)
+    rec["allreduce"] = bench
+    # (a)
+    dev_snap, dev_ms, dev_l, _, _ = p19_resnet(mx, gpu, rank, world,
+                                               "device")
+    reg_snap, reg_ms, reg_l, reg_c, names = p19_resnet(
+        mx, gpu, rank, world, "dist_device_sync", comm_ready=False)
+    rdy_snap, rdy_ms, rdy_l, rdy_c, _ = p19_resnet(
+        mx, gpu, rank, world, "dist_device_sync", comm_ready=True)
+    rec["resnet"] = {
+        "steps": P19_STEPS, "batch_per_rank": TRAIN_BATCH,
+        "device_ms": dev_ms, "registration_ms": reg_ms, "ready_ms": rdy_ms,
+        "registration_launches": reg_l, "ready_launches": rdy_l,
+        "device_launches": dev_l, "registration_counters": reg_c,
+        "ready_counters": rdy_c,
+        "ready_equals_registration": snaps_equal(rdy_snap, reg_snap),
+        "registration_equals_device": snaps_equal(reg_snap, dev_snap),
+        "ready_equals_device": snaps_equal(rdy_snap, dev_snap),
+        "digest": digest(reg_snap, names)}
+    del dev_snap, rdy_snap
+    if world > 1 and rank == 0:
+        init, want = p19_resnet_summed(mx, gpu, world)
+        rec["resnet"]["summed_rel_err"] = change_rel_err(init, reg_snap,
+                                                         want)
+        del init, want
+    del reg_snap
+    torch.cuda.empty_cache()
+    # (b)
+    fused = {}
+    for name, mesh in (("path4", None), ("mesh", create_mesh(data=world))):
+        net = train_net(0, gpu)
+        trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                                   {"learning_rate": 0.1, "momentum": 0.9})
+        step = mx.gluon.FusedTrainStep(
+            net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), trainer, mesh=mesh)
+        x, y = train_batch(TRAIN_BATCH, RESNET_IMAGE, gpu, seed=rank)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        losses = [step(x, y).asnumpy().item()
+                  for _ in range(P19_FUSED_STEPS)]
+        torch.cuda.synchronize()
+        fused[name] = (snapshot(net), losses, launch_counts(),
+                       list(trainable(net)))
+        del net, trainer, step
+        torch.cuda.empty_cache()
+    rec["fused"] = {"losses": fused["mesh"][1],
+                    "path4_losses": fused["path4"][1],
+                    "launches": fused["mesh"][2],
+                    "equals_path4": snaps_equal(fused["mesh"][0],
+                                                fused["path4"][0])
+                    and fused["mesh"][1] == fused["path4"][1],
+                    "digest": digest(fused["mesh"][0], fused["mesh"][3])}
+    del fused
+    # (d)
+    dev_snap, dev_l, dev_b, _, _, _ = p19_bert(mx, gpu, "device")
+    nccl_snap, nccl_l, nccl_b, weights, grads, sha = p19_bert(
+        mx, gpu, "dist_device_sync")
+    rec["zero"] = {"steps": P19_BERT_STEPS, "buckets": nccl_b,
+                   "launches": nccl_l, "device_launches": dev_l,
+                   "equals_device": snaps_equal(nccl_snap, dev_snap)
+                   and dev_b == nccl_b, "digest": sha}
+    del dev_snap, nccl_snap
+    torch.cuda.empty_cache()
+    if rank == 0:
+        worst, fleet_l, fleet_b = zero_fleet_check(weights, grads,
+                                                   P19_BERT_STEPS)
+        rec["zero"].update({"fleet_world": P19_FLEET,
+                            "fleet_rel_err": worst,
+                            "fleet_launches": fleet_l,
+                            "fleet_buckets": fleet_b})
+    del weights, grads
+    torch.cuda.empty_cache()
+    # (e) the public ring_attention over the process group
+    rec["ring"] = {str(dt): ring_rank_check(rank, world, **P19_RING,
+                                            dtype=dt)
+                   for dt in (torch.bfloat16, torch.float32)}
+    torch.cuda.empty_cache()
+    # (f) rank r pushes the traffic of seed r (rank 0 bench_sparse's own);
+    # the local store pushes every rank's rows of a step summed, and pulls
+    # this rank's ids
+    traffic = sparse_traffic(seed=rank)
+    local_traffic = traffic if world == 1 else summed_traffic(
+        [sparse_traffic(seed=r) for r in range(world)])
+    pulls = [ids[:256] for ids, _ in traffic]
+    tables = {}
+    for name, steps in (("dist_sync", traffic), ("local", local_traffic)):
+        kv = mx.kv.create(name)
+        kv.init(0, mx.nd.zeros((SPARSE_VOCAB, SPARSE_DIM), ctx=gpu))
+        kv.set_optimizer(mx.optimizer.create("sgd", learning_rate=0.1))
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        pulled = sparse_loop(mx, kv, gpu, steps, pulls=pulls)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        table = mx.nd.zeros((SPARSE_VOCAB, SPARSE_DIM), ctx=gpu)
+        kv.pull(0, out=table)
+        tables[name] = (table._data.clone(), pulled._values.clone(),
+                        launch_counts(), dt)
+        del kv, table
+    d, lo = tables["dist_sync"], tables["local"]
+    rel = max(((a - b).abs().max() / b.abs().max()).item()
+              for a, b in ((d[0], lo[0]), (d[1], lo[1])))
+    equal = torch.equal(d[0], lo[0]) and torch.equal(d[1], lo[1])
+    rec["sparse"] = {"steps": len(traffic), "launches": d[2],
+                     "local_launches": lo[2], "seconds": d[3],
+                     "local_seconds": lo[3], "equals_local": equal,
+                     "rel_err_local": rel,
+                     "ok": equal if world == 1 else rel <= SPARSE_REL}
+    del tables
+    collectives.barrier()
+    rec["seconds"] = time.perf_counter() - t_start
+    with open(os.path.join(out_dir, "rank%d.json" % rank), "w") as f:
+        json.dump(rec, f)
+    dist.shutdown()
+
+
+def phase_multi_rank():
+    """Main path 19: the port's multi-rank layer on the card. The ranks
+    (one a card, world = device_count()) run `multi_rank_worker` under the
+    port's launcher over NCCL, rendezvousing through a FileStore; their
+    counts are reset before each leg and read after it in the rank. Then
+    (e) ring attention over an in-process fleet of 4 on this card, counts
+    reset just before and read just after. Returns {kernel: launches on
+    the path}."""
+    from mxnet_tpu_torch.ops import KERNELS
+    phase = "multi_rank"
+    world = torch.cuda.device_count()
+    root = os.path.dirname(os.path.abspath(__file__))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ranks_") as tmp:
+        env = dict(os.environ)
+        env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+        cmd = [sys.executable, "-m", "mxnet_tpu_torch.launch", "-n",
+               str(world), "--launcher", "local", "--root-uri",
+               "file://" + os.path.join(tmp, "store"), "--backend", "nccl",
+               "--timeout", "540", sys.executable,
+               os.path.abspath(__file__), "--multi-rank-worker", tmp]
+        t0 = time.perf_counter()
+        run = subprocess.run(cmd, cwd=root, env=env, timeout=600)
+        wall = time.perf_counter() - t0
+        check(run.returncode == 0, phase,
+              "the ranks exited with %s" % run.returncode)
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(tmp, "rank%d.json" % r)) as f:
+                ranks.append(json.load(f))
+    launches = {k: 0 for k in KERNELS}
+    r0 = ranks[0]
+    rn, fu, ze, sp = r0["resnet"], r0["fused"], r0["zero"], r0["sparse"]
+    for r in ranks:
+        for leg in (r["resnet"]["registration_launches"],
+                    r["resnet"]["ready_launches"], r["fused"]["launches"],
+                    r["zero"]["launches"], r["sparse"]["launches"],
+                    *(x["launches"] for x in r["ring"].values())):
+            for k, n in leg.items():
+                launches[k] += n
+    launches_ = dict(launches)
+    for k, n in ze["fleet_launches"].items():
+        launches_[k] += n
+    # (a)
+    steps = P19_STEPS
+    check(all(r["resnet"]["ready_equals_registration"] for r in ranks),
+          phase, "readiness-order steps differ from registration order")
+    if world == 1:
+        check(rn["registration_equals_device"] and rn["ready_equals_device"],
+              phase, "world-1 NCCL steps differ from the device store's")
+    else:
+        check(len({r["resnet"]["digest"] for r in ranks}) == 1, phase,
+              "(a) the ranks' trainable weights differ")
+        check(rn["summed_rel_err"] <= P19_DP_REL, phase,
+              "(a) rank 0 is %.3g from the one-card summed batches (limit "
+              "%g)" % (rn["summed_rel_err"], P19_DP_REL))
+    for mode in ("registration", "ready"):
+        got = rn[mode + "_launches"]
+        check(got["conv_bn_stats"] == 16 * steps
+              and got["cbr_train_bwd"] == 16 * steps
+              and got["flat_sgd"] > 0, phase,
+              "(a) %s launches %s" % (mode, got))
+    check(rn["ready_counters"]["comm.ready.rounds"] == steps - 1, phase,
+          "(a) readiness rounds %s" % rn["ready_counters"])
+    emit({"phase": phase, "leg": "a_resnet50_dist", "world": world,
+          "backend": r0["backend"], "batch_per_rank": TRAIN_BATCH,
+          "steps": steps, "step_ms": {m: rn[m + "_ms"] for m in
+                                      ("device", "registration", "ready")},
+          "median_ms_steps_2_on": {
+              m: statistics.median(rn[m + "_ms"][1:])
+              for m in ("device", "registration", "ready")},
+          "launches": {m: rn[m + "_launches"] for m in
+                       ("device", "registration", "ready")},
+          "ready_counters": rn["ready_counters"],
+          "registration_counters": rn["registration_counters"],
+          "bit_equal": {"ready_vs_registration":
+                        rn["ready_equals_registration"],
+                        "registration_vs_device":
+                        rn["registration_equals_device"],
+                        "ready_vs_device": rn["ready_equals_device"]},
+          "summed_rel_err": rn.get("summed_rel_err"),
+          "summed_limit": P19_DP_REL})
+    # (b)
+    check(fu["launches"]["conv_bn_stats"] == 16 * P19_FUSED_STEPS
+          and fu["launches"]["flat_sgd"] == P19_FUSED_STEPS, phase,
+          "(b) launches %s" % fu["launches"])
+    if world == 1:
+        check(fu["equals_path4"], phase,
+              "(b) the data-mesh step differs from path 4's")
+    check(len({r["fused"]["digest"] for r in ranks}) == 1, phase,
+          "(b) the ranks' trainable weights differ")
+    emit({"phase": phase, "leg": "b_fused_mesh", "world": world,
+          "losses": fu["losses"], "launches": fu["launches"],
+          "bit_equal_path4": fu["equals_path4"]})
+    # (c)
+    ab = r0["allreduce"]
+    emit({"phase": phase, "leg": "c_allreduce_bench", "world": ab["world"],
+          "backend": ab["backend"], "bytes": ab["bytes"],
+          "algo_gbps": ab["algo_gbps"], "bus_gbps": ab["bus_gbps"],
+          "ms": ab["seconds"] * 1e3, "card": r0["card"],
+          "note": ("one rank: the all-reduce is a copy, not BASELINE's "
+                   "KVStore all-reduce metric" if ab["world"] == 1
+                   else "bus GB/s is BASELINE's metric")})
+    # (d)
+    check(all(ze["launches"][k] == ze["buckets"] * P19_BERT_STEPS
+              for k in P19_ZERO_KERNELS), phase,
+          "(d) launches %s for %d buckets" % (ze["launches"], ze["buckets"]))
+    if world == 1:
+        check(ze["equals_device"], phase,
+              "(d) world-1 NCCL ZeRO differs from the device store's")
+    check(len({r["zero"]["digest"] for r in ranks}) == 1, phase,
+          "(d) the ranks' trainable weights differ")
+    check(ze["fleet_rel_err"] <= P19_ZERO_REL, phase,
+          "(d) the fleet of %d is %.3g from world 1 (limit %g)"
+          % (P19_FLEET, ze["fleet_rel_err"], P19_ZERO_REL))
+    check(all(ze["fleet_launches"][k] == P19_FLEET * ze["fleet_buckets"]
+              * P19_BERT_STEPS for k in P19_ZERO_KERNELS), phase,
+          "(d) fleet launches %s" % ze["fleet_launches"])
+    emit({"phase": phase, "leg": "d_zero_bert", "world": world,
+          "buckets": ze["buckets"], "launches": ze["launches"],
+          "bit_equal_device": ze["equals_device"],
+          "fleet_world": P19_FLEET, "fleet_rel_err": ze["fleet_rel_err"],
+          "fleet_limit": P19_ZERO_REL,
+          "fleet_launches": ze["fleet_launches"]})
+    # (f)
+    check(sp["launches"]["segment_sum"] > 0, phase,
+          "(f) no segment_sum launch: %s" % sp["launches"])
+    check(all(r["sparse"]["ok"] for r in ranks), phase,
+          "(f) the dist_sync table or pull differs from the local store's "
+          "(bit for bit at world 1, within SPARSE_REL above): %s"
+          % [r["sparse"]["rel_err_local"] for r in ranks])
+    emit({"phase": phase, "leg": "f_sparse_dist", "world": world,
+          "steps": sp["steps"], "launches": sp["launches"],
+          "local_launches": sp["local_launches"], "seconds": sp["seconds"],
+          "local_seconds": sp["local_seconds"],
+          "bit_equal_local": sp["equals_local"],
+          "rel_err_local": [r["sparse"]["rel_err_local"] for r in ranks]})
+    # (e) through the public ring_attention over the process group
+    check(all(x["ok"] for r in ranks for x in r["ring"].values()), phase,
+          "(e) the ranks' ring_attention outside its tolerances: %s"
+          % [r["ring"] for r in ranks])
+    check(all(sum(x["launches"][k] for x in r0["ring"].values()) > 0
+              for k in TRAIN_KERNELS), phase,
+          "(e) process-group ring launches %s" % r0["ring"])
+    emit({"phase": phase, "leg": "e_ring_attention_group", "world": world,
+          **P19_RING, "causal": True, "results": r0["ring"],
+          "max_errors": {dt: {n: max(r["ring"][dt]["errors"][n]
+                                     for r in ranks)
+                              for n in r0["ring"][dt]["errors"]}
+                         for dt in r0["ring"]}})
+    # (e) over a fleet of P19_FLEET in this process: each check resets the
+    # counts just before its fleet and reads them just after
+    ring = {}
+    ring_launches = {k: 0 for k in KERNELS}
+    for dtype in (torch.bfloat16, torch.float32):
+        ring[str(dtype)] = ring_fleet_check(**P19_RING, dtype=dtype)
+        for k, n in ring[str(dtype)]["launches"].items():
+            ring_launches[k] += n
+    for k, n in ring_launches.items():
+        launches[k] += n
+        launches_[k] += n
+    check(all(r["ok"] for r in ring.values()), phase,
+          "(e) ring attention outside its tolerances: %s" % ring)
+    check(all(ring_launches[k] > 0 for k in TRAIN_KERNELS), phase,
+          "(e) launches %s" % ring_launches)
+    emit({"phase": phase, "leg": "e_ring_attention",
+          "fleet_world": P19_FLEET, **P19_RING, "causal": True,
+          "results": ring, "tolerances": {str(k): v for k, v in
+                                          P19_RING_TOL.items()},
+          "launches": ring_launches})
+    emit({"phase": phase, "world": world, "seconds": wall,
+          "worker_seconds": r0["seconds"], "launches": launches_})
+    return launches_
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -8195,6 +8972,12 @@ def main():
     # baseline runs: no kernel)
     spec_launches = phase_serve_spec()
     check_path(spec_launches, (), "main_path_serve_spec")
+    torch.cuda.empty_cache()
+
+    # main path 19: multi-rank communication (counts reset inside each
+    # rank before each leg and read after it; around the ring fleet here)
+    multi_launches = phase_multi_rank()
+    check_path(multi_launches, MULTI_RANK_KERNELS, "main_path_multi_rank")
 
     print(card_name_and_limit(), flush=True)
     kernels = []
@@ -8210,7 +8993,8 @@ def main():
             + module_launches[name] + word_lm_launches[name] \
             + bucketing_launches[name] + ssd_launches[name] \
             + ssd_infer_launches[name] + inception_launches[name] \
-            + dcgan_launches[name] + spec_launches[name]
+            + dcgan_launches[name] + spec_launches[name] \
+            + multi_launches[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": "mxnet_tpu_torch/" + source, "replaces": replaces,
@@ -8227,5 +9011,24 @@ def main():
                                  "count": torch.cuda.device_count()}})
 
 
+def main_multi_rank():
+    """`--only multi_rank`: the build and main path 19 alone (for iterating
+    on the path; a run with no arguments drives every path)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        sys.exit(2)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    phase_build()
+    launches = phase_multi_rank()
+    check_path(launches, MULTI_RANK_KERNELS, "main_path_multi_rank")
+    print(card_name_and_limit(), flush=True)
+
+
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) == 3 and sys.argv[1] == "--multi-rank-worker":
+        multi_rank_worker(sys.argv[2])
+    elif sys.argv[1:] == ["--only", "multi_rank"]:
+        main_multi_rank()
+    else:
+        main()

@@ -27,8 +27,14 @@ returns a `RowSparseNDArray`.
 `forward` and `backward` run inside one `torch.autograd.Function`, as
 custom ops do (`operator._CustomFn`).
 
-Not ported yet: the reference's grad-ready hooks (they feed the
-readiness-ordered kvstore, which comes with the communication slice).
+Grad-ready hooks (`add_grad_ready_hook`): while one is installed,
+`backward` runs ``torch.autograd.backward`` over the marked leaves with a
+``register_post_accumulate_grad_hook`` on each, so each leaf's `.grad`
+buffer is written, and the hooks called with its array, the moment torch
+has accumulated its last contribution, while the rest of backward still
+runs. That feeds the readiness-ordered kvstore push. On a CUDA tensor
+torch calls the hook on its device thread, so `in_backward` and
+`backward_round` are process-wide, not per thread.
 """
 from __future__ import annotations
 
@@ -39,9 +45,42 @@ import torch
 
 __all__ = ["is_recording", "is_training", "set_recording", "set_training",
            "record", "pause", "train_mode", "predict_mode", "backward",
-           "grad", "mark_variable", "Function"]
+           "grad", "mark_variable", "Function", "add_grad_ready_hook",
+           "remove_grad_ready_hook", "in_backward", "backward_round"]
 
 _state = threading.local()
+
+# backward's progress and the grad-ready hooks, shared with torch's device
+# threads (which run the leaf hooks of CUDA tensors)
+_BWD = {"depth": 0, "round": 0}
+_GRAD_READY_HOOKS = []
+
+
+def in_backward():
+    """True while `backward` runs (a hook that launches work tells by it
+    whether the launch beat the end of backward)."""
+    return _BWD["depth"] > 0
+
+
+def backward_round():
+    """The number of `backward` calls so far: a grad-ready consumer sees a
+    second backward before the step (gradient accumulation) by it."""
+    return _BWD["round"]
+
+
+def add_grad_ready_hook(fn):
+    """Call ``fn(array)`` the moment a marked array's gradient is final
+    during `backward`, right after its `.grad` buffer is written."""
+    _GRAD_READY_HOOKS.append(fn)
+    return fn
+
+
+def remove_grad_ready_hook(fn):
+    """Unregister a hook (no-op if it is not installed)."""
+    try:
+        _GRAD_READY_HOOKS.remove(fn)
+    except ValueError:
+        pass
 
 
 def _st():
@@ -216,11 +255,47 @@ def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
               if nd._grad_req != "null" and nd._data.requires_grad]
     if not leaves:
         return
-    grads = torch.autograd.grad(outs, [nd._data for nd in leaves], cots,
-                                retain_graph=retain_graph, allow_unused=True)
-    for nd, g in zip(leaves, grads):
-        if g is not None:
+    _BWD["round"] += 1
+    _BWD["depth"] += 1
+    try:
+        hooks = list(_GRAD_READY_HOOKS)
+        if hooks:
+            _backward_ready(outs, cots, leaves, hooks, retain_graph)
+            return
+        grads = torch.autograd.grad(outs, [nd._data for nd in leaves], cots,
+                                    retain_graph=retain_graph,
+                                    allow_unused=True)
+        for nd, g in zip(leaves, grads):
+            if g is not None:
+                _write_leaf_grad(nd, g)
+    finally:
+        _BWD["depth"] -= 1
+
+
+def _backward_ready(outs, cots, leaves, hooks, retain_graph):
+    """Backward that writes each leaf's gradient, and calls `hooks`, as
+    soon as torch has accumulated it (a leaf the heads do not reach keeps
+    its buffer and calls no hook)."""
+    handles = []
+    tensors = [nd._data for nd in leaves]
+
+    def ready(nd):
+        def on_accumulated(t):
+            g, t.grad = t.grad, None
             _write_leaf_grad(nd, g)
+            for h in hooks:
+                h(nd)
+        return on_accumulated
+
+    for nd, t in zip(leaves, tensors):
+        t.grad = None
+        handles.append(t.register_post_accumulate_grad_hook(ready(nd)))
+    try:
+        torch.autograd.backward(outs, cots, retain_graph=retain_graph,
+                                inputs=tensors)
+    finally:
+        for h in handles:
+            h.remove()
 
 
 def grad(heads, variables, head_grads=None, retain_graph=None,

@@ -16,20 +16,37 @@ rows, not of the table, so a huge table whose push touches a few thousand
 rows packs beside its neighbours.
 
 Dtypes are named by string ("float32", "bfloat16", ...), as the `.params`
-format and `BucketLayout.to_payload` name them. Readiness-ordered flushing,
-schedule autotuning and the fused flatten -> comm -> unflatten programs
-come with the port's multi-rank communication slice.
+format and `BucketLayout.to_payload` name them. `pack_bucket` /
+`unpack_bucket` are the flatten and split around a bucket's exchange.
+`ready.ReadyScheduler` packs buckets in the order backward finishes the
+gradients, and `autotune` picks the (bucket cap, flush policy) schedule.
+Every comm launch records one span of category ``comm`` named by
+`comm_span_name`.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
 from .. import telemetry as _telem
 from ..base import dtype_name, get_env, register_env, torch_dtype
 
-__all__ = ["DEFAULT_BUCKET_MB", "bucket_bytes", "Bucket", "GradBucketer",
-           "bucketize", "BucketSpec", "BucketLayout", "pack_flat",
-           "unpack_flat", "SparseBucket", "SparseGradBucketer"]
+__all__ = ["DEFAULT_BUCKET_MB", "bucket_bytes", "set_bucket_mb",
+           "bucket_mb_scope", "Bucket", "GradBucketer", "bucketize",
+           "BucketSpec", "BucketLayout", "pack_flat", "unpack_flat",
+           "pack_bucket", "unpack_bucket", "SPAN_CAT_COMM", "comm_span_name",
+           "SparseBucket", "SparseGradBucketer"]
+
+# the category of every comm launch's span
+SPAN_CAT_COMM = "comm"
+
+
+def comm_span_name(key_range, kind="bucket"):
+    """``comm.<kind>[<key range>]``: kind "bucket" for a bucket's launch,
+    "key" for one key, "rs"/"ag" for ZeRO's two legs, "sparse" for a
+    row-sparse exchange."""
+    return "comm.%s[%s]" % (kind, key_range)
 
 DEFAULT_BUCKET_MB = 25.0
 
@@ -38,10 +55,38 @@ register_env("MXNET_TPU_COMM_BUCKET_MB", DEFAULT_BUCKET_MB, float,
              "at a time).")
 
 
+# process-wide override (set_bucket_mb, bucket_mb_scope, a pinned comm
+# schedule); None leaves the cap to the environment
+_BUCKET_MB_OVERRIDE = None
+
+
+def set_bucket_mb(mb):
+    """Override the bucket cap (megabytes; 0 turns bucketing off, None
+    hands it back to ``MXNET_TPU_COMM_BUCKET_MB``). Returns the previous
+    override."""
+    global _BUCKET_MB_OVERRIDE
+    prev = _BUCKET_MB_OVERRIDE
+    _BUCKET_MB_OVERRIDE = None if mb is None else float(mb)
+    return prev
+
+
+@contextlib.contextmanager
+def bucket_mb_scope(mb):
+    """A scope with another bucket cap."""
+    prev = set_bucket_mb(mb)
+    try:
+        yield
+    finally:
+        set_bucket_mb(prev)
+
+
 def bucket_bytes(bucket_mb=None):
     """The bucket cap in bytes (0: bucketing off): `bucket_mb` when given,
-    else ``MXNET_TPU_COMM_BUCKET_MB`` (default 25)."""
+    else the `set_bucket_mb` override, else ``MXNET_TPU_COMM_BUCKET_MB``
+    (default 25)."""
     mb = bucket_mb
+    if mb is None:
+        mb = _BUCKET_MB_OVERRIDE
     if mb is None:
         try:
             mb = get_env("MXNET_TPU_COMM_BUCKET_MB")
@@ -73,9 +118,42 @@ class Bucket:
     def __len__(self):
         return len(self.keys)
 
+    def key_range(self):
+        if len(self.keys) == 1:
+            return str(self.keys[0])
+        return "%s..%s" % (self.keys[0], self.keys[-1])
+
+    def span_name(self):
+        return comm_span_name(self.key_range())
+
     def __repr__(self):
         return ("Bucket(%d arrays, %d bytes, %s, reason=%s)"
                 % (len(self), self.nbytes, self.dtype, self.reason))
+
+
+def _count_bucket(bucket):
+    _telem.inc("comm.bucket.count")
+    _telem.inc("comm.bucket.bytes", bucket.nbytes)
+    _telem.inc("comm.bucket.flush_reason.%s" % bucket.reason)
+    return bucket
+
+
+def pack_bucket(bucket):
+    """A new flat vector of the bucket's tensors, in order (the buffer an
+    exchange may reduce in place)."""
+    if len(bucket.raws) == 1:
+        return bucket.raws[0].reshape(-1).clone()
+    return torch.cat([r.reshape(-1) for r in bucket.raws])
+
+
+def unpack_bucket(bucket, flat):
+    """Views of a flat vector in the bucket's shapes."""
+    out, off = [], 0
+    for s in bucket.shapes:
+        n = torch.Size(s).numel()
+        out.append(flat[off:off + n].view(s))
+        off += n
+    return out
 
 
 class GradBucketer:
@@ -372,3 +450,14 @@ def unpack_flat(spec, flat):
         out.append(flat[off:off + n].view(s))
         off += n
     return out
+
+
+from .ready import ReadyScheduler            # noqa: E402
+from . import autotune                       # noqa: E402
+from .autotune import (                      # noqa: E402
+    CommSchedule, ScheduleAutotuner, autotune_enabled, current_schedule,
+    restore_schedule, schedule_payload, set_schedule)
+
+__all__ += ["ReadyScheduler", "autotune", "CommSchedule",
+            "ScheduleAutotuner", "autotune_enabled", "current_schedule",
+            "set_schedule", "schedule_payload", "restore_schedule"]

@@ -38,9 +38,19 @@ is).
 Deviation: the step runs eagerly, one kernel at a time. Capturing it as
 one CUDA graph is later work; every kernel already launches on the current
 stream and allocates through `torch.empty`, as capture needs. The update
-runs inside a ``fused_step.update`` profiler range. `mesh`,
-`bucket_mb`, the integrity sentinel and the compile cache of the reference
-are not ported.
+runs inside a ``fused_step.update`` profiler range. The integrity
+sentinel and the compile cache of the reference are not ported.
+
+Data parallelism (``mesh``, a `parallel.mesh.Mesh` with a ``data`` axis):
+every rank passes its own shard of the batch (``batch_spec``, default
+``P("data")``; a replicated batch, ``P()``, works too), the gradients of
+the local loss sums are summed over the ``data`` group (one all-reduce per
+flat bucket of at most ``bucket_mb``, default the engine's cap; 0 sends
+them one by one) and
+rescaled by ``scale / (local batch x data size)``, and the returned loss
+is the mean over the global batch. Over one rank the all-reduce is a copy,
+so the step is the single-card step bit for bit. `rules` are checked as
+`parallel.ShardedTrainStep` checks them.
 """
 from __future__ import annotations
 
@@ -56,6 +66,7 @@ from ..ops.fused_optimizer import multi_adam, multi_sgd
 from ..optimizer.optimizer import _clip as _off
 from ..optimizer.optimizer import apply_op
 from ..optimizer.optimizer import dcasgd_update
+from ..parallel import collectives as _coll
 from .block import _AUX_COLLECTOR
 
 __all__ = ["FusedTrainStep"]
@@ -335,18 +346,29 @@ class FusedTrainStep:
 
     def __init__(self, net, loss, trainer, donate=True, mesh=None,
                  rules=None, batch_spec=None, bucket_mb=None):
-        for name, value in (("mesh", mesh), ("rules", rules),
-                            ("batch_spec", batch_spec),
-                            ("bucket_mb", bucket_mb)):
-            if value is not None:
-                raise NotImplementedError(
-                    "FusedTrainStep(%s=...): multi-device steps come with "
-                    "the port's communication slice" % name)
+        from ..parallel.train_step import _check_rules, _data_mesh
+        self._mesh = _data_mesh(mesh)
+        self._rules = _check_rules(rules, self._mesh)
+        self._batch_spec = batch_spec
+        self._bucket_mb = bucket_mb
+        self._donate = donate
         self._net = net
         self._loss = loss
         self._trainer = trainer
         self._built = False
         self.outputs = None
+
+    def rebuild_for_mesh(self, mesh):
+        """A new, unbuilt step over the same net, loss and trainer on
+        `mesh` (the rebuild after the set of ranks changed); the caller
+        carries the optimizer states across."""
+        return FusedTrainStep(self._net, self._loss, self._trainer,
+                              donate=self._donate, mesh=mesh,
+                              rules=self._rules, batch_spec=self._batch_spec,
+                              bucket_mb=self._bucket_mb)
+
+    def _data_group(self):
+        return None if self._mesh is None else self._mesh.group("data")
 
     def _build(self, ctx, args):
         trainer = self._trainer
@@ -386,7 +408,9 @@ class FusedTrainStep:
             self._build(ctx, args)
         trainer = self._trainer
         opt = trainer._optimizer
-        opt.rescale_grad = trainer._scale / args[0].shape[0]
+        group = self._data_group()
+        n_data = 1 if self._mesh is None else self._mesh.axis_size("data")
+        opt.rescale_grad = trainer._scale / (args[0].shape[0] * n_data)
         scal = self._host_fn(opt, self._train_idx)
 
         aux = []
@@ -406,6 +430,9 @@ class FusedTrainStep:
         # a parameter that the loss does not reach gets a zero gradient
         grads = [torch.zeros_like(w) if g is None else g
                  for w, g in zip(weights, grads)]
+        if group is not None:
+            with record_function("fused_step.allreduce"):
+                grads = _coll.psum_bucketed(grads, group, self._bucket_mb)
         with torch.no_grad():
             with record_function("fused_step.update"):
                 self._dev_fn(opt, weights, grads,
@@ -415,4 +442,7 @@ class FusedTrainStep:
                 target._data.copy_(value)
         self.outputs = out.detach() if isinstance(out, NDArray) else out
         loss = lvec._data.detach()
-        return NDArray(loss.float().mean().to(loss.dtype), ctx=ctx)
+        mean = loss.float().mean()
+        if group is not None:
+            mean = _coll.all_reduce(mean, group) / n_data
+        return NDArray(mean.to(loss.dtype), ctx=ctx)

@@ -22,9 +22,11 @@ are the reference's.
 
 The reference's fused per-bucket merge programs are a JAX launch-count
 device; here the per-key sum is the same arithmetic (replicas added in
-order). The fault-injection retry of a sparse bucket comes with the port's
-resilience package; readiness-ordered push sessions and the ``dist*``
-stores raise NotImplementedError naming the slice that brings them.
+order). `ready_session` opens a readiness-ordered push round
+(`ReadyPushSession`): the Trainer feeds each gradient from the grad-ready
+hook as backward finishes it, exchanges start at once, and every write
+waits for `finish()` at step time. The ``dist*`` types are
+`kvstore_dist.KVStoreDist`.
 """
 from __future__ import annotations
 
@@ -36,9 +38,7 @@ from .. import optimizer as opt
 from .. import telemetry as _telem
 from ..base import MXNetError
 
-__all__ = ["KVStore", "KVStoreLocal", "create"]
-
-_COMM = "the port's multi-rank communication slice"
+__all__ = ["KVStore", "KVStoreLocal", "ReadyPushSession", "create"]
 
 
 def _key_list(key):
@@ -122,6 +122,9 @@ class KVStore:
     def _set_updater(self, updater):
         self._updater = updater
 
+    def barrier(self):
+        """Nothing to wait for on one process."""
+
     def save_optimizer_states(self, fname, dump_optimizer=False):
         assert self._updater is not None, \
             "Cannot save states for distributed training"
@@ -178,8 +181,45 @@ class KVStoreLocal(KVStore):
         return svc
 
     def ready_session(self, canonical_keys=None):
-        raise NotImplementedError("readiness-ordered push sessions come "
-                                  "with %s" % _COMM)
+        """Open a readiness-ordered push round; `canonical_keys` is the
+        registration-order key sequence (it freezes layouts as the
+        registration path would)."""
+        return ReadyPushSession(self, canonical_keys=canonical_keys)
+
+    def _ready_layout(self, canonical, cap):
+        """The frozen bucket layout of a readiness round, or None for
+        free-mode assembly. Local merges are elementwise, so any bucketing
+        gives the same bits: free mode."""
+        return None
+
+    def _ready_ingest(self, sess, key, vals):
+        """Keep one key's replicas for the round; returns the tensor the
+        bucket assembly sizes it by."""
+        sess.raw_slots[key] = vals
+        return vals[0]._data
+
+    def _ready_launch(self, sess, bucket):
+        """One bucket's merge: each key's replicas summed in order, as
+        `_merge` does."""
+        _telem.inc("comm.collectives")
+        return [self._merge(sess.raw_slots[k]) for k in bucket.keys]
+
+    def _ready_apply(self, sess, bucket, merged):
+        """The deferred writes of one launched bucket: the updater (or a
+        store write), then the out broadcast."""
+        for k, m in zip(bucket.keys, merged):
+            self._apply_merged(k, m)
+            if sess.out_map is not None:
+                src = self._store[k]
+                for t in sess.out_map[k]:
+                    src.copyto(t)
+
+    def _apply_merged(self, k, merged):
+        stored = self._store[k]
+        if self._updater is not None:
+            self._updater(int(k) if k.isdigit() else k, merged, stored)
+        else:
+            _write(stored, merged)
 
     def _check_keys(self, keys):
         for k in keys:
@@ -264,12 +304,7 @@ class KVStoreLocal(KVStore):
                 return
         for k, v in zip(keys, values):
             merged = self._merge(v if isinstance(v, (list, tuple)) else [v])
-            k = str(k)
-            stored = self._store[k]
-            if self._updater is not None:
-                self._updater(int(k) if k.isdigit() else k, merged, stored)
-            else:
-                _write(stored, merged)
+            self._apply_merged(str(k), merged)
 
     # -- row-sparse pushes -------------------------------------------------
     def _sparse_entries(self, keys, values):
@@ -294,13 +329,8 @@ class KVStoreLocal(KVStore):
 
     def _apply_sparse(self, k, ids, vals, shape):
         """The updater (or store write) for one merged sparse key."""
-        stored = self._store[k]
-        merged = nd.sparse.RowSparseNDArray(vals, ids, shape,
-                                            ctx=stored.context)
-        if self._updater is not None:
-            self._updater(int(k) if k.isdigit() else k, merged, stored)
-        else:
-            _write(stored, merged)
+        self._apply_merged(k, nd.sparse.RowSparseNDArray(
+            vals, ids, shape, ctx=self._store[k].context))
 
     def _count_sparse(self, vals, merged):
         _telem.inc("comm.sparse.push")
@@ -410,9 +440,133 @@ def _write(stored, value):
             stored._data.copy_(dense)
 
 
+class ReadyPushSession:
+    """One readiness-ordered round of gradient exchange.
+
+    The Trainer opens it before backward, feeds `push(key, vals)` from the
+    grad-ready hook as each parameter's gradient is final, and calls
+    `finish()` at step time. Bucket assembly is an `engine.ReadyScheduler`;
+    each completed bucket launches its exchange at once, and every write
+    (updater, store, out broadcast) waits for `finish()`, so a round that
+    is abandoned has changed nothing and the registration path stays a
+    safe fallback.
+
+    * a local store: free-mode buckets, applied at finish in launch order;
+    * a dist store: the buckets the registration path would make from the
+      canonical order, frozen, so that every flat vector (and so every
+      element's order of summation across workers) is the registration
+      path's, whatever order backward finishes the keys in;
+    * a `ZeroUpdater` with a frozen layout: frozen-mode buckets, each
+      reduce-scatter launched from backward (`ZeroUpdater.scatter_ready`),
+      the updates and all-gathers at finish (`finish_ready`);
+    * a `ZeroUpdater` before its first step: the gradients are kept and
+      pushed at finish in the canonical order, so the layout freezes as
+      the registration path would freeze it on every rank.
+
+    Ranks running the same program see the same readiness order (torch
+    finishes leaves in a deterministic order for one graph), so the launch
+    order agrees across ranks; `finish()` checks the pushed keys against
+    `canonical_keys`.
+    """
+
+    def __init__(self, store, canonical_keys=None):
+        from ..optimizer.zero import ZeroUpdater
+        self.store = store
+        self.cap = _engine.bucket_bytes()
+        self.canonical = (None if canonical_keys is None
+                          else [str(k) for k in canonical_keys])
+        self.raw_slots = {}
+        self.nrep = None
+        self.out_map = None
+        self.launched = []     # [(bucket, handle)] in launch order
+        self.arrivals = []     # ZeRO: [(spec, shard handle)]
+        self.pushed = []       # keys in arrival order
+        self.finished = False
+        self._zero = isinstance(store._updater, ZeroUpdater)
+        self._buffer = None
+        if self._zero:
+            layout = store._updater.layout
+            if layout is None:
+                self._sched = None
+                self._buffer = {}
+            else:
+                self._sched = _engine.ReadyScheduler(self._dispatch_zero,
+                                                     layout=layout)
+        else:
+            self._sched = _engine.ReadyScheduler(
+                self._dispatch, cap_bytes=self.cap,
+                layout=store._ready_layout(self.canonical, self.cap))
+
+    def _dispatch(self, bucket, spec=None):
+        self.launched.append((bucket, self.store._ready_launch(self,
+                                                               bucket)))
+
+    def _dispatch_zero(self, bucket, spec):
+        flat_g = _engine.pack_flat(spec, bucket.raws)
+        handle = self.store._updater.scatter_ready(spec, flat_g,
+                                                   self.store._store)
+        self.arrivals.append((spec, handle))
+
+    def push(self, key, vals):
+        """Feed one parameter's gradients (one per replica) during
+        backward; launches whatever buckets that completes."""
+        k = str(key)
+        vals = list(vals) if isinstance(vals, (list, tuple)) else [vals]
+        if not vals or any(not isinstance(v, nd.NDArray)
+                           or isinstance(v, nd.sparse.BaseSparseNDArray)
+                           for v in vals):
+            raise MXNetError("readiness push requires dense NDArray "
+                             "gradients (key %s)" % (key,))
+        if self.nrep is None:
+            self.nrep = len(vals)
+        elif len(vals) != self.nrep:
+            raise MXNetError("readiness push saw %d replicas for key %s, "
+                             "expected %d" % (len(vals), key, self.nrep))
+        self.pushed.append(k)
+        if self._buffer is not None:
+            self._buffer[k] = vals
+            return
+        if self._zero:
+            raw = self.store._merge(vals)._data.detach()
+            self.raw_slots[k] = raw
+        else:
+            raw = self.store._ready_ingest(self, k, vals)
+        self._sched.add(k, raw)
+
+    def finish(self, outs=None):
+        """Complete the round at step time: drain the tails, then apply
+        the launched buckets in launch order (or run ZeRO's updates and
+        all-gathers). `outs` is [(key, [targets])] for the fused pull of
+        a store without an updater."""
+        if self.finished:
+            raise MXNetError("ReadyPushSession.finish() called twice")
+        self.finished = True
+        store = self.store
+        if self._buffer is not None:
+            order = self.canonical if self.canonical is not None \
+                else list(self._buffer)
+            keys = [k for k in order if k in self._buffer]
+            if len(keys) != len(self._buffer):
+                raise MXNetError(
+                    "readiness round pushed keys outside the canonical "
+                    "order (%s vs %s)" % (sorted(self._buffer),
+                                          sorted(order)))
+            store._maybe_push_zero(keys, [self._buffer[k] for k in keys])
+            return
+        self._sched.drain()
+        if self._zero:
+            store._updater.finish_ready(self.arrivals, store._store)
+            return
+        if outs is not None:
+            self.out_map = {str(k): targets for k, targets in outs}
+        for bucket, handle in self.launched:
+            store._ready_apply(self, bucket, handle)
+
+
 def create(name="local"):
     """A store by type name: local, device (and its aliases nccl,
-    local_allreduce_cpu, local_allreduce_device); dist* raises."""
+    local_allreduce_cpu, local_allreduce_device), or dist_sync,
+    dist_device_sync, dist_async and dist (`kvstore_dist.KVStoreDist`)."""
     if not isinstance(name, str):
         raise TypeError("name must be a string")
     if name in ("local", "local_allreduce_cpu", "local_allreduce_device",
@@ -420,5 +574,6 @@ def create(name="local"):
         return KVStoreLocal("device" if name in ("device", "nccl") else
                             "local")
     if name.startswith("dist"):
-        raise NotImplementedError("kvstore %r comes with %s" % (name, _COMM))
+        from .kvstore_dist import KVStoreDist
+        return KVStoreDist(name)
     raise ValueError("unknown KVStore type %s" % name)

@@ -16,9 +16,12 @@ Per-parameter lr/wd (scheduler, lr_mult/wd_mult, Adam's bias correction)
 reach the flat pass as per-element fp32 vectors, each cached on its tuple
 of scalars. The exchange is injectable (`ZeroComm`): the default is world
 1, where every exchange is the identity and the updater still does the
-work. Multi-rank exchanges (NCCL), the readiness-ordered entry points
-(`scatter_ready`/`finish_ready`), the integrity sentinel, fault sites and
-retries come with the port's multi-rank communication slice.
+work; `kvstore.DistZeroComm` exchanges over the process group (NCCL on
+the card, gloo on the CPU), and tests drive in-process fleets of threads.
+The readiness-ordered entry points (`scatter_ready`, `finish_ready`) start
+each bucket's reduce-scatter as backward finishes its members and run the
+updates and all-gathers at step time. The integrity sentinel, fault sites
+and retries of the reference come with the port's resilience work.
 
 The shards are torch tensors on the weights' device; the kernels update
 the weight shard, the moments and the fp32 master in place.
@@ -39,8 +42,6 @@ from ..ops import fused_optimizer as _fo
 from .optimizer import LAMB, SGD, Adam, Optimizer
 
 __all__ = ["ZeroComm", "ZeroUpdater", "zero_enabled"]
-
-_COMM = "the port's multi-rank communication slice"
 
 register_env("MXNET_TPU_ZERO", False, bool,
              "Run the kvstore's optimizer as the ZeRO-1 sharded updater "
@@ -271,12 +272,44 @@ class ZeroUpdater:
                         weights_by_key[k]._data.copy_(part)
 
     def scatter_ready(self, spec, flat_g, weights_by_key):
-        raise NotImplementedError("ZeroUpdater.scatter_ready (readiness-"
-                                  "ordered ZeRO) comes with %s" % _COMM)
+        """Start one completed bucket's reduce-scatter (readiness mode,
+        frozen layout). Returns the handle `finish_ready` takes: a pending
+        exchange where the comm can start one (`reduce_scatter_async`),
+        else the shard."""
+        self._ensure_shards(spec, weights_by_key)
+        start = getattr(self.comm, "reduce_scatter_async", None)
+        if start is not None:
+            return start(spec, flat_g)
+        return self.comm.reduce_scatter(spec, flat_g)
 
     def finish_ready(self, arrivals, weights_by_key):
-        raise NotImplementedError("ZeroUpdater.finish_ready (readiness-"
-                                  "ordered ZeRO) comes with %s" % _COMM)
+        """Complete a readiness round at step time. `arrivals` is [(spec,
+        handle)] in completion order (any permutation of the layout); each
+        bucket's update and all-gather run in that order, with the
+        arithmetic of `step`."""
+        if self.layout is None:
+            raise RuntimeError("finish_ready needs a frozen layout (the "
+                               "first step goes through step())")
+        got = sorted(s.index for s, _ in arrivals)
+        want = sorted(s.index for s in self.layout)
+        if got != want:
+            raise ValueError("readiness round arrived with buckets %s but "
+                             "the frozen layout holds %s" % (got, want))
+        opt = self.optimizer
+        for k in self.layout.keys():
+            opt._update_count(self._idx(k))
+        clip = opt.clip_gradient
+        with torch.no_grad():
+            for spec, handle in arrivals:
+                g_shard = handle.wait() if hasattr(handle, "wait") \
+                    else handle
+                with record_function("zero.update"):
+                    new_w = self._fused_shard_update(spec, g_shard, clip)
+                full = self.comm.all_gather(spec, new_w)
+                with record_function("zero.unpack"):
+                    for k, part in zip(spec.keys,
+                                       _engine.unpack_flat(spec, full)):
+                        weights_by_key[k]._data.copy_(part)
 
     def _fused_shard_update(self, spec, g_shard, clip):
         """One flat pass over the owned shard (two for LAMB)."""

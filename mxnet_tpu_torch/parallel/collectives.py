@@ -1,19 +1,243 @@
-"""Row dedup of sparse slabs (the port of `merge_unique_rows` from
+"""Collectives over process groups, the bucketed multi-tensor forms, the
+row-sparse exchange and the all-reduce benchmark (the port of
 `mxnet_tpu.parallel.collectives`).
 
-The mesh collectives of that module (`all_gather_rows`,
-`psum_unique_rows`, the dense all-reduce benchmarks) come with the port's
-multi-rank communication slice.
+The JAX package's collectives run inside `shard_map` over a mesh axis.
+Here every rank is a process, and a collective names its ranks by
+`axis_name`: None (the whole world), an axis of the current mesh
+(`mesh_scope`), or a torch ProcessGroup. NCCL carries CUDA tensors and
+gloo CPU tensors (`parallel.dist`). A process that runs alone has no
+group, and every collective is then the identity (a sum over one rank).
+
+All of them return new tensors and leave their inputs as they were.
+NCCL runs on the current stream: the results are ready in stream order,
+as any kernel's are.
+
+`merge_unique_rows` sums the rows of duplicate ids in a static-shape slab:
+a stable sort and one `segment_sum` (kernel #11 on a card), so
+duplicates add in occurrence order. `psum_unique_rows` is the sparse
+all-reduce: one all-gather of each rank's fixed-size (ids, rows) slab,
+then that dedup, so the bytes on the wire scale with the touched rows.
 """
 from __future__ import annotations
 
 import torch
 
+from .. import engine as _engine
+from .. import telemetry as _telem
 from ..ops import sparse_ops as _sops
+from . import dist
 
-__all__ = ["merge_unique_rows"]
+__all__ = ["all_reduce", "all_gather", "reduce_scatter", "ppermute",
+           "psum_bucketed", "all_reduce_multi", "reduce_scatter_multi",
+           "all_gather_multi", "all_gather_rows", "psum_unique_rows",
+           "merge_unique_rows", "barrier", "allreduce_bench",
+           "resolve_group"]
 
 _SENTINEL = 2 ** 31 - 1
+
+
+def resolve_group(axis_name=None):
+    """(group, world, rank) of `axis_name`: None for the world, a name of
+    the current mesh's axes, or a ProcessGroup. (None, 1, 0) when the
+    process runs alone."""
+    if not dist.has_group():
+        return None, 1, 0
+    import torch.distributed as tdist
+    group = axis_name
+    if isinstance(axis_name, str):
+        from .mesh import current_mesh
+        mesh = current_mesh()
+        if mesh is None:
+            raise ValueError("collective over axis %r needs a mesh_scope"
+                             % axis_name)
+        group = mesh.group(axis_name)
+        if group is None:
+            return None, 1, 0
+    return (group, tdist.get_world_size(group),
+            tdist.get_rank(group))
+
+
+def _tdist():
+    import torch.distributed as tdist
+    return tdist
+
+
+def gather_into(out, src, group=None, async_op=False):
+    """``all_gather_single`` where torch has it, else its older name."""
+    tdist = _tdist()
+    fn = getattr(tdist, "all_gather_single", None) or \
+        tdist.all_gather_into_tensor
+    return fn(out, src, group=group, async_op=async_op)
+
+
+def scatter_into(out, src, group=None, async_op=False):
+    """``reduce_scatter_single`` (a sum) where torch has it, else its
+    older name."""
+    tdist = _tdist()
+    fn = getattr(tdist, "reduce_scatter_single", None) or \
+        tdist.reduce_scatter_tensor
+    return fn(out, src, group=group, async_op=async_op)
+
+
+def all_reduce(x, axis_name=None, op="sum"):
+    """The sum (or max/min) of `x` over the ranks of `axis_name`."""
+    group, world, _ = resolve_group(axis_name)
+    out = x.clone()
+    if not dist.has_group():
+        return out
+    tdist = _tdist()
+    _telem.inc("comm.collectives")
+    tdist.all_reduce(out, op=getattr(tdist.ReduceOp, op.upper()),
+                     group=group)
+    return out
+
+
+def all_gather(x, axis_name=None, axis=0, tiled=True):
+    """Every rank's `x` joined along `axis` (stacked on a new leading axis
+    with ``tiled=False``), in rank order."""
+    group, world, _ = resolve_group(axis_name)
+    if not dist.has_group():
+        return x.clone() if tiled else x.unsqueeze(0).clone()
+    tdist = _tdist()
+    src = (x.movedim(axis, 0) if tiled else x.unsqueeze(0)).contiguous()
+    out = torch.empty((world * src.shape[0],) + tuple(src.shape[1:]),
+                      dtype=x.dtype, device=x.device)
+    _telem.inc("comm.all_gather")
+    gather_into(out, src, group)
+    return out.movedim(0, axis) if tiled else out
+
+
+def reduce_scatter(x, axis_name=None, axis=0):
+    """This rank's contiguous 1/world slice (along `axis`) of the sum of
+    every rank's `x`."""
+    group, world, _ = resolve_group(axis_name)
+    if not dist.has_group():
+        return x.clone()
+    tdist = _tdist()
+    src = x.movedim(axis, 0).contiguous()
+    if src.shape[0] % world:
+        raise ValueError("reduce_scatter: dim %d of %d does not split over "
+                         "%d ranks" % (axis, src.shape[0], world))
+    out = torch.empty((src.shape[0] // world,) + tuple(src.shape[1:]),
+                      dtype=x.dtype, device=x.device)
+    _telem.inc("comm.reduce_scatter")
+    scatter_into(out, src, group)
+    return out.movedim(0, axis)
+
+
+def ppermute(x, axis_name, perm):
+    """Send `x` along the (src, dst) pairs of `perm` (positions in the
+    group); returns what this rank received (zeros where nothing
+    arrives), as `lax.ppermute` does."""
+    group, world, me = resolve_group(axis_name)
+    if not dist.has_group():
+        got = [s for s, d in perm if d == 0]
+        return x.clone() if got else torch.zeros_like(x)
+    tdist = _tdist()
+    ranks = tdist.get_process_group_ranks(group) if group is not None \
+        else list(range(world))
+    out = torch.zeros_like(x)
+    ops = []
+    src = x.contiguous()
+    for s, d in perm:
+        if s == me:
+            ops.append(tdist.P2POp(tdist.isend, src, ranks[d], group))
+        if d == me:
+            ops.append(tdist.P2POp(tdist.irecv, out, ranks[s], group))
+    for req in tdist.batch_isend_irecv(ops) if ops else []:
+        req.wait()
+    return out
+
+
+def barrier(axis_name=None):
+    """Wait until every rank of `axis_name` arrives (a one-element
+    all-reduce on the rank's device, so that NCCL orders it behind the
+    stream's work); the identity alone."""
+    group, _, _ = resolve_group(axis_name)
+    if not dist.has_group():
+        return
+    tdist = _tdist()
+    t = torch.ones(1, device=dist.device())
+    tdist.all_reduce(t, group=group)
+    if t.is_cuda:
+        torch.cuda.current_stream().synchronize()
+
+
+def psum_bucketed(xs, axis_name=None, bucket_mb=None):
+    """The sum over ranks of a LIST of tensors as few flat all-reduces:
+    size-capped single-dtype buckets (`engine.bucketize`), each packed,
+    reduced in one call and split back. Without a cap, one all-reduce per
+    tensor. Returns the sums in input order."""
+    cap = _engine.bucket_bytes(bucket_mb)
+    if not cap or len(xs) < 2:
+        return [all_reduce(x, axis_name) for x in xs]
+    out = list(xs)
+    for bucket in _engine.bucketize(enumerate(xs), cap):
+        flat = _engine.pack_bucket(bucket)
+        red = _all_reduce_(flat, axis_name)
+        for idx, part in zip(bucket.keys,
+                             _engine.unpack_bucket(bucket, red)):
+            out[idx] = part
+    return out
+
+
+def _all_reduce_(flat, axis_name=None):
+    """In-place sum of a buffer this module owns."""
+    group, _, _ = resolve_group(axis_name)
+    if dist.has_group():
+        _telem.inc("comm.collectives")
+        _tdist().all_reduce(flat, group=group)
+    return flat
+
+
+def all_reduce_multi(arrays, axis_name=None, bucket_mb=None):
+    """`psum_bucketed` under the eager name of the JAX package: the
+    reduced tensors in input order (zero-size ones stay as they are)."""
+    keep = [i for i, a in enumerate(arrays) if a.numel()]
+    red = psum_bucketed([arrays[i] for i in keep], axis_name, bucket_mb)
+    out = [a.clone() for a in arrays]
+    for i, r in zip(keep, red):
+        out[i] = r
+    return out
+
+
+def reduce_scatter_multi(xs, axis_name=None, axis_size=None, layout=None,
+                         bucket_mb=None):
+    """Reduce-scatter a LIST of tensors bucket by bucket over a persistent
+    `engine.BucketLayout` (frozen from `xs` on first use: pass the
+    returned layout back in later). Each bucket's flat vector is padded to
+    a multiple of the world and reduced in one call; this rank keeps its
+    contiguous shard. Returns ``(shards, layout)``."""
+    group, world, _ = resolve_group(axis_name)
+    if any(x.numel() == 0 for x in xs):
+        raise ValueError("reduce_scatter_multi: zero-size arrays have no "
+                         "shard; filter them out before the call")
+    if layout is None:
+        n = world if axis_size is None else int(axis_size)
+        layout = _engine.BucketLayout.from_entries(
+            ((str(i), x) for i, x in enumerate(xs)), n,
+            _engine.bucket_bytes(bucket_mb))
+    else:
+        layout.assert_matches([str(i) for i in range(len(xs))])
+    by_key = {str(i): x for i, x in enumerate(xs)}
+    shards = []
+    for spec in layout:
+        flat = _engine.pack_flat(spec, [by_key[k] for k in spec.keys])
+        shards.append(reduce_scatter(flat, axis_name))
+    return shards, layout
+
+
+def all_gather_multi(shards, layout, axis_name=None):
+    """Inverse of `reduce_scatter_multi`: each bucket's shards gathered to
+    the padded flat vector and unpacked (padding dropped), in the
+    layout's key order."""
+    outs = {}
+    for spec, shard in zip(layout, shards):
+        flat = all_gather(shard, axis_name)
+        for k, part in zip(spec.keys, _engine.unpack_flat(spec, flat)):
+            outs[k] = part
+    return [outs[k] for k in layout.keys()]
 
 
 def merge_unique_rows(ids, vals, pad_id=-1):
@@ -43,3 +267,64 @@ def merge_unique_rows(ids, vals, pad_id=-1):
     out_ids = torch.full((n,), pad_id, dtype=torch.int32, device=ids.device)
     out_ids[seg.long()] = torch.where(svalid, sk, pad_id).to(torch.int32)
     return out_ids, merged.to(vals.dtype)
+
+
+def all_gather_rows(ids, vals, axis_name=None):
+    """Every rank's fixed-size ``(n,)`` ids and ``(n, *row)`` rows, joined
+    in rank order: ``(world*n,)`` / ``(world*n, *row)``."""
+    _telem.inc("comm.sparse.all_gather_rows")
+    return (all_gather(ids.to(torch.int32), axis_name),
+            all_gather(vals, axis_name))
+
+
+def psum_unique_rows(ids, vals, axis_name=None, pad_id=-1):
+    """Sum row-sparse contributions over the ranks without densifying:
+    the gathered slabs deduplicated by `merge_unique_rows`. Returns
+    ``(world*n,)`` ids and rows: the unique rows first, then padding."""
+    _telem.inc("comm.sparse.psum_unique_rows")
+    gids, gvals = all_gather_rows(ids, vals, axis_name)
+    return merge_unique_rows(gids, gvals, pad_id=pad_id)
+
+
+def allreduce_bench(size_mb=64, iters=20, axis_name=None,
+                    dtype=torch.float32, device=None, warmup=3):
+    """Time an in-place all-reduce of `size_mb` megabytes (1e6 bytes) over
+    the ranks of `axis_name`. Returns a dict: ``algo_gbps`` (bytes of the
+    buffer over the time), ``bus_gbps`` (``algo_gbps * 2(n-1)/n``, the
+    bytes a ring moves per rank: BASELINE's KVStore all-reduce metric,
+    0 at one rank), ``seconds`` per call, ``world``, ``bytes`` and
+    ``backend``. CUDA buffers are timed with CUDA events on the current
+    stream (NCCL is asynchronous), CPU ones by the host clock."""
+    import time
+    group, world, _ = resolve_group(axis_name)
+    dev = dist.device() if device is None else torch.device(device)
+    itemsize = torch.tensor([], dtype=dtype).element_size()
+    n = max(1, int(size_mb * 1e6 / itemsize))
+    x = torch.ones(n, dtype=dtype, device=dev)
+
+    def once():
+        if dist.has_group():
+            _tdist().all_reduce(x, group=group)
+
+    for _ in range(warmup):
+        once()
+    if x.is_cuda:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize(dev)
+        start.record()
+        for _ in range(iters):
+            once()
+        end.record()
+        end.synchronize()
+        dt = start.elapsed_time(end) / 1e3 / iters
+    else:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            once()
+        dt = (time.perf_counter() - t0) / iters
+    nbytes = n * itemsize
+    algo = nbytes / dt / 1e9 if dt > 0 else float("inf")
+    return {"algo_gbps": algo, "bus_gbps": algo * 2 * (world - 1) / world,
+            "seconds": dt, "world": world, "bytes": nbytes,
+            "backend": dist.backend()}

@@ -1,4 +1,5 @@
-"""The functional training step of the port, on one CUDA card.
+"""The functional training step of the port: one CUDA card, or data
+parallel over the ranks of a mesh.
 
 The port of `mxnet_tpu.parallel.train_step`: `ShardedTrainStep` takes
 ``loss_fn(params, batch) -> scalar`` and a parameter dict, and each call
@@ -22,9 +23,21 @@ Two deliberate differences:
   quirk: JAX rounds the Python hyperparameters to the leaf's dtype, so
   ``beta2 = 0.999`` becomes 1.0 and the second moment never decays.
 
-Only one device: a mesh of more than one device, sharding rules, gradient
-buckets and ZeRO raise `NotImplementedError` (they come with the comm
-slice, ROADMAP Queue A.5).
+Data parallelism: with a `parallel.mesh.Mesh` whose ``data`` axis holds n
+ranks, every rank passes its own shard of the batch, and the gradients
+(and the loss) are averaged over the ``data`` group: summed by
+all-reduce in flat buckets of at most ``bucket_mb`` (default the engine's
+cap; 0 sends them one by one), then divided by n. ``zero=True`` is ZeRO-1
+over ``data``: the optimizer state lives only for this rank's shard of
+each gradient bucket, the summed
+gradients are reduce-scattered, the shard is updated with the same
+optimizer (on a flat one-leaf tree) and the weights all-gathered. Its
+`init()` state is then ``{"zero": [per-bucket state]}``. Parameters
+replicate over ``data``; `rules` are checked against the mesh, and a rule
+that keeps a parameter dimension on any axis of size > 1 (tensor or
+FSDP parallelism) raises NotImplementedError naming ROADMAP Queue A 5b.
+A mesh given as a list of several devices raises too: the port runs one
+process per card (`mxnet_tpu_torch.launch`).
 """
 from __future__ import annotations
 
@@ -34,12 +47,12 @@ import time
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from .. import engine as _engine
 from .. import telemetry as _telem
+from . import collectives as _coll
+from .sharding import TENSOR_PARALLEL, ShardingRules, _prune_spec
 
 __all__ = ["ShardedTrainStep", "sgd_init", "adam_init"]
-
-_COMM_SLICE = ("the comm slice (ROADMAP Queue A.5: mesh, sharding rules, "
-               "ZeRO, gradient buckets)")
 
 
 def _tmap(f, *trees):
@@ -132,15 +145,46 @@ _OPTS = {
 }
 
 
-def _mesh_devices(mesh):
-    """How many devices `mesh` names: a torch DeviceMesh, an object with a
-    ``devices`` array (a JAX-style mesh), a sequence of devices, or None."""
-    if mesh is None:
-        return 1
-    if hasattr(mesh, "size") and callable(mesh.size):
-        return int(mesh.size())
+def _data_mesh(mesh):
+    """`mesh` as a rank `Mesh` (None for one device). Anything else (a
+    sequence of devices, an object with a ``devices`` array) names one
+    process's devices, which must be one."""
+    from .mesh import Mesh
+    if mesh is None or isinstance(mesh, Mesh):
+        return mesh
     devices = getattr(mesh, "devices", mesh)
-    return int(getattr(devices, "size", None) or len(devices))
+    n = int(getattr(devices, "size", None) or len(devices))
+    if n > 1:
+        raise NotImplementedError(
+            "ShardedTrainStep: a mesh of %d devices in one process; the "
+            "port runs one process per card (start the ranks with `python "
+            "-m mxnet_tpu_torch.launch`, then parallel.create_mesh)" % n)
+    return None
+
+
+def _check_rules(rules, mesh):
+    """`rules` as a ShardingRules, refused when one splits a parameter on
+    `mesh` (parameters replicate over `data` in this slice)."""
+    if rules is not None and not isinstance(rules, ShardingRules):
+        rules = ShardingRules(rules)
+    rules = rules or ShardingRules([])
+    for _, spec in rules.rules + [(None, rules.default)]:
+        if any(e is not None for e in _prune_spec(spec, mesh)):
+            raise NotImplementedError(
+                "rule %s splits parameters on this mesh; parameters "
+                "replicate over `data` here, and %s"
+                % (spec, TENSOR_PARALLEL))
+    return rules
+
+
+def _named_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k in tree:
+            yield from _named_leaves(tree[k],
+                                     "%s/%s" % (prefix, k) if prefix
+                                     else str(k))
+    else:
+        yield prefix, tree
 
 
 class ShardedTrainStep:
@@ -160,19 +204,11 @@ class ShardedTrainStep:
     def __init__(self, loss_fn, params, mesh=None, optimizer="adamw",
                  lr=1e-3, grad_accum=1, remat=False, rules=None,
                  bucket_mb=None, zero=False, **opt_kwargs):
-        if _mesh_devices(mesh) > 1:
-            raise NotImplementedError(
-                "ShardedTrainStep: the port runs on one device; a mesh of "
-                "%d devices comes with %s" % (_mesh_devices(mesh),
-                                              _COMM_SLICE))
-        for name, val in (("rules", rules), ("bucket_mb", bucket_mb)):
-            if val is not None:
-                raise NotImplementedError(
-                    "ShardedTrainStep: %s= comes with %s" % (name,
-                                                             _COMM_SLICE))
-        if zero:
-            raise NotImplementedError(
-                "ShardedTrainStep: zero=True comes with %s" % _COMM_SLICE)
+        self.mesh = _data_mesh(mesh)
+        self.rules = _check_rules(rules, self.mesh)
+        self.bucket_mb = bucket_mb
+        self.zero = bool(zero)
+        self._layout = None
         if int(grad_accum) < 1:
             raise ValueError("ShardedTrainStep: grad_accum must be >= 1")
         self.loss_fn = loss_fn
@@ -186,11 +222,71 @@ class ShardedTrainStep:
         self.grad_accum = int(grad_accum)
         self._remat = bool(remat)
 
+    @property
+    def _n_data(self):
+        return 1 if self.mesh is None else self.mesh.axis_size("data")
+
+    def _group(self):
+        """The ``data`` group, or None when there is nothing to reduce."""
+        if self.mesh is None:
+            return None
+        return self.mesh.group("data")
+
     def init(self):
         """(params, opt_state): the initial parameters as given and a
-        fresh optimizer state beside them."""
-        return self._init_params, self._opt_init(self._init_params,
-                                                 **self.opt_kwargs)
+        fresh optimizer state beside them (with ``zero=True``, the state
+        of this rank's shard of each bucket)."""
+        if not self.zero:
+            return self._init_params, self._opt_init(self._init_params,
+                                                     **self.opt_kwargs)
+        leaves = list(_named_leaves(self._init_params))
+        self._layout = _engine.BucketLayout.from_entries(
+            leaves, self._n_data, _engine.bucket_bytes(self.bucket_mb))
+        by_name = dict(leaves)
+        states = []
+        for spec in self._layout:
+            w = self._own(spec, by_name)
+            states.append(self._opt_init({"w": w}, **self.opt_kwargs))
+        return self._init_params, {"zero": states}
+
+    def _own(self, spec, by_name):
+        """This rank's shard of a bucket's flat vector of `by_name`."""
+        flat = _engine.pack_flat(spec, [by_name[k] for k in spec.keys])
+        lo = (0 if self.mesh is None else self.mesh.axis_index("data")) \
+            * spec.shard
+        return flat[lo:lo + spec.shard].clone()
+
+    def _average(self, grads):
+        """The gradients summed over ``data`` and divided by its size."""
+        n = self._n_data
+        group = self._group()
+        if group is None:
+            return grads
+        names = [k for k, _ in _named_leaves(grads)]
+        red = _coll.psum_bucketed([g for _, g in _named_leaves(grads)],
+                                  group, self.bucket_mb)
+        by_name = {k: r / n for k, r in zip(names, red)}
+        it = iter(names)
+        return _tmap(lambda _: by_name[next(it)], grads)
+
+    @torch.no_grad()
+    def _zero_update(self, params, grads, opt_state, lr):
+        """ZeRO-1 over ``data``: per bucket, reduce-scatter the gradient
+        sum, update this rank's shard, all-gather the weights."""
+        group = self._group()
+        n = self._n_data
+        p_by = dict(_named_leaves(params))
+        g_by = dict(_named_leaves(grads))
+        for spec, st in zip(self._layout, opt_state["zero"]):
+            flat_g = _engine.pack_flat(spec, [g_by[k] for k in spec.keys])
+            g = _coll.reduce_scatter(flat_g, group) / n \
+                if group is not None else flat_g
+            w = self._own(spec, p_by)
+            self._opt_update({"w": w}, {"w": g}, st, lr, **self.opt_kwargs)
+            full = _coll.all_gather(w, group) if group is not None else w
+            for k, part in zip(spec.keys, _engine.unpack_flat(spec, full)):
+                p_by[k].copy_(part)
+        return params, opt_state
 
     def _value_and_grad(self, params, batch):
         leaves = list(_leaves(params))
@@ -244,7 +340,18 @@ class ShardedTrainStep:
         else:
             loss, grads = self._value_and_grad(params, batch)
         lr = self.lr(step_num) if callable(self.lr) else self.lr
-        params, opt_state = self._opt_update(params, grads, opt_state, lr,
-                                             **self.opt_kwargs)
+        group = self._group()
+        if group is not None:
+            loss = _coll.all_reduce(loss, group) / self._n_data
+        if self.zero:
+            if self._layout is None:
+                raise RuntimeError("ShardedTrainStep(zero=True): call "
+                                   "init() for the sharded state first")
+            params, opt_state = self._zero_update(params, grads, opt_state,
+                                                  lr)
+        else:
+            grads = self._average(grads)
+            params, opt_state = self._opt_update(params, grads, opt_state,
+                                                 lr, **self.opt_kwargs)
         _telem.observe("train_step.step_ms", (time.perf_counter() - t0) * 1e3)
         return params, opt_state, loss

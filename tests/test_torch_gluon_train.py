@@ -327,22 +327,33 @@ def test_rescale_grad_and_mean_loss(monkeypatch, tmp_path):
 
 
 def test_trainer_and_step_refuse_what_comes_with_later_slices():
+    """The multi-rank slice brought comm_ready, compression, the dist
+    stores and meshes; what still refuses: a mesh of several devices in
+    one process (one process a card) and rules that split parameters
+    (tensor parallelism, ROADMAP Queue A 5b)."""
     net = mx.gluon.nn.Dense(3, in_units=4)
     net.initialize(ctx=mx.cpu())
     params = net.collect_params()
     for kw in ({"comm_ready": True},
                {"compression_params": {"type": "2bit"}}):
-        with pytest.raises(NotImplementedError, match="communication"):
-            mx.gluon.Trainer(params, "sgd", **kw)
+        mx.gluon.Trainer(params, "sgd", **kw)
     for kw in ({"kvstore": "dist_sync"}, {"kvstore": "dist_device_sync",
                                           "zero": True}):
         tr = mx.gluon.Trainer(params, "sgd", **kw)
-        with pytest.raises(NotImplementedError, match="communication"):
-            tr.step(1)
+        with mx.autograd.record():
+            loss = net(mx.nd.ones((2, 4), ctx=mx.cpu())).sum()
+        loss.backward()
+        tr.step(1)
     tr = mx.gluon.Trainer(params, "sgd")
-    with pytest.raises(NotImplementedError, match="communication"):
+    with pytest.raises(NotImplementedError, match="one process per card"):
         mx.gluon.FusedTrainStep(net, mx.gluon.loss.L2Loss(), tr,
-                                mesh=object())
+                                mesh=[mx.cpu(0), mx.cpu(1)])
+    from mxnet_tpu_torch.parallel import P
+    from mxnet_tpu_torch.parallel.mesh import Mesh
+    with pytest.raises(NotImplementedError, match="Queue A 5b"):
+        mx.gluon.FusedTrainStep(net, mx.gluon.loss.L2Loss(), tr,
+                                mesh=Mesh([[0, 1]], ("data", "model")),
+                                rules=[("weight", P("model"))])
 
     class Custom(mx.optimizer.SGD):
         pass

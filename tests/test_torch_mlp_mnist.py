@@ -6,11 +6,12 @@ on MNIST (BASELINE config 1; the repo's examples/mnist_mlp.py through
 ToTensor())`, `DataLoader(batch_size=128, shuffle=True)` under one
 `np.random.seed`, Dense 128-64-10 with ReLU, `SoftmaxCrossEntropyLoss`,
 `Trainer("sgd", lr 0.05, momentum 0.9)` and `metric.Accuracy`: 16 steps
-from the same weights (the port's, read by the reference from a `.params`
-file). The losses match within 1e-6 relative, the parameters within 1e-6
-of each leaf's max abs (the matmuls sum in another order), the accuracy
-exactly. On a card, one step's update is one `multi` launch of flat_sgd,
-held against the same step on the CPU.
+from the same seeded weights (the port's, read by the reference from a
+`.params` file). The losses match within 1e-6 relative, the parameters
+within 1e-6 of each leaf's max abs (the matmuls sum in another order),
+the accuracy exactly; a failure names the step that diverged. On a card,
+one step's update is one `multi` launch of flat_sgd, held against the
+same step on the CPU.
 """
 import numpy as np
 import pytest
@@ -33,7 +34,9 @@ def _net(pkg, ctx):
     return net
 
 
-def _loop(pkg, net, loader, ctx, steps=None):
+def _loop(pkg, net, loader, ctx, steps=None, trace=None):
+    """Train over `loader`; returns (losses, accuracy). `trace`, a list,
+    receives the parameters after each step."""
     loss_fn = pkg.gluon.loss.SoftmaxCrossEntropyLoss()
     trainer = pkg.gluon.Trainer(net.collect_params(), "sgd",
                                 {"learning_rate": 0.05, "momentum": 0.9})
@@ -51,6 +54,8 @@ def _loop(pkg, net, loader, ctx, steps=None):
         trainer.step(data.shape[0])
         metric.update([label], [out])
         losses.append(float(loss.mean().asnumpy()))
+        if trace is not None:
+            trace.append(_params(net))
     return losses, metric.get()
 
 
@@ -64,9 +69,29 @@ def _params(net):
     return [p.data().asnumpy() for p in net.collect_params().values()]
 
 
+def _first_diverging_step(trace_m, trace_r):
+    """The first step whose parameters differ by more than REL of a
+    leaf's max abs, or None."""
+    for step, (pm, pr) in enumerate(zip(trace_m, trace_r)):
+        if any(np.abs(a - b).max() > REL * np.abs(b).max()
+               for a, b in zip(pm, pr)):
+            return step
+    return None
+
+
 def test_narrow_mlp_mnist_matches_reference(tmp_path):
+    """The port's initial weights come from its random generator, which
+    every earlier draw in the process advances (the conftest reseeds numpy
+    and the JAX package before each test, not the port), so the test seeds
+    it with 0, where a fresh process starts. Without that the weights
+    depend on what ran before in the same worker, and about 3% of them (9
+    of 288 seeds scanned) put a first-layer pre-activation within fp32
+    rounding of zero (1.5e-7 at seed 165): the two packages' matmuls sum in
+    different orders, can set that ReLU's mask differently, and the runs
+    part by far more than 1e-6."""
     xtr, ytr, _, _ = synthetic_mnist(2048, 1, seed=7)
     write_mnist(str(tmp_path), xtr, ytr)
+    mx.random.seed(0)
     with mx.cpu():
         mine = _net(mx, mx.cpu())
         with mx.autograd.predict_mode():
@@ -77,20 +102,27 @@ def test_narrow_mlp_mnist_matches_reference(tmp_path):
         ref.load_parameters(path, ctx=jmx.cpu())
         for a, b in zip(_params(mine), _params(ref)):
             np.testing.assert_array_equal(a, b)
-        runs = []
+        runs, traces = [], []
         for pkg, net, ctx in ((mx, mine, mx.cpu()), (jmx, ref, jmx.cpu())):
             np.random.seed(13)
             loader = _mnist_loader(pkg, str(tmp_path))
             assert len(loader) == 16
-            runs.append(_loop(pkg, net, loader, ctx) + (_params(net),))
+            traces.append([])
+            runs.append(_loop(pkg, net, loader, ctx, trace=traces[-1])
+                        + (_params(net),))
     (lm, am, pm), (lr, ar, pr) = runs
     assert len(lm) == 16
     assert all(np.isfinite(lm)) and lm[-1] < lm[0]
-    for a, b in zip(lm, lr):
-        assert abs(a - b) <= REL * abs(b), (a, b)
-    assert am == ar
-    for a, b in zip(pm, pr):
-        assert np.abs(a - b).max() <= REL * np.abs(b).max()
+    for step, (a, b) in enumerate(zip(lm, lr)):
+        assert abs(a - b) <= REL * abs(b), \
+            "loss diverged at step %d: %r vs the reference's %r" % (step, a, b)
+    assert am == ar, "accuracy after 16 steps: %r vs %r" % (am, ar)
+    for leaf, (a, b) in enumerate(zip(pm, pr)):
+        assert np.abs(a - b).max() <= REL * np.abs(b).max(), \
+            "parameter %d differs after 16 steps by %g (limit %g); the " \
+            "parameters first diverged at step %s" % (
+                leaf, np.abs(a - b).max(), REL * np.abs(b).max(),
+                _first_diverging_step(*traces))
 
 
 @pytest.mark.cuda

@@ -310,8 +310,10 @@ def test_batchnorm_graph_module_matches_reference_gluon(tmp_path):
     """2 SGD-momentum steps of the narrow ResNet-18 traced to a symbol and
     trained through the port's Module, against the reference's Gluon
     Trainer on the same net: every parameter and running statistic within
-    1e-4 (relative L2)."""
+    1e-4 (relative L2), and no whole-graph fallback counted (the counters
+    are process-wide: reset first, so only this test's executors count)."""
     jnet, net, xs, ys = _resnet_pair(tmp_path)
+    telemetry.reset()
     with mx.cpu():
         sym = mx.sym.SoftmaxOutput(net(mx.sym.var("data")), name="softmax")
         aux_names = set(sym.list_auxiliary_states())

@@ -254,14 +254,24 @@ def test_training_keeps_bf16_leaves_bf16():
 
 @pytest.mark.parametrize("kw,match", [
     ({"mesh": [torch.device("cpu"), torch.device("cpu")]}, "2 devices"),
-    ({"rules": [("wq", ("fsdp", "model"))]}, "rules="),
-    ({"bucket_mb": 25}, "bucket_mb="),
-    ({"zero": True}, "zero=True"),
+    ({"rules": [("wq", ("fsdp", "model"))]}, "Queue A 5b"),
+    ({"bucket_mb": 25}, None),
+    ({"zero": True}, None),
 ], ids=["mesh", "rules", "bucket_mb", "zero"])
 def test_multi_device_options_raise_not_implemented(kw, match):
-    with pytest.raises(NotImplementedError, match=match) as ei:
+    """What the multi-rank slice left unported still raises: several
+    devices in one process (the port runs one process a card) and rules
+    that split a parameter on an axis of size > 1 (tensor parallelism,
+    ROADMAP Queue A 5b; here on a data=1, model=2 mesh of ranks).
+    bucket_mb and zero are ported: accepted."""
+    if match == "Queue A 5b":
+        from mxnet_tpu_torch.parallel.mesh import Mesh
+        kw = dict(kw, mesh=Mesh([[0, 1]], ("data", "model")))
+    if match is None:
         ShardedTrainStep(lambda p, b: 0.0, {}, **kw)
-    assert "Queue A.5" in str(ei.value)
+        return
+    with pytest.raises(NotImplementedError, match=match):
+        ShardedTrainStep(lambda p, b: 0.0, {}, **kw)
 
 
 def test_one_device_meshes_are_accepted():
