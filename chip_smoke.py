@@ -79,7 +79,10 @@ Phases (one JSON line each; any failure exits non-zero):
                  with the variant (and tile) each launch took, two launches
                  of each bit-equal, and timings: cbr_train_bwd by event and
                  device time, with its three-launch split_v8 variant's
-                 device time beside it.
+                 device time beside it; cbr_train_bwd_global (#6's split
+                 route in two calls around a cross-rank sum of its sums,
+                 as path 20's C1 leg runs it) with the identity sum
+                 bit-equal to the split variant's one call.
 14. kernel_opt — the flat SGD and Adam kernels against their plain versions
                  over every flag combination (bit for bit), one-tensor and
                  multi-tensor launches (mixed bf16/fp32 lists, a tensor off
@@ -358,7 +361,10 @@ Phases (one JSON line each; any failure exits non-zero):
                  equal each other and rank 0 is within P19_DP_REL of the
                  one card summing every rank's batch), readiness rounds
                  and flushes during backward counted; (b) FusedTrainStep
-                 over a data mesh bit-equal to path 4's; (d) BERT-base
+                 over a data mesh bit-equal to path 4's (its digests over
+                 every parameter and the BatchNorm running statistics,
+                 which at world > 1 come from the global batch, equal on
+                 every rank); (d) BERT-base
                  LAMB on the ZeRO updater through Trainer(zero=True,
                  "dist_device_sync") bit-equal to path 5's device store at
                  world 1, then a fleet of 4 virtual ranks on the card
@@ -374,8 +380,39 @@ Phases (one JSON line each; any failure exits non-zero):
                  attention at the same shapes over a fleet of 4 (4 blocks
                  of 1024; the ranks call the ring's passes, past the
                  autograd.Function), against the whole-sequence kernels.
+38. tensor_parallel — main path 20, tensor and FSDP parallelism. In this
+                 process llama3_8b_dry (8B widths, 2 layers, GQA 32/8, D
+                 128, remat) from seeded weights, fp32 and bf16, 3 AdamW
+                 steps (lr 1e-5, eps 1e-4) on one rank on a global batch
+                 of 4 x 513 tokens; then four ranks under `python -m
+                 mxnet_tpu_torch.launch` (all on the one card over gloo,
+                 collectives staged through host memory, when
+                 device_count() is 1; one a card over NCCL with four or
+                 more) run this file with --tp-worker: the same weights
+                 and batch through ShardedTrainStep(rules=LLAMA_RULES) on
+                 mesh fsdp=2, model=2 (each rank its 16 query heads, 4 KV
+                 heads, 7168 hidden columns and 4096 vocab rows, B 2):
+                 fp32 losses within P20_LOSS_REL of the one-rank run a
+                 step and the gathered parameters within P20_PARAM_RTOL +
+                 P20_PARAM_ATOL, bf16 losses within P20_BF16_LOSS_REL;
+                 each rank's flash launches a step 2n / n / n (n layers,
+                 remat), bf16 all on wgmma, fp32 on fma; step time and
+                 peak memory a rank (four processes sharing one card over
+                 gloo is a correctness run: its step time says nothing of
+                 NVLink); MeshEmbeddingComm over the four ranks with
+                 bench_sparse's traffic (lookups of seed 0's ids bit-equal
+                 to the world-1 table, rank r pushing seed r's rows, the
+                 table within SPARSE_REL of the world-1 table fed every
+                 rank's rows); the data-mesh FusedTrainStep of a
+                 conv-BN-ReLU net at world 4 (#5, and #6 through its split
+                 route in two calls around the all-reduce of its sums),
+                 running statistics equal on every rank and within
+                 P20_C1_REL of one rank fed the whole batch. With four
+                 cards, also 2 bf16 steps of llama3_8b itself (32 layers,
+                 vocab 128256) on the same mesh: step time and peak
+                 memory.
 
-Nineteen main paths, each with its own expected kernels, counts set to 0 just
+Twenty main paths, each with its own expected kernels, counts set to 0 just
 before and read just after: serving (phases 3-5: flash_fwd), training
 (phase 7's 6 steps: flash_fwd, flash_bwd_dq, flash_bwd_dkv), ResNet-50
 inference (phase 11's forward: conv_bn_relu, 16 launches, all on the
@@ -412,7 +449,10 @@ windows run the plain paged attention) and multi-rank communication
 single flat_sgd a store step, one multi a FusedTrainStep step; one
 flat_lamb1 and one flat_lamb2 a ZeRO bucket a rank a step; one
 segment_sum and one flat_sgd a sparse push; one flash launch of each
-kind a visible ring block). Then the card's name and power limit,
+kind a visible ring block) and tensor parallelism (phase 38: 2n flash_fwd
+and n of each flash backward a rank a step, the embedding leg's
+segment_sum, the C1 leg's conv_bn_stats and cbr_train_bwd). Then the
+card's name and power limit,
 the `kernels` line, and as the last line {"ok": true, "device": {...}}.
 Exits non-zero without a CUDA card.
 """
@@ -627,6 +667,11 @@ def phase_kernel(gen):
         ("llama_110m_s1024", 4, 12, 12, 1024, 1024, 64, True, bf16, True),
         ("llama3_8b_layer_gqa", 1, 32, 8, 2048, 2048, 128, True, bf16,
          True),
+        # main path 20: a rank's heads of llama3_8b_dry at model=2, fsdp=2
+        ("llama3_8b_dry_tp_rank", 2, 16, 4, 512, 512, 128, True, bf16,
+         True),
+        ("llama3_8b_dry_tp_rank_fp32", 2, 16, 4, 512, 512, 128, True, fp32,
+         False),
         ("prefill_path", 1, 12, 12, 304, 304, 64, True, bf16, False),
         ("fp32_77x301", 2, 4, 2, 77, 301, 64, False, fp32, False),
         ("bert_base_path", 128, 12, 12, 128, 128, 64, False, bf16, True),
@@ -739,6 +784,11 @@ def phase_kernel_bwd(gen):
         # ... and the same shape without the split
         ("llama3_8b_dry_gqa_no_split", 2, 32, 8, 512, 512, 128, True, bf16,
          True, no_split, 0),
+        # main path 20: a rank's heads of llama3_8b_dry at model=2, fsdp=2
+        ("llama3_8b_dry_tp_rank", 2, 16, 4, 512, 512, 128, True, bf16, True,
+         None, 0),
+        ("llama3_8b_dry_tp_rank_fp32", 2, 16, 4, 512, 512, 128, True, fp32,
+         False, None, 0),
         ("bert_base_path", 128, 12, 12, 128, 128, 64, False, bf16, True,
          None, 0),
         # ragged: S not a multiple of the 64-row step or the 128-row tile
@@ -1857,6 +1907,7 @@ def phase_kernel_cbr_train(gen):
                                                 _ref_cbr_train_bwd,
                                                 _ref_conv_bn_stats,
                                                 cbr_bwd_plan, cbr_train_bwd,
+                                                cbr_train_bwd_global,
                                                 conv_bn_stats)
     names = ("conv_bn_stats", "cbr_train_bwd")
     # the fused blocks' dx/dw: PyTorch's conv backward in full fp32 from
@@ -1985,6 +2036,29 @@ def phase_kernel_cbr_train(gen):
                     rec["dres_equal"] = bool(torch.equal(kb[3], pb[3]))
                     if not rec["dres_equal"]:
                         bad.append("dres")
+                # #6 in two calls around a cross-rank sum of its sums (the
+                # data-mesh step at world > 1; main path 20's C1 leg), here
+                # with the identity for that sum: bit-equal to the split
+                # variant's one call, so within the bound above too
+                split = "split_v8" if Co % 8 == 0 else "split_v1"
+                kg, g_variant = launched_variant(
+                    lambda: cbr_train_bwd_global(conv, dy, mean, invstd,
+                                                 gamma, beta, res,
+                                                 torch.clone, M))
+                ks = _launch_cbr_bwd(split, conv, dy, mean, invstd, gamma,
+                                     beta, res)
+                torch.cuda.synchronize()
+                rec["global_variant"] = g_variant
+                rec["global_bit_equal_split"] = all(
+                    torch.equal(a, b) for a, b in zip(kg, ks)
+                    if a is not None)
+                if g_variant != ["cbr_train_bwd/%s+global" % split] \
+                        or not rec["global_bit_equal_split"]:
+                    bad.append("cbr_train_bwd_global")
+                for key, a, b in zip(("dconv", "dgamma", "dbeta"), kg, pb):
+                    if not close_rel(a, b, TRAIN_FP32_REL)[1]:
+                        bad.append("global " + key)
+                del kg, ks
                 rec["out_of_bound"] = bad
                 if timed:
                     works = cbr_train_works(N, H, W, C, Co, res is not None,
@@ -8549,8 +8623,10 @@ def multi_rank_worker(out_dir):
         losses = [step(x, y).asnumpy().item()
                   for _ in range(P19_FUSED_STEPS)]
         torch.cuda.synchronize()
-        fused[name] = (snapshot(net), losses, launch_counts(),
-                       list(trainable(net)))
+        # every parameter, the BatchNorm running statistics included: the
+        # data-mesh step writes them from the global batch's statistics
+        snap = snapshot(net)
+        fused[name] = (snap, losses, launch_counts(), list(snap))
         del net, trainer, step
         torch.cuda.empty_cache()
     rec["fused"] = {"losses": fused["mesh"][1],
@@ -8716,7 +8792,7 @@ def phase_multi_rank():
         check(fu["equals_path4"], phase,
               "(b) the data-mesh step differs from path 4's")
     check(len({r["fused"]["digest"] for r in ranks}) == 1, phase,
-          "(b) the ranks' trainable weights differ")
+          "(b) the ranks' weights or running statistics differ")
     emit({"phase": phase, "leg": "b_fused_mesh", "world": world,
           "losses": fu["losses"], "launches": fu["launches"],
           "bit_equal_path4": fu["equals_path4"]})
@@ -8799,6 +8875,427 @@ def phase_multi_rank():
     emit({"phase": phase, "world": world, "seconds": wall,
           "worker_seconds": r0["seconds"], "launches": launches_})
     return launches_
+
+# ------------------------------------------------------------ main path 20
+P20_MESH = {"fsdp": 2, "model": 2}
+P20_WORLD = 4
+P20_BATCH, P20_SEQ = 4, 512     # the global batch: B 2 a rank over fsdp=2
+P20_STEPS = 3
+P20_LR, P20_EPS = 1e-5, 1e-4    # AdamW's early steps move an element by
+# about lr * g / (|g| + eps): a larger eps bounds how far a rounding
+# difference of a near-zero gradient moves the parameter (lr / eps); at
+# 8B widths lr 3e-4 drove the repeated batch's loss from 9.8 to 0.002 in
+# two steps, where the loss is a difference of two nearly equal terms
+# and its relative error grows past any fp32 bound
+P20_LOSS_REL = 1e-5             # fp32 losses, split vs one rank, a step
+P20_PARAM_RTOL, P20_PARAM_ATOL = 1e-5, 1e-6   # fp32 gathered parameters
+P20_BF16_LOSS_REL = 2e-2        # bf16 losses, split vs one rank
+P20_EMBED_STEPS = 20            # bench_sparse's pushes
+P20_C1 = dict(N=8, H=28, W=28, C=64)          # a rank's batch
+P20_C1_REL = 1e-5               # per-leaf ||mesh - one rank|| / ||one||
+P20_FULL_STEPS = 2              # llama3_8b on four cards
+P20_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+# and the embedding leg's segment_sum, the C1 leg's #5, #6 and its update
+P20_PATH_KERNELS = P20_KERNELS + ("segment_sum", "conv_bn_stats",
+                                  "cbr_train_bwd", "flat_sgd")
+
+
+def p20_cfg(name, dtype):
+    from mxnet_tpu_torch.models.llama import CONFIGS
+    return dataclasses.replace(CONFIGS[name], dtype=dtype)
+
+
+def p20_params(cfg):
+    """The seeded weights every rank and the one-rank run draw alike."""
+    from mxnet_tpu_torch.models.llama import llama_init
+    return llama_init(torch.Generator(device="cuda").manual_seed(1), cfg)
+
+
+def p20_tokens(cfg):
+    return torch.randint(0, cfg.vocab_size, (P20_BATCH, P20_SEQ + 1),
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(2), device="cuda")
+
+
+def p20_step(cfg, params, mesh=None):
+    from mxnet_tpu_torch.models.llama import llama_loss
+    from mxnet_tpu_torch.parallel import LLAMA_RULES, ShardedTrainStep
+    return ShardedTrainStep(lambda p, b: llama_loss(p, b, cfg), params,
+                            mesh, rules=LLAMA_RULES if mesh else None,
+                            optimizer="adamw", lr=P20_LR, eps=P20_EPS)
+
+
+def p20_run(step, batch, steps, sync=None):
+    """`steps` steps from step.init(): (params, state, losses, step ms,
+    launches, variant labels, peak bytes); counts reset just before the
+    steps and read just after."""
+    from mxnet_tpu_torch.ops import (launch_counts, reset_launch_counts,
+                                     variant_counts)
+    params, state = step.init()
+    torch.cuda.synchronize()
+    if sync is not None:
+        sync()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    vbefore = variant_counts()
+    losses, times = [], []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, loss = step(params, state, batch, step_num=i)
+        losses.append(loss.item())
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = launch_counts()
+    variants = {"%s/%s" % k: n - vbefore.get(k, 0)
+                for k, n in variant_counts().items()
+                if n != vbefore.get(k, 0)}
+    return (params, state, losses, times, launches, variants,
+            torch.cuda.max_memory_allocated())
+
+
+def p20_pushes(seed):
+    """bench_sparse's pushes of `seed`, each padded to SPARSE_NNZ ids with
+    -1 (padding, dropped by the update) and zero rows: the ranks exchange
+    slabs of one size."""
+    out = []
+    for ids, grads in sparse_traffic(seed=seed)[:P20_EMBED_STEPS]:
+        pad = SPARSE_NNZ - len(ids)
+        out.append((np.concatenate([ids, np.full(pad, -1, np.int32)]),
+                    np.concatenate([grads, np.zeros((pad, SPARSE_DIM),
+                                                    np.float32)])))
+    return out
+
+
+def p20_c1(mx, gpu, seed):
+    """The conv-BN-ReLU net of the C1 leg and this seed's batch."""
+    net = mx.gluon.nn.HybridSequential()
+    C = P20_C1["C"]
+    for _ in range(2):
+        net.add(mx.gluon.contrib.cnn.FusedConvBNReLUTrain(C, in_channels=C))
+    net.initialize(ctx=gpu)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    for prm in net.collect_params().values():
+        if prm.name.endswith("weight"):
+            prm.set_data(mx.nd.array((torch.randn(
+                prm.shape, generator=g, device="cuda") * (9 * C) ** -0.5),
+                ctx=gpu))
+    shape = (P20_C1["N"], P20_C1["H"], P20_C1["W"], C)
+    g = torch.Generator(device="cuda").manual_seed(100 + seed)
+    x = torch.randn(shape, generator=g, device="cuda") + 3.0 * (seed % 2)
+    y = torch.randn(shape, generator=g, device="cuda")
+    return net, x, y
+
+
+def tp_worker(out_dir):
+    """One rank of main path 20, started by `python -m
+    mxnet_tpu_torch.launch` (gloo on the one card, or NCCL one a card):
+    llama3_8b_dry through ShardedTrainStep(LLAMA_RULES) on mesh fsdp=2,
+    model=2 at fp32 and bf16, MeshEmbeddingComm over the ranks, the
+    data-mesh FusedTrainStep of a conv-BN-ReLU net, and with four cards
+    llama3_8b. Writes tp_rank<r>.json (rank 0 also the gathered fp32
+    parameters); counts reset before each leg and read after it."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.embedding import MeshEmbeddingComm, ShardedEmbedding
+    from mxnet_tpu_torch.ops import launch_counts, reset_launch_counts
+    from mxnet_tpu_torch.parallel import collectives, create_mesh, dist
+    dist.initialize()
+    rank, world = dist.rank(), dist.num_workers()
+    dev = dist.device()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rec = {"rank": rank, "world": world, "backend": dist.backend(),
+           "device": str(dev), "cards": torch.cuda.device_count()}
+    t_start = time.perf_counter()
+    mesh = create_mesh(**P20_MESH)
+    for dtype in (torch.float32, torch.bfloat16):
+        cfg = p20_cfg("llama3_8b_dry", dtype)
+        step = p20_step(cfg, p20_params(cfg), mesh)
+        batch = step.shard_batch({"tokens": p20_tokens(cfg)})
+        params, _, losses, times, launches, variants, peak = p20_run(
+            step, batch, P20_STEPS, collectives.barrier)
+        key = str(dtype).split(".")[-1]
+        lp = params["layers"]["0"]
+        rec[key] = {"losses": losses, "step_ms": times,
+                    "launches": launches, "variants": variants,
+                    "peak_bytes": peak,
+                    "batch_block": list(batch["tokens"].shape),
+                    "blocks": {k: list(t.shape) for k, t in (
+                        ("wq", lp["attn"]["wq"]), ("wk", lp["attn"]["wk"]),
+                        ("wo", lp["attn"]["wo"]), ("w1", lp["mlp"]["w1"]),
+                        ("lm_head", params["lm_head"]),
+                        ("tok_embeddings", params["tok_embeddings"]))}}
+        if dtype == torch.float32:
+            full = step.gather(params)
+            if rank == 0:
+                torch.save({n: t.cpu() for n, t in leaves(full)},
+                           os.path.join(out_dir, "tp_params.pt"))
+            del full
+        del step, params, batch
+        torch.cuda.empty_cache()
+    # MeshEmbeddingComm over every rank: bench_sparse's traffic
+    comm = MeshEmbeddingComm(None, world, rank)
+    table = ShardedEmbedding(SPARSE_VOCAB, SPARSE_DIM, comm=comm,
+                             optimizer="sgd", learning_rate=0.1, device=dev)
+    lookups_at = sparse_traffic(seed=0)[:P20_EMBED_STEPS]
+    pushes = p20_pushes(rank)
+    collectives.barrier()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    rows = []
+    for (ids, _), (pids, grads) in zip(lookups_at, pushes):
+        rows.append(table.lookup(ids))
+        table.apply_grads(pids, grads)
+    weight = table.gathered_weight()
+    torch.cuda.synchronize()
+    rec["embed"] = {"launches": launch_counts(),
+                    "seconds": time.perf_counter() - t0,
+                    "rows_a_rank": table.rows_per_shard}
+    if rank == 0:
+        one = ShardedEmbedding(SPARSE_VOCAB, SPARSE_DIM, optimizer="sgd",
+                               learning_rate=0.1, device=dev)
+        every = [p20_pushes(r) for r in range(world)]
+        equal = True
+        for s, (ids, _) in enumerate(lookups_at):
+            equal = equal and torch.equal(rows[s], one.lookup(ids))
+            one.apply_grads(np.concatenate([t[s][0] for t in every]),
+                            np.concatenate([t[s][1] for t in every]))
+        want = one.gathered_weight()
+        rec["embed"].update(
+            lookups_bit_equal=bool(equal),
+            table_rel_err=((weight - want).abs().max()
+                           / want.abs().max()).item())
+        del one, want
+    del table, rows, weight
+    torch.cuda.empty_cache()
+    # C1: the data-mesh FusedTrainStep's BatchNorm over the global batch
+    gpu = mx.gpu(dev.index or 0)
+    with gpu:
+        net, x, y = p20_c1(mx, gpu, rank)
+        step = mx.gluon.FusedTrainStep(
+            net, mx.gluon.loss.L2Loss(), mx.gluon.Trainer(
+                net.collect_params(), "sgd",
+                {"learning_rate": 0.1, "momentum": 0.9}),
+            mesh=create_mesh(data=world))
+        collectives.barrier()
+        reset_launch_counts()
+        from mxnet_tpu_torch.ops import variant_counts
+        vbefore = variant_counts()
+        loss = step(mx.nd.array(x, ctx=gpu), mx.nd.array(y, ctx=gpu))
+        torch.cuda.synchronize()
+        c1_launches = launch_counts()
+        c1_variants = {"%s/%s" % k: n - vbefore.get(k, 0)
+                       for k, n in variant_counts().items()
+                       if n != vbefore.get(k, 0)}
+        snap = snapshot(net)
+        rec["c1"] = {"launches": c1_launches, "variants": c1_variants,
+                     "loss": loss.asnumpy().item(),
+                     "digest": digest(snap, list(snap))}
+        if rank == 0:
+            whole, _, _ = p20_c1(mx, gpu, 0)
+            xs, ys = zip(*(p20_c1(mx, gpu, r)[1:] for r in range(world)))
+            one = mx.gluon.FusedTrainStep(
+                whole, mx.gluon.loss.L2Loss(), mx.gluon.Trainer(
+                    whole.collect_params(), "sgd",
+                    {"learning_rate": 0.1, "momentum": 0.9}))
+            one_loss = one(mx.nd.array(torch.cat(xs), ctx=gpu),
+                           mx.nd.array(torch.cat(ys), ctx=gpu))
+            want = snapshot(whole)
+            rec["c1"].update(
+                rel_err={k: rel_err(snap[k], want[k]) for k in want},
+                loss_whole=one_loss.asnumpy().item())
+        del net, step
+    torch.cuda.empty_cache()
+    # BASELINE config 5 at full depth, where there are four cards
+    if torch.cuda.device_count() >= P20_WORLD:
+        cfg = p20_cfg("llama3_8b", torch.bfloat16)
+        step = p20_step(cfg, p20_params(cfg), mesh)
+        batch = step.shard_batch({"tokens": p20_tokens(cfg)})
+        _, _, losses, times, launches, _, peak = p20_run(
+            step, batch, P20_FULL_STEPS, collectives.barrier)
+        rec["llama3_8b"] = {"losses": losses, "step_ms": times,
+                            "launches": launches, "peak_bytes": peak}
+        del step, batch
+        torch.cuda.empty_cache()
+    collectives.barrier()
+    rec["seconds"] = time.perf_counter() - t_start
+    with open(os.path.join(out_dir, "tp_rank%d.json" % rank), "w") as f:
+        json.dump(rec, f)
+    dist.shutdown()
+
+
+def p20_param_excess(got, want):
+    """(worst leaf, max over it of |got - want| - (atol + rtol |want|)):
+    <= 0 when every element is within the bound."""
+    worst, excess = None, -math.inf
+    for name, w in leaves(want):
+        g = got[name].to(w.device)
+        e = ((g.float() - w.float()).abs() - (P20_PARAM_ATOL + P20_PARAM_RTOL
+                                              * w.float().abs())).max()
+        if e.item() > excess:
+            worst, excess = name, e.item()
+    return worst, excess
+
+
+def phase_tensor_parallel():
+    """Main path 20: the one-rank runs here, then the four ranks of
+    `tp_worker` under the port's launcher (counts reset inside each rank
+    before each leg and read after it). Returns {kernel: launches on the
+    path}."""
+    from mxnet_tpu_torch.ops import KERNELS
+    phase = "tensor_parallel"
+    base = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        cfg = p20_cfg("llama3_8b_dry", dtype)
+        step = p20_step(cfg, p20_params(cfg))
+        params, _, losses, times, _, _, peak = p20_run(
+            step, {"tokens": p20_tokens(cfg)}, P20_STEPS)
+        base[dtype] = {"losses": losses, "step_ms": times,
+                       "peak_bytes": peak}
+        if dtype == torch.float32:
+            base_params = params
+        del step, params
+        torch.cuda.empty_cache()
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as tmp:
+        env = dict(os.environ)
+        env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+        cmd = [sys.executable, "-m", "mxnet_tpu_torch.launch", "-n",
+               str(P20_WORLD), "--launcher", "local", "--root-uri",
+               "file://" + os.path.join(tmp, "store"), "--timeout", "480",
+               sys.executable, os.path.abspath(__file__), "--tp-worker",
+               tmp]
+        t0 = time.perf_counter()
+        run = subprocess.run(cmd, cwd=root, env=env, timeout=540)
+        wall = time.perf_counter() - t0
+        check(run.returncode == 0, phase,
+              "the ranks exited with %s" % run.returncode)
+        ranks = []
+        for r in range(P20_WORLD):
+            with open(os.path.join(tmp, "tp_rank%d.json" % r)) as f:
+                ranks.append(json.load(f))
+        split_params = torch.load(os.path.join(tmp, "tp_params.pt"),
+                                  map_location="cuda")
+    r0 = ranks[0]
+    # every record first, then every check: one run shows every leg
+    pending = []
+
+    def later(cond, msg):
+        pending.append((bool(cond), msg))
+    worst, excess = p20_param_excess(split_params, base_params)
+    del split_params, base_params
+    torch.cuda.empty_cache()
+    n = p20_cfg("llama3_8b_dry", torch.float32).n_layers
+    expect = {"flash_fwd": 2 * n, "flash_bwd_dq": n, "flash_bwd_dkv": n}
+    launches = {k: 0 for k in KERNELS}
+    for r in ranks:
+        for leg in (r["float32"]["launches"], r["bfloat16"]["launches"],
+                    r["embed"]["launches"], r["c1"]["launches"]):
+            for k, v in leg.items():
+                launches[k] += v
+    for key, dtype in (("float32", torch.float32),
+                       ("bfloat16", torch.bfloat16)):
+        want_rel = P20_LOSS_REL if key == "float32" else P20_BF16_LOSS_REL
+        label = "fma" if key == "float32" else "wgmma"
+        emit({"phase": phase, "leg": "llama3_8b_dry_" + key,
+              "mesh": P20_MESH, "world": P20_WORLD,
+              "backend": r0["backend"], "cards": r0["cards"],
+              "tokens": [P20_BATCH, P20_SEQ],
+              "batch_block": r0[key]["batch_block"],
+              "blocks": r0[key]["blocks"],
+              "losses": {r["rank"]: r[key]["losses"] for r in ranks},
+              "one_rank_losses": base[dtype]["losses"],
+              "loss_limit": want_rel,
+              "step_ms": {r["rank"]: r[key]["step_ms"] for r in ranks},
+              "one_rank_step_ms": base[dtype]["step_ms"],
+              "peak_bytes": {r["rank"]: r[key]["peak_bytes"]
+                             for r in ranks},
+              "one_rank_peak_bytes": base[dtype]["peak_bytes"],
+              "launches_per_step_a_rank": expect,
+              "launches": {r["rank"]: r[key]["launches"] for r in ranks},
+              "variants": r0[key]["variants"],
+              **({"params_worst_leaf": worst, "params_excess": excess,
+                  "params_bound": [P20_PARAM_RTOL, P20_PARAM_ATOL]}
+                 if key == "float32" else {}),
+              "note": ("four ranks share one card over gloo, collectives "
+                       "staged through host memory: a correctness run; "
+                       "its step time says nothing of NVLink"
+                       if r0["cards"] < P20_WORLD else
+                       "one rank a card over NCCL")})
+        for r in ranks:
+            got = r[key]
+            per = {k: got["launches"][k] / P20_STEPS for k in P20_KERNELS}
+            later(per == expect and all(
+                got["launches"][k] == 0 for k in got["launches"]
+                if k not in P20_KERNELS),
+                "%s rank %d launches a step %s, expected %s"
+                % (key, r["rank"], got["launches"], expect))
+            other = [v for v in got["variants"]
+                     if v.split("/")[0] in P20_KERNELS
+                     and not v.split("/")[1].startswith(label)]
+            later(not other, "%s rank %d flash launches off %s: %s"
+                  % (key, r["rank"], label, got["variants"]))
+            rels = [abs(a - b) / abs(b) for a, b in
+                    zip(got["losses"], base[dtype]["losses"])]
+            later(max(rels) <= want_rel,
+                  "%s rank %d losses %s vs one rank %s (limit %g)"
+                  % (key, r["rank"], got["losses"], base[dtype]["losses"],
+                     want_rel))
+    later(excess <= 0.0,
+          "fp32 gathered parameters beyond rtol %g + atol %g: %s by %g"
+          % (P20_PARAM_RTOL, P20_PARAM_ATOL, worst, excess))
+    em = r0["embed"]
+    emit({"phase": phase, "leg": "mesh_embedding_comm", "world": P20_WORLD,
+          "vocab": SPARSE_VOCAB, "dim": SPARSE_DIM,
+          "steps": P20_EMBED_STEPS, "rows_a_rank": em["rows_a_rank"],
+          "lookups_bit_equal": em["lookups_bit_equal"],
+          "table_rel_err": em["table_rel_err"], "limit": SPARSE_REL,
+          "launches": em["launches"], "seconds": em["seconds"]})
+    later(em["lookups_bit_equal"] and em["table_rel_err"] <= SPARSE_REL,
+          "MeshEmbeddingComm: lookups equal %s, table %.3g from the "
+          "world-1 table (limit %g)" % (em["lookups_bit_equal"],
+                                        em["table_rel_err"], SPARSE_REL))
+    later(all(r["embed"]["launches"].get("segment_sum", 0) > 0
+              for r in ranks), "the embedding leg launched no "
+          "segment_sum: %s" % em["launches"])
+    c1 = r0["c1"]
+    emit({"phase": phase, "leg": "c1_global_batchnorm", "world": P20_WORLD,
+          "batch_a_rank": P20_C1, "launches": c1["launches"],
+          "variants": c1["variants"], "loss": c1["loss"],
+          "loss_whole": c1["loss_whole"],
+          "max_rel_err": max(c1["rel_err"].values()), "limit": P20_C1_REL})
+    later(len({r["c1"]["digest"] for r in ranks}) == 1,
+          "C1: the ranks' weights or running statistics differ")
+    later(max(c1["rel_err"].values()) <= P20_C1_REL,
+          "C1: the mesh step is %s from one rank fed the whole batch "
+          "(limit %g)" % (max(c1["rel_err"].items(), key=lambda kv: kv[1]),
+                          P20_C1_REL))
+    later(all(r["c1"]["launches"].get("conv_bn_stats") == 2
+              and r["c1"]["variants"].get("cbr_train_bwd/split_v8+global")
+              == 2 and r["c1"]["launches"].get("cbr_train_bwd") == 2
+              and r["c1"]["launches"].get("flat_sgd") == 1 for r in ranks),
+          "C1 launches %s, variants %s"
+          % (c1["launches"], c1["variants"]))
+    if "llama3_8b" in r0:
+        full = r0["llama3_8b"]
+        later(all(np.isfinite(full["losses"])),
+              "llama3_8b losses %s" % full["losses"])
+        emit({"phase": phase, "leg": "llama3_8b", "mesh": P20_MESH,
+              "tokens": [P20_BATCH, P20_SEQ], "losses": full["losses"],
+              "step_ms": {r["rank"]: r["llama3_8b"]["step_ms"]
+                          for r in ranks},
+              "peak_bytes": {r["rank"]: r["llama3_8b"]["peak_bytes"]
+                             for r in ranks},
+              "launches": full["launches"]})
+        for r in ranks:
+            for k, v in r["llama3_8b"]["launches"].items():
+                launches[k] += v
+    emit({"phase": phase, "world": P20_WORLD, "seconds": wall,
+          "worker_seconds": r0["seconds"], "launches": launches,
+          "card": card_name_and_limit()})
+    for cond, msg in pending:
+        check(cond, phase, msg)
+    return launches
 
 
 def main():
@@ -8978,6 +9475,12 @@ def main():
     # rank before each leg and read after it; around the ring fleet here)
     multi_launches = phase_multi_rank()
     check_path(multi_launches, MULTI_RANK_KERNELS, "main_path_multi_rank")
+    torch.cuda.empty_cache()
+
+    # main path 20: tensor and FSDP parallelism (counts reset inside each
+    # rank before each leg and read after it)
+    tp_launches = phase_tensor_parallel()
+    check_path(tp_launches, P20_PATH_KERNELS, "main_path_tensor_parallel")
 
     print(card_name_and_limit(), flush=True)
     kernels = []
@@ -8994,7 +9497,7 @@ def main():
             + bucketing_launches[name] + ssd_launches[name] \
             + ssd_infer_launches[name] + inception_launches[name] \
             + dcgan_launches[name] + spec_launches[name] \
-            + multi_launches[name]
+            + multi_launches[name] + tp_launches[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": "mxnet_tpu_torch/" + source, "replaces": replaces,
@@ -9025,10 +9528,28 @@ def main_multi_rank():
     print(card_name_and_limit(), flush=True)
 
 
+def main_tensor_parallel():
+    """`--only tensor_parallel`: the build and main path 20 alone (for
+    iterating on the path; a run with no arguments drives every path)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        sys.exit(2)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    phase_build()
+    launches = phase_tensor_parallel()
+    check_path(launches, P20_PATH_KERNELS, "main_path_tensor_parallel")
+    print(card_name_and_limit(), flush=True)
+
+
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--multi-rank-worker":
         multi_rank_worker(sys.argv[2])
+    elif len(sys.argv) == 3 and sys.argv[1] == "--tp-worker":
+        tp_worker(sys.argv[2])
     elif sys.argv[1:] == ["--only", "multi_rank"]:
         main_multi_rank()
+    elif sys.argv[1:] == ["--only", "tensor_parallel"]:
+        main_tensor_parallel()
     else:
         main()

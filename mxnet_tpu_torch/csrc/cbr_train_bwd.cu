@@ -52,6 +52,15 @@
 //  split (other shapes): three launches: partial sums of chunks of 8 rows
 //    a thread, a fixed-order column sum, and the dconv pass (conv and dy
 //    read twice).
+//
+// Statistics over several ranks (a data-parallel step whose BatchNorm
+// normalizes over the global batch): the sums of every rank must be added
+// before any dconv, so the caller runs the split variant in two calls
+// (mx_cbr_train_bwd_staged): stage 1 the partial sums and the column sum,
+// then the caller's cross-rank all-reduce of the sums, then stage 2 the
+// dconv pass with M the global row count. The persistent variant computes
+// both in one cooperative launch and has no point where the sums could
+// leave the card.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -324,7 +333,7 @@ __global__ void __launch_bounds__(SPLIT_THREADS)
                 const float* __restrict__ gamma,
                 const float* __restrict__ beta, const TR* __restrict__ res,
                 const float* __restrict__ sums, float* __restrict__ dconv,
-                TR* __restrict__ dres, int M, int C, int chunk) {
+                TR* __restrict__ dres, int M, int C, int chunk, float mdiv) {
   const int CG = C / V, cgb = min(CG, SPLIT_THREADS), R = SPLIT_THREADS / cgb;
   const int k = threadIdx.x / cgb;
   const int cg = blockIdx.y * cgb + threadIdx.x % cgb;
@@ -333,7 +342,7 @@ __global__ void __launch_bounds__(SPLIT_THREADS)
   Chan<V> ch;
   ch.load(mean, invstd, gamma, beta, c0);
   float k1[V], k2[V];
-  const float m = (float)M;
+  const float m = mdiv;
 #pragma unroll
   for (int e = 0; e < V; ++e) {
     k1[e] = ch.gam[e] * (sums[c0 + e] / m);
@@ -540,6 +549,8 @@ struct Args {
   unsigned int* bar;
   int M, C, grid;     // grid: persistent blocks, or split rows a chunk
   cudaStream_t stream;
+  int stage;          // split: 0 all three launches, 1 the sums, 2 dconv
+  float mdiv;         // split: the rows the means divide by
 };
 
 template <bool RES, typename T, typename TR, int V>
@@ -551,19 +562,21 @@ int launch_split(const Args& a) {
   const int chunks = (a.M + a.grid - 1) / a.grid;
   const int CG = a.C / V, cgb = CG < SPLIT_THREADS ? CG : SPLIT_THREADS;
   const dim3 grid(chunks, (CG + cgb - 1) / cgb);
-  split_partial<RES, T, TR, V><<<grid, SPLIT_THREADS, 0, a.stream>>>(
-      conv, dy, a.mean, a.invstd, a.gamma, a.beta, res, a.partial, a.M, a.C,
-      a.grid);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int cols = 2 * a.C;
-  bwd_col_sum_kernel<<<(cols + 31) / 32, dim3(32, 32), 0, a.stream>>>(
-      a.partial, a.sums, chunks, cols);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  if (a.stage != 2) {
+    split_partial<RES, T, TR, V><<<grid, SPLIT_THREADS, 0, a.stream>>>(
+        conv, dy, a.mean, a.invstd, a.gamma, a.beta, res, a.partial, a.M,
+        a.C, a.grid);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    const int cols = 2 * a.C;
+    bwd_col_sum_kernel<<<(cols + 31) / 32, dim3(32, 32), 0, a.stream>>>(
+        a.partial, a.sums, chunks, cols);
+    err = cudaGetLastError();
+    if (err != cudaSuccess || a.stage == 1) return (int)err;
+  }
   split_dconv<RES, T, TR, V><<<grid, SPLIT_THREADS, 0, a.stream>>>(
       conv, dy, a.mean, a.invstd, a.gamma, a.beta, res, a.sums, a.dconv,
-      static_cast<TR*>(a.dres), a.M, a.C, a.grid);
+      static_cast<TR*>(a.dres), a.M, a.C, a.grid, a.mdiv);
   return (int)cudaGetLastError();
 }
 
@@ -674,8 +687,48 @@ int mx_cbr_train_bwd(const void* conv, const void* dy, const void* mean,
          M,
          Cout,
          grid,
-         static_cast<cudaStream_t>(stream)};
+         static_cast<cudaStream_t>(stream),
+         0,
+         (float)M};
   if (variant != 0 && Cout % 8 != 0) return (int)cudaErrorInvalidValue;
+  if (dtype == 1) return launch_for<bf16>(a, variant, res_dtype);
+  if (dtype == 0) return launch_for<float>(a, variant, res_dtype);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The split variants (0 / 1) in two calls, for sums that span several
+// ranks: stage 1 writes sums (dbeta then dgamma over this call's M rows)
+// and returns; stage 2 reads sums (the caller's cross-rank totals) and
+// writes dconv and dres with the means over `mdiv` rows. Arguments as
+// mx_cbr_train_bwd; the persistent variant is refused.
+int mx_cbr_train_bwd_staged(const void* conv, const void* dy,
+                            const void* mean, const void* invstd,
+                            const void* gamma, const void* beta,
+                            const void* residual, void* partial, void* sums,
+                            void* dconv, void* dres, int M, int Cout,
+                            int dtype, int res_dtype, int variant, int grid,
+                            int stage, float mdiv, void* stream) {
+  Args a{conv,
+         dy,
+         static_cast<const float*>(mean),
+         static_cast<const float*>(invstd),
+         static_cast<const float*>(gamma),
+         static_cast<const float*>(beta),
+         residual,
+         static_cast<float*>(partial),
+         static_cast<float*>(sums),
+         static_cast<float*>(dconv),
+         dres,
+         nullptr,
+         M,
+         Cout,
+         grid,
+         static_cast<cudaStream_t>(stream),
+         stage,
+         mdiv};
+  if (variant > 1 || (stage != 1 && stage != 2) ||
+      (variant == 1 && Cout % 8 != 0))
+    return (int)cudaErrorInvalidValue;
   if (dtype == 1) return launch_for<bf16>(a, variant, res_dtype);
   if (dtype == 0) return launch_for<float>(a, variant, res_dtype);
   return (int)cudaErrorInvalidValue;

@@ -20,10 +20,11 @@ Quickstart::
     ...                                  # a loss over rows
     table.apply_grads(ids, grad_rows)    # dedup + owned-row update
 
-The mesh comm (`MeshEmbeddingComm`) comes with the port's multi-rank
-communication slice.
+Over ranks, `MeshEmbeddingComm(axis_name, world, rank)` carries the two
+legs over a mesh axis's process group.
 """
 from .serving import EmbeddingLookupService
-from .table import EmbeddingComm, ShardedEmbedding
+from .table import EmbeddingComm, MeshEmbeddingComm, ShardedEmbedding
 
-__all__ = ["ShardedEmbedding", "EmbeddingComm", "EmbeddingLookupService"]
+__all__ = ["ShardedEmbedding", "EmbeddingComm", "MeshEmbeddingComm",
+           "EmbeddingLookupService"]

@@ -9,6 +9,12 @@ eagerly, so here a bucket's "program" is its padded gather, made ready at
 `warmup`, and a batch that lands in a bucket that was not warmed after
 warm-up counts ``serve.retrace``, as the reference's trace miss does.
 
+With a `mesh`, the snapshot is placed vocab-sharded as the table's
+`shard_spec` says (reference: the serving copy's `device_put` onto that
+sharding): each rank keeps its block of the rows, a lookup gathers the
+ids from it with the others masked to zero and sums over the split axes,
+so exactly one rank contributes each row.
+
 `refresh` takes a new snapshot after training steps. The table's update
 builds a new weight tensor each step, so a snapshot is never changed under
 the reader. Lookup latency goes to the ``embedding.serve.lookup_ms``
@@ -36,11 +42,12 @@ def default_buckets(max_batch=1024):
     return tuple(out)
 
 
-def _gather(weight, ids):
-    """Rows of `weight` for `ids`; negative ids (the bucket padding) give
-    zero rows."""
-    valid = ids >= 0
-    rows = weight[ids.clamp(0, weight.shape[0] - 1).long()]
+def _gather(weight, ids, lo=0):
+    """Rows of `weight` (rows lo, lo + 1, ... of a table) for `ids`; ids
+    outside them, and negative ids (the bucket padding), give zero rows."""
+    local = ids - lo
+    valid = (ids >= 0) & (local >= 0) & (local < weight.shape[0])
+    rows = weight[local.clamp(0, weight.shape[0] - 1).long()]
     return torch.where(valid[:, None], rows, 0)
 
 
@@ -49,9 +56,11 @@ class EmbeddingLookupService:
     `ShardedEmbedding` (snapshotted through `gathered_weight`) or a
     (vocab, dim) tensor."""
 
-    def __init__(self, table, max_batch=1024, buckets=None):
+    def __init__(self, table, max_batch=1024, buckets=None, mesh=None):
         from .table import ShardedEmbedding
         self._table = table if isinstance(table, ShardedEmbedding) else None
+        self._mesh = mesh
+        self._lo, self._axes = 0, ()
         self.buckets = tuple(sorted(buckets or default_buckets(max_batch)))
         self.max_batch = self.buckets[-1]
         self._fns = {}
@@ -70,8 +79,24 @@ class EmbeddingLookupService:
                              "ShardedEmbedding or a (vocab, dim) tensor")
         else:
             weight = self._weight
-        self._weight = weight
         self.vocab, self.dim = int(weight.shape[0]), int(weight.shape[1])
+        if self._mesh is not None and self._table is not None:
+            weight = self._place(weight)
+        self._weight = weight
+
+    def _place(self, weight):
+        """This rank's block of the (vocab, dim) snapshot under the table's
+        `shard_spec` on the mesh (the vocab padded as the table pads it)."""
+        from ..parallel.sharding import block_of, entry_axes
+        spec = self._table.shard_spec(self._mesh)
+        pad = self._table.padded_vocab - weight.shape[0]
+        if pad:
+            weight = torch.cat([weight, weight.new_zeros((pad, self.dim))])
+        entry = spec[0] if len(spec) else None
+        idx, n = block_of(self._mesh, entry)
+        per = weight.shape[0] // n
+        self._lo, self._axes = idx * per, entry_axes(entry)
+        return weight[self._lo:self._lo + per].clone()
 
     # -- programs ------------------------------------------------------------
     def _bucket_for(self, n):
@@ -111,7 +136,12 @@ class EmbeddingLookupService:
         if n < bucket:
             ids = torch.cat([ids, ids.new_full((bucket - n,), -1)])
         t0 = time.perf_counter()
-        out = self._fn(bucket)(self._weight, ids)[:n]
+        out = self._fn(bucket)(self._weight, ids, self._lo)[:n]
+        if self._axes:
+            from ..parallel.collectives import all_reduce
+            from ..parallel.mesh import mesh_scope
+            with mesh_scope(self._mesh):
+                out = all_reduce(out, self._axes)
         _telem.inc("embedding.serve.lookup")
         _telem.inc("embedding.serve.rows", n)
         _telem.observe("embedding.serve.lookup_ms",

@@ -24,10 +24,12 @@ few zero rows). Its legs:
 The update builds a new weight tensor every step, as the reference's
 immutable arrays do, so a snapshot (`gathered_weight`, the serving copy)
 never changes under its reader. `EmbeddingComm` is the world-1 exchange;
-tests inject a threaded in-process comm for world 2 and 4. The mesh comm
-(`MeshEmbeddingComm`, `shard_spec`) comes with the port's multi-rank
-communication slice, and the HBM-ledger accounting with its telemetry
-package (`_nbytes` counts the bytes already).
+tests inject a threaded in-process comm for world 2 and 4.
+`MeshEmbeddingComm` runs the two legs over the process group of a mesh
+axis (one rank a card, `mxnet_tpu_torch.launch`), and `shard_spec` names
+the table's vocab split through the sharding rules. The HBM-ledger
+accounting comes with the telemetry package (`_nbytes` counts the bytes
+already).
 
 Deviation: with no `weight=`, the table is drawn from a `torch.Generator`
 seeded with `seed` on the table's device; the reference draws it with
@@ -44,7 +46,7 @@ import torch
 from .. import telemetry as _telem
 from ..base import resolve_device, torch_dtype
 
-__all__ = ["EmbeddingComm", "ShardedEmbedding"]
+__all__ = ["EmbeddingComm", "MeshEmbeddingComm", "ShardedEmbedding"]
 
 _OPTIMIZERS = ("sgd", "adam")
 
@@ -65,6 +67,34 @@ class EmbeddingComm:
 
     def all_gather(self, x):
         return x
+
+
+class MeshEmbeddingComm:
+    """The two legs over the ranks of a mesh axis: `all_reduce` is the sum,
+    `all_gather` the rank-order concatenation along axis 0. `axis_name` is
+    an axis of the current mesh (resolved here, so make the comm inside
+    `mesh_scope`), a process group, or None for the world; `world` and
+    `rank` are this rank's place on it (reference:
+    `embedding.table.MeshEmbeddingComm`)."""
+
+    def __init__(self, axis_name, world, rank):
+        from ..parallel.collectives import resolve_group
+        self.axis_name = axis_name
+        self.world = int(world)
+        self.rank = int(rank)
+        self._group, n, r = resolve_group(axis_name)
+        if (n, r) != (self.world, self.rank):
+            raise ValueError("MeshEmbeddingComm: %r has %d ranks and this "
+                             "is rank %d, not %d of %d"
+                             % (axis_name, n, r, self.rank, self.world))
+
+    def all_reduce(self, x):
+        from ..parallel.collectives import all_reduce
+        return all_reduce(x, self._group)
+
+    def all_gather(self, x):
+        from ..parallel.collectives import all_gather
+        return all_gather(x, self._group, axis=0)
 
 
 def _numpy(t):
@@ -135,6 +165,20 @@ class ShardedEmbedding:
         if pad:
             full = torch.cat([full, full.new_zeros((pad, self.dim))])
         return full[self.lo:self.lo + self.rows_per_shard].clone()
+
+    def shard_spec(self, mesh=None, rules=None):
+        """The PartitionSpec of the FULL (padded_vocab, dim) table on
+        `mesh` (default the current one): `rules.spec_for` the table's
+        ``<name>.weight`` when given, else the logical table's ``vocab``
+        -> ``model`` (`sharding.logical_to_spec`)."""
+        from ..parallel.sharding import logical_to_spec
+        if mesh is None:
+            from ..parallel.mesh import current_mesh, local_mesh
+            mesh = current_mesh() or local_mesh()
+        if rules is not None:
+            return rules.spec_for(self.name + ".weight",
+                                  (self.padded_vocab, self.dim), mesh=mesh)
+        return logical_to_spec(("vocab", "embed"))
 
     def _nbytes(self):
         n = self.weight.numel() * self.weight.element_size()

@@ -33,10 +33,15 @@ class SparseEmbedding(Block):
 
 
 class SyncBatchNorm(BatchNorm):
-    """BatchNorm whose batch statistics are meant to span every device. On
-    one rank it is `BatchNorm` over axis 1; the cross-rank reduction comes
-    with the port's multi-rank slice. `num_devices` and `key` are accepted
-    and not read, as in the reference."""
+    """BatchNorm whose batch statistics span every device. It is
+    `BatchNorm` over axis 1, as in the reference, where GSPMD makes the base
+    BatchNorm global: inside a data-parallel `gluon.FusedTrainStep` over
+    several ranks every training-mode BatchNorm normalizes with the global
+    batch's statistics (all-reduced over the batch ranks) and writes the
+    same running statistics on every rank; elsewhere (one rank, a
+    `Trainer` over a dist store, where each reference process also runs
+    its own forward) it uses this rank's batch. `num_devices` and `key`
+    are accepted and not read, as in the reference."""
 
     def __init__(self, in_channels=0, num_devices=None, momentum=0.9,
                  epsilon=1e-5, center=True, scale=True,

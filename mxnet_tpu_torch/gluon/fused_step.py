@@ -41,16 +41,26 @@ stream and allocates through `torch.empty`, as capture needs. The update
 runs inside a ``fused_step.update`` profiler range. The integrity
 sentinel and the compile cache of the reference are not ported.
 
-Data parallelism (``mesh``, a `parallel.mesh.Mesh` with a ``data`` axis):
-every rank passes its own shard of the batch (``batch_spec``, default
-``P("data")``; a replicated batch, ``P()``, works too), the gradients of
-the local loss sums are summed over the ``data`` group (one all-reduce per
-flat bucket of at most ``bucket_mb``, default the engine's cap; 0 sends
-them one by one) and
-rescaled by ``scale / (local batch x data size)``, and the returned loss
-is the mean over the global batch. Over one rank the all-reduce is a copy,
-so the step is the single-card step bit for bit. `rules` are checked as
-`parallel.ShardedTrainStep` checks them.
+Data parallelism (``mesh``, a `parallel.mesh.Mesh`): every rank passes
+its own slice of the batch over the mesh's ``("data", "fsdp")`` axes
+(``batch_spec``, default that; a replicated batch, ``P()``, works too),
+the gradients of the local loss sums are summed over those ranks (one
+all-reduce per flat bucket of at most ``bucket_mb``, default the engine's
+cap; 0 sends them one by one) and rescaled by ``scale / (local batch x
+ranks)``, and the returned loss is the mean over the global batch. As in
+the reference's one GSPMD program, every training-mode BatchNorm (the
+`BatchNorm` op, Gluon's `BatchNorm` and `contrib.nn.SyncBatchNorm`, and
+the fused conv-BN-ReLU training op with #5's sums) normalizes with the
+global batch's statistics: the forward runs inside
+`collectives.batch_stats_scope` over the batch ranks, the per-channel
+sums are all-reduced before normalizing and their cotangents in the
+backward (the fused op's #6 takes its split route in two calls around
+that all-reduce), and every rank writes the same running statistics from
+them. Over one rank the all-reduce is a copy and nothing is reduced, so
+the step is the single-card step bit for bit. `rules` are accepted; each
+rank keeps every parameter whole (the parameters of a ``model`` or
+``fsdp`` split compute the same values whole, and ranks that differ only
+on ``model`` compute the same step).
 """
 from __future__ import annotations
 
@@ -346,9 +356,9 @@ class FusedTrainStep:
 
     def __init__(self, net, loss, trainer, donate=True, mesh=None,
                  rules=None, batch_spec=None, bucket_mb=None):
-        from ..parallel.train_step import _check_rules, _data_mesh
+        from ..parallel.train_step import _as_rules, _data_mesh
         self._mesh = _data_mesh(mesh)
-        self._rules = _check_rules(rules, self._mesh)
+        self._rules = _as_rules(rules)
         self._batch_spec = batch_spec
         self._bucket_mb = bucket_mb
         self._donate = donate
@@ -367,8 +377,10 @@ class FusedTrainStep:
                               rules=self._rules, batch_spec=self._batch_spec,
                               bucket_mb=self._bucket_mb)
 
+    _BATCH = ("data", "fsdp")
+
     def _data_group(self):
-        return None if self._mesh is None else self._mesh.group("data")
+        return None if self._mesh is None else self._mesh.group(self._BATCH)
 
     def _build(self, ctx, args):
         trainer = self._trainer
@@ -409,7 +421,8 @@ class FusedTrainStep:
         trainer = self._trainer
         opt = trainer._optimizer
         group = self._data_group()
-        n_data = 1 if self._mesh is None else self._mesh.axis_size("data")
+        n_data = 1 if self._mesh is None \
+            else self._mesh.axes_size(self._BATCH)
         opt.rescale_grad = trainer._scale / (args[0].shape[0] * n_data)
         scal = self._host_fn(opt, self._train_idx)
 
@@ -417,8 +430,10 @@ class FusedTrainStep:
         if not hasattr(_AUX_COLLECTOR, "stack"):
             _AUX_COLLECTOR.stack = []
         _AUX_COLLECTOR.stack.append(aux)
+        stats = group if n_data > 1 else None
         try:
-            with autograd.record(train_mode=True):
+            with autograd.record(train_mode=True), \
+                    _coll.batch_stats_scope(stats):
                 out = self._net(*args)
                 lvec = self._loss(out, label)
         finally:

@@ -11,7 +11,11 @@ reference's rendezvous variables (``DMLC_ROLE=worker``,
 ``LOCAL_WORLD_SIZE``; `parallel.dist.initialize` turns them into a NCCL
 process group (gloo with ``--backend gloo``). ``CUDA_VISIBLE_DEVICES``
 passes through unchanged, so every rank sees every card and NCCL finds
-the NVLink peers; rank r computes on card ``LOCAL_RANK`` = r. A root URI
+the NVLink peers; rank r computes on card ``LOCAL_RANK`` = r. With more
+ranks than cards and no ``--backend`` (NCCL refuses two ranks on one
+device), the ranks share the cards round robin (``LOCAL_RANK`` = r mod
+cards: all on card 0 when there is one) over gloo, with
+``MXNET_TPU_DIST_DEVICE=cuda`` so that each computes on its card. A root URI
 of ``file:///path`` rendezvouses through a FileStore on that file instead
 of a TCP port.
 
@@ -32,8 +36,9 @@ __all__ = ["build_env", "launch_local", "main"]
 
 
 def build_env(rank, num_workers, root_uri="127.0.0.1", root_port=9091,
-              num_servers=0, backend=None, base=None):
-    """The environment of worker `rank`."""
+              num_servers=0, backend=None, base=None, cards=None):
+    """The environment of worker `rank`; with `cards` (fewer than the
+    workers) it computes on card rank mod cards, over gloo."""
     env = dict(os.environ if base is None else base)
     env.update({
         "DMLC_ROLE": "worker",
@@ -42,9 +47,12 @@ def build_env(rank, num_workers, root_uri="127.0.0.1", root_port=9091,
         "DMLC_NUM_WORKER": str(num_workers),
         "DMLC_NUM_SERVER": str(num_servers),
         "DMLC_WORKER_ID": str(rank),
-        "LOCAL_RANK": str(rank),
+        "LOCAL_RANK": str(rank if not cards else rank % cards),
         "LOCAL_WORLD_SIZE": str(num_workers),
     })
+    if cards:
+        backend = "gloo"
+        env["MXNET_TPU_DIST_DEVICE"] = "cuda"
     if backend:
         env["MXNET_TPU_DIST_BACKEND"] = backend
     return env
@@ -66,7 +74,22 @@ def _stop(procs):
 def launch_local(command, num_workers, root_uri="127.0.0.1", root_port=9091,
                  num_servers=0, backend=None, timeout=None, env=None):
     """Run `command` as `num_workers` local processes; returns the first
-    nonzero exit code (or 0, or 124 when `timeout` seconds pass)."""
+    nonzero exit code (or 0, or 124 when `timeout` seconds pass). Without
+    a backend, more workers than cards share the cards over gloo."""
+    cards = None
+    if backend is None:
+        import torch
+        n = torch.cuda.device_count()
+        if 0 < n < num_workers:
+            cards = n
+    elif backend == "nccl":
+        import torch
+        n = torch.cuda.device_count()
+        if n < num_workers:
+            raise ValueError(
+                "NCCL takes one rank a card: %d ranks, %d cards (leave "
+                "--backend out to share the cards over gloo)"
+                % (num_workers, n))
     procs = []
     deadline = None if timeout is None else time.monotonic() + timeout
     try:
@@ -74,7 +97,7 @@ def launch_local(command, num_workers, root_uri="127.0.0.1", root_port=9091,
             procs.append(subprocess.Popen(
                 command, env=build_env(rank, num_workers, root_uri,
                                        root_port, num_servers, backend,
-                                       base=env)))
+                                       base=env, cards=cards)))
         while True:
             codes = [p.poll() for p in procs]
             bad = [c for c in codes if c not in (None, 0)]

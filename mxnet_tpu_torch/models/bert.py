@@ -9,7 +9,10 @@ Attention is the flash-attention kernels (#1 forward, #2/#3 backward) with
 ``causal=False``; the FFN uses the tanh GELU and the layernorm applies
 gamma and beta in fp32 before the cast, as the JAX package does (the Gluon
 model's GELU is exact and its LayerNorm casts first). `bert_forward` and
-`bert_mlm_loss` run under the caller's grad mode.
+`bert_mlm_loss` run under the caller's grad mode. Under `BERT_RULES` on a
+mesh, `parallel.ShardedTrainStep` gathers every split leaf on use, so each
+rank computes the whole model on its slice of the batch (native Megatron
+for BERT is ROADMAP work).
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..base import resolve_device
+from ..parallel import collectives as _coll
 from ..parallel.flash_attention import flash_attention
 
 __all__ = ["BertConfig", "CONFIGS", "bert_init", "bert_forward",
@@ -145,7 +149,9 @@ def bert_mlm_loss(params, batch, cfg: BertConfig):
     """Masked-LM loss with the decoder tied to the word embedding (hidden @
     word_embed.T, fp32 log-softmax). batch = {"tokens", "targets", "mask"},
     each (B, S); mask is 1 at the prediction sites. The mean NLL over
-    them."""
+    them; inside a data-parallel step, over every rank's sites
+    (`collectives.batch_ratio`), as the reference's one program takes it.
+    """
     h = bert_forward(params, batch["tokens"], cfg)
     dev = h.device
     logits = (h @ params["word_embed"].T.to(h.dtype)).float()
@@ -153,4 +159,4 @@ def bert_mlm_loss(params, batch, cfg: BertConfig):
     targets = torch.as_tensor(batch["targets"], dtype=torch.long, device=dev)
     nll = -logp.gather(-1, targets[..., None])[..., 0]
     mask = torch.as_tensor(batch["mask"], device=dev).float()
-    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return _coll.batch_ratio((nll * mask).sum(), mask.sum())

@@ -12,6 +12,33 @@ package. `llama_forward` and `llama_loss` run under the caller's grad mode,
 so a trainer differentiates them (the attention backward is the flash
 backward kernels); the decoding functions never track gradients.
 
+Tensor parallelism over the ``model`` axis (Megatron), when
+`parallel.ShardedTrainStep` runs `llama_loss` under `LLAMA_RULES` on a
+mesh with ``model`` > 1 and hands the projections and embeddings over as
+this rank's ``model`` blocks (`ShardingRules.local`; the step gathers the
+``fsdp`` splits before the forward):
+
+* column-parallel ``wq/wk/wv`` and ``w1/w3``: this rank's H/m query heads
+  and Hkv/m KV heads (contiguous GQA groups, as in the JAX package), its
+  hidden/m columns of the MLP; their input passes
+  `collectives.copy_to_group` (identity forward, its cotangent summed);
+* row-parallel ``wo`` and ``w2``, then `collectives.reduce_from_group`
+  (the sum forward, identity backward);
+* ``tok_embeddings`` over the vocab: a masked lookup of this rank's rows
+  (the one-hot product on the local range with ``embed_onehot``), then the
+  sum; exactly one rank contributes each row, so it is exact;
+* ``lm_head``: vocab-parallel logits, and `llama_loss`'s fp32 log-softmax
+  and target pick through a max and two sum all-reduces: the full-vocab
+  logits are never gathered (`llama_forward` returns this rank's vocab
+  block of the logits under the split);
+* a split that does not fall on a head boundary (``wk``/``wv`` at
+  ``n_kv_heads`` = 1 and ``model`` = 2: `_prune_spec` keeps a split of 16
+  columns mid-head) is gathered over ``model`` on use, with the
+  reduce-scatter of its gradient, and each rank takes the KV heads its
+  query heads read. A block whose partner is not split the same way
+  (attention or MLP) is computed whole on every rank from its gathered
+  leaves.
+
 The paged functions write the new KV rows into the pools IN PLACE and
 return the same pools dict (JAX returns new arrays and donates the old
 ones; in place saves the copy). Writes whose block-table entry is
@@ -30,6 +57,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..base import resolve_device
+from ..parallel import collectives as _coll
 from ..parallel.flash_attention import (flash_attention, paged_attention,
                                         paged_attention_chunk)
 
@@ -185,35 +213,162 @@ def _index(a, device):
     return torch.as_tensor(a, dtype=torch.long, device=device)
 
 
-def _layer(lp, x, cos, sin, cfg):
+@dataclasses.dataclass(frozen=True)
+class _ModelSplit:
+    """The ``model`` axis of the current mesh: its group, size and this
+    rank's index (resolved before the layers, so a recomputation in the
+    backward needs no mesh scope)."""
+    group: object
+    world: int
+    rank: int
+
+
+def _model_split():
+    from ..parallel.mesh import current_mesh
+    mesh = current_mesh()
+    if mesh is None or mesh.axis_size("model") == 1:
+        return None
+    return _ModelSplit(mesh.group("model"), mesh.axis_size("model"),
+                       mesh.axis_index("model"))
+
+
+def _whole(w, tp, dim, full):
+    """`w` whole on every rank: gathered over ``model`` (the slice of the
+    cotangent backward: every rank computes the same thing) when it is
+    this rank's block of a `full`-wide dimension `dim`."""
+    if tp is None or w.shape[dim] == full:
+        return w
+    return _coll.gather_on_use(w, tp.group, dim, summed=False)
+
+
+def _kv_local(w, x, tp, cfg, q_lo, q_n):
+    """k or v (B, S, heads, hd) for this rank's query heads [q_lo, q_lo +
+    q_n) from the column-parallel input `x`: a head-aligned block of the
+    KV heads those queries read as it is, any other weight gathered (a
+    block, with the reduce-scatter of its gradient) or marked (a whole
+    leaf, its gradient summed) over ``model``, then sliced to those
+    heads."""
+    B, S, _ = x.shape
+    hd, rep = cfg.head_dim, cfg.n_heads // cfg.n_kv_heads
+    lo, hi = q_lo // rep, (q_lo + q_n - 1) // rep + 1
+    full = cfg.n_kv_heads * hd
+    if w.shape[1] != full and w.shape[1] % hd == 0 \
+            and w.shape[1] // hd == hi - lo:
+        return (x @ w).reshape(B, S, hi - lo, hd)
+    w = _coll.gather_on_use(w, tp.group, 1) if w.shape[1] != full \
+        else _coll.copy_to_group(w, tp.group)
+    return (x @ w[:, lo * hd:hi * hd]).reshape(B, S, hi - lo, hd)
+
+
+def _attention_split(lp, x, cos, sin, cfg, tp):
+    """The attention block's output added to x: Megatron over ``model``
+    when wq (columns) and wo (rows) arrive as this rank's head-aligned
+    blocks and the query heads split into whole GQA groups (or each rank's
+    heads share one group), else computed whole on every rank."""
+    a = lp["attn"]
+    hd, H, Hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    wq, wo = a["wq"], a["wo"]
+    q_n = wq.shape[1] // hd
+    rep = H // Hkv
+    aligned = (wq.shape[1] != H * hd and wq.shape[1] % hd == 0
+               and wo.shape[0] == wq.shape[1]
+               and (q_n % rep == 0 or rep % q_n == 0))
+    B, S, _ = x.shape
+    h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+    if not aligned:
+        q = (h @ _whole(wq, tp, 1, H * hd)).reshape(B, S, H, hd)
+        k = (h @ _whole(a["wk"], tp, 1, Hkv * hd)).reshape(B, S, Hkv, hd)
+        v = (h @ _whole(a["wv"], tp, 1, Hkv * hd)).reshape(B, S, Hkv, hd)
+        q = apply_rope(q.transpose(1, 2), cos, sin)
+        k = apply_rope(k.transpose(1, 2), cos, sin)
+        o = flash_attention(q, k, v.transpose(1, 2).contiguous(),
+                            causal=True)
+        return x + o.transpose(1, 2).reshape(B, S, -1) @ _whole(
+            wo, tp, 0, H * hd)
+    hf = _coll.copy_to_group(h, tp.group)
+    q_lo = tp.rank * q_n
+    q = (hf @ wq).reshape(B, S, q_n, hd)
+    k = _kv_local(a["wk"], hf, tp, cfg, q_lo, q_n)
+    v = _kv_local(a["wv"], hf, tp, cfg, q_lo, q_n)
+    q = apply_rope(q.transpose(1, 2), cos, sin)
+    k = apply_rope(k.transpose(1, 2), cos, sin)
+    o = flash_attention(q, k, v.transpose(1, 2).contiguous(), causal=True)
+    out = o.transpose(1, 2).reshape(B, S, -1) @ wo
+    return x + _coll.reduce_from_group(out, tp.group)
+
+
+def _mlp_split(lp, x, cfg, tp):
+    """The MLP's output added to x: Megatron over ``model`` when w1/w3
+    (columns) and w2 (rows) arrive as matching blocks, else whole."""
+    m = lp["mlp"]
+    w1, w2, w3 = m["w1"], m["w2"], m["w3"]
+    full = cfg.hidden_dim
+    h = rms_norm(x, lp["ffn_norm"], cfg.norm_eps)
+    if w1.shape[1] != full and w3.shape[1] == w1.shape[1] \
+            and w2.shape[0] == w1.shape[1]:
+        hf = _coll.copy_to_group(h, tp.group)
+        out = (F.silu(hf @ w1) * (hf @ w3)) @ w2
+        return x + _coll.reduce_from_group(out, tp.group)
+    w1, w3 = _whole(w1, tp, 1, full), _whole(w3, tp, 1, full)
+    return x + (F.silu(h @ w1) * (h @ w3)) @ _whole(w2, tp, 0, full)
+
+
+def _layer(lp, x, cos, sin, cfg, tp=None):
+    if tp is not None:
+        return _mlp_split(lp, _attention_split(lp, x, cos, sin, cfg, tp),
+                          cfg, tp)
     q, k, v = _qkv(lp, x, cos, sin, cfg)
     x = _attn_out(lp, x, flash_attention(q, k, v, causal=True))
     return _mlp(lp, x, cfg)
+
+
+def _embed(emb, tokens, cfg, tp):
+    """The token rows: this rank's vocab block masked and summed over
+    ``model`` when `emb` arrives as one."""
+    if tp is None or emb.shape[0] == cfg.vocab_size:
+        if cfg.embed_onehot:
+            return F.one_hot(tokens, cfg.vocab_size).to(emb.dtype) @ emb
+        return emb[tokens]
+    vl = emb.shape[0]
+    local = tokens - tp.rank * vl
+    mine = ((local >= 0) & (local < vl))[..., None]
+    local = local.clamp(0, vl - 1)
+    if cfg.embed_onehot:
+        x = (F.one_hot(local, vl) * mine).to(emb.dtype) @ emb
+    else:
+        x = torch.where(mine, emb[local], torch.zeros((), dtype=emb.dtype,
+                                                      device=emb.device))
+    return _coll.reduce_from_group(x, tp.group)
 
 
 def llama_forward(params, tokens, cfg: LlamaConfig, positions=None):
     """tokens (B, S) int -> logits (B, S, vocab) fp32. Attention is the
     causal flash attention; `positions` ((S,) or (B, S) int) overrides the
     RoPE positions 0..S-1. Runs under the caller's grad mode; with
-    `cfg.remat` each layer is recomputed in the backward."""
+    `cfg.remat` each layer is recomputed in the backward. Under a
+    ``model`` split of the head (see the module docstring) the logits are
+    this rank's vocab block (B, S, vocab / model)."""
     emb = params["tok_embeddings"]
     tokens = _index(tokens, emb.device)
-    if cfg.embed_onehot:
-        x = F.one_hot(tokens, cfg.vocab_size).to(emb.dtype) @ emb
-    else:
-        x = emb[tokens]
+    tp = _model_split()
+    x = _embed(emb, tokens, cfg, tp)
     if positions is None:
         positions = torch.arange(tokens.shape[1], device=emb.device)
     cos, sin = rope_freqs(_index(positions, emb.device), cfg.head_dim,
                           cfg.rope_theta)
-    layer = functools.partial(_layer, cfg=cfg)
+    layer = functools.partial(_layer, cfg=cfg, tp=tp)
     for i in range(cfg.n_layers):
         lp = params["layers"][str(i)]
         if cfg.remat and torch.is_grad_enabled():
             x = checkpoint(layer, lp, x, cos, sin, use_reentrant=False)
         else:
             x = layer(lp, x, cos, sin)
-    return _logits(params, x, cfg)
+    head = _head(params, cfg)
+    if tp is None or head.shape[0] == cfg.vocab_size:
+        return _logits(params, x, cfg)
+    x = _coll.copy_to_group(rms_norm(x, params["norm"], cfg.norm_eps),
+                            tp.group)
+    return (x @ head.T.to(x.dtype)).float()
 
 
 def llama_loss(params, batch, cfg: LlamaConfig):
@@ -223,9 +378,24 @@ def llama_loss(params, batch, cfg: LlamaConfig):
     tokens = batch["tokens"] if isinstance(batch, dict) else batch
     tokens = _index(tokens, params["tok_embeddings"].device)
     logits = llama_forward(params, tokens[:, :-1], cfg)
-    logp = torch.log_softmax(logits, dim=-1)
-    nll = -logp.gather(-1, tokens[:, 1:, None])[..., 0]
-    return nll.mean()
+    if logits.shape[-1] == cfg.vocab_size:
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -logp.gather(-1, tokens[:, 1:, None])[..., 0]
+        return nll.mean()
+    # vocab-parallel: the max, the sum of exponentials and the target's
+    # shifted logit reduced over ``model`` (log_softmax's own max is cut
+    # from the graph, as here)
+    tp = _model_split()
+    vl = logits.shape[-1]
+    top = _coll.all_reduce_max(logits.max(dim=-1, keepdim=True).values,
+                               tp.group)
+    shifted = logits - top
+    total = _coll.reduce_from_group(shifted.exp().sum(dim=-1), tp.group)
+    local = tokens[:, 1:] - tp.rank * vl
+    mine = (local >= 0) & (local < vl)
+    pick = shifted.gather(-1, local.clamp(0, vl - 1)[..., None])[..., 0]
+    pick = _coll.reduce_from_group(pick * mine, tp.group)
+    return (torch.log(total) - pick).mean()
 
 
 # ------------------------------------------------------ unpaged decoding

@@ -4,6 +4,12 @@ plain tensors and NHWC activations, convolution weights HWIO, BatchNorm
 statistics in fp32, XLA's "SAME" padding (the odd pixel on the high
 side). Plain PyTorch: the reference computes it in XLA with no kernel of
 its own. `models.convert.params_from_jax` carries a reference tree over.
+
+`_bn` normalizes over the batch it is given. No data-parallel path of the
+port reaches it: `parallel.ShardedTrainStep` takes a scalar loss, and
+`resnet_loss` returns its batch statistics beside the loss for the
+caller's `update_running_stats`; the global statistics of a data-mesh
+step belong to `gluon.FusedTrainStep` (`collectives.batch_stats_scope`).
 """
 from __future__ import annotations
 

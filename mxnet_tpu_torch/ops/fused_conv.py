@@ -30,6 +30,19 @@ and dw from dconv through PyTorch's convolution backward in full fp32 (the
 reference leaves them to XLA's transposed convs, outside any Pallas
 kernel). The mean and var outputs carry no gradient (stop-grad, as the
 reference's running-statistics semantics).
+
+Inside a data-parallel `gluon.FusedTrainStep` over several ranks
+(`parallel.collectives.batch_stats_group`), the statistics are those of
+the global batch, as in the reference's one GSPMD program: the forward
+all-reduces the per-channel sum, sum of squares and row count before the
+mean and variance, and the backward's sums of g and g * xhat are
+all-reduced before dconv. #6's persistent variant computes those sums and
+dconv in one cooperative launch with no point where the sums could leave
+the card, so that backward takes the split route in two calls
+(`cbr_train_bwd_global`: the sums, the all-reduce, then dconv), one count
+of ``cbr_train_bwd`` with the variant's label and ``+global``. The
+gradients of gamma and beta stay this rank's (the step sums them with
+every other gradient).
 """
 from __future__ import annotations
 
@@ -439,6 +452,72 @@ def cbr_train_bwd(conv_out, dy, mean, invstd, gamma, beta, residual=None):
                            residual)
 
 
+def cbr_train_bwd_global(conv_out, dy, mean, invstd, gamma, beta, residual,
+                         reduce, count):
+    """`cbr_train_bwd` with batch statistics over several ranks: (dconv
+    fp32, dgamma and dbeta of these rows fp32, dres). The sums of g and of
+    g * xhat over these rows go through `reduce` (a (2, Cout) fp32 tensor,
+    dbeta's sums then dgamma's, to the sums over every rank), and dconv's
+    means divide those by `count`, the rows of every rank. CUDA tensors
+    take the kernel's split variant in two calls with `reduce` between
+    them (see the module docstring); CPU tensors its plain version; any
+    other device raises."""
+    if conv_out.device.type == "cpu":
+        g_out = dy.float()
+        xhat, y = _normalize_relu(conv_out, mean, invstd, gamma, beta,
+                                  residual)
+        g = torch.where(y > 0, g_out, torch.zeros_like(g_out))
+        axes = (0, 1, 2)
+        dbeta, dgamma = g.sum(dim=axes), (g * xhat).sum(dim=axes)
+        tot = reduce(torch.stack([dbeta, dgamma]))
+        gam = gamma.float()
+        k1, k2 = gam * (tot[0] / count), gam * (tot[1] / count)
+        dconv = invstd * (g * gam - k1 - xhat * k2)
+        dres = g.to(residual.dtype) if residual is not None else None
+        return dconv, dgamma, dbeta, dres
+    if conv_out.device.type != "cuda":
+        raise ValueError("cbr_train_bwd_global: no kernel for device %s"
+                         % conv_out.device)
+    dev = conv_out.device
+    Cout = conv_out.shape[3]
+    M = conv_out.numel() // max(Cout, 1)
+    rows = [conv_out, dy] + ([residual] if residual is not None else [])
+    variant = "split_v8" if Cout % 8 == 0 and all(
+        t.data_ptr() % 16 == 0 for t in rows) else "split_v1"
+    dconv = torch.empty(conv_out.shape, dtype=torch.float32, device=dev)
+    sums = torch.zeros((2, Cout), dtype=torch.float32, device=dev)
+    dres = None if residual is None else torch.empty_like(residual)
+    grid, nrows = _bwd_grid(variant, M, Cout, dev)
+    partial = torch.empty((max(nrows, 1), 2, Cout), dtype=torch.float32,
+                          device=dev)
+    # conv, dy, mean, invstd, gamma, beta, residual, partial, sums, dconv,
+    # dres, M, Cout, dtype, res_dtype, variant, grid, stage, mdiv, stream
+    lib, fn = bind("cbr_train_bwd", "mx_cbr_train_bwd_staged",
+                   [_P] * 11 + [_I] * 7 + [ctypes.c_float, _P])
+
+    def stage(k, sums_in):
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = fn(conv_out.data_ptr(), dy.data_ptr(), mean.data_ptr(),
+                     invstd.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+                     None if residual is None else residual.data_ptr(),
+                     partial.data_ptr(), sums_in.data_ptr(),
+                     dconv.data_ptr(),
+                     None if dres is None else dres.data_ptr(), M, Cout,
+                     _DTYPES[conv_out.dtype],
+                     _DTYPES[residual.dtype] if residual is not None else 0,
+                     _BWD_VARIANTS[variant], grid, k, float(count), stream)
+        _raise_on(err, lib, "cbr_train_bwd")
+
+    if M:
+        stage(1, sums)
+    tot = reduce(sums).contiguous()
+    if M:
+        stage(2, tot)
+    count_launch("cbr_train_bwd", variant + "+global")
+    return dconv, sums[1], sums[0], dres
+
+
 def _conv3x3_backward(x, w, dconv):
     """dx, dw of the fp32 conv3x3 (SAME) from the fp32 dconv (N,H,W,Cout),
     in full fp32: TF32 stays off for these convs too."""
@@ -458,9 +537,18 @@ class _ConvBNReLUTrain(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, eps, x, w, gamma, beta, residual):
+        from ..parallel.collectives import all_reduce, batch_stats_group
         x, w = x.contiguous(), w.contiguous()
         conv_out, s, sq = conv_bn_stats(x, w)
         M = x.shape[0] * x.shape[1] * x.shape[2]
+        ctx.group = batch_stats_group()
+        if ctx.group is not None:
+            # the global batch's sums (and rows) before the statistics
+            tot = all_reduce(torch.cat([s, sq, s.new_full((1,), M)]),
+                             ctx.group)
+            C = s.shape[0]
+            s, sq, M = tot[:C], tot[C:2 * C], tot[2 * C]
+        ctx.count = M
         mean = s / M
         var = torch.clamp_min(sq / M - mean * mean, 0.0)
         invstd = torch.rsqrt(var + eps)
@@ -478,9 +566,14 @@ class _ConvBNReLUTrain(torch.autograd.Function):
         x, w, conv_out, mean, invstd, gamma, beta, residual = \
             ctx.saved_tensors
         res = residual.contiguous() if residual is not None else None
-        dconv, dgamma, dbeta, dres = cbr_train_bwd(
-            conv_out, dout.to(conv_out.dtype).contiguous(), mean, invstd,
-            gamma.float().contiguous(), beta.float().contiguous(), res)
+        args = (conv_out, dout.to(conv_out.dtype).contiguous(), mean, invstd,
+                gamma.float().contiguous(), beta.float().contiguous(), res)
+        if ctx.group is None:
+            dconv, dgamma, dbeta, dres = cbr_train_bwd(*args)
+        else:
+            from ..parallel.collectives import all_reduce
+            dconv, dgamma, dbeta, dres = cbr_train_bwd_global(
+                *args, lambda t: all_reduce(t, ctx.group), ctx.count)
         dx, dw = _conv3x3_backward(x, w, dconv)
         return (None, dx, dw, dgamma.to(gamma.dtype), dbeta.to(beta.dtype),
                 dres)

@@ -238,6 +238,11 @@ def _pooling(data, kernel=None, pool_type="max", global_pool=False,
 alias("Pooling", "pooling")
 
 
+def _stats_group():
+    from ..parallel.collectives import batch_stats_group
+    return batch_stats_group()
+
+
 @register("BatchNorm")
 def _batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
                 momentum=0.9, fix_gamma=True, use_global_stats=False,
@@ -245,15 +250,32 @@ def _batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
     """Normalization math in fp32, output in the input dtype; with
     `use_global_stats` the moving statistics, else the batch's, with the
     reference's two-pass variance ``mean((x - mean)^2)`` (the moving-average
-    update is the caller's). `output_mean_var` also returns the statistics
-    used."""
+    update is the caller's). Inside a data-parallel `FusedTrainStep` over
+    several ranks the batch is the global one: both passes' per-channel
+    sums and the row count are all-reduced (`parallel.collectives
+    .batch_stats_scope`), with the cotangents all-reduced back.
+    `output_mean_var` also returns the statistics used."""
     ax = axis % data.dim()
     red = tuple(i for i in range(data.dim()) if i != ax)
     shape = [1] * data.dim()
     shape[ax] = data.shape[ax]
     x32 = data.float()
+    group = None if use_global_stats else _stats_group()
     if use_global_stats:
         mean, var = moving_mean, moving_var
+    elif group is not None:
+        # the global batch's statistics: the sums (and rows) all-reduced,
+        # differentiably, then the same two passes
+        from ..parallel.collectives import all_reduce_sum
+        sums = x32.sum(dim=red)
+        tot = all_reduce_sum(torch.cat(
+            [sums, sums.new_full((1,), x32.numel() // x32.shape[ax])]),
+            group)
+        count = tot[-1]
+        mean = tot[:-1] / count
+        centered = x32 - mean.reshape(shape)
+        var = all_reduce_sum((centered * centered).sum(dim=red),
+                             group) / count
     else:
         mean = x32.mean(dim=red)
         centered = x32 - mean.reshape(shape)

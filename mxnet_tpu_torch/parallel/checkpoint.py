@@ -14,6 +14,18 @@ bytes), and an atomic ``LATEST`` marker commits strictly after both.
 counts ``checkpoint.corrupt`` and falls back to the next-oldest step, and
 `CheckpointCorruptError` is raised only when no step verifies. A step
 without a sidecar restores unverified.
+
+Sharded states. The blocks a `ShardedTrainStep` keeps on a mesh are
+recorded (`sharding.register_block`); `save_train_state` gathers each of
+them to its whole leaf (every rank calls it: the gathers are collective)
+and the first rank writes, so a step directory always holds whole leaves
+and never a block in a leaf's place. `restore_train_state(path,
+mesh=..., rules=...)` lays the whole leaves out again: each rank keeps
+its block of every parameter and of every per-parameter optimizer slot
+(``m``, ``v``, ``mom``), as the reference's restore does. Not ported
+yet (ROADMAP Queue A 6): re-laying a ``zero=True`` state, whose slots
+hold ``data`` blocks, and the rest of the reference's checkpoint module
+(`save_sharded`, `restore_sharded` and their per-shard files).
 """
 from __future__ import annotations
 
@@ -29,6 +41,9 @@ from .. import telemetry as _telem
 from ..base import resolve_device
 from ..resilience.errors import CheckpointCorruptError
 from ..util import atomic_write, read_latest_marker, write_latest_marker
+from . import dist
+from .sharding import block_layout, gather_block, register_block, \
+    shard_pytree
 
 __all__ = ["save_train_state", "restore_train_state", "latest_step"]
 
@@ -102,13 +117,40 @@ def latest_step(path):
     return max(candidates) if candidates else None
 
 
+def _whole(tree):
+    """`tree` with every registered block gathered to its whole leaf, and
+    whether any was a block."""
+    found = []
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, torch.Tensor) and block_layout(node) is not None:
+            found.append(True)
+            return gather_block(node)
+        return node
+    return walk(tree), bool(found)
+
+
 def save_train_state(path, params, opt_state, step, keep=None):
     """Write params and optimizer state as step `step` under `path`, then
     its sha256 sidecar, then the LATEST marker. keep=N retains only the
-    newest N steps."""
+    newest N steps. A sharded state is written as whole leaves by the
+    first rank (every rank calls this)."""
     root = os.path.abspath(path)
+    tree, sharded = _whole({"params": params, "opt_state": opt_state,
+                            "step": int(step)})
+    if sharded and dist.has_group() and dist.num_workers() > 1:
+        from . import collectives as _coll
+        if dist.rank() == 0:
+            _write(root, tree, step, keep)
+        _coll.barrier()
+        return
+    _write(root, tree, step, keep)
+
+
+def _write(root, tree, step, keep):
     os.makedirs(root, exist_ok=True)
-    tree = {"params": params, "opt_state": opt_state, "step": int(step)}
     final = _step_dir(root, step)
     tmp = "%s.tmp-%d" % (final, os.getpid())
     shutil.rmtree(tmp, ignore_errors=True)
@@ -142,12 +184,35 @@ def _verified(root, step, tree):
     return _tree_digests(tree) == want
 
 
-def restore_train_state(path, step=None, device=None):
+def _relay(params, opt_state, mesh, rules):
+    """This rank's blocks of whole `params` and of the per-parameter slots
+    of `opt_state` under `rules` on `mesh`, each recorded as a block."""
+    specs = rules.tree_specs(params, mesh)
+
+    def place(tree):
+        out = shard_pytree(tree, rules, mesh)
+
+        def mark(node, spec):
+            if isinstance(node, dict):
+                for k in node:
+                    mark(node[k], spec[k])
+            else:
+                register_block(node, mesh, spec)
+        mark(out, specs)
+        return out
+    return place(params), {k: place(v) if isinstance(v, dict) else v
+                           for k, v in opt_state.items()}
+
+
+def restore_train_state(path, step=None, device=None, mesh=None,
+                        rules=None):
     """(params, opt_state, step) of step `step` (default: the newest),
-    verified against its sidecar and moved to `device` (default cuda). A
-    step that fails to load or to verify counts ``checkpoint.corrupt`` and
-    the next-oldest step is tried; `CheckpointCorruptError` when none
-    verifies, FileNotFoundError when there is no checkpoint."""
+    verified against its sidecar and moved to `device` (default cuda);
+    with `mesh` and `rules`, this rank's blocks of every parameter and
+    per-parameter slot (the reference's arguments). A step that fails to
+    load or to verify counts ``checkpoint.corrupt`` and the next-oldest
+    step is tried; `CheckpointCorruptError` when none verifies,
+    FileNotFoundError when there is no checkpoint."""
     device = resolve_device(device)
     root = os.path.abspath(path)
     if step is None:
@@ -169,8 +234,11 @@ def restore_train_state(path, step=None, device=None):
             continue
         if tried:
             _telem.inc("checkpoint.corrupt_fallbacks")
-        return (_to_device(tree["params"], device),
-                _to_device(tree["opt_state"], device), tree["step"])
+        params = _to_device(tree["params"], device)
+        opt_state = _to_device(tree["opt_state"], device)
+        if mesh is not None and rules is not None:
+            params, opt_state = _relay(params, opt_state, mesh, rules)
+        return params, opt_state, tree["step"]
     raise CheckpointCorruptError(
         "every checkpoint step under %s failed verification (steps tried: "
         "%s)" % (path, tried), steps_tried=tried)

@@ -13,6 +13,29 @@ All of them return new tensors and leave their inputs as they were.
 NCCL runs on the current stream: the results are ready in stream order,
 as any kernel's are.
 
+Transport of ranks that share a card. NCCL refuses two ranks on one
+device, so such ranks run gloo (`launch`), and gloo's CUDA support covers
+only ``broadcast`` and ``all_reduce``. Every collective of a CUDA tensor
+under gloo is therefore staged through host memory: the tensor is copied
+to the host, the CPU collective runs, and the result is copied back to
+the card. This is the choice of a transport, not a fallback of a kernel:
+no kernel runs in a collective, and the arithmetic (a sum in gloo's
+order) is gloo's either way.
+
+Autograd-aware forms, over one axis (Megatron's pair and the FSDP
+gather): `copy_to_group` (identity forward, all-reduce of the cotangent),
+`reduce_from_group` (all-reduce forward, identity backward),
+`gather_on_use` (all-gather along a dimension; backward the
+reduce-scatter of the cotangent, or this rank's slice of it when every
+rank of the axis computed the same thing), `all_reduce_sum` (all-reduce
+both ways: the cross-rank sums of batch statistics) and `all_reduce_max`
+(no gradient). A group of one rank makes each of them the identity.
+
+`batch_stats_scope(group)` names the group over which the training-mode
+BatchNorms (`ops.nn` BatchNorm, the fused conv-BN-ReLU training op)
+reduce their batch statistics while a data-parallel `FusedTrainStep`
+runs its forward; `batch_stats_group()` reads it (None outside).
+
 `merge_unique_rows` sums the rows of duplicate ids in a static-shape slab:
 a stable sort and one `segment_sum` (kernel #11 on a card), so
 duplicates add in occurrence order. `psum_unique_rows` is the sparse
@@ -20,6 +43,9 @@ all-reduce: one all-gather of each rank's fixed-size (ids, rows) slab,
 then that dedup, so the bytes on the wire scale with the touched rows.
 """
 from __future__ import annotations
+
+import contextlib
+import threading
 
 import torch
 
@@ -32,7 +58,9 @@ __all__ = ["all_reduce", "all_gather", "reduce_scatter", "ppermute",
            "psum_bucketed", "all_reduce_multi", "reduce_scatter_multi",
            "all_gather_multi", "all_gather_rows", "psum_unique_rows",
            "merge_unique_rows", "barrier", "allreduce_bench",
-           "resolve_group"]
+           "resolve_group", "copy_to_group", "reduce_from_group",
+           "gather_on_use", "all_reduce_sum", "all_reduce_max",
+           "batch_stats_group", "batch_stats_scope", "batch_ratio"]
 
 _SENTINEL = 2 ** 31 - 1
 
@@ -45,7 +73,7 @@ def resolve_group(axis_name=None):
         return None, 1, 0
     import torch.distributed as tdist
     group = axis_name
-    if isinstance(axis_name, str):
+    if isinstance(axis_name, (str, tuple)):
         from .mesh import current_mesh
         mesh = current_mesh()
         if mesh is None:
@@ -61,6 +89,12 @@ def resolve_group(axis_name=None):
 def _tdist():
     import torch.distributed as tdist
     return tdist
+
+
+def _staged(x):
+    """True when `x` must go through host memory: a CUDA tensor under
+    gloo (ranks sharing a card)."""
+    return x.is_cuda and dist.backend() == "gloo"
 
 
 def gather_into(out, src, group=None, async_op=False):
@@ -83,28 +117,33 @@ def scatter_into(out, src, group=None, async_op=False):
 def all_reduce(x, axis_name=None, op="sum"):
     """The sum (or max/min) of `x` over the ranks of `axis_name`."""
     group, world, _ = resolve_group(axis_name)
-    out = x.clone()
-    if not dist.has_group():
-        return out
+    if world == 1:
+        return x.clone()
     tdist = _tdist()
     _telem.inc("comm.collectives")
+    out = x.cpu() if _staged(x) else x.clone()
     tdist.all_reduce(out, op=getattr(tdist.ReduceOp, op.upper()),
                      group=group)
-    return out
+    return out.to(x.device) if _staged(x) else out
 
 
 def all_gather(x, axis_name=None, axis=0, tiled=True):
     """Every rank's `x` joined along `axis` (stacked on a new leading axis
     with ``tiled=False``), in rank order."""
     group, world, _ = resolve_group(axis_name)
-    if not dist.has_group():
+    if world == 1:
         return x.clone() if tiled else x.unsqueeze(0).clone()
     tdist = _tdist()
     src = (x.movedim(axis, 0) if tiled else x.unsqueeze(0)).contiguous()
+    host = _staged(x)
+    if host:
+        src = src.cpu()
     out = torch.empty((world * src.shape[0],) + tuple(src.shape[1:]),
-                      dtype=x.dtype, device=x.device)
+                      dtype=x.dtype, device=src.device)
     _telem.inc("comm.all_gather")
     gather_into(out, src, group)
+    if host:
+        out = out.to(x.device)
     return out.movedim(0, axis) if tiled else out
 
 
@@ -112,17 +151,22 @@ def reduce_scatter(x, axis_name=None, axis=0):
     """This rank's contiguous 1/world slice (along `axis`) of the sum of
     every rank's `x`."""
     group, world, _ = resolve_group(axis_name)
-    if not dist.has_group():
+    if world == 1:
         return x.clone()
     tdist = _tdist()
     src = x.movedim(axis, 0).contiguous()
     if src.shape[0] % world:
         raise ValueError("reduce_scatter: dim %d of %d does not split over "
                          "%d ranks" % (axis, src.shape[0], world))
+    host = _staged(x)
+    if host:
+        src = src.cpu()
     out = torch.empty((src.shape[0] // world,) + tuple(src.shape[1:]),
-                      dtype=x.dtype, device=x.device)
+                      dtype=x.dtype, device=src.device)
     _telem.inc("comm.reduce_scatter")
     scatter_into(out, src, group)
+    if host:
+        out = out.to(x.device)
     return out.movedim(0, axis)
 
 
@@ -131,15 +175,16 @@ def ppermute(x, axis_name, perm):
     group); returns what this rank received (zeros where nothing
     arrives), as `lax.ppermute` does."""
     group, world, me = resolve_group(axis_name)
-    if not dist.has_group():
+    if world == 1:
         got = [s for s, d in perm if d == 0]
         return x.clone() if got else torch.zeros_like(x)
     tdist = _tdist()
     ranks = tdist.get_process_group_ranks(group) if group is not None \
         else list(range(world))
-    out = torch.zeros_like(x)
+    host = _staged(x)
+    src = x.cpu().contiguous() if host else x.contiguous()
+    out = torch.zeros_like(src)
     ops = []
-    src = x.contiguous()
     for s, d in perm:
         if s == me:
             ops.append(tdist.P2POp(tdist.isend, src, ranks[d], group))
@@ -147,7 +192,7 @@ def ppermute(x, axis_name, perm):
             ops.append(tdist.P2POp(tdist.irecv, out, ranks[s], group))
     for req in tdist.batch_isend_irecv(ops) if ops else []:
         req.wait()
-    return out
+    return out.to(x.device) if host else out
 
 
 def barrier(axis_name=None):
@@ -159,6 +204,9 @@ def barrier(axis_name=None):
         return
     tdist = _tdist()
     t = torch.ones(1, device=dist.device())
+    if _staged(t):
+        torch.cuda.current_stream().synchronize()
+        t = t.cpu()
     tdist.all_reduce(t, group=group)
     if t.is_cuda:
         torch.cuda.current_stream().synchronize()
@@ -184,10 +232,15 @@ def psum_bucketed(xs, axis_name=None, bucket_mb=None):
 
 def _all_reduce_(flat, axis_name=None):
     """In-place sum of a buffer this module owns."""
-    group, _, _ = resolve_group(axis_name)
-    if dist.has_group():
+    group, world, _ = resolve_group(axis_name)
+    if world > 1:
         _telem.inc("comm.collectives")
-        _tdist().all_reduce(flat, group=group)
+        if _staged(flat):
+            host = flat.cpu()
+            _tdist().all_reduce(host, group=group)
+            flat.copy_(host)
+        else:
+            _tdist().all_reduce(flat, group=group)
     return flat
 
 
@@ -304,7 +357,7 @@ def allreduce_bench(size_mb=64, iters=20, axis_name=None,
 
     def once():
         if dist.has_group():
-            _tdist().all_reduce(x, group=group)
+            _all_reduce_(x, group)
 
     for _ in range(warmup):
         once()
@@ -328,3 +381,155 @@ def allreduce_bench(size_mb=64, iters=20, axis_name=None,
     return {"algo_gbps": algo, "bus_gbps": algo * 2 * (world - 1) / world,
             "seconds": dt, "world": world, "bytes": nbytes,
             "backend": dist.backend()}
+
+
+# ------------------------------------------------------- autograd-aware forms
+def _slice(x, dim, world, rank):
+    n = x.shape[dim] // world
+    return x.narrow(dim, rank * n, n).contiguous()
+
+
+class _CopyToGroup(torch.autograd.Function):
+    """Megatron's f: identity forward, the cotangent summed backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return all_reduce(dy, ctx.group), None
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    """Megatron's g: the sum forward, identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return dy, None
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """The sum both ways: every rank's contribution reaches every rank's
+    result, so every rank's cotangent reaches every input."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return all_reduce(dy, ctx.group), None
+
+
+class _GatherOnUse(torch.autograd.Function):
+    """All-gather along `dim`; backward the reduce-scatter of the
+    cotangent (``summed``: the ranks computed different things) or this
+    rank's slice of it (they computed the same thing)."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim, summed):
+        _, world, rank = resolve_group(group)
+        ctx.group, ctx.dim, ctx.summed = group, dim, summed
+        ctx.world, ctx.rank = world, rank
+        return all_gather(x, group, axis=dim)
+
+    @staticmethod
+    def backward(ctx, dy):
+        if ctx.summed:
+            return reduce_scatter(dy, ctx.group, axis=ctx.dim), None, None, \
+                None
+        return _slice(dy, ctx.dim, ctx.world, ctx.rank), None, None, None
+
+
+def _group_of(axis_name):
+    """(group, world) of `axis_name`, resolved now (a backward may run on
+    another thread, outside the caller's mesh_scope)."""
+    group, world, _ = resolve_group(axis_name)
+    return group, world
+
+
+def copy_to_group(x, axis_name):
+    """Identity forward; the cotangent all-reduced over `axis_name` in the
+    backward (the input of a column-parallel product)."""
+    group, world = _group_of(axis_name)
+    return x if world == 1 else _CopyToGroup.apply(x, group)
+
+
+def reduce_from_group(x, axis_name):
+    """The sum over `axis_name`; the cotangent passed through unchanged
+    (the output of a row-parallel product)."""
+    group, world = _group_of(axis_name)
+    return x if world == 1 else _ReduceFromGroup.apply(x, group)
+
+
+def all_reduce_sum(x, axis_name):
+    """The sum over `axis_name`, differentiable: the backward all-reduces
+    the cotangent."""
+    group, world = _group_of(axis_name)
+    return x if world == 1 else _AllReduceSum.apply(x, group)
+
+
+def all_reduce_max(x, axis_name):
+    """The elementwise max over `axis_name`, cut from the graph."""
+    group, world = _group_of(axis_name)
+    x = x.detach()
+    return x if world == 1 else all_reduce(x, group, op="max")
+
+
+def gather_on_use(x, axis_name, dim, summed=True):
+    """Every rank's `x` of the `axis_name` group joined along `dim` in
+    rank order. Backward: with ``summed`` the reduce-scatter of the
+    cotangent (the FSDP gather, and any whose ranks computed different
+    parts of the loss), else this rank's slice of it (every rank of the
+    group computed the same thing with the whole tensor)."""
+    group, world = _group_of(axis_name)
+    if world == 1:
+        return x
+    return _GatherOnUse.apply(x, group, dim, bool(summed))
+
+
+# ----------------------------------------------------- batch statistics
+_STATS = threading.local()
+
+
+def batch_stats_group():
+    """The group the current forward's BatchNorm statistics span, or
+    None (this rank's batch alone)."""
+    return getattr(_STATS, "group", None)
+
+
+@contextlib.contextmanager
+def batch_stats_scope(group):
+    """Within the block, training-mode BatchNorm statistics are summed
+    over `group` (a process group; None keeps them per rank)."""
+    prev = batch_stats_group()
+    _STATS.group = group
+    try:
+        yield
+    finally:
+        _STATS.group = prev
+
+
+def batch_ratio(total, count, axes=("data", "fsdp")):
+    """``total / max(count, 1)`` over the global batch, as this rank's
+    share of it: a loss that is a ratio of sums (a masked mean) whose
+    count differs between the batch slices. `parallel.ShardedTrainStep`
+    averages the ranks' losses and gradients over the `axes` ranks of the
+    current mesh, so each rank returns ``total * ranks / sum of every
+    rank's count``: their mean is the ratio of the global sums, as the
+    reference's one program computes it. Without a mesh (or over one
+    rank), the plain ratio."""
+    from .mesh import current_mesh
+    mesh = current_mesh()
+    n = 1 if mesh is None else mesh.axes_size(axes)
+    if n == 1:
+        return total / torch.clamp(count, min=1.0)
+    count = all_reduce(count.detach(), axes)
+    return total * n / torch.clamp(count, min=1.0)

@@ -14,7 +14,11 @@ The backend follows the device: NCCL for CUDA tensors (the default: the
 port runs on the card), gloo for the CPU (``backend="gloo"`` or
 ``MXNET_TPU_DIST_BACKEND=gloo``, which the launcher's ``--backend`` sets).
 Asking for NCCL
-without a card raises; nothing swaps one backend for another. With no
+without a card raises; nothing swaps one backend for another. Ranks that
+share a card (more ranks than cards: NCCL refuses two ranks on one
+device) run gloo on the card: ``MXNET_TPU_DIST_DEVICE=cuda``, which the
+launcher sets then, puts a gloo rank's tensors on card ``LOCAL_RANK``,
+and `parallel.collectives` stages their collectives through host memory. With no
 rendezvous variables and no arguments the process runs alone: no process
 group exists and every collective of `parallel.collectives` is the
 identity.
@@ -87,8 +91,9 @@ def initialize(init_method=None, world_size=None, rank=None, backend=None):
     backend = _pick_backend(backend)
     local = int(os.environ.get("LOCAL_RANK", "0"))
     kwargs = {}
-    if backend == "nccl":
+    if backend == "nccl" or _gloo_on_card(backend):
         torch.cuda.set_device(local)
+    if backend == "nccl":
         kwargs["device_id"] = torch.device("cuda", local)
     tdist.init_process_group(backend, init_method=init_method,
                              world_size=int(world_size), rank=int(rank or 0),
@@ -96,6 +101,11 @@ def initialize(init_method=None, world_size=None, rank=None, backend=None):
     _STATE.update(initialized=True, rank=tdist.get_rank(),
                   num=tdist.get_world_size(), backend=backend,
                   local_rank=local, owns_group=True)
+
+
+def _gloo_on_card(backend):
+    return backend == "gloo" and \
+        os.environ.get("MXNET_TPU_DIST_DEVICE") == "cuda"
 
 
 def shutdown():
@@ -145,9 +155,13 @@ def backend():
 
 def device():
     """The device this rank computes on: its card under NCCL, the CPU
-    under gloo; alone, the card when there is one (the port's default)."""
+    under gloo (card ``LOCAL_RANK`` with ``MXNET_TPU_DIST_DEVICE=cuda``:
+    ranks sharing a card); alone, the card when there is one (the port's
+    default)."""
     be = backend()
     if be == "gloo":
+        if _gloo_on_card(be):
+            return torch.device("cuda", local_rank())
         return torch.device("cpu")
     if be is None and not torch.cuda.is_available():
         return torch.device("cpu")

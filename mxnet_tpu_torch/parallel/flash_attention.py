@@ -16,6 +16,12 @@ the shape before the launch. On CPU tensors each kernel's plain PyTorch
 version runs instead (`_ref_forward`, `_ref_backward_inner`). There is no
 other route: a CUDA tensor a kernel does not take raises.
 
+Under tensor parallelism (`models.llama` on a ``model`` axis) each rank
+calls `flash_attention` on its own query heads and the KV heads they read
+(H / model and Hkv / model: 16 and 4 of Llama-3-8B's 32 / 8 at model=2),
+so the same kernels run at the local head counts; nothing here knows of
+the split.
+
 `paged_attention` and `paged_attention_chunk` stay plain PyTorch (a gather
 plus two batched products), as the JAX package leaves them to XLA.
 

@@ -5,13 +5,18 @@ drives. Here every device has a process of its own (one rank per card,
 `mxnet_tpu_torch.launch`), so a `Mesh` is a named array of RANKS, and each
 named axis carries a torch process group: the ranks that share every
 other coordinate with this one. Collectives name an axis
-(`parallel.collectives.all_reduce(x, "data")`) and run on its group.
+(`parallel.collectives.all_reduce(x, "data")`) and run on its group. A
+tuple of axes names the group of the ranks that share every coordinate
+outside it: ``mesh.group(("data", "fsdp"))`` is the batch group, whose
+ranks (d, f) take slice ``d * fsdp + f`` of the global batch, the order of
+the reference's ``P(("data", "fsdp"))`` (`batch_index`).
 
 The axis names and order are the reference's: ``data`` (data parallel),
 ``fsdp``, ``seq`` (ring attention), ``model`` and ``expert``. Groups are
 made when the mesh is made (`torch.distributed.new_group` is collective:
-every rank builds the same meshes in the same order). A process that runs
-alone has meshes of size 1 and no groups.
+every rank builds the same meshes in the same order): one per axis, and
+one per set of two or more axes of size > 1. A process that runs alone has
+meshes of size 1 and no groups.
 """
 from __future__ import annotations
 
@@ -92,30 +97,73 @@ class Mesh:
                     for a in self.axis_names)
         return [int(r) for r in np.atleast_1d(self.devices[idx])]
 
+    def _lines(self, axes):
+        """Every line of the axes `axes` (indices into axis_names): the
+        ranks that share every other coordinate, in mesh order."""
+        shape = self.devices.shape
+        others = [i for i in range(len(shape)) if i not in axes]
+        moved = np.moveaxis(self.devices, list(axes),
+                            list(range(len(axes))))
+        flat = moved.reshape((-1,) + tuple(shape[i] for i in others))
+        for rest in itertools.product(*(range(shape[i]) for i in others)):
+            yield [int(r) for r in flat[(slice(None),) + rest]]
+
     def _make_groups(self):
-        """One process group per axis and per line of that axis; every
-        rank makes every group, in the same order (new_group is
+        """One process group per axis and per line of that axis, then one
+        per set of two or more axes of size > 1 and per line of that set;
+        every rank makes every group, in the same order (new_group is
         collective), and keeps the lines it lies on."""
         import torch.distributed as tdist
         me = dist.rank()
-        for ai, axis in enumerate(self.axis_names):
-            others = [range(n) for i, n in enumerate(self.devices.shape)
-                      if i != ai]
-            for rest in itertools.product(*others):
-                idx = list(rest)
-                idx.insert(ai, slice(None))
-                ranks = [int(r) for r in self.devices[tuple(idx)]]
+        big = [i for i, n in enumerate(self.devices.shape) if n > 1]
+        sets = [(i,) for i in range(len(self.axis_names))]
+        sets += [c for k in range(2, len(big) + 1)
+                 for c in itertools.combinations(big, k)]
+        for axes in sets:
+            key = tuple(self.axis_names[i] for i in axes)
+            for ranks in self._lines(axes):
                 group = tdist.new_group(ranks)
                 if me in ranks:
-                    self._groups[axis] = group
+                    self._groups[key if len(key) > 1 else key[0]] = group
+
+    def _key(self, axis):
+        """`axis` (a name or a tuple of names) as the key of its group: a
+        name as it is, a tuple as the axes of size > 1 it names (axes the
+        mesh lacks have size 1), in mesh order; None when it names
+        none."""
+        if not isinstance(axis, (tuple, list)):
+            if axis not in self.shape:
+                raise ValueError("mesh has no axis %r (axes %s)"
+                                 % (axis, self.axis_names))
+            return axis
+        names = tuple(axis)
+        kept = tuple(a for a in self.axis_names
+                     if a in names and self.shape[a] > 1)
+        if not kept:
+            return None
+        return kept if len(kept) > 1 else kept[0]
 
     def group(self, axis):
-        """The process group of this rank's `axis` line (None when the
-        process runs alone)."""
-        if axis not in self.shape:
-            raise ValueError("mesh has no axis %r (axes %s)"
-                             % (axis, self.axis_names))
-        return self._groups.get(axis)
+        """The process group of this rank's line of `axis` (a name or a
+        tuple of names; None when the process runs alone or the axes have
+        size 1 together)."""
+        key = self._key(axis)
+        return None if key is None else self._groups.get(key)
+
+    def axes_size(self, axes):
+        """The number of ranks in a line of `axes` (a name or a tuple)."""
+        names = tuple(axes) if isinstance(axes, (tuple, list)) else (axes,)
+        return int(np.prod([self.axis_size(a) for a in names]))
+
+    def batch_index(self, axes=("data", "fsdp")):
+        """(this rank's slice of the batch, the number of slices) over
+        `axes`, the first axis major: rank (d, f) holds slice
+        ``d * fsdp + f``."""
+        idx, n = 0, 1
+        for a in axes:
+            idx = idx * self.axis_size(a) + self.axis_index(a)
+            n *= self.axis_size(a)
+        return idx, n
 
     def __repr__(self):
         return "Mesh(%s)" % ", ".join("%s=%d" % (a, n)

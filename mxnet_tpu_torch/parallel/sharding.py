@@ -7,26 +7,30 @@ and prunes the axes the mesh lacks, has at size 1, or that do not divide
 the dimension, so one table serves every mesh shape (`LLAMA_RULES` on a
 pure data-parallel mesh is plain replication).
 
-This slice places leaves replicated or split over ``data`` only: a spec
-that keeps an axis of size > 1 other than ``data`` (tensor parallelism
-over ``model`` or ``fsdp``) raises NotImplementedError naming ROADMAP
-Queue A 5b. Trees are nested dicts of tensors, named by their
-"/"-joined keys, as `models.llama`'s parameters are.
+`shard_pytree` gives each rank its block of every leaf: along each
+dimension the spec keeps, the block of this rank's coordinate on that
+axis (on a tuple of axes, the first axis major, as a JAX sharding lays it
+out). `gather_pytree` joins the blocks back into full leaves on every
+rank (checkpoints and tests). Trees are nested dicts of tensors, named by
+their "/"-joined keys, as `models.llama`'s parameters are.
+
+`ShardingRules.local` names the leaves whose ``model`` split the model's
+own functions consume in place (Megatron's column and row products, the
+vocab-parallel embedding and head): `LLAMA_RULES` names `models.llama`'s
+projections and embeddings. `parallel.ShardedTrainStep` gathers every
+other split on use.
 """
 from __future__ import annotations
 
 import re
-
-import torch
+import weakref
 
 from . import dist
 
 __all__ = ["P", "PartitionSpec", "ShardingRules", "LLAMA_RULES",
            "BERT_RULES", "spec_for", "shard_pytree", "replicate_pytree",
-           "reshard_pytree", "logical_to_spec", "TENSOR_PARALLEL"]
-
-TENSOR_PARALLEL = ("tensor parallelism over a `model` or `fsdp` axis "
-                   "larger than 1 comes with ROADMAP Queue A 5b")
+           "reshard_pytree", "gather_pytree", "logical_to_spec",
+           "register_block", "block_layout", "gather_block"]
 
 
 class PartitionSpec(tuple):
@@ -70,22 +74,28 @@ def _prune_spec(spec, mesh, shape=None):
     return P(*out)
 
 
-def _check_placeable(spec, name=""):
-    for entry in spec:
-        names = entry if isinstance(entry, tuple) else (entry,)
-        if any(n not in (None, "data") for n in names):
-            raise NotImplementedError(
-                "sharding %s as %s: %s" % (name or "a tensor", spec,
-                                           TENSOR_PARALLEL))
+def entry_axes(entry):
+    """The axes of one spec entry, as a tuple (() for None)."""
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, tuple) else (entry,)
 
 
 class ShardingRules:
     """Ordered (regex -> PartitionSpec) table; unmatched names take
-    `default` (replicated)."""
+    `default` (replicated). `local`: regexes of the leaves whose ``model``
+    split the model's functions consume in place (see the module
+    docstring)."""
 
-    def __init__(self, rules, default=P()):
+    def __init__(self, rules, default=P(), local=()):
         self.rules = [(re.compile(pat), P(*spec)) for pat, spec in rules]
         self.default = P(*default)
+        self.local = [re.compile(pat) for pat in local]
+
+    def is_local(self, name):
+        """True when the model consumes `name`'s ``model`` split in
+        place."""
+        return any(pat.search(name) for pat in self.local)
 
     def spec_for(self, name, shape=None, mesh=None):
         spec = self.default
@@ -98,13 +108,6 @@ class ShardingRules:
         if mesh is not None:
             spec = _prune_spec(spec, mesh, shape)
         return spec
-
-    def check_mesh(self, mesh):
-        """Raise NotImplementedError when a rule could keep an axis of
-        size > 1 other than ``data`` on `mesh`."""
-        for pat, spec in self.rules + [(None, self.default)]:
-            _check_placeable(_prune_spec(spec, mesh),
-                             pat.pattern if pat is not None else "default")
 
     def tree_specs(self, params, mesh=None):
         """The specs of a nested dict of tensors, by "/"-joined name."""
@@ -133,7 +136,8 @@ LLAMA_RULES = ShardingRules([
     (r"mlp/(w1|w3)|gate_proj|up_proj", P(("fsdp",), ("model",))),
     (r"mlp/w2|down_proj", P(("model",), ("fsdp",))),
     (r"norm|scale|bias", P()),
-])
+], local=[r"^(tok_embeddings|lm_head)$",
+          r"^layers/\d+/(attn/(wq|wk|wv|wo)|mlp/(w1|w2|w3))$"])
 
 BERT_RULES = ShardingRules([
     (r"word_embed|position_embed|token_type_embed", P(("model",), ("fsdp",))),
@@ -145,22 +149,62 @@ BERT_RULES = ShardingRules([
 ])
 
 
-def _place(x, spec, mesh, name):
-    """This rank's piece of `x` under `spec`: all of it when replicated,
-    its ``data`` slice along the split dimension."""
-    _check_placeable(spec, name)
+def block_of(mesh, entry):
+    """(this rank's block index, the number of blocks) along a dimension
+    split by spec entry `entry`: the first axis major."""
+    idx, n = 0, 1
+    for a in entry_axes(entry):
+        idx = idx * mesh.axis_size(a) + mesh.axis_index(a)
+        n *= mesh.axis_size(a)
+    return idx, n
+
+
+def _place(x, spec, mesh):
+    """This rank's block of `x` under `spec` (a pruned spec: each kept
+    dimension divides): all of it when replicated."""
     for d, entry in enumerate(spec):
-        if entry is not None:
-            n = mesh.axis_size("data")
-            i = mesh.axis_index("data")
-            return x.chunk(n, dim=d)[i].contiguous()
-    return x
+        idx, n = block_of(mesh, entry)
+        if n > 1:
+            size = x.shape[d] // n
+            x = x.narrow(d, idx * size, size)
+    return x.contiguous()
 
 
 def shard_pytree(params, rules, mesh):
     """Each leaf as this rank holds it under `rules` on `mesh`."""
     return _map_named(lambda name, x: _place(
-        x, rules.spec_for(name, tuple(x.shape), mesh), mesh, name), params)
+        x, rules.spec_for(name, tuple(x.shape), mesh), mesh), params)
+
+
+def gather_leaf(x, spec):
+    """The full leaf from this rank's block `x` under `spec`: one
+    all-gather per split axis over the current mesh (`mesh_scope`), the
+    last axis of an entry first (it is the minor one)."""
+    from . import collectives as _coll
+    for d, entry in enumerate(spec):
+        for a in reversed(entry_axes(entry)):
+            x = _coll.all_gather(x, a, axis=d)
+    return x
+
+
+def gather_pytree(params, specs, mesh):
+    """Every leaf whole, on every rank, from the blocks `shard_pytree`
+    gave: its inverse (checkpoints, tests). `specs` is the tree of the
+    pruned specs the blocks were cut by (`rules.tree_specs(full, mesh)`,
+    `ShardedTrainStep.specs`)."""
+    from .mesh import mesh_scope
+
+    def one(name, x):
+        return gather_leaf(x, _lookup(specs, name))
+
+    with mesh_scope(mesh):
+        return _map_named(one, params)
+
+
+def _lookup(tree, name):
+    for k in name.split("/"):
+        tree = tree[k]
+    return tree
 
 
 def replicate_pytree(params, mesh=None):
@@ -200,3 +244,41 @@ _DEFAULT_LOGICAL = {
 def logical_to_spec(logical_axes, table=None):
     table = table or _DEFAULT_LOGICAL
     return P(*[table.get(a, None) for a in logical_axes])
+
+
+# ------------------------------------------------ the blocks a step holds
+# id(tensor) -> (weakref, mesh, spec, zero): the layout of a tensor that
+# is one rank's block of a whole leaf, so that a checkpoint writes the
+# whole leaf (`gather_block`) and never the block in its place
+_BLOCKS = {}
+
+
+def register_block(x, mesh, spec, zero=False):
+    """Record that `x` is this rank's block of a leaf under `spec` on
+    `mesh` (with `zero`, further its ``data`` block along dimension 0)."""
+    key = id(x)
+    _BLOCKS[key] = (weakref.ref(x, lambda _, k=key: _BLOCKS.pop(k, None)),
+                    mesh, P(*spec), bool(zero))
+
+
+def block_layout(x):
+    """(mesh, spec, zero) of a registered block, else None."""
+    entry = _BLOCKS.get(id(x))
+    if entry is None or entry[0]() is not x:
+        return None
+    return entry[1:]
+
+
+def gather_block(x):
+    """The whole leaf of registered block `x` (collective over its mesh:
+    every rank calls it), or `x` itself when it is not a block."""
+    layout = block_layout(x)
+    if layout is None:
+        return x
+    mesh, spec, zero = layout
+    from . import collectives as _coll
+    from .mesh import mesh_scope
+    with mesh_scope(mesh):
+        if zero:
+            x = _coll.all_gather(x, "data", axis=0)
+        return gather_leaf(x, spec)

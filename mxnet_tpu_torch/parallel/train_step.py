@@ -23,34 +23,56 @@ Two deliberate differences:
   quirk: JAX rounds the Python hyperparameters to the leaf's dtype, so
   ``beta2 = 0.999`` becomes 1.0 and the second moment never decays.
 
-Data parallelism: with a `parallel.mesh.Mesh` whose ``data`` axis holds n
-ranks, every rank passes its own shard of the batch, and the gradients
-(and the loss) are averaged over the ``data`` group: summed by
-all-reduce in flat buckets of at most ``bucket_mb`` (default the engine's
-cap; 0 sends them one by one), then divided by n. ``zero=True`` is ZeRO-1
-over ``data``: the optimizer state lives only for this rank's shard of
-each gradient bucket, the summed
-gradients are reduce-scattered, the shard is updated with the same
-optimizer (on a flat one-leaf tree) and the weights all-gathered. Its
-`init()` state is then ``{"zero": [per-bucket state]}``. Parameters
-replicate over ``data``; `rules` are checked against the mesh, and a rule
-that keeps a parameter dimension on any axis of size > 1 (tensor or
-FSDP parallelism) raises NotImplementedError naming ROADMAP Queue A 5b.
-A mesh given as a list of several devices raises too: the port runs one
-process per card (`mxnet_tpu_torch.launch`).
+Parallelism over a `parallel.mesh.Mesh` of ranks (one process a card;
+`parallel.create_mesh(data=..., fsdp=..., model=...)`), computing what
+the reference's one GSPMD program computes:
+
+* The batch splits over ``("data", "fsdp")``: every rank passes its own
+  slice of the global batch, slice ``d * fsdp + f`` on rank (d, f)
+  (`shard_batch` cuts it). Ranks that differ only on ``model`` (or
+  ``seq``, ``expert``) take the same slice.
+* Each parameter is kept as this rank's block under `rules`
+  (`sharding.shard_pytree`: `LLAMA_RULES`, `BERT_RULES` or the caller's),
+  and so is its optimizer state.
+* On use, in the forward, every split of a leaf is gathered
+  (`collectives.gather_on_use`) except a ``model`` split that
+  `rules.local` names: the model consumes that one in place (Megatron's
+  column and row products in `models.llama`). The gather over ``data``
+  or ``fsdp`` has the reduce-scatter as its backward (the ranks computed
+  different slices of the batch); over another axis, the slice of the
+  cotangent (the ranks computed the same thing). The whole tree is
+  gathered ahead of the forward, so the peak memory of the policy is this
+  rank's blocks plus one gathered copy of every leaf (its ``model`` block
+  where the model consumes it in place) and that copy's gradient, which
+  the backward reduce-scatters as each gather's cotangent completes.
+* Each gradient is then summed over the batch axes that its gathers did
+  not already sum over, in flat buckets of at most ``bucket_mb`` (default
+  the engine's cap; 0 sends them one by one), and divided by the number of
+  batch slices; the loss is the global mean.
+* ``zero=True`` composes the ``data`` axis onto the rules as the
+  reference's `_zero_spec` does: the optimizer state of a leaf whose
+  dimension 0 is unsplit and divides by ``data`` holds only this rank's
+  ``data`` block of it; the update runs on that block of the parameter,
+  and the blocks are all-gathered back over ``data``.
+
+The updates are elementwise, so each block is updated exactly as the
+whole leaf would be. A mesh given as a list of several devices raises:
+the port runs one process per card (`mxnet_tpu_torch.launch`).
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import time
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from .. import engine as _engine
 from .. import telemetry as _telem
 from . import collectives as _coll
-from .sharding import TENSOR_PARALLEL, ShardingRules, _prune_spec
+from .mesh import mesh_scope
+from .sharding import (P, ShardingRules, _map_named, entry_axes,
+                       gather_pytree, register_block, shard_pytree)
 
 __all__ = ["ShardedTrainStep", "sgd_init", "adam_init"]
 
@@ -162,19 +184,15 @@ def _data_mesh(mesh):
     return None
 
 
-def _check_rules(rules, mesh):
-    """`rules` as a ShardingRules, refused when one splits a parameter on
-    `mesh` (parameters replicate over `data` in this slice)."""
+def _as_rules(rules):
+    """`rules` as a ShardingRules (a list of (regex, spec) pairs is
+    accepted); replication without any."""
     if rules is not None and not isinstance(rules, ShardingRules):
         rules = ShardingRules(rules)
-    rules = rules or ShardingRules([])
-    for _, spec in rules.rules + [(None, rules.default)]:
-        if any(e is not None for e in _prune_spec(spec, mesh)):
-            raise NotImplementedError(
-                "rule %s splits parameters on this mesh; parameters "
-                "replicate over `data` here, and %s"
-                % (spec, TENSOR_PARALLEL))
-    return rules
+    return rules or ShardingRules([])
+
+
+BATCH_AXES = ("data", "fsdp")
 
 
 def _named_leaves(tree, prefix=""):
@@ -188,27 +206,30 @@ def _named_leaves(tree, prefix=""):
 
 
 class ShardedTrainStep:
-    """loss_fn + optimizer as one training step on one CUDA card.
+    """loss_fn + optimizer as one training step on one CUDA card, or over
+    the ranks of a mesh (see the module docstring).
 
     loss_fn(params, batch) -> scalar loss tensor; batch is a tensor (or
     numpy array) or a dict of them, with the batch on the leading dim.
 
     Usage::
 
-        step = ShardedTrainStep(loss_fn, params, optimizer="adamw", lr=1e-3)
-        params, opt_state = step.init()
+        step = ShardedTrainStep(loss_fn, params, mesh, rules=LLAMA_RULES,
+                                optimizer="adamw", lr=1e-3)
+        params, opt_state = step.init()      # this rank's blocks
         for batch in data:
-            params, opt_state, loss = step(params, opt_state, batch)
+            params, opt_state, loss = step(params, opt_state,
+                                           step.shard_batch(batch))
+        full = step.gather(params)           # whole leaves, every rank
     """
 
     def __init__(self, loss_fn, params, mesh=None, optimizer="adamw",
                  lr=1e-3, grad_accum=1, remat=False, rules=None,
                  bucket_mb=None, zero=False, **opt_kwargs):
         self.mesh = _data_mesh(mesh)
-        self.rules = _check_rules(rules, self.mesh)
+        self.rules = _as_rules(rules)
         self.bucket_mb = bucket_mb
         self.zero = bool(zero)
-        self._layout = None
         if int(grad_accum) < 1:
             raise ValueError("ShardedTrainStep: grad_accum must be >= 1")
         self.loss_fn = loss_fn
@@ -221,89 +242,166 @@ class ShardedTrainStep:
         self.opt_kwargs = opt_kwargs
         self.grad_accum = int(grad_accum)
         self._remat = bool(remat)
+        self.specs = _tmap(lambda _: P(), params) if self.mesh is None \
+            else self.rules.tree_specs(params, self.mesh)
+        # ZeRO: the leaves whose state takes a ``data`` block of dim 0
+        # (the reference's `_zero_spec`)
+        self._zero_leaves = set()
+        if self.zero and self.mesh is not None \
+                and self.mesh.axis_size("data") > 1:
+            n = self.mesh.axis_size("data")
+            for name, leaf in _named_leaves(params):
+                spec = self._spec(name)
+                shape = tuple(leaf.shape)
+                used = {a for e in spec for a in entry_axes(e)}
+                if shape and shape[0] % n == 0 and "data" not in used \
+                        and not (spec and spec[0] is not None):
+                    self._zero_leaves.add(name)
 
     @property
-    def _n_data(self):
-        return 1 if self.mesh is None else self.mesh.axis_size("data")
+    def _n_batch(self):
+        """The number of batch slices: ``data`` x ``fsdp``."""
+        return 1 if self.mesh is None else self.mesh.axes_size(BATCH_AXES)
 
-    def _group(self):
-        """The ``data`` group, or None when there is nothing to reduce."""
+    def _scope(self):
+        return mesh_scope(self.mesh) if self.mesh is not None \
+            else contextlib.nullcontext()
+
+    def shard_batch(self, batch):
+        """This rank's slice of a global batch (a tensor, an array or a
+        dict of them; the batch on the leading dim)."""
         if self.mesh is None:
-            return None
-        return self.mesh.group("data")
+            return batch
+        idx, n = self.mesh.batch_index(BATCH_AXES)
+
+        def cut(x):
+            x = torch.as_tensor(x)
+            per = x.shape[0] // n
+            return x[idx * per:(idx + 1) * per]
+
+        return {k: cut(v) for k, v in batch.items()} \
+            if isinstance(batch, dict) else cut(batch)
 
     def init(self):
-        """(params, opt_state): the initial parameters as given and a
-        fresh optimizer state beside them (with ``zero=True``, the state
-        of this rank's shard of each bucket)."""
-        if not self.zero:
-            return self._init_params, self._opt_init(self._init_params,
-                                                     **self.opt_kwargs)
-        leaves = list(_named_leaves(self._init_params))
-        self._layout = _engine.BucketLayout.from_entries(
-            leaves, self._n_data, _engine.bucket_bytes(self.bucket_mb))
-        by_name = dict(leaves)
-        states = []
-        for spec in self._layout:
-            w = self._own(spec, by_name)
-            states.append(self._opt_init({"w": w}, **self.opt_kwargs))
-        return self._init_params, {"zero": states}
-
-    def _own(self, spec, by_name):
-        """This rank's shard of a bucket's flat vector of `by_name`."""
-        flat = _engine.pack_flat(spec, [by_name[k] for k in spec.keys])
-        lo = (0 if self.mesh is None else self.mesh.axis_index("data")) \
-            * spec.shard
-        return flat[lo:lo + spec.shard].clone()
-
-    def _average(self, grads):
-        """The gradients summed over ``data`` and divided by its size."""
-        n = self._n_data
-        group = self._group()
-        if group is None:
-            return grads
-        names = [k for k, _ in _named_leaves(grads)]
-        red = _coll.psum_bucketed([g for _, g in _named_leaves(grads)],
-                                  group, self.bucket_mb)
-        by_name = {k: r / n for k, r in zip(names, red)}
-        it = iter(names)
-        return _tmap(lambda _: by_name[next(it)], grads)
-
-    @torch.no_grad()
-    def _zero_update(self, params, grads, opt_state, lr):
-        """ZeRO-1 over ``data``: per bucket, reduce-scatter the gradient
-        sum, update this rank's shard, all-gather the weights."""
-        group = self._group()
-        n = self._n_data
-        p_by = dict(_named_leaves(params))
-        g_by = dict(_named_leaves(grads))
-        for spec, st in zip(self._layout, opt_state["zero"]):
-            flat_g = _engine.pack_flat(spec, [g_by[k] for k in spec.keys])
-            g = _coll.reduce_scatter(flat_g, group) / n \
-                if group is not None else flat_g
-            w = self._own(spec, p_by)
-            self._opt_update({"w": w}, {"w": g}, st, lr, **self.opt_kwargs)
-            full = _coll.all_gather(w, group) if group is not None else w
-            for k, part in zip(spec.keys, _engine.unpack_flat(spec, full)):
-                p_by[k].copy_(part)
+        """(params, opt_state): this rank's block of each initial leaf and
+        a fresh optimizer state beside it (with ``zero=True``, beside its
+        ``data`` block where the leaf takes one), each block recorded so
+        that `save_train_state` writes the whole leaf."""
+        params = self._init_params
+        if self.mesh is None:
+            return params, self._opt_init(params, **self.opt_kwargs)
+        params = shard_pytree(params, self.rules, self.mesh)
+        opt_state = self._opt_init(self._opt_view(params), **self.opt_kwargs)
+        for name, leaf in _named_leaves(params):
+            register_block(leaf, self.mesh, self._spec(name))
+        for slot in opt_state.values():
+            if isinstance(slot, dict):
+                for name, leaf in _named_leaves(slot):
+                    register_block(leaf, self.mesh, self._spec(name),
+                                   zero=name in self._zero_leaves)
         return params, opt_state
+
+    def gather(self, params):
+        """Whole leaves on every rank from this rank's blocks (the
+        checkpoint's and the tests' view)."""
+        if self.mesh is None:
+            return params
+        return gather_pytree(params, self.specs, self.mesh)
+
+    def _spec(self, name):
+        return _lookup_leaf(self.specs, name)
+
+    def _opt_view(self, tree):
+        """`tree` with each ZeRO leaf replaced by its ``data`` block (a
+        view: the update writes through it)."""
+        if not self._zero_leaves:
+            return tree
+        n = self.mesh.axis_size("data")
+        i = self.mesh.axis_index("data")
+
+        def view(name, x):
+            if name not in self._zero_leaves:
+                return x
+            per = x.shape[0] // n
+            return x.narrow(0, i * per, per)
+        return _map_named(view, tree)
+
+    def _on_use(self, params):
+        """Each leaf as the loss sees it: every split gathered except a
+        ``model`` split the rules let the model consume in place."""
+        if self.mesh is None:
+            return params
+
+        def use(name, x):
+            for d, entry in enumerate(self._spec(name)):
+                axes = entry_axes(entry)
+                if axes == ("model",) and self.rules.is_local(name):
+                    continue
+                for a in reversed(axes):
+                    x = _coll.gather_on_use(x, a, d,
+                                            summed=a in BATCH_AXES)
+            return x
+        return _map_named(use, params)
+
+    def _reduce(self, grads):
+        """Each gradient summed over the batch axes its gathers did not
+        sum over, divided by the number of batch slices."""
+        if self.mesh is None:
+            return grads
+        n = self._n_batch
+        named = list(_named_leaves(grads))
+        by_axes = {}
+        for name, g in named:
+            used = {a for e in self._spec(name) for a in entry_axes(e)}
+            rest = tuple(a for a in BATCH_AXES if a not in used
+                         and self.mesh.axis_size(a) > 1)
+            by_axes.setdefault(rest, []).append(name)
+        out = dict(named)
+        for rest, names in by_axes.items():
+            if rest:
+                red = _coll.psum_bucketed([out[k] for k in names],
+                                          self.mesh.group(rest),
+                                          self.bucket_mb)
+                out.update(zip(names, red))
+        if n > 1:
+            out = {k: v / n for k, v in out.items()}
+        return _map_named(lambda name, _: out[name], grads)
+
+    def _loss_of(self, params, batch):
+        with self._scope():
+            return self.loss_fn(params, batch)
 
     def _value_and_grad(self, params, batch):
         leaves = list(_leaves(params))
         for p in leaves:
             p.requires_grad_(True)
         try:
-            loss_fn = self.loss_fn
-            if self._remat:
-                loss_fn = functools.partial(checkpoint, self.loss_fn,
-                                            use_reentrant=False)
-            loss = loss_fn(params, batch)
-            grads = torch.autograd.grad(loss, leaves)
+            with self._scope():
+                used = self._on_use(params)
+                if self._remat:
+                    loss = checkpoint(self._loss_of, used, batch,
+                                      use_reentrant=False)
+                else:
+                    loss = self.loss_fn(used, batch)
+                grads = torch.autograd.grad(loss, leaves)
         finally:
             for p in leaves:
                 p.requires_grad_(False)
         it = iter(grads)
         return loss.detach(), _tmap(lambda _: next(it), params)
+
+    @torch.no_grad()
+    def _update(self, params, grads, opt_state, lr):
+        params_v = self._opt_view(params)
+        self._opt_update(params_v, self._opt_view(grads), opt_state, lr,
+                         **self.opt_kwargs)
+        if self._zero_leaves:
+            with self._scope():
+                for name, p in _named_leaves(params):
+                    if name in self._zero_leaves:
+                        block = _lookup_leaf(params_v, name)
+                        p.copy_(_coll.all_gather(block, "data", axis=0))
+        return params, opt_state
 
     def _split(self, batch):
         """The batch cut into `grad_accum` micro-batches on its leading
@@ -323,8 +421,9 @@ class ShardedTrainStep:
         return list(cut(batch))
 
     def __call__(self, params, opt_state, batch, step_num=0):
-        """One step: (params, opt_state, loss), the first two updated in
-        place. `train_step.step_ms` observes the host's time for the call
+        """One step on this rank's slice of the batch: (params, opt_state,
+        loss), the first two updated in place, the loss the global mean.
+        `train_step.step_ms` observes the host's time for the call
         (PyTorch returns before the card finishes, so in a steady state it
         measures enqueueing, as the JAX metric of the same name does)."""
         t0 = time.perf_counter()
@@ -340,18 +439,16 @@ class ShardedTrainStep:
         else:
             loss, grads = self._value_and_grad(params, batch)
         lr = self.lr(step_num) if callable(self.lr) else self.lr
-        group = self._group()
-        if group is not None:
-            loss = _coll.all_reduce(loss, group) / self._n_data
-        if self.zero:
-            if self._layout is None:
-                raise RuntimeError("ShardedTrainStep(zero=True): call "
-                                   "init() for the sharded state first")
-            params, opt_state = self._zero_update(params, grads, opt_state,
-                                                  lr)
-        else:
-            grads = self._average(grads)
-            params, opt_state = self._opt_update(params, grads, opt_state,
-                                                 lr, **self.opt_kwargs)
+        if self._n_batch > 1:
+            with self._scope():
+                loss = _coll.all_reduce(loss, BATCH_AXES) / self._n_batch
+        grads = self._reduce(grads)
+        params, opt_state = self._update(params, grads, opt_state, lr)
         _telem.observe("train_step.step_ms", (time.perf_counter() - t0) * 1e3)
         return params, opt_state, loss
+
+
+def _lookup_leaf(tree, name):
+    for k in name.split("/"):
+        tree = tree[k]
+    return tree

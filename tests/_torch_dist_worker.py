@@ -33,6 +33,8 @@ LAMB_KW = {"learning_rate": 0.01, "beta1": 0.9, "beta2": 0.999,
 STEP_VARIANTS = (("plain", {}), ("bucket", {"bucket_mb": 1e-5}),
                  ("zero", {"zero": True, "bucket_mb": 1e-4}))
 FUSED_BUCKET_MB = 1e-5
+# the tensor-parallel MLP: w1's IN columns over ``model``
+TP_RULES = [("w1", (None, "model"))]
 
 
 # ---------------------------------------------------------------- inputs
@@ -342,14 +344,24 @@ def check_steps(mx, rank, world):
         for i, prm in enumerate(net.collect_params().values()):
             out["fused_%d" % i] = prm.data().asnumpy()
         out["fused_loss"] = loss.asnumpy()
-    # tensor parallelism is refused, naming the slice that brings it
+    # tensor parallelism: w1's columns split over ``model``, gathered on
+    # use; the batch over ``data``
     if world % 2 == 0:
+        from mxnet_tpu_torch.parallel import P, ShardingRules
         tp = create_mesh(data=world // 2, model=2)
-        try:
-            ShardedTrainStep(loss_fn, {}, mesh=tp, rules=LLAMA_RULES)
-            out["tp_refused"] = np.array("")
-        except NotImplementedError as e:
-            out["tp_refused"] = np.array(str(e))
+        params = {k: torch.from_numpy(w.copy()) for k, w in
+                  zip(("w1", "b1", "w2", "b2"), w0)}
+        step = ShardedTrainStep(loss_fn, params, mesh=tp, optimizer="adam",
+                                lr=0.01, rules=ShardingRules(TP_RULES))
+        p, st = step.init()
+        out["tp_w1_block"] = np.array(p["w1"].shape)
+        for s in range(STEPS):
+            x, y = mlp_batch(s)
+            p, st, loss = step(p, st, step.shard_batch(
+                {"x": torch.from_numpy(x), "y": torch.from_numpy(y)}))
+        for k, v in step.gather(p).items():
+            out["tp_%s" % k] = v.numpy().copy()
+        out["tp_loss"] = loss.numpy()
     return out
 
 

@@ -16,6 +16,7 @@ import torch
 
 import mxnet_tpu as jmx
 import mxnet_tpu_torch as mx
+from _torch_seed import _seed_torch  # noqa: F401
 
 REL = 1e-5
 

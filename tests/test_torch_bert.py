@@ -28,6 +28,7 @@ from mxnet_tpu_torch.gluon.model_zoo import bert as tbert
 from mxnet_tpu_torch.models import bert as tfbert
 from mxnet_tpu_torch.models import params_from_jax
 from mxnet_tpu_torch.ops import launch_counts, registry
+from _torch_seed import _seed_torch  # noqa: F401
 
 FP32_REL = 1e-5
 BF16_REL = 2e-2

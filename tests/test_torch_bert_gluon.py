@@ -23,6 +23,7 @@ import mxnet_tpu_torch as mx
 from mxnet_tpu_torch.gluon.model_zoo import bert as tbert
 from mxnet_tpu_torch.ops import (launch_counts, registry,
                                  reset_launch_counts, variant_counts)
+from _torch_seed import _seed_torch  # noqa: F401
 
 LOSS_REL = 1e-5
 TRAIN_REL = 1e-4

@@ -11,6 +11,7 @@ import pytest
 
 import mxnet_tpu as jmx
 import mxnet_tpu_torch as mx
+from _torch_seed import _seed_torch  # noqa: F401
 
 TOL = 1e-5
 

@@ -21,6 +21,7 @@ import pytest
 import mxnet_tpu as jmx
 import mxnet_tpu_torch as mx
 from mxnet_tpu_torch.models import gluon_params_from_jax
+from _torch_seed import _seed_torch  # noqa: F401
 
 TOL = 1e-5
 NGF = NDF = 8

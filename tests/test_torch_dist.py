@@ -45,6 +45,7 @@ from mxnet_tpu_torch.launch import build_env, launch_local
 from mxnet_tpu_torch.parallel import dist
 
 import _torch_dist_worker as W
+from _torch_seed import _seed_torch  # noqa: F401
 
 ROOT = str(pathlib.Path(__file__).resolve().parent.parent)
 SPAWN_TIMEOUT_S = 240
@@ -437,10 +438,40 @@ def test_data_parallel_steps_match_the_whole_batch(ranks):
 
 
 def test_tensor_parallel_rules_raise_naming_queue_a5b(ranks):
+    """Tensor parallelism (ROADMAP Queue A 5b) no longer raises: on a
+    data=world/2, model=2 mesh each rank keeps its ``model`` block of w1,
+    gathered on use, and the steps match the reference's GSPMD step on the
+    same mesh of CPU devices fed the whole batch within 2e-6, every rank
+    gathering the same parameters."""
+    import jax
+    from mxnet_tpu.parallel import ShardedTrainStep as JStep
+    from jax.sharding import PartitionSpec as JP
+    from mxnet_tpu.parallel import ShardingRules as JRules
     world, res = ranks
+    mesh = jmx.parallel.create_mesh(data=world // 2, model=2)
+
+    def loss_fn(p, b):
+        h = jax.nn.relu(b["x"] @ p["w1"].T + p["b1"])
+        return ((h @ p["w2"].T + p["b2"] - b["y"]) ** 2).mean()
+
+    params = {k: jnp.asarray(w) for k, w in
+              zip(("w1", "b1", "w2", "b2"), W.mlp_weights())}
+    step = JStep(loss_fn, params, mesh, rules=JRules(
+        [(pat, JP(*spec)) for pat, spec in W.TP_RULES]),
+        optimizer="adam", lr=0.01, donate=False)
+    p, st = step.init()
+    for s in range(W.STEPS):
+        x, y = W.mlp_batch(s)
+        p, st, loss = step(p, st, {"x": jnp.asarray(x),
+                                   "y": jnp.asarray(y)})
+    _same_on_every_rank(res, "tp_")
     for r in res:
-        msg = str(r["tp_refused"])
-        assert "Queue A 5b" in msg and "model" in msg, msg
+        assert tuple(r["tp_w1_block"]) == (W.HID, W.IN // 2)
+    for k, v in p.items():
+        np.testing.assert_allclose(res[0]["tp_" + k], np.asarray(v),
+                                   rtol=2e-6, atol=2e-6, err_msg=k)
+    np.testing.assert_allclose(res[0]["tp_loss"], np.asarray(loss),
+                               rtol=2e-6)
 
 
 # ------------------------------------------------------------- rendezvous

@@ -19,6 +19,7 @@ from mxnet_tpu_torch.gluon import nn
 from mxnet_tpu_torch.gluon.contrib.estimator import (
     CheckpointHandler, EarlyStoppingHandler, EpochEnd, Estimator)
 from mxnet_tpu_torch.test_utils import synthetic_mnist, write_mnist
+from _torch_seed import _seed_torch  # noqa: F401
 
 _W_TRUE = np.random.RandomState(99).randn(8, 3).astype("float32")
 

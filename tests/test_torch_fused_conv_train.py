@@ -322,6 +322,73 @@ def test_cbr_train_bwd_variants_on_the_card():
                         assert torch.equal(got[3], want[3])
 
 
+@pytest.mark.parametrize("world", [1, 2])
+@pytest.mark.parametrize("residual", [False, True])
+def test_global_backward_splits_the_sums_across_ranks(world, residual):
+    """`cbr_train_bwd_global`'s plain version: with `world` equal shards
+    of one batch, each adding its rows' sums through `reduce` (here the
+    sum over the shards, as the all-reduce gives it), every shard's dconv
+    equals the whole batch's rows of `_ref_cbr_train_bwd` and the shards'
+    dgamma and dbeta add up to the whole batch's, within FP32_REL."""
+    N, H, W, C, Cout = 4, 5, 6, 8, 16
+    x, w, gamma, beta, res, dy = _inputs(N, H, W, C, Cout, seed=3)
+    conv = torch.from_numpy(np.random.RandomState(4).randn(
+        N, H, W, Cout).astype(np.float32))
+    g, b = torch.from_numpy(gamma), torch.from_numpy(beta)
+    r = torch.from_numpy(res) if residual else None
+    d = torch.from_numpy(dy)
+    mean = conv.mean(dim=(0, 1, 2))
+    invstd = torch.rsqrt(conv.var(dim=(0, 1, 2), unbiased=False) + EPS)
+    want = tfc._ref_cbr_train_bwd(conv, d, mean, invstd, g, b, r)
+    per = N // world
+    parts = [(conv[i * per:(i + 1) * per], d[i * per:(i + 1) * per],
+              None if r is None else r[i * per:(i + 1) * per])
+             for i in range(world)]
+    sums = []
+    for c, dd, rr in parts:
+        sums.append(tfc.cbr_train_bwd_global(
+            c, dd, mean, invstd, g, b, rr, lambda t: t, 1)[1:3])
+    total = torch.stack([sums[0][1] * 0, sums[0][0] * 0])
+    for dgamma, dbeta in sums:
+        total = total + torch.stack([dbeta, dgamma])
+    outs = [tfc.cbr_train_bwd_global(c, dd, mean, invstd, g, b, rr,
+                                     lambda t: total, N * H * W)
+            for c, dd, rr in parts]
+    _close(torch.cat([o[0] for o in outs]), want[0], "float32")
+    _close(sum(o[1] for o in outs), want[1], "float32")
+    _close(sum(o[2] for o in outs), want[2], "float32")
+    if residual:
+        assert torch.equal(torch.cat([o[3] for o in outs]), want[3])
+
+
+@pytest.mark.cuda
+def test_global_backward_on_the_card_is_the_split_variant():
+    """`cbr_train_bwd_global` on the card: the split variant in two calls,
+    with an identity sum bit-equal to the variant's one call, one count
+    labelled ``+global``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    for N, H, W, Cout in [(8, 28, 28, 64), (2, 5, 5, 12), (4, 14, 14, 256)]:
+        rng = np.random.RandomState(N + Cout)
+        for dtype in ("bfloat16", "float32"):
+            conv = _t(rng.randn(N, H, W, Cout), dtype).cuda()
+            dy = _t(rng.randn(N, H, W, Cout), dtype).cuda()
+            vecs = [_t(a, "float32").cuda() for a in (
+                rng.randn(Cout) * 0.1, rng.rand(Cout) + 0.5,
+                rng.rand(Cout) + 0.5, rng.randn(Cout) * 0.1)]
+            split = "split_v8" if Cout % 8 == 0 else "split_v1"
+            for res in (None, _t(rng.randn(N, H, W, Cout), dtype).cuda()):
+                one = tfc._launch_cbr_bwd(split, conv, dy, *vecs, res)
+                reset_launch_counts()
+                got = tfc.cbr_train_bwd_global(conv, dy, *vecs, res,
+                                               torch.clone, N * H * W)
+                torch.cuda.synchronize()
+                assert variant_counts() == {("cbr_train_bwd",
+                                             split + "+global"): 1}
+                assert all(torch.equal(a, b) for a, b in zip(got, one)
+                           if a is not None)
+
+
 @pytest.mark.cuda
 def test_kernels_match_plain_versions_on_the_card():
     if not torch.cuda.is_available():

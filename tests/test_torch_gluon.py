@@ -18,6 +18,7 @@ import torch
 import mxnet_tpu as jmx
 import mxnet_tpu_torch as mx
 from mxnet_tpu_torch.base import MXNetError
+from _torch_seed import _seed_torch  # noqa: F401
 
 FP32_REL = 1e-4
 BF16_REL = 2e-2

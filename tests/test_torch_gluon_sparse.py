@@ -24,6 +24,7 @@ from mxnet_tpu_torch import autograd as ag
 from mxnet_tpu_torch import test_utils as tu
 from mxnet_tpu_torch.models import factorization as fz
 from mxnet_tpu_torch.ndarray import sparse as sp
+from _torch_seed import _seed_torch  # noqa: F401
 
 REL = 1e-6
 STEPS_REL = 1e-5

@@ -20,6 +20,7 @@ import torch
 
 import mxnet_tpu as jmx
 import mxnet_tpu_torch as mx
+from _torch_seed import _seed_torch  # noqa: F401
 
 FP32_REL = 1e-4
 BF16_REL = 2e-2
@@ -328,9 +329,11 @@ def test_rescale_grad_and_mean_loss(monkeypatch, tmp_path):
 
 def test_trainer_and_step_refuse_what_comes_with_later_slices():
     """The multi-rank slice brought comm_ready, compression, the dist
-    stores and meshes; what still refuses: a mesh of several devices in
-    one process (one process a card) and rules that split parameters
-    (tensor parallelism, ROADMAP Queue A 5b)."""
+    stores and meshes, the tensor-parallel slice rules that split
+    parameters (ROADMAP Queue A 5b: FusedTrainStep accepts them and keeps
+    each parameter whole, so one step over a data=1, model=2 mesh of
+    ranks is the single-card step); what still refuses: a mesh of several
+    devices in one process (one process a card)."""
     net = mx.gluon.nn.Dense(3, in_units=4)
     net.initialize(ctx=mx.cpu())
     params = net.collect_params()
@@ -350,10 +353,21 @@ def test_trainer_and_step_refuse_what_comes_with_later_slices():
                                 mesh=[mx.cpu(0), mx.cpu(1)])
     from mxnet_tpu_torch.parallel import P
     from mxnet_tpu_torch.parallel.mesh import Mesh
-    with pytest.raises(NotImplementedError, match="Queue A 5b"):
-        mx.gluon.FusedTrainStep(net, mx.gluon.loss.L2Loss(), tr,
-                                mesh=Mesh([[0, 1]], ("data", "model")),
-                                rules=[("weight", P("model"))])
+    x, y = mx.nd.ones((2, 4), ctx=mx.cpu()), mx.nd.ones((2, 3),
+                                                          ctx=mx.cpu())
+    twin = mx.gluon.nn.Dense(3, in_units=4)
+    twin.initialize(ctx=mx.cpu())
+    for a, b in zip(twin.collect_params().values(), params.values()):
+        a.set_data(b.data())
+    split = mx.gluon.FusedTrainStep(net, mx.gluon.loss.L2Loss(), tr,
+                                    mesh=Mesh([[0, 1]], ("data", "model")),
+                                    rules=[("weight", P("model"))])
+    one = mx.gluon.FusedTrainStep(twin, mx.gluon.loss.L2Loss(),
+                                  mx.gluon.Trainer(twin.collect_params(),
+                                                   "sgd"))
+    assert split(x, y).asnumpy() == one(x, y).asnumpy()
+    for a, b in zip(params.values(), twin.collect_params().values()):
+        assert np.array_equal(a.data().asnumpy(), b.data().asnumpy())
 
     class Custom(mx.optimizer.SGD):
         pass

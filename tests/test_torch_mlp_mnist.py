@@ -20,6 +20,7 @@ import torch
 import mxnet_tpu as jmx
 import mxnet_tpu_torch as mx
 from mxnet_tpu_torch.test_utils import synthetic_mnist, write_mnist
+from _torch_seed import _seed_torch  # noqa: F401
 
 REL = 1e-6
 

@@ -22,6 +22,7 @@ import mxnet_tpu_torch as mx
 from mxnet_tpu.gluon.model_zoo import vision as jvision
 from mxnet_tpu_torch.gluon.model_zoo import vision as pvision
 from mxnet_tpu_torch.models import gluon_params_from_jax
+from _torch_seed import _seed_torch  # noqa: F401
 
 FWD_TOL = 1e-4
 BLOCK_TOL = 1e-4

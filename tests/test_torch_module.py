@@ -21,6 +21,7 @@ import mxnet_tpu_torch as mx
 from mxnet_tpu_torch import telemetry
 
 from test_torch_symbol import mlp
+from _torch_seed import _seed_torch  # noqa: F401
 
 
 def _data(n=48, seed=0):

@@ -33,6 +33,7 @@ from mxnet_tpu.optimizer import optimizer as jopt
 import mxnet_tpu_torch as mx
 from mxnet_tpu_torch.ops import fused_optimizer as tfo
 from mxnet_tpu_torch.ops import launch_counts, registry
+from _torch_seed import _seed_torch  # noqa: F401
 
 FMA_REL = 1e-6
 BF16_REL = 2e-2

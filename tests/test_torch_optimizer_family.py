@@ -29,6 +29,7 @@ from mxnet_tpu.ops import registry as jreg
 import mxnet_tpu_torch as mx
 from mxnet_tpu_torch.ops import launch_counts, registry
 from mxnet_tpu_torch.optimizer import optimizer as topt
+from _torch_seed import _seed_torch  # noqa: F401
 
 FMA_REL = 1e-6
 UPDATER_REL = 1e-5

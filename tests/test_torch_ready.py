@@ -26,6 +26,7 @@ import mxnet_tpu_torch as mx
 from mxnet_tpu_torch import engine, telemetry
 
 import _torch_dist_worker as W
+from _torch_seed import _seed_torch  # noqa: F401
 
 CTXS = 2
 

@@ -3,9 +3,11 @@
 The paged pool's accounting mirrors tests/test_serve.py; greedy serving
 output must be token-identical to the JAX `InferenceServer` on the same
 weights (carried over with `params_from_jax`) and traffic, across chunk
-geometries. Sampled streams cannot match JAX's threefry draws, so they are
-held to their own contract: replayable per (seed, position), `top_k=1`
-equal to greedy, draws inside the top-k set numpy computes.
+geometries. The sampled streams here are held to their own contract:
+replayable per (seed, position), `top_k=1` equal to greedy, draws inside
+the top-k set numpy computes; the port draws JAX's own threefry uniforms,
+and tests/test_torch_sampling.py holds its sampled tokens to the JAX
+server's.
 """
 import functools
 import time

@@ -17,6 +17,7 @@ import pytest
 
 import mxnet_tpu as jmx
 import mxnet_tpu_torch as mx
+from _torch_seed import _seed_torch  # noqa: F401
 
 
 def _net(pkg, seed=0):

@@ -254,19 +254,28 @@ def test_training_keeps_bf16_leaves_bf16():
 
 @pytest.mark.parametrize("kw,match", [
     ({"mesh": [torch.device("cpu"), torch.device("cpu")]}, "2 devices"),
-    ({"rules": [("wq", ("fsdp", "model"))]}, "Queue A 5b"),
+    ({"rules": [("wq", ("fsdp", "model"))]}, "split"),
     ({"bucket_mb": 25}, None),
     ({"zero": True}, None),
 ], ids=["mesh", "rules", "bucket_mb", "zero"])
 def test_multi_device_options_raise_not_implemented(kw, match):
-    """What the multi-rank slice left unported still raises: several
-    devices in one process (the port runs one process a card) and rules
-    that split a parameter on an axis of size > 1 (tensor parallelism,
-    ROADMAP Queue A 5b; here on a data=1, model=2 mesh of ranks).
-    bucket_mb and zero are ported: accepted."""
-    if match == "Queue A 5b":
+    """What stays unported still raises: several devices in one process
+    (the port runs one process a card). Rules that split a parameter on
+    an axis of size > 1 (tensor parallelism, ROADMAP Queue A 5b, here on a
+    data=1, model=2 mesh of ranks) are ported: the step keeps this rank's
+    block of the leaf. bucket_mb and zero are ported: accepted."""
+    if match == "split":
+        from mxnet_tpu_torch.parallel import P
         from mxnet_tpu_torch.parallel.mesh import Mesh
-        kw = dict(kw, mesh=Mesh([[0, 1]], ("data", "model")))
+        w = torch.arange(24.0).reshape(4, 6)
+        step = ShardedTrainStep(lambda p, b: 0.0, {"wq": w, "b": w[0]},
+                                mesh=Mesh([[0, 1]], ("data", "model")),
+                                **kw)
+        assert step.specs == {"wq": P(None, "model"), "b": P()}
+        params, _ = step.init()
+        assert torch.equal(params["wq"], w[:, :3])
+        assert torch.equal(params["b"], w[0])
+        return
     if match is None:
         ShardedTrainStep(lambda p, b: 0.0, {}, **kw)
         return

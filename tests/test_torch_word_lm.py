@@ -15,6 +15,7 @@ import torch
 
 import mxnet_tpu as jmx
 import mxnet_tpu_torch as mx
+from _torch_seed import _seed_torch  # noqa: F401
 
 VOCAB, WIDTH, LAYERS, SEQ, BATCH = 50, 16, 2, 5, 4
 REL = 1e-5

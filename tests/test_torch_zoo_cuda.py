@@ -13,6 +13,7 @@ import pytest
 import torch
 
 import mxnet_tpu_torch as mx
+from _torch_seed import _seed_torch  # noqa: F401
 
 TOL = 1e-5
 ADAM = {"learning_rate": 2e-4, "beta1": 0.5}
