@@ -411,9 +411,42 @@ Phases (one JSON line each; any failure exits non-zero):
                  cards, also 2 bf16 steps of llama3_8b itself (32 layers,
                  vocab 128256) on the same mesh: step time and peak
                  memory.
+39. resilient_bert — main path 21, native Megatron for BERT and
+                 resilient sharded training. In this process bert_base
+                 (vocab 30522, 12 layers, 12 heads of 64, hidden 3072)
+                 from seeded weights, fp32 and bf16, 3 AdamW steps (lr
+                 1e-5, eps 1e-4) on one rank on global batches of 16 x
+                 128 with 15% MLM sites; then four ranks under `python -m
+                 mxnet_tpu_torch.launch` (gloo on the one card, or NCCL
+                 one a card) run this file with --resilient-worker: (a)
+                 the same through ShardedTrainStep(rules=BERT_RULES) on
+                 data=2, model=2 (6 heads, 1536 hidden columns, 15261
+                 vocab rows and B 8 a rank): fp32 losses within
+                 P21_LOSS_REL of one rank, gathered parameters within
+                 P21_PARAM_RTOL + P21_PARAM_ATOL, bf16 losses within
+                 P21_BF16_LOSS_REL, 12 / 12 / 12 flash launches a rank a
+                 step (bf16 wgmma, fp32 fma), no gather over model, step
+                 time and peak memory beside the same rules with every
+                 split gathered on use; (b) under
+                 torch.use_deterministic_algorithms, at P21_RUN_LAYERS
+                 layers, ResilientRunner.for_sharded_step with
+                 ckpt_every 2, commit and a PreemptionListener, 8 steps
+                 under a train.step preemption and a preempt.poll notice,
+                 a checkpoint.save fault on rank 1 then a resume, and a
+                 train.batch corruption: each bit-equal to its fault-free
+                 run (the skipped batch's for the rollback), every rank at
+                 the same resumed step; save and restore ms, and one save
+                 and one restore of (a)'s fp32 step at its 12 layers
+                 (ms and snapshot bytes a rank). Then here
+                 (c) path 5's BERT-base LAMB through Trainer(zero=True) at
+                 batch 32 under MXNET_TPU_INTEGRITY=1: the ZeRO state
+                 round trip, a NaN gradient tripping zero.bucket and the
+                 rollback bit-equal to a run that skipped its batch, one
+                 #9 and one #10 a bucket a step, the sentinel's checks and
+                 host syncs a step off and on.
 
-Twenty main paths, each with its own expected kernels, counts set to 0 just
-before and read just after: serving (phases 3-5: flash_fwd), training
+Twenty-one main paths, each with its own expected kernels, counts set to
+0 just before and read just after: serving (phases 3-5: flash_fwd), training
 (phase 7's 6 steps: flash_fwd, flash_bwd_dq, flash_bwd_dkv), ResNet-50
 inference (phase 11's forward: conv_bn_relu, 16 launches, all on the
 wgmma variant), ResNet-50 training (phase 15: 16 conv_bn_stats, all on the
@@ -451,8 +484,10 @@ flat_lamb1 and one flat_lamb2 a ZeRO bucket a rank a step; one
 segment_sum and one flat_sgd a sparse push; one flash launch of each
 kind a visible ring block) and tensor parallelism (phase 38: 2n flash_fwd
 and n of each flash backward a rank a step, the embedding leg's
-segment_sum, the C1 leg's conv_bn_stats and cbr_train_bwd). Then the
-card's name and power limit,
+segment_sum, the C1 leg's conv_bn_stats and cbr_train_bwd) and BERT's
+split and resilience (phase 39: n flash launches of each kind a rank a
+step in leg (a); one flat_lamb1 and one flat_lamb2 a bucket a step in leg
+(c)'s clean run). Then the card's name and power limit,
 the `kernels` line, and as the last line {"ok": true, "device": {...}}.
 Exits non-zero without a CUDA card.
 """
@@ -466,6 +501,7 @@ import json
 import math
 import os
 import statistics
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -672,6 +708,10 @@ def phase_kernel(gen):
          True),
         ("llama3_8b_dry_tp_rank_fp32", 2, 16, 4, 512, 512, 128, True, fp32,
          False),
+        # main path 21: a rank's heads of bert_base at data=2, model=2
+        ("bert_base_tp_rank", 8, 6, 6, 128, 128, 64, False, bf16, True),
+        ("bert_base_tp_rank_fp32", 8, 6, 6, 128, 128, 64, False, fp32,
+         False),
         ("prefill_path", 1, 12, 12, 304, 304, 64, True, bf16, False),
         ("fp32_77x301", 2, 4, 2, 77, 301, 64, False, fp32, False),
         ("bert_base_path", 128, 12, 12, 128, 128, 64, False, bf16, True),
@@ -788,6 +828,11 @@ def phase_kernel_bwd(gen):
         ("llama3_8b_dry_tp_rank", 2, 16, 4, 512, 512, 128, True, bf16, True,
          None, 0),
         ("llama3_8b_dry_tp_rank_fp32", 2, 16, 4, 512, 512, 128, True, fp32,
+         False, None, 0),
+        # main path 21: a rank's heads of bert_base at data=2, model=2
+        ("bert_base_tp_rank", 8, 6, 6, 128, 128, 64, False, bf16, True,
+         None, 0),
+        ("bert_base_tp_rank_fp32", 8, 6, 6, 128, 128, 64, False, fp32,
          False, None, 0),
         ("bert_base_path", 128, 12, 12, 128, 128, 64, False, bf16, True,
          None, 0),
@@ -9298,6 +9343,662 @@ def phase_tensor_parallel():
     return launches
 
 
+P21_MESH = {"data": 2, "model": 2}
+P21_WORLD = 4
+P21_BATCH, P21_SEQ = 16, 128    # the global batch: B 8 a rank over data=2
+P21_MASK = 0.15                 # the share of MLM prediction sites
+P21_STEPS = 3
+P21_LR, P21_EPS = 1e-5, 1e-4    # as path 20: eps bounds how far a rounding
+                                # difference of a near-zero gradient moves
+                                # AdamW's step
+P21_LOSS_REL = 1e-5             # fp32 losses, split vs one rank, a step
+P21_PARAM_RTOL, P21_PARAM_ATOL = 1e-5, 1e-6   # fp32 gathered parameters
+P21_BF16_LOSS_REL = 2e-2        # bf16 losses, split vs one rank
+P21_RUN_LAYERS = 2              # leg (b)'s depth: bert_base widths, each
+                                # rank's snapshot its blocks (230 MB fp32
+                                # with AdamW's moments at 2 layers)
+P21_RUN_STEPS, P21_CKPT_EVERY = 8, 2
+P21_POLL_S = 0.05               # the maintenance poller's interval
+P21_COMMIT_TIMEOUT_S = 10       # the mid-commit run's election timeout
+P21_ZERO_BATCH, P21_ZERO_STEPS = 32, 4   # leg (c): batch 32 x seq 128
+P21_ZERO_POISON = 2             # the data index whose gradient is poisoned
+P21_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+# and leg (c)'s LAMB on the ZeRO updater
+P21_PATH_KERNELS = P21_KERNELS + ("flat_lamb1", "flat_lamb2")
+
+
+def p21_cfg(dtype, n_layers=None):
+    from mxnet_tpu_torch.models.bert import CONFIGS
+    cfg = dataclasses.replace(CONFIGS["bert_base"], dtype=dtype)
+    return cfg if n_layers is None else dataclasses.replace(
+        cfg, n_layers=n_layers)
+
+
+def p21_params(cfg):
+    """The seeded weights every rank and the one-rank run draw alike."""
+    from mxnet_tpu_torch.models.bert import bert_init
+    return bert_init(torch.Generator(device="cuda").manual_seed(1), cfg)
+
+
+def p21_batch(i, cfg):
+    """The global batch of data index `i`: tokens, targets and a 15% mask,
+    from a seeded generator on the card."""
+    g = torch.Generator(device="cuda").manual_seed(100 + i)
+    shape = (P21_BATCH, P21_SEQ)
+    return {"tokens": torch.randint(0, cfg.vocab_size, shape, generator=g,
+                                    device="cuda"),
+            "targets": torch.randint(0, cfg.vocab_size, shape, generator=g,
+                                     device="cuda"),
+            "mask": (torch.rand(shape, generator=g, device="cuda")
+                     < P21_MASK).float()}
+
+
+def p21_step(cfg, params, mesh=None, rules=None):
+    from mxnet_tpu_torch.models.bert import bert_mlm_loss
+    from mxnet_tpu_torch.parallel import BERT_RULES, ShardedTrainStep
+    return ShardedTrainStep(lambda p, b: bert_mlm_loss(p, b, cfg), params,
+                            mesh, rules=(rules or BERT_RULES) if mesh
+                            else None, optimizer="adamw", lr=P21_LR,
+                            eps=P21_EPS)
+
+
+class P21ModelGathers:
+    """Counts the gathers on use over the ``model`` group of `mesh` while
+    installed (around `collectives.gather_on_use`)."""
+
+    def __init__(self, mesh):
+        from mxnet_tpu_torch.parallel import collectives
+        self._coll = collectives
+        self._group = mesh.group("model")
+        self.n = 0
+
+    def __enter__(self):
+        self._orig = self._coll.gather_on_use
+
+        def counted(x, axis_name, dim, summed=True):
+            group, world, _ = self._coll.resolve_group(axis_name)
+            if world > 1 and group is self._group:
+                self.n += 1
+            return self._orig(x, axis_name, dim, summed)
+        self._coll.gather_on_use = counted
+        return self
+
+    def __exit__(self, *exc):
+        self._coll.gather_on_use = self._orig
+
+
+def p21_run(step, cfg, steps, sync=None):
+    """`steps` steps from step.init() on data indices 0.. (each rank its
+    slice): (params, losses, step ms, launches, variants, peak bytes);
+    counts reset just before the steps and read just after."""
+    from mxnet_tpu_torch.ops import (launch_counts, reset_launch_counts,
+                                     variant_counts)
+    params, state = step.init()
+    batches = [step.shard_batch(p21_batch(i, cfg)) for i in range(steps)]
+    torch.cuda.synchronize()
+    if sync is not None:
+        sync()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    vbefore = variant_counts()
+    losses, times = [], []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, loss = step(params, state, batches[i], step_num=i)
+        losses.append(loss.item())
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = launch_counts()
+    variants = {"%s/%s" % k: n - vbefore.get(k, 0)
+                for k, n in variant_counts().items()
+                if n != vbefore.get(k, 0)}
+    return (params, losses, times, launches, variants,
+            torch.cuda.max_memory_allocated())
+
+
+def p21_digest(step, params):
+    """sha256 of the whole leaves (gathered over the mesh: collective)."""
+    return digest(dict(leaves(step.gather(params))), [
+        n for n, _ in leaves(params)])
+
+
+def p21_resilient(rank, out_dir):
+    """Leg (b) on this rank: the fault-free steps, then three runs of
+    ResilientRunner.for_sharded_step under fault plans (every rank's plan
+    the same but the mid-commit one's). Returns the leg's record."""
+    from mxnet_tpu_torch import resilience as rz
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.parallel import collectives, create_mesh
+    from mxnet_tpu_torch.resilience import faults
+    cfg = p21_cfg(torch.float32, P21_RUN_LAYERS)
+    mesh = create_mesh(**P21_MESH)
+    batch = lambda i: p21_batch(i, cfg)  # noqa: E731
+
+    def fresh():
+        step = p21_step(cfg, p21_params(cfg), mesh)
+        return (step,) + step.init()
+
+    def plain(indices):
+        step, p, o = fresh()
+        losses = []
+        for s, i in enumerate(indices):
+            p, o, loss = step(p, o, step.shard_batch(batch(i)), s)
+            losses.append(loss.item())
+        return p21_digest(step, p), losses
+
+    def runner(tag, p_step, p, o, batch_fn=batch, **kw):
+        return rz.ResilientRunner.for_sharded_step(
+            p_step, p, o, batch_fn, ckpt_dir=os.path.join(
+                out_dir, "p21_%s_rank%d" % (tag, rank)),
+            ckpt_every=P21_CKPT_EVERY, max_restarts=4, **kw)
+
+    def counts(rep):
+        return {k: getattr(rep, k) for k in (
+            "restarts", "retries", "steps_executed", "replayed_steps",
+            "checkpoints", "proactive_ckpts", "rollbacks",
+            "skipped_batches")}
+
+    rec = {}
+    clean_digest, clean_losses = plain(range(P21_RUN_STEPS))
+    rec["clean"] = {"digest": clean_digest, "losses": clean_losses}
+    telemetry.reset()
+    # A: a preemption inside step 3 (restore and replay), then a
+    # maintenance notice from the poller once data index 5 was fetched (a
+    # proactive checkpoint at the next boundary the ranks agree on)
+    step, p, o = fresh()
+    plan = "train.step:preempt:4;preempt.poll:preempt:1"
+    fetched = {"index": -1}
+
+    def poll():
+        return rz.preempt.default_poll() if fetched["index"] >= 5 else None
+
+    def noted(i):
+        fetched["index"] = max(fetched["index"], i)
+        return batch(i)
+
+    listener = rz.PreemptionListener(poll_fn=poll,
+                                     poll_interval_s=P21_POLL_S,
+                                     sigterm=False)
+    collectives.barrier()
+    t0 = time.perf_counter()
+    with faults.inject(plan):
+        run = runner("a", step, p, o, preempt_listener=listener,
+                     commit=rz.CommitCoordinator(namespace="p21.a"),
+                     batch_fn=noted)
+        with listener:
+            rep = run.run(P21_RUN_STEPS)
+    hist = telemetry.registry.get("ckpt.save_ms").snapshot()
+    rec["a"] = {"plan": plan, "counts": counts(rep), "losses": rep.losses,
+                "seconds": time.perf_counter() - t0,
+                "digest": p21_digest(run.active["step"],
+                                     run.holder["params"]),
+                "save_ms_p50": hist["p50"], "save_ms_max": hist["max"],
+                "restore_ms": rep.recovery_time_s * 1e3
+                / max(rep.restarts, 1)}
+    del run, step, p, o
+    torch.cuda.empty_cache()
+    # C: the third save dies mid-commit on rank 1, the other ranks' save
+    # election times out; every rank then resumes at the elected step
+    step, p, o = fresh()
+    plan = "checkpoint.save:preempt:3" if rank == 1 else ""
+    err = None
+    with faults.inject(plan):
+        run = runner("c", step, p, o, commit=rz.CommitCoordinator(
+            timeout_s=P21_COMMIT_TIMEOUT_S, namespace="p21.c1"))
+        try:
+            run.run(P21_RUN_STEPS)
+        except rz.RetriableError as exc:
+            err = type(exc).__name__
+    run = runner("c", run.active["step"], run.holder["params"],
+                 run.holder["opt_state"],
+                 commit=rz.CommitCoordinator(namespace="p21.c2"))
+    rep = run.run(P21_RUN_STEPS, resume=True)
+    rec["c"] = {"plan": plan, "error": err,
+                "resumed_at": next(i for i, l in enumerate(rep.losses)
+                                   if l is not None),
+                "losses": rep.losses,
+                "digest": p21_digest(run.active["step"],
+                                     run.holder["params"])}
+    del run, step, p, o
+    torch.cuda.empty_cache()
+    # B: batch 5 poisoned (NaN in its mask): the loss sentinel trips, the
+    # run rolls back to the last committed snapshot and skips the batch
+    step, p, o = fresh()
+    plan = "train.batch:corrupt:6"
+    with faults.inject(plan):
+        run = runner("b", step, p, o,
+                     commit=rz.CommitCoordinator(namespace="p21.b"))
+        rep = run.run(P21_RUN_STEPS)
+    indices = [run.data_index(s) for s in range(P21_RUN_STEPS)]
+    rec["b"] = {"plan": plan, "counts": counts(rep), "losses": rep.losses,
+                "indices": indices,
+                "digest": p21_digest(run.active["step"],
+                                     run.holder["params"])}
+    del run, step, p, o
+    torch.cuda.empty_cache()
+    rec["b"]["skipped_digest"], rec["b"]["skipped_losses"] = plain(indices)
+    return rec
+
+
+def p21_full_depth_snapshot(rank, mesh, out_dir):
+    """One save and one restore of leg (a)'s fp32 step at bert_base's full
+    depth, through ResilientRunner.for_sharded_step with a coordinated
+    commit: the step-0 snapshot is saved, a preemption in the first step
+    restores it, and the step runs again. Returns this rank's save and
+    restore ms and the snapshot's bytes on disk."""
+    from mxnet_tpu_torch import resilience as rz
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.resilience import faults
+    cfg = p21_cfg(torch.float32)
+    step = p21_step(cfg, p21_params(cfg), mesh)
+    p, o = step.init()
+    path = os.path.join(out_dir, "p21_full_rank%d" % rank)
+    telemetry.reset()
+    with faults.inject("train.step:preempt:1"):
+        run = rz.ResilientRunner.for_sharded_step(
+            step, p, o, lambda i: p21_batch(i, cfg), ckpt_dir=path,
+            ckpt_every=1, max_restarts=1,
+            commit=rz.CommitCoordinator(namespace="p21.full"))
+        rep = run.run(1)
+    hist = telemetry.registry.get("ckpt.save_ms").snapshot()
+    size = sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(path) for f in files)
+    shutil.rmtree(path)
+    return {"layers": cfg.n_layers, "save_ms": hist["max"],
+            "saves": hist["count"], "restarts": rep.restarts,
+            "restore_ms": rep.recovery_time_s * 1e3,
+            "snapshot_bytes": size}
+
+
+def resilient_worker(out_dir):
+    """One rank of main path 21, started by `python -m
+    mxnet_tpu_torch.launch` (gloo on the one card, or NCCL one a card):
+    (a) bert_base through ShardedTrainStep(BERT_RULES) on mesh data=2,
+    model=2 at fp32 and bf16 and beside it the same rules with no leaf
+    consumed in place (every split gathered on use), (b) the resilient
+    runs at P21_RUN_LAYERS layers under torch.use_deterministic_algorithms.
+    Writes p21_rank<r>.json (rank 0 also the gathered fp32 parameters);
+    counts reset before each leg and read after it."""
+    from mxnet_tpu_torch.parallel import (BERT_RULES, collectives,
+                                          create_mesh, dist)
+    dist.initialize()
+    rank, world = dist.rank(), dist.num_workers()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rec = {"rank": rank, "world": world, "backend": dist.backend(),
+           "cards": torch.cuda.device_count()}
+    t_start = time.perf_counter()
+    mesh = create_mesh(**P21_MESH)
+    for dtype in (torch.float32, torch.bfloat16):
+        cfg = p21_cfg(dtype)
+        step = p21_step(cfg, p21_params(cfg), mesh)
+        with P21ModelGathers(mesh) as log:
+            params, losses, times, launches, variants, peak = p21_run(
+                step, cfg, P21_STEPS, collectives.barrier)
+        key = str(dtype).split(".")[-1]
+        lp = params["layers"]["0"]
+        rec[key] = {"losses": losses, "step_ms": times,
+                    "launches": launches, "variants": variants,
+                    "peak_bytes": peak, "model_gathers": log.n,
+                    "blocks": {k: list(t.shape) for k, t in (
+                        ("wq", lp["attn"]["wq"]), ("wo", lp["attn"]["wo"]),
+                        ("w1", lp["ffn"]["w1"]), ("w2", lp["ffn"]["w2"]),
+                        ("bq", lp["attn"]["bq"]),
+                        ("word_embed", params["word_embed"]),
+                        ("position_embed", params["position_embed"]))}}
+        if dtype == torch.float32:
+            full = step.gather(params)
+            if rank == 0:
+                torch.save({n: t.cpu() for n, t in leaves(full)},
+                           os.path.join(out_dir, "p21_params.pt"))
+            del full
+        del step, params
+        torch.cuda.empty_cache()
+    # the gather-on-use route of the same rules (every model split whole)
+    cfg = p21_cfg(torch.float32)
+    step = p21_step(cfg, p21_params(cfg), mesh, BERT_RULES.without_local())
+    with P21ModelGathers(mesh) as log:
+        params, losses, times, launches, _, peak = p21_run(
+            step, cfg, P21_STEPS, collectives.barrier)
+    rec["gathered"] = {"losses": losses, "step_ms": times,
+                       "peak_bytes": peak, "model_gathers": log.n,
+                       "launches": launches}
+    del step, params
+    torch.cuda.empty_cache()
+    # (b) at full depth: one save and one restore of (a)'s fp32 step
+    rec["full_depth"] = p21_full_depth_snapshot(rank, mesh, out_dir)
+    torch.cuda.empty_cache()
+    # (b): deterministic kernels only from here (cuBLAS's workspace
+    # variable was set before this process started CUDA)
+    torch.use_deterministic_algorithms(True)
+    os.environ["MXNET_TPU_INTEGRITY"] = "1"
+    rec["resilient"] = p21_resilient(rank, out_dir)
+    collectives.barrier()
+    rec["seconds"] = time.perf_counter() - t_start
+    with open(os.path.join(out_dir, "p21_rank%d.json" % rank), "w") as f:
+        json.dump(rec, f)
+    dist.shutdown()
+
+
+def p21_zero_leg(tmp):
+    """Leg (c), world 1: bert_12_768_12 bf16 with LAMB through
+    Trainer(kvstore="device", zero=True) as path 5 runs it, at batch
+    P21_ZERO_BATCH, under MXNET_TPU_INTEGRITY=1. The ZeRO state through
+    save_zero_state/restore_zero_state; a run of the resilient runner
+    whose data index P21_ZERO_POISON has a NaN injected into a gradient
+    (zero.bucket trips, rollback, skip) against a clean run over the same
+    indices; #9/#10 launches a step; host syncs of one step with the
+    sentinel off and on. Returns (record, launches of the clean run)."""
+    import copy
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import resilience as rz
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.ops import launch_counts, reset_launch_counts
+    from mxnet_tpu_torch.optimizer.zero import ZeroComm, ZeroUpdater
+    from mxnet_tpu_torch.parallel import restore_zero_state, save_zero_state
+    gpu = mx.gpu(0)
+    sce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    batches = [bert_batch(P21_ZERO_BATCH, gpu, seed=10 + i)
+               for i in range(P21_ZERO_STEPS + 1)]
+
+    def build():
+        net = bert_net(gpu)
+        return net, lamb_trainer(mx, net, True)
+
+    def one_step(net, trainer, i, poison=False):
+        x, y = batches[i]
+        with mx.autograd.record():
+            loss = sce(net(x)[3], y)
+        loss.backward()
+        if poison:
+            g = next(p for p in net.collect_params().values()
+                     if p.grad_req != "null").grad().data_torch
+            g.view(-1)[0] = float("nan")
+        trainer.step(x.shape[0])
+        return loss
+
+    rec = {}
+    prev = os.environ.get("MXNET_TPU_INTEGRITY")
+    os.environ["MXNET_TPU_INTEGRITY"] = "1"
+    try:
+        net, trainer = build()
+        sfile = os.path.join(tmp, "p21_trainer.states")
+
+        def state_get():
+            trainer.save_states(sfile)
+            with open(sfile, "rb") as f:
+                blob = f.read()
+            return {"params": {k: p.data().data_torch.cpu() for k, p in
+                               net.collect_params().items()},
+                    "opt": blob}
+
+        def state_set(tree):
+            for k, p in net.collect_params().items():
+                p.data().data_torch.copy_(tree["params"][k])
+            trainer._reset_kvstore()
+            with open(sfile, "wb") as f:
+                f.write(tree["opt"])
+            trainer.load_states(sfile)
+
+        run = rz.ResilientRunner(
+            lambda i: one_step(net, trainer, i, i == P21_ZERO_POISON),
+            state_get, state_set, ckpt_dir=os.path.join(tmp, "p21_zero"),
+            ckpt_every=2, max_restarts=2)
+        rep = run.run(P21_ZERO_STEPS)
+        indices = [run.data_index(s) for s in range(P21_ZERO_STEPS)]
+        got = snapshot(net)
+        # the ZeRO state through save_zero_state / restore_zero_state
+        upd = trainer._kvstore._updater
+        path = os.path.join(tmp, "p21_zero_state")
+        save_zero_state(path, upd, step=P21_ZERO_STEPS)
+        back = restore_zero_state(path, ZeroUpdater(
+            copy.deepcopy(upd.optimizer), comm=ZeroComm()))
+        a, b = upd.state_payload(), back.state_payload()
+        rec["zero_state_bit_equal"] = a["layout"] == b["layout"] and all(
+            np.array_equal(arr, b["state"][bk][name])
+            for bk, slots in a["state"].items()
+            for name, arr in slots.items())
+        n_buckets = len(upd.layout)
+        del net, trainer, run, upd, back, a, b
+        torch.cuda.empty_cache()
+        # the clean run over the same indices
+        net, trainer = build()
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        for i in indices:
+            one_step(net, trainer, i)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        want = snapshot(net)
+        rec["rollback_bit_equal"] = sorted(got) == sorted(want) and all(
+            torch.equal(t, want[k]) for k, t in got.items())
+        # host syncs and sentinel checks of one step, the sentinel off and
+        # on, twice each in turns (the second of each is read: a first
+        # step may build host-side caches)
+        syncs, checks = {}, {}
+        for flag in ("0", "1", "0", "1"):
+            os.environ["MXNET_TPU_INTEGRITY"] = flag
+            before = telemetry.counter_value("integrity.checks")
+            _, syncs[flag] = count_syncs(lambda: one_step(
+                net, trainer, P21_ZERO_STEPS))
+            checks[flag] = telemetry.counter_value("integrity.checks") \
+                - before
+        del net, trainer, got, want
+        torch.cuda.empty_cache()
+    finally:
+        if prev is None:
+            os.environ.pop("MXNET_TPU_INTEGRITY", None)
+        else:
+            os.environ["MXNET_TPU_INTEGRITY"] = prev
+    rec.update(counts={"rollbacks": rep.rollbacks,
+                       "skipped_batches": rep.skipped_batches,
+                       "restarts": rep.restarts,
+                       "checkpoints": rep.checkpoints},
+               indices=indices, buckets=n_buckets, launches=launches,
+               syncs_off=syncs["0"], syncs_on=syncs["1"],
+               checks_off=checks["0"], checks_on=checks["1"])
+    return rec, launches
+
+
+def phase_resilient_bert():
+    """Main path 21: the one-rank runs of leg (a) here, then the four
+    ranks of `resilient_worker` under the port's launcher (counts reset
+    inside each rank before each leg and read after it), then leg (c)
+    here. Returns {kernel: launches on the path}."""
+    from mxnet_tpu_torch.ops import KERNELS
+    phase = "resilient_bert"
+    base = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        cfg = p21_cfg(dtype)
+        step = p21_step(cfg, p21_params(cfg))
+        params, losses, times, _, _, peak = p21_run(step, cfg, P21_STEPS)
+        base[dtype] = {"losses": losses, "step_ms": times,
+                       "peak_bytes": peak}
+        if dtype == torch.float32:
+            base_params = params
+        del step, params
+        torch.cuda.empty_cache()
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_p21_") as tmp:
+        env = dict(os.environ)
+        env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+        # cuBLAS reads it when a rank starts CUDA: leg (b) runs under
+        # torch.use_deterministic_algorithms
+        env["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+        cmd = [sys.executable, "-m", "mxnet_tpu_torch.launch", "-n",
+               str(P21_WORLD), "--launcher", "local", "--root-uri",
+               "file://" + os.path.join(tmp, "store"), "--timeout", "480",
+               sys.executable, os.path.abspath(__file__),
+               "--resilient-worker", tmp]
+        t0 = time.perf_counter()
+        run = subprocess.run(cmd, cwd=root, env=env, timeout=540)
+        wall = time.perf_counter() - t0
+        check(run.returncode == 0, phase,
+              "the ranks exited with %s" % run.returncode)
+        ranks = []
+        for r in range(P21_WORLD):
+            with open(os.path.join(tmp, "p21_rank%d.json" % r)) as f:
+                ranks.append(json.load(f))
+        split_params = torch.load(os.path.join(tmp, "p21_params.pt"),
+                                  map_location="cuda")
+        zero, zero_launches = p21_zero_leg(tmp)
+    r0 = ranks[0]
+    pending = []
+
+    def later(cond, msg):
+        pending.append((bool(cond), msg))
+    worst, excess = p20_param_excess(split_params, base_params)
+    del split_params, base_params
+    torch.cuda.empty_cache()
+    n = p21_cfg(torch.float32).n_layers
+    expect = {"flash_fwd": n, "flash_bwd_dq": n, "flash_bwd_dkv": n}
+    launches = {k: 0 for k in KERNELS}
+    for r in ranks:
+        for leg in (r["float32"]["launches"], r["bfloat16"]["launches"]):
+            for k, v in leg.items():
+                launches[k] += v
+    for k, v in zero_launches.items():
+        launches[k] += v
+    for key, dtype in (("float32", torch.float32),
+                       ("bfloat16", torch.bfloat16)):
+        want_rel = P21_LOSS_REL if key == "float32" else P21_BF16_LOSS_REL
+        label = "fma" if key == "float32" else "wgmma"
+        emit({"phase": phase, "leg": "a_bert_base_" + key,
+              "mesh": P21_MESH, "world": P21_WORLD,
+              "backend": r0["backend"], "cards": r0["cards"],
+              "tokens": [P21_BATCH, P21_SEQ], "blocks": r0[key]["blocks"],
+              "losses": {r["rank"]: r[key]["losses"] for r in ranks},
+              "one_rank_losses": base[dtype]["losses"],
+              "loss_limit": want_rel,
+              "step_ms": {r["rank"]: r[key]["step_ms"] for r in ranks},
+              "one_rank_step_ms": base[dtype]["step_ms"],
+              "peak_bytes": {r["rank"]: r[key]["peak_bytes"]
+                             for r in ranks},
+              "one_rank_peak_bytes": base[dtype]["peak_bytes"],
+              "model_gathers": {r["rank"]: r[key]["model_gathers"]
+                                for r in ranks},
+              "launches_per_step_a_rank": expect,
+              "variants": r0[key]["variants"],
+              **({"params_worst_leaf": worst, "params_excess": excess,
+                  "params_bound": [P21_PARAM_RTOL, P21_PARAM_ATOL],
+                  "gather_route": {
+                      "step_ms": {r["rank"]: r["gathered"]["step_ms"]
+                                  for r in ranks},
+                      "peak_bytes": {r["rank"]: r["gathered"]["peak_bytes"]
+                                     for r in ranks},
+                      "model_gathers": r0["gathered"]["model_gathers"],
+                      "losses": r0["gathered"]["losses"]}}
+                 if key == "float32" else {}),
+              "note": ("four ranks share one card over gloo, collectives "
+                       "staged through host memory: a correctness run"
+                       if r0["cards"] < P21_WORLD else
+                       "one rank a card over NCCL")})
+        for r in ranks:
+            got = r[key]
+            per = {k: got["launches"][k] / P21_STEPS for k in P21_KERNELS}
+            later(per == expect and all(
+                got["launches"][k] == 0 for k in got["launches"]
+                if k not in P21_KERNELS),
+                "%s rank %d launches a step %s, expected %s"
+                % (key, r["rank"], got["launches"], expect))
+            other = [v for v in got["variants"]
+                     if v.split("/")[0] in P21_KERNELS
+                     and not v.split("/")[1].startswith(label)]
+            later(not other, "%s rank %d flash launches off %s: %s"
+                  % (key, r["rank"], label, got["variants"]))
+            later(got["model_gathers"] == 0,
+                  "%s rank %d gathered %d leaves over model on use"
+                  % (key, r["rank"], got["model_gathers"]))
+            rels = [abs(a - b) / abs(b) for a, b in
+                    zip(got["losses"], base[dtype]["losses"])]
+            later(max(rels) <= want_rel,
+                  "%s rank %d losses %s vs one rank %s (limit %g)"
+                  % (key, r["rank"], got["losses"], base[dtype]["losses"],
+                     want_rel))
+    later(excess <= 0.0,
+          "fp32 gathered parameters beyond rtol %g + atol %g: %s by %g"
+          % (P21_PARAM_RTOL, P21_PARAM_ATOL, worst, excess))
+    later(r0["gathered"]["model_gathers"] > 0,
+          "the gather-on-use route gathered nothing over model")
+    # (b)
+    res = [r["resilient"] for r in ranks]
+    b0 = res[0]
+    emit({"phase": phase, "leg": "b_resilience", "layers": P21_RUN_LAYERS,
+          "steps": P21_RUN_STEPS, "ckpt_every": P21_CKPT_EVERY,
+          "a": {k: b0["a"][k] for k in ("plan", "counts", "seconds",
+                                        "save_ms_p50", "save_ms_max",
+                                        "restore_ms")},
+          "c": {"plans": [x["c"]["plan"] for x in res],
+                "errors": [x["c"]["error"] for x in res],
+                "resumed_at": [x["c"]["resumed_at"] for x in res]},
+          "b": {k: b0["b"][k] for k in ("plan", "counts", "indices")},
+          "clean_losses": b0["clean"]["losses"],
+          "full_depth": {r["rank"]: r["full_depth"] for r in ranks}})
+    for r in ranks:
+        fd = r["full_depth"]
+        later(fd["saves"] == 1 and fd["restarts"] == 1,
+              "rank %d full-depth snapshot: %d saves, %d restores"
+              % (r["rank"], fd["saves"], fd["restarts"]))
+    clean = b0["clean"]["digest"]
+    for i, x in enumerate(res):
+        later(x["clean"]["digest"] == clean,
+              "rank %d's fault-free weights differ from rank 0's" % i)
+        later(x["a"]["digest"] == clean and x["a"]["losses"]
+              == x["clean"]["losses"],
+              "rank %d: the replayed run is not bit-equal to the "
+              "fault-free one (losses %s vs %s)"
+              % (i, x["a"]["losses"], x["clean"]["losses"]))
+        ca = x["a"]["counts"]
+        later(ca["restarts"] == 2 and ca["proactive_ckpts"] == 1
+              and ca["replayed_steps"] == 1 and ca["rollbacks"] == 0,
+              "rank %d run A counts %s: expected 2 restarts (the step "
+              "preemption and the notice), 1 proactive checkpoint, 1 "
+              "replayed step" % (i, ca))
+        later(x["c"]["error"] == ("PreemptionError" if i == 1
+                                  else "RetriableError"),
+              "rank %d mid-commit run ended with %s" % (i, x["c"]["error"]))
+        later(x["c"]["resumed_at"] == res[0]["c"]["resumed_at"]
+              and x["c"]["digest"] == clean,
+              "rank %d resumed at %s (rank 0 at %s), weights equal: %s"
+              % (i, x["c"]["resumed_at"], res[0]["c"]["resumed_at"],
+                 x["c"]["digest"] == clean))
+        cb = x["b"]["counts"]
+        later(cb["rollbacks"] == 1 and cb["skipped_batches"] == 1
+              and x["b"]["digest"] == x["b"]["skipped_digest"]
+              and x["b"]["losses"] == x["b"]["skipped_losses"],
+              "rank %d rollback run %s, indices %s, equal to the skipped "
+              "run: %s" % (i, cb, x["b"]["indices"], x["b"]["digest"]
+                           == x["b"]["skipped_digest"]))
+    # (c)
+    emit({"phase": phase, "leg": "c_zero_sentinel",
+          "batch": [P21_ZERO_BATCH, BERT_SEQ], "steps": P21_ZERO_STEPS,
+          **zero})
+    later(zero["zero_state_bit_equal"], "ZeRO state round trip differs")
+    later(zero["rollback_bit_equal"] and zero["counts"]["rollbacks"] == 1
+          and zero["counts"]["skipped_batches"] == 1,
+          "ZeRO rollback %s, bit-equal to the skipped run: %s"
+          % (zero["counts"], zero["rollback_bit_equal"]))
+    later(all(zero["launches"][k] == zero["buckets"] * P21_ZERO_STEPS
+              for k in LAMB_KERNELS),
+          "LAMB launches %s for %d buckets a step"
+          % (zero["launches"], zero["buckets"]))
+    # off, the sentinel reads nothing back; on, one check (one host read)
+    # a bucket, and no more syncs than that
+    later(zero["checks_off"] == 0 and zero["checks_on"] == zero["buckets"]
+          and 0 < zero["syncs_on"] - zero["syncs_off"] <= zero["buckets"],
+          "a step's sentinel checks %d off, %d on; host syncs %d off, %d "
+          "on; %d buckets" % (zero["checks_off"], zero["checks_on"],
+                              zero["syncs_off"], zero["syncs_on"],
+                              zero["buckets"]))
+    emit({"phase": phase, "world": P21_WORLD, "seconds": wall,
+          "worker_seconds": r0["seconds"], "launches": launches,
+          "card": card_name_and_limit()})
+    for cond, msg in pending:
+        check(cond, phase, msg)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -9481,6 +10182,14 @@ def main():
     # rank before each leg and read after it)
     tp_launches = phase_tensor_parallel()
     check_path(tp_launches, P20_PATH_KERNELS, "main_path_tensor_parallel")
+    torch.cuda.empty_cache()
+
+    # main path 21: native Megatron for BERT and resilient sharded
+    # training (counts reset inside each rank before each leg and read
+    # after it, and around leg (c)'s clean run)
+    resilient_launches = phase_resilient_bert()
+    check_path(resilient_launches, P21_PATH_KERNELS,
+               "main_path_resilient_bert")
 
     print(card_name_and_limit(), flush=True)
     kernels = []
@@ -9497,7 +10206,8 @@ def main():
             + bucketing_launches[name] + ssd_launches[name] \
             + ssd_infer_launches[name] + inception_launches[name] \
             + dcgan_launches[name] + spec_launches[name] \
-            + multi_launches[name] + tp_launches[name]
+            + multi_launches[name] + tp_launches[name] \
+            + resilient_launches[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": "mxnet_tpu_torch/" + source, "replaces": replaces,
@@ -9542,6 +10252,20 @@ def main_tensor_parallel():
     print(card_name_and_limit(), flush=True)
 
 
+def main_resilient_bert():
+    """`--only resilient_bert`: the build and main path 21 alone (for
+    iterating on the path; a run with no arguments drives every path)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        sys.exit(2)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    phase_build()
+    launches = phase_resilient_bert()
+    check_path(launches, P21_PATH_KERNELS, "main_path_resilient_bert")
+    print(card_name_and_limit(), flush=True)
+
+
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--multi-rank-worker":
         multi_rank_worker(sys.argv[2])
@@ -9549,7 +10273,11 @@ if __name__ == "__main__":
         tp_worker(sys.argv[2])
     elif sys.argv[1:] == ["--only", "multi_rank"]:
         main_multi_rank()
+    elif len(sys.argv) == 3 and sys.argv[1] == "--resilient-worker":
+        resilient_worker(sys.argv[2])
     elif sys.argv[1:] == ["--only", "tensor_parallel"]:
         main_tensor_parallel()
+    elif sys.argv[1:] == ["--only", "resilient_bert"]:
+        main_resilient_bert()
     else:
         main()

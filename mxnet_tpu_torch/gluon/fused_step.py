@@ -38,8 +38,15 @@ is).
 Deviation: the step runs eagerly, one kernel at a time. Capturing it as
 one CUDA graph is later work; every kernel already launches on the current
 stream and allocates through `torch.empty`, as capture needs. The update
-runs inside a ``fused_step.update`` profiler range. The integrity
-sentinel and the compile cache of the reference are not ported.
+runs inside a ``fused_step.update`` profiler range. The compile cache of
+the reference is not ported.
+
+Integrity (``MXNET_TPU_INTEGRITY=1``): the gradients and the loss are
+checked finite (`resilience.integrity`, site ``fused_step``, one host
+read) before any write, so a tripped step raises `DivergenceError` and
+leaves parameters, states and running statistics as they were. Off, the
+step reads nothing back. Each call passes the ``train.step`` fault site
+first.
 
 Data parallelism (``mesh``, a `parallel.mesh.Mesh`): every rank passes
 its own slice of the batch over the mesh's ``("data", "fsdp")`` axes
@@ -77,6 +84,8 @@ from ..optimizer.optimizer import _clip as _off
 from ..optimizer.optimizer import apply_op
 from ..optimizer.optimizer import dcasgd_update
 from ..parallel import collectives as _coll
+from ..resilience import faults as _faults
+from ..resilience import integrity as _integrity
 from .block import _AUX_COLLECTOR
 
 __all__ = ["FusedTrainStep"]
@@ -414,6 +423,7 @@ class FusedTrainStep:
 
     def __call__(self, data, label):
         """One step; returns the mean loss over the batch (an NDArray)."""
+        _faults.check("train.step")
         args = list(data) if isinstance(data, (list, tuple)) else [data]
         ctx = args[0].context
         if not self._built:
@@ -448,6 +458,11 @@ class FusedTrainStep:
         if group is not None:
             with record_function("fused_step.allreduce"):
                 grads = _coll.psum_bucketed(grads, group, self._bucket_mb)
+        if _integrity.enabled():
+            _integrity.check_scalar(
+                _integrity.finite_scalar(grads + [lvec._data]),
+                site="fused_step",
+                keys=[p.name for p in self._train_params])
         with torch.no_grad():
             with record_function("fused_step.update"):
                 self._dev_fn(opt, weights, grads,

@@ -147,6 +147,17 @@ class Trainer:
         self._updaters = [opt.get_updater(self._optimizer)
                           for _ in self._contexts]
 
+    def _reset_kvstore(self):
+        """Drop the store, so that the next step makes it again from the
+        parameters as they are (a restore wrote them)."""
+        if self._kvstore and "dist" in self._kvstore.type:
+            raise RuntimeError("Cannot reset distributed KVStore.")
+        self._kv_initialized = False
+        self._kvstore = None
+        self._distributed = None
+        self._update_on_kvstore = None
+        self._params_to_init = list(self._params)
+
     def _init_kvstore(self):
         """Make the store and decide update_on_kvstore (reference:
         `Trainer._init_kvstore`): one context with dense weights, no

@@ -27,6 +27,11 @@ order). `ready_session` opens a readiness-ordered push round
 hook as backward finishes it, exchanges start at once, and every write
 waits for `finish()` at step time. The ``dist*`` types are
 `kvstore_dist.KVStoreDist`.
+
+With ``MXNET_TPU_INTEGRITY=1`` the summed dense values of a push (of a
+readiness bucket) are checked finite before any write (site
+``kvstore.bucket``), so a poisoned push raises `DivergenceError` and
+leaves the store as it was; off, nothing is read back.
 """
 from __future__ import annotations
 
@@ -39,6 +44,20 @@ from .. import telemetry as _telem
 from ..base import MXNetError
 
 __all__ = ["KVStore", "KVStoreLocal", "ReadyPushSession", "create"]
+
+
+def _guard_merged(keys, merged):
+    """The integrity sentinel over a push's summed dense values (site
+    ``kvstore.bucket``): one finite reduction and one host read before
+    any store or updater write; nothing when off."""
+    from ..resilience import integrity as _integrity
+    if not _integrity.enabled():
+        return
+    dense = [m._data for m in merged
+             if not isinstance(m, nd.sparse.BaseSparseNDArray)]
+    if dense:
+        _integrity.check_finite(dense, site="kvstore.bucket",
+                                keys=[str(k) for k in keys])
 
 
 def _key_list(key):
@@ -202,7 +221,9 @@ class KVStoreLocal(KVStore):
         """One bucket's merge: each key's replicas summed in order, as
         `_merge` does."""
         _telem.inc("comm.collectives")
-        return [self._merge(sess.raw_slots[k]) for k in bucket.keys]
+        merged = [self._merge(sess.raw_slots[k]) for k in bucket.keys]
+        _guard_merged(bucket.keys, merged)
+        return merged
 
     def _ready_apply(self, sess, bucket, merged):
         """The deferred writes of one launched bucket: the updater (or a
@@ -302,9 +323,11 @@ class KVStoreLocal(KVStore):
             if sentries is not None:
                 self._push_sparse_bucketed(sentries, cap)
                 return
-        for k, v in zip(keys, values):
-            merged = self._merge(v if isinstance(v, (list, tuple)) else [v])
-            self._apply_merged(str(k), merged)
+        merged = [self._merge(v if isinstance(v, (list, tuple)) else [v])
+                  for v in values]
+        _guard_merged(keys, merged)
+        for k, m in zip(keys, merged):
+            self._apply_merged(str(k), m)
 
     # -- row-sparse pushes -------------------------------------------------
     def _sparse_entries(self, keys, values):

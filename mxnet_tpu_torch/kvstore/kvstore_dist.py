@@ -31,6 +31,14 @@ value, as the reference's servers keep the first worker's.
 * Readiness-ordered rounds launch each bucket's all-reduce asynchronously
   from the grad-ready hook (NCCL runs it on its own stream, beside
   backward's kernels) and wait for it at step time.
+* Wire checksum (``MXNET_TPU_COMM_CHECKSUM=1``): a bucketed push checks
+  each bucket's sum finite after the exchange (site
+  ``kvstore_dist.bucket``), raising `DivergenceError` before any write;
+  counter ``comm.checksum.buckets``. It costs one host read a bucket, so
+  it is a switch of its own. The reference also digests the send buffer
+  before and after the exchange; torch's all-reduce works on the packed
+  bucket in place and nothing else holds that buffer, so the digest has
+  no counterpart here.
 """
 from __future__ import annotations
 
@@ -45,6 +53,7 @@ from .. import telemetry as _telem
 from ..base import MXNetError
 from ..parallel import collectives as _coll
 from ..parallel import dist
+from ..resilience import integrity as _integrity
 from .kvstore import KVStoreLocal, _key_list, _val_list
 
 __all__ = ["KVStoreDist", "GradientCompression", "DistZeroComm"]
@@ -269,6 +278,8 @@ class KVStoreDist(KVStoreLocal):
         call, then split back and applied key by key."""
         bucketer = _engine.GradBucketer(cap)
 
+        wire_check = _integrity.comm_checksum_enabled()
+
         def apply_bucket(bucket):
             flat = _engine.pack_bucket(bucket)
             ts = _telem.span_clock()
@@ -276,6 +287,10 @@ class KVStoreDist(KVStoreLocal):
             self._allreduce(flat)
             _telem.record_span(bucket.span_name(), _engine.SPAN_CAT_COMM,
                                ts, time.perf_counter() - t0)
+            if wire_check:
+                _telem.inc("comm.checksum.buckets")
+                _integrity.check_finite([flat], site="kvstore_dist.bucket",
+                                        keys=bucket.keys)
             self._apply_parts(bucket.keys,
                               _engine.unpack_bucket(bucket, flat))
 

@@ -9,10 +9,39 @@ Attention is the flash-attention kernels (#1 forward, #2/#3 backward) with
 ``causal=False``; the FFN uses the tanh GELU and the layernorm applies
 gamma and beta in fp32 before the cast, as the JAX package does (the Gluon
 model's GELU is exact and its LayerNorm casts first). `bert_forward` and
-`bert_mlm_loss` run under the caller's grad mode. Under `BERT_RULES` on a
-mesh, `parallel.ShardedTrainStep` gathers every split leaf on use, so each
-rank computes the whole model on its slice of the batch (native Megatron
-for BERT is ROADMAP work).
+`bert_mlm_loss` run under the caller's grad mode.
+
+Tensor parallelism over the ``model`` axis (Megatron), when
+`parallel.ShardedTrainStep` runs `bert_mlm_loss` under `BERT_RULES` on a
+mesh with ``model`` > 1 and hands the projections and embeddings over as
+this rank's ``model`` blocks (`ShardingRules.local`), as `models.llama`
+does:
+
+* column-parallel ``wq/wk/wv`` (this rank's n_heads/model heads into the
+  non-causal flash attention) and ``ffn/w1`` (its hidden/model columns,
+  then the tanh GELU); their input passes `collectives.copy_to_group`.
+  The replicated biases ``bq/bk/bv`` and ``b1`` pass
+  `collectives.copy_to_group` and are read in this rank's slice, so
+  their gradients are summed over ``model`` in the backward and every
+  rank holds the whole gradient under any rules;
+* row-parallel ``attn/wo`` and ``ffn/w2``, then
+  `collectives.reduce_from_group` before ``bo``/``b2`` and the residual;
+  those biases and every LayerNorm see the same values on every rank, so
+  their gradients are equal there and are not summed;
+* ``word_embed``, ``position_embed`` and ``token_type_embed`` split over
+  rows: each is a masked lookup of this rank's rows summed over
+  ``model`` (exactly one rank contributes each row, so it is exact; a
+  rank that holds none of the used positions contributes zeros), and the
+  three are added in the unsplit order;
+* the tied decoder: vocab-parallel logits ``h @ word_embed_block.T`` and
+  an fp32 log-softmax through a max and two sums over ``model``; the
+  full-vocab logits are never gathered.
+
+A table whose rows ``model`` does not divide arrives whole
+(`sharding._prune_spec` replicates it) and takes the unsplit lookup and
+decoder, while the layers stay split; a layer whose weights do not split
+on head boundaries is computed whole on every rank from its gathered
+weights. Unsplit, the forward is the single-card one.
 """
 from __future__ import annotations
 
@@ -26,6 +55,7 @@ from torch.utils.checkpoint import checkpoint
 from ..base import resolve_device
 from ..parallel import collectives as _coll
 from ..parallel.flash_attention import flash_attention
+from .llama import _model_split, _whole
 
 __all__ = ["BertConfig", "CONFIGS", "bert_init", "bert_forward",
            "bert_mlm_loss", "layer_norm"]
@@ -106,7 +136,9 @@ def layer_norm(x, p, eps):
             + p["beta"]).to(x.dtype)
 
 
-def _encoder_layer(lp, x, cfg):
+def _encoder_layer(lp, x, cfg, tp=None):
+    if tp is not None:
+        return _ffn_split(lp, _attention_split(lp, x, cfg, tp), cfg, tp)
     B, S, _ = x.shape
     a = lp["attn"]
 
@@ -124,24 +156,97 @@ def _encoder_layer(lp, x, cfg):
                       cfg.norm_eps)
 
 
-def bert_forward(params, tokens, cfg: BertConfig, token_types=None):
-    """tokens (B, S) int -> hidden states (B, S, D) in cfg.dtype."""
-    emb = params["word_embed"]
-    tokens = torch.as_tensor(tokens, dtype=torch.long, device=emb.device)
-    S = tokens.shape[1]
-    x = emb[tokens] + params["position_embed"][None, :S]
-    if token_types is None:
-        x = x + params["token_type_embed"][0][None, None]
+def _attention_split(lp, x, cfg, tp):
+    """The attention block, its residual and LayerNorm: Megatron over
+    ``model`` when wq/wk/wv (columns) and wo (rows) arrive as matching
+    head-aligned blocks, else computed whole on every rank."""
+    a = lp["attn"]
+    B, S, D = x.shape
+    hd = cfg.head_dim
+    n = a["wq"].shape[1]
+    aligned = (n != D and n % hd == 0 and a["wk"].shape[1] == n
+               and a["wv"].shape[1] == n and a["wo"].shape[0] == n)
+    if aligned:
+        xf = _coll.copy_to_group(x, tp.group)
+        lo = tp.rank * n
+
+        def heads(w, b):
+            b = _coll.copy_to_group(b, tp.group).narrow(0, lo, n)
+            return (xf @ w + b).reshape(
+                B, S, n // hd, hd).transpose(1, 2).contiguous()
+
+        o = flash_attention(heads(a["wq"], a["bq"]), heads(a["wk"], a["bk"]),
+                            heads(a["wv"], a["bv"]), causal=False)
+        out = _coll.reduce_from_group(
+            o.transpose(1, 2).reshape(B, S, n) @ a["wo"], tp.group)
     else:
-        x = x + params["token_type_embed"][torch.as_tensor(
-            token_types, dtype=torch.long, device=emb.device)]
+        def heads(w, b):
+            return (x @ _whole(w, tp, 1, D) + b).reshape(
+                B, S, cfg.n_heads, hd).transpose(1, 2).contiguous()
+
+        o = flash_attention(heads(a["wq"], a["bq"]), heads(a["wk"], a["bk"]),
+                            heads(a["wv"], a["bv"]), causal=False)
+        out = o.transpose(1, 2).reshape(B, S, D) @ _whole(a["wo"], tp, 0, D)
+    return layer_norm(x + (out + a["bo"]), lp["attn_norm"], cfg.norm_eps)
+
+
+def _ffn_split(lp, x, cfg, tp):
+    """The FFN, its residual and LayerNorm: Megatron over ``model`` when
+    w1 (columns) and w2 (rows) arrive as matching blocks, else whole."""
+    f = lp["ffn"]
+    full = cfg.hidden_dim
+    n = f["w1"].shape[1]
+    if n != full and f["w2"].shape[0] == n:
+        xf = _coll.copy_to_group(x, tp.group)
+        b1 = _coll.copy_to_group(f["b1"], tp.group).narrow(
+            0, tp.rank * n, n)
+        h = F.gelu(xf @ f["w1"] + b1, approximate="tanh")
+        out = _coll.reduce_from_group(h @ f["w2"], tp.group)
+    else:
+        h = F.gelu(x @ _whole(f["w1"], tp, 1, full) + f["b1"],
+                   approximate="tanh")
+        out = h @ _whole(f["w2"], tp, 0, full)
+    return layer_norm(x + (out + f["b2"]), lp["ffn_norm"], cfg.norm_eps)
+
+
+def _rows(table, idx, full, tp):
+    """Rows `idx` of an embedding table: under a ``model`` split of its
+    `full` rows, this rank's block masked and summed over ``model``."""
+    if tp is None or table.shape[0] == full:
+        return table[idx]
+    n = table.shape[0]
+    local = idx - tp.rank * n
+    mine = ((local >= 0) & (local < n))[..., None]
+    rows = torch.where(mine, table[local.clamp(0, n - 1)],
+                       torch.zeros((), dtype=table.dtype,
+                                   device=table.device))
+    return _coll.reduce_from_group(rows, tp.group)
+
+
+def bert_forward(params, tokens, cfg: BertConfig, token_types=None):
+    """tokens (B, S) int -> hidden states (B, S, D) in cfg.dtype (under a
+    ``model`` split, the same on every rank of the axis)."""
+    emb = params["word_embed"]
+    dev = emb.device
+    tokens = torch.as_tensor(tokens, dtype=torch.long, device=dev)
+    S = tokens.shape[1]
+    tp = _model_split()
+    x = _rows(emb, tokens, cfg.vocab_size, tp)
+    x = x + _rows(params["position_embed"], torch.arange(S, device=dev),
+                  cfg.max_seq_len, tp)[None]
+    types = torch.zeros((), dtype=torch.long, device=dev) \
+        if token_types is None \
+        else torch.as_tensor(token_types, dtype=torch.long, device=dev)
+    t = _rows(params["token_type_embed"], types, cfg.n_types, tp)
+    x = x + (t[None, None] if token_types is None else t)
     x = layer_norm(x, params["embed_norm"], cfg.norm_eps)
     for i in range(cfg.n_layers):
         lp = params["layers"][str(i)]
         if cfg.remat and torch.is_grad_enabled():
-            x = checkpoint(_encoder_layer, lp, x, cfg, use_reentrant=False)
+            x = checkpoint(_encoder_layer, lp, x, cfg, tp,
+                           use_reentrant=False)
         else:
-            x = _encoder_layer(lp, x, cfg)
+            x = _encoder_layer(lp, x, cfg, tp)
     return x
 
 
@@ -151,12 +256,33 @@ def bert_mlm_loss(params, batch, cfg: BertConfig):
     each (B, S); mask is 1 at the prediction sites. The mean NLL over
     them; inside a data-parallel step, over every rank's sites
     (`collectives.batch_ratio`), as the reference's one program takes it.
+    Under a ``model`` split of the word embedding's rows the logits are
+    vocab-parallel (see the module docstring).
     """
     h = bert_forward(params, batch["tokens"], cfg)
     dev = h.device
-    logits = (h @ params["word_embed"].T.to(h.dtype)).float()
-    logp = torch.log_softmax(logits, dim=-1)
+    emb = params["word_embed"]
     targets = torch.as_tensor(batch["targets"], dtype=torch.long, device=dev)
-    nll = -logp.gather(-1, targets[..., None])[..., 0]
     mask = torch.as_tensor(batch["mask"], device=dev).float()
+    tp = _model_split()
+    if tp is None or emb.shape[0] == cfg.vocab_size:
+        logits = (h @ emb.T.to(h.dtype)).float()
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -logp.gather(-1, targets[..., None])[..., 0]
+        return _coll.batch_ratio((nll * mask).sum(), mask.sum())
+    # vocab-parallel: the max, the sum of exponentials and the target's
+    # shifted logit reduced over ``model`` (log_softmax's own max is cut
+    # from the graph, as here)
+    hf = _coll.copy_to_group(h, tp.group)
+    logits = (hf @ emb.T.to(h.dtype)).float()
+    vl = logits.shape[-1]
+    top = _coll.all_reduce_max(logits.max(dim=-1, keepdim=True).values,
+                               tp.group)
+    shifted = logits - top
+    total = _coll.reduce_from_group(shifted.exp().sum(dim=-1), tp.group)
+    local = targets - tp.rank * vl
+    mine = (local >= 0) & (local < vl)
+    pick = shifted.gather(-1, local.clamp(0, vl - 1)[..., None])[..., 0]
+    pick = _coll.reduce_from_group(pick * mine, tp.group)
+    nll = torch.log(total) - pick
     return _coll.batch_ratio((nll * mask).sum(), mask.sum())

@@ -20,8 +20,12 @@ work; `kvstore.DistZeroComm` exchanges over the process group (NCCL on
 the card, gloo on the CPU), and tests drive in-process fleets of threads.
 The readiness-ordered entry points (`scatter_ready`, `finish_ready`) start
 each bucket's reduce-scatter as backward finishes its members and run the
-updates and all-gathers at step time. The integrity sentinel, fault sites
-and retries of the reference come with the port's resilience work.
+updates and all-gathers at step time. With ``MXNET_TPU_INTEGRITY=1`` each
+packed gradient bucket is checked finite (`resilience.integrity`, site
+``zero.bucket``: one reduction over the flat bucket and one host read)
+before its reduce-scatter, so no shard update sees a poisoned bucket; off,
+nothing is read back. The reference's fault sites and retries on the
+exchange legs are not ported.
 
 The shards are torch tensors on the weights' device; the kernels update
 the weight shard, the moments and the fp32 master in place.
@@ -46,6 +50,15 @@ __all__ = ["ZeroComm", "ZeroUpdater", "zero_enabled"]
 register_env("MXNET_TPU_ZERO", False, bool,
              "Run the kvstore's optimizer as the ZeRO-1 sharded updater "
              "(Trainer zero=None defers to it).")
+
+
+def _guard_bucket(spec, flat_g):
+    """The integrity sentinel over one packed gradient bucket (site
+    ``zero.bucket``), before its reduce-scatter; nothing when off."""
+    from ..resilience import integrity as _integrity
+    if _integrity.enabled():
+        _integrity.check_finite([flat_g], site="zero.bucket",
+                                keys=spec.keys)
 
 
 def zero_enabled(flag=None):
@@ -262,6 +275,7 @@ class ZeroUpdater:
                 with record_function("zero.pack"):
                     flat_g = _engine.pack_flat(
                         spec, [grads_by_key[k] for k in spec.keys])
+                _guard_bucket(spec, flat_g)
                 g_shard = self.comm.reduce_scatter(spec, flat_g)
                 with record_function("zero.update"):
                     new_w = self._fused_shard_update(spec, g_shard, clip)
@@ -277,6 +291,7 @@ class ZeroUpdater:
         exchange where the comm can start one (`reduce_scatter_async`),
         else the shard."""
         self._ensure_shards(spec, weights_by_key)
+        _guard_bucket(spec, flat_g)
         start = getattr(self.comm, "reduce_scatter_async", None)
         if start is not None:
             return start(spec, flat_g)

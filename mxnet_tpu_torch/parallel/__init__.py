@@ -1,9 +1,13 @@
-"""Attention kernels, the functional trainer and its checkpoints, and the
+"""Attention kernels, the functional trainer and its checkpoints (whole,
+sharded, coordinated and ZeRO), and the
 multi-rank layer: rendezvous (`dist`), meshes of ranks (`mesh`), sharding
 rules (`sharding`), collectives over process groups (`collectives`) and
 ring attention over a ``seq`` group."""
 from . import dist
-from .checkpoint import latest_step, restore_train_state, save_train_state
+from .checkpoint import (latest_committed_step, latest_step,
+                         restore_sharded, restore_train_state,
+                         restore_zero_state, save_sharded, save_train_state,
+                         save_zero_state)
 from .collectives import (all_gather, all_reduce, allreduce_bench, barrier,
                           ppermute, reduce_scatter)
 from .dist import initialize, is_initialized, num_workers, rank
@@ -17,8 +21,10 @@ from .sharding import (BERT_RULES, LLAMA_RULES, P, ShardingRules,
 from .train_step import ShardedTrainStep, adam_init, sgd_init
 
 __all__ = ["flash_attention", "paged_attention", "paged_attention_chunk",
-           "ShardedTrainStep", "adam_init", "sgd_init", "save_train_state",
-           "restore_train_state", "latest_step", "dist", "initialize",
+           "ShardedTrainStep", "adam_init", "sgd_init", "save_sharded",
+           "restore_sharded", "latest_committed_step", "save_train_state",
+           "restore_train_state", "save_zero_state", "restore_zero_state",
+           "latest_step", "dist", "initialize",
            "is_initialized", "rank", "num_workers", "Mesh", "MeshConfig",
            "create_mesh", "current_mesh", "local_mesh", "mesh_scope",
            "auto_mesh", "ShardingRules", "LLAMA_RULES", "BERT_RULES", "P",

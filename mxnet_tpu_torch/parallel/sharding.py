@@ -17,8 +17,8 @@ their "/"-joined keys, as `models.llama`'s parameters are.
 `ShardingRules.local` names the leaves whose ``model`` split the model's
 own functions consume in place (Megatron's column and row products, the
 vocab-parallel embedding and head): `LLAMA_RULES` names `models.llama`'s
-projections and embeddings. `parallel.ShardedTrainStep` gathers every
-other split on use.
+projections and embeddings, `BERT_RULES` `models.bert`'s.
+`parallel.ShardedTrainStep` gathers every other split on use.
 """
 from __future__ import annotations
 
@@ -97,6 +97,13 @@ class ShardingRules:
         place."""
         return any(pat.search(name) for pat in self.local)
 
+    def without_local(self):
+        """The same table with no leaf consumed in place: every split is
+        gathered on use (the whole-model route, for comparison)."""
+        out = ShardingRules([])
+        out.rules, out.default = self.rules, self.default
+        return out
+
     def spec_for(self, name, shape=None, mesh=None):
         spec = self.default
         for pat, s in self.rules:
@@ -139,6 +146,7 @@ LLAMA_RULES = ShardingRules([
 ], local=[r"^(tok_embeddings|lm_head)$",
           r"^layers/\d+/(attn/(wq|wk|wv|wo)|mlp/(w1|w2|w3))$"])
 
+# the same for BERT in `models.bert`'s names
 BERT_RULES = ShardingRules([
     (r"word_embed|position_embed|token_type_embed", P(("model",), ("fsdp",))),
     (r"attn/(wq|wk|wv)|query|key|value", P(("fsdp",), ("model",))),
@@ -146,7 +154,8 @@ BERT_RULES = ShardingRules([
     (r"ffn/w1|intermediate", P(("fsdp",), ("model",))),
     (r"ffn/w2|output/dense", P(("model",), ("fsdp",))),
     (r"norm|beta|gamma|bias", P()),
-])
+], local=[r"^(word_embed|position_embed|token_type_embed)$",
+          r"^layers/\d+/(attn/(wq|wk|wv|wo)|ffn/(w1|w2))$"])
 
 
 def block_of(mesh, entry):

@@ -48,7 +48,11 @@ the reference's one GSPMD program computes:
 * Each gradient is then summed over the batch axes that its gathers did
   not already sum over, in flat buckets of at most ``bucket_mb`` (default
   the engine's cap; 0 sends them one by one), and divided by the number of
-  batch slices; the loss is the global mean.
+  batch slices; the loss is the global mean. A replicated leaf has the
+  same gradient on every ``model`` rank: where the model reads it in
+  ``model`` slices it sums the gradient over ``model`` itself
+  (`collectives.copy_to_group`, as `models.bert` does for the biases
+  beside column-parallel weights).
 * ``zero=True`` composes the ``data`` axis onto the rules as the
   reference's `_zero_spec` does: the optimizer state of a leaf whose
   dimension 0 is unsplit and divides by ``data`` holds only this rank's
@@ -58,6 +62,12 @@ the reference's one GSPMD program computes:
 The updates are elementwise, so each block is updated exactly as the
 whole leaf would be. A mesh given as a list of several devices raises:
 the port runs one process per card (`mxnet_tpu_torch.launch`).
+
+Snapshots and elastic re-layout (`resilience.ResilientRunner`):
+`adopt(params, opt_state)` takes back this step's own blocks from host
+copies, `rebuild_for_mesh(mesh)` is the same step over another mesh of
+ranks, and `place(params, opt_state)` lays whole trees out as that step's
+blocks. Each call passes the ``train.step`` fault site first.
 """
 from __future__ import annotations
 
@@ -69,12 +79,13 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from .. import telemetry as _telem
+from ..resilience import faults as _faults
 from . import collectives as _coll
 from .mesh import mesh_scope
 from .sharding import (P, ShardingRules, _map_named, entry_axes,
                        gather_pytree, register_block, shard_pytree)
 
-__all__ = ["ShardedTrainStep", "sgd_init", "adam_init"]
+__all__ = ["ShardedTrainStep", "sgd_init", "adam_init", "zero_leaf_names"]
 
 
 def _tmap(f, *trees):
@@ -195,6 +206,25 @@ def _as_rules(rules):
 BATCH_AXES = ("data", "fsdp")
 
 
+def zero_leaf_names(params, rules, mesh):
+    """The names of the leaves whose optimizer state a ``zero=True`` step
+    on `mesh` keeps as its ``data`` block along dimension 0 (the
+    reference's `_zero_spec`): dimension 0 unsplit by the rules and
+    divisible by ``data``, and ``data`` unused elsewhere."""
+    if mesh is None or mesh.axis_size("data") == 1:
+        return set()
+    n = mesh.axis_size("data")
+    out = set()
+    for name, leaf in _named_leaves(params):
+        shape = tuple(leaf.shape)
+        spec = rules.spec_for(name, shape, mesh)
+        used = {a for e in spec for a in entry_axes(e)}
+        if shape and shape[0] % n == 0 and "data" not in used \
+                and not (spec and spec[0] is not None):
+            out.add(name)
+    return out
+
+
 def _named_leaves(tree, prefix=""):
     if isinstance(tree, dict):
         for k in tree:
@@ -245,18 +275,8 @@ class ShardedTrainStep:
         self.specs = _tmap(lambda _: P(), params) if self.mesh is None \
             else self.rules.tree_specs(params, self.mesh)
         # ZeRO: the leaves whose state takes a ``data`` block of dim 0
-        # (the reference's `_zero_spec`)
-        self._zero_leaves = set()
-        if self.zero and self.mesh is not None \
-                and self.mesh.axis_size("data") > 1:
-            n = self.mesh.axis_size("data")
-            for name, leaf in _named_leaves(params):
-                spec = self._spec(name)
-                shape = tuple(leaf.shape)
-                used = {a for e in spec for a in entry_axes(e)}
-                if shape and shape[0] % n == 0 and "data" not in used \
-                        and not (spec and spec[0] is not None):
-                    self._zero_leaves.add(name)
+        self._zero_leaves = zero_leaf_names(params, self.rules, self.mesh) \
+            if self.zero else set()
 
     @property
     def _n_batch(self):
@@ -292,6 +312,10 @@ class ShardedTrainStep:
             return params, self._opt_init(params, **self.opt_kwargs)
         params = shard_pytree(params, self.rules, self.mesh)
         opt_state = self._opt_init(self._opt_view(params), **self.opt_kwargs)
+        self._register(params, opt_state)
+        return params, opt_state
+
+    def _register(self, params, opt_state):
         for name, leaf in _named_leaves(params):
             register_block(leaf, self.mesh, self._spec(name))
         for slot in opt_state.values():
@@ -299,7 +323,60 @@ class ShardedTrainStep:
                 for name, leaf in _named_leaves(slot):
                     register_block(leaf, self.mesh, self._spec(name),
                                    zero=name in self._zero_leaves)
+
+    def place(self, params, opt_state):
+        """Whole `params` and `opt_state` trees (a restored snapshot, on
+        any device) laid out as this step's: each rank's block of every
+        leaf, on the parameters' device, and of every per-parameter
+        optimizer slot (its ``data`` block under ``zero=True``), recorded
+        as blocks; scalar slots are kept. `init` for a state that already
+        has values."""
+        device = next(_leaves(self._init_params)).device
+
+        def on(tree):
+            return _tmap(lambda x: x.to(device) if isinstance(x, torch.Tensor)
+                         else x, tree)
+
+        params = on(params)
+        opt_state = {k: on(v) if isinstance(v, dict) else v
+                     for k, v in opt_state.items()}
+        if self.mesh is None:
+            return params, opt_state
+        # each block its own storage: the caller's whole tree is not kept
+        params = _tmap(torch.clone, shard_pytree(params, self.rules,
+                                                 self.mesh))
+        opt_state = {k: _tmap(torch.clone, self._opt_view(
+                         shard_pytree(v, self.rules, self.mesh)))
+                     if isinstance(v, dict) else v
+                     for k, v in opt_state.items()}
+        self._register(params, opt_state)
         return params, opt_state
+
+    def adopt(self, params, opt_state):
+        """This step's own blocks back from a snapshot of them (host
+        copies of what `init` or a step left): moved to the parameters'
+        device and recorded as blocks."""
+        device = next(_leaves(self._init_params)).device
+
+        def on(tree):
+            return _tmap(lambda x: x.to(device), tree)
+
+        params = on(params)
+        opt_state = {k: on(v) if isinstance(v, dict) else v
+                     for k, v in opt_state.items()}
+        if self.mesh is not None:
+            self._register(params, opt_state)
+        return params, opt_state
+
+    def rebuild_for_mesh(self, mesh):
+        """A new step with the same loss, rules, optimizer and settings
+        over `mesh` (the elastic path: the set of ranks changed); `place`
+        then lays the state out on it."""
+        return ShardedTrainStep(
+            self.loss_fn, self._init_params, mesh,
+            optimizer=(self._opt_init, self._opt_update), lr=self.lr,
+            grad_accum=self.grad_accum, remat=self._remat, rules=self.rules,
+            bucket_mb=self.bucket_mb, zero=self.zero, **self.opt_kwargs)
 
     def gather(self, params):
         """Whole leaves on every rank from this rank's blocks (the
@@ -425,8 +502,10 @@ class ShardedTrainStep:
         loss), the first two updated in place, the loss the global mean.
         `train_step.step_ms` observes the host's time for the call
         (PyTorch returns before the card finishes, so in a steady state it
-        measures enqueueing, as the JAX metric of the same name does)."""
+        measures enqueueing, as the JAX metric of the same name does). The
+        ``train.step`` fault site fires before anything changes."""
         t0 = time.perf_counter()
+        _faults.check("train.step")
         if self.grad_accum > 1:
             loss = 0.0
             grads = _tmap(torch.zeros_like, params)

@@ -13,6 +13,22 @@ Instrumented sites in the port:
                   "replica killed mid-stream" drill (in-flight streams
                   drain back to the queue and resume by re-prefill), a
                   ``hang`` the stall drill
+``train.step``    inside `FusedTrainStep` and `ShardedTrainStep`, before
+                  anything changes
+``run.step``      `ResilientRunner`'s boundary before a step: faults here
+                  are retried in place
+``train.batch``   the runner adapters' batch fetch (a `transform` site: a
+                  ``corrupt`` poisons the batch with NaN, the divergence
+                  drill)
+``checkpoint.save``     after a step's payload is durable and before its
+                        LATEST marker moves: the mid-commit crash
+``checkpoint.restore``  on the way into a restore
+``checkpoint.corrupt``  the `SnapshotCheckpointer` payload's bytes between
+                        pickling and the write (a `transform` site: bytes
+                        flipped on disk while the sha256 sidecar keeps the
+                        true digest)
+``preempt.poll``  the maintenance-event poller: a ``preempt`` here is a
+                  preemption notice (a proactive checkpoint), not a crash
 
 Fault kinds:
 
@@ -286,7 +302,16 @@ def _corrupt_one(val):
 
 def _corrupt_payload(payload):
     """Corrupt the FIRST corruptible element of `payload` (recursing into
-    tuples and lists), keeping the container's shape."""
+    tuples, lists and, in key order, dicts such as a functional step's
+    batch), keeping the container's shape."""
+    if isinstance(payload, dict):
+        for k, item in payload.items():
+            new, did = _corrupt_payload(item)
+            if did:
+                out = dict(payload)
+                out[k] = new
+                return out, True
+        return payload, False
     if isinstance(payload, (tuple, list)):
         out = list(payload)
         for i, item in enumerate(out):

@@ -13,10 +13,12 @@ resilience planes use, under the same metric names (``serve.tokens``,
   `span_clock`, `span_events`, `dump_trace` writes chrome://tracing JSON);
 * the compile ring (`note_compile`, `recent_compiles`): what was last
   built, for stall post-mortems;
-* the step plane: `step_event(site, ms, info)` appends a flight-recorder
-  record (`flight.py`) with the step's counter deltas and the caller's
-  info (the serving scheduler's active/completed request ids), and runs
-  the ledger's rate-limited reconcile;
+* the step plane: `step_event(site, ms, info)` runs the step-time
+  anomaly detector (`anomaly.py`: rolling-median spikes, the step SLO,
+  `step_quantiles`), appends a flight-recorder record (`flight.py`) with
+  the step's counter deltas, what fired and the caller's info (the
+  serving scheduler's active/completed request ids), and runs the
+  ledger's rate-limited reconcile;
 * `request_trace.py`: one `RequestTrace` per served request, whose spans
   tile its wall clock (`request_traces()` reads the last-N ring);
 * `ledger.py`: device memory by scope (``kv_pool``, ``kv_draft``,
@@ -24,7 +26,7 @@ resilience planes use, under the same metric names (``serve.tokens``,
 
 Gating: ``MXNET_TPU_TELEMETRY=0`` or `disable()` turns every call into one
 global check. Not ported yet: the HTTP exporter, aggregation across ranks,
-anomaly detection, step attribution, federation and the profiling hooks.
+step attribution, federation and the profiling hooks.
 """
 from __future__ import annotations
 
@@ -40,7 +42,7 @@ __all__ = ["enable", "disable", "registry", "inc", "set_gauge",
            "span", "record_span", "span_clock", "span_events", "snapshot",
            "reset", "dump_trace", "note_compile", "recent_compiles",
            "device_report", "memory_scopes", "trace_id", "safe_rank",
-           "step_event", "flight_records", "request_traces", "Counter",
+           "step_event", "step_quantiles", "flight_records", "request_traces", "Counter",
            "Gauge", "Histogram", "Registry"]
 
 # the only state instrumented code reads on the disabled path
@@ -222,10 +224,12 @@ def snapshot():
 
 def reset():
     """Drop every metric, span, compile record, flight record, request
-    trace and ledger scope (does not change ENABLED)."""
+    trace, ledger scope and anomaly window (does not change ENABLED)."""
+    from . import anomaly as _anomaly
     from . import flight as _flight, ledger as _ledger
     from . import request_trace as _reqtrace
     registry.reset()
+    _anomaly.reset()
     _trace.clear()
     with _compiles_lock:
         del _compiles[:]
@@ -246,15 +250,30 @@ def dump_trace(path=None):
 
 # ---------------------------------------------------------------- step plane
 def step_event(site, dur_ms, info=None):
-    """One call per training or serving step: appends a flight record
-    with this step's counter deltas and `info` (a small JSON-able dict,
+    """One call per training or serving step: runs anomaly detection over
+    the duration, appends a flight record with this step's counter
+    deltas, the anomalies that fired and `info` (a small JSON-able dict,
     e.g. the serving scheduler's active/completed request ids), and runs
     the ledger's rate-limited reconcile. No-op when disabled."""
     if not ENABLED:
         return
+    from . import anomaly as _anomaly
     from . import flight as _flight, ledger as _ledger
-    _flight.record_step(site, dur_ms, extras=info)
+    fired = _anomaly.observe(site, dur_ms)
+    extras = dict(info) if info else {}
+    if fired:
+        extras["anomalies"] = fired
+    _flight.record_step(site, dur_ms, extras=extras or None)
     _ledger.maybe_reconcile()
+
+
+def step_quantiles(site=None):
+    """Rolling p50/p99 step-time quantiles: one site's dict, or {site:
+    dict} for every site when `site` is None."""
+    from . import anomaly as _anomaly
+    if site is not None:
+        return _anomaly.quantiles(site)
+    return _anomaly.quantiles_all()
 
 
 def flight_records(limit=None):

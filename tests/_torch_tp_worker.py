@@ -36,7 +36,20 @@ LLAMA_RUNS = [
     ("model2", 2, {"model": 2}, 2, False),
     ("model2_kv1", 2, {"model": 2}, 1, False),
 ]
-BERT_RUNS = [("data2_model2", 4, {"data": 2, "model": 2})]
+# (name, world, mesh axes, vocab, BERT_RULES or none): at model=4 neither
+# the vocab of 258 nor token_type_embed's 2 rows divide, so those tables
+# arrive whole; with no rules every leaf is replicated and each layer is
+# computed whole on every model rank
+BERT_RUNS = [("data2_model2", 4, {"data": 2, "model": 2}, 256, True),
+             ("model4", 4, {"model": 4}, 258, True),
+             ("model2_no_rules", 2, {"model": 2}, 256, False)]
+# the gradients held against jax.grad: biases read in model slices beside
+# column-parallel weights (summed over model), biases and LayerNorms after
+# a row-parallel sum (not summed)
+BERT_GRADS = ("layers/0/attn/bq", "layers/1/attn/bv", "layers/0/ffn/b1",
+              "layers/0/attn/bo", "layers/1/ffn/b2",
+              "layers/0/attn_norm/gamma", "layers/1/ffn_norm/beta",
+              "embed_norm/gamma")
 EMBED_VOCAB, EMBED_DIM, EMBED_IDS, EMBED_STEPS = 1000, 8, 64, 3
 # the C1 nets: a batch of 8 whose two halves differ in mean by 3
 BN_BATCH, BN_IN, BN_HID, BN_OUT = 8, 6, 5, 3
@@ -78,10 +91,11 @@ def llama_tokens(step):
         0, LLAMA["vocab_size"], size=(LLAMA_BATCH, LLAMA_SEQ))
 
 
-def bert_weights(seed=1):
+def bert_weights(seed=1, vocab=None):
     """A BERT tree in `models.bert`'s layout, fp32, from numpy."""
     rng = np.random.RandomState(seed)
     d, hid = BERT["dim"], BERT["hidden_dim"]
+    vocab = vocab or BERT["vocab_size"]
 
     def dense(shape, scale=None):
         scale = 1.0 / np.sqrt(shape[0]) if scale is None else scale
@@ -93,7 +107,7 @@ def bert_weights(seed=1):
     def norm():
         return {"gamma": (1.0 + vec(d)).astype(np.float32), "beta": vec(d)}
 
-    tree = {"word_embed": dense((BERT["vocab_size"], d), 0.02),
+    tree = {"word_embed": dense((vocab, d), 0.02),
             "position_embed": dense((BERT["max_seq_len"], d), 0.02),
             "token_type_embed": dense((2, d), 0.02),
             "embed_norm": norm(), "layers": {}}
@@ -110,12 +124,12 @@ def bert_weights(seed=1):
     return tree
 
 
-def bert_batch(step):
+def bert_batch(step, vocab=None):
     rng = np.random.RandomState(200 + step)
-    tok = rng.randint(0, BERT["vocab_size"], size=(BERT_BATCH, BERT_SEQ))
+    vocab = vocab or BERT["vocab_size"]
+    tok = rng.randint(0, vocab, size=(BERT_BATCH, BERT_SEQ))
     return {"tokens": tok,
-            "targets": rng.randint(0, BERT["vocab_size"],
-                                   size=(BERT_BATCH, BERT_SEQ)),
+            "targets": rng.randint(0, vocab, size=(BERT_BATCH, BERT_SEQ)),
             "mask": (rng.rand(BERT_BATCH, BERT_SEQ) < 0.3).astype(
                 np.float32)}
 
@@ -226,31 +240,95 @@ def check_checkpoint(step, p, st, mesh, tmp, name):
     return {"%s/ckpt_round_trip" % name: np.array(bool(same))}
 
 
+class _GatherLog:
+    """Records the (leaf shape, group) of every gather-on-use while
+    installed (a context manager around `collectives.gather_on_use`)."""
+
+    def __init__(self):
+        from mxnet_tpu_torch.parallel import collectives
+        self._coll = collectives
+        self.calls = []
+
+    def __enter__(self):
+        self._orig = self._coll.gather_on_use
+
+        def logged(x, axis_name, dim, summed=True):
+            group, world, _ = self._coll.resolve_group(axis_name)
+            self.calls.append((tuple(x.shape), group, world))
+            return self._orig(x, axis_name, dim, summed)
+        self._coll.gather_on_use = logged
+        return self
+
+    def __exit__(self, *exc):
+        self._coll.gather_on_use = self._orig
+
+    def over(self, group):
+        return [shape for shape, g, w in self.calls if g is group and w > 1]
+
+
 def check_bert(mx, rank, world, tmp):
     from mxnet_tpu_torch.models import bert as T
     from mxnet_tpu_torch.models.convert import params_from_jax
-    from mxnet_tpu_torch.parallel import BERT_RULES, ShardedTrainStep
+    from mxnet_tpu_torch.parallel import (BERT_RULES, ShardedTrainStep,
+                                          mesh_scope)
     out = {}
-    for name, w, axes in BERT_RUNS:
+    for name, w, axes, vocab, ruled in BERT_RUNS:
         if w != world:
             continue
-        cfg = T.BertConfig(**BERT, dtype=torch.float32)
+        cfg = T.BertConfig(**dict(BERT, vocab_size=vocab),
+                           dtype=torch.float32)
         mesh = _mesh(axes)
-        params = params_from_jax(bert_weights(), device="cpu")
+        params = params_from_jax(bert_weights(vocab=vocab), device="cpu")
+
+        def batch(s):
+            return {k: torch.from_numpy(v)
+                    for k, v in bert_batch(s, vocab).items()}
+
         step = ShardedTrainStep(lambda p, b: T.bert_mlm_loss(p, b, cfg),
-                                params, mesh, rules=BERT_RULES,
+                                params, mesh,
+                                rules=BERT_RULES if ruled else None,
                                 optimizer="adamw", lr=LR, wd=WD, eps=EPS)
         p, st = step.init()
         for k, v in _flat(p):
             out["bert_%s/block/%s" % (name, k)] = np.array(v.shape)
+        # the reduced gradients of the first batch
+        with mesh_scope(mesh):
+            _, g = step._value_and_grad(p, step.shard_batch(batch(0)))
+        g = dict(_flat(step._reduce(g)))
+        for k in BERT_GRADS:
+            out["bert_%s/grad/%s" % (name, k)] = g[k].numpy()
         losses = []
-        for s in range(STEPS):
-            b = {k: torch.from_numpy(v) for k, v in bert_batch(s).items()}
-            p, st, loss = step(p, st, step.shard_batch(b))
-            losses.append(loss.item())
+        with _GatherLog() as log:
+            for s in range(STEPS):
+                p, st, loss = step(p, st, step.shard_batch(batch(s)))
+                losses.append(loss.item())
+        # no leaf of the layers or the embeddings is gathered over model
+        out["bert_%s/model_gathers" % name] = np.array(
+            len(log.over(mesh.group("model"))))
         out["bert_%s/losses" % name] = np.array(losses)
         for k, v in _flat(step.gather(p)):
             out["bert_%s/p/%s" % (name, k)] = v.numpy()
+        if name == "data2_model2":
+            # the same rules with no leaf consumed in place gather every
+            # split over model (the whole-model route) to the same numbers
+            # fresh leaves: a step updates its replicated leaves in place
+            params = params_from_jax(bert_weights(vocab=vocab), device="cpu")
+            gstep = ShardedTrainStep(
+                lambda p, b: T.bert_mlm_loss(p, b, cfg), params, mesh,
+                rules=BERT_RULES.without_local(), optimizer="adamw", lr=LR,
+                wd=WD, eps=EPS)
+            gp, gst = gstep.init()
+            glosses = []
+            with _GatherLog() as log:
+                for s in range(STEPS):
+                    gp, gst, loss = gstep(gp, gst,
+                                          gstep.shard_batch(batch(s)))
+                    glosses.append(loss.item())
+            out["bert_gathered/model_gathers"] = np.array(
+                len(log.over(mesh.group("model"))))
+            out["bert_gathered/losses"] = np.array(glosses)
+            for k, v in _flat(gstep.gather(gp)):
+                out["bert_gathered/p/%s" % k] = v.numpy()
     return out
 
 

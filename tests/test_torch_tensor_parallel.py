@@ -11,9 +11,11 @@ batch that the ranks split:
 * `ShardedTrainStep` under `LLAMA_RULES` (llama_tiny, fp32, AdamW, 4
   steps) on ``fsdp=2, model=2`` (world 4) and ``model=2`` (world 2), each
   also at ``n_kv_heads=1`` (``wk``/``wv`` split mid-head, gathered on
-  use), with ``zero=True`` on ``data=2, model=2``, and under `BERT_RULES`
-  on ``data=2, model=2``, against the reference's GSPMD step on the same
-  mesh: per-step losses and the gathered parameters within 1e-5 relative
+  use), with ``zero=True`` on ``data=2, model=2``, and BERT under
+  `BERT_RULES` on ``data=2, model=2`` (natively split, and with every
+  split gathered on use) and ``model=4``, and with no rules on
+  ``model=2``, against the reference's GSPMD step on the same mesh:
+  per-step losses and the gathered parameters within 1e-5 relative
   + 1e-6 (the ranks add their partial products and gradients in another
   order than XLA); each rank holds only its blocks. AdamW runs at lr 1e-3
   with eps 1e-4: its early steps move an element by about
@@ -165,23 +167,132 @@ def test_sharded_state_round_trips_through_a_checkpoint(world4):
         assert bool(r["fsdp2_model2/ckpt_round_trip"])
 
 
-def test_bert_rules_match_the_gspmd_step(request):
-    name, w, axes = W.BERT_RUNS[0]
-    world, res = _ranks(request, w)
-    cfg = JB.BertConfig(**W.BERT, dtype=jnp.float32)
+_BERT_REFERENCE = {}
+
+
+def _bert_reference(run):
+    """The reference's GSPMD step under the run's rules (BERT_RULES or
+    none) on its mesh: its per-step losses, final parameters and the first
+    batch's gradients (`jax.grad` of the loss on the whole batch); each
+    run's computed once."""
+    if run[0] not in _BERT_REFERENCE:
+        _BERT_REFERENCE[run[0]] = _bert_reference_run(run)
+    return _BERT_REFERENCE[run[0]]
+
+
+def _bert_reference_run(run):
+    name, w, axes, vocab, ruled = run
+    cfg = JB.BertConfig(**dict(W.BERT, vocab_size=vocab), dtype=jnp.float32)
     mesh = jmx.parallel.create_mesh(**axes)
-    step = JStep(lambda p, b: JB.bert_mlm_loss(p, b, cfg),
-                 _jnp(W.bert_weights()), mesh, rules=JBERT_RULES,
+    weights = _jnp(W.bert_weights(vocab=vocab))
+
+    def loss_fn(p, b):
+        return JB.bert_mlm_loss(p, b, cfg)
+
+    grads = _flat(jax.grad(loss_fn)(weights, _jnp(W.bert_batch(0, vocab))))
+    step = JStep(loss_fn, weights, mesh,
+                 rules=JBERT_RULES if ruled else None,
                  optimizer="adamw", lr=W.LR, wd=W.WD, eps=W.EPS, donate=False)
     p, s = step.init()
     losses = []
     for i in range(W.STEPS):
-        p, s, loss = step(p, s, _jnp(W.bert_batch(i)))
+        p, s, loss = step(p, s, _jnp(W.bert_batch(i, vocab)))
         losses.append(float(loss))
-    _held(res, "bert_" + name, losses, p)
-    # the word embedding's vocab rows are split over model
-    assert res[0]["bert_%s/block/word_embed" % name][0] == \
-        W.BERT["vocab_size"] // axes["model"]
+    return losses, p, grads
+
+
+def _bert_native(res, run, losses, p, grads):
+    """The native route's checks: losses within 1e-6 relative and the
+    parameters as `_held`; no layer or embedding leaf gathered over
+    model; the reduced gradients of the biases read in model slices
+    (summed over model) and of the biases and LayerNorms after a
+    row-parallel sum (not summed) against `jax.grad`."""
+    name = run[0]
+    prefix = "bert_" + name
+    _held(res, prefix, losses, p)
+    for r in res:
+        np.testing.assert_allclose(r[prefix + "/losses"], losses, rtol=1e-6)
+        assert int(r[prefix + "/model_gathers"]) == 0
+        for k in W.BERT_GRADS:
+            np.testing.assert_allclose(r["%s/grad/%s" % (prefix, k)],
+                                       grads[k], rtol=STEP_RTOL,
+                                       atol=STEP_ATOL, err_msg=k)
+
+
+def test_bert_rules_match_the_gspmd_step(request):
+    """Native Megatron under BERT_RULES on data=2, model=2: the vocab,
+    heads and FFN columns split over model, no leaf gathered over it."""
+    run = W.BERT_RUNS[0]
+    name, w, axes, vocab, _ = run
+    world, res = _ranks(request, w)
+    losses, p, grads = _bert_reference(run)
+    _bert_native(res, run, losses, p, grads)
+    # the word embedding's vocab rows, the heads and the FFN columns are
+    # split over model
+    m = axes["model"]
+    blocks = {k: tuple(res[0]["bert_%s/block/%s" % (name, k)])
+              for k in ("word_embed", "position_embed", "token_type_embed",
+                        "layers/0/attn/wq", "layers/0/attn/wo",
+                        "layers/0/ffn/w1", "layers/0/ffn/w2",
+                        "layers/0/attn/bq")}
+    d, hid = W.BERT["dim"], W.BERT["hidden_dim"]
+    assert blocks == {
+        "word_embed": (vocab // m, d),
+        "position_embed": (W.BERT["max_seq_len"] // m, d),
+        "token_type_embed": (2 // m, d),
+        "layers/0/attn/wq": (d, d // m), "layers/0/attn/wo": (d // m, d),
+        "layers/0/ffn/w1": (d, hid // m), "layers/0/ffn/w2": (hid // m, d),
+        "layers/0/attn/bq": (d,)}
+
+
+def test_bert_model4_with_a_vocab_model_does_not_divide(request):
+    """model=4, data=1 with a vocab of 258: word_embed and
+    token_type_embed arrive whole (the unsplit lookup and decoder) while
+    the layers and position_embed stay split."""
+    run = W.BERT_RUNS[1]
+    name, w, axes, vocab, _ = run
+    world, res = _ranks(request, w)
+    losses, p, grads = _bert_reference(run)
+    _bert_native(res, run, losses, p, grads)
+    d = W.BERT["dim"]
+    assert tuple(res[0]["bert_%s/block/word_embed" % name]) == (vocab, d)
+    assert tuple(res[0]["bert_%s/block/token_type_embed" % name]) == (2, d)
+    assert tuple(res[0]["bert_%s/block/layers/1/attn/wk" % name]) == \
+        (d, d // 4)
+
+
+def test_bert_with_no_rules_on_a_model_mesh(world2):
+    """No rules on data=1, model=2: every leaf replicated, each layer
+    computed whole on both ranks. The biases that a split would read in
+    slices get the whole gradient on every rank, so the replicated leaves
+    stay equal across the ranks and match the reference."""
+    run = W.BERT_RUNS[2]
+    world, res = world2
+    losses, p, grads = _bert_reference(run)
+    _bert_native(res, run, losses, p, grads)
+    d = W.BERT["dim"]
+    assert tuple(res[0]["bert_%s/block/layers/0/attn/wq" % run[0]]) == \
+        (d, d)
+
+
+def test_bert_gather_on_use_route_matches_the_native_one(world4):
+    """The same rules with no leaf consumed in place (every split gathered
+    over model on use): losses within 1e-6 relative of the reference's
+    GSPMD step and parameters as `_held`, and the native route's
+    parameters."""
+    world, res = world4
+    assert int(res[0]["bert_gathered/model_gathers"]) > 0
+    losses, p, _ = _bert_reference(W.BERT_RUNS[0])
+    _held(res, "bert_gathered", losses, p)
+    for r in res:
+        np.testing.assert_allclose(r["bert_gathered/losses"], losses,
+                                   rtol=1e-6)
+    for k in (k[len("bert_gathered/p/"):] for k in res[0]
+              if k.startswith("bert_gathered/p/")):
+        np.testing.assert_allclose(res[0]["bert_gathered/p/" + k],
+                                   res[0]["bert_data2_model2/p/" + k],
+                                   rtol=STEP_RTOL, atol=STEP_ATOL,
+                                   err_msg=k)
 
 
 @pytest.mark.parametrize("world", [2, 4], ids=["world2", "world4"])
