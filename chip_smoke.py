@@ -5,7 +5,8 @@
 Phases (one JSON line each; any failure exits non-zero):
 
 1. build       — nvcc builds every kernel source of the paths from csrc/
-                 (one nvcc per source, all started together).
+                 (one nvcc per source, all started together), and g++ the
+                 data pipeline's host helpers (native/) beside them.
 2. kernel      — the forward kernel against its plain PyTorch version on
                  the card, at the main path's shapes and edge shapes
                  (ragged causal Sq != Sk both ways, rows with no visible
@@ -223,7 +224,7 @@ Phases (one JSON line each; any failure exits non-zero):
                  1,024 seeded 256x341 uint8 images in a memory-mapped .npy,
                  RandomResizedCrop(224), flips, colour jitter, lighting,
                  ToTensor, Normalize in 4 and then min(16, cpus) spawned
-                 workers, batch 256; 2 warm-up and 10 timed steps each,
+                 workers, batch 256; 2 warm-up and 6 timed steps each,
                  Accuracy, TopKAccuracy(5) and a Speedometer; the loader's
                  share of the step; labels in the sampler's order, no
                  worker with CUDA, workers bit-equal to the main process on
@@ -233,20 +234,33 @@ Phases (one JSON line each; any failure exits non-zero):
                  classes) traced on mx.sym.Variable("data") with
                  SoftmaxOutput, mx.mod.Module(context=gpu(0)).fit with
                  Xavier, SGD (lr 0.01, momentum 0.9), Accuracy, a
-                 Speedometer and do_checkpoint, batch 128 from an
-                 NDArrayIter on the host (one seeded 224x224 batch, 1000
-                 classes, repeated; the example's ImageRecordIter is not
-                 ported): 3 warm-up and 10 timed batches on the whole-graph
-                 route, under cuDNN's deterministic algorithms; images/s,
-                 the median step by CUDA events, Module.update's host ms,
-                 whole-graph runs, compiler.fallback (0), peak memory, a
-                 profiled step; losses falling, all 53 running means
-                 moved; score and predict over 4 batches, Module.load of
-                 the checkpoint predicting bit-equal; one step with
-                 MXNET_TPU_WHOLE_GRAPH=0 against the whole-graph route and
-                 3 Module steps against 3 imperative Gluon steps
-                 (Trainer + SoftmaxCrossEntropyLoss), each within twice the
-                 route's own spread under a one-ulp weight change.
+                 Speedometer and do_checkpoint, batch 128 from
+                 mx.io.ImageRecordIter with the example's arguments
+                 (shuffle, seed 1, rand_crop, rand_mirror, scale 1/255, 4
+                 decode threads) at 3x224x224 over a pack of 640 seeded
+                 uint8 images (1000 classes, 256 rows by 256-340 columns,
+                 .npy payloads) written with the port's recordio, 3
+                 epochs: 3 warm-up and 12 timed batches across two epoch
+                 boundaries on the whole-graph route, under cuDNN's
+                 deterministic algorithms; the first batch bit-equal to a
+                 numpy reading of the same records with the same draws;
+                 images/s, the median step by CUDA events, the host ms
+                 blocked in the iterator's next() a step, Module.update's
+                 host ms, whole-graph runs, compiler.fallback (0), peak
+                 memory, a profiled step; losses falling, all 53 running
+                 means moved; score and predict over 4 batches,
+                 Module.load of the checkpoint predicting bit-equal; one
+                 step with MXNET_TPU_WHOLE_GRAPH=0 against the whole-graph
+                 route and 3 Module steps against 3 imperative Gluon steps
+                 (Trainer + SoftmaxCrossEntropyLoss) on one seeded
+                 NDArrayIter batch, each within twice the route's own
+                 spread under a one-ulp weight change.
+   image_io    — no model: path 12's .idx deleted and rebuilt by the
+                 native framing scan, equal to the written one;
+                 ImageRecordIter alone over the pack into the card, 10
+                 batches at 4 and at min(16, cpus) decode threads, beside
+                 the images/s path 12's step consumed; whether PIL
+                 imports.
 30. gluon_word_lm — examples/word_lm.py's WordLM (Embedding -> rnn.LSTM
                  NTC -> Dropout -> Dense) at upstream MXNet's medium Gluon
                  word-LM widths (emsize 650, nhid 650, 2 layers, dropout
@@ -282,7 +296,13 @@ Phases (one JSON line each; any failure exits non-zero):
                  six maps' sizes and ratios (6,132 anchors), 21 classes,
                  built from public Gluon blocks as examples/ssd_detection.py
                  builds TinySSD; batch 32 at 512x512 of seeded synthetic
-                 images and boxes (1 to 8 a image, 16 label rows);
+                 images and boxes (1 to 8 a image, 16 label rows), packed
+                 with their boxes as detection labels and read back by
+                 mx.image.ImageDetIter with no random augmentation (each
+                 batch, /255 in the path's NHWC layout, bit-equal to the
+                 arrays; the first step's loss equal to the array-fed
+                 first step's within twice the spread of two array-fed
+                 runs);
                  MultiBoxTarget with hard-negative mining,
                  SoftmaxCrossEntropyLoss with the keep mask, HuberLoss,
                  Trainer("sgd", lr 0.002, momentum 0.9, wd 5e-4): 3 warm-up
@@ -382,7 +402,7 @@ Phases (one JSON line each; any failure exits non-zero):
                  autograd.Function), against the whole-sequence kernels.
 38. tensor_parallel — main path 20, tensor and FSDP parallelism. In this
                  process llama3_8b_dry (8B widths, 2 layers, GQA 32/8, D
-                 128, remat) from seeded weights, fp32 and bf16, 3 AdamW
+                 128, remat) from seeded weights, fp32 and bf16, 2 AdamW
                  steps (lr 1e-5, eps 1e-4) on one rank on a global batch
                  of 4 x 513 tokens; then four ranks under `python -m
                  mxnet_tpu_torch.launch` (all on the one card over gloo,
@@ -494,8 +514,10 @@ Exits non-zero without a CUDA card.
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import contextlib
 import dataclasses
+import io
 import itertools
 import json
 import math
@@ -675,10 +697,16 @@ def backward_bounds(B, H, Hkv, Sq, Sk, D, causal, dtype):
 
 
 def phase_build():
+    from mxnet_tpu_torch import native
     from mxnet_tpu_torch.ops import KERNELS
     from mxnet_tpu_torch.ops._build import build, build_log
     t0 = time.perf_counter()
-    seconds = build(list(KERNELS))
+    # the data pipeline's g++ host helpers, beside the nvcc builds
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        host = pool.submit(native.build)
+        seconds = build(list(KERNELS))
+        host.result()
+    seconds["native/mxnet_tpu_native.cc"] = time.perf_counter() - t0
     sources = sorted({source for source, _ in KERNELS.values()})
     ptxas = {src: [ln.strip() for ln in (build_log(src) or "").splitlines()
                    if "registers" in ln or "spill" in ln]
@@ -5280,7 +5308,7 @@ def phase_gluon_mlp(tmp):
 # -- main path 11: ResNet-50 fed by a GluonCV-style DataLoader --------------
 IMNET_N, IMNET_H, IMNET_W = 1024, 256, 341     # short side 256 at 4:3
 LOADER_BATCH = 256
-LOADER_WARMUP, LOADER_STEPS = 2, 10
+LOADER_WARMUP, LOADER_STEPS = 2, 6
 LOADER_WORKERS = 4                  # train_imagenet.py --num-data-workers
 IMNET_MEAN, IMNET_STD = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
 
@@ -5531,7 +5559,12 @@ def phase_resnet_dataloader(tmp):
 
 # -- main path 12: ResNet-50 through the symbolic Module API ---------------
 MODULE_BATCH, MODULE_IMAGE, MODULE_CLASSES = 128, 224, 1000
-MODULE_WARMUP, MODULE_STEPS = 3, 10
+MODULE_PACK_BATCHES = 5         # an epoch of the pack: 640 records
+MODULE_EPOCHS = 3               # 15 batches: the timed ones cross two
+MODULE_WARMUP, MODULE_STEPS = 3, 12     # epoch boundaries (reset, reshuffle)
+MODULE_SHORT, MODULE_WIDTHS = 256, (256, 340)   # the pack's image sizes
+MODULE_ITER = dict(shuffle=True, seed=1, rand_crop=True, rand_mirror=True,
+                   scale=1.0 / 255, preprocess_threads=4)  # the example's
 MODULE_EVAL_BATCHES = 4
 MODULE_SEED = 0
 MODULE_SGD = {"learning_rate": 0.01, "momentum": 0.9}
@@ -5559,12 +5592,66 @@ def module_symbol(mx):
 
 def module_data(batch, image, n_batches, seed=MODULE_SEED):
     """One seeded batch (N(0, 1) images, labels uniform over the 1000
-    classes) repeated `n_batches` times, on the host: a fixed batch, as
-    path 4 trains on, so that a falling loss shows the update learns."""
+    classes) repeated `n_batches` times, on the host: the inputs of the
+    legs that compare two routes on one batch."""
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((batch, 3, image, image), dtype=np.float32)
     y = rng.integers(0, MODULE_CLASSES, batch).astype(np.float32)
     return np.tile(x, (n_batches, 1, 1, 1)), np.tile(y, n_batches)
+
+
+def module_pack(prefix, n, seed=MODULE_SEED):
+    """`n` seeded uint8 HWC images, MODULE_SHORT rows by a width drawn in
+    MODULE_WIDTHS, each its class's color (1000 classes) plus noise in
+    +-40, as examples/train_image_classification.py makes its pack (a
+    class-dependent mean), written with the port's recordio as .npy
+    payloads to prefix.rec/.idx. Returns the labels."""
+    from mxnet_tpu_torch import recordio
+    rng = np.random.default_rng(seed)
+    colors = rng.integers(40, 216, (MODULE_CLASSES, 3), dtype=np.int16)
+    labels = rng.integers(0, MODULE_CLASSES, n)
+    widths = rng.integers(MODULE_WIDTHS[0], MODULE_WIDTHS[1] + 1, n)
+    w = recordio.MXIndexedRecordIO(prefix + ".idx", prefix + ".rec", "w")
+    for i in range(n):
+        noise = rng.integers(-40, 41, (MODULE_SHORT, widths[i], 3),
+                             dtype=np.int16)
+        img = np.clip(colors[labels[i]] + noise, 0, 255).astype(np.uint8)
+        w.write_idx(i, recordio.pack_img(
+            recordio.IRHeader(0, float(labels[i]), i, 0), img))
+    w.close()
+    return labels
+
+
+def record_iter_first_batch(rec, idx, batch, shape, seed, scale):
+    """The first batch of ImageRecordIter(shuffle, rand_crop,
+    rand_mirror, mean 0, std 1, `scale`) over the pack, read with numpy:
+    the epoch-0 order from RandomState((seed * 2654435761) % 2^32), each
+    record's crop and mirror from RandomState((seed * 1000003 + position)
+    % 2^32), and the plain version of the native normalize pass.
+    Returns (NCHW float32, labels)."""
+    from mxnet_tpu_torch import native, recordio
+    reader = recordio.MXIndexedRecordIO(idx, rec, "r")
+    order = np.array(reader.keys)
+    np.random.RandomState((seed * 2654435761) % (1 << 32)).shuffle(order)
+    c, h, w = shape
+    hwc = np.empty((batch, h, w, c), np.uint8)
+    labels = np.empty(batch, np.float32)
+    for pos, key in enumerate(order[:batch]):
+        rng = np.random.RandomState((seed * 1000003 + pos) % (1 << 32))
+        header, payload = recordio.unpack(reader.read_idx(int(key)))
+        img = np.load(io.BytesIO(payload), allow_pickle=False)
+        y0 = rng.randint(0, img.shape[0] - h + 1)
+        x0 = rng.randint(0, img.shape[1] - w + 1)
+        img = img[y0:y0 + h, x0:x0 + w]
+        if rng.randint(2):
+            img = img[:, ::-1]
+        hwc[pos] = img
+        labels[pos] = header.label
+    reader.close()
+    chw = native.batch_to_chw_norm_plain(
+        hwc, np.zeros(c, np.float32) / 255.0, np.ones(c, np.float32) / 255.0)
+    chw *= scale
+    return chw, labels
 
 
 def module_iter(mx, x, y, batch):
@@ -5667,14 +5754,20 @@ def gluon_three_steps(mx, ctx, batch_data, arg_params, aux_params):
 def phase_module_resnet50(tmp, batch=MODULE_BATCH, image=MODULE_IMAGE):
     """Main path 12: examples/train_image_classification.py --api module
     at full width: resnet50_v1 traced to a symbol, Module(context=gpu)
-    .fit with SGD-momentum (lr 0.01, 0.9) and Xavier init over an
-    NDArrayIter, 3 warm-up and 10 timed batches, Speedometer and
+    .fit with SGD-momentum (lr 0.01, 0.9) and Xavier init over
+    mx.io.ImageRecordIter with the example's arguments, reading a pack of
+    MODULE_PACK_BATCHES batches written with the port's recordio, for
+    MODULE_EPOCHS epochs: 3 warm-up and 12 timed batches that cross two
+    epoch boundaries (reset and reshuffle), Speedometer and
     do_checkpoint; counts reset just before the timed batches and read
-    just after. Then score and predict over 4 batches, Module.load of the
-    checkpoint (predictions bit-equal), one step with
-    MXNET_TPU_WHOLE_GRAPH=0 against the whole-graph route, 3 Module steps
-    against 3 imperative Gluon steps, and a profiled step. Returns the
-    launches of the timed batches."""
+    just after. The first batch equals the numpy reading of the same
+    records with the same draws bit for bit. Then score and predict over
+    4 batches, Module.load of the checkpoint (predictions bit-equal), one
+    step with MXNET_TPU_WHOLE_GRAPH=0 against the whole-graph route, 3
+    Module steps against 3 imperative Gluon steps (these legs on one
+    seeded NDArrayIter batch), and a profiled step. Returns (the launches
+    of the timed batches, the pack's prefix, the images/s the step
+    consumed)."""
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch import telemetry
     from mxnet_tpu_torch.ops import (launch_counts, reset_launch_counts,
@@ -5684,13 +5777,26 @@ def phase_module_resnet50(tmp, batch=MODULE_BATCH, image=MODULE_IMAGE):
     torch.backends.cudnn.deterministic = True
     _, sym = module_symbol(mx)
     n_trainable = len(sym.list_arguments()) - 2
-    n_batches = MODULE_WARMUP + MODULE_STEPS
-    x, y = module_data(batch, image, n_batches)
-    it = module_iter(mx, x, y, batch)
+    n_batches = MODULE_EPOCHS * MODULE_PACK_BATCHES
+    pack = os.path.join(tmp, "train")
+    t0 = time.perf_counter()
+    module_pack(pack, MODULE_PACK_BATCHES * batch)
+    pack_s = time.perf_counter() - t0
+    pack_bytes = os.path.getsize(pack + ".rec")
+    shape = (3, image, image)
+    it = mx.io.ImageRecordIter(path_imgrec=pack + ".rec",
+                               path_imgidx=pack + ".idx", data_shape=shape,
+                               batch_size=batch, **MODULE_ITER)
+    want_x, want_y = record_iter_first_batch(
+        pack + ".rec", pack + ".idx", batch, shape, MODULE_ITER["seed"],
+        MODULE_ITER["scale"])
+    x, y = module_data(batch, image, MODULE_EVAL_BATCHES)
     telemetry.reset()
     mod = mx.mod.Module(sym, context=gpu)
     update_ms, step_events, step_wall, losses, counted = [], [], [], [], {}
+    next_ms, seen = [], []
     update = mod.update
+    it_next = it.next
 
     def timed_update():
         t0 = time.perf_counter()
@@ -5698,22 +5804,38 @@ def phase_module_resnet50(tmp, batch=MODULE_BATCH, image=MODULE_IMAGE):
         update_ms.append((time.perf_counter() - t0) * 1e3)
     mod.update = timed_update
 
+    def timed_next():
+        t0 = time.perf_counter()
+        try:
+            return it_next()
+        finally:
+            if counted.get("timing"):
+                next_ms.append((time.perf_counter() - t0) * 1e3)
+    it.next = timed_next
+
     def on_batch(param):
+        nbatch = len(seen)
+        seen.append(param.epoch)
         ev = torch.cuda.Event(enable_timing=True)
         ev.record()
         step_events.append(ev)
-        losses.append(ce_loss(mod.get_outputs()[0],
-                              param.locals["data_batch"].label[0]))
-        if param.nbatch == MODULE_WARMUP - 1:
+        data_batch = param.locals["data_batch"]
+        losses.append(ce_loss(mod.get_outputs()[0], data_batch.label[0]))
+        if nbatch == 0:
+            counted["first_x"] = data_batch.data[0].asnumpy()
+            counted["first_y"] = data_batch.label[0].asnumpy()
+        if nbatch == MODULE_WARMUP - 1:
             torch.cuda.synchronize()
             counted["runs0"] = telemetry.counter_value(
                 "compiler.program_runs")
             torch.cuda.reset_peak_memory_stats()
             reset_launch_counts()
+            counted["timing"] = True
             step_wall.append(time.perf_counter())
-        elif param.nbatch == n_batches - 1:
+        elif nbatch == n_batches - 1:
             torch.cuda.synchronize()
             step_wall.append(time.perf_counter())
+            counted["timing"] = False
             counted["launches"] = launch_counts()
             counted["variants"] = variant_counts()
             counted["runs"] = telemetry.counter_value(
@@ -5728,11 +5850,12 @@ def phase_module_resnet50(tmp, batch=MODULE_BATCH, image=MODULE_IMAGE):
     init_args = {k: v.copy() for k, v in args0.items()}
     init_auxs = {k: v.copy() for k, v in auxs0.items()}
     t_fit = time.perf_counter()
-    mod.fit(it, num_epoch=1, optimizer="sgd",
+    mod.fit(it, num_epoch=MODULE_EPOCHS, optimizer="sgd",
             optimizer_params=dict(MODULE_SGD), eval_metric="acc",
             batch_end_callback=[on_batch,
                                 mx.callback.Speedometer(batch, 5)],
-            epoch_end_callback=mx.callback.do_checkpoint(prefix))
+            epoch_end_callback=mx.callback.do_checkpoint(
+                prefix, period=MODULE_EPOCHS))
     fit_s = time.perf_counter() - t_fit
     launches, variants = counted["launches"], counted["variants"]
     losses = [float(v) for v in losses]
@@ -5740,15 +5863,17 @@ def phase_module_resnet50(tmp, batch=MODULE_BATCH, image=MODULE_IMAGE):
                 zip(step_events[MODULE_WARMUP - 1:-1],
                     step_events[MODULE_WARMUP:])]
     window_s = step_wall[1] - step_wall[0]
+    first_equal = bool(np.array_equal(counted["first_x"], want_x)
+                       and np.array_equal(counted["first_y"], want_y))
     args_after, auxs_after = mod.get_params()
     moved = sum(not torch.equal(auxs_after[k].data_torch,
                                 init_auxs[k].data_torch)
                 for k in init_auxs if k.endswith("running_mean"))
     fallback = telemetry.counter_value("compiler.fallback")
+    del it.next, it_next, it     # the iterator's prefetcher stops
 
     # score and predict over 4 batches in inference mode
-    eval_it = module_iter(mx, x[:MODULE_EVAL_BATCHES * batch],
-                          y[:MODULE_EVAL_BATCHES * batch], batch)
+    eval_it = module_iter(mx, x, y, batch)
     score = mod.score(eval_it, "acc")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -5762,7 +5887,7 @@ def phase_module_resnet50(tmp, batch=MODULE_BATCH, image=MODULE_IMAGE):
     predict2_s = time.perf_counter() - t0
 
     # the checkpoint do_checkpoint wrote, loaded into a new Module
-    loaded = mx.mod.Module.load(prefix, 1, context=gpu)
+    loaded = mx.mod.Module.load(prefix, MODULE_EPOCHS, context=gpu)
     loaded.bind(data_shapes=eval_it.provide_data,
                 label_shapes=eval_it.provide_label, for_training=False)
     reloaded_equal = torch.equal(loaded.predict(eval_it).data_torch, pred_t)
@@ -5823,9 +5948,18 @@ def phase_module_resnet50(tmp, batch=MODULE_BATCH, image=MODULE_IMAGE):
 
     step_med = statistics.median(timed_ms)
     rec = {"phase": phase, "config": "resnet50_v1 composed NCHW fp32, "
-           "Module.fit sgd lr 0.01 momentum 0.9, Xavier",
+           "Module.fit sgd lr 0.01 momentum 0.9, Xavier, over "
+           "ImageRecordIter(%s)" % ", ".join(
+               "%s=%s" % kv for kv in MODULE_ITER.items()),
            "batch": batch, "image": image, "warmup": MODULE_WARMUP,
-           "steps": MODULE_STEPS, "trainable_arguments": n_trainable,
+           "steps": MODULE_STEPS, "epochs": MODULE_EPOCHS,
+           "epochs_seen": sorted(set(seen)),
+           "trainable_arguments": n_trainable,
+           "pack_records": MODULE_PACK_BATCHES * batch,
+           "pack_bytes": pack_bytes, "pack_write_s": pack_s,
+           "first_batch_bit_equal_numpy": first_equal,
+           "iter_next_host_ms_per_step": sum(next_ms) / MODULE_STEPS,
+           "iter_next_host_ms": next_ms,
            "images_per_s": MODULE_STEPS * batch / window_s,
            "window_s": window_s, "fit_s": fit_s,
            "step_ms_median": step_med, "step_ms": timed_ms,
@@ -5860,6 +5994,12 @@ def phase_module_resnet50(tmp, batch=MODULE_BATCH, image=MODULE_IMAGE):
     check(counted["runs"] == MODULE_STEPS, phase,
           "%s whole-graph runs in %d steps" % (counted["runs"],
                                                MODULE_STEPS))
+    check(first_equal, phase, "the first batch differs from the numpy "
+          "reading of the pack")
+    check(len(seen) == n_batches and sorted(set(seen)) == list(
+        range(MODULE_EPOCHS)), phase, "batches %d over epochs %s, expected "
+          "%d over %d" % (len(seen), sorted(set(seen)), n_batches,
+                          MODULE_EPOCHS))
     check(fallback == 0, phase, "compiler.fallback %s" % fallback)
     check(all(np.isfinite(losses)) and statistics.mean(losses[-3:])
           < statistics.mean(losses[:3]), phase,
@@ -5876,8 +6016,68 @@ def phase_module_resnet50(tmp, batch=MODULE_BATCH, image=MODULE_IMAGE):
           and vs_gluon["module_vs_gluon"]["max"] <= vs_gluon["max_limit"],
           phase, "Module vs Gluon after 3 steps: %s" % vs_gluon)
     check(profile["device_ms"] > 0, phase, "the profiler saw no device time")
-    return launches
+    return launches, pack, MODULE_STEPS * batch / window_s
 
+
+
+IMAGE_IO_BATCHES = 10           # two epochs of path 12's pack a timing
+
+
+def phase_image_io(pack, consumed_ips, batch=MODULE_BATCH,
+                   image=MODULE_IMAGE):
+    """The image pipeline alone, no model: path 12's .idx deleted and
+    rebuilt by the native framing scan (equal to the written one, byte for
+    byte), and ImageRecordIter with the example's arguments over the pack
+    into gpu(0), IMAGE_IO_BATCHES batches from construction at 4 and at
+    min(16, cpus) decode threads, beside the images/s that path 12's step
+    consumed; whether PIL imports here."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import recordio
+    phase = "image_io"
+    try:
+        import PIL
+        pil = PIL.__version__
+    except ImportError:
+        pil = None
+    with open(pack + ".idx", "rb") as f:
+        written = f.read()
+    os.remove(pack + ".idx")
+    t0 = time.perf_counter()
+    reader = recordio.MXIndexedRecordIO(pack + ".idx", pack + ".rec", "r")
+    rebuild_ms = (time.perf_counter() - t0) * 1e3
+    reader.rebuild_index(write=True)
+    reader.close()
+    with open(pack + ".idx", "rb") as f:
+        rebuilt = f.read()
+    rates = {}
+    for threads in sorted({4, min(16, os.cpu_count() or 1)}):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        it = mx.io.ImageRecordIter(
+            path_imgrec=pack + ".rec", path_imgidx=pack + ".idx",
+            data_shape=(3, image, image), batch_size=batch,
+            **dict(MODULE_ITER, preprocess_threads=threads))
+        n = 0
+        while n < IMAGE_IO_BATCHES:
+            try:
+                it.next()
+            except StopIteration:
+                it.reset()
+                continue
+            n += 1
+        torch.cuda.synchronize()
+        rates[threads] = n * batch / (time.perf_counter() - t0)
+        del it
+    emit({"phase": phase, "pack_bytes": os.path.getsize(pack + ".rec"),
+          "records": len(reader.keys), "index_rebuild_ms": rebuild_ms,
+          "index_rebuilt_equal_written": rebuilt == written,
+          "iter_images_per_s_by_threads": rates,
+          "module_step_images_per_s": consumed_ips, "batches": n,
+          "pil": pil, "cpus": os.cpu_count(), "card": card_name_and_limit()})
+    check(rebuilt == written, phase, "the rebuilt .idx differs from the "
+          "written one")
+    check(len(reader.keys) == MODULE_PACK_BATCHES * batch, phase,
+          "%d records rebuilt" % len(reader.keys))
 
 
 # -- main path 13: the Gluon word-level language model ---------------------
@@ -6908,6 +7108,36 @@ def ssd_inputs(mx, x, y, ctx, dtype):
     return xs, mx.nd.array(y, ctx=ctx)
 
 
+def ssd_pack(prefix, data):
+    """The images of `data` (ssd_data's batches, in order) written with
+    the port's recordio as .npy payloads, each with its boxes as a packed
+    detection label [2, 5, cls, x1, y1, x2, y2, ...] (the rows that are
+    not -1)."""
+    from mxnet_tpu_torch import recordio
+    w = recordio.MXIndexedRecordIO(prefix + ".idx", prefix + ".rec", "w")
+    i = 0
+    for x, y in data:
+        for img, lab in zip(x, y):
+            label = np.concatenate([[2, 5], lab[lab[:, 0] >= 0].ravel()])
+            w.write_idx(i, recordio.pack_img(recordio.IRHeader(
+                0, label.astype(np.float32), i, 0), img))
+            i += 1
+    w.close()
+
+
+def ssd_iter_inputs(mx, batch, dtype):
+    """An ImageDetIter batch (NCHW float32 of uint8 values; labels
+    (batch, objects, 5)) in the path's layout: NHWC, / 255, in `dtype`;
+    labels padded with -1 rows to SSD_MAX_BOXES."""
+    xs = (mx.nd.transpose(batch.data[0], axes=(0, 2, 3, 1))
+          / 255.0).astype(dtype)
+    lab = batch.label[0]
+    t = torch.nn.functional.pad(lab.data_torch,
+                                (0, 0, 0, SSD_MAX_BOXES - lab.shape[1]),
+                                value=-1.0)
+    return xs, mx.nd.NDArray(t, ctx=lab.context)
+
+
 def ssd_step(mx, net, anchors, x, y, trainer, cls_loss, box_loss):
     """One training step: heads to fp32, MultiBoxTarget with hard-negative
     mining, SoftmaxCrossEntropyLoss with the keep mask, HuberLoss on the
@@ -6974,7 +7204,10 @@ def phase_ssd_resnet50(batch=SSD_BATCH, image=SSD_IMAGE):
     (heads cast to fp32 before the MultiBox ops and losses), 21 classes,
     6,132 anchors; Trainer("sgd", lr 0.002, momentum 0.9, wd 0.0005) as
     upstream's train.py; seeded synthetic images and boxes (VOC is not in
-    the repository). Counts set to 0 just before the timed training steps
+    the repository), packed and read back by ImageDetIter with no random
+    augmentation, each batch bit-equal to the arrays and the first step's
+    loss equal to the array-fed one's within twice the spread of two
+    array-fed runs. Counts set to 0 just before the timed training steps
     and read just after (16 conv_bn_stats, 16 cbr_train_bwd and one multi
     flat_sgd a step, nothing else), and around one batch-32 forward in
     predict mode (16 conv_bn_relu). Every variant of #4-#6 that the path
@@ -7001,38 +7234,83 @@ def phase_ssd_resnet50(batch=SSD_BATCH, image=SSD_IMAGE):
                                  and map_hw == [(32, 32), (16, 16), (8, 8),
                                                 (4, 4), (2, 2), (1, 1)]),
           phase, "anchors %s over maps %s" % (anchors.shape, map_hw))
-    data = [ssd_inputs(mx, x, y, gpu, "bfloat16")
-            for x, y in ssd_data(2, batch, image, SSD_CLASSES)]
-    trainer = mx.gluon.Trainer(net.collect_params(), "sgd", {
-        "learning_rate": 0.002, "momentum": 0.9, "wd": 0.0005})
+    raw = ssd_data(2, batch, image, SSD_CLASSES)
+    arrays = [ssd_inputs(mx, x, y, gpu, "bfloat16") for x, y in raw]
     cls_loss = mx.gluon.loss.SoftmaxCrossEntropyLoss()
     box_loss = mx.gluon.loss.HuberLoss()
-    telemetry.reset()
+    sgd = {"learning_rate": 0.002, "momentum": 0.9, "wd": 0.0005}
+    params = net.collect_params()
+    init = {n: p.data().copy() for n, p in params.items()}
 
-    losses = []
-    for i in range(SSD_WARMUP):
-        losses.append(ssd_step(mx, net, anchors, *data[i % 2], trainer,
-                               cls_loss, box_loss)[0])
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    step_ms = []
-    reset_launch_counts()
-    t0 = time.perf_counter()
-    for i in range(SSD_STEPS):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        loss, prob, targets = ssd_step(mx, net, anchors, *data[i % 2],
-                                       trainer, cls_loss, box_loss)
-        end.record()
-        losses.append(loss)
+    def first_step_loss(x, y):
+        """The loss of the first step from the initial state."""
+        for n, p in params.items():
+            p.set_data(init[n])
+        return float(ssd_step(mx, net, anchors, x, y, mx.gluon.Trainer(
+            params, "sgd", dict(sgd)), cls_loss, box_loss)[0].asscalar())
+    array_losses = [first_step_loss(*arrays[0]) for _ in range(2)]
+    for n, p in params.items():
+        p.set_data(init[n])
+    del init
+
+    # the steps' batches: ImageDetIter over the same images packed with
+    # their boxes, no random augmentation
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ssd_") as tmp:
+        ssd_pack(os.path.join(tmp, "ssd"), raw)
+        det_it = mx.image.ImageDetIter(batch_size=batch,
+                                       data_shape=(3, image, image),
+                                       path_imgrec=os.path.join(tmp,
+                                                                "ssd.rec"))
+        iter_ms = []
+
+        def next_inputs():
+            t1 = time.perf_counter()
+            try:
+                b = det_it.next()
+            except StopIteration:
+                det_it.reset()
+                b = det_it.next()
+            out = ssd_iter_inputs(mx, b, "bfloat16")
+            iter_ms.append((time.perf_counter() - t1) * 1e3)
+            return out
+        data = [next_inputs() for _ in range(2)]
+        batches_equal = [bool(torch.equal(a.data_torch, b.data_torch)
+                              and torch.equal(la.data_torch, lb.data_torch))
+                         for (a, la), (b, lb) in zip(data, arrays)]
+        del arrays
+        trainer = mx.gluon.Trainer(params, "sgd", dict(sgd))
+        telemetry.reset()
+
+        losses = []
+        for i in range(SSD_WARMUP):
+            x, y = data[i] if i < 2 else next_inputs()
+            losses.append(ssd_step(mx, net, anchors, x, y, trainer,
+                                   cls_loss, box_loss)[0])
         torch.cuda.synchronize()
-        step_ms.append(start.elapsed_time(end))
-    window_s = time.perf_counter() - t0
-    launches, variants = launch_counts(), variant_counts()
-    peak = torch.cuda.max_memory_allocated()
-    last_x, last_y = data[(SSD_STEPS - 1) % 2]
+        torch.cuda.reset_peak_memory_stats()
+        step_ms = []
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        for i in range(SSD_STEPS):
+            x, y = next_inputs()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            loss, prob, targets = ssd_step(mx, net, anchors, x, y, trainer,
+                                           cls_loss, box_loss)
+            end.record()
+            losses.append(loss)
+            torch.cuda.synchronize()
+            step_ms.append(start.elapsed_time(end))
+        window_s = time.perf_counter() - t0
+        launches, variants = launch_counts(), variant_counts()
+        peak = torch.cuda.max_memory_allocated()
+        last_x, last_y = x, y
+        del det_it, data
     losses = [float(l.asscalar()) for l in losses]
+    spread = abs(array_losses[1] - array_losses[0])
+    first_limit = max(2.0 * spread, 4.0 * float(np.spacing(
+        np.float32(array_losses[0]))))
     # the last timed step's targets through the CPU route
     cpu = mx.cpu()
     on_cpu = [a.as_in_context(cpu) for a in (anchors, last_y, prob)]
@@ -7091,6 +7369,12 @@ def phase_ssd_resnet50(batch=SSD_BATCH, image=SSD_IMAGE):
            "warmup": SSD_WARMUP, "steps": SSD_STEPS,
            "images_per_s": batch * SSD_STEPS / window_s,
            "step_ms": step_ms, "step_ms_median": statistics.median(step_ms),
+           "input": "ImageDetIter over a pack of the 64 images, no random "
+           "augmentation", "iter_host_ms_median": statistics.median(iter_ms),
+           "iter_batches_bit_equal_arrays": batches_equal,
+           "first_step_loss_iter": losses[0],
+           "first_step_loss_arrays": array_losses,
+           "first_step_loss_limit": first_limit,
            "multibox_target_host_ms": target_ms,
            "multibox_detection_host_ms": detect_ms,
            "max_memory_allocated_bytes": peak, "profile_one_step": profile,
@@ -7131,6 +7415,11 @@ def phase_ssd_resnet50(batch=SSD_BATCH, image=SSD_IMAGE):
     check(all(np.isfinite(losses))
           and statistics.mean(losses[-3:]) < statistics.mean(losses[:3]),
           phase, "loss not finite or not falling: %s" % losses)
+    check(all(batches_equal), phase, "ImageDetIter's batches in the path's "
+          "layout differ from the arrays: %s" % batches_equal)
+    check(abs(losses[0] - array_losses[0]) <= first_limit, phase,
+          "the first step's loss from ImageDetIter %r, from the arrays %s "
+          "(limit %.3g)" % (losses[0], array_losses, first_limit))
     check(target_equal and target_err <= OPS_EXP_LOG_TOL, phase,
           "MultiBoxTarget on the card vs the CPU: cls/mask equal %s, box "
           "targets %.3g apart" % (target_equal, target_err))
@@ -8925,7 +9214,7 @@ def phase_multi_rank():
 P20_MESH = {"fsdp": 2, "model": 2}
 P20_WORLD = 4
 P20_BATCH, P20_SEQ = 4, 512     # the global batch: B 2 a rank over fsdp=2
-P20_STEPS = 3
+P20_STEPS = 2
 P20_LR, P20_EPS = 1e-5, 1e-4    # AdamW's early steps move an element by
 # about lr * g / (|g| + eps): a larger eps bounds how far a rounding
 # difference of a near-zero gradient moves the parameter (lr / eps); at
@@ -8935,7 +9224,7 @@ P20_LR, P20_EPS = 1e-5, 1e-4    # AdamW's early steps move an element by
 P20_LOSS_REL = 1e-5             # fp32 losses, split vs one rank, a step
 P20_PARAM_RTOL, P20_PARAM_ATOL = 1e-5, 1e-6   # fp32 gathered parameters
 P20_BF16_LOSS_REL = 2e-2        # bf16 losses, split vs one rank
-P20_EMBED_STEPS = 20            # bench_sparse's pushes
+P20_EMBED_STEPS = 10            # bench_sparse's pushes
 P20_C1 = dict(N=8, H=28, W=28, C=64)          # a rank's batch
 P20_C1_REL = 1e-5               # per-leaf ||mesh - one rank|| / ||one||
 P20_FULL_STEPS = 2              # llama3_8b on four cards
@@ -10126,9 +10415,12 @@ def main():
     # main path 12: ResNet-50 through mx.mod.Module.fit (counts reset inside,
     # read right after the timed batches)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_module_") as tmp:
-        module_launches = phase_module_resnet50(tmp)
-    check_path(module_launches, ("flat_sgd",), "main_path_module_resnet50")
-    torch.cuda.empty_cache()
+        module_launches, pack, module_ips = phase_module_resnet50(tmp)
+        check_path(module_launches, ("flat_sgd",),
+                   "main_path_module_resnet50")
+        torch.cuda.empty_cache()
+        # the image pipeline alone over path 12's pack (no kernel)
+        phase_image_io(pack, module_ips)
 
     # main path 13: the Gluon word LM; main path 14: an LSTM
     # BucketingModule through mx.rnn (counts reset inside, read right after

@@ -38,7 +38,11 @@ RNN/LSTM/GRU layers), `gluon.contrib.rnn` and the symbolic cells of
 `rnn` with `BucketSentenceIter`; and the reference's whole op set outside
 `mx.np`: tensor, nn, linalg, random, image, quantization and detection
 ops (`ops.contrib_vision`: the SSD MultiBox ops, NMS, ROI ops),
-`nd.contrib`'s control flow and custom ops (`operator`):
+`nd.contrib`'s control flow and custom ops (`operator`); and the data
+input of the reference's C++ IO stack: `recordio`, the host helpers of
+`native`, `image.imdecode`/`ImageIter`, `image_detection.ImageDetIter`,
+`mx.io`'s `ImageRecordIter`, `CSVIter` and `MNISTIter`, the record
+datasets of `gluon.data` and `tools.im2rec`:
 
     import mxnet_tpu_torch as mx
     net = mx.gluon.model_zoo.vision.resnet50_v1(layout="NHWC")
@@ -54,10 +58,11 @@ ops (`ops.contrib_vision`: the SSD MultiBox ops, NMS, ROI ops),
 from __future__ import annotations
 
 from . import (attribute, autograd, base, callback, compiler, context,
-               embedding, gluon, image, initializer, io, kvstore,
-               lr_scheduler, metric, model, models, module, monitor, name,
-               ndarray, operator, ops, optimizer, parallel, random, rnn,
-               serve, symbol, telemetry, util, visualization)
+               embedding, gluon, image, image_detection, initializer, io,
+               kvstore, lr_scheduler, metric, model, models, module, monitor,
+               name, native, ndarray, operator, ops, optimizer, parallel,
+               random, recordio, rnn, serve, symbol, telemetry, util,
+               visualization)
 from . import initializer as init
 from . import kvstore as kv
 from . import module as mod
@@ -72,11 +77,11 @@ from .context import Context, cpu, current_context, gpu
 __version__ = "0.1.0"
 
 __all__ = ["attribute", "autograd", "base", "callback", "compiler",
-           "context", "embedding", "gluon", "image", "init", "initializer",
-           "io", "kv", "kvstore", "lr_scheduler", "metric", "mod", "model",
-           "models", "module", "monitor", "name", "nd", "ndarray",
-           "operator", "ops",
-           "opt", "optimizer", "parallel", "random", "rnn", "serve", "sym",
+           "context", "embedding", "gluon", "image", "image_detection",
+           "init", "initializer", "io", "kv", "kvstore", "lr_scheduler",
+           "metric", "mod", "model", "models", "module", "monitor", "name",
+           "native", "nd", "ndarray", "operator", "ops", "opt", "optimizer",
+           "parallel", "random", "recordio", "rnn", "serve", "sym",
            "symbol", "telemetry", "util", "visualization", "viz",
            "AttrScope", "Context", "cpu", "gpu", "current_context",
            "MXNetError", "resolve_device"]

@@ -4,8 +4,8 @@
 and `sample`; `SimpleDataset`, `ArrayDataset` and the base of the vision
 datasets, `_DownloadedDataset`. The transform wrappers are module-level
 classes, so a dataset pickles into the DataLoader's spawned workers.
-`RecordFileDataset` needs the RecordIO reader, which the port does not
-have yet (ROADMAP Queue A 7).
+`RecordFileDataset` reads a RecordIO pack through its .idx; its reader
+pickles closed and reopens the file in the worker that reads it.
 """
 from __future__ import annotations
 
@@ -159,12 +159,21 @@ class ArrayDataset(Dataset):
 
 
 class RecordFileDataset(Dataset):
-    """A dataset over a RecordIO file: waits for the port's `recordio`."""
+    """The records of a RecordIO file, as bytes, in the order of its .idx
+    (``splitext(filename)[0] + ".idx"``, rebuilt by the framing scan where
+    it is missing). reference: data/dataset.py (RecordFileDataset)."""
 
     def __init__(self, filename):
-        raise NotImplementedError(
-            "RecordFileDataset needs recordio, which the port does not have "
-            "yet (ROADMAP Queue A 7)")
+        from ...recordio import MXIndexedRecordIO
+        self.idx_file = os.path.splitext(filename)[0] + ".idx"
+        self.filename = filename
+        self._record = MXIndexedRecordIO(self.idx_file, self.filename, "r")
+
+    def __getitem__(self, idx):
+        return self._record.read_idx(self._record.keys[idx])
+
+    def __len__(self):
+        return len(self._record.keys)
 
 
 class _DownloadedDataset(Dataset):

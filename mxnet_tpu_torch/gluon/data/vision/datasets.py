@@ -8,8 +8,9 @@ no network and downloads nothing. The samples stay on the host (`cpu()`):
 the port's default context is the card, and a dataset on it would make
 every sample a device slice.
 
-`ImageRecordDataset` and `ImageFolderDataset` need RecordIO and an image
-decoder, which the port does not have yet (ROADMAP Queue A 7).
+`ImageRecordDataset` decodes the records of a .rec pack, and
+`ImageFolderDataset` the images of root/category/ (JPEG and PNG through
+PIL, ``.npy`` with numpy), each image to an HWC array on `cpu()`.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ import numpy as _np
 
 from .... import ndarray as nd
 from ....context import cpu
+from ....recordio import unpack as rec_unpack
 from ..dataset import Dataset, _DownloadedDataset
 
 __all__ = ["MNIST", "FashionMNIST", "CIFAR10", "CIFAR100",
@@ -157,20 +159,70 @@ class CIFAR100(CIFAR10):
 
 
 class ImageRecordDataset(Dataset):
-    """A dataset over a .rec image record file: waits for the port's
-    `recordio` and image decoder."""
+    """(image, label) pairs of a .rec image pack: the image an HWC uint8
+    array on `cpu()`, the label the record header's.
+    reference: vision/datasets.py (ImageRecordDataset)."""
 
     def __init__(self, filename, flag=1, transform=None):
-        raise NotImplementedError(
-            "ImageRecordDataset needs recordio and an image decoder, which "
-            "the port does not have yet (ROADMAP Queue A 7)")
+        from ..dataset import RecordFileDataset
+        self._record = RecordFileDataset(filename)
+        self._flag = flag
+        self._transform = transform
+
+    def __len__(self):
+        return len(self._record)
+
+    def __getitem__(self, idx):
+        from ....image import imdecode
+        header, img = rec_unpack(self._record[idx])
+        img = nd.array(imdecode(img, self._flag, to_ndarray=False),
+                       ctx=cpu(), dtype="uint8")
+        if self._transform is not None:
+            return self._transform(img, header.label)
+        return img, header.label
 
 
 class ImageFolderDataset(Dataset):
-    """Images in root/category/*.jpg: waits for the port's image
-    decoder."""
+    """(image, label) pairs of the images in root/category/ (``.jpg``,
+    ``.jpeg``, ``.png`` and ``.npy``), the label being the category's rank
+    among the sorted folder names; images on `cpu()` (uint8, or float32
+    for ``.npy`` as the reference loads them).
+    reference: vision/datasets.py (ImageFolderDataset)."""
 
     def __init__(self, root, flag=1, transform=None):
-        raise NotImplementedError(
-            "ImageFolderDataset needs an image decoder (imread), which the "
-            "port does not have yet (ROADMAP Queue A 7)")
+        self._root = os.path.expanduser(root)
+        self._flag = flag
+        self._transform = transform
+        self._exts = [".jpg", ".jpeg", ".png", ".npy"]
+        self._list_images(self._root)
+
+    def _list_images(self, root):
+        self.synsets = []
+        self.items = []
+        for folder in sorted(os.listdir(root)):
+            path = os.path.join(root, folder)
+            if not os.path.isdir(path):
+                continue
+            label = len(self.synsets)
+            self.synsets.append(folder)
+            for filename in sorted(os.listdir(path)):
+                filename = os.path.join(path, filename)
+                ext = os.path.splitext(filename)[1]
+                if ext.lower() not in self._exts:
+                    continue
+                self.items.append((filename, label))
+
+    def __getitem__(self, idx):
+        from ....image import imread
+        path, label = self.items[idx]
+        if path.endswith(".npy"):
+            img = nd.array(_np.load(path), ctx=cpu())
+        else:
+            with cpu():
+                img = imread(path, self._flag)
+        if self._transform is not None:
+            return self._transform(img, label)
+        return img, label
+
+    def __len__(self):
+        return len(self.items)

@@ -11,17 +11,30 @@ Python's `random` and numpy's global generator in the reference's order,
 so one `random.seed` and `np.random.seed` give both packages the same
 output. Every array they make lies on the input's context.
 
-`imdecode`, `imread` and `ImageIter` need an image decoder and RecordIO,
-which the port does not have yet (ROADMAP Queue A 7): they raise.
+`imdecode` reads ``.npy`` payloads (what `recordio.pack_img` writes) with
+numpy, and JPEG/PNG with PIL where PIL is installed (without it such a
+payload raises an ImportError that names PIL). `ImageIter` reads a .rec
+pack, a .lst file with its root folder, or an in-memory list. It decodes
+and augments each image on the host (`cpu()`) and puts only the finished
+batch on the current context: the reference augments on its default
+context and then copies each image back to the host, which on the card
+would be an upload and a synchronizing download per image. The values
+are the same.
+
+The detection iterator and its augmenters (`image_detection`) are
+re-exported from here, as the reference does.
 """
 from __future__ import annotations
 
+import io
+import os
 import random
 
 import numpy as _np
 import torch
 
 from . import ndarray as nd
+from .context import cpu
 
 __all__ = ["imdecode", "imread", "imresize", "resize_short", "fixed_crop",
            "random_crop", "center_crop", "color_normalize",
@@ -33,16 +46,43 @@ __all__ = ["imdecode", "imread", "imresize", "resize_short", "fixed_crop",
            "ColorJitterAug", "LightingAug", "RandomGrayAug",
            "CreateAugmenter", "ImageIter"]
 
-_QUEUE_A7 = ("%s needs an image decoder and RecordIO, which the port does "
-             "not have yet (ROADMAP Queue A 7)")
-
-
 def imdecode(buf, flag=1, to_rgb=True, to_ndarray=True):
-    raise NotImplementedError(_QUEUE_A7 % "imdecode")
+    """Decode an image's bytes to an HWC uint8 array: ``.npy`` with numpy,
+    JPEG/PNG with PIL (flag 0: grayscale; to_rgb=False: BGR, as OpenCV
+    gives). An NDArray on the current context, or a numpy array with
+    to_ndarray=False. reference: image.py (imdecode)."""
+    if isinstance(buf, nd.NDArray):
+        buf = buf.asnumpy().tobytes()
+    if isinstance(buf, (bytearray, memoryview)):
+        buf = bytes(buf)
+    if buf[:6] == b"\x93NUMPY":
+        arr = _np.load(io.BytesIO(buf), allow_pickle=False)
+    else:
+        try:
+            from PIL import Image
+        except ImportError as e:
+            raise ImportError(
+                "imdecode: the payload is not .npy, and decoding JPEG/PNG "
+                "needs PIL (Pillow), which is not installed") from e
+        img = Image.open(io.BytesIO(buf))
+        if flag == 0:
+            img = img.convert("L")
+        elif img.mode != "RGB":
+            img = img.convert("RGB")
+        arr = _np.asarray(img)
+        if not to_rgb and arr.ndim == 3:
+            arr = arr[:, :, ::-1]
+    if arr.ndim == 2:
+        arr = arr[:, :, None]
+    if to_ndarray:
+        return nd.array(arr, dtype="uint8")
+    return arr
 
 
 def imread(filename, flag=1, to_rgb=True):
-    raise NotImplementedError(_QUEUE_A7 % "imread")
+    """reference: image.py (imread)."""
+    with open(filename, "rb") as f:
+        return imdecode(f.read(), flag=flag, to_rgb=to_rgb)
 
 
 # the reference's interp codes other than nearest (0)
@@ -76,6 +116,10 @@ def imresize(src, w, h, interp=1):
         t, ctx = torch.as_tensor(_np.asarray(src)), None
     if interp == 0:
         return nd.NDArray(_nearest(t, h, w).contiguous(), ctx=ctx)
+    if tuple(t.shape[:2]) == (h, w):
+        # the filters weigh each pixel 1 and its neighbours 0 at scale 1
+        return nd.NDArray(t.clone(memory_format=torch.contiguous_format),
+                          ctx=ctx)
     x = t.float()
     plane = x.dim() == 2
     if plane:
@@ -475,8 +519,180 @@ def CreateAugmenter(data_shape, resize=0, rand_crop=False, rand_resize=False,
 
 
 class ImageIter:
-    """Batches of decoded, augmented images from a .rec or .lst file:
-    waits for the port's image decoder and RecordIO."""
+    """Batches of decoded, augmented images from a .rec pack (with the
+    .idx beside it, ``splitext(path_imgrec)[0] + ".idx"``, read in its
+    order, else the records in file order), a .lst file under
+    `path_root`, or an in-memory ``imglist`` of (label, path) pairs.
+    ``num_parts`` slices the keys by floor division and drops the
+    remainder, as the reference does. Each image is decoded and augmented
+    on `cpu()`; the batch (NCHW, `dtype`) is made on the current context.
+    reference: python/mxnet/image/image.py (ImageIter)."""
 
-    def __init__(self, batch_size, data_shape, *args, **kwargs):
-        raise NotImplementedError(_QUEUE_A7 % "ImageIter")
+    def __init__(self, batch_size, data_shape, label_width=1,
+                 path_imgrec=None, path_imglist=None, path_root="",
+                 part_index=0, num_parts=1, aug_list=None, imglist=None,
+                 data_name="data", label_name="softmax_label", dtype="float32",
+                 last_batch_handle="pad", shuffle=False, **kwargs):
+        from .io.io import DataDesc
+        assert path_imgrec or path_imglist or imglist is not None
+        self.batch_size = batch_size
+        self.data_shape = tuple(data_shape)
+        self.label_width = label_width
+        self.path_root = path_root
+        self.shuffle = shuffle
+
+        self.imgrec = None
+        self.imglist = None
+        self.seq = None
+        if path_imgrec:
+            from .recordio import MXIndexedRecordIO, MXRecordIO
+            idx_path = os.path.splitext(path_imgrec)[0] + ".idx"
+            if os.path.isfile(idx_path):
+                self.imgrec = MXIndexedRecordIO(idx_path, path_imgrec, "r")
+                self.seq = list(self.imgrec.keys)
+            else:
+                self.imgrec = MXRecordIO(path_imgrec, "r")
+        elif path_imglist:
+            with open(path_imglist) as fin:
+                imglist = {}
+                imgkeys = []
+                for line in fin.readlines():
+                    line = line.strip().split("\t")
+                    label = _np.array(line[1:-1], dtype="float32")
+                    key = int(line[0])
+                    imglist[key] = (label, line[-1])
+                    imgkeys.append(key)
+                self.imglist = imglist
+                self.seq = imgkeys
+        elif imglist is not None:
+            result = {}
+            imgkeys = []
+            for index, img in enumerate(imglist, 1):
+                key = str(index)
+                label = _np.array(img[0], dtype="float32") if not isinstance(
+                    img[0], (int, float)) else _np.array([img[0]],
+                                                         dtype="float32")
+                result[key] = (label, img[1])
+                imgkeys.append(key)
+            self.imglist = result
+            self.seq = imgkeys
+        if num_parts > 1 and self.seq is not None:
+            assert part_index < num_parts
+            per = len(self.seq) // num_parts
+            self.seq = self.seq[part_index * per:(part_index + 1) * per]
+        if aug_list is None:
+            self.auglist = CreateAugmenter(data_shape, **kwargs)
+        else:
+            self.auglist = aug_list
+        self.cur = 0
+        self.dtype = dtype
+        self.data_name = data_name
+        self.label_name = label_name
+        self.provide_data = [DataDesc(data_name,
+                                      (batch_size,) + self.data_shape)]
+        if label_width > 1:
+            self.provide_label = [DataDesc(label_name,
+                                           (batch_size, label_width))]
+        else:
+            self.provide_label = [DataDesc(label_name, (batch_size,))]
+        self.reset()
+
+    def reset(self):
+        if self.shuffle and self.seq is not None:
+            random.shuffle(self.seq)
+        if self.imgrec is not None and self.seq is None:
+            self.imgrec.reset()
+        self.cur = 0
+
+    def next_sample(self, decode=True):
+        """(label, image decoded on `cpu()`); decode=False gives the raw
+        payload (the record's bytes or the file's name) instead."""
+        from .recordio import unpack
+        if self.seq is not None:
+            if self.cur >= len(self.seq):
+                raise StopIteration
+            idx = self.seq[self.cur]
+            self.cur += 1
+            if self.imgrec is not None:
+                header, img = unpack(self.imgrec.read_idx(idx))
+                return header.label, (self._decode(img) if decode else img)
+            label, fname = self.imglist[idx]
+            if not decode:
+                return label, fname
+            with open(os.path.join(self.path_root, fname), "rb") as f:
+                return label, self._decode(f.read())
+        s = self.imgrec.read()
+        if s is None:
+            raise StopIteration
+        header, img = unpack(s)
+        return header.label, (self._decode(img) if decode else img)
+
+    @staticmethod
+    def _decode(buf):
+        return nd.array(imdecode(buf, to_ndarray=False), ctx=cpu(),
+                        dtype="uint8")
+
+    def _fill(self, batch_data, batch_label, sample):
+        """Put samples into the host batch until it is full or the data
+        ends; returns how many it holds. `sample()` gives one (image as
+        an HWC array, label) pair on `cpu()`."""
+        i = 0
+        with cpu():
+            try:
+                while i < self.batch_size:
+                    data, label = sample()
+                    batch_data[i] = data.asnumpy() if isinstance(
+                        data, nd.NDArray) else data
+                    batch_label[i] = label
+                    i += 1
+            except StopIteration:
+                if i == 0:
+                    raise
+        for j in range(i, self.batch_size):
+            batch_data[j] = batch_data[j % i]
+            batch_label[j] = batch_label[j % i]
+        return i
+
+    def _batch(self, batch_data, batch_label, pad):
+        from .io.io import DataBatch
+        data_nchw = _np.transpose(batch_data, (0, 3, 1, 2))
+        return DataBatch([nd.array(data_nchw, dtype=self.dtype)],
+                         [nd.array(batch_label)], pad=pad,
+                         provide_data=self.provide_data,
+                         provide_label=self.provide_label)
+
+    def next(self):
+        """The next DataBatch."""
+        c, h, w = self.data_shape
+        batch_data = _np.zeros((self.batch_size, h, w, c), dtype="float32")
+        batch_label = _np.zeros((self.batch_size, self.label_width),
+                                dtype="float32")
+
+        def sample():
+            label, data = self.next_sample()
+            return self.augmentation_transform(data), label
+        n = self._fill(batch_data, batch_label, sample)
+        return self._batch(batch_data, batch_label[:, 0]
+                           if self.label_width == 1 else batch_label,
+                           self.batch_size - n)
+
+    def __next__(self):
+        return self.next()
+
+    def __iter__(self):
+        return self
+
+    def augmentation_transform(self, data):
+        for aug in self.auglist:
+            data = aug(data)
+        return data
+
+
+# The detection iterator and its augmenters (reference: image/detection.py)
+from .image_detection import (DetAugmenter, DetBorrowAug,   # noqa: E402,F401
+                              DetRandomSelectAug, DetHorizontalFlipAug,
+                              DetRandomCropAug, DetRandomPadAug,
+                              CreateDetAugmenter, ImageDetIter)
+__all__ += ["DetAugmenter", "DetBorrowAug", "DetRandomSelectAug",
+            "DetHorizontalFlipAug", "DetRandomCropAug", "DetRandomPadAug",
+            "CreateDetAugmenter", "ImageDetIter"]

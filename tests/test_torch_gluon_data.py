@@ -189,13 +189,34 @@ def test_simple_and_array_dataset_of_ndarrays():
 
 
 def test_record_file_datasets_wait_for_queue_a7(tmp_path):
+    """The three record datasets, which raised until the port had
+    RecordIO and a decoder, open a pack and a folder written by the
+    port."""
+    from mxnet_tpu_torch import recordio
     from mxnet_tpu_torch.gluon.data.vision import (ImageFolderDataset,
                                                    ImageRecordDataset)
-    for make in (lambda: mx.gluon.data.RecordFileDataset("x.rec"),
-                 lambda: ImageRecordDataset("x.rec"),
-                 lambda: ImageFolderDataset(str(tmp_path))):
-        with pytest.raises(NotImplementedError, match="Queue A 7"):
-            make()
+    rng = np.random.RandomState(0)
+    imgs = rng.randint(0, 256, (3, 5, 6, 3), dtype=np.uint8)
+    rec = str(tmp_path / "x.rec")
+    w = recordio.MXIndexedRecordIO(str(tmp_path / "x.idx"), rec, "w")
+    for i, img in enumerate(imgs):
+        w.write_idx(i, recordio.pack_img(
+            recordio.IRHeader(0, float(i), i, 0), img))
+    w.close()
+    raw = mx.gluon.data.RecordFileDataset(rec)
+    assert len(raw) == 3
+    np.testing.assert_array_equal(recordio.unpack_img(raw[1])[1], imgs[1])
+    ds = ImageRecordDataset(rec)
+    for i in range(3):
+        img, label = ds[i]
+        np.testing.assert_array_equal(img.asnumpy(), imgs[i])
+        assert float(label) == i
+    folder = tmp_path / "folder" / "only"
+    folder.mkdir(parents=True)
+    np.save(str(folder / "a.npy"), imgs[2])
+    img, label = ImageFolderDataset(str(tmp_path / "folder"))[0]
+    np.testing.assert_array_equal(img.asnumpy(), imgs[2])
+    assert label == 0
 
 
 # -- DataLoader -------------------------------------------------------------
