@@ -224,7 +224,7 @@ Phases (one JSON line each; any failure exits non-zero):
                  1,024 seeded 256x341 uint8 images in a memory-mapped .npy,
                  RandomResizedCrop(224), flips, colour jitter, lighting,
                  ToTensor, Normalize in 4 and then min(16, cpus) spawned
-                 workers, batch 256; 2 warm-up and 6 timed steps each,
+                 workers, batch 256; 2 warm-up and 4 timed steps each,
                  Accuracy, TopKAccuracy(5) and a Speedometer; the loader's
                  share of the step; labels in the sampler's order, no
                  worker with CUDA, workers bit-equal to the main process on
@@ -402,8 +402,8 @@ Phases (one JSON line each; any failure exits non-zero):
                  autograd.Function), against the whole-sequence kernels.
 38. tensor_parallel — main path 20, tensor and FSDP parallelism. In this
                  process llama3_8b_dry (8B widths, 2 layers, GQA 32/8, D
-                 128, remat) from seeded weights, fp32 and bf16, 2 AdamW
-                 steps (lr 1e-5, eps 1e-4) on one rank on a global batch
+                 128, remat) from seeded weights, fp32 and bf16, 1 AdamW
+                 step (lr 1e-5, eps 1e-4) on one rank on a global batch
                  of 4 x 513 tokens; then four ranks under `python -m
                  mxnet_tpu_torch.launch` (all on the one card over gloo,
                  collectives staged through host memory, when
@@ -434,7 +434,7 @@ Phases (one JSON line each; any failure exits non-zero):
 39. resilient_bert — main path 21, native Megatron for BERT and
                  resilient sharded training. In this process bert_base
                  (vocab 30522, 12 layers, 12 heads of 64, hidden 3072)
-                 from seeded weights, fp32 and bf16, 3 AdamW steps (lr
+                 from seeded weights, fp32, 2 AdamW steps (lr
                  1e-5, eps 1e-4) on one rank on global batches of 16 x
                  128 with 15% MLM sites; then four ranks under `python -m
                  mxnet_tpu_torch.launch` (gloo on the one card, or NCCL
@@ -443,9 +443,10 @@ Phases (one JSON line each; any failure exits non-zero):
                  data=2, model=2 (6 heads, 1536 hidden columns, 15261
                  vocab rows and B 8 a rank): fp32 losses within
                  P21_LOSS_REL of one rank, gathered parameters within
-                 P21_PARAM_RTOL + P21_PARAM_ATOL, bf16 losses within
-                 P21_BF16_LOSS_REL, 12 / 12 / 12 flash launches a rank a
-                 step (bf16 wgmma, fp32 fma), no gather over model, step
+                 P21_PARAM_RTOL + P21_PARAM_ATOL (bf16 losses within
+                 P21_BF16_LOSS_REL where P21_DTYPES holds bf16), 12 / 12
+                 / 12 flash launches a rank a step (bf16 wgmma, fp32
+                 fma), no gather over model, step
                  time and peak memory beside the same rules with every
                  split gathered on use; (b) under
                  torch.use_deterministic_algorithms, at P21_RUN_LAYERS
@@ -464,8 +465,28 @@ Phases (one JSON line each; any failure exits non-zero):
                  rollback bit-equal to a run that skipped its batch, one
                  #9 and one #10 a bucket a step, the sentinel's checks and
                  host syncs a step off and on.
+40. np_bert   — main path 22, `mx.np`/`mx.npx` and Gluon's np mode: (a)
+                 gluon.model_zoo.bert bert_12_768_12 at full width (vocab
+                 30522, max_length 512, dropout 0, fp32) under
+                 npx.set_np(), fed by gluon.data.DataLoader over an
+                 ArrayDataset (32 x 128 tokens, 15% MLM sites), the MLM
+                 loss on the np surface (npx.log_softmax, npx.pick,
+                 np.sum over the site mask), Trainer("adam"): 2 + 6
+                 steps, every block output and Parameter.data() an
+                 mx.np.ndarray on gpu(0), one multi flat_adam a step
+                 (held at 0 ulps at the path's own call); the median step,
+                 tokens/s, peak memory, host ms a step and the idle share
+                 of 2 profiled steps; (b) the same code at 2 layers, 128
+                 units, 2 heads, vocab 1000 on the card and on the CPU
+                 from the same weights: the first loss, every gradient
+                 and the parameters after one Adam step; (c)
+                 examples/transformer_np.py's encoder and hand-rolled
+                 Adam at its widths, 12 steps on the card and on the CPU;
+                 (d) every _np_* and _np_linalg_* op of
+                 tests/_torch_numpy_cases.py on the card against the CPU,
+                 every output on gpu(0).
 
-Twenty-one main paths, each with its own expected kernels, counts set to
+Twenty-two main paths, each with its own expected kernels, counts set to
 0 just before and read just after: serving (phases 3-5: flash_fwd), training
 (phase 7's 6 steps: flash_fwd, flash_bwd_dq, flash_bwd_dkv), ResNet-50
 inference (phase 11's forward: conv_bn_relu, 16 launches, all on the
@@ -507,7 +528,8 @@ and n of each flash backward a rank a step, the embedding leg's
 segment_sum, the C1 leg's conv_bn_stats and cbr_train_bwd) and BERT's
 split and resilience (phase 39: n flash launches of each kind a rank a
 step in leg (a); one flat_lamb1 and one flat_lamb2 a bucket a step in leg
-(c)'s clean run). Then the card's name and power limit,
+(c)'s clean run) and np-mode Gluon BERT (phase 40: one multi flat_adam a
+step in legs (a) and (b)). Then the card's name and power limit,
 the `kernels` line, and as the last line {"ok": true, "device": {...}}.
 Exits non-zero without a CUDA card.
 """
@@ -5308,7 +5330,7 @@ def phase_gluon_mlp(tmp):
 # -- main path 11: ResNet-50 fed by a GluonCV-style DataLoader --------------
 IMNET_N, IMNET_H, IMNET_W = 1024, 256, 341     # short side 256 at 4:3
 LOADER_BATCH = 256
-LOADER_WARMUP, LOADER_STEPS = 2, 6
+LOADER_WARMUP, LOADER_STEPS = 2, 4
 LOADER_WORKERS = 4                  # train_imagenet.py --num-data-workers
 IMNET_MEAN, IMNET_STD = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
 
@@ -9214,7 +9236,7 @@ def phase_multi_rank():
 P20_MESH = {"fsdp": 2, "model": 2}
 P20_WORLD = 4
 P20_BATCH, P20_SEQ = 4, 512     # the global batch: B 2 a rank over fsdp=2
-P20_STEPS = 2
+P20_STEPS = 1
 P20_LR, P20_EPS = 1e-5, 1e-4    # AdamW's early steps move an element by
 # about lr * g / (|g| + eps): a larger eps bounds how far a rounding
 # difference of a near-zero gradient moves the parameter (lr / eps); at
@@ -9636,7 +9658,8 @@ P21_MESH = {"data": 2, "model": 2}
 P21_WORLD = 4
 P21_BATCH, P21_SEQ = 16, 128    # the global batch: B 8 a rank over data=2
 P21_MASK = 0.15                 # the share of MLM prediction sites
-P21_STEPS = 3
+P21_STEPS = 2
+P21_DTYPES = (torch.float32,)   # leg (a)'s dtypes
 P21_LR, P21_EPS = 1e-5, 1e-4    # as path 20: eps bounds how far a rounding
                                 # difference of a near-zero gradient moves
                                 # AdamW's step
@@ -9648,8 +9671,8 @@ P21_RUN_LAYERS = 2              # leg (b)'s depth: bert_base widths, each
                                 # with AdamW's moments at 2 layers)
 P21_RUN_STEPS, P21_CKPT_EVERY = 8, 2
 P21_POLL_S = 0.05               # the maintenance poller's interval
-P21_COMMIT_TIMEOUT_S = 10       # the mid-commit run's election timeout
-P21_ZERO_BATCH, P21_ZERO_STEPS = 32, 4   # leg (c): batch 32 x seq 128
+P21_COMMIT_TIMEOUT_S = 5        # the mid-commit run's election timeout (a 2-layer save: 1.8-2.1 s)
+P21_ZERO_BATCH, P21_ZERO_STEPS = 32, 3   # leg (c): batch 32 x seq 128
 P21_ZERO_POISON = 2             # the data index whose gradient is poisoned
 P21_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 # and leg (c)'s LAMB on the ZeRO updater
@@ -9919,7 +9942,7 @@ def resilient_worker(out_dir):
            "cards": torch.cuda.device_count()}
     t_start = time.perf_counter()
     mesh = create_mesh(**P21_MESH)
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in P21_DTYPES:
         cfg = p21_cfg(dtype)
         step = p21_step(cfg, p21_params(cfg), mesh)
         with P21ModelGathers(mesh) as log:
@@ -10098,7 +10121,7 @@ def phase_resilient_bert():
     from mxnet_tpu_torch.ops import KERNELS
     phase = "resilient_bert"
     base = {}
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in P21_DTYPES:
         cfg = p21_cfg(dtype)
         step = p21_step(cfg, p21_params(cfg))
         params, losses, times, _, _, peak = p21_run(step, cfg, P21_STEPS)
@@ -10144,13 +10167,13 @@ def phase_resilient_bert():
     expect = {"flash_fwd": n, "flash_bwd_dq": n, "flash_bwd_dkv": n}
     launches = {k: 0 for k in KERNELS}
     for r in ranks:
-        for leg in (r["float32"]["launches"], r["bfloat16"]["launches"]):
+        for leg in (r[str(d).split(".")[-1]]["launches"]
+                    for d in P21_DTYPES):
             for k, v in leg.items():
                 launches[k] += v
     for k, v in zero_launches.items():
         launches[k] += v
-    for key, dtype in (("float32", torch.float32),
-                       ("bfloat16", torch.bfloat16)):
+    for key, dtype in ((str(d).split(".")[-1], d) for d in P21_DTYPES):
         want_rel = P21_LOSS_REL if key == "float32" else P21_BF16_LOSS_REL
         label = "fma" if key == "float32" else "wgmma"
         emit({"phase": phase, "leg": "a_bert_base_" + key,
@@ -10285,6 +10308,492 @@ def phase_resilient_bert():
           "card": card_name_and_limit()})
     for cond, msg in pending:
         check(cond, phase, msg)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# main path 22: mx.np / mx.npx and Gluon's np mode
+# ---------------------------------------------------------------------------
+P22_BATCH, P22_SEQ, P22_SITES = 32, 128, 0.15
+P22_WARMUP, P22_STEPS, P22_PROFILED = 2, 6, 2
+P22_LR = 1e-4
+P22_NARROW = dict(num_layers=2, units=128, hidden_size=512, num_heads=2,
+                  vocab_size=1000)
+P22_NARROW_BATCH, P22_NARROW_SEQ = 8, 64
+P22_NARROW_EPS = 1e-6           # Adam's eps in leg (b): an element whose
+                                # gradient is rounding noise moves by at
+                                # most lr * c * |g| / eps, not lr
+P22_LOSS_REL = 1e-5             # leg (b)'s first loss, card vs CPU
+P22_GRAD_REL = 1e-4             # a leaf's max |card - CPU| / max |CPU|
+P22_PARAM_ATOL = 1e-5           # the parameters after one Adam step
+P22_TNP = dict(VOCAB=16, DIM=32, HEADS=4, SEQ=12, BATCH=32, STEPS=12,
+               LR=3e-3)         # examples/transformer_np.py's widths
+P22_TNP_REL = 1e-4              # its losses, card vs CPU, step by step
+P22_SWEEP_TOL = 1e-5            # an op's float32 result, card vs CPU,
+                                # relative to its largest magnitude
+
+
+def p22_data(n, vocab, batch, seq, seed):
+    """n batches of seeded tokens, targets and a 15% site mask (at least
+    one site a row)."""
+    rng = np.random.RandomState(seed)
+    tok = rng.randint(0, vocab, (n * batch, seq)).astype(np.int32)
+    tgt = rng.randint(0, vocab, (n * batch, seq)).astype(np.int32)
+    mask = (rng.rand(n * batch, seq) < P22_SITES).astype(np.float32)
+    mask[:, 0] = 1.0
+    return tok, tgt, mask
+
+
+def p22_mlm_step(mx, net, trainer, x, y, m):
+    """One np-mode MLM step: the loss on the np surface, backward and
+    Trainer.step. Returns the loss array."""
+    np_, npx = mx.np, mx.npx
+    with mx.autograd.record():
+        out = net(x)
+        logp = npx.log_softmax(out[3], axis=-1)
+        nll = -npx.pick(logp, y.astype("float32"), axis=-1)
+        loss = np_.sum(nll * m) / np_.sum(m)
+    loss.backward()
+    trainer.step(1)
+    return loss
+
+
+def p22_block_types(net):
+    """Forward hooks on every block: (type name, context) of each output
+    array."""
+    seen, hooks = [], []
+
+    def hook(block, args, out):
+        for o in (out if isinstance(out, (list, tuple)) else [out]):
+            seen.append((type(o).__name__, str(o.context),
+                         o._data.device.type))
+    net.apply(lambda b: hooks.append(b.register_forward_hook(hook)))
+    return seen, hooks
+
+
+def p22_bert(mx, ctx, seed, **kw):
+    from mxnet_tpu_torch.gluon.model_zoo import bert
+    mx.random.seed(seed)
+    net = bert.get_bert_model("bert_12_768_12", dropout=0.0, **kw)
+    net.initialize(mx.init.Normal(0.02), ctx=ctx)
+    return net
+
+
+def p22_leg_a(mx, gen):
+    """Leg (a): BERT-base at full width under npx.set_np(). Returns
+    (record, launches)."""
+    from mxnet_tpu_torch.ops import (launch_counts, reset_launch_counts,
+                                     variant_counts)
+    np_ = mx.np
+    gpu = mx.gpu(0)
+    t_start = time.perf_counter()
+    n = P22_WARMUP + P22_STEPS + P22_PROFILED
+    tok, tgt, mask = p22_data(n, 30522, P22_BATCH, P22_SEQ, seed=22)
+    ds = mx.gluon.data.ArrayDataset(tok, tgt, mask)
+    loader = mx.gluon.data.DataLoader(ds, batch_size=P22_BATCH,
+                                      num_workers=0)
+    net = p22_bert(mx, gpu, 22, vocab_size=30522, max_length=512)
+    trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                               {"learning_rate": P22_LR})
+    batches = []
+    for xb, yb, mb in loader:
+        check(all(type(b) is np_.ndarray for b in (xb, yb, mb)), "np_bert",
+              "DataLoader batches: %s" % [type(b) for b in (xb, yb, mb)])
+        batches.append(tuple(b.as_in_context(gpu) for b in (xb, yb, mb)))
+    check(len(batches) == n, "np_bert", "%d batches" % len(batches))
+    seen, hooks = p22_block_types(net)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t_start
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    vbefore = variant_counts()
+    losses, step_ms, host_ms = [], [], []
+    for i in range(P22_WARMUP + P22_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = p22_mlm_step(mx, net, trainer, *batches[i])
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        losses.append(float(loss.item()))
+        if i >= P22_WARMUP:
+            host_ms.append((t1 - t0) * 1e3)
+            step_ms.append((t2 - t0) * 1e3)
+        if i == 0:
+            for h in hooks:
+                h.detach()
+    launches = launch_counts()
+    variants = {"%s/%s" % k: c - vbefore.get(k, 0)
+                for k, c in variant_counts().items()
+                if c != vbefore.get(k, 0)}
+    peak = torch.cuda.max_memory_allocated()
+    params = net.collect_params()
+    data_types = {(type(p.data()).__name__, str(p.data().context))
+                  for p in params.values()}
+    steps = P22_WARMUP + P22_STEPS
+    win = profile_window(lambda: [p22_mlm_step(mx, net, trainer,
+                                               *batches[steps + j])
+                                  for j in range(P22_PROFILED)])
+    med = statistics.median(step_ms)
+    rec = {"phase": "np_bert", "leg": "a_bert_base_np_mode",
+           "config": {"vocab": 30522, "max_length": 512, "layers": 12,
+                      "units": 768, "heads": 12, "ffn": 3072,
+                      "dtype": "float32", "batch": [P22_BATCH, P22_SEQ],
+                      "sites": P22_SITES},
+           "parameters": len(params),
+           "elements": sum(int(np.prod(p.shape)) for p in params.values()),
+           "losses": losses, "step_ms": step_ms,
+           "median_step_ms": med,
+           "tokens_per_s": P22_BATCH * P22_SEQ / (med / 1e3),
+           "host_ms_a_step": statistics.median(host_ms),
+           "peak_bytes": peak, "profiled_steps": P22_PROFILED,
+           "idle_share": win["idle_share"], "device_ms": win["device_ms"],
+           "wall_ms": win["wall_ms"], "top_kernels_ms": win["top_kernels_ms"],
+           "block_outputs": len(seen),
+           "block_output_types": sorted({t for t, _, _ in seen}),
+           "block_output_contexts": sorted({c for _, c, _ in seen}),
+           "data_types": sorted(data_types),
+           "launches": {k2: v for k2, v in launches.items() if v},
+           "variants": variants, "setup_seconds": setup_s,
+           "seconds": time.perf_counter() - t_start}
+    emit(rec)
+    check(len(seen) > 0 and all(t == "ndarray" and c == "gpu(0)" and
+                                d == "cuda" for t, c, d in seen),
+          "np_bert", "block outputs: %s" % sorted(set(seen)))
+    check(data_types == {("ndarray", "gpu(0)")}, "np_bert",
+          "Parameter.data(): %s" % data_types)
+    check(all(math.isfinite(v) for v in losses), "np_bert",
+          "losses %s" % losses)
+    check(launches["flat_adam"] == steps and
+          variants == {"flat_adam/multi": steps} and
+          all(v == 0 for k2, v in launches.items() if k2 != "flat_adam"),
+          "np_bert", "launches %s, variants %s over %d steps"
+          % (launches, variants, steps))
+    # #8 at the path's own call, held to its plain version
+    kernel_adam_paths(gen, {"np_bert": trainer_adam_call(trainer)})
+    del net, trainer, batches
+    torch.cuda.empty_cache()
+    return rec, launches
+
+
+def p22_params(net):
+    return {k: p.data().asnumpy()
+            for k, p in net._collect_params_with_prefix().items()}
+
+
+def p22_leg_b(mx):
+    """Leg (b): the narrow copy on the card and on the CPU from the same
+    weights. Returns (record, launches of the card's step)."""
+    from mxnet_tpu_torch.models.convert import gluon_params_from_jax
+    from mxnet_tpu_torch.ops import launch_counts, reset_launch_counts
+    t_start = time.perf_counter()
+    tok, tgt, mask = p22_data(1, P22_NARROW["vocab_size"], P22_NARROW_BATCH,
+                              P22_NARROW_SEQ, seed=23)
+    res = []
+    for card, ctx in ((True, mx.gpu(0)), (False, mx.cpu())):
+        net = p22_bert(mx, ctx, 23, max_length=P22_NARROW_SEQ, **P22_NARROW)
+        net(mx.np.array(tok, dtype="int32", ctx=ctx))
+        if card:
+            weights = p22_params(net)
+        else:
+            gluon_params_from_jax(weights, net, ctx=ctx)
+        trainer = mx.gluon.Trainer(net.collect_params(), "adam", {
+            "learning_rate": P22_LR, "epsilon": P22_NARROW_EPS})
+        x, y, m = (mx.np.array(a, dtype=a.dtype, ctx=ctx)
+                   for a in (tok, tgt, mask))
+        if card:
+            torch.cuda.synchronize()
+            reset_launch_counts()
+        loss = p22_mlm_step(mx, net, trainer, x, y, m)
+        if card:
+            torch.cuda.synchronize()
+            launches = launch_counts()
+        grads = {k: p.grad().asnumpy()
+                 for k, p in net._collect_params_with_prefix().items()}
+        res.append((float(loss.item()), grads, p22_params(net)))
+        del net, trainer
+    (gl, gg, gp), (cl, cg, cp) = res
+    grad_err = {}
+    for k in cg:
+        scale = float(np.abs(cg[k]).max())
+        err = float(np.abs(gg[k] - cg[k]).max())
+        grad_err[k] = err / scale if scale > 0 else err
+    param_err = max(float(np.abs(gp[k] - cp[k]).max()) for k in cp)
+    loss_rel = abs(gl - cl) / abs(cl)
+    rec = {"phase": "np_bert", "leg": "b_narrow_card_vs_cpu",
+           "config": dict(P22_NARROW, batch=[P22_NARROW_BATCH,
+                                             P22_NARROW_SEQ]),
+           "loss_card": gl, "loss_cpu": cl, "loss_rel": loss_rel,
+           "loss_limit": P22_LOSS_REL,
+           "max_grad_rel": max(grad_err.values()),
+           "worst_leaf": max(grad_err, key=grad_err.get),
+           "grad_limit": P22_GRAD_REL,
+           "zero_grad_leaves": sorted(k for k in cg
+                                      if not np.abs(cg[k]).any()),
+           "param_max_abs_err": param_err, "param_limit": P22_PARAM_ATOL,
+           "launches": {k: v for k, v in launches.items() if v},
+           "seconds": time.perf_counter() - t_start}
+    emit(rec)
+    check(loss_rel <= P22_LOSS_REL and max(grad_err.values()) <=
+          P22_GRAD_REL and param_err <= P22_PARAM_ATOL, "np_bert",
+          "narrow copy: loss %.3g, gradient %.3g (%s), parameters %.3g"
+          % (loss_rel, max(grad_err.values()), rec["worst_leaf"],
+             param_err))
+    check(launches["flat_adam"] == 1 and sum(launches.values()) == 1,
+          "np_bert", "leg (b)'s launches %s" % launches)
+    return rec, launches
+
+
+def p22_tnp_params(mx, rng):
+    """examples/transformer_np.py's init_params."""
+    np_ = mx.np
+    V, D, S = P22_TNP["VOCAB"], P22_TNP["DIM"], P22_TNP["SEQ"]
+
+    def W(*shape, s=0.08):
+        return np_.array((rng.randn(*shape) * s).astype("float32"))
+    p = {"embed": W(V, D), "pos": W(S, D),
+         "qkv_w": W(3 * D, D), "qkv_b": np_.zeros((3 * D,)),
+         "proj_w": W(D, D), "proj_b": np_.zeros((D,)),
+         "ln1_g": np_.ones((D,)), "ln1_b": np_.zeros((D,)),
+         "ffn1_w": W(4 * D, D), "ffn1_b": np_.zeros((4 * D,)),
+         "ffn2_w": W(D, 4 * D), "ffn2_b": np_.zeros((D,)),
+         "ln2_g": np_.ones((D,)), "ln2_b": np_.zeros((D,)),
+         "out_w": W(V, D), "out_b": np_.zeros((V,))}
+    for v in p.values():
+        v.attach_grad()
+    return p
+
+
+def p22_tnp_encoder(mx, p, tokens):
+    """examples/transformer_np.py's encoder: tokens (B, S) int32 -> logits
+    (B, S, VOCAB), all mx.np/npx calls."""
+    np_, npx = mx.np, mx.npx
+    V, D, H, S = (P22_TNP[k] for k in ("VOCAB", "DIM", "HEADS", "SEQ"))
+    B = tokens.shape[0]
+    h = npx.embedding(tokens, p["embed"], input_dim=V, output_dim=D) + \
+        p["pos"]
+    x = np_.transpose(h, (1, 0, 2))
+    qkv = npx.fully_connected(x.reshape(-1, D), p["qkv_w"], p["qkv_b"],
+                              num_hidden=3 * D, flatten=False)
+    qkv = qkv.reshape(S, B, 3 * D)
+    att = npx.interleaved_matmul_selfatt_qk(qkv, heads=H)
+    att = npx.softmax(att, axis=-1)
+    ctx = npx.interleaved_matmul_selfatt_valatt(qkv, att, heads=H)
+    ctx = npx.fully_connected(ctx.reshape(-1, D), p["proj_w"], p["proj_b"],
+                              num_hidden=D, flatten=False)
+    h = npx.layer_norm(x.reshape(-1, D) + ctx, p["ln1_g"], p["ln1_b"])
+    f = npx.fully_connected(h, p["ffn1_w"], p["ffn1_b"], num_hidden=4 * D,
+                            flatten=False)
+    f = npx.activation(f, act_type="gelu")
+    f = npx.fully_connected(f, p["ffn2_w"], p["ffn2_b"], num_hidden=D,
+                            flatten=False)
+    h = npx.layer_norm(h + f, p["ln2_g"], p["ln2_b"])
+    logits = npx.fully_connected(h, p["out_w"], p["out_b"], num_hidden=V,
+                                 flatten=False)
+    return np_.transpose(logits.reshape(S, B, V), (1, 0, 2))
+
+
+def p22_tnp_run(mx, ctx):
+    """The example's training loop (sort the tokens), its hand-rolled Adam
+    on the np surface: in-place -= on np arrays, v.grad[:] = 0."""
+    np_, npx = mx.np, mx.npx
+    V, S, Bt = P22_TNP["VOCAB"], P22_TNP["SEQ"], P22_TNP["BATCH"]
+    losses, hits = [], 0
+    with ctx:
+        rng = np.random.RandomState(0)
+        p = p22_tnp_params(mx, rng)
+        m = {k: np_.zeros(v.shape) for k, v in p.items()}
+        s2 = {k: np_.zeros(v.shape) for k, v in p.items()}
+        for t in range(1, P22_TNP["STEPS"] + 1):
+            toks = rng.randint(0, V, (Bt, S))
+            target = np.sort(toks, axis=1)
+            x = np_.array(toks.astype("int32"), dtype="int32")
+            y = np_.array(target.astype("int32"), dtype="int32")
+            with mx.autograd.record():
+                logits = p22_tnp_encoder(mx, p, x)
+                logp = npx.log_softmax(logits, axis=-1)
+                nll = -npx.pick(logp.reshape(-1, V),
+                                y.reshape(-1).astype("float32"))
+                loss = np_.mean(nll)
+            loss.backward()
+            corr = float(np.sqrt(1 - 0.999 ** t) / (1 - 0.9 ** t))
+            for k, v in p.items():
+                g = v.grad
+                m[k] = 0.9 * m[k] + 0.1 * g
+                s2[k] = 0.999 * s2[k] + 0.001 * np_.square(g)
+                v -= P22_TNP["LR"] * corr * m[k] / (np_.sqrt(s2[k]) + 1e-8)
+                v.grad[:] = 0
+            losses.append(float(loss.asnumpy()))
+            pred = np_.argmax(logits, axis=-1)
+            hits += int((pred.asnumpy() == target).sum())
+        where = {str(v.context) for v in p.values()}
+    return losses, hits / (P22_TNP["STEPS"] * Bt * S), where
+
+
+def p22_leg_c(mx):
+    """Leg (c): examples/transformer_np.py on the card and on the CPU."""
+    t0 = time.perf_counter()
+    card, card_acc, where = p22_tnp_run(mx, mx.gpu(0))
+    card_s = time.perf_counter() - t0
+    host, host_acc, _ = p22_tnp_run(mx, mx.cpu())
+    rel = [abs(a - b) / abs(b) for a, b in zip(card, host)]
+    rec = {"phase": "np_bert", "leg": "c_transformer_np",
+           "config": P22_TNP, "losses_card": card, "losses_cpu": host,
+           "max_rel": max(rel), "limit": P22_TNP_REL,
+           "token_acc_card": card_acc, "token_acc_cpu": host_acc,
+           "card_seconds": card_s, "seconds": time.perf_counter() - t0,
+           "param_contexts": sorted(where)}
+    emit(rec)
+    check(max(rel) <= P22_TNP_REL and where == {"gpu(0)"} and
+          all(math.isfinite(v) for v in card), "np_bert",
+          "transformer_np: losses %s vs %s" % (card, host))
+    return rec
+
+
+def p22_cases():
+    """tests/_torch_numpy_cases.py, loaded by path (it imports numpy
+    only)."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "tests", "_torch_numpy_cases.py")
+    spec = importlib.util.spec_from_file_location("_torch_numpy_cases",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def p22_flat(out):
+    if isinstance(out, (list, tuple)):
+        return [x for o in out for x in p22_flat(o)]
+    return [out]
+
+
+def p22_run_op(mx, cases, name, linalg, args, kw, ctx):
+    conv = []
+    for a in args:
+        if isinstance(a, np.ndarray):
+            a = mx.np.array(a, dtype=a.dtype, ctx=ctx)
+        elif isinstance(a, list) and a and isinstance(a[0], np.ndarray) \
+                and name in cases.SEQ_UNPACKED:
+            a = [mx.np.array(x, dtype=x.dtype, ctx=ctx) for x in a]
+        conv.append(a)
+    fn = getattr(mx.np.linalg if linalg else mx.np, name)
+    with ctx:
+        return p22_flat(fn(*conv, **kw))
+
+
+def p22_vector_err(name, a, got, want):
+    """The invariants of a decomposition whose vectors' signs and phases
+    LAPACK and cuSOLVER choose apart: max error relative to the
+    input's largest magnitude."""
+    g = [o.asnumpy() for o in got]
+    w = [o.asnumpy() for o in want]
+    scale = max(1.0, float(np.abs(a).max()))
+    if name == "svd":
+        errs = [np.abs(g[1] - w[1]).max(),
+                np.abs((g[0] * g[1]) @ g[2] - a).max()]
+    elif name == "qr":
+        errs = [np.abs(np.abs(g[1]) - np.abs(w[1])).max(),
+                np.abs(g[0] @ g[1] - a).max()]
+    elif name == "eigh":
+        errs = [np.abs(g[0] - w[0]).max(),
+                np.abs(a @ g[1] - g[1] * g[0]).max()]
+    else:   # eig
+        errs = [np.abs(np.sort_complex(g[0]) - np.sort_complex(w[0])).max(),
+                np.abs(a @ g[1] - g[1] * g[0]).max()]
+    return float(max(errs)) / scale
+
+
+def p22_leg_d(mx):
+    """Leg (d): every op of the shared case table on the card against the
+    same op on the CPU. Returns the record."""
+    cases = p22_cases()
+    gpu, cpu = mx.gpu(0), mx.cpu()
+    t0 = time.perf_counter()
+    n_cases, n_outputs, worst, failures = 0, 0, {}, []
+    table = [(n, False, c) for n, cs in cases.CASES.items() for c in cs] + \
+        [(n, True, c) for n, cs in cases.LINALG.items() for c in cs]
+    for name, linalg, (args, kw) in table:
+        label = ("linalg." if linalg else "") + name
+        try:
+            got = p22_run_op(mx, cases, name, linalg, args, kw, gpu)
+            want = p22_run_op(mx, cases, name, linalg, args, kw, cpu)
+        except Exception as exc:    # noqa: BLE001 (named below)
+            failures.append("%s: %s: %s" % (label, type(exc).__name__, exc))
+            continue
+        n_cases += 1
+        tol = max(P22_SWEEP_TOL, cases.FORWARD_TOL.get(name, 0.0))
+        if len(got) != len(want):
+            failures.append("%s: %d outputs, CPU %d" % (label, len(got),
+                                                        len(want)))
+            continue
+        for k, (g, w) in enumerate(zip(got, want)):
+            n_outputs += 1
+            if str(g.context) != "gpu(0)" or g._data.device.type != "cuda":
+                failures.append("%s output %d on %s" % (label, k, g.context))
+            if np.dtype(g.dtype) != np.dtype(w.dtype):
+                failures.append("%s output %d: %s, CPU %s" % (
+                    label, k, g.dtype, w.dtype))
+        if name in cases.VECTOR_OUTPUTS:
+            err = p22_vector_err(name, args[0], got, want)
+        else:
+            err = 0.0
+            for k, (g, w) in enumerate(zip(got, want)):
+                gh, wh = g.asnumpy(), w.asnumpy()
+                if gh.shape != wh.shape:
+                    failures.append("%s output %d: shape %s, CPU %s" % (
+                        label, k, gh.shape, wh.shape))
+                    err = float("inf")
+                    continue
+                if wh.dtype.kind in "fc":
+                    scale = max(1.0, float(np.nanmax(np.abs(wh)))
+                                if wh.size else 1.0)
+                    same_nan = np.array_equal(np.isnan(gh), np.isnan(wh))
+                    d = np.abs(gh - wh)
+                    e = float(np.nanmax(d)) / scale if d.size else 0.0
+                    err = max(err, e if same_nan else float("inf"))
+                elif not np.array_equal(gh, wh):
+                    err = float("inf")
+        worst[label] = max(worst.get(label, 0.0), err)
+        if err > tol:
+            failures.append("%s: error %.3g over %.3g" % (label, err, tol))
+    names = {n for n, _, _ in table}
+    rec = {"phase": "np_bert", "leg": "d_op_sweep",
+           "ops": len(names), "cases": n_cases, "outputs": n_outputs,
+           "seconds": time.perf_counter() - t0,
+           "worst": dict(sorted(worst.items(), key=lambda kv: -kv[1])[:8]),
+           "failures": failures[:20], "n_failures": len(failures)}
+    emit(rec)
+    check(not failures and len(names) == 291, "np_bert",
+          "op sweep: %d failures, first %s" % (len(failures), failures[:5]))
+    return rec
+
+
+def phase_np_bert():
+    """Main path 22: legs (a)-(d) under npx.set_np() (restored after).
+    Returns {kernel: launches on the path}: legs (a) and (b), each counted
+    from a reset just before its steps and read just after."""
+    import mxnet_tpu_torch as mx
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    t0 = time.perf_counter()
+    mx.npx.set_np()
+    try:
+        rec_a, launch_a = p22_leg_a(mx, gen)
+        rec_b, launch_b = p22_leg_b(mx)
+        p22_leg_c(mx)
+        p22_leg_d(mx)
+    finally:
+        mx.npx.reset_np()
+    launches = {k: launch_a[k] + launch_b[k] for k in launch_a}
+    emit({"phase": "np_bert", "seconds": time.perf_counter() - t0,
+          "median_step_ms": rec_a["median_step_ms"],
+          "tokens_per_s": rec_a["tokens_per_s"],
+          "peak_bytes": rec_a["peak_bytes"],
+          "idle_share": rec_a["idle_share"],
+          "host_ms_a_step": rec_a["host_ms_a_step"],
+          "launches": {k: v for k, v in launches.items() if v},
+          "card": card_name_and_limit()})
     return launches
 
 
@@ -10482,6 +10991,12 @@ def main():
     resilient_launches = phase_resilient_bert()
     check_path(resilient_launches, P21_PATH_KERNELS,
                "main_path_resilient_bert")
+    torch.cuda.empty_cache()
+
+    # main path 22: mx.np and Gluon's np mode (counts reset inside, read
+    # right after leg (a)'s steps and around leg (b)'s card step)
+    np_launches = phase_np_bert()
+    check_path(np_launches, ("flat_adam",), "main_path_np_bert")
 
     print(card_name_and_limit(), flush=True)
     kernels = []
@@ -10499,7 +11014,7 @@ def main():
             + ssd_infer_launches[name] + inception_launches[name] \
             + dcgan_launches[name] + spec_launches[name] \
             + multi_launches[name] + tp_launches[name] \
-            + resilient_launches[name]
+            + resilient_launches[name] + np_launches[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": "mxnet_tpu_torch/" + source, "replaces": replaces,
@@ -10558,6 +11073,20 @@ def main_resilient_bert():
     print(card_name_and_limit(), flush=True)
 
 
+def main_np_bert():
+    """`--only np_bert`: the build and main path 22 alone (for iterating
+    on the path; a run with no arguments drives every path)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        sys.exit(2)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    phase_build()
+    launches = phase_np_bert()
+    check_path(launches, ("flat_adam",), "main_path_np_bert")
+    print(card_name_and_limit(), flush=True)
+
+
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--multi-rank-worker":
         multi_rank_worker(sys.argv[2])
@@ -10571,5 +11100,7 @@ if __name__ == "__main__":
         main_tensor_parallel()
     elif sys.argv[1:] == ["--only", "resilient_bert"]:
         main_resilient_bert()
+    elif sys.argv[1:] == ["--only", "np_bert"]:
+        main_np_bert()
     else:
         main()

@@ -35,14 +35,17 @@ its whole-graph route in `compiler`), `mod` (`Module`,
 `viz`, and Gluon's `export` and `SymbolBlock`; and the recurrent half:
 the fused `RNN` op (`ops.rnn_ops`), `gluon.rnn` (cells and the fused
 RNN/LSTM/GRU layers), `gluon.contrib.rnn` and the symbolic cells of
-`rnn` with `BucketSentenceIter`; and the reference's whole op set outside
-`mx.np`: tensor, nn, linalg, random, image, quantization and detection
-ops (`ops.contrib_vision`: the SSD MultiBox ops, NMS, ROI ops),
-`nd.contrib`'s control flow and custom ops (`operator`); and the data
+`rnn` with `BucketSentenceIter`; and the reference's whole op set:
+tensor, nn, linalg, random, image, quantization and detection ops
+(`ops.contrib_vision`: the SSD MultiBox ops, NMS, ROI ops), `nd.contrib`'s control flow and custom ops (`operator`); and the data
 input of the reference's C++ IO stack: `recordio`, the host helpers of
 `native`, `image.imdecode`/`ImageIter`, `image_detection.ImageDetIter`,
 `mx.io`'s `ImageRecordIter`, `CSVIter` and `MNISTIter`, the record
-datasets of `gluon.data` and `tools.im2rec`:
+datasets of `gluon.data` and `tools.im2rec`; and the numpy namespace:
+`np` (`mx.np`: the `ndarray` type and the reference's 275 `_np_*` ops,
+`np.linalg`, `np.random`), `npx` (`mx.npx`) and Gluon's np mode
+(`npx.set_np()`: blocks, `Parameter.data()` and the DataLoader hand out
+`mx.np.ndarray`s):
 
     import mxnet_tpu_torch as mx
     net = mx.gluon.model_zoo.vision.resnet50_v1(layout="NHWC")
@@ -73,6 +76,8 @@ from . import visualization as viz
 from .attribute import AttrScope
 from .base import MXNetError, resolve_device
 from .context import Context, cpu, current_context, gpu
+from . import numpy as np  # noqa: E402 (mx.np, after the op set)
+from . import numpy_extension as npx  # noqa: E402
 
 __version__ = "0.1.0"
 
@@ -84,4 +89,4 @@ __all__ = ["attribute", "autograd", "base", "callback", "compiler",
            "parallel", "random", "recordio", "rnn", "serve", "sym",
            "symbol", "telemetry", "util", "visualization", "viz",
            "AttrScope", "Context", "cpu", "gpu", "current_context",
-           "MXNetError", "resolve_device"]
+           "MXNetError", "resolve_device", "np", "npx"]

@@ -38,6 +38,7 @@ torch calls the hook on its device thread, so `in_backward` and
 """
 from __future__ import annotations
 
+import functools
 import threading
 import weakref
 
@@ -150,8 +151,19 @@ def predict_mode():
 
 
 # arrays marked by `mark_variable` (attach_grad, Parameter gradients) that
-# are still alive: the leaves `backward` differentiates with respect to
-_marked = weakref.WeakSet()
+# are still alive, by id (an `mx.np.ndarray` has no hash): the leaves
+# `backward` differentiates with respect to
+_marked = {}
+
+
+def _unmark(key, ref):
+    if _marked.get(key) is ref:
+        del _marked[key]
+
+
+def _live_marked():
+    return [nd for nd in (r() for r in list(_marked.values()))
+            if nd is not None]
 
 
 def mark_variable(nd, grad_req="write"):
@@ -163,13 +175,17 @@ def mark_variable(nd, grad_req="write"):
     nd._grad_req = grad_req
     t = nd._data.detach()
     if grad_req == "null":
-        _marked.discard(nd)
+        ref = _marked.get(id(nd))
+        if ref is not None and ref() is nd:
+            del _marked[id(nd)]
     else:
         if not t.is_floating_point():
             raise ValueError("mark_variable: only floating arrays take "
                              "gradients, got %s" % t.dtype)
         t.requires_grad_(True)
-        _marked.add(nd)
+        if id(nd) not in _marked or _marked[id(nd)]() is not nd:
+            _marked[id(nd)] = weakref.ref(
+                nd, functools.partial(_unmark, id(nd)))
     nd._data = t
 
 
@@ -251,7 +267,7 @@ def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
     outs, cots = _heads_and_cots(heads, head_grads)
     if not outs:
         return
-    leaves = [nd for nd in list(_marked)
+    leaves = [nd for nd in _live_marked()
               if nd._grad_req != "null" and nd._data.requires_grad]
     if not leaves:
         return

@@ -46,7 +46,11 @@ DTYPE_CODES = {"float32": 0, "float64": 1, "float16": 2, "uint8": 3,
 _TORCH = {"float32": torch.float32, "float64": torch.float64,
           "float16": torch.float16, "uint8": torch.uint8,
           "int32": torch.int32, "int8": torch.int8, "int64": torch.int64,
-          "bool": torch.bool, "bfloat16": torch.bfloat16}
+          "bool": torch.bool, "bfloat16": torch.bfloat16,
+          # the rest of `mx.np`'s types (no `.params` type code)
+          "int16": torch.int16, "uint16": torch.uint16,
+          "uint32": torch.uint32, "uint64": torch.uint64,
+          "complex64": torch.complex64, "complex128": torch.complex128}
 _NAMES = {v: k for k, v in _TORCH.items()}
 
 

@@ -37,6 +37,7 @@ import torch
 
 from .. import ndarray as nd
 from .parameter import DeferredInitializationError, Parameter, ParameterDict
+from ..numpy_extension import is_np_array
 
 __all__ = ["Block", "HybridBlock", "SymbolBlock", "record_aux_update"]
 
@@ -171,6 +172,32 @@ def _indent(s, num_spaces):
     lines = s.split("\n")
     return "\n".join([lines[0]] + [num_spaces * " " + ln
                                    for ln in lines[1:]])
+
+
+def _np_tag_outputs(out, args):
+    """np-mode outputs of `Block.__call__`: a fresh result is retagged
+    `mx.np.ndarray` in place; an output that is one of the caller's own
+    inputs (or lies inside an input's list or tuple: an identity, a
+    Sequential's plumbing) gets an np view over the same tensor instead,
+    which carries its tape state, so the caller's array keeps its type."""
+    from ..numpy.multiarray import as_np_ndarray, np_view
+    owned = set()
+
+    def collect(a):
+        if isinstance(a, nd.NDArray):
+            owned.add(id(a))
+        elif isinstance(a, (list, tuple)):
+            for x in a:
+                collect(x)
+    collect(args)
+
+    def tag(o):
+        if isinstance(o, (list, tuple)):
+            return type(o)(tag(x) for x in o)
+        if isinstance(o, nd.NDArray):
+            return np_view(o) if id(o) in owned else as_np_ndarray(o)
+        return o
+    return tag(out)
 
 
 class Block:
@@ -442,10 +469,13 @@ class Block:
                 h.detach()
 
     def __call__(self, *args):
-        """Run the forward pre-hooks, `forward`, then the forward hooks."""
+        """Run the forward pre-hooks, `forward`, then the forward hooks.
+        Under `npx.set_np()` the outputs come back as `mx.np.ndarray`."""
         for hook in self._forward_pre_hooks.values():
             hook(self, args)
         out = self.forward(*args)
+        if is_np_array():
+            out = _np_tag_outputs(out, args)
         for hook in self._forward_hooks.values():
             hook(self, args, out)
         return out

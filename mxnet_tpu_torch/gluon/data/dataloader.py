@@ -161,11 +161,21 @@ def _worker_fn(samples, batchify_fn, use_shm=False):
     return batch
 
 
+def _np_mode_tag(data):
+    """Under `npx.set_np()` batches are `mx.np.ndarray` (the loader's own
+    fresh arrays, so the retag in place is safe)."""
+    from ...numpy_extension import is_np_array
+    if not is_np_array():
+        return data
+    from ...numpy.multiarray import as_np_ndarray
+    return as_np_ndarray(data)
+
+
 def _as_in_context(data, ctx):
     if isinstance(data, nd.NDArray):
-        return data.as_in_context(ctx)
+        return _np_mode_tag(data.as_in_context(ctx))
     if isinstance(data, _np.ndarray):
-        return nd.array(data, ctx=ctx, dtype=data.dtype)
+        return _np_mode_tag(nd.array(data, ctx=ctx, dtype=data.dtype))
     if isinstance(data, (list, tuple)):
         return [_as_in_context(d, ctx) for d in data]
     return data
@@ -305,7 +315,7 @@ class _MultiWorkerIter:
         batch = ret.get(self._timeout)
         self._rcvd_idx += 1
         if isinstance(batch, _ShmBatch):
-            return _batch_from_shm(batch)
+            return _np_mode_tag(_batch_from_shm(batch))
         return _as_in_context(batch, cpu())
 
     def __del__(self):

@@ -32,6 +32,8 @@ from .. import ndarray as nd
 from ..base import MXNetError, dtype_name
 from ..context import Context, cpu, current_context
 from ..ndarray.ndarray import _zero_buffer
+from ..numpy.multiarray import np_view
+from ..numpy_extension import is_np_array
 
 __all__ = ["DeferredInitializationError", "Parameter", "Constant",
            "ParameterDict"]
@@ -288,13 +290,29 @@ class Parameter:
 
     def data(self, ctx=None):
         """The data on `ctx`; refused for a row-sparse stype, whose rows
-        come through `row_sparse_data`."""
+        come through `row_sparse_data`. Under `npx.set_np()` it is an
+        `mx.np.ndarray` view over the same tensor and gradient buffer (one
+        view per payload, so every use site of the parameter feeds one
+        gradient)."""
         if self._stype != "default":
             raise RuntimeError(
                 "Cannot return a copy of Parameter '%s' on ctx %s via data() "
                 "because its storage type is %s. Please use row_sparse_data() "
                 "instead." % (self.name, str(ctx), self._stype))
-        return self._check_and_get(self._data, ctx)
+        out = self._check_and_get(self._data, ctx)
+        if not is_np_array():
+            return out
+        cache = self.__dict__.get("_np_views")
+        if cache is None:
+            cache = self.__dict__["_np_views"] = {}
+        view = cache.get(id(out))
+        if view is None or view[0] is not out or view[1]._data is not \
+                out._data:
+            view = cache[id(out)] = (out, np_view(out))
+        v = view[1]
+        # attach_grad / zero_grad may have swapped the tensor or buffer
+        v._grad, v._grad_req = out._grad, out._grad_req
+        return v
 
     def _set_trainer(self, trainer):
         """Note the Trainer that updates this parameter; a row-sparse

@@ -189,8 +189,11 @@ def test_symbol_block_composes_trains_and_moves_running_stats():
         trainer = mx.gluon.Trainer(blk.collect_params(), "sgd",
                                    {"learning_rate": 0.1})
         before = blk.collect_params()["bn_moving_mean"].data().asnumpy()
+        # a sum of squares: the plain sum of a BatchNorm output has a zero
+        # gradient with respect to the conv weight in exact arithmetic, so
+        # its sign was the rounding's
         with mx.autograd.record():
-            loss = blk(x).sum()
+            loss = blk(x).square().sum()
         loss.backward()
         trainer.step(2)
         after = blk.collect_params()["bn_moving_mean"].data().asnumpy()
