@@ -485,8 +485,49 @@ Phases (one JSON line each; any failure exits non-zero):
                  (d) every _np_* and _np_linalg_* op of
                  tests/_torch_numpy_cases.py on the card against the CPU,
                  every output on gpu(0).
+41. contrib_resnet50 — main path 23, `mx.contrib` and `mx.profiler` on
+                 resnet50_v1 (NCHW, 224x224, 1000 classes, seeded
+                 weights, TF32 off): (a) batch 128 on one seeded batch,
+                 Trainer("sgd", lr 0.1, momentum 0.9, wd 1e-4),
+                 amp.init_trainer, `with amp.scale_loss(loss, trainer) as
+                 l: autograd.backward(l)`, trainer.step(128): fp32 here (2
+                 + 4 steps), then amp.init("bfloat16") (2 + 6, and 2 under
+                 mx.profiler: its table's top rows, the chrome trace's
+                 device time and the idle share) and amp.init("float16")
+                 (2 + 6, the dynamic scaler from 2^16; the warm-up runs on
+                 while it skips, at most P23_FP16_EXTRA steps) each in a
+                 child process (amp.init is process-wide; this process
+                 stays AMP-free, checked before and after): the first conv
+                 output in the target type and every BatchNorm output fp32,
+                 parameters and gradients fp32, the first updated step's
+                 loss and the loss after its update within 2e-2 of fp32's,
+                 that step's output-layer gradient cosine >= 0.99 (the
+                 whole net's printed), one multi #7 a step not skipped,
+                 the median step,
+                 images/s, peak memory, the AMP speedup, fp16's skips and
+                 final scale; #7 at this table against its plain version;
+                 (b) a fresh resnet50_v1: quantize_net naive and entropy
+                 over 32 seeded images (the calibration's seconds), and
+                 amp.convert_model to bf16: images/s at batch 64 and batch-1
+                 p50 of fp32, bf16 and both int8 nets, the int8 logits'
+                 cosine and top-1 against fp32; the first quantized
+                 convolution's threshold and int32 accumulator bit-equal to
+                 the CPU's, the int8 logits within P23_INT8_CPU_REL of the
+                 same int8 net on the CPU; quantize_model over the exported
+                 graph, its Module forward at batch 64, its JSON equal to
+                 the CPU's rewrite from the same thresholds; (c)
+                 examples/quantize_cnn.py (120 Adam steps, both modes, fp32
+                 accuracy > 0.9, int8 within 2 points) and
+                 examples/text_sentiment.py (a CustomEmbedding read from a
+                 vector file written here, the BiLSTM, accuracy > 0.9); (d)
+                 (a)'s fp32 net exported to ONNX and imported into a Module
+                 on the card (logits within 1e-5, the file's bytes, export
+                 and import ms); SVRGModule.fit (update_freq 2, 3 epochs) on
+                 a seeded linear regression of 4,096 rows of 90 features,
+                 mu at each snapshot against the mean full gradient, the
+                 MSE per epoch beside plain SGD's.
 
-Twenty-two main paths, each with its own expected kernels, counts set to
+Twenty-three main paths, each with its own expected kernels, counts set to
 0 just before and read just after: serving (phases 3-5: flash_fwd), training
 (phase 7's 6 steps: flash_fwd, flash_bwd_dq, flash_bwd_dkv), ResNet-50
 inference (phase 11's forward: conv_bn_relu, 16 launches, all on the
@@ -529,7 +570,10 @@ segment_sum, the C1 leg's conv_bn_stats and cbr_train_bwd) and BERT's
 split and resilience (phase 39: n flash launches of each kind a rank a
 step in leg (a); one flat_lamb1 and one flat_lamb2 a bucket a step in leg
 (c)'s clean run) and np-mode Gluon BERT (phase 40: one multi flat_adam a
-step in legs (a) and (b)). Then the card's name and power limit,
+step in legs (a) and (b)) and mx.contrib (phase 41: one multi flat_sgd a
+ResNet-50 step that the AMP scaler did not skip in leg (a), one multi
+flat_adam a step of (c)'s two examples, one single flat_sgd a parameter
+a Module update in (d)). Then the card's name and power limit,
 the `kernels` line, and as the last line {"ok": true, "device": {...}}.
 Exits non-zero without a CUDA card.
 """
@@ -10797,6 +10841,862 @@ def phase_np_bert():
     return launches
 
 
+# -- main path 23: mx.contrib (AMP, INT8, ONNX, SVRG, text) and mx.profiler -
+P23_BATCH, P23_IMAGE, P23_CLASSES = 128, 224, 1000
+P23_FP32_STEPS = (2, 4)         # warm-up and timed steps of the fp32 leg
+P23_AMP_STEPS = (2, 6)          # of each AMP leg
+P23_PROFILED = 2                # steps under mx.profiler (bf16 leg)
+P23_FP16_EXTRA = 24             # at most this many more fp16 warm-up steps
+                                # while the scaler (from 2^16) skips
+P23_SGD = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
+P23_LOSS_REL = 2e-2             # the first updated step's loss, and the
+                                # loss after that update, AMP vs fp32
+P23_GRAD_COS = 0.99             # cosine of that step's output-layer
+                                # gradient, AMP vs fp32. The whole net's
+                                # is printed, not held: at this seeded
+                                # init BatchNorm's backward cancels so much
+                                # that the reference's own bf16 AMP
+                                # gradient has cosine 0.15 against its fp32
+                                # one (tests/_torch_amp_grad_cosine.py, CPU)
+P23_INFER_BATCH, P23_CALIB = 64, 32
+P23_INFER_CALLS, P23_LATENCY_CALLS = 5, 10
+P23_CPU_IMAGES = 4              # the int8 net's logits, card vs CPU
+P23_INT8_COS = 0.99             # int8 (naive) logits against fp32's
+P23_INT8_CPU_REL = 5e-2         # ||card - cpu|| / ||cpu|| of the int8
+                                # logits from the same int8 weights and
+                                # thresholds: an fp32 activation that
+                                # differs by an ulp can round to the next
+                                # int8 step at the layer after
+P23_ONNX_BATCH, P23_ONNX_REL = 8, 1e-5
+P23_SVRG_ROWS, P23_SVRG_FEATURES = 4096, 90   # upstream example/svrg_module
+P23_SVRG_BATCH, P23_SVRG_LR, P23_SVRG_EPOCHS = 128, 0.025, 3
+P23_MU_REL = 1e-6               # mu against the mean full gradient (float64
+                                # mean), relative to mu's largest magnitude
+P23_CNN_STEPS, P23_TEXT_STEPS = 120, 60       # the two examples' defaults
+P23_PATH_KERNELS = ("flat_sgd", "flat_adam")
+
+
+def p23_dtype(o):
+    return str(o._data.dtype).replace("torch.", "")
+
+
+def p23_batch(mx, ctx, batch, seed):
+    rng = np.random.RandomState(seed)
+    x = rng.standard_normal((batch, 3, P23_IMAGE, P23_IMAGE)).astype(
+        np.float32)
+    y = rng.randint(0, P23_CLASSES, batch).astype(np.float32)
+    return mx.nd.array(x, ctx=ctx), mx.nd.array(y, ctx=ctx)
+
+
+def p23_trace_busy_ms(path):
+    """(busy ms, span ms, events) of a chrome trace's device events: the
+    union of their intervals, and the time from the first one's start to
+    the last one's end."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+                   if e.get("ph") == "X" and e.get("cat") in (
+                       "kernel", "gpu_memcpy", "gpu_memset"))
+    busy, end = 0.0, None
+    for t0, t1 in spans:
+        if end is None or t0 > end:
+            busy += t1 - t0
+            end = t1
+        elif t1 > end:
+            busy += t1 - end
+            end = t1
+    span = (end - spans[0][0]) if spans else 0.0
+    return busy / 1e3, span / 1e3, len(spans)
+
+
+def p23_train_leg(mx, target, warmup, timed, tmp, profiled=0):
+    """One training leg of (a): resnet50_v1 (NCHW, 224x224, 1000 classes,
+    seeded weights, hybridized), Trainer("sgd", P23_SGD), under AMP with
+    `target` ("bfloat16" or "float16") or in fp32 (None): `with
+    amp.scale_loss(loss, trainer) as l: autograd.backward(l)` and
+    trainer.step(batch). Counts reset before the first step and read after
+    the last. Returns a record; the fp32 leg writes its first step's loss
+    and flattened gradient for the AMP legs to compare with."""
+    from mxnet_tpu_torch.contrib import amp
+    from mxnet_tpu_torch.ops import (launch_counts, reset_launch_counts,
+                                     variant_counts)
+    gpu = mx.gpu(0)
+    if target is not None:
+        amp.init(target)
+    net = zoo_net(mx, "resnet50_v1", 23, gpu, P23_IMAGE)
+    init_path = os.path.join(tmp, "p23_init.params")
+    if target is None:
+        net.save_parameters(init_path)
+    else:                       # the fp32 leg's weights, bit for bit
+        net.load_parameters(init_path, ctx=gpu)
+    x, y = p23_batch(mx, gpu, P23_BATCH, 23)
+    seen, hooks = [], []
+    blocks = []
+    net.apply(blocks.append)
+    conv0 = next(b for b in blocks
+                 if isinstance(b, mx.gluon.nn.Conv2D))
+    hooks.append(conv0.register_forward_hook(
+        lambda b, a, o: seen.append(("conv0", p23_dtype(o)))))
+    for b in blocks:
+        if isinstance(b, mx.gluon.nn.BatchNorm):
+            hooks.append(b.register_forward_hook(
+                lambda b, a, o: seen.append(("bn", p23_dtype(o)))))
+    sce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd", dict(P23_SGD))
+    if target is not None:
+        amp.init_trainer(trainer)
+    params = [p for p in net.collect_params().values()
+              if p.grad_req != "null"]
+
+    def step():
+        with mx.autograd.record():
+            loss = sce(net(x), y)
+            if target is None:
+                mx.autograd.backward(loss)
+            else:
+                with amp.scale_loss(loss, trainer) as scaled:
+                    mx.autograd.backward(scaled)
+        before = trainer._amp_loss_scaler.loss_scale \
+            if target is not None else 1.0
+        trainer.step(P23_BATCH)
+        after = trainer._amp_loss_scaler.loss_scale \
+            if target is not None else 1.0
+        return loss.mean(), after < before
+
+    losses, skipped, first = [], [], None
+
+    def counted_step():
+        """One step; the first that is not skipped keeps its loss and its
+        flattened gradient (unscaled by the update)."""
+        nonlocal first
+        loss, skip = step()
+        losses.append(loss)
+        skipped.append(skip)
+        if first is None and not skip:
+            flat = torch.cat([p.grad()._data.detach().float().reshape(-1)
+                              for p in params])
+            out = torch.cat([p.grad()._data.detach().float().reshape(-1)
+                             for p in (net.output.weight, net.output.bias)])
+            first = (float(loss.asscalar()), flat, len(losses) - 1, out)
+
+    reset_launch_counts()
+    for i in range(warmup):
+        counted_step()
+        if i == 0:
+            for h in hooks:
+                h.detach()
+    # float16: the warm-up runs on while the dynamic scaler skips, so that
+    # the timed steps update (a skipped step does no update)
+    extra = 0
+    while target == "float16" and skipped[-1] and extra < P23_FP16_EXTRA:
+        counted_step()
+        extra += 1
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(timed + 1)]
+    events[0].record()
+    for i in range(timed):
+        counted_step()
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = [events[i].elapsed_time(events[i + 1]) for i in range(timed)]
+    rec = {"leg": target or "float32", "warmup": warmup,
+           "extra_warmup": extra, "steps": timed,
+           "step_ms": step_ms, "step_ms_median": statistics.median(step_ms),
+           "peak_bytes": peak}
+    rec["images_per_s"] = P23_BATCH / rec["step_ms_median"] * 1e3
+    if profiled:
+        from mxnet_tpu_torch import profiler
+        profiler.reset()
+        profiler.set_config(profile_all=True, aggregate_stats=True,
+                            filename=os.path.join(tmp, "p23_profile.json"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        profiler.set_state("run")
+        for _ in range(profiled):
+            counted_step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        profiler.set_state("stop")
+        rows = json.loads(profiler.dumps(format="json"))
+        rows.pop("telemetry", None)
+        rec["profile_row_names"] = sorted(rows)
+        busy_ms, span_ms, n_events = p23_trace_busy_ms(
+            profiler.last_trace())
+        rec["profile"] = {
+            "steps": profiled, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_span_ms": span_ms, "device_events": n_events,
+            "idle_share": 1.0 - busy_ms / span_ms if span_ms else 1.0,
+            "top_rows": dict(sorted(
+                ((k, {"count": v["count"], "total_ms": v["total_ms"]})
+                 for k, v in rows.items()),
+                key=lambda kv: -kv[1]["total_ms"])[:6]),
+            "table_head": profiler.dumps().splitlines()[:7]}
+        profiler.reset()
+    launches, variants = launch_counts(), variant_counts()
+    rec["losses"] = [float(v.asscalar()) for v in losses]
+    rec["skipped"] = sum(skipped)
+    rec["launches"] = {k: c for k, c in launches.items() if c}
+    rec["variants"] = {"%s/%s" % k: c for k, c in variants.items()}
+    rec["multi_sgd"] = variants.get(("flat_sgd", "multi"), 0)
+    rec["not_skipped"] = len(skipped) - sum(skipped)
+    rec["dtypes_seen"] = sorted(set(seen))
+    rec["param_dtypes"] = sorted({p23_dtype(p.data()) for p in params})
+    rec["grad_dtypes"] = sorted({p23_dtype(p.grad()) for p in params})
+    if target is not None:
+        rec["final_scale"] = trainer._amp_loss_scaler.loss_scale
+    check(first is not None, "contrib_resnet50",
+          "%s: every step skipped" % rec["leg"])
+    rec["first_loss"], rec["first_step_index"] = first[0], first[2]
+    # the loss after the first update (the next step's forward)
+    rec["updated_loss"] = rec["losses"][first[2] + 1]
+    path32 = os.path.join(tmp, "p23_grad32.pt")
+    if target is None:
+        torch.save({"loss": first[0], "grad": first[1].cpu(),
+                    "output_grad": first[3].cpu(),
+                    "updated_loss": rec["updated_loss"]}, path32)
+        rec["sgd_path_call"] = trainer_sgd_call("contrib_resnet50", trainer)
+    else:
+        ref = torch.load(path32)
+        rec["first_loss_rel"] = abs(first[0] - ref["loss"]) / abs(ref["loss"])
+        rec["updated_loss_rel"] = abs(rec["updated_loss"]
+                                      - ref["updated_loss"]) \
+            / abs(ref["updated_loss"])
+        rec["first_grad_cos"] = p23_cos(first[1], ref["grad"].to(
+            first[1].device))
+        rec["output_grad_cos"] = p23_cos(first[3], ref["output_grad"].to(
+            first[3].device))
+    if target is None:
+        return rec, net, trainer
+    return rec, None, None
+
+
+def amp_worker(target, out_dir):
+    """`--amp-worker <target> <dir>`: one AMP leg of path 23 in its own
+    process (amp.init is process-wide and cannot be undone); writes
+    p23_<target>.json."""
+    import mxnet_tpu_torch as mx
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    warmup, timed = P23_AMP_STEPS
+    rec, _, _ = p23_train_leg(mx, target, warmup, timed, out_dir,
+                              profiled=P23_PROFILED
+                              if target == "bfloat16" else 0)
+    with open(os.path.join(out_dir, "p23_%s.json" % target), "w") as f:
+        json.dump(rec, f)
+
+
+def p23_leg_a(mx, tmp):
+    """Leg (a): fp32 here, then bf16 and fp16 AMP, each in a child process.
+    Returns (records, launches of all three, the fp32 net and trainer)."""
+    phase = "contrib_resnet50"
+    rec32, net, trainer = p23_train_leg(mx, None, *P23_FP32_STEPS, tmp)
+    sgd_call = rec32.pop("sgd_path_call")
+    torch.cuda.synchronize()
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    recs = {"float32": rec32}
+    for target in ("bfloat16", "float16"):
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              "--amp-worker", target, tmp], cwd=root,
+                             env=env, timeout=600)
+        check(run.returncode == 0, phase,
+              "the %s AMP worker exited with %s" % (target, run.returncode))
+        with open(os.path.join(tmp, "p23_%s.json" % target)) as f:
+            recs[target] = json.load(f)
+        recs[target]["process_s"] = time.perf_counter() - t0
+    launches = collections.Counter()
+    for rec in recs.values():
+        launches.update(rec["launches"])
+        emit(dict({"phase": phase, "leg": "a_train_" + rec["leg"]},
+                  **{k: v for k, v in rec.items() if k != "leg"}))
+    for target, rec in recs.items():
+        seen = {tuple(t) for t in rec["dtypes_seen"]}
+        check(seen == {("conv0", target), ("bn", "float32")}, phase,
+              "%s: output dtypes %s" % (target, sorted(seen)))
+        check(rec["param_dtypes"] == rec["grad_dtypes"] == ["float32"],
+              phase, "%s: parameters %s, gradients %s" % (
+                  target, rec["param_dtypes"], rec["grad_dtypes"]))
+        check(all(math.isfinite(v) for v in rec["losses"]), phase,
+              "%s: losses %s" % (target, rec["losses"]))
+        check(rec["multi_sgd"] == rec["not_skipped"]
+              and rec["launches"] == {"flat_sgd": rec["not_skipped"]},
+              phase, "%s: #7 launches %s (%s) for %d steps not skipped"
+              % (target, rec["launches"], rec["variants"],
+                 rec["not_skipped"]))
+        if target != "float32":
+            check(rec["first_loss_rel"] <= P23_LOSS_REL
+                  and rec["updated_loss_rel"] <= P23_LOSS_REL
+                  and rec["output_grad_cos"] >= P23_GRAD_COS, phase,
+                  "%s: first step's loss rel. %.3g, after its update %.3g "
+                  "(limit %g), the output layer's gradient cosine %.5f "
+                  "(limit %g; the whole net's %.5f)" % (
+                      target, rec["first_loss_rel"],
+                      rec["updated_loss_rel"], P23_LOSS_REL,
+                      rec["output_grad_cos"], P23_GRAD_COS,
+                      rec["first_grad_cos"]))
+    check(recs["bfloat16"]["skipped"] == 0, phase,
+          "bf16 skipped %d steps" % recs["bfloat16"]["skipped"])
+    prof = recs["bfloat16"]["profile"]
+    names = recs["bfloat16"]["profile_row_names"]
+    check(prof["device_busy_ms"] > 0
+          and any(k.startswith("CachedOp:") for k in names), phase,
+          "mx.profiler: device %.3f ms, rows %s" % (prof["device_busy_ms"],
+                                                  names))
+    summary = {"phase": phase, "leg": "a_summary",
+               "images_per_s": {k: r["images_per_s"]
+                                for k, r in recs.items()},
+               "step_ms_median": {k: r["step_ms_median"]
+                                  for k, r in recs.items()},
+               "peak_bytes": {k: r["peak_bytes"] for k, r in recs.items()},
+               "amp_speedup": {k: recs["float32"]["step_ms_median"]
+                               / recs[k]["step_ms_median"]
+                               for k in ("bfloat16", "float16")},
+               "fp16_skipped": recs["float16"]["skipped"],
+               "fp16_final_scale": recs["float16"]["final_scale"],
+               "profile_bf16": {k: prof[k] for k in (
+                   "wall_ms", "device_busy_ms", "device_span_ms",
+                   "idle_share")},
+               "first_step": {k: {x: recs[k][x] for x in (
+                   "first_loss_rel", "updated_loss_rel", "output_grad_cos",
+                   "first_grad_cos")} for k in ("bfloat16", "float16")}}
+    emit(summary)
+    # #7 as the Trainer called it on this path (fp32 table, momentum), at
+    # 0 ulps from the plain version; outside the counted window
+    kernel_opt_paths(torch.Generator(device="cuda").manual_seed(23),
+                     sgd_call)
+    return summary, dict(launches), net, trainer
+
+
+def p23_resnet_copy(mx, path, ctx):
+    with mx.name.NameManager():
+        net = mx.gluon.model_zoo.vision.get_model("resnet50_v1")
+    net.load_parameters(path, ctx=ctx)
+    return net
+
+
+def p23_rate(net, x, calls=P23_INFER_CALLS):
+    """(images/s at x's batch, batch-1 p50 ms) of predict-mode forwards."""
+    import mxnet_tpu_torch as mx
+    with mx.autograd.predict_mode():
+        for _ in range(2):
+            net(x)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            out = net(x)
+        torch.cuda.synchronize()
+        rate = x.shape[0] * calls / (time.perf_counter() - t0)
+        x1 = x[0:1]
+        lat = []
+        for _ in range(P23_LATENCY_CALLS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            net(x1)
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t0) * 1e3)
+    return rate, statistics.median(lat), out
+
+
+def p23_cos(a, b):
+    a, b = a.double().reshape(-1), b.double().reshape(-1)
+    return float(a @ b / (a.norm() * b.norm()))
+
+
+def p23_quantized(net):
+    from mxnet_tpu_torch.contrib import quantization as qz
+    return {path: blk for path, _, _, blk in qz._walk(net)
+            if isinstance(blk, (qz.QuantizedConv2D, qz.QuantizedDense))}
+
+
+def p23_leg_b(mx, tmp):
+    """Leg (b): INT8 (naive, entropy) and bf16 inference of a fresh
+    resnet50_v1, held to the CPU; quantize_model and a Module forward.
+    Returns a record."""
+    from mxnet_tpu_torch.contrib import amp
+    from mxnet_tpu_torch.contrib import quantization as qz
+    phase = "contrib_resnet50"
+    gpu, cpu = mx.gpu(0), mx.cpu()
+    net = zoo_net(mx, "resnet50_v1", 231, gpu, P23_IMAGE)
+    path = os.path.join(tmp, "p23_infer.params")
+    net.save_parameters(path)
+    rng = np.random.RandomState(232)
+    x_np = rng.standard_normal((P23_INFER_BATCH, 3, P23_IMAGE,
+                                P23_IMAGE)).astype(np.float32)
+    c_np = rng.standard_normal((P23_CALIB, 3, P23_IMAGE,
+                                P23_IMAGE)).astype(np.float32)
+    x, calib = mx.nd.array(x_np, ctx=gpu), mx.nd.array(c_np, ctx=gpu)
+    nets, calib_s = {"float32": net}, {}
+    for mode in ("naive", "entropy"):
+        q = p23_resnet_copy(mx, path, gpu)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        qz.quantize_net(q, calib_mode=mode, calib_data=calib, ctx=gpu)
+        torch.cuda.synchronize()
+        calib_s[mode] = time.perf_counter() - t0
+        nets["int8_" + mode] = q
+    bf = p23_resnet_copy(mx, path, gpu)
+    amp.convert_model(bf, "bfloat16")
+    nets["bfloat16"] = bf
+    rates, lat, logits = {}, {}, {}
+    for name, n in nets.items():
+        xin = x.astype("bfloat16") if name == "bfloat16" else x
+        rates[name], lat[name], out = p23_rate(n, xin)
+        logits[name] = out._data.float()
+    ms_a_batch = {k: P23_INFER_BATCH / v * 1e3 for k, v in rates.items()}
+    cos = {k: p23_cos(logits[k], logits["float32"]) for k in logits}
+    top1 = {k: float((logits[k].argmax(1) == logits["float32"].argmax(1))
+                     .float().mean()) for k in logits}
+    # the first quantized convolution (its input is the data): the CPU's
+    # threshold and int32 accumulator from the same weights
+    cpu_net = p23_resnet_copy(mx, path, cpu)
+    conv0_path = next(iter(p23_quantized(nets["int8_naive"])))
+    cpu_conv0 = dict((p, b) for p, _, _, b in qz._walk(cpu_net))[conv0_path]
+    col = qz._Collector()
+    col.update("data", c_np)
+    cpu_t = {"naive": col.absmax["data"],
+             "entropy": qz._entropy_threshold(*col.hist["data"])}
+    acc_equal, thresholds = {}, {}
+    x4 = torch.from_numpy(x_np[:P23_CPU_IMAGES])
+    for mode in ("naive", "entropy"):
+        card_q = p23_quantized(nets["int8_" + mode])[conv0_path]
+        thresholds[mode] = (card_q._act_max, cpu_t[mode])
+        card_acc, _ = card_q.accumulate(x4.to(card_q._wq.device))
+        cpu_acc, _ = qz.QuantizedConv2D(cpu_conv0, cpu_t[mode]).accumulate(
+            x4)
+        acc_equal[mode] = bool(torch.equal(card_acc.cpu(), cpu_acc))
+    # the int8 net on the CPU from the card's thresholds
+    qz.quantize_net(cpu_net, calib_mode="none")
+    card_layers = p23_quantized(nets["int8_naive"])
+    for p, blk in p23_quantized(cpu_net).items():
+        blk._act_max = card_layers[p]._act_max
+    with mx.autograd.predict_mode():
+        with cpu:
+            want = cpu_net(mx.nd.array(x_np[:P23_CPU_IMAGES],
+                                       ctx=cpu))._data.float()
+        got = nets["int8_naive"](x[0:P23_CPU_IMAGES])._data.float().cpu()
+    cpu_rel = float((got - want).norm() / want.norm())
+    del cpu_net
+    # the symbolic route: quantize_model over the exported graph, its
+    # Module at the inference batch on the card, and the CPU's rewrite
+    # from the same thresholds
+    prefix = os.path.join(tmp, "p23_r50")
+    net.export(prefix)
+    sym, arg, aux = mx.model.load_checkpoint(prefix, 0)
+    captured = {}
+    calib_fn = qz.calib_thresholds
+
+    def capture(collector, mode="entropy"):
+        th = calib_fn(collector, mode)
+        captured.update(th)
+        return th
+    qz.calib_thresholds = capture
+    try:
+        t0 = time.perf_counter()
+        qsym, qarg, qaux = qz.quantize_model(sym, arg, aux, ctx=gpu,
+                                             calib_mode="naive",
+                                             calib_data=calib)
+        qm_calib_s = time.perf_counter() - t0
+        qz.calib_thresholds = lambda collector, mode="entropy": dict(
+            captured)
+        with cpu:
+            qsym_cpu, _, _ = qz.quantize_model(sym, arg, aux, ctx=cpu,
+                                               calib_mode="naive",
+                                               calib_data=[])
+    finally:
+        qz.calib_thresholds = calib_fn
+    qmod = mx.mod.Module(qsym, data_names=("data",), label_names=None,
+                         context=gpu)
+    qmod.bind(data_shapes=[("data", x.shape)], for_training=False)
+    qmod.set_params(qarg, qaux)
+    batch = mx.io.DataBatch([x])
+    qmod.forward(batch, is_train=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qmod.forward(batch, is_train=False)
+    qm_out = qmod.get_outputs()[0]._data.float()
+    torch.cuda.synchronize()
+    qm_ms = (time.perf_counter() - t0) * 1e3
+    rec = {"phase": phase, "leg": "b_int8_bf16_inference",
+           "batch": P23_INFER_BATCH, "calib_images": P23_CALIB,
+           "images_per_s": rates, "ms_a_batch": ms_a_batch,
+           "batch1_p50_ms": lat, "calibration_s": calib_s,
+           "cos_vs_fp32": cos, "top1_vs_fp32": top1,
+           "quantized_layers": len(card_layers),
+           "conv0_thresholds_card_cpu": thresholds,
+           "conv0_acc_bit_equal_card_cpu": acc_equal,
+           "int8_logits_rel_card_cpu": cpu_rel,
+           "quantize_model": {
+               "calibration_s": qm_calib_s, "layers": len(captured),
+               "module_forward_ms": qm_ms,
+               "cos_vs_fp32": p23_cos(qm_out, logits["float32"]),
+               "json_equals_cpu": qsym.tojson() == qsym_cpu.tojson()},
+           "card": card_name_and_limit()}
+    emit(rec)
+    check(all(acc_equal.values())
+          and all(a == b for a, b in thresholds.values()), phase,
+          "conv0 card vs CPU: thresholds %s, accumulators equal %s"
+          % (thresholds, acc_equal))
+    check(cpu_rel <= P23_INT8_CPU_REL, phase,
+          "int8 logits card vs CPU rel. %.3g (limit %g)"
+          % (cpu_rel, P23_INT8_CPU_REL))
+    check(all(torch.isfinite(v).all() for v in logits.values())
+          and cos["int8_naive"] >= P23_INT8_COS, phase,
+          "int8/bf16 logits: cosine %s, top-1 %s" % (cos, top1))
+    check(rec["quantize_model"]["json_equals_cpu"]
+          and bool(torch.isfinite(qm_out).all()), phase,
+          "quantize_model: %s" % rec["quantize_model"])
+    return rec
+
+
+# examples/quantize_cnn.py's net and data, copied (examples/ imports the
+# JAX package)
+def p23_build_cnn(mx, classes=10):
+    nn = mx.gluon.nn
+    net = nn.HybridSequential()
+    with net.name_scope():
+        net.add(nn.Conv2D(16, 3, padding=1, activation="relu"))
+        net.add(nn.MaxPool2D(2))
+        net.add(nn.Conv2D(32, 3, padding=1, activation="relu"))
+        net.add(nn.MaxPool2D(2))
+        net.add(nn.Flatten())
+        net.add(nn.Dense(64, activation="relu"))
+        net.add(nn.Dense(classes))
+    return net
+
+
+def p23_blob_dataset(n, classes=10, size=16, seed=0):
+    rng = np.random.RandomState(seed)
+    y = rng.randint(0, classes, n)
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32) / size
+    cx = (y % 5) * 0.2 + 0.1
+    cy = (y // 5) * 0.5 + 0.25
+    s = 0.08 + 0.04 * (y % 3)
+    img = np.exp(-((xx[None] - cx[:, None, None]) ** 2 +
+                   (yy[None] - cy[:, None, None]) ** 2) /
+                 (2 * s[:, None, None] ** 2))
+    img = img[:, None] + rng.normal(0, 0.15, (n, 1, size, size))
+    return img.astype(np.float32), y.astype(np.int64)
+
+
+def p23_accuracy(mx, net, X, Y, ctx, batch=128):
+    correct = 0
+    for lo in range(0, len(Y), batch):
+        out = net(mx.nd.array(X[lo:lo + batch], ctx=ctx))
+        correct += int((out.asnumpy().argmax(-1) == Y[lo:lo + batch]).sum())
+    return correct / len(Y)
+
+
+def p23_quantize_cnn(mx, tmp):
+    """examples/quantize_cnn.py on the card: 120 Adam steps, then each
+    calibration mode on its own copy of the trained net (the example
+    quantizes its one net in place twice, so its second mode finds no
+    float layer left), with its assertions."""
+    from mxnet_tpu_torch.contrib import quantization as qz
+    gpu = mx.gpu(0)
+    Xtr, Ytr = p23_blob_dataset(4096, seed=0)
+    Xte, Yte = p23_blob_dataset(1024, seed=1)
+    mx.random.seed(23)
+    net = p23_build_cnn(mx)
+    net.initialize(mx.init.Xavier(), ctx=gpu)
+    net.hybridize()
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                               {"learning_rate": 2e-3})
+    b = 128
+    t0 = time.perf_counter()
+    for step in range(P23_CNN_STEPS):
+        lo = (step * b) % (len(Ytr) - b)
+        x = mx.nd.array(Xtr[lo:lo + b], ctx=gpu)
+        y = mx.nd.array(Ytr[lo:lo + b], ctx=gpu)
+        with mx.autograd.record():
+            loss = loss_fn(net(x), y)
+        loss.backward()
+        trainer.step(b)
+    fp32_acc = p23_accuracy(mx, net, Xte, Yte, gpu)
+    train_s = time.perf_counter() - t0
+    path = os.path.join(tmp, "p23_cnn.params")
+    net.save_parameters(path)
+    calib = mx.nd.array(Xtr[:256], ctx=gpu)
+    fp32_out = net(mx.nd.array(Xte[:256], ctx=gpu)).asnumpy()
+    res = {}
+    for mode in ("naive", "entropy"):
+        copy = p23_build_cnn(mx)
+        copy.load_parameters(path, ctx=gpu)
+        qnet = qz.quantize_net(copy, calib_data=calib, calib_mode=mode,
+                               ctx=gpu)
+        q_acc = p23_accuracy(mx, qnet, Xte, Yte, gpu)
+        q_out = qnet(mx.nd.array(Xte[:256], ctx=gpu)).asnumpy()
+        res[mode] = {"accuracy": q_acc, "top1_agreement": float(
+            (q_out.argmax(-1) == fp32_out.argmax(-1)).mean())}
+    return {"fp32_accuracy": fp32_acc, "train_s": train_s, "int8": res}
+
+
+# examples/text_sentiment.py's corpus and model, copied
+P23_POS = ["good", "great", "superb", "love", "happy"]
+P23_NEG = ["bad", "awful", "poor", "hate", "sad"]
+P23_FILLER = ["the", "a", "it", "was", "very", "movie", "film", "plot"]
+
+
+def p23_corpus(rng, n, seq_len=12):
+    sents, labels = [], []
+    for _ in range(n):
+        label = rng.randint(0, 2)
+        markers = P23_POS if label else P23_NEG
+        k = rng.randint(2, 5)
+        words = [markers[rng.randint(len(markers))] for _ in range(k)]
+        words += [P23_FILLER[rng.randint(len(P23_FILLER))]
+                  for _ in range(seq_len - k)]
+        rng.shuffle(words)
+        sents.append(words)
+        labels.append(label)
+    return sents, labels
+
+
+def p23_encode(vocab, sents, seq_len=12):
+    pad = vocab.to_indices("<pad>")
+    out = np.full((len(sents), seq_len), float(pad), np.float32)
+    for i, words in enumerate(sents):
+        idx = vocab.to_indices(words)[:seq_len]
+        out[i, :len(idx)] = idx
+    return out
+
+
+def p23_text_sentiment(mx, tmp, embed_dim=32, hidden=32, batch=32):
+    """examples/text_sentiment.py on the card, its embedding initialized
+    from a CustomEmbedding read from a vector file written here."""
+    from mxnet_tpu_torch.contrib import text
+    gpu = mx.gpu(0)
+
+    class BiLSTMClassifier(mx.gluon.HybridBlock):
+        def __init__(self, vocab_size, **kwargs):
+            super().__init__(**kwargs)
+            with self.name_scope():
+                self.embed = mx.gluon.nn.Embedding(vocab_size, embed_dim)
+                self.encoder = mx.gluon.rnn.LSTM(hidden, bidirectional=True,
+                                                 layout="NTC")
+                self.out = mx.gluon.nn.Dense(2)
+
+        def hybrid_forward(self, F, x):
+            return self.out(F.max(self.encoder(self.embed(x)), axis=1))
+
+    mx.random.seed(0)
+    rng = np.random.RandomState(0)
+    sents, labels = p23_corpus(rng, 512)
+    counter = collections.Counter(w for s in sents for w in s)
+    vocab = text.Vocabulary(counter, reserved_tokens=["<pad>"])
+    vrng = np.random.RandomState(23)
+    vec_path = os.path.join(tmp, "p23_vectors.txt")
+    with open(vec_path, "w") as f:
+        for tok in vocab.idx_to_token[1:]:
+            f.write(" ".join([tok] + ["%.6f" % v for v in vrng.normal(
+                0, 0.1, embed_dim)]) + "\n")
+    with gpu:
+        emb = text.embedding.CustomEmbedding(vec_path)
+        table = text.embedding.CompositeEmbedding(vocab, emb).idx_to_vec
+    net = BiLSTMClassifier(len(vocab))
+    net.initialize(mx.init.Xavier(), ctx=gpu)
+    net.embed.weight.set_data(table)
+    check(np.array_equal(net.embed.weight.data().asnumpy(),
+                         emb.get_vecs_by_tokens(vocab.idx_to_token)
+                         .asnumpy()), "contrib_resnet50",
+          "the embedding table is not the vector file's")
+    net.hybridize()
+    trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                               {"learning_rate": 0.01})
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    x_all = p23_encode(vocab, sents)
+    y_all = np.asarray(labels, np.float32)
+    losses = []
+    for _ in range(P23_TEXT_STEPS):
+        sel = rng.randint(0, len(sents), batch)
+        x = mx.nd.array(x_all[sel], ctx=gpu)
+        y = mx.nd.array(y_all[sel], ctx=gpu)
+        with mx.autograd.record():
+            loss = loss_fn(net(x), y).mean()
+        loss.backward()
+        trainer.step(batch)
+        losses.append(loss)
+    test_s, test_y = p23_corpus(rng, 256)
+    logits = net(mx.nd.array(p23_encode(vocab, test_s), ctx=gpu)).asnumpy()
+    acc = float((logits.argmax(1) == np.asarray(test_y)).mean())
+    return {"vocab": len(vocab), "accuracy": acc,
+            "first_loss": float(losses[0].asscalar()),
+            "last_loss": float(losses[-1].asscalar())}
+
+
+def p23_leg_c(mx, tmp):
+    """Leg (c): the repo's two contrib examples through the port."""
+    phase = "contrib_resnet50"
+    cnn = p23_quantize_cnn(mx, tmp)
+    txt = p23_text_sentiment(mx, tmp)
+    rec = {"phase": phase, "leg": "c_examples", "quantize_cnn": cnn,
+           "text_sentiment": txt}
+    emit(rec)
+    check(cnn["fp32_accuracy"] > 0.9 and all(
+        r["accuracy"] > cnn["fp32_accuracy"] - 0.02
+        for r in cnn["int8"].values()), phase,
+        "quantize_cnn: %s" % cnn)
+    check(txt["accuracy"] > 0.9, phase, "text_sentiment: %s" % txt)
+    return rec
+
+
+def p23_svrg_data():
+    rng = np.random.RandomState(23)
+    X = rng.standard_normal((P23_SVRG_ROWS, P23_SVRG_FEATURES)).astype(
+        np.float32)
+    w = rng.standard_normal(P23_SVRG_FEATURES).astype(np.float32)
+    y = (X @ w + 0.5 + 0.1 * rng.standard_normal(P23_SVRG_ROWS)).astype(
+        np.float32)
+    return X, y
+
+
+def p23_fit(mx, svrg, X, y, init):
+    """(loss per epoch, mu checks) of SVRGModule.fit (svrg True) or plain
+    Module.fit on the card from the same parameters."""
+    from mxnet_tpu_torch.contrib.svrg_optimization import SVRGModule
+    gpu = mx.gpu(0)
+    s = mx.sym
+    out = s.LinearRegressionOutput(
+        s.FullyConnected(s.var("data"), name="fc", num_hidden=1), name="lro")
+    it = mx.io.NDArrayIter(X, y, batch_size=P23_SVRG_BATCH,
+                           label_name="lro_label")
+    kw = dict(data_names=("data",), label_names=("lro_label",), context=gpu)
+    mod = SVRGModule(out, update_freq=2, **kw) if svrg else \
+        mx.mod.Module(out, **kw)
+    mu_errs = []
+    if svrg:
+        full = mod.update_full_grads
+
+        def checked(train_data):
+            full(train_data)
+            train_data.reset()
+            acc, nb = {}, 0
+            for batch in train_data:
+                mod._mod_aux.forward(batch, is_train=True)
+                mod._mod_aux.backward()
+                for n, g in zip(mod._mod_aux._exec_group.param_names,
+                                mod._mod_aux._exec_group.grad_arrays):
+                    acc[n] = acc.get(n, 0.0) + g[0].asnumpy().astype(
+                        np.float64)
+                nb += 1
+            for n, total in acc.items():
+                mu = mod._full_grads[n].asnumpy().astype(np.float64)
+                mu_errs.append(float(np.abs(mu - total / nb).max()
+                                     / max(np.abs(mu).max(), 1e-30)))
+        mod.update_full_grads = checked
+    losses = []
+
+    def epoch_end(epoch, sym, arg, aux):
+        w = arg["fc_weight"].asnumpy().astype(np.float64)
+        b = arg["fc_bias"].asnumpy().astype(np.float64)
+        pred = X.astype(np.float64) @ w.T + b
+        losses.append(float(np.mean((pred[:, 0] - y) ** 2)))
+    mod.fit(it, num_epoch=P23_SVRG_EPOCHS, eval_metric="mse",
+            optimizer="sgd",
+            optimizer_params=(("learning_rate", P23_SVRG_LR),),
+            arg_params={k: mx.nd.array(v, ctx=gpu) for k, v in init.items()},
+            aux_params={}, epoch_end_callback=epoch_end)
+    return losses, mu_errs
+
+
+def p23_leg_d(mx, tmp, net):
+    """Leg (d): (a)'s fp32 ResNet-50 through ONNX export and import into a
+    Module on the card; SVRGModule.fit beside plain SGD."""
+    from mxnet_tpu_torch.contrib import onnx as monnx
+    phase = "contrib_resnet50"
+    gpu = mx.gpu(0)
+    prefix = os.path.join(tmp, "p23_trained")
+    net.export(prefix)
+    sym, arg, aux = mx.model.load_checkpoint(prefix, 0)
+    shape = (P23_ONNX_BATCH, 3, P23_IMAGE, P23_IMAGE)
+    onnx_path = os.path.join(tmp, "p23_resnet50.onnx")
+    t0 = time.perf_counter()
+    monnx.export_model(sym, dict(arg, **aux), {"data": shape},
+                       onnx_file_path=onnx_path)
+    export_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    with gpu:
+        sym2, arg2, aux2 = monnx.import_model(onnx_path)
+    import_ms = (time.perf_counter() - t0) * 1e3
+    mod = mx.mod.Module(sym2, data_names=("data",), label_names=None,
+                        context=gpu)
+    mod.bind(data_shapes=[("data", shape)], for_training=False)
+    mod.set_params(arg2, aux2)
+    x, _ = p23_batch(mx, gpu, P23_ONNX_BATCH, 233)
+    mod.forward(mx.io.DataBatch([x]), is_train=False)
+    got = mod.get_outputs()[0]._data.float()
+    with mx.autograd.predict_mode():
+        want = net(x)._data.float()
+    onnx_rel = float((got - want).norm() / want.norm())
+    X, y = p23_svrg_data()
+    rng = np.random.RandomState(234)
+    init = {"fc_weight": (rng.standard_normal((1, P23_SVRG_FEATURES))
+                          * 0.01).astype(np.float32),
+            "fc_bias": np.zeros(1, np.float32)}
+    svrg_losses, mu_errs = p23_fit(mx, True, X, y, init)
+    sgd_losses, _ = p23_fit(mx, False, X, y, init)
+    rec = {"phase": phase, "leg": "d_onnx_svrg",
+           "onnx_bytes": os.path.getsize(onnx_path),
+           "onnx_nodes": len(json.loads(sym2.tojson())["nodes"]),
+           "export_ms": export_ms, "import_ms": import_ms,
+           "onnx_logits_rel": onnx_rel,
+           "onnx_logits_max_abs": float((got - want).abs().max()),
+           "svrg": {"rows": P23_SVRG_ROWS, "features": P23_SVRG_FEATURES,
+                    "batch": P23_SVRG_BATCH, "lr": P23_SVRG_LR,
+                    "update_freq": 2, "mse_per_epoch": svrg_losses,
+                    "sgd_mse_per_epoch": sgd_losses,
+                    "mu_rel_err": mu_errs}}
+    emit(rec)
+    check(onnx_rel <= P23_ONNX_REL, phase,
+          "ONNX round trip: logits rel. %.3g (limit %g)"
+          % (onnx_rel, P23_ONNX_REL))
+    check(len(mu_errs) == 2 * 2 and max(mu_errs) <= P23_MU_REL
+          and all(math.isfinite(v) for v in svrg_losses + sgd_losses)
+          and svrg_losses[-1] < svrg_losses[0], phase,
+          "SVRG: mu errors %s, mse %s (sgd %s)"
+          % (mu_errs, svrg_losses, sgd_losses))
+    return rec
+
+
+def phase_contrib_resnet50():
+    """Main path 23: mx.contrib and mx.profiler. Legs (a)-(d) (see the
+    module docstring); the parent is never AMP-initialised. Each training
+    leg of (a), here and in the two children, resets the counts before its
+    first step and reads them after its last; legs (b)-(d) are counted
+    from a reset just before (b) to a reading just after (d). Returns
+    {kernel: launches on the path}."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ndarray import ndarray as nd_mod
+    from mxnet_tpu_torch.ops import (KERNELS, launch_counts,
+                                     reset_launch_counts)
+    phase = "contrib_resnet50"
+    check(nd_mod._AMP_WRAP is None, phase, "AMP is on before path 23")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_contrib_") as tmp:
+        _, leg_a_launches, net, trainer = p23_leg_a(mx, tmp)
+        del trainer
+        torch.cuda.empty_cache()
+        # leg (a)'s kernel check reset the counts after its legs' reading
+        reset_launch_counts()
+        p23_leg_b(mx, tmp)
+        torch.cuda.empty_cache()
+        p23_leg_c(mx, tmp)
+        p23_leg_d(mx, tmp, net)
+        parent = launch_counts()
+        del net
+    torch.cuda.empty_cache()
+    check(nd_mod._AMP_WRAP is None, phase, "AMP is on after path 23")
+    launches = {k: parent[k] + leg_a_launches.get(k, 0) for k in KERNELS}
+    emit({"phase": phase, "seconds": time.perf_counter() - t0,
+          "launches": {k: v for k, v in launches.items() if v},
+          "card": card_name_and_limit()})
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -10997,6 +11897,14 @@ def main():
     # right after leg (a)'s steps and around leg (b)'s card step)
     np_launches = phase_np_bert()
     check_path(np_launches, ("flat_adam",), "main_path_np_bert")
+    torch.cuda.empty_cache()
+
+    # main path 23: mx.contrib and mx.profiler on ResNet-50 (counts reset
+    # inside: around each training leg of (a), in this process and in the
+    # AMP children, and from just before leg (b) to just after leg (d))
+    contrib_launches = phase_contrib_resnet50()
+    check_path(contrib_launches, P23_PATH_KERNELS,
+               "main_path_contrib_resnet50")
 
     print(card_name_and_limit(), flush=True)
     kernels = []
@@ -11014,7 +11922,8 @@ def main():
             + ssd_infer_launches[name] + inception_launches[name] \
             + dcgan_launches[name] + spec_launches[name] \
             + multi_launches[name] + tp_launches[name] \
-            + resilient_launches[name] + np_launches[name]
+            + resilient_launches[name] + np_launches[name] \
+            + contrib_launches[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": "mxnet_tpu_torch/" + source, "replaces": replaces,
@@ -11087,8 +11996,24 @@ def main_np_bert():
     print(card_name_and_limit(), flush=True)
 
 
+def main_contrib():
+    """`--only contrib`: the build and main path 23 alone (for iterating
+    on the path; a run with no arguments drives every path)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        sys.exit(2)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    phase_build()
+    launches = phase_contrib_resnet50()
+    check_path(launches, P23_PATH_KERNELS, "main_path_contrib_resnet50")
+    print(card_name_and_limit(), flush=True)
+
+
 if __name__ == "__main__":
-    if len(sys.argv) == 3 and sys.argv[1] == "--multi-rank-worker":
+    if len(sys.argv) == 4 and sys.argv[1] == "--amp-worker":
+        amp_worker(sys.argv[2], sys.argv[3])
+    elif len(sys.argv) == 3 and sys.argv[1] == "--multi-rank-worker":
         multi_rank_worker(sys.argv[2])
     elif len(sys.argv) == 3 and sys.argv[1] == "--tp-worker":
         tp_worker(sys.argv[2])
@@ -11102,5 +12027,7 @@ if __name__ == "__main__":
         main_resilient_bert()
     elif sys.argv[1:] == ["--only", "np_bert"]:
         main_np_bert()
+    elif sys.argv[1:] == ["--only", "contrib"]:
+        main_contrib()
     else:
         main()

@@ -45,7 +45,10 @@ datasets of `gluon.data` and `tools.im2rec`; and the numpy namespace:
 `np` (`mx.np`: the `ndarray` type and the reference's 275 `_np_*` ops,
 `np.linalg`, `np.random`), `npx` (`mx.npx`) and Gluon's np mode
 (`npx.set_np()`: blocks, `Parameter.data()` and the DataLoader hand out
-`mx.np.ndarray`s):
+`mx.np.ndarray`s); and `contrib` (mixed precision `amp`, INT8
+`quantization`, `onnx` export and import, `svrg_optimization`, `text`
+vocabularies and embeddings, the `tensorboard` callback) with
+`profiler`:
 
     import mxnet_tpu_torch as mx
     net = mx.gluon.model_zoo.vision.resnet50_v1(layout="NHWC")
@@ -61,11 +64,11 @@ datasets of `gluon.data` and `tools.im2rec`; and the numpy namespace:
 from __future__ import annotations
 
 from . import (attribute, autograd, base, callback, compiler, context,
-               embedding, gluon, image, image_detection, initializer, io,
-               kvstore, lr_scheduler, metric, model, models, module, monitor,
-               name, native, ndarray, operator, ops, optimizer, parallel,
-               random, recordio, rnn, serve, symbol, telemetry, util,
-               visualization)
+               contrib, embedding, gluon, image, image_detection,
+               initializer, io, kvstore, lr_scheduler, metric, model, models,
+               module, monitor, name, native, ndarray, operator, ops,
+               optimizer, parallel, profiler, random, recordio, rnn, serve,
+               symbol, telemetry, util, visualization)
 from . import initializer as init
 from . import kvstore as kv
 from . import module as mod

@@ -36,6 +36,7 @@ import numpy as _np
 import torch
 
 from .. import ndarray as nd
+from .. import profiler as _profiler
 from .parameter import DeferredInitializationError, Parameter, ParameterDict
 from ..numpy_extension import is_np_array
 
@@ -525,12 +526,20 @@ class HybridBlock(Block):
 
     def forward(self, x, *args):
         """Eager on NDArrays; on Symbols, `hybrid_forward` with F the
-        symbol namespace and the parameters as variables."""
+        symbol namespace and the parameters as variables. While the
+        profiler runs, a hybridized block's call is one ``CachedOp:<name>``
+        row of its op table."""
         if is_symbol(x):
             return self._symbolic_forward(x, *args)
         if not isinstance(x, nd.NDArray):
             raise ValueError("HybridBlock input must be NDArray or Symbol, "
                              "got %s" % type(x))
+        if self._active and _profiler.is_profiling("profile_symbolic"):
+            return _profiler.cached_op(self.name, self._eager_forward, x,
+                                       *args)
+        return self._eager_forward(x, *args)
+
+    def _eager_forward(self, x, *args):
         self._cached_graph_inputs = [x.shape] + [
             a.shape for a in args if isinstance(a, nd.NDArray)]
         ctx = x.context

@@ -17,6 +17,8 @@ other types are numpy dtypes.
 """
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
@@ -310,6 +312,14 @@ def _unwrap(a):
     return a._data if isinstance(a, NDArray) else a
 
 
+# installed by `contrib.amp.init()`: (op fn, op name) -> the fn with its
+# inputs cast by the AMP lists
+_AMP_WRAP = None
+# set by `profiler.set_state()`: a plain bool, so the off path costs one
+# global read a call
+_PROFILE_IMPERATIVE = False
+
+
 def invoke(op_name, *args, out=None, **kwargs):
     """Run registered op `op_name` on `args` (NDArrays, scalars) in the
     context of the first NDArray argument (else ``ctx=`` or the current
@@ -317,7 +327,20 @@ def invoke(op_name, *args, out=None, **kwargs):
     creation op (no array input) gets that context as ``ctx=``. An
     NDArray given by keyword (`SequenceMask`'s ``sequence_length=``)
     reaches the op as its tensor. Torch records the op only under
-    `autograd.record()`."""
+    `autograd.record()`. Under AMP the op's inputs are cast inside the
+    call, so a gradient flows back through the cast; while the profiler
+    runs, the call's host time goes to its op table."""
+    if _PROFILE_IMPERATIVE:
+        from .. import profiler as _profiler
+        t0 = time.perf_counter()
+        try:
+            return _invoke(op_name, args, out, kwargs)
+        finally:
+            _profiler.record_op(op_name, time.perf_counter() - t0)
+    return _invoke(op_name, args, out, kwargs)
+
+
+def _invoke(op_name, args, out, kwargs):
     op = _reg.get(op_name)
     kwargs = {k: _unwrap(v) for k, v in kwargs.items()}
     ctx = next((a._ctx for a in args if isinstance(a, NDArray)), None)
@@ -328,6 +351,8 @@ def invoke(op_name, *args, out=None, **kwargs):
     if op.creation:
         kwargs["ctx"] = ctx
     fn = op.best_fn(ctx.device_type == "gpu")
+    if _AMP_WRAP is not None:
+        fn = _AMP_WRAP(fn, op_name)
     rec = op.differentiable and _autograd.is_recording()
     if rec == torch.is_grad_enabled():
         raw = fn(*(_unwrap(a) for a in args), **kwargs)

@@ -77,6 +77,22 @@ def _requantize(data, min_range, max_range, min_calib_range=None,
     return _to_int8(real, t_out), -t_out, t_out
 
 
+def int8_dot_acc(x, w):
+    """x (..., K) int8 times w (N, K) int8 transposed: the exact int32
+    accumulator (float64 sums of the integer products)."""
+    return torch.matmul(x.to(torch.float64),
+                        w.to(torch.float64).t()).to(torch.int32)
+
+
+def int8_conv_acc(x, w, stride, pad, dilate, groups):
+    """The NC(D)HW convolution of int8 `x` by int8 `w` (O, I/groups, ...):
+    the exact int32 accumulator (float64 sums of the integer products)."""
+    from .nn import _FP32Conv
+    return _FP32Conv.apply(x.to(torch.float64), w.to(torch.float64), None,
+                           tuple(stride), tuple(pad), tuple(dilate),
+                           groups).to(torch.int32)
+
+
 def _bias32(bias, t_b, t_d, t_w):
     """The int8 bias in the accumulator's unit."""
     acc_scale = _div(INT8_MAX * INT8_MAX, torch.clamp(t_d * t_w, min=1e-30))
@@ -95,8 +111,7 @@ def _quantized_fully_connected(data, weight, bias, min_data, max_data,
     if flatten and x.dim() > 2:
         x = x.reshape(x.shape[0], -1)
     dev = data.device
-    out = torch.matmul(x.to(torch.float64),
-                       weight.to(torch.float64).t()).to(torch.int32)
+    out = int8_dot_acc(x, weight)
     t_d = _thresh(min_data, max_data, dev)
     t_w = _thresh(min_weight, max_weight, dev)
     if bias is not None and not no_bias:
@@ -117,14 +132,12 @@ def _quantized_conv(data, weight, bias, min_data, max_data, min_weight,
         raise NotImplementedError(
             "_contrib_quantized_conv: only channels-first layouts (got %r)"
             % layout)
-    from .nn import _FP32Conv, _pair
+    from .nn import _pair
     nd = len(kernel) if kernel is not None else data.dim() - 2
     dev = data.device
-    out = _FP32Conv.apply(data.to(torch.float64), weight.to(torch.float64),
-                          None, _pair(stride if stride else 1, nd),
-                          _pair(pad if pad else 0, nd),
-                          _pair(dilate if dilate else 1, nd),
-                          num_group).to(torch.int32)
+    out = int8_conv_acc(data, weight, _pair(stride if stride else 1, nd),
+                        _pair(pad if pad else 0, nd),
+                        _pair(dilate if dilate else 1, nd), num_group)
     t_d = _thresh(min_data, max_data, dev)
     t_w = _thresh(min_weight, max_weight, dev)
     if bias is not None and not no_bias:

@@ -11,8 +11,8 @@ Two routes, as in the reference:
   port's autograd (recording when training) and `backward` runs
   `autograd.backward` into the bound gradient arrays.
 
-Only `UnsupportedGraphError` (a random op, an unknown op, sparse storage)
-moves an executor to the op-by-op route, counted as
+Only `UnsupportedGraphError` (a random op, an unknown op, sparse storage,
+AMP on) moves an executor to the op-by-op route, counted as
 `compiler.fallback.<reason>`. The reference also falls back on any other
 exception; the port lets it raise, so a failing kernel or launch on the
 card is never hidden behind the slower route.
@@ -121,6 +121,11 @@ class Executor:
 
     def _wg_forward(self, is_train):
         from .. import compiler as _compiler
+        from ..ndarray import ndarray as _nd_mod
+        if _nd_mod._AMP_WRAP is not None:
+            # AMP casts at the dispatch point, which the program's direct
+            # calls would pass by: stay op by op while it is on
+            raise _compiler.UnsupportedGraphError("amp_active")
         for arr in list(self.arg_dict.values()) + \
                 list(self.aux_dict.values()) + list(self.grad_dict.values()):
             if arr is not None and arr.stype != "default":

@@ -38,7 +38,7 @@ from .metrics import Counter, Gauge, Histogram, Registry
 from .trace import TraceBuffer, write_chrome_trace
 
 __all__ = ["enable", "disable", "registry", "inc", "set_gauge",
-           "observe", "counter_value",
+           "observe", "counter_value", "dumps", "dump",
            "span", "record_span", "span_clock", "span_events", "snapshot",
            "reset", "dump_trace", "note_compile", "recent_compiles",
            "device_report", "memory_scopes", "trace_id", "safe_rank",
@@ -236,6 +236,18 @@ def reset():
     _flight.reset()
     _reqtrace.reset()
     _ledger.reset()
+
+
+def dumps(format="table"):
+    """The metric snapshot as the profiler's text table or as JSON."""
+    return registry.dumps(format=format)
+
+
+def dump(path, format="json"):
+    """Write the metric snapshot to `path` (json or table); returns it."""
+    with open(path, "w") as f:
+        f.write(registry.dumps(format=format))
+    return path
 
 
 def dump_trace(path=None):

@@ -8,6 +8,7 @@ training run observes a few thousand values at most).
 """
 from __future__ import annotations
 
+import json
 import threading
 
 import numpy as np
@@ -153,3 +154,31 @@ class Registry:
             elif m.count:
                 out["histograms"][name] = m.snapshot()
         return out
+
+    def dumps(self, format="table"):
+        """The snapshot as JSON or as the profiler's text table (counters,
+        then gauges with their high-watermark, then histograms)."""
+        if format not in ("table", "json"):
+            raise ValueError(
+                "telemetry dumps format must be 'table' or 'json', got %r"
+                % (format,))
+        snap = self.snapshot()
+        if format == "json":
+            return json.dumps(snap)
+        lines = []
+        if snap["counters"]:
+            lines.append("%-48s %16s" % ("Counter", "Value"))
+            for name, v in snap["counters"].items():
+                lines.append("%-48s %16d" % (name, v))
+        if snap["gauges"]:
+            lines.append("%-48s %16s %16s" % ("Gauge", "Value", "Max"))
+            for name, g in snap["gauges"].items():
+                lines.append("%-48s %16g %16g" % (name, g["value"], g["max"]))
+        if snap["histograms"]:
+            lines.append("%-48s %10s %12s %12s %12s %12s" %
+                         ("Histogram", "Count", "Sum", "Avg", "Min", "Max"))
+            for name, h in snap["histograms"].items():
+                lines.append("%-48s %10d %12.3f %12.3f %12.3f %12.3f" %
+                             (name, h["count"], h["sum"], h["avg"] or 0.0,
+                              h["min"] or 0.0, h["max"] or 0.0))
+        return "\n".join(lines)

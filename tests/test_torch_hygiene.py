@@ -251,3 +251,46 @@ def test_chip_smoke_fails_without_a_card(monkeypatch, capsys):
         smoke.main()
     assert ei.value.code != 0
     assert '"ok": true' not in capsys.readouterr().out
+
+
+CONTRIB_MODULES = [
+    "contrib/__init__.py", "contrib/amp/__init__.py", "contrib/amp/amp.py",
+    "contrib/quantization.py", "contrib/onnx/__init__.py",
+    "contrib/onnx/mx2onnx.py", "contrib/onnx/onnx2mx.py",
+    "contrib/onnx/proto.py", "contrib/svrg_optimization/__init__.py",
+    "contrib/text/embedding.py", "contrib/text/utils.py",
+    "contrib/text/vocab.py", "contrib/tensorboard.py", "profiler.py"]
+
+
+def test_scan_covers_contrib_and_the_profiler():
+    names = {p.relative_to(ROOT).as_posix() for p in FILES}
+    for module in CONTRIB_MODULES:
+        assert "mxnet_tpu_torch/" + module in names
+    # the package's attributes, as `mxnet_tpu.contrib` and `.profiler`
+    for sub in ("amp", "quantization", "onnx", "svrg_optimization", "text",
+                "tensorboard"):
+        assert getattr(mxnet_tpu_torch.contrib, sub).__name__ == \
+            "mxnet_tpu_torch.contrib." + sub
+    assert mxnet_tpu_torch.profiler.__name__ == "mxnet_tpu_torch.profiler"
+
+
+def _reference_all(path):
+    """The names of a module's ``__all__`` list, read without importing
+    it."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and any(
+                getattr(t, "id", None) == "__all__" for t in node.targets):
+            return [e.value for e in node.value.elts]
+    return []
+
+
+@pytest.mark.parametrize("module", CONTRIB_MODULES)
+def test_contrib_has_every_public_name_of_the_reference(module):
+    import importlib
+    names = _reference_all(ROOT / "mxnet_tpu" / module)
+    dotted = "mxnet_tpu_torch." + module[:-3].replace("/", ".").replace(
+        ".__init__", "")
+    port = importlib.import_module(dotted)
+    missing = [n for n in names if not hasattr(port, n)]
+    assert not missing, (dotted, missing)
